@@ -1,0 +1,109 @@
+"""Interactive playable-environment session.
+
+Port of playableenvironments_tpu/cli/play.py::InteractiveSession: scene
+state and dynamics carries held between user actions, one dynamics step per
+dynamic object and a full re-render per step. The session starts from a
+SceneEncoding; encoding video into one (the JAX session's
+`initialize(batch)`) needs the object and parameter encoders, which come
+with the phase-2 slice.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from playableenvironments_tpu_torch.config import ObjectIds, SceneConfig
+from playableenvironments_tpu_torch.render.fast import render_frame_fast
+from playableenvironments_tpu_torch.render.interactive import action_inputs, interactive_step
+from playableenvironments_tpu_torch.scene.encoding import SceneEncoding
+
+
+class InteractiveSession:
+    """Holds scene state + dynamics carries between user actions."""
+
+    def __init__(
+        self,
+        scene: SceneConfig,
+        composer,
+        autoencoder,
+        playable_model,
+        image_size: Tuple[int, int],
+        patch_strides: Optional[Sequence[int]] = None,
+        focal_length_multiplier: float = 1.0,
+    ):
+        """:param composer: render.composer.SceneComposer; :param autoencoder:
+        models.autoencoder.MultiresAutoencoder or None; :param playable_model:
+        render.playable_model.PlayableEnvironmentModel. All on one device,
+        which is where the session runs."""
+        self.scene = scene
+        self.composer = composer
+        self.autoencoder = autoencoder
+        self.playable_model = playable_model
+        self.image_size = tuple(image_size)
+        self.patch_strides = list(patch_strides) if patch_strides else None
+        self.focal_length_multiplier = focal_length_multiplier
+        self.device = next(composer.parameters()).device
+        self.object_ids = ObjectIds(scene)
+        self.encoding: Optional[SceneEncoding] = None
+        self.carries: List = []
+        self.initial_style: Optional[torch.Tensor] = None
+
+    @classmethod
+    def from_scene(
+        cls,
+        scene: SceneConfig,
+        image_size: Tuple[int, int],
+        patch_strides: Optional[Sequence[int]] = None,
+        focal_length_multiplier: float = 1.0,
+        device="cuda",
+        seed: int = 0,
+    ) -> "InteractiveSession":
+        """A session over seeded random weights for `scene` on `device`
+        (compat.from_flax loads trained ones into its modules)."""
+        from playableenvironments_tpu_torch.models.autoencoder import MultiresAutoencoder
+        from playableenvironments_tpu_torch.render.composer import SceneComposer
+        from playableenvironments_tpu_torch.render.playable_model import PlayableEnvironmentModel
+
+        composer = SceneComposer(scene, device=device, seed=seed)
+        autoencoder = (
+            MultiresAutoencoder(scene.autoencoder, device=device, seed=seed + 1)
+            if scene.autoencoder is not None
+            else None
+        )
+        playable = PlayableEnvironmentModel(scene, device=device, seed=seed + 2)
+        return cls(
+            scene, composer, autoencoder, playable, image_size, patch_strides,
+            focal_length_multiplier,
+        )
+
+    def render(self, encoding: SceneEncoding) -> torch.Tensor:
+        """(B, T, C, H, W, 3) frames of `encoding` on the session's device."""
+        return render_frame_fast(
+            self.scene, self.composer, self.autoencoder, encoding, self.image_size,
+            patch_strides=self.patch_strides,
+            focal_length_multiplier=self.focal_length_multiplier,
+        )
+
+    def start(self, encoding: SceneEncoding) -> np.ndarray:
+        """Take frame 0 of `encoding` as the state and render it.
+        :return: (H, W, 3) float32 frame."""
+        self.encoding = encoding.map(lambda x: x[:, :1].to(self.device))
+        self.initial_style = self.encoding.object_style
+        self.carries = [None] * self.object_ids.dynamic_objects_count
+        return self.render(self.encoding)[0, 0, 0].cpu().numpy()
+
+    def step(self, actions: List[int]) -> np.ndarray:
+        """One dynamics step per dynamic object, then a full re-render.
+
+        :param actions: one action index per dynamic object.
+        :return: (H, W, 3) float32 frame.
+        """
+        one_hots, variations = action_inputs(self.playable_model, actions, device=self.device)
+        self.encoding, self.carries = interactive_step(
+            self.playable_model, self.encoding, self.initial_style, self.carries,
+            one_hots, variations,
+        )
+        return self.render(self.encoding)[0, 0, 0].cpu().numpy()
