@@ -75,6 +75,30 @@ def load_environment(composer, autoencoder, variables: Mapping) -> None:
         )
 
 
+def load_environment_model(model, variables: Mapping) -> list:
+    """EnvironmentModel variables -> render.environment_model.EnvironmentModel:
+    `composer` and every `object_encoder_i`, params and batch_stats,
+    strictly. Subtrees the phase-2 step does not build (the autoencoder,
+    camera offsets) are skipped and named in the returned list; any other
+    top-level subtree raises.
+
+    :return: sorted names of the skipped subtrees.
+    """
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    expected = {"composer"} | {n for n, _ in model.named_children() if n.startswith("object_encoder_")}
+    skippable = {"autoencoder", "camera_offsets"}
+    unknown = set(params) - expected - skippable
+    if unknown:
+        raise KeyError(f"flax subtrees {sorted(unknown)} have no counterpart in EnvironmentModel")
+    missing = expected - set(params)
+    if missing:
+        raise KeyError(f"no flax subtree for {sorted(missing)}")
+    for name in sorted(expected):
+        load_flax_tree(getattr(model, name), params[name], stats.get(name))
+    return sorted(set(params) & skippable)
+
+
 def load_playable(playable_model, variables: Mapping) -> None:
     """PlayableEnvironmentModel variables -> each animation model's
     `dynamics_network` (other subtrees, such as the action network, belong

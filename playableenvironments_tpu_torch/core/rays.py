@@ -1,12 +1,13 @@
 """Camera rays and rigid ray transforms.
 
 Port of playableenvironments_tpu/core/rays.py (camera_rays, transform_points,
-transform_rays). Everything broadcasts over leading batch dimensions.
+transform_rays, stratified_ray_positions). Everything broadcasts over
+leading batch dimensions.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -64,3 +65,34 @@ def transform_rays(
         ray_directions, matrix[..., None, :, :], translate=False
     )
     return origins, directions, normals
+
+
+def stratified_ray_positions(
+    ray_origins: torch.Tensor,
+    ray_directions: torch.Tensor,
+    z_near: torch.Tensor,
+    z_far: torch.Tensor,
+    positions_count: int,
+    uniform: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`positions_count` points per ray, linspace in [z_near, z_far]; with
+    `uniform` (training's perturbation), each point jittered within its
+    stratum to lower + (upper - lower) * uniform.
+
+    :param ray_origins: (..., 3); ray_directions (..., rays, 3).
+    :param z_near, z_far: (..., rays) per-ray bounds.
+    :param uniform: (..., rays, positions_count) draws in [0, 1), or None.
+    :return: ((..., rays, positions, 3) points, (..., rays, positions) t).
+    """
+    shape = ray_directions.shape[:-1]
+    z_near = torch.as_tensor(z_near, dtype=ray_origins.dtype, device=ray_origins.device).expand(shape)
+    z_far = torch.as_tensor(z_far, dtype=ray_origins.dtype, device=ray_origins.device).expand(shape)
+    fractions = torch.linspace(0.0, 1.0, positions_count, dtype=ray_origins.dtype, device=ray_origins.device)
+    t = z_near[..., None] * (1.0 - fractions) + z_far[..., None] * fractions
+    if uniform is not None:
+        mids = (t[..., 1:] + t[..., :-1]) / 2.0
+        upper = torch.cat([mids, t[..., -1:]], dim=-1)
+        lower = torch.cat([t[..., :1], mids], dim=-1)
+        t = lower + (upper - lower) * uniform
+    points = ray_origins[..., None, None, :] + ray_directions[..., None, :] * t[..., None]
+    return points, t

@@ -1,11 +1,16 @@
-"""Radiance-field parameter modules for the eval frame path.
+"""Radiance-field modules: the style-modulated NeRF MLP, the ray bender and
+the per-object field.
 
 Port of playableenvironments_tpu/models/nerf.py: AdaInNerfMLP,
 PositionalRayBender and ObjectRadianceField, with the flax parameter names
 (backbone_i, alpha_head, feat_0/1, feat_out, adain_0/1, ray_bender/backbone_i,
-output_head) and running-average AdaIN statistics. They hold weights; the
-forward computation is render/fast.py (the bender) and ops/fused_nerf.py
-(the NeRF MLP kernel).
+output_head). Their `forward` is the training path (and eval with
+`use_running_average`); the eval frame path reads the same weights through
+render/fast.py and the B1 kernel (ops/fused_nerf.py).
+
+Matmuls run in `compute_dtype` as flax's Dense with `dtype` does (operands
+and outputs in that dtype), the fused backbone through the B2/B3 kernels;
+positional encodings, AdaIN statistics and outputs stay f32.
 """
 
 from __future__ import annotations
@@ -20,12 +25,27 @@ from playableenvironments_tpu_torch.config import (
     ObjectModelConfig,
     RayBenderConfig,
 )
+from playableenvironments_tpu_torch.core.bbox import aabb_contains, aabb_size
+from playableenvironments_tpu_torch.models.encoding import annealing_weights, positional_encoding
 from playableenvironments_tpu_torch.models.layers import AffineTransformAdaIn
 from playableenvironments_tpu_torch.ops import fused_nerf
 
 
 def _encoding_size(input_dims: int, pe_cfg) -> int:
     return 2 * pe_cfg.octaves * input_dims + (input_dims if pe_cfg.append_original else 0)
+
+
+def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """flax Dense(dtype=dtype): input, kernel and bias cast to `dtype`, the
+    product and the bias sum in it."""
+    y = x.to(dtype) @ layer.weight.t().to(dtype)
+    if layer.bias is not None:
+        y = y + layer.bias.to(dtype)
+    return y
+
+
+def _box(cfg_box, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(cfg_box, dtype=like.dtype, device=like.device)
 
 
 class AdaInNerfMLP(nn.Module):
@@ -57,10 +77,62 @@ class AdaInNerfMLP(nn.Module):
             self._kernel_cache = (key, fused_nerf.kernel_weights(self.cfg, packed))
         return self._kernel_cache[1]
 
+    def backbone_params(self) -> dict:
+        """The backbone's weights as the fused backbone takes them (views of
+        the parameters, so gradients reach them)."""
+        packed = {}
+        for i in range(self.cfg.backbone_layers_count):
+            layer = getattr(self, f"backbone_{i}")
+            packed[f"w{i}"] = layer.weight.t()
+            packed[f"b{i}"] = layer.bias
+        packed["w_alpha"] = self.alpha_head.weight.t()
+        packed["b_alpha"] = self.alpha_head.bias
+        return packed
+
+    def forward(
+        self,
+        positions: torch.Tensor,
+        box,
+        style: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+        use_running_average: bool = False,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:param positions: (..., 3) object-frame points; :param box: the
+        object's (3, 2) bounding box (positions are divided by its size).
+        :param style: broadcastable (..., style_features).
+        :param mask: (...) validity for the AdaIN statistics.
+        :return: ((..., output_features) f32 features, (...) f32 raw alpha).
+        """
+        cfg = self.cfg
+        pe_cfg = cfg.position_encoder
+        encoded = positional_encoding(positions / aabb_size(_box(box, positions)), pe_cfg.octaves,
+                                      pe_cfg.append_original)
+        dtype = getattr(torch, cfg.compute_dtype)
+        if cfg.use_fused_backbone:
+            flat = encoded.to(torch.float32).reshape(-1, encoded.shape[-1])
+            h_flat, alpha_flat = fused_nerf.fused_backbone(cfg, self.backbone_params(), flat)
+            h = h_flat.reshape(encoded.shape[:-1] + (cfg.layers_width,))
+            alpha = alpha_flat.reshape(encoded.shape[:-1])
+        else:
+            encoded = encoded.to(dtype)
+            h = encoded
+            for i in range(cfg.backbone_layers_count):
+                if i == cfg.skip_layer_idx:
+                    h = torch.cat([h, encoded], dim=-1)
+                h = torch.relu(dense(h, getattr(self, f"backbone_{i}"), dtype))
+            alpha = dense(h, self.alpha_head, dtype)[..., 0].to(torch.float32)
+
+        f = dense(h, self.feat_0, dtype).to(torch.float32)
+        f = torch.relu(self.adain_0(f, style, mask, use_running_average))
+        f = dense(f, self.feat_1, dtype).to(torch.float32)
+        f = torch.relu(self.adain_1(f, style, mask, use_running_average))
+        return dense(f, self.feat_out, dtype).to(torch.float32), alpha
+
 
 class PositionalRayBender(nn.Module):
-    """Deformation field weights: annealed-PE(pos) ++ deformation code ->
-    MLP -> displacement (computed by render.fast._bender_displacements)."""
+    """Deformation field: annealed-PE(pos) ++ deformation code -> MLP ->
+    displacement, clamped so that bent points stay inside the box (the eval
+    frame path computes it in f32 in render.fast._bender_displacements)."""
 
     def __init__(self, cfg: RayBenderConfig, deformation_features: int, device=None):
         super().__init__()
@@ -78,9 +150,35 @@ class PositionalRayBender(nn.Module):
             u = torch.rand(self.output_head.weight.shape, generator=generator)
             self.output_head.weight.copy_(u * 1e-5)
 
+    def forward(self, positions: torch.Tensor, box, deformation: torch.Tensor, step) -> torch.Tensor:
+        """:param positions: (..., 3) object-frame points.
+        :param deformation: broadcastable (..., deformation_features).
+        :param step: training step driving the PE annealing.
+        :return: (..., 3) displacements.
+        """
+        cfg = self.cfg
+        box = _box(box, positions)
+        size = aabb_size(box)
+        pe_cfg = cfg.position_encoder
+        weights = (annealing_weights(pe_cfg.octaves, step, pe_cfg.num_steps, device=positions.device)
+                   if pe_cfg.num_steps else None)
+        encoded = positional_encoding(positions / size, pe_cfg.octaves, pe_cfg.append_original, weights)
+        deformation = deformation.expand(positions.shape[:-1] + deformation.shape[-1:])
+        inputs = torch.cat([encoded, deformation], dim=-1)
+        dtype = getattr(torch, cfg.compute_dtype)
+        h = inputs.to(dtype)
+        for i in range(cfg.layers_count):
+            if i == cfg.skip_layer_idx:
+                h = torch.cat([h, inputs.to(dtype)], dim=-1)
+            h = torch.relu(dense(h, getattr(self, f"backbone_{i}"), dtype))
+        displacements = dense(h.to(torch.float32), self.output_head, torch.float32) * size
+        return torch.minimum(torch.maximum(displacements, box[:, 0] - positions), box[:, 1] - positions)
+
 
 class ObjectRadianceField(nn.Module):
-    """One object model's weights: `nerf` and, for bent objects, `ray_bender`."""
+    """One object model: `nerf` and, for bent objects, `ray_bender`. Every
+    sample is evaluated; samples outside the box yield features 0, alpha
+    `empty_space_alpha` and displacement 0."""
 
     def __init__(self, cfg: ObjectModelConfig, device=None):
         super().__init__()
@@ -95,3 +193,43 @@ class ObjectRadianceField(nn.Module):
             self.ray_bender = PositionalRayBender(
                 cfg.bender, cfg.deformation_features, device=device
             )
+
+    def forward(
+        self,
+        ray_positions: torch.Tensor,
+        style: torch.Tensor,
+        deformation: torch.Tensor,
+        step=0,
+        canonical_pose: bool = False,
+        use_running_average: bool = False,
+        compute_divergence: bool = False,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """:param ray_positions: (..., rays, positions, 3) object-frame points.
+        :param style: (..., style_features); deformation (..., deformation_features).
+        :return: ((..., rays, positions, F) features, (..., rays, positions)
+            raw alphas, (..., rays, positions, 3) displacements,
+            (..., rays, positions) divergences).
+        """
+        cfg = self.cfg
+        mask = aabb_contains(_box(cfg.bounding_box, ray_positions), ray_positions)
+        style_b = style[..., None, None, :]
+        deformation_b = deformation[..., None, None, :]
+        divergences = torch.zeros(ray_positions.shape[:-1], dtype=ray_positions.dtype,
+                                  device=ray_positions.device)
+        if cfg.bender.kind == "positional":
+            if compute_divergence and not canonical_pose:
+                raise NotImplementedError(
+                    "compute_divergence (the Hutchinson divergence of the bender, "
+                    "divergence loss weight > 0) is not ported yet"
+                )
+            displacements = self.ray_bender(ray_positions, cfg.bounding_box, deformation_b, step)
+            if canonical_pose:
+                displacements = displacements * 0.0
+            displacements = torch.where(mask[..., None], displacements, 0.0)
+        else:
+            displacements = torch.zeros_like(ray_positions)
+        features, alpha = self.nerf(ray_positions + displacements, cfg.bounding_box, style_b, mask,
+                                    use_running_average)
+        features = torch.where(mask[..., None], features, 0.0)
+        alpha = torch.where(mask, alpha, cfg.empty_space_alpha)
+        return features, alpha, displacements, divergences

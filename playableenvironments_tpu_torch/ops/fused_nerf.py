@@ -1,17 +1,21 @@
-"""The eval AdaIN-NeRF MLP as one hand-written CUDA kernel.
+"""The AdaIN-NeRF MLP's hand-written CUDA kernels.
 
-Port of playableenvironments_tpu/ops/fused_nerf.py's inference half: the
-per-point pipeline 8x256 backbone with mid skip -> alpha head +
-AdaIN-modulated feature head, over pre-encoded points, with eval-mode BN
-statistics folded into a per-ray scale/bias. The kernel is
-csrc/fused_nerf.cu (sm_90a, bf16 tensor cores, f32 accumulation), built with
+Port of playableenvironments_tpu/ops/fused_nerf.py:
+- the inference half, `fused_adain_nerf`: the per-point pipeline 8x256
+  backbone with mid skip -> alpha head + AdaIN-modulated feature head, over
+  pre-encoded points, with eval-mode BN statistics folded into a per-ray
+  scale/bias (csrc/fused_nerf.cu);
+- the trainable backbone, `fused_backbone`: backbone + alpha head as a
+  torch.autograd.Function whose forward (`fused_backbone_fwd`) and backward
+  (`fused_backbone_bwd`) are kernels (csrc/fused_backbone.cu).
+Both sources are sm_90a, bf16 tensor cores with f32 accumulation, built with
 nvcc at first use and loaded with ctypes.
 
-`fused_adain_nerf` launches it for CUDA tensors. For CPU tensors it runs
-`plain_adain_nerf`, the bf16-emulating PyTorch version of the same function
-(matmul operands rounded to bf16, products and sums in f32), which is what
-the CPU tests compare against the JAX package and what the card compares
-the kernel with.
+Each wrapper launches its kernel for CUDA tensors. For CPU tensors it runs
+the plain PyTorch version of the same function (`plain_adain_nerf`,
+`plain_backbone_fwd`, `plain_backbone_bwd`: matmul operands rounded to the
+compute dtype, products and sums in f32), which is what the CPU tests
+compare against the JAX package and what the card compares the kernels with.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import subprocess
 import tempfile
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -34,6 +38,7 @@ from playableenvironments_tpu_torch.core.bbox import aabb_contains, aabb_size
 from playableenvironments_tpu_torch.models.encoding import positional_encoding
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fused_nerf.cu"
+_BACKBONE_SOURCE = _SOURCE.with_name("fused_backbone.cu")
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 # Limits of the kernel's shared-memory layout (csrc/fused_nerf.cu).
@@ -116,6 +121,13 @@ def _round16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
+def _padded(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """`w` in the top-left corner of a (rows, cols) zero matrix."""
+    z = w.new_zeros((rows, cols))
+    z[: w.shape[0], : w.shape[1]] = w
+    return z
+
+
 @dataclass(frozen=True)
 class NerfKernelWeights:
     """One object's MLP weights: `packed` in the JAX layout (what the plain
@@ -147,26 +159,21 @@ def kernel_weights(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> NerfK
         raise ValueError("skip_layer_idx 0 (skip into the first layer) is not supported")
     pe_pad = _round16(pe)
 
-    def padded(w, rows, cols):
-        z = w.new_zeros((rows, cols))
-        z[: w.shape[0], : w.shape[1]] = w
-        return z
-
     with torch.no_grad():
         mats = []
         for i in range(layers):
             w = packed[f"w{i}"]
             if i == 0:
-                mats.append(padded(w, pe_pad, width))
+                mats.append(_padded(w, pe_pad, width))
             elif i == skip:
-                mats.append(torch.cat([w[:width], padded(w[width:], pe_pad, width)]))
+                mats.append(torch.cat([w[:width], _padded(w[width:], pe_pad, width)]))
             else:
                 mats.append(w)
         mats += [
             packed["w_alpha"].reshape(1, width),
             packed["w_f0"],
             packed["w_f1"],
-            padded(packed["w_out"], width // 2, _round16(out)),
+            _padded(packed["w_out"], width // 2, _round16(out)),
         ]
         weights = torch.cat([m.reshape(-1) for m in mats]).to(torch.bfloat16).contiguous()
         biases = torch.cat(
@@ -180,49 +187,74 @@ def kernel_weights(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> NerfK
     )
 
 
-def _library_path() -> Path:
-    digest = hashlib.sha1(_SOURCE.read_bytes()).hexdigest()[:12]
-    return _BUILD_DIR / f"fused_nerf-{digest}.so"
+def _library_path(source: Path) -> Path:
+    digest = hashlib.sha1(source.read_bytes()).hexdigest()[:12]
+    return _BUILD_DIR / f"{source.stem}-{digest}.so"
 
 
-def build_kernel() -> str:
-    """Compile csrc/fused_nerf.cu with nvcc for sm_90a into the build
-    directory, once per source content.
+def build_kernels(sources: Tuple[Path, ...] = (_SOURCE, _BACKBONE_SOURCE)) -> Dict[str, str]:
+    """Compile each CUDA source with nvcc for sm_90a into the build
+    directory, once per source content; the nvcc processes run together.
 
-    :return: nvcc's report (registers, shared memory, spills), or "" when the
-        library was already built.
+    :return: {source name: nvcc's report (registers, shared memory, spills)},
+        "" for a library that was already built.
     """
-    lib_path = _library_path()
-    if lib_path.exists():
-        return ""
+    todo = [s for s in sources if not _library_path(s).exists()]
+    if not todo:
+        return {s.name: "" for s in sources}
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     nvcc = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
     if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build csrc/fused_nerf.cu")
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the port's kernels")
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [
-        nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(_SOURCE),
-    ]
-    result = subprocess.run(cmd, capture_output=True, text=True)
-    if result.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed:\n{result.stdout}\n{result.stderr}")
-    os.replace(tmp, lib_path)
-    return result.stdout + result.stderr
+    jobs = []
+    for source in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        cmd = [
+            nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(source),
+        ]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((source, tmp, proc))
+    reports, failures = {s.name: "" for s in sources}, []
+    for source, tmp, proc in jobs:
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failures.append(f"nvcc failed on {source.name}:\n{output}")
+        else:
+            os.replace(tmp, _library_path(source))
+            reports[source.name] = output
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return reports
+
+
+def _load(source: Path) -> ctypes.CDLL:
+    build_kernels((source,))
+    return ctypes.CDLL(str(_library_path(source)))
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     """The built kernel library, loaded once per process. Reached only when
     a CUDA tensor reaches the kernel."""
-    build_kernel()
-    lib = ctypes.CDLL(str(_library_path()))
+    lib = _load(_SOURCE)
     fn = lib.fused_adain_nerf_launch
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _backbone_library() -> ctypes.CDLL:
+    """csrc/fused_backbone.cu, built and loaded once per process."""
+    lib = _load(_BACKBONE_SOURCE)
+    lib.fused_backbone_fwd_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.fused_backbone_bwd_launch.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.fused_backbone_fwd_launch.restype = ctypes.c_int
+    lib.fused_backbone_bwd_launch.restype = ctypes.c_int
     return lib
 
 
@@ -345,3 +377,323 @@ def fused_object_field_eval(
     features = torch.where(mask[..., None], features, 0.0)
     alpha = torch.where(mask, alpha, float(empty_space_alpha))
     return features, alpha
+
+
+# ---------------------------------------------------------------------------
+# Trainable fused backbone (the JAX package's custom-VJP `fused_backbone`)
+# ---------------------------------------------------------------------------
+
+# The backbone kernels pad the encoding to this many columns, work on tiles
+# of this many points and reduce weight gradients over chunks of this many
+# points (csrc/fused_backbone.cu: kPe, kRows, kChunk).
+_BACKBONE_PE = 64
+_BACKBONE_TILE = 64
+_BACKBONE_CHUNK = 4096
+
+
+def _backbone_sizes(cfg: NerfMLPConfig, encoded_size: int) -> List[int]:
+    """Input width of each backbone layer (the skip layer takes h ++ encoding)."""
+    widths_in = []
+    for i in range(cfg.backbone_layers_count):
+        w_in = encoded_size if i == 0 else cfg.layers_width
+        if i == cfg.skip_layer_idx and i != 0:
+            w_in += encoded_size
+        widths_in.append(w_in)
+    return widths_in
+
+
+def _backbone_names(cfg: NerfMLPConfig) -> List[str]:
+    names = []
+    for i in range(cfg.backbone_layers_count):
+        names += [f"w{i}", f"b{i}"]
+    return names + ["w_alpha", "b_alpha"]
+
+
+def _weight_list(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+    """[w0, b0 (1, W), ..., w_alpha (W, 1), b_alpha (1, 1)], the JAX kernels'
+    argument order."""
+    return [
+        packed[name].reshape(1, -1) if name.startswith("b") else packed[name]
+        for name in _backbone_names(cfg)
+    ]
+
+
+def _operand_rounding(cfg: NerfMLPConfig):
+    """x -> x rounded to the matmul operand dtype, kept in x's dtype (f32,
+    or f64 for a reference with f64 sums)."""
+    if cfg.compute_dtype == "float32":
+        return lambda x: x
+    dtype = getattr(torch, cfg.compute_dtype)
+    return lambda x: x.to(dtype).to(x.dtype)
+
+
+def _plain_backbone_acts(cfg, packed, encoded, rnd) -> List[torch.Tensor]:
+    acts, h = [], encoded
+    for i in range(cfg.backbone_layers_count):
+        if i == cfg.skip_layer_idx and i != 0:
+            h = torch.cat([h, encoded], dim=-1)
+        h = torch.relu(rnd(h) @ rnd(packed[f"w{i}"]) + packed[f"b{i}"])
+        acts.append(h)
+    return acts
+
+
+def plain_backbone_fwd(
+    cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encoded: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backbone + alpha head in plain PyTorch, as the TPU forward kernel
+    computes it: matmul operands rounded to `compute_dtype`, everything else
+    f32.
+
+    :param packed: w{i} (in_i, W), b{i} (W,), w_alpha (W, 1), b_alpha (1,).
+    :param encoded: (N, E) f32 encodings.
+    :return: ((N, W) post-ReLU h, (N,) raw alpha).
+    """
+    rnd = _operand_rounding(cfg)
+    h = _plain_backbone_acts(cfg, packed, encoded, rnd)[-1]
+    alpha = rnd(h) @ rnd(packed["w_alpha"]) + packed["b_alpha"]
+    return h, alpha[:, 0]
+
+
+def plain_backbone_bwd(
+    cfg: NerfMLPConfig,
+    packed: Dict[str, torch.Tensor],
+    encoded: torch.Tensor,
+    g_h: torch.Tensor,
+    g_alpha: torch.Tensor,
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """The TPU backward kernel's explicit backward in plain PyTorch (not
+    autograd): recompute the activations, back-propagate through the ReLU
+    chain, split the skip layer's input gradient.
+
+    :param g_h: (N, W) cotangent of h; :param g_alpha: (N,) of alpha.
+    :return: ({name: gradient in that weight's shape}, (N, E) d_encoded).
+    """
+    rnd = _operand_rounding(cfg)
+    layers, width = cfg.backbone_layers_count, cfg.layers_width
+    acts = _plain_backbone_acts(cfg, packed, encoded, rnd)
+    g_alpha = g_alpha[:, None]
+    grads = {
+        "w_alpha": rnd(acts[-1]).t() @ rnd(g_alpha),
+        "b_alpha": g_alpha.sum(dim=0),
+    }
+    g = g_h + rnd(g_alpha) @ rnd(packed["w_alpha"]).t()
+    d_encoded = torch.zeros_like(encoded)
+    for i in range(layers - 1, -1, -1):
+        g = g * (acts[i] > 0.0)
+        if i == 0:
+            layer_in = encoded
+        elif i == cfg.skip_layer_idx:
+            layer_in = torch.cat([acts[i - 1], encoded], dim=-1)
+        else:
+            layer_in = acts[i - 1]
+        grads[f"w{i}"] = rnd(layer_in).t() @ rnd(g)
+        grads[f"b{i}"] = g.sum(dim=0)
+        g_in = rnd(g) @ rnd(packed[f"w{i}"]).t()
+        if i == 0:
+            d_encoded = d_encoded + g_in
+        elif i == cfg.skip_layer_idx:
+            d_encoded = d_encoded + g_in[:, width:]
+            g = g_in[:, :width]
+        else:
+            g = g_in
+    return grads, d_encoded
+
+
+def backbone_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backbone's weights as csrc/fused_backbone.cu reads them: bf16
+    matrices with the encoding rows zero-padded to 64, w_alpha last; f32
+    biases b_0 .. b_{L-1}, b_alpha."""
+    width, skip = cfg.layers_width, cfg.skip_layer_idx
+    with torch.no_grad():
+        mats = []
+        for i in range(cfg.backbone_layers_count):
+            w = packed[f"w{i}"]
+            if i == 0:
+                mats.append(_padded(w, _BACKBONE_PE, width))
+            elif i == skip:
+                mats += [w[:width], _padded(w[width:], _BACKBONE_PE, width)]
+            else:
+                mats.append(w)
+        mats.append(packed["w_alpha"].reshape(1, width))
+        weights = torch.cat([m.reshape(-1) for m in mats]).to(torch.bfloat16).contiguous()
+        biases = torch.cat(
+            [packed[f"b{i}"].reshape(-1) for i in range(cfg.backbone_layers_count)]
+            + [packed["b_alpha"].reshape(-1)]
+        ).to(torch.float32).contiguous()
+    return weights, biases
+
+
+def _backbone_kernel_checks(cfg: NerfMLPConfig, encoded: torch.Tensor, tensors) -> None:
+    if encoded.device.type != "cuda":
+        raise ValueError(f"the fused backbone runs on cuda or cpu tensors, not {encoded.device}")
+    if cfg.compute_dtype != "bfloat16":
+        raise NotImplementedError(
+            f"the backbone kernels take bfloat16 operands; compute_dtype {cfg.compute_dtype!r} "
+            "has no kernel path on the card yet"
+        )
+    width = cfg.layers_width
+    if width % 64 or width > _MAX_WIDTH:
+        raise ValueError(f"layers_width {width} must be a multiple of 64, at most {_MAX_WIDTH}")
+    if encoded.shape[1] > _BACKBONE_PE:
+        raise ValueError(f"encoding width {encoded.shape[1]} exceeds the kernel's {_BACKBONE_PE}")
+    for t in tensors:
+        if t.device != encoded.device or t.dtype != torch.float32:
+            raise ValueError(f"inputs must be float32 on {encoded.device}, got {t.dtype} on {t.device}")
+
+
+def fused_backbone_fwd(
+    cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encoded: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backbone + alpha head over (N, E) f32 encodings -> ((N, W) h, (N,) alpha).
+
+    CPU tensors take `plain_backbone_fwd`. CUDA tensors launch the forward
+    kernel (counted in `fused_backbone_fwd.launches`); any other device, an
+    unsupported configuration, or a failed build or launch raises.
+    """
+    if encoded.device.type == "cpu":
+        return plain_backbone_fwd(cfg, packed, encoded)
+    _backbone_kernel_checks(cfg, encoded, [encoded] + list(packed.values()))
+    n, pe = encoded.shape
+    width = cfg.layers_width
+    weights, biases = backbone_buffers(cfg, packed)
+    encoded = encoded.contiguous()
+    h = torch.empty((n, width), dtype=torch.float32, device=encoded.device)
+    alpha = torch.empty((n,), dtype=torch.float32, device=encoded.device)
+    if n == 0:
+        return h, alpha
+    lib = _backbone_library()
+    err = lib.fused_backbone_fwd_launch(
+        encoded.data_ptr(), weights.data_ptr(), biases.data_ptr(), h.data_ptr(), alpha.data_ptr(),
+        n, pe, width, cfg.backbone_layers_count, cfg.skip_layer_idx,
+        torch.cuda.current_stream(encoded.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_backbone_fwd kernel launch failed with CUDA error {err}")
+    fused_backbone_fwd.launches += 1
+    return h, alpha
+
+
+fused_backbone_fwd.launches = 0
+
+
+def _backbone_grad_rows(cfg: NerfMLPConfig) -> int:
+    """Rows of the kernel's padded weight-gradient matrix."""
+    width, skip = cfg.layers_width, cfg.skip_layer_idx
+    rows = 0
+    for i in range(cfg.backbone_layers_count):
+        rows += _BACKBONE_PE if i == 0 else (width + _BACKBONE_PE if i == skip else width)
+    return rows
+
+
+def _unpack_backbone_grads(cfg: NerfMLPConfig, grads_out: torch.Tensor, pe: int) -> Dict[str, torch.Tensor]:
+    """The backward kernels' flat f32 output -> {name: gradient}: the weight
+    gradients as (rows, W) in the padded row order of backbone_buffers, then
+    db_0 .. db_{L-1}, dW_alpha (W), db_alpha (1)."""
+    width, layers, skip = cfg.layers_width, cfg.backbone_layers_count, cfg.skip_layer_idx
+    rows_pad = _backbone_grad_rows(cfg)
+    dw = grads_out[: rows_pad * width].view(rows_pad, width)
+    small = grads_out[rows_pad * width :]
+    grads, start = {}, 0
+    for i in range(layers):
+        if i == 0:
+            grads["w0"] = dw[:pe]
+            start = _BACKBONE_PE
+        elif i == skip:
+            grads[f"w{i}"] = torch.cat([dw[start : start + width], dw[start + width : start + width + pe]])
+            start += width + _BACKBONE_PE
+        else:
+            grads[f"w{i}"] = dw[start : start + width]
+            start += width
+        grads[f"b{i}"] = small[i * width : (i + 1) * width]
+    grads["w_alpha"] = small[layers * width : layers * width + width].reshape(width, 1)
+    grads["b_alpha"] = small[layers * width + width :]
+    return grads
+
+
+def fused_backbone_bwd(
+    cfg: NerfMLPConfig,
+    packed: Dict[str, torch.Tensor],
+    encoded: torch.Tensor,
+    g_h: torch.Tensor,
+    g_alpha: torch.Tensor,
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """The backbone's backward: ({name: gradient}, (N, E) d_encoded) for the
+    cotangents g_h (N, W) and g_alpha (N,).
+
+    CPU tensors take `plain_backbone_bwd`. CUDA tensors launch the backward
+    kernels (one call counted in `fused_backbone_bwd.launches`); the
+    gradients are bit-identical from run to run.
+    """
+    if encoded.device.type == "cpu":
+        return plain_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+    _backbone_kernel_checks(cfg, encoded, [encoded, g_h, g_alpha] + list(packed.values()))
+    n, pe = encoded.shape
+    width, layers, skip = cfg.layers_width, cfg.backbone_layers_count, cfg.skip_layer_idx
+    device = encoded.device
+    weights, biases = backbone_buffers(cfg, packed)
+    encoded, g_h, g_alpha = encoded.contiguous(), g_h.contiguous(), g_alpha.contiguous()
+
+    tiles = -(-n // _BACKBONE_TILE)
+    n_pad = tiles * _BACKBONE_TILE
+    chunks = -(-n_pad // _BACKBONE_CHUNK)
+    rows_pad = _backbone_grad_rows(cfg)
+    tp_ld = layers * width + width + 1
+    d_encoded = torch.empty((n, pe), dtype=torch.float32, device=device)
+    grads_out = torch.zeros((rows_pad * width + tp_ld,), dtype=torch.float32, device=device)
+    if n:
+        x_scr = torch.empty((n_pad, _BACKBONE_PE + layers * width), dtype=torch.bfloat16, device=device)
+        g_scr = torch.empty((n_pad, layers * width), dtype=torch.bfloat16, device=device)
+        tile_part = torch.empty((tiles, tp_ld), dtype=torch.float32, device=device)
+        partial = torch.empty((chunks, rows_pad, width), dtype=torch.float32, device=device)
+        lib = _backbone_library()
+        err = lib.fused_backbone_bwd_launch(
+            encoded.data_ptr(), g_h.data_ptr(), g_alpha.data_ptr(), weights.data_ptr(),
+            biases.data_ptr(), d_encoded.data_ptr(), x_scr.data_ptr(), g_scr.data_ptr(),
+            tile_part.data_ptr(), partial.data_ptr(), grads_out.data_ptr(),
+            n, pe, width, layers, skip, torch.cuda.current_stream(device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"fused_backbone_bwd kernel launch failed with CUDA error {err}")
+        fused_backbone_bwd.launches += 1
+
+    return _unpack_backbone_grads(cfg, grads_out, pe), d_encoded
+
+
+fused_backbone_bwd.launches = 0
+
+
+class _FusedBackbone(torch.autograd.Function):
+    """Forward: fused_backbone_fwd; backward: fused_backbone_bwd on the saved
+    (encoded, weights), as the JAX custom VJP saves (packed, encoded)."""
+
+    @staticmethod
+    def forward(ctx, cfg, encoded, *tensors):
+        packed = dict(zip(_backbone_names(cfg), tensors))
+        ctx.cfg = cfg
+        ctx.save_for_backward(encoded, *tensors)
+        return fused_backbone_fwd(cfg, packed, encoded)
+
+    @staticmethod
+    def backward(ctx, g_h, g_alpha):
+        encoded, *tensors = ctx.saved_tensors
+        names = _backbone_names(ctx.cfg)
+        packed = dict(zip(names, tensors))
+        if g_h is None:
+            g_h = torch.zeros(encoded.shape[0], ctx.cfg.layers_width, device=encoded.device)
+        if g_alpha is None:
+            g_alpha = torch.zeros(encoded.shape[0], device=encoded.device)
+        grads, d_encoded = fused_backbone_bwd(ctx.cfg, packed, encoded, g_h, g_alpha)
+        return (None, d_encoded) + tuple(grads[k].reshape(packed[k].shape) for k in names)
+
+
+def fused_backbone(
+    cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encoded: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused backbone + alpha head over already-encoded points, differentiable
+    in `packed` ({w0..wL-1, b0..bL-1, w_alpha, b_alpha}) and `encoded`
+    ((N, E) f32), with both directions in kernels on the card.
+
+    :return: ((N, layers_width) final activation, (N,) raw alpha).
+    """
+    names = _backbone_names(cfg)
+    return _FusedBackbone.apply(cfg, encoded, *(packed[k] for k in names))

@@ -33,8 +33,8 @@ from playableenvironments_tpu_torch.render import sampling
 
 # "No successor" fill for the successor-t minimum and the distance that
 # replaces it (the last sample's interval, as in the reference).
-BIG = 3.0e38
-LAST_DISTANCE = 1e10
+BIG = compositing.BIG
+LAST_DISTANCE = compositing.LAST_DISTANCE
 
 
 def _bender_displacements(cfg, bender, positions, deformation, step):

@@ -1,0 +1,45 @@
+"""Named random streams.
+
+The JAX package threads one PRNG key per named stream ("ray_sampling",
+"sampling", "alpha_noise", "style_shuffle", "divergence") into each
+training step. The port draws from one seeded torch.Generator per stream
+through this small interface; a caller that must reproduce given draws
+(a parity test) passes any object with the same methods.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+RNG_STREAMS = ("ray_sampling", "sampling", "alpha_noise", "style_shuffle", "divergence")
+
+
+class RngStreams:
+    """One torch.Generator per stream on `device` (draws are made where they
+    are used), seeded from `seed` and the stream's index."""
+
+    def __init__(self, seed: int, device="cpu"):
+        self.device = torch.device(device)
+        self.generators = {
+            name: torch.Generator(device=self.device).manual_seed(seed * len(RNG_STREAMS) + i)
+            for i, name in enumerate(RNG_STREAMS)
+        }
+
+    def _draw(self, fn, stream: str, *args) -> torch.Tensor:
+        return fn(*args, generator=self.generators[stream], device=self.device)
+
+    def uniform(self, stream: str, shape: Sequence[int]) -> torch.Tensor:
+        """Draws in [0, 1)."""
+        return self._draw(torch.rand, stream, tuple(shape))
+
+    def normal(self, stream: str, shape: Sequence[int]) -> torch.Tensor:
+        return self._draw(torch.randn, stream, tuple(shape))
+
+    def randint(self, stream: str, high: int, shape: Sequence[int]) -> torch.Tensor:
+        """Integers in [0, high)."""
+        return self._draw(torch.randint, stream, high, tuple(shape))
+
+    def permutation(self, stream: str, n: int) -> torch.Tensor:
+        return self._draw(torch.randperm, stream, n)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on a card (marker `cuda`; skipped without one).
+"""The port's CUDA kernels on a card (marker `cuda`; skipped without one).
 
 Imports neither JAX nor the JAX package, so that it runs where only PyTorch
 is installed, without the JAX test configuration:
@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from playableenvironments_tpu_torch.cli.play import InteractiveSession
-from playableenvironments_tpu_torch.config import NerfMLPConfig, scene_from_yaml
+from playableenvironments_tpu_torch.config import NerfMLPConfig, PositionalEncoderConfig, scene_from_yaml
 from playableenvironments_tpu_torch.models.encoding import positional_encoding
 from playableenvironments_tpu_torch.models.layers import initialize_
 from playableenvironments_tpu_torch.models.nerf import AdaInNerfMLP
@@ -86,3 +86,69 @@ def test_session_on_the_card_launches_the_kernel_per_object(card):
     assert fused_nerf.fused_adain_nerf.launches == before + 8
     for got, ref in frames:
         np.testing.assert_allclose(got, ref, atol=1e-2)
+
+
+BACKBONE = NerfMLPConfig(output_features=3, compute_dtype="bfloat16", use_fused_backbone=True,
+                         position_encoder=PositionalEncoderConfig(octaves=10))
+
+
+def backbone_inputs(card, points, seed=1):
+    nerf = initialize_(AdaInNerfMLP(BACKBONE, 64, device=card), torch.Generator().manual_seed(0))
+    packed = {k: v.detach().contiguous() for k, v in nerf.backbone_params().items()}
+    g = torch.Generator().manual_seed(seed)
+    encoded = positional_encoding(torch.rand(points, 3, generator=g) * 2 - 1, 10, True).to(card)
+    g_h = (torch.randn(points, 256, generator=g) * 1e-3).to(card)
+    g_alpha = (torch.randn(points, generator=g) * 1e-3).to(card)
+    return packed, encoded, g_h, g_alpha
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("points", [18432, 1000])
+def test_backbone_kernels_match_plain_on_the_card(card, points):
+    """Tennis widths (8x256, encoding 63): B2 and B3 against their plain
+    versions on the same card, a ragged last tile included, B3
+    bit-identical across launches, each launch counted once."""
+    packed, encoded, g_h, g_alpha = backbone_inputs(card, points)
+    before = (fused_nerf.fused_backbone_fwd.launches, fused_nerf.fused_backbone_bwd.launches)
+    with torch.no_grad():
+        got = fused_nerf.fused_backbone_fwd(BACKBONE, packed, encoded)
+        grads, d_encoded = fused_nerf.fused_backbone_bwd(BACKBONE, packed, encoded, g_h, g_alpha)
+        again, d_encoded_again = fused_nerf.fused_backbone_bwd(BACKBONE, packed, encoded, g_h, g_alpha)
+        torch.cuda.synchronize()
+        ref = fused_nerf.plain_backbone_fwd(BACKBONE, packed, encoded)
+        ref_grads, ref_d_encoded = fused_nerf.plain_backbone_bwd(BACKBONE, packed, encoded, g_h, g_alpha)
+    assert (fused_nerf.fused_backbone_fwd.launches, fused_nerf.fused_backbone_bwd.launches) == (before[0] + 1, before[1] + 2)
+    assert torch.equal(d_encoded, d_encoded_again) and all(torch.equal(grads[k], again[k]) for k in grads)
+    for g_, r in zip(got, ref):  # chip_smoke.py states these bounds and why
+        diff = (g_ - r).abs()
+        assert bool((diff <= 3e-2 + 1e-2 * r.abs()).all()) and diff.mean().item() <= 1e-4
+    for name, g_, r, tol, mean_tol in [("d_encoded", d_encoded, ref_d_encoded, 0.5, 1e-3)] + [
+            (k, grads[k], ref_grads[k], 5e-2, 1e-2) for k in ref_grads]:
+        scale = r.abs().max().item()
+        diff = (g_ - r).abs()
+        assert diff.max().item() <= tol * scale and diff.mean().item() <= mean_tol * scale, name
+
+
+@pytest.mark.cuda
+def test_backbone_kernels_refuse_float32_operands(card):
+    packed, encoded, g_h, g_alpha = backbone_inputs(card, 64)
+    cfg = NerfMLPConfig(output_features=3, use_fused_backbone=True)
+    with pytest.raises(NotImplementedError, match="compute_dtype"):
+        fused_nerf.fused_backbone_fwd(cfg, packed, encoded)
+    with pytest.raises(NotImplementedError, match="compute_dtype"):
+        fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+
+
+@pytest.mark.cuda
+def test_fused_backbone_autograd_launches_both_kernels(card):
+    packed, encoded, g_h, g_alpha = backbone_inputs(card, 500)
+    params = {k: v.clone().requires_grad_() for k, v in packed.items()}
+    before = (fused_nerf.fused_backbone_fwd.launches, fused_nerf.fused_backbone_bwd.launches)
+    h, alpha = fused_nerf.fused_backbone(BACKBONE, params, encoded.requires_grad_())
+    torch.autograd.backward([h, alpha], [g_h, g_alpha])
+    torch.cuda.synchronize()
+    assert (fused_nerf.fused_backbone_fwd.launches, fused_nerf.fused_backbone_bwd.launches) == (before[0] + 1, before[1] + 1)
+    grads, d_encoded = fused_nerf.fused_backbone_bwd(BACKBONE, packed, encoded.detach(), g_h, g_alpha)
+    assert torch.equal(encoded.grad, d_encoded)
+    for name, p in params.items():
+        assert torch.equal(p.grad, grads[name].reshape(p.shape)), name
