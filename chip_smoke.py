@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one card: the tennis play loop and
-the tennis phase-2 train step.
+"""Smoke run of the PyTorch/CUDA port on one card: the tennis play loop, the
+tennis phase-2 train step and the tennis phase-3 (action module) G+D step.
 
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-1. build the port's CUDA kernels (csrc/fused_nerf.cu, csrc/fused_backbone.cu),
-   one nvcc per source, started together;
+1. build the port's CUDA kernels (csrc/fused_nerf.cu, csrc/fused_backbone.cu,
+   csrc/fused_rollout.cu), one nvcc per source, started together;
 2. hold the B1 kernel against its plain PyTorch version at the four per-frame
    launch shapes of the tennis scene, and time kernel, plain version, a
    library yardstick (the same MLP as a chain of bf16 torch.matmul, never
@@ -28,7 +28,21 @@ Phases, each fatal on failure:
    fused backbone, bs 8 x 4 observations x 144 weighted rays at 288x512,
    Adam) for 6 steps with seeded random weights; finite losses and
    parameters, parameters and running statistics moved, 4 B2 and 4 B3
-   launches per step, the median step time and the peak memory.
+   launches per step, the median step time and the peak memory;
+8. hold the dynamics rollout's forward (B4) and backward (B5) kernels
+   against their plain versions at the phase-3 shape (16 x 9, F 256, 2
+   layers), a ragged 5 x 6 batch for each other RolloutConfig branch and the
+   play loop's 1 x 128 dynamics, B5 twice (bit-identical), and time kernel,
+   plain version and bound;
+9. one phase-3 G+D step at full width on the card and on the CPU from the
+   same seeded weights and the same random draws: loss, metrics, both
+   passes' gradients, parameters, running statistics, u/sigma, centroids
+   and MI matrices;
+10. drive the phase-3 main path: bench.py's fused G+D step (bs 16 x 9
+   observations, 2 players, dynamics 2 x 256, action network 3 x 128, GAN
+   and ACMV) for 20 steps; finite losses and parameters, both parameter
+   groups, the centroids and the MI matrices moved, 4 B4 and 2 B5 launches
+   per step, the median step time and the peak memory.
 Details go to chiprun_out/chip_smoke.json. Prints one JSON line of kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX.
 """
@@ -145,7 +159,7 @@ def mlp_work(cfg, packed, points: int, rays: int):
 
 
 class SmokeFailure(Exception):
-    """A failed check of phases 5-7 (main() reports it and exits 1)."""
+    """A failed check of phases 5-10 (main() reports it and exits 1)."""
 
 
 # ---- phase-2 training (phases 5-7) -------------------------------------------
@@ -582,6 +596,484 @@ def phase7_main_path():
             "peak_memory_bytes": peak}
 
 
+# ---- phase-3 training (phases 8-10) -------------------------------------------
+
+# B4/B5 compute in f32 on the CUDA cores, as the JAX reference does, so their
+# bound uses the card's f32 peak outside the tensor cores (H100 SXM data
+# sheet), not the bf16 one.
+PEAK_F32_FLOPS = 67e12
+# B4/B5 vs their plain versions on the card: both f32, differing only in the
+# order of the sums (a fixed k order per column in the kernels, cuBLAS's
+# blocking in the plain version; the weight gradients summed over all rows
+# at once instead of step by step). f32 rounding of sums of up to 1,024
+# terms is ~1e-6 of their magnitude, carried through T-1 = 8 recurrent
+# steps. Each output is held to 1e-4 of its largest magnitude element-wise
+# and 1e-5 in the mean.
+ROLLOUT_REL_ATOL, ROLLOUT_REL_MEAN = 1e-4, 1e-5
+PHASE3_BATCH, PHASE3_OBSERVATIONS, PHASE3_GT = 16, 9, 5
+PHASE3_STEPS = 20
+
+
+def phase3_animation_config():
+    """bench.py's _phase3_animation_config, copied: the published tennis
+    animation-model sizes (dynamics 2 LSTM layers of 256, action network
+    3 x 128, 7 actions, 5-dimensional action space, soft gumbel at
+    temperature 1, centroid alpha 0.1)."""
+    from playableenvironments_tpu_torch.config import (
+        ActionNetworkConfig, AnimationModelConfig, DynamicsNetworkConfig,
+    )
+
+    return AnimationModelConfig(
+        actions_count=7, action_space_dimension=5, style_features=64, deformation_features=32,
+        gumbel_temperature=1.0, hard_gumbel=False, centroid_alpha=0.1,
+        dynamics=DynamicsNetworkConfig(output_features=256, layers_count=2, force_rotations_zero=True,
+                                       force_z_translations_zero=True, rotation_axis=2),
+        action_network=ActionNetworkConfig(layers_width=128, layers_count=3),
+    )
+
+
+def rollout_work(batch, T, params, A, V, S, D, collect):
+    """(forward flops, forward bytes, backward flops, backward bytes) of one
+    rollout launch from its shapes. Per row and step the forward multiplies
+    the input block by each layer's wx and wh, then by wb and whead; the
+    backward repeats those products for the input gradients and once more
+    for the weight gradients. Bytes: each input read once (f32 weights,
+    states, actions, variations; the backward's residuals and cotangents),
+    each output written once (states; residuals when collected; the
+    backward's parameter and input gradients)."""
+    F = params.wb.shape[0]
+    macs = sum(w.shape[0] * w.shape[1] for w in params.wx + params.wh) + F * F + F * params.whead.shape[1]
+    rows = batch * (T - 1)
+    weights = 4 * sum(p.numel() for p in (list(params.wx) + list(params.wh) + list(params.bh) + list(params.h_init)
+                                          + list(params.c_init) + [params.wb, params.bb, params.whead, params.bhead]))
+    state = 4 * batch * T * (6 + S + D)
+    act = 4 * rows * (A + V)
+    residuals = 4 * rows * (6 + S + D + params.wx[0].shape[0] + F + params.whead.shape[1] + len(params.wx) * 6 * F)
+    fwd_flops = 2.0 * macs * rows
+    fwd_bytes = weights + state + act + state + (residuals if collect else 0)
+    bwd_bytes = weights + residuals + state + weights + state + act
+    return fwd_flops, fwd_bytes, 2 * fwd_flops, bwd_bytes
+
+
+def bound_ms(flops, bytes_):
+    """(ms, bound_by) at the f32 peak and the memory rate."""
+    ops, mem = flops / PEAK_F32_FLOPS, bytes_ / PEAK_BYTES_PER_S
+    return max(ops, mem) * 1e3, ("operations" if ops > mem else "bytes")
+
+
+def rollout_case(anim, box, batch, T, seed, device):
+    """Seeded DynamicsNetwork weights (biases and initial states non-zero),
+    packed as the main path packs them (the backbone weight a transposed
+    view), and seeded inputs and cotangents, on `device`."""
+    import torch
+
+    from playableenvironments_tpu_torch.models.dynamics import DynamicsNetwork
+    from playableenvironments_tpu_torch.models.layers import initialize_
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+
+    g = torch.Generator().manual_seed(seed)
+    dyn = initialize_(DynamicsNetwork(anim, box), g)
+    with torch.no_grad():
+        for name, p in dyn.named_parameters():
+            if name.endswith("bias") or name.startswith("initial_"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+        packed = fr.params_from_list([p.detach().to(device) for p in fr.param_list(fr.pack_dynamics_params(dyn))],
+                                     anim.dynamics.layers_count)
+    S, D, A, V = anim.style_features, anim.deformation_features, anim.actions_count, anim.action_space_dimension
+    inputs = [torch.randn(batch, T, 3, generator=g) * 0.3, torch.randn(batch, T, 3, generator=g),
+              torch.randn(batch, T, S, generator=g), torch.randn(batch, T, D, generator=g),
+              torch.softmax(torch.randn(batch, T - 1, A, generator=g), dim=-1),
+              torch.randn(batch, T - 1, V, generator=g) * 0.1]
+    cots = [torch.randn(batch, T, w, generator=g) for w in (3, 3, S, D)]
+    return packed, [x.to(device) for x in inputs], [c.to(device) for c in cots]
+
+
+def rel_close(name, got, ref, atol=ROLLOUT_REL_ATOL, mean=ROLLOUT_REL_MEAN):
+    """Max and mean error of `got` relative to the largest magnitude of `ref`."""
+    scale = max(ref.abs().max().item(), 1e-30)
+    err, mean_err = check_close(name, got, ref, atol * scale, 0.0, mean * scale)
+    return err / scale, mean_err / scale
+
+
+def phase8_rollout_kernels(device="cuda"):
+    """B4 and B5 against their plain versions on the card: the phase-3 shape
+    (16 x 9, F 256, 2 layers, the tennis branch: rotations forced to zero,
+    axis 2, the axis translation forced to 0), a ragged batch of 5 x 6 for
+    each of the other two branches, and the play loop's 1 x 128 dynamics;
+    B5 twice on the same inputs (bit-identical); times at the phase-3 shape."""
+    import torch
+
+    from playableenvironments_tpu_torch.config import scene_from_yaml
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    box = ((-0.75, 0.75), (-0.5, 0.5), (0.0, 2.15))
+    box_size = tuple(hi - lo for lo, hi in box)
+    anim = phase3_animation_config()
+    play_anim = scene_from_yaml(os.path.join(repo, "configs", "tennis.yaml")).animation_models[0]
+    cases = [
+        ("phase-3", anim, PHASE3_BATCH, PHASE3_OBSERVATIONS, fr.RolloutConfig(2, True, 0.0, box_size), PHASE3_GT),
+        ("ragged, axis 1, free", anim, 5, 6, fr.RolloutConfig(1, False, None, box_size), 1),
+        ("ragged, axis 0, forced 0.01", anim, 5, 6, fr.RolloutConfig(0, False, 0.01, box_size), 0),
+        ("play dynamics", play_anim, PHASE3_BATCH, PHASE3_OBSERVATIONS, fr.RolloutConfig(2, True, 0.0, box_size),
+         PHASE3_GT),
+    ]
+    rows, timing = [], None
+    for index, (name, cfg_anim, batch, T, cfg, gt) in enumerate(cases):
+        packed, inputs, cots = rollout_case(cfg_anim, box, batch, T, 10 + index, device)
+        A = cfg_anim.actions_count
+        with torch.no_grad():
+            out, res = fr.fused_rollout_fwd(cfg, packed, *inputs, gt, True)
+            out_without_res = fr.fused_rollout_fwd(cfg, packed, *inputs, gt, False)[0]
+            grads = fr.fused_rollout_bwd(cfg, packed, gt, res, cots, A)
+            again = fr.fused_rollout_bwd(cfg, packed, gt, res, cots, A)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            ref_out, ref_res = fr.plain_rollout_fwd(cfg, packed, *inputs, gt, True)
+            ref_grads = fr.plain_rollout_bwd(cfg, packed, gt, ref_res, cots, A)
+        flat = lambda g: fr.param_list(g[0]) + list(g[1:])  # noqa: E731
+        if not all(torch.equal(a, b) for a, b in zip(flat(grads), flat(again))):
+            raise SmokeFailure(f"B5 {name}: two launches on the same inputs differ")
+        if not all(torch.equal(a, b) for a, b in zip(out, out_without_res)):
+            raise SmokeFailure(f"B4 {name}: outputs differ with and without residuals")
+        fwd_errs = [rel_close(f"B4 {name} {k}", got, ref) for k, got, ref in
+                    zip(("rot", "trans", "style", "deform"), out, ref_out)]
+        fwd_errs += [rel_close(f"B4 {name} residual {k}", res[k], ref_res[k]) for k in ref_res]
+        bwd_errs = {k: rel_close(f"B5 {name} gradient {k}", got, ref)
+                    for k, (got, ref) in enumerate(zip(flat(grads), flat(ref_grads)))}
+        row = {"case": name, "batch": batch, "observations": T, "features": packed.wb.shape[0],
+               "layers": len(packed.wx), "fwd_max_rel_err": max(e[0] for e in fwd_errs),
+               "fwd_mean_rel_err": max(e[1] for e in fwd_errs),
+               "bwd_max_rel_err": max(e[0] for e in bwd_errs.values()),
+               "bwd_mean_rel_err": max(e[1] for e in bwd_errs.values())}
+        if index == 0 and device == "cuda":
+            S, D, V = inputs[2].shape[-1], inputs[3].shape[-1], inputs[5].shape[-1]
+            ff, fb, bf, bb = rollout_work(batch, T, packed, A, V, S, D, collect=True)
+            _, fb_nores, _, _ = rollout_work(batch, T, packed, A, V, S, D, collect=False)
+            with torch.no_grad():
+                timing = {
+                    "fwd_res_ms": cuda_ms(lambda: fr.fused_rollout_fwd(cfg, packed, *inputs, gt, True)),
+                    "fwd_ms": cuda_ms(lambda: fr.fused_rollout_fwd(cfg, packed, *inputs, gt, False)),
+                    "fwd_res_plain_ms": cuda_ms(lambda: fr.plain_rollout_fwd(cfg, packed, *inputs, gt, True)),
+                    "fwd_plain_ms": cuda_ms(lambda: fr.plain_rollout_fwd(cfg, packed, *inputs, gt, False)),
+                    "bwd_ms": cuda_ms(lambda: fr.fused_rollout_bwd(cfg, packed, gt, res, cots, A)),
+                    "bwd_plain_ms": cuda_ms(lambda: fr.plain_rollout_bwd(cfg, packed, gt, ref_res, cots, A)),
+                }
+            timing.update(
+                fwd_res_bound_ms=bound_ms(ff, fb)[0], fwd_bound_ms=bound_ms(ff, fb_nores)[0],
+                fwd_bound_by=bound_ms(ff, fb)[1], bwd_bound_ms=bound_ms(bf, bb)[0], bwd_bound_by=bound_ms(bf, bb)[1],
+                fwd_mflop=ff / 1e6, fwd_res_mbytes=fb / 1e6, fwd_mbytes=fb_nores / 1e6, bwd_mflop=bf / 1e6,
+                bwd_mbytes=bb / 1e6,
+            )
+            row.update(timing)
+        rows.append(row)
+        print(f"B4/B5 {name} ({batch} x {T}, F {row['features']}, {row['layers']} layers): B4 max err "
+              f"{row['fwd_max_rel_err']:.3e} (mean {row['fwd_mean_rel_err']:.3e}) of each output's largest "
+              f"magnitude, residuals included; B5 bit-identical across two launches, max err "
+              f"{row['bwd_max_rel_err']:.3e} (mean {row['bwd_mean_rel_err']:.3e})"
+              + (f"; B4 {timing['fwd_res_ms']:.4f} ms with residuals / {timing['fwd_ms']:.4f} ms without "
+                 f"(plain {timing['fwd_res_plain_ms']:.4f} / {timing['fwd_plain_ms']:.4f}, bound "
+                 f"{timing['fwd_res_bound_ms']:.4f} / {timing['fwd_bound_ms']:.4f}, {timing['fwd_bound_by']}); "
+                 f"B5 {timing['bwd_ms']:.4f} ms (plain {timing['bwd_plain_ms']:.4f}, bound "
+                 f"{timing['bwd_bound_ms']:.4f}, {timing['bwd_bound_by']})" if index == 0 and timing else ""))
+    return rows, timing
+
+
+def phase3_scene():
+    """bench.py's _phase3_scene: the published tennis scene with one
+    animation model per player. Phase 3 reads the scene's object order,
+    bounding boxes and animation models only, which phase2_scene() shares
+    with bench.py's build_scene()."""
+    import dataclasses
+
+    anim = phase3_animation_config()
+    return dataclasses.replace(phase2_scene(), animation_models=(anim, anim))
+
+
+def phase3_encoding(torch, device):
+    """bench.py's phase-3 scene encoding (bench_phase3_step), copied: numpy
+    seed 0, bs 16 x 9 observations x 1 camera x 4 objects."""
+    import numpy as np
+
+    from playableenvironments_tpu_torch.scene.encoding import SceneEncoding
+
+    bs, T, cams, n_obj = PHASE3_BATCH, PHASE3_OBSERVATIONS, 1, 4
+    rng = np.random.default_rng(0)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    return SceneEncoding(
+        camera_rotations=randn(bs, T, cams, 3) * 0.1, camera_translations=randn(bs, T, cams, 3),
+        focals=torch.full((bs, T, cams), 315.0), object_rotations=randn(bs, T, n_obj, 3) * 0.1,
+        object_translations=randn(bs, T, n_obj, 3), object_style=randn(bs, T, n_obj, 64),
+        object_deformation=randn(bs, T, n_obj, 32), object_in_scene=torch.ones(bs, T, n_obj, dtype=torch.bool),
+    ).map(lambda x: x.to(device))
+
+
+def phase3_trainer(device, seed=3):
+    """bench.py's phase-3 trainer (PlayableTrainingConfig with
+    ground_truth_observations_start 5, GAN 0.1, ACMV 0.1, every other field
+    at its default) over the discriminator-bearing model, seeded weights,
+    its state initialized from the encoding."""
+    import torch
+
+    from playableenvironments_tpu_torch.render.playable_model import PlayableEnvironmentModel
+    from playableenvironments_tpu_torch.train.trainer_playable import (
+        PlayableLossWeights, PlayableTrainer, PlayableTrainingConfig,
+    )
+
+    model = PlayableEnvironmentModel(phase3_scene(), with_discriminators=True, device=device, seed=seed)
+    trainer = PlayableTrainer(model, PlayableTrainingConfig(
+        ground_truth_observations_start=PHASE3_GT, loss_weights=PlayableLossWeights(gan=0.1, acmv=0.1)))
+    encoding = phase3_encoding(torch, device)
+    trainer.init_state_from_encoding(encoding, seed=0)
+    return trainer, encoding
+
+
+class RecordedStreams:
+    """The phase-3 random streams drawn on the CPU, every draw kept so that
+    another device can replay the same numbers (ReplayedStreams)."""
+
+    def __init__(self, seed):
+        from playableenvironments_tpu_torch.utils.random import RngStreams
+
+        self.streams = RngStreams(seed, "cpu")
+        self.draws = []
+
+    def normal(self, stream, shape):
+        self.draws.append(self.streams.normal(stream, shape))
+        return self.draws[-1]
+
+    def gumbel(self, stream, shape):
+        self.draws.append(self.streams.gumbel(stream, shape))
+        return self.draws[-1]
+
+
+class ReplayedStreams:
+    def __init__(self, draws, device):
+        self.draws, self.device = list(draws), device
+
+    def _next(self, shape):
+        value = self.draws.pop(0)
+        if tuple(value.shape) != tuple(shape):
+            raise SmokeFailure(f"replayed draw of shape {tuple(value.shape)} where {tuple(shape)} is asked for")
+        return value.to(self.device)
+
+    def normal(self, stream, shape):
+        return self._next(shape)
+
+    gumbel = normal
+
+
+def _fused_step_outputs(trainer, encoding, rng):
+    """(metrics, after G, after D) of one fused step. Each `after` holds the
+    gradients of its pass (G's taken where the discriminator step begins,
+    D's on the discriminators after it) and the model's state; after G also
+    the centroids and MI matrices."""
+    model = trainer.playable_model
+    after_g = {}
+    discriminator_step = trainer.discriminator_step
+
+    def capture(*args):
+        after_g.update(grads={n: p.grad.detach().clone() for n, p in model.named_parameters()},
+                       state={k: v.detach().clone() for k, v in model.state_dict().items()},
+                       extra=[c.clone() for c in trainer.centroids + trainer.mi_matrices])
+        return discriminator_step(*args)
+
+    trainer.discriminator_step = capture
+    try:
+        metrics = trainer.fused_step(encoding, rng)
+    finally:
+        trainer.discriminator_step = discriminator_step
+    after_d = {"grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                         if n.startswith("discriminator")},
+               "state": {k: v.detach().clone() for k, v in model.state_dict().items()}}
+    return metrics, after_g, after_d
+
+
+def _compare_grads(label, grads, ref_grads, problems):
+    """Card vs CPU gradients: (max error of any tensor relative to its
+    model's largest gradient, largest mean error relative to the tensor's
+    own largest, {name: max abs error}); failures go to `problems`."""
+    group_scale = {}
+    for name, ref in ref_grads.items():
+        group = name.split(".")[0]
+        group_scale[group] = max(group_scale.get(group, 0.0), ref.abs().max().item())
+    worst = worst_mean = 0.0
+    worst_name = ""
+    noise = {}
+    for name, ref in ref_grads.items():
+        diff = (grads[name].cpu() - ref).abs()
+        noise[name] = diff.max().item()
+        group = max(group_scale[name.split(".")[0]], 1e-30)
+        rel = noise[name] / group
+        # A gradient that is zero but for f32 noise (a bias before a batch
+        # norm, mean_fc's bias, which cancels in the direction differences)
+        # is judged against its model's scale.
+        mean = diff.mean().item() / max(ref.abs().max().item(), 1e-6 * group)
+        if mean > worst_mean:
+            worst_mean, worst_name = mean, name
+        worst = max(worst, rel)
+        if not (rel <= 2e-2 and mean <= 1e-2):
+            problems.append(f"{label} gradient {name}: max err {rel:.3e} of its model's largest, mean {mean:.3e}")
+    return worst, (worst_mean, worst_name), noise
+
+
+def _compare_parameters(label, state, ref_state, ref_grads, noise, lr, problems):
+    """Parameters after an Adam step: where the CPU gradient is clear of the
+    card-vs-CPU noise, to 1e-6 + 1e-4 relative; everywhere to 2 lr.
+    :return: (max error where the sign is clear, clear elements)."""
+    worst, count = 0.0, 0
+    for name, ref_grad in ref_grads.items():
+        ref = ref_state[name]
+        diff = (state[name].cpu() - ref).abs()
+        clear = ref_grad.abs() > max(2 * noise[name], 1e-6)
+        count += int(clear.sum())
+        if clear.any():
+            worst = max(worst, diff[clear].max().item())
+        if not bool((diff[clear] <= 1e-6 + 1e-4 * ref[clear].abs()).all()) or not diff.max().item() <= 2 * lr + 1e-6:
+            problems.append(f"parameter {name} after {label}: err {diff.max().item():.3e}, "
+                            f"{diff[clear].max().item() if clear.any() else 0.0:.3e} where the sign is clear")
+    return worst, count
+
+
+def phase9_card_vs_cpu(devices=("cuda", "cpu")):
+    """One fused G+D step of bench.py's phase-3 geometry at full width on the
+    card and on the CPU from the same seeded weights and the same random
+    draws (made on the CPU, handed to both)."""
+    import torch
+
+    recorded = RecordedStreams(0)
+    outputs = []
+    for index, device in enumerate(reversed(devices)):  # the CPU first: it records the draws
+        trainer, encoding = phase3_trainer(device)
+        rng = recorded if index == 0 else ReplayedStreams(recorded.draws, device)
+        outputs.append(_fused_step_outputs(trainer, encoding, rng))
+    lr = trainer.cfg.learning_rate
+    (ref_metrics, ref_g, ref_d), (metrics, after_g, after_d) = outputs
+    # The card runs B4/B5 (f32, sums in another order: ~1e-6, phase 8),
+    # cuBLAS's f32 products and the discriminators' convolutions in TF32
+    # (PyTorch's default for cuDNN, which the port leaves alone; ~1e-3 of a
+    # logit). Loss and metrics are held to 1e-3 relative. Gradients: each
+    # tensor to 2e-2 of its model's largest gradient element-wise and 1e-2 of
+    # its own largest (at least 1e-6 of its model's) in the mean (measured
+    # on the card: 7.1e-4 and 4.9e-3 in the generator pass, 1.8e-3 and
+    # 2.1e-3 in the discriminator pass). The running statistics, u/sigma, centroids and MI matrices
+    # to 1e-3 of each buffer's largest magnitude. Parameters after each
+    # pass: Adam's first step is about lr sign(g), so every element whose CPU
+    # gradient exceeds 1e-6 and twice its tensor's card-vs-CPU gradient
+    # error is held to 1e-6 + 1e-4 relative, every element to 2 lr.
+    problems = []
+    for name, ref in ref_metrics.items():
+        got = metrics[name].item()
+        if not abs(got - ref.item()) <= 1e-3 * abs(ref.item()) + 1e-6:
+            problems.append(f"metric {name}: {got:.6e} vs {ref.item():.6e}")
+    g_err, g_mean, g_noise = _compare_grads("G", after_g["grads"], ref_g["grads"], problems)
+    d_err, d_mean, d_noise = _compare_grads("D", after_d["grads"], ref_d["grads"], problems)
+    generator = {n: g for n, g in ref_g["grads"].items() if not n.startswith("discriminator")}
+    param_err, clear = _compare_parameters("G", after_g["state"], ref_g["state"], generator, g_noise, lr, problems)
+    d_param_err, d_clear = _compare_parameters("D", after_d["state"], ref_d["state"], ref_d["grads"], d_noise, lr,
+                                               problems)
+    buffer_err = 0.0
+    for label, state, ref_state in (("G", after_g["state"], ref_g["state"]), ("D", after_d["state"], ref_d["state"])):
+        for name in (n for n in ref_state if n not in ref_g["grads"]):
+            ref = ref_state[name]
+            err = (state[name].cpu() - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+            buffer_err = max(buffer_err, err)
+            if not err <= 1e-3:
+                problems.append(f"buffer {name} after {label}: err {err:.3e} of its largest")
+    for name in generator:  # the discriminator step leaves the generator alone
+        if not torch.equal(after_d["state"][name], after_g["state"][name]):
+            problems.append(f"parameter {name} moved in the discriminator step")
+    extra_err = 0.0
+    for got, ref in zip(after_g["extra"], ref_g["extra"]):
+        err = (got.cpu() - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+        extra_err = max(extra_err, err)
+        if not err <= 1e-3:
+            problems.append(f"centroids or MI matrix: err {err:.3e} of its largest")
+    if problems:
+        for problem in problems[:12]:
+            print(f"  card vs CPU: {problem}")
+        raise SmokeFailure(f"card vs CPU phase-3 step: {len(problems)} checks failed, first: {problems[0]}")
+    out = {"loss": metrics["loss"].item(), "ref_loss": ref_metrics["loss"].item(),
+           "discriminator_loss": metrics["discriminator_loss"].item(),
+           "ref_discriminator_loss": ref_metrics["discriminator_loss"].item(),
+           "g_grad_rel_err": g_err, "g_grad_mean_rel_err": g_mean[0], "g_grad_worst_mean": g_mean[1],
+           "d_grad_rel_err": d_err, "d_grad_mean_rel_err": d_mean[0], "d_grad_worst_mean": d_mean[1], "g_param_err": param_err, "g_sign_clear_elements": clear,
+           "d_param_err": d_param_err, "d_sign_clear_elements": d_clear, "buffer_err": buffer_err,
+           "extra_err": extra_err, "grads": len(ref_g["grads"])}
+    print(f"phase-3 G+D step card vs CPU (bs 16 x 9 obs, 2 players, F 256): loss {out['loss']:.6f} vs "
+          f"{out['ref_loss']:.6f}, discriminator loss {out['discriminator_loss']:.6f} vs "
+          f"{out['ref_discriminator_loss']:.6f}; G gradients ({len(ref_g['grads'])} tensors) within {g_err:.3e} of "
+          f"their model's largest (mean {g_mean[0]:.3e}, {g_mean[1]}), D gradients within {d_err:.3e} (mean "
+          f"{d_mean[0]:.3e}, {d_mean[1]}); "
+          f"{clear} + {d_clear} parameter elements with a clear sign within {param_err:.3e} / {d_param_err:.3e} "
+          f"after G / D; running statistics and u/sigma within {buffer_err:.3e}, centroids and MI matrices within "
+          f"{extra_err:.3e} of their largest")
+    return out
+
+
+def phase10_main_path(steps=PHASE3_STEPS, device="cuda"):
+    """The phase-3 main path: bench.py's fused G+D step (bs 16 x 9
+    observations, 2 players at the published widths, GAN and ACMV on) for
+    `steps` steps on the card, seeded weights and random streams. (On the
+    CPU, for a rehearsal, the plain versions run and no launch is counted.)"""
+    import torch
+
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+    from playableenvironments_tpu_torch.utils.random import RngStreams
+
+    cuda = device == "cuda"
+    trainer, encoding = phase3_trainer(device, seed=0)
+    model = trainer.playable_model
+    rng = RngStreams(0, device)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    extra_before = [c.clone() for c in trainer.centroids + trainer.mi_matrices]
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    fr.fused_rollout_fwd.launches = 0
+    fr.fused_rollout_bwd.launches = 0
+    step_ms, losses, d_losses = [], [], []
+    for _ in range(steps):
+        start = time.perf_counter()
+        metrics = trainer.fused_step(encoding, rng)
+        if cuda:
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - start) * 1e3)
+        losses.append(metrics["loss"].item())
+        d_losses.append(metrics["discriminator_loss"].item())
+    launches = (fr.fused_rollout_fwd.launches, fr.fused_rollout_bwd.launches)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    if not all(math.isfinite(x) for x in losses + d_losses):
+        raise SmokeFailure(f"phase-3 losses {losses}, discriminator losses {d_losses}")
+    params = dict(model.named_parameters())
+    for name, p in params.items():
+        if not bool(torch.isfinite(p).all()):
+            raise SmokeFailure(f"parameter {name} is not finite after {steps} steps")
+    state = model.state_dict()
+    generator_count = sum(not n.startswith("discriminator") for n in params)
+    discriminator_count = len(params) - generator_count
+    moved_g = sum(not torch.equal(state[n], before[n]) for n in params if not n.startswith("discriminator"))
+    moved_d = sum(not torch.equal(state[n], before[n]) for n in params if n.startswith("discriminator"))
+    extra_moved = sum(not torch.equal(a, b) for a, b in zip(trainer.centroids + trainer.mi_matrices, extra_before))
+    if moved_g < 0.95 * generator_count or moved_d < discriminator_count or extra_moved < len(extra_before):
+        raise SmokeFailure(f"{moved_g}/{generator_count} generator and {moved_d}/{discriminator_count} "
+                           f"discriminator parameters, {extra_moved}/{len(extra_before)} centroids and MI matrices "
+                           "moved")
+    if launches != ((4 * steps, 2 * steps) if cuda else (0, 0)):
+        raise SmokeFailure(f"B4/B5 launches {launches} in {steps} steps, expected 4 and 2 per step")
+    median = statistics.median(step_ms[2:])
+    print(f"phase-3 G+D step (bs 16 x 9 obs, 2 players, dynamics 2 x 256, GAN and ACMV): {steps} steps, "
+          f"B4 {launches[0]} and B5 {launches[1]} launches; median step {median:.3f} ms over steps 3-{steps}; "
+          f"all steps ms {[round(t, 3) for t in step_ms]}; losses {[round(x, 6) for x in losses]}; "
+          f"{moved_g}/{generator_count} generator and {moved_d}/{discriminator_count} discriminator parameters, "
+          f"{extra_moved}/{len(extra_before)} centroids and MI matrices moved; peak memory {peak / 2**20:.1f} MiB")
+    return {"launches": launches, "step_ms": step_ms, "median_step_ms": median, "losses": losses,
+            "discriminator_losses": d_losses, "peak_memory_bytes": peak}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -738,11 +1230,14 @@ def main() -> int:
         f"all steps ms {[round(t, 3) for t in step_ms]}"
     )
 
-    # ---- 5-7. phase-2 training ------------------------------------------------
+    # ---- 5-7. phase-2 training, 8-10. phase-3 training ------------------------
     try:
         fwd_rows, bwd_rows = phase5_backbone_kernels()
         card_vs_cpu = phase6_card_vs_cpu()
         phase2 = phase7_main_path()
+        rollout_rows, rollout_timing = phase8_rollout_kernels()
+        phase3_card_vs_cpu = phase9_card_vs_cpu()
+        phase3 = phase10_main_path()
     except SmokeFailure as e:
         return fail(str(e))
 
@@ -772,6 +1267,25 @@ def main() -> int:
         kernel_entry("fused_backbone_bwd", "fused_backbone.cu", "playableenvironments_tpu/ops/fused_nerf.py:404",
                      phase2["launches"][1], bwd_rows),
     ]
+    # B4/B5 per phase-3 step: two B4 launches that collect residuals (the
+    # generator pass) and two that do not (the discriminator pass), two B5.
+    # No single PyTorch call computes the rollout (torch.nn.LSTM / cuDNN
+    # cannot feed the head's output back as the next step's input), so
+    # library_ms is null.
+    t = rollout_timing
+    kernels += [
+        {"name": "fused_rollout_fwd", "route": "cuda", "source": "playableenvironments_tpu_torch/csrc/fused_rollout.cu",
+         "replaces": "playableenvironments_tpu/ops/fused_rollout_pallas.py:87", "launches": phase3["launches"][0],
+         "max_abs_err": max(r["fwd_max_rel_err"] for r in rollout_rows), "ms": 2 * (t["fwd_res_ms"] + t["fwd_ms"]),
+         "plain_ms": 2 * (t["fwd_res_plain_ms"] + t["fwd_plain_ms"]),
+         "bound_ms": 2 * (t["fwd_res_bound_ms"] + t["fwd_bound_ms"]), "bound_by": t["fwd_bound_by"],
+         "library_ms": None},
+        {"name": "fused_rollout_bwd", "route": "cuda", "source": "playableenvironments_tpu_torch/csrc/fused_rollout.cu",
+         "replaces": "playableenvironments_tpu/ops/fused_rollout_pallas.py:189", "launches": phase3["launches"][1],
+         "max_abs_err": max(r["bwd_max_rel_err"] for r in rollout_rows), "ms": 2 * t["bwd_ms"],
+         "plain_ms": 2 * t["bwd_plain_ms"], "bound_ms": 2 * t["bwd_bound_ms"], "bound_by": t["bwd_bound_by"],
+         "library_ms": None},
+    ]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -780,15 +1294,18 @@ def main() -> int:
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "shapes": shapes, "step_ms": step_ms, "frame_ms": frame_ms,
                    "backbone_fwd_shapes": fwd_rows, "backbone_bwd_shapes": bwd_rows,
-                   "train_card_vs_cpu": card_vs_cpu, "phase2": phase2, "kernels": kernels}, f, indent=1)
+                   "train_card_vs_cpu": card_vs_cpu, "phase2": phase2, "rollout_shapes": rollout_rows,
+                   "phase3_card_vs_cpu": phase3_card_vs_cpu, "phase3": phase3, "kernels": kernels}, f, indent=1)
     print(
         "tf32: torch.backends.cuda.matmul.allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn.allow_tf32="
         f"{torch.backends.cudnn.allow_tf32} (PyTorch defaults; the port sets neither)"
     )
-    print("kernel ms/plain_ms/library_ms/bound_ms are sums over the four launch shapes: per frame for "
-          "fused_adain_nerf, per train step for fused_backbone_fwd/bwd; max_abs_err of fused_backbone_bwd "
-          "is relative to each output's largest magnitude")
+    print("kernel ms/plain_ms/library_ms/bound_ms are sums over the launches of one frame (fused_adain_nerf) or "
+          "one train step (the others: the four phase-2 shapes for fused_backbone_fwd/bwd; 2 + 2 B4 and 2 B5 "
+          "launches of the phase-3 shape); max_abs_err of fused_backbone_bwd and fused_rollout_fwd/bwd is "
+          "relative to each output's largest magnitude; fused_rollout bounds use the f32 peak "
+          f"({PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s), the others the bf16 one ({PEAK_BF16_FLOPS / 1e12:.0f})")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 The inputs are nested dicts of numpy arrays (e.g. `jax.device_get` of a
 variables tree); nothing here imports JAX. Leaves map by name:
 - Dense `kernel` (in, out) -> Linear `weight` (out, in);
-- Conv `kernel` HWIO -> Conv2d `weight` OIHW;
+- Conv `kernel` HWIO -> Conv2d `weight` OIHW, and (k, in, out) -> Conv1d
+  `weight` (out, in, k);
 - BatchNorm `scale`/`bias` -> `weight`/`bias`, batch_stats `mean`/`var` ->
   `running_mean`/`running_var` (the AdaIN running statistics keep their
   names `norm.mean`/`norm.var`);
@@ -46,7 +47,8 @@ def load_flax_tree(module: nn.Module, params: Mapping, batch_stats: Optional[Map
                 raise KeyError(f"flax leaf {path!r} has no counterpart in {type(module).__name__}")
             tensor = torch.from_numpy(np.array(value, dtype=np.float32))
             if leaf == "kernel":
-                tensor = tensor.t() if tensor.dim() == 2 else tensor.permute(3, 2, 0, 1)
+                tensor = {2: lambda x: x.t(), 3: lambda x: x.permute(2, 1, 0),
+                          4: lambda x: x.permute(3, 2, 0, 1)}[tensor.dim()](tensor)
             if tuple(tensor.shape) != tuple(state[key].shape):
                 raise ValueError(
                     f"flax leaf {path!r} has shape {tuple(tensor.shape)}, "
@@ -99,11 +101,62 @@ def load_environment_model(model, variables: Mapping) -> list:
     return sorted(set(params) & skippable)
 
 
-def load_playable(playable_model, variables: Mapping) -> None:
-    """PlayableEnvironmentModel variables -> each animation model's
-    `dynamics_network` (other subtrees, such as the action network, belong
-    to the phase-3 slice and are not read)."""
+def _spectral_norm_stats(stats: Mapping) -> dict:
+    """flax SpectralNorm state {"SpectralNorm_k": {"{layer}/kernel/u": ..,
+    "{layer}/kernel/sigma": ..}} -> the discriminator's buffers
+    {"{layer}_u": .., "{layer}_sigma": ..}."""
+    out = {}
+    for wrapper in stats.values():
+        for path, value in wrapper.items():
+            layer, _, leaf = path.split("/")
+            out[f"{layer}_{leaf}"] = value
+    return out
+
+
+def load_playable(playable_model, variables: Mapping) -> list:
+    """PlayableEnvironmentModel variables -> render.playable_model.
+    PlayableEnvironmentModel, strictly per subtree: every animation model's
+    `dynamics_network`; its `action_network` (Dense layers, BN scale, bias
+    and running statistics) where the flax tree has one (a tree initialized
+    through the play loop's dynamics step has none); every discriminator
+    (Conv kernels, the Dense head, the spectral norms' `u`/`sigma` from
+    batch_stats) when the model has them. Unknown subtrees raise.
+
+    :return: sorted names of the port's submodules left at their seeded
+        initialization (action networks absent from the tree).
+    """
     params = variables["params"]
-    for name, module in playable_model.named_children():
+    stats = variables.get("batch_stats", {})
+    children = dict(playable_model.named_children())
+    unknown = set(params) - set(children)
+    if unknown:
+        raise KeyError(f"flax subtrees {sorted(unknown)} have no counterpart in PlayableEnvironmentModel")
+    left = []
+    for name, module in children.items():
         if name.startswith("animation_model_"):
-            load_flax_tree(module.dynamics_network, params[name]["dynamics_network"])
+            tree, tree_stats = params[name], stats.get(name, {})
+            extra = set(tree) - {"dynamics_network", "action_network"}
+            if extra:
+                raise KeyError(f"flax subtrees {sorted(extra)} of {name} have no counterpart")
+            load_flax_tree(module.dynamics_network, tree["dynamics_network"])
+            if "action_network" in tree:
+                load_flax_tree(module.action_network, tree["action_network"], tree_stats.get("action_network"))
+            else:
+                left.append(f"{name}.action_network")
+        elif name.startswith("discriminator_"):
+            if name not in params:
+                raise KeyError(f"no flax subtree for {name}")
+            load_flax_tree(module, params[name], _spectral_norm_stats(stats.get(name, {})))
+    return sorted(left)
+
+
+def load_playable_extra(trainer, extra: Mapping) -> None:
+    """The JAX TrainState's `extra` of a phase-3 state -> the trainer's
+    per-animation-model centroids and MI matrices (other entries, such as
+    the frozen environment and the discriminator's optimizer state, are not
+    read)."""
+    count = len(trainer.scene_animation_configs())
+    device = next(trainer.playable_model.parameters()).device
+    as_tensor = lambda x: torch.from_numpy(np.array(x, dtype=np.float32)).to(device)  # noqa: E731
+    trainer.centroids = [as_tensor(extra["centroids"][str(i)]) for i in range(count)]
+    trainer.mi_matrices = [as_tensor(extra["mi_matrices"][str(i)]) for i in range(count)]

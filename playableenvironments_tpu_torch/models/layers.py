@@ -1,6 +1,6 @@
 """Layers shared by the port's models: masked batch norm and AdaIN, the
 flax-semantics batch norm, pooling and the conv residual block, rotation
-encoding and seeded initialization.
+encoding, gumbel-softmax sampling and seeded initialization.
 
 Port of playableenvironments_tpu/models/layers.py. Parameter and buffer
 names follow the flax modules so that compat/from_flax.py maps one tree onto
@@ -58,26 +58,42 @@ def _update_running(running: torch.Tensor, batch: torch.Tensor, momentum: float)
 
 class MaskedBatchNorm(nn.Module):
     """Batch norm over every axis but the last, whose statistics ignore
-    masked-out elements; no scale or bias. Buffers `mean`/`var` hold the
-    running statistics (momentum 0.9)."""
+    masked-out elements. Buffers `mean`/`var` hold the running statistics
+    (momentum 0.9); `use_scale_bias` adds a learned `weight` (flax's
+    `scale`) and `bias`.
 
-    def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5, device=None):
+    With batch statistics, `update_stats=False` leaves the running
+    statistics as they are: the JAX trainer's discriminator pass runs the
+    action networks in train mode and discards their updates."""
+
+    def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5, use_scale_bias: bool = False,
+                 device=None):
         super().__init__()
         self.momentum = momentum
         self.epsilon = epsilon
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
+        if use_scale_bias:
+            self.weight = nn.Parameter(torch.ones(features, device=device))
+            self.bias = nn.Parameter(torch.zeros(features, device=device))
+        else:
+            self.weight = self.bias = None
 
     def forward(
-        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, use_running_average: bool = False
+        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, use_running_average: bool = False,
+        update_stats: bool = True,
     ) -> torch.Tensor:
         if use_running_average:
             mean, var = self.mean, self.var
         else:
             mean, var = masked_moments(x, mask, tuple(range(x.dim() - 1)))
-            _update_running(self.mean, mean, self.momentum)
-            _update_running(self.var, var, self.momentum)
-        return (x - mean) * torch.rsqrt(var + self.epsilon)
+            if update_stats:
+                _update_running(self.mean, mean, self.momentum)
+                _update_running(self.var, var, self.momentum)
+        y = (x - mean) * torch.rsqrt(var + self.epsilon)
+        if self.weight is not None:
+            y = y * self.weight + self.bias
+        return y
 
 
 class AffineTransformAdaIn(nn.Module):
@@ -134,6 +150,18 @@ class BatchNorm(nn.Module):
         return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
 
+def gumbel_softmax(rng, logits: torch.Tensor, temperature: float = 1.0, hard: bool = True) -> torch.Tensor:
+    """A differentiable sample of the categorical over the last axis, with
+    a straight-through hard one-hot when `hard`. The gumbel noise comes from
+    the caller's `gumbel` stream (utils.random)."""
+    gumbels = rng.gumbel("gumbel", logits.shape).to(logits.device)
+    y_soft = torch.softmax((logits + gumbels) / temperature, dim=-1)
+    if not hard:
+        return y_soft
+    y_hard = F.one_hot(y_soft.argmax(dim=-1), logits.shape[-1]).to(logits.dtype)
+    return y_hard + y_soft - y_soft.detach()
+
+
 def avg_pool(x: torch.Tensor, factor: int) -> torch.Tensor:
     """Non-overlapping average pool of NCHW by `factor`, the window clamped
     to the input so that inputs smaller than the factor pool to size 1."""
@@ -185,14 +213,14 @@ class ResidualBlock(nn.Module):
 
 
 def initialize_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded init of every Linear/Conv2d below `module`: normal weights of
+    """Seeded init of every Linear/Conv1d/Conv2d below `module`: normal weights of
     variance 1/fan_in (flax's lecun_normal scale), zero biases, BN at
     identity; then each submodule's own `reset_special_(generator)`, where it
     has one, for initializers that differ (AdaIN scale heads, the bender's
     near-zero output head)."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Linear, nn.Conv2d)):
+            if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                 fan_in = m.weight[0].numel()
                 w = torch.randn(m.weight.shape, generator=generator)
                 m.weight.copy_(w / math.sqrt(fan_in))

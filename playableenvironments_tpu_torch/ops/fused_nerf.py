@@ -39,6 +39,7 @@ from playableenvironments_tpu_torch.models.encoding import positional_encoding
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fused_nerf.cu"
 _BACKBONE_SOURCE = _SOURCE.with_name("fused_backbone.cu")
+_ROLLOUT_SOURCE = _SOURCE.with_name("fused_rollout.cu")  # B4/B5, wrapped in ops/fused_rollout.py
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 # Limits of the kernel's shared-memory layout (csrc/fused_nerf.cu).
@@ -192,7 +193,7 @@ def _library_path(source: Path) -> Path:
     return _BUILD_DIR / f"{source.stem}-{digest}.so"
 
 
-def build_kernels(sources: Tuple[Path, ...] = (_SOURCE, _BACKBONE_SOURCE)) -> Dict[str, str]:
+def build_kernels(sources: Tuple[Path, ...] = (_SOURCE, _BACKBONE_SOURCE, _ROLLOUT_SOURCE)) -> Dict[str, str]:
     """Compile each CUDA source with nvcc for sm_90a into the build
     directory, once per source content; the nvcc processes run together.
 

@@ -1,4 +1,4 @@
-"""The phase-2 optimizer.
+"""The training optimizer.
 
 Port of playableenvironments_tpu/train/state.py::make_optimizer: Adam (AdamW
 with weight decay) with the staircase schedule lr * gamma ** (step //
@@ -6,12 +6,13 @@ decay_iterations), evaluated, as optax does, at the step count before the
 update; per-group rates keyed by the top-level module name, and per-group
 freeze steps that hold a group's rate at 0. The JAX TrainState's parameters
 and batch statistics are the modules' own; its step count is the
-optimizer's.
+optimizer's. An explicit parameter subset gives the masked optimizers of
+the phase-3 trainer (generator and discriminator, each with its own count).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -31,11 +32,16 @@ class Optimizer:
         group_learning_rates: Optional[Dict[str, float]] = None,
         group_freeze_steps: Optional[Dict[str, int]] = None,
         betas: Tuple[float, float] = (0.9, 0.999),
+        named_parameters: Optional[Iterable[Tuple[str, nn.Parameter]]] = None,
     ):
+        """:param named_parameters: the (name, parameter) pairs to step;
+        default every parameter of `module`."""
         group_learning_rates = group_learning_rates or {}
         group_freeze_steps = group_freeze_steps or {}
         groups: Dict[str, list] = {}
-        for name, param in module.named_parameters():
+        named = list(module.named_parameters() if named_parameters is None else named_parameters)
+        self.parameters = [param for _, param in named]
+        for name, param in named:
             top = name.split(".")[0]
             groups.setdefault(top if top in group_learning_rates else "__main__", []).append(param)
         param_groups = [
@@ -67,6 +73,11 @@ class Optimizer:
         self.optimizer.zero_grad(set_to_none=True)
 
     def step(self) -> None:
+        # optax updates every leaf, with zeros where no gradient flowed; torch
+        # skips a parameter whose grad is None, and its moments would lag.
+        for param in self.parameters:
+            if param.grad is None:
+                param.grad = torch.zeros_like(param)
         for group in self.optimizer.param_groups:
             group["lr"] = self.learning_rate(group)
         self.optimizer.step()

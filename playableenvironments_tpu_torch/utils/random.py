@@ -1,8 +1,8 @@
 """Named random streams.
 
 The JAX package threads one PRNG key per named stream ("ray_sampling",
-"sampling", "alpha_noise", "style_shuffle", "divergence") into each
-training step. The port draws from one seeded torch.Generator per stream
+"sampling", "alpha_noise", "style_shuffle", "divergence" in phase 2,
+"action_sampling" and "gumbel" in phase 3) into each training step. The port draws from one seeded torch.Generator per stream
 through this small interface; a caller that must reproduce given draws
 (a parity test) passes any object with the same methods.
 """
@@ -13,7 +13,7 @@ from typing import Sequence
 
 import torch
 
-RNG_STREAMS = ("ray_sampling", "sampling", "alpha_noise", "style_shuffle", "divergence")
+RNG_STREAMS = ("ray_sampling", "sampling", "alpha_noise", "style_shuffle", "divergence", "action_sampling", "gumbel")
 
 
 class RngStreams:
@@ -43,3 +43,8 @@ class RngStreams:
 
     def permutation(self, stream: str, n: int) -> torch.Tensor:
         return self._draw(torch.randperm, stream, n)
+
+    def gumbel(self, stream: str, shape: Sequence[int]) -> torch.Tensor:
+        """Standard Gumbel draws, -log(-log(u)) with u uniform in [tiny, 1)."""
+        u = self.uniform(stream, shape).clamp_min(torch.finfo(torch.float32).tiny)
+        return -torch.log(-torch.log(u))

@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""Where the time of one phase-2 train step goes in the PyTorch port, on one
-CUDA card.
+"""Where the time of one train step goes in the PyTorch port, on one CUDA
+card: the phase-2 synthesis step or the phase-3 action-module G+D step.
 
-    python3 scripts/profile_torch_train.py [--steps 4]
+    python3 scripts/profile_torch_train.py [--phase 2|3] [--steps 4]
 
-Builds chip_smoke.py's phase-2 main path (bench.py's step: the tennis
-model at full width with the bf16 fused backbone, bs 8 x 4 observations x
-144 weighted rays at 288x512, Adam; seeded random weights), warms up two
-steps, then:
-- times the parts of a step with the host clock around a synchronize: the
-  forward with the losses, the backward, the optimizer update;
+Builds chip_smoke.py's main path of that phase, seeded random weights:
+phase 2, bench.py's step (the tennis model at full width with the bf16
+fused backbone, bs 8 x 4 observations x 144 weighted rays at 288x512,
+Adam); phase 3, bench.py's fused G+D step (bs 16 x 9 observations, 2
+players, dynamics 2 x 256, action network 3 x 128, GAN and ACMV). Warms up
+two steps, then:
+- times the parts of a step with the host clock around a synchronize:
+  phase 2, the forward with the losses, the backward, the optimizer
+  update; phase 3, the generator's forward with the losses, its backward,
+  its Adam update, and the whole discriminator pass;
 - traces whole steps with torch.profiler and prints the device time by
-  kernel name and by kind (the B2/B3 kernels, GEMMs, convolutions and
-  batch norm, the rest), the device-busy share of the step and the number
-  of device operations.
-Writes the tables to chiprun_out/profile_torch_train.json.
+  kernel name and by kind (the B2/B3 or B4/B5 kernels, GEMMs,
+  convolutions and batch norm, the rest), the device-busy share of the
+  step and the number of device operations.
+Writes the tables to chiprun_out/profile_torch_train.json (phase 2) or
+chiprun_out/profile_torch_train_phase3.json.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def kind_of(name: str) -> str:
     """A coarse class of a device kernel, from its name."""
     lowered = name.lower()
+    if "rollout_" in lowered:
+        return "fused rollout (B4/B5)"
     if "backbone_" in lowered:
         return "fused backbone (B2/B3)"
     if "fused_adain_nerf" in lowered:
@@ -51,17 +58,16 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--steps", type=int, default=4)
-    args = parser.parse_args()
+def _clock(torch, times):
+    torch.cuda.synchronize()
+    times.append(time.perf_counter())
 
+
+def phase2_step():
+    """(one train step, one step timed in parts) of chip_smoke.py's phase-2
+    main path."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("profile_torch_train: needs a CUDA card", file=sys.stderr)
-        return 1
-    sys.path.insert(0, REPO)
     from chip_smoke import phase2_batch, phase2_scene
     from playableenvironments_tpu_torch.render.environment_model import EnvironmentModel
     from playableenvironments_tpu_torch.train.trainer_synthesis import (
@@ -76,29 +82,77 @@ def main() -> int:
     ))
     batch = phase2_batch(torch, 8, 4, 288, 512, "cuda")
     rng = RngStreams(0, "cuda")
-    for _ in range(2):
-        trainer.train_step(batch, rng)
 
-    parts = {"forward_and_losses": [], "backward": [], "optimizer": [], "step": []}
-    for _ in range(args.steps):
+    def parts(torch):
         model.train()
         trainer.optimizer.zero_grad()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        times = []
+        _clock(torch, times)
         loss, _, _ = trainer.compute_losses(batch, rng, trainer.step)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
+        _clock(torch, times)
         loss.backward()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
+        _clock(torch, times)
         trainer.optimizer.step()
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        for name, ms in (("forward_and_losses", t1 - t0), ("backward", t2 - t1), ("optimizer", t3 - t2),
-                         ("step", t3 - t0)):
-            parts[name].append(ms * 1e3)
+        _clock(torch, times)
+        return ("forward_and_losses", "backward", "optimizer"), times
+
+    return (lambda: trainer.train_step(batch, rng)), parts
+
+
+def phase3_step():
+    """(one fused G+D step, one step timed in parts) of chip_smoke.py's
+    phase-3 main path; the parts are PlayableTrainer.fused_step's own
+    calls, in its order."""
+    from chip_smoke import phase3_trainer
+    from playableenvironments_tpu_torch.utils.random import RngStreams
+
+    trainer, encoding = phase3_trainer("cuda", seed=0)
+    rng = RngStreams(0, "cuda")
+
+    def parts(torch):
+        trainer.playable_model.train()
+        trainer.optimizer.zero_grad()
+        step = trainer.step
+        times = []
+        _clock(torch, times)
+        loss, _, extra, _ = trainer.compute_losses(encoding, rng, step)
+        _clock(torch, times)
+        loss.backward()
+        _clock(torch, times)
+        trainer.optimizer.step()
+        trainer.centroids, trainer.mi_matrices = extra["centroids"], extra["mi_matrices"]
+        _clock(torch, times)
+        trainer.discriminator_step(encoding, rng, step)
+        _clock(torch, times)
+        return ("generator_forward_and_losses", "generator_backward", "generator_adam", "discriminator_pass"), times
+
+    return (lambda: trainer.fused_step(encoding, rng)), parts
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phase", type=int, choices=(2, 3), default=2)
+    parser.add_argument("--steps", type=int, default=4)
+    args = parser.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_train: needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    step_fn, parts_fn = phase2_step() if args.phase == 2 else phase3_step()
+    for _ in range(2):
+        step_fn()
+
+    parts = {}
+    for _ in range(args.steps):
+        times = parts_fn(torch)
+        for name, ms in list(zip(times[0], [b - a for a, b in zip(times[1], times[1][1:])])) + [
+                ("step", times[1][-1] - times[1][0])]:
+            parts.setdefault(name, []).append(ms * 1e3)
     medians = {k: statistics.median(v) for k, v in parts.items()}
-    print("step parts, median ms (host clock, synchronized):",
+    print(f"phase-{args.phase} step parts, median ms (host clock, synchronized):",
           ", ".join(f"{k} {v:.3f}" for k, v in medians.items()))
 
     from torch.profiler import ProfilerActivity, profile
@@ -107,7 +161,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         for _ in range(args.steps):
-            trainer.train_step(batch, rng)
+            step_fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3 / args.steps
     from torch.autograd import DeviceType
@@ -138,7 +192,8 @@ def main() -> int:
     for r in rows[:30]:
         print(f"  {r['device_ms_per_step']:9.4f} ms {r['calls_per_step']:7.1f}x  {r['name'][:110]}")
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(REPO, "chiprun_out", "profile_torch_train.json"), "w") as f:
+    name = "profile_torch_train.json" if args.phase == 2 else "profile_torch_train_phase3.json"
+    with open(os.path.join(REPO, "chiprun_out", name), "w") as f:
         json.dump({"parts_ms": parts, "medians_ms": medians, "traced_wall_ms": wall_ms,
                    "device_ms": device_ms, "device_ops": launches, "device_ms_by_kind": kinds,
                    "kernels": rows}, f, indent=1)

@@ -43,10 +43,10 @@ def close(got, ref, tol=F32, err_msg=""):
 
 
 @contextlib.contextmanager
-def recorded_draws():
-    """Record every jax.random.uniform / normal / permutation result, in call order."""
+def recorded_draws(names=("uniform", "normal", "permutation")):
+    """Record every result of the named jax.random functions, in call order."""
     draws = []
-    originals = {name: getattr(jax.random, name) for name in ("uniform", "normal", "permutation")}
+    originals = {name: getattr(jax.random, name) for name in names}
 
     def recorder(name):
         def draw(*args, **kwargs):
@@ -87,6 +87,9 @@ class Replay:
 
     def permutation(self, stream, n):
         return self._next("permutation", stream, (n,)).long()
+
+    def gumbel(self, stream, shape):
+        return self._next("gumbel", stream, shape)
 
 
 def test_samplers_match_jax():

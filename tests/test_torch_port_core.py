@@ -183,7 +183,9 @@ def test_port_imports_no_jax():
     names = {str(path.relative_to(REPO)) for path in _port_sources()}
     for module in ("ops/fused_nerf.py", "ops/roi_crop.py", "models/object_encoders.py",
                    "models/parameter_encoders.py", "render/environment_model.py", "data/batching.py",
-                   "train/losses.py", "train/state.py", "train/trainer_synthesis.py", "utils/random.py"):
+                   "train/losses.py", "train/state.py", "train/trainer_synthesis.py", "utils/random.py",
+                   "ops/fused_rollout.py", "models/action.py", "models/discriminator.py",
+                   "render/playable_model.py", "train/trainer_playable.py"):
         assert f"playableenvironments_tpu_torch/{module}" in names, module
     assert len(names) > 30
     assert not offenders, offenders

@@ -152,3 +152,138 @@ def test_fused_backbone_autograd_launches_both_kernels(card):
     assert torch.equal(encoded.grad, d_encoded)
     for name, p in params.items():
         assert torch.equal(p.grad, grads[name].reshape(p.shape)), name
+
+
+def rollout_setup(card, batch, T, cfg, seed):
+    """chip_smoke.py's rollout case: seeded phase-3 dynamics (2 x 256) and inputs."""
+    sys_path_repo()
+    import chip_smoke
+
+    box = ((-0.75, 0.75), (-0.5, 0.5), (0.0, 2.15))
+    return chip_smoke.rollout_case(chip_smoke.phase3_animation_config(), box, batch, T, seed, card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,T,axis,force_rot,forced,gt", [
+    (16, 9, 2, True, 0.0, 5), (5, 6, 2, True, 0.0, 3), (5, 6, 1, False, None, 1), (5, 6, 0, False, 0.01, 0)])
+def test_rollout_kernels_match_plain_on_the_card(card, batch, T, axis, force_rot, forced, gt):
+    """B4 and B5 at the phase-3 shape and a ragged batch in each branch of
+    RolloutConfig against their plain versions on the same card (1e-4 of
+    each output's largest magnitude, chip_smoke.py states why), B5
+    bit-identical across launches, each launch counted once."""
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+
+    cfg = fr.RolloutConfig(axis, force_rot, forced, (1.5, 1.0, 2.15))
+    packed, inputs, cots = rollout_setup(card, batch, T, cfg, seed=batch + T + axis)
+    before = (fr.fused_rollout_fwd.launches, fr.fused_rollout_bwd.launches)
+    with torch.no_grad():
+        out, res = fr.fused_rollout_fwd(cfg, packed, *inputs, gt, True)
+        grads = fr.fused_rollout_bwd(cfg, packed, gt, res, cots, 7)
+        again = fr.fused_rollout_bwd(cfg, packed, gt, res, cots, 7)
+        torch.cuda.synchronize()
+        ref_out, ref_res = fr.plain_rollout_fwd(cfg, packed, *inputs, gt, True)
+        ref_grads = fr.plain_rollout_bwd(cfg, packed, gt, ref_res, cots, 7)
+    assert (fr.fused_rollout_fwd.launches, fr.fused_rollout_bwd.launches) == (before[0] + 1, before[1] + 2)
+    flat = lambda g: fr.param_list(g[0]) + list(g[1:])  # noqa: E731
+    assert all(torch.equal(a, b) for a, b in zip(flat(grads), flat(again)))
+    pairs = list(zip(out, ref_out)) + [(res[k], ref_res[k]) for k in ref_res] + list(zip(flat(grads), flat(ref_grads)))
+    for got, ref in pairs:
+        scale = ref.abs().max().item()
+        diff = (got - ref).abs()
+        assert diff.max().item() <= 1e-4 * scale and diff.mean().item() <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_rollout_autograd_launches_both_kernels(card):
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+
+    cfg = fr.RolloutConfig(2, True, 0.0, (1.5, 1.0, 2.15))
+    packed, inputs, cots = rollout_setup(card, 16, 9, cfg, seed=1)
+    leaves = [p.clone().requires_grad_() for p in fr.param_list(packed)]
+    actions = inputs[4].clone().requires_grad_()
+    before = (fr.fused_rollout_fwd.launches, fr.fused_rollout_bwd.launches)
+    out = fr.fused_rollout(cfg, fr.params_from_list(leaves, 2), *inputs[:4], actions, inputs[5], 5)
+    torch.autograd.backward(list(out), cots)
+    with torch.no_grad():
+        fr.fused_rollout(cfg, packed, *inputs, 5)
+    torch.cuda.synchronize()
+    assert (fr.fused_rollout_fwd.launches, fr.fused_rollout_bwd.launches) == (before[0] + 2, before[1] + 1)
+    _, res = fr.fused_rollout_fwd(cfg, packed, *inputs, 5, True)
+    grads = fr.fused_rollout_bwd(cfg, packed, 5, res, cots, 7)
+    for leaf, g in zip(leaves, fr.param_list(grads[0])):
+        assert torch.equal(leaf.grad, g)
+    assert torch.equal(actions.grad, grads[5])
+
+
+@pytest.mark.cuda
+def test_rollout_kernels_refuse_unsupported_shapes(card):
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+
+    cfg = fr.RolloutConfig(2, True, 0.0, (1.5, 1.0, 2.15))
+    packed, inputs, _ = rollout_setup(card, 4, 5, cfg, seed=2)
+    with pytest.raises(ValueError, match="float32"):
+        fr.fused_rollout_fwd(cfg, packed, inputs[0].double(), *inputs[1:], 3, False)
+    with pytest.raises(ValueError, match="at least 2 observations"):
+        fr.fused_rollout_fwd(cfg, packed, *(x[:, :1] for x in inputs[:4]), *(x[:, :0] for x in inputs[4:]), 0, False)
+    wide = packed._replace(wb=torch.zeros(48, 48, device=card))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fr.fused_rollout_fwd(cfg, wide, *inputs, 3, False)
+
+
+def sys_path_repo():
+    """chip_smoke.py lives at the repository's root."""
+    import sys
+
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+
+
+@pytest.mark.cuda
+def test_rollout_gradients_reach_the_dynamics_network_on_the_card(card):
+    """Through pack_dynamics_params, whose backbone weight is a transposed
+    view (B5 once returned its gradient transposed for it): the card's
+    parameter gradients against the same module's on the CPU."""
+    import copy
+
+    from playableenvironments_tpu_torch.models.dynamics import DynamicsNetwork
+    from playableenvironments_tpu_torch.models.layers import initialize_
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+
+    sys_path_repo()
+    import chip_smoke
+
+    anim = chip_smoke.phase3_animation_config()
+    box = ((-0.75, 0.75), (-0.5, 0.5), (0.0, 2.15))
+    cfg = fr.RolloutConfig(2, True, 0.0, (1.5, 1.0, 2.15))
+    host = initialize_(DynamicsNetwork(anim, box), torch.Generator().manual_seed(4))
+    device_net = copy.deepcopy(host).to(card)
+    _, inputs, cots = rollout_setup("cpu", 16, 9, cfg, seed=5)
+    assert not fr.pack_dynamics_params(host).wb.is_contiguous()
+    grads = []
+    for net, device in ((device_net, card), (host, "cpu")):
+        out = fr.fused_rollout(cfg, fr.pack_dynamics_params(net), *(x.to(device) for x in inputs), 5)
+        torch.autograd.backward(list(out), [c.to(device) for c in cots])
+        grads.append({n: p.grad.cpu() for n, p in net.named_parameters()})
+    for name, ref in grads[1].items():
+        scale = ref.abs().max().item()
+        assert (grads[0][name] - ref).abs().max().item() <= 1e-4 * scale, name
+
+
+@pytest.mark.cuda
+def test_rollout_kernel_takes_the_reference_atan2(card):
+    """The rotation delta at the pairs where the reference's atan formula
+    and atan2f part (s = -0.0 with c < 0, a tiny negative c): the head's
+    rotation columns zeroed so that its bias is every step's (sin, cos)."""
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+
+    cfg = fr.RolloutConfig(1, False, None, (1.5, 1.0, 2.15))
+    packed, inputs, _ = rollout_setup(card, 5, 6, cfg, seed=3)
+    for s, c in ((-0.0, -1.0), (1.0, -1e-25), (-1.0, -1e-25)):
+        whead, bhead = packed.whead.clone(), packed.bhead.clone()
+        whead[:, 2:4] = 0.0
+        bhead[0, 2], bhead[0, 3] = s, c
+        params = packed._replace(whead=whead, bhead=bhead)
+        with torch.no_grad():
+            got = fr.fused_rollout_fwd(cfg, params, *inputs, 1, False)[0][0]
+            ref = fr.plain_rollout_fwd(cfg, params, *inputs, 1, False)[0][0]
+        assert (got - ref).abs().max().item() <= 1e-5, (s, c)

@@ -1,8 +1,8 @@
-"""The port's phase-2 losses and optimizer against the JAX package on the
-CPU: each loss on seeded inputs (1e-6 relative), and three Adam / AdamW
-steps of train/state.py::Optimizer against optax's make_optimizer with the
-staircase schedule crossing a decay boundary, per-group rates and a frozen
-group (1e-6)."""
+"""The port's phase-2 and phase-3 losses and its optimizer against the JAX
+package on the CPU: each loss on seeded inputs (1e-6 relative), and three
+Adam / AdamW steps of train/state.py::Optimizer against optax's
+make_optimizer with the staircase schedule crossing a decay boundary,
+per-group rates and a frozen group (1e-6)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -95,3 +95,45 @@ def test_three_adam_steps_match_optax(weight_decay, groups):
         np.testing.assert_allclose(model.a.bias.detach().numpy(), np.asarray(params["a"]["bias"]), **TOL)
         np.testing.assert_allclose(model.b.weight.detach().numpy(), np.asarray(params["b"]["kernel"]).T, **TOL)
     assert opt.step_count == 3
+
+
+def test_phase3_losses_match_jax():
+    """The phase-3 losses on seeded inputs (1e-6 relative): Gaussian KL,
+    entropy, the joint matrix and the EMA-smoothed mutual information with
+    its carried matrix, both GAN modes, ACMV and its camera-relative
+    movements; a single-camera check and the missing axis raise."""
+    rng = np.random.default_rng(2)
+    dist = rng.normal(size=(3, 4, 2, 5)).astype(np.float32)
+    logits = rng.normal(size=(3, 4, 6)).astype(np.float32)
+    p1 = rng.dirichlet(np.ones(6), size=(3, 4)).astype(np.float32)
+    p2 = rng.dirichlet(np.ones(6), size=(3, 4)).astype(np.float32)
+    smoothing = rng.dirichlet(np.ones(36)).reshape(6, 6).astype(np.float32)
+    prediction = rng.normal(size=(7,)).astype(np.float32) * 3
+    movements = rng.normal(size=(3, 4, 3)).astype(np.float32)
+    camera_rotations = rng.normal(size=(3, 5, 1, 3)).astype(np.float32)
+    j = lambda x: jnp.asarray(x)  # noqa: E731
+    mi, matrix = losses.mutual_information_loss(t(p1), t(p2), 0.7, t(smoothing), 0.3)
+    jmi, jmatrix = jlosses.mutual_information_loss(j(p1), j(p2), 0.7, j(smoothing), 0.3)
+    mi_plain, _ = losses.mutual_information_loss(t(p1), t(p2))
+    pairs = [
+        (losses.kl_gaussian(t(dist)), jlosses.kl_gaussian(j(dist))),
+        (losses.entropy_logits(t(logits)), jlosses.entropy_logits(j(logits))),
+        (losses.joint_probability_matrix(t(p1), t(p2)), jlosses.joint_probability_matrix(j(p1), j(p2))),
+        (mi, jmi), (matrix, jmatrix),
+        (mi_plain, jlosses.mutual_information_loss(j(p1), j(p2))[0]),
+        (losses.acmv_loss(t(movements), t(p1)), jlosses.acmv_loss(j(movements), j(p1))),
+    ]
+    for mode in ("lsgan", "vanilla"):
+        for real in (True, False):
+            pairs.append((losses.gan_loss(t(prediction), real, mode), jlosses.gan_loss(j(prediction), real, mode)))
+    for axis in range(3):
+        pairs.append((losses.camera_relative_movements(t(movements), t(camera_rotations), axis),
+                      jlosses.camera_relative_movements(j(movements), j(camera_rotations), axis)))
+    for got, ref in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="single camera"):
+        losses.camera_relative_movements(t(movements), t(np.repeat(camera_rotations, 2, axis=2)), 2)
+    with pytest.raises(ValueError, match="acmv_rotation_axis"):
+        losses.camera_relative_movements(t(movements), t(camera_rotations), None)
+    with pytest.raises(ValueError, match="unknown gan mode"):
+        losses.gan_loss(t(prediction), True, "wgan")
