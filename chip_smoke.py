@@ -20,7 +20,8 @@ Phases, each fatal on failure:
 5. hold the fused backbone's forward (B2) and backward (B3) kernels against
    their plain versions at the four per-step launch shapes of the phase-2
    step and a ragged one, B3 twice on the same inputs (bit-identical), and
-   time kernel, plain version, library yardstick and bound;
+   time kernel, plain version, library yardstick and bound, B3's three
+   sub-kernels (CUDA events around each) and its scratch and peak memory;
 6. one train step of the phase-2 scene at 48x64 on the card and on the CPU
    from the same seeded weights, randomness off: loss, metrics, gradients,
    updated parameters and running statistics;
@@ -186,7 +187,7 @@ GRAD_REL_ATOL, GRAD_REL_MEAN = 5e-2, 1e-2
 # 4,608 rays): (object, points), one B2 and one B3 launch each.
 PHASE2_LAUNCHES = (("background", 4608 * 4), ("backplate", 4608 * 4),
                    ("player_1", 4608 * 32), ("player_2", 4608 * 32))
-PHASE2_RAGGED = 1000  # not a multiple of the kernels' 64-point tile
+PHASE2_RAGGED = 1000  # not a multiple of the kernels' 128-point tile
 PHASE2_STEPS = 6
 
 
@@ -352,6 +353,7 @@ def phase5_backbone_kernels():
     for index, (name, points) in enumerate(PHASE2_LAUNCHES + (("ragged", PHASE2_RAGGED),)):
         cfg, packed, encoded, g_h, g_alpha = phase5_inputs(points, seed=2 + index)
         bf = {k: v.to(torch.bfloat16).requires_grad_() for k, v in packed.items()}
+        saved = encoded.to(torch.bfloat16)  # the encodings as the autograd Function saves them for B3
         pe = encoded.shape[1]
         with torch.no_grad():
             h, alpha = fused_nerf.fused_backbone_fwd(cfg, packed, encoded)
@@ -359,8 +361,8 @@ def phase5_backbone_kernels():
             ref_h, ref_alpha = fused_nerf.plain_backbone_fwd(cfg, packed, encoded)
             err_h = check_close(f"B2 {name} h", h, ref_h, KERNEL_ATOL, KERNEL_RTOL, KERNEL_MEAN_ATOL)
             err_a = check_close(f"B2 {name} alpha", alpha, ref_alpha, KERNEL_ATOL, KERNEL_RTOL, KERNEL_MEAN_ATOL)
-            grads, d_enc = fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
-            again, d_enc_again = fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+            grads, d_enc = fused_nerf.fused_backbone_bwd(cfg, packed, saved, g_h, g_alpha)
+            again, d_enc_again = fused_nerf.fused_backbone_bwd(cfg, packed, saved, g_h, g_alpha)
             torch.cuda.synchronize()
             identical = torch.equal(d_enc, d_enc_again) and all(torch.equal(grads[k], again[k]) for k in grads)
             if not identical:
@@ -377,11 +379,18 @@ def phase5_backbone_kernels():
         fwd_flops, fwd_bytes, bwd_flops, bwd_bytes = backbone_work(cfg, pe, points)
         row = {"object": name, "points": points}
         if name != "ragged":
+            # Timed as the autograd Function calls them: the forward builds the
+            # weight image, the backward takes the forward's and the saved bf16
+            # encodings. kernel_ms leaves
+            # the image's build and the wrapper out: B2 on a prebuilt image, B3
+            # the sum of CUDA events around its three kernels.
             with torch.no_grad():
+                buffers = fused_nerf.backbone_buffers(cfg, packed)
                 ms = cuda_ms(lambda: fused_nerf.fused_backbone_fwd(cfg, packed, encoded))
+                kernel_ms = cuda_ms(lambda: fused_nerf.fused_backbone_fwd(cfg, packed, encoded, buffers))
                 plain_ms = cuda_ms(lambda: fused_nerf.plain_backbone_fwd(cfg, packed, encoded))
                 library_ms = cuda_ms(lambda: library_backbone(torch, cfg, bf, encoded))
-                bwd_ms = cuda_ms(lambda: fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha))
+                bwd_ms = cuda_ms(lambda: fused_nerf.fused_backbone_bwd(cfg, packed, saved, g_h, g_alpha, buffers))
                 bwd_plain_ms = cuda_ms(lambda: fused_nerf.plain_backbone_bwd(cfg, packed, encoded, g_h, g_alpha))
             lib_h, lib_alpha = library_backbone(torch, cfg, bf, encoded)
             cot = [g_h.to(torch.bfloat16), g_alpha.to(torch.bfloat16)]
@@ -389,27 +398,45 @@ def phase5_backbone_kernels():
             for b in bf.values():
                 b.grad = None
             del lib_h, lib_alpha
-            fwd_rows.append(dict(row, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            breakdown = [fused_nerf.backbone_bwd_breakdown(cfg, packed, saved, g_h, g_alpha) for _ in range(7)]
+            sub_ms = {k: statistics.median(b[k] for b in breakdown) for k in breakdown[0]}
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            shapes = fused_nerf.backbone_scratch_shapes(cfg, points, sms)
+            scratch_bytes = sum(math.prod(v) * (2 if k in ("x", "g") else 4) for k, v in shapes.items())
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fused_nerf.fused_backbone_bwd(cfg, packed, saved, g_h, g_alpha, buffers)
+            torch.cuda.synchronize()
+            peak_bytes = torch.cuda.max_memory_allocated() - base
+            fwd_rows.append(dict(row, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                                  bound_ms=max(fwd_flops / PEAK_BF16_FLOPS, fwd_bytes / PEAK_BYTES_PER_S) * 1e3,
                                  gflop=fwd_flops / 1e9, mbytes=fwd_bytes / 1e6,
                                  max_abs_err=max(err_h[0], err_a[0]), mean_abs_err=max(err_h[1], err_a[1])))
-            bwd_rows.append(dict(row, ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=bwd_library_ms,
+            bwd_rows.append(dict(row, ms=bwd_ms, kernel_ms=sum(sub_ms.values()), plain_ms=bwd_plain_ms,
+                                 library_ms=bwd_library_ms,
                                  bound_ms=max(bwd_flops / PEAK_BF16_FLOPS, bwd_bytes / PEAK_BYTES_PER_S) * 1e3,
                                  gflop=bwd_flops / 1e9, mbytes=bwd_bytes / 1e6,
-                                 max_abs_err=worst, mean_abs_err=worst_mean, errors=errs))
+                                 max_abs_err=worst, mean_abs_err=worst_mean, errors=errs,
+                                 sub_kernel_ms=sub_ms, scratch_bytes=scratch_bytes, peak_bytes=peak_bytes))
+            total = sum(sub_ms.values())
             print(f"B2 {name} ({points} points): max abs err {fwd_rows[-1]['max_abs_err']:.3e}, mean "
-                  f"{fwd_rows[-1]['mean_abs_err']:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-                  f"{library_ms:.4f} ms, bound {fwd_rows[-1]['bound_ms']:.4f} ms; "
-                  f"{fwd_flops / ms / 1e9:.1f} TFLOP/s")
+                  f"{fwd_rows[-1]['mean_abs_err']:.3e}; call {ms:.4f} ms (kernel {kernel_ms:.4f} ms, "
+                  f"{fwd_flops / kernel_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
+                  f"bound {fwd_rows[-1]['bound_ms']:.4f} ms")
             print(f"B3 {name} ({points} points): bit-identical across two launches; max err {worst:.3e} and mean "
-                  f"err {worst_mean:.3e} of each output's largest magnitude; kernel {bwd_ms:.4f} ms, plain "
-                  f"{bwd_plain_ms:.4f} ms, library {bwd_library_ms:.4f} ms, bound "
-                  f"{bwd_rows[-1]['bound_ms']:.4f} ms; {bwd_flops / bwd_ms / 1e9:.1f} TFLOP/s; d_encoded err "
+                  f"err {worst_mean:.3e} of each output's largest magnitude; call {bwd_ms:.4f} ms (kernels "
+                  f"{total:.4f} ms, {bwd_flops / total / 1e9:.1f} TFLOP/s), plain {bwd_plain_ms:.4f} ms, library "
+                  f"{bwd_library_ms:.4f} ms, bound {bwd_rows[-1]['bound_ms']:.4f} ms; d_encoded err "
                   f"{errs['d_encoded'][0]:.3e} (mean {errs['d_encoded'][1]:.3e}), weights' worst "
                   f"{max(v[0] for k, v in errs.items() if k != 'd_encoded'):.3e} (mean "
                   f"{max(v[1] for k, v in errs.items() if k != 'd_encoded'):.3e})")
+            print(f"B3 {name} ({points} points) sub-kernels, CUDA events around each (median of 7): "
+                  + ", ".join(f"{k[:-3]} {v:.4f} ms ({100 * v / total:.1f}%)" for k, v in sub_ms.items())
+                  + f"; scratch {scratch_bytes / 2**20:.1f} MiB allocated by the wrapper, peak memory "
+                  f"{peak_bytes / 2**20:.1f} MiB above the inputs during one launch")
         else:
-            print(f"B2/B3 ragged ({points} points, not a multiple of 64): B2 max abs err "
+            print(f"B2/B3 ragged ({points} points, not a multiple of 128): B2 max abs err "
                   f"{max(err_h[0], err_a[0]):.3e}; B3 bit-identical, max err {worst:.3e} of scale")
     return fwd_rows, bwd_rows
 
@@ -1303,7 +1330,9 @@ def main() -> int:
     )
     print("kernel ms/plain_ms/library_ms/bound_ms are sums over the launches of one frame (fused_adain_nerf) or "
           "one train step (the others: the four phase-2 shapes for fused_backbone_fwd/bwd; 2 + 2 B4 and 2 B5 "
-          "launches of the phase-3 shape); max_abs_err of fused_backbone_bwd and fused_rollout_fwd/bwd is "
+          "launches of the phase-3 shape); fused_backbone_fwd/bwd ms are whole wrapper calls as the autograd "
+          "Function makes them (the forward's weight-image build included; phase 5 prints the kernels' own "
+          "times beside them); max_abs_err of fused_backbone_bwd and fused_rollout_fwd/bwd is "
           "relative to each output's largest magnitude; fused_rollout bounds use the f32 peak "
           f"({PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s), the others the bf16 one ({PEAK_BF16_FLOPS / 1e12:.0f})")
     print(json.dumps({"kernels": kernels}))

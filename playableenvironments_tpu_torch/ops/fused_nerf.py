@@ -252,8 +252,9 @@ def _library() -> ctypes.CDLL:
 def _backbone_library() -> ctypes.CDLL:
     """csrc/fused_backbone.cu, built and loaded once per process."""
     lib = _load(_BACKBONE_SOURCE)
-    lib.fused_backbone_fwd_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.fused_backbone_bwd_launch.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.fused_backbone_fwd_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.fused_backbone_bwd_launch.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                                              + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)])
     lib.fused_backbone_fwd_launch.restype = ctypes.c_int
     lib.fused_backbone_bwd_launch.restype = ctypes.c_int
     return lib
@@ -385,11 +386,13 @@ def fused_object_field_eval(
 # ---------------------------------------------------------------------------
 
 # The backbone kernels pad the encoding to this many columns, work on tiles
-# of this many points and reduce weight gradients over chunks of this many
-# points (csrc/fused_backbone.cu: kPe, kRows, kChunk).
+# of this many points, and keep the ReLU masks of at most this many layers in
+# shared memory (csrc/fused_backbone.cu: kPe, kTile, kMaxLayers). Weights and
+# scratch are arrays of 64 x 64 bf16 blocks in wgmma's 128-byte swizzle.
 _BACKBONE_PE = 64
-_BACKBONE_TILE = 64
-_BACKBONE_CHUNK = 4096
+_BACKBONE_TILE = 128
+_BACKBONE_MAX_LAYERS = 8
+_BLOCK = 64
 
 
 def _backbone_sizes(cfg: NerfMLPConfig, encoded_size: int) -> List[int]:
@@ -500,23 +503,49 @@ def plain_backbone_bwd(
     return grads, d_encoded
 
 
-def backbone_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The backbone's weights as csrc/fused_backbone.cu reads them: bf16
-    matrices with the encoding rows zero-padded to 64, w_alpha last; f32
-    biases b_0 .. b_{L-1}, b_alpha."""
+def _layer_slots(cfg: NerfMLPConfig) -> List[List[Tuple[int, int]]]:
+    """For each layer, its slots of the weight image in order, each as
+    (first weight row, rows): 64 input rows of the layer's (in, W) matrix,
+    the encoding's rows zero-padded to 64 (csrc/fused_backbone.cu)."""
     width, skip = cfg.layers_width, cfg.skip_layer_idx
+    layers = []
+    for i in range(cfg.backbone_layers_count):
+        if i == 0:
+            layers.append([(0, _BACKBONE_PE)])
+        else:
+            slots = [(r, _BLOCK) for r in range(0, width, _BLOCK)]
+            if i == skip:
+                slots.append((width, _BACKBONE_PE))
+            layers.append(slots)
+    return layers
+
+
+def swizzled(row, col):
+    """Element offset of (row, col) in a 64 x 64 bf16 block of wgmma's
+    128-byte swizzle: row r holds 128 bytes whose 16-byte chunks are XOR-ed
+    with r % 8."""
+    return row * _BLOCK + ((col // 8) ^ (row % 8)) * 8 + col % 8
+
+
+def backbone_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backbone's weights as csrc/fused_backbone.cu reads them: the bf16
+    weight image (every layer's 64-row slots, each W/64 swizzled 64 x 64
+    blocks, then w_alpha) and the f32 biases b_0 .. b_{L-1}, b_alpha. A
+    handful of small kernels a launch: the slots' rows in one cat, one
+    cast, one gather for the swizzle."""
+    width = cfg.layers_width
     with torch.no_grad():
-        mats = []
-        for i in range(cfg.backbone_layers_count):
+        rows = []
+        for i, layer in enumerate(_layer_slots(cfg)):
             w = packed[f"w{i}"]
-            if i == 0:
-                mats.append(_padded(w, _BACKBONE_PE, width))
-            elif i == skip:
-                mats += [w[:width], _padded(w[width:], _BACKBONE_PE, width)]
-            else:
-                mats.append(w)
-        mats.append(packed["w_alpha"].reshape(1, width))
-        weights = torch.cat([m.reshape(-1) for m in mats]).to(torch.bfloat16).contiguous()
+            for first, count in layer:
+                block = w[first : first + count]  # fewer than 64 rows only for the encoding's
+                pad = _BLOCK - block.shape[0]
+                rows.append(torch.nn.functional.pad(block, (0, 0, 0, pad)) if pad else block)
+        slots = torch.cat(rows).to(torch.bfloat16).reshape(-1, _BLOCK, width // _BLOCK, _BLOCK)
+        blocks = slots.permute(0, 2, 1, 3).reshape(-1, _BLOCK * _BLOCK)
+        image = blocks[:, _unswizzle(blocks.device)]
+        weights = torch.cat([image.reshape(-1), packed["w_alpha"].reshape(-1).to(torch.bfloat16)])
         biases = torch.cat(
             [packed[f"b{i}"].reshape(-1) for i in range(cfg.backbone_layers_count)]
             + [packed["b_alpha"].reshape(-1)]
@@ -524,7 +553,25 @@ def backbone_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> Tup
     return weights, biases
 
 
+@functools.lru_cache(maxsize=None)
+def _unswizzle(device: torch.device) -> torch.Tensor:
+    """For each element of a swizzled 64 x 64 block, the row-major index of
+    the element it holds (the inverse of `swizzled`)."""
+    r, c = torch.meshgrid(torch.arange(_BLOCK), torch.arange(_BLOCK), indexing="ij")
+    index = torch.empty(_BLOCK * _BLOCK, dtype=torch.int64)
+    index[swizzled(r, c).reshape(-1)] = torch.arange(_BLOCK * _BLOCK)
+    return index.to(device)
+
+
+def _kernel_skip(cfg: NerfMLPConfig) -> int:
+    """The skip layer as the kernels take it: skip_layer_idx 0 means no
+    skip (as in _backbone_sizes), which the kernels read as `layers`."""
+    return cfg.skip_layer_idx or cfg.backbone_layers_count
+
+
 def _backbone_kernel_checks(cfg: NerfMLPConfig, encoded: torch.Tensor, tensors) -> None:
+    """Raises for what the kernels do not take: `tensors` must be f32 on
+    the card of `encoded`."""
     if encoded.device.type != "cuda":
         raise ValueError(f"the fused backbone runs on cuda or cpu tensors, not {encoded.device}")
     if cfg.compute_dtype != "bfloat16":
@@ -537,26 +584,30 @@ def _backbone_kernel_checks(cfg: NerfMLPConfig, encoded: torch.Tensor, tensors) 
         raise ValueError(f"layers_width {width} must be a multiple of 64, at most {_MAX_WIDTH}")
     if encoded.shape[1] > _BACKBONE_PE:
         raise ValueError(f"encoding width {encoded.shape[1]} exceeds the kernel's {_BACKBONE_PE}")
+    if cfg.backbone_layers_count > _BACKBONE_MAX_LAYERS:
+        raise ValueError(f"{cfg.backbone_layers_count} backbone layers exceed the kernel's {_BACKBONE_MAX_LAYERS}")
     for t in tensors:
         if t.device != encoded.device or t.dtype != torch.float32:
             raise ValueError(f"inputs must be float32 on {encoded.device}, got {t.dtype} on {t.device}")
 
 
 def fused_backbone_fwd(
-    cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encoded: torch.Tensor
+    cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encoded: torch.Tensor, buffers=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backbone + alpha head over (N, E) f32 encodings -> ((N, W) h, (N,) alpha).
 
     CPU tensors take `plain_backbone_fwd`. CUDA tensors launch the forward
-    kernel (counted in `fused_backbone_fwd.launches`); any other device, an
-    unsupported configuration, or a failed build or launch raises.
+    kernel (counted in `fused_backbone_fwd.launches`) on `buffers`, the
+    (weights, biases) of `backbone_buffers`, built here when not given; any
+    other device, an unsupported configuration, or a failed build or launch
+    raises.
     """
     if encoded.device.type == "cpu":
         return plain_backbone_fwd(cfg, packed, encoded)
     _backbone_kernel_checks(cfg, encoded, [encoded] + list(packed.values()))
     n, pe = encoded.shape
     width = cfg.layers_width
-    weights, biases = backbone_buffers(cfg, packed)
+    weights, biases = buffers if buffers is not None else backbone_buffers(cfg, packed)
     encoded = encoded.contiguous()
     h = torch.empty((n, width), dtype=torch.float32, device=encoded.device)
     alpha = torch.empty((n,), dtype=torch.float32, device=encoded.device)
@@ -565,7 +616,7 @@ def fused_backbone_fwd(
     lib = _backbone_library()
     err = lib.fused_backbone_fwd_launch(
         encoded.data_ptr(), weights.data_ptr(), biases.data_ptr(), h.data_ptr(), alpha.data_ptr(),
-        n, pe, width, cfg.backbone_layers_count, cfg.skip_layer_idx,
+        n, pe, width, cfg.backbone_layers_count, _kernel_skip(cfg), backbone_grid(n, _sm_count(encoded.device)),
         torch.cuda.current_stream(encoded.device).cuda_stream,
     )
     if err != 0:
@@ -611,68 +662,142 @@ def _unpack_backbone_grads(cfg: NerfMLPConfig, grads_out: torch.Tensor, pe: int)
     return grads
 
 
+def backbone_x_columns(cfg: NerfMLPConfig) -> List[List[int]]:
+    """For each layer, the X column blocks (`backbone_scratch_shapes`) that
+    feed its rows of the padded weight gradient, 64 rows each, in order: the
+    encoding (block 0) for layer 0; layer i's input, layer i - 1's
+    activation (blocks 1 + (i - 1) W/64 + j), then at the skip layer the
+    encoding again. The weight-gradient kernel pairs them into 128-row
+    output tiles within each layer."""
+    nb = cfg.layers_width // _BLOCK
+    columns = []
+    for i in range(cfg.backbone_layers_count):
+        if i == 0:
+            columns.append([0])
+        else:
+            columns.append([1 + (i - 1) * nb + j for j in range(nb)] + ([0] if i == cfg.skip_layer_idx else []))
+    return columns
+
+
+def backbone_grid(n: int, sm_count: int) -> int:
+    """CTAs of the persistent kernels (the forward and the backward's
+    per-tile kernel) for n points on a card of `sm_count` SMs: one per SM,
+    at most one per 128-point tile."""
+    return min(-(-n // _BACKBONE_TILE), sm_count)
+
+
+def backbone_scratch_shapes(cfg: NerfMLPConfig, n: int, sm_count: int) -> Dict[str, Tuple[int, ...]]:
+    """Shapes of the backward's scratch for n points on a card of
+    `sm_count` SMs: x (bf16 X blocks), g (bf16 G blocks), tile_part (f32
+    column sums, one row per warpgroup of the per-tile kernel's
+    `backbone_grid` CTAs), partial (f32 weight-gradient slabs, one per
+    point chunk of the dW product, as many chunks as fill the SMs once).
+    X[p, c] and G[p, c] hold points 64 p .. 64 p + 63 of feature columns
+    64 c .. 64 c + 63 as a 64 x 64 block in `swizzled` order."""
+    width, layers = cfg.layers_width, cfg.backbone_layers_count
+    point_blocks = 2 * -(-n // _BACKBONE_TILE)
+    dw_tiles = sum(-(-len(c) // 2) for c in backbone_x_columns(cfg))
+    chunks = max(1, min(point_blocks, sm_count // dw_tiles))
+    nb = width // _BLOCK
+    return {
+        "x": (point_blocks, 1 + (layers - 1) * nb, _BLOCK, _BLOCK),
+        "g": (point_blocks, layers * nb, _BLOCK, _BLOCK),
+        "tile_part": (2 * backbone_grid(n, sm_count), layers * width + width + 1),
+        "partial": (chunks, _backbone_grad_rows(cfg), width),
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _backbone_bwd(cfg, packed, encoded, g_h, g_alpha, buffers, ms):
+    """Launches the backward kernels on the bf16 rounding of `encoded`, all
+    they read of it; `ms`, a ctypes array of 3 floats or None, receives the
+    three kernels' times (the call then waits for them)."""
+    _backbone_kernel_checks(cfg, encoded, [g_h, g_alpha] + list(packed.values()))
+    n, pe = encoded.shape
+    width, layers, skip = cfg.layers_width, cfg.backbone_layers_count, _kernel_skip(cfg)
+    device = encoded.device
+    weights, biases = buffers if buffers is not None else backbone_buffers(cfg, packed)
+    encoded = encoded.to(torch.bfloat16).contiguous()
+    g_h, g_alpha = g_h.contiguous(), g_alpha.contiguous()
+    d_encoded = torch.empty((n, pe), dtype=torch.float32, device=device)
+    grads_out = torch.empty((_backbone_grad_rows(cfg) * width + layers * width + width + 1,),
+                            dtype=torch.float32, device=device)
+    if n == 0:
+        return _unpack_backbone_grads(cfg, grads_out.zero_(), pe), d_encoded
+    shapes = backbone_scratch_shapes(cfg, n, _sm_count(device))
+    scratch = {k: torch.empty(v, dtype=torch.bfloat16 if k in ("x", "g") else torch.float32, device=device)
+               for k, v in shapes.items()}
+    err = _backbone_library().fused_backbone_bwd_launch(
+        encoded.data_ptr(), g_h.data_ptr(), g_alpha.data_ptr(), weights.data_ptr(), biases.data_ptr(),
+        d_encoded.data_ptr(), *(scratch[k].data_ptr() for k in ("x", "g", "tile_part", "partial")),
+        grads_out.data_ptr(), n, pe, width, layers, skip, shapes["tile_part"][0] // 2, shapes["partial"][0],
+        torch.cuda.current_stream(device).cuda_stream, ms,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_backbone_bwd kernel launch failed with CUDA error {err}")
+    return _unpack_backbone_grads(cfg, grads_out, pe), d_encoded
+
+
 def fused_backbone_bwd(
     cfg: NerfMLPConfig,
     packed: Dict[str, torch.Tensor],
     encoded: torch.Tensor,
     g_h: torch.Tensor,
     g_alpha: torch.Tensor,
+    buffers=None,
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """The backbone's backward: ({name: gradient}, (N, E) d_encoded) for the
-    cotangents g_h (N, W) and g_alpha (N,).
+    """The backbone's backward: ({name: gradient}, (N, E) f32 d_encoded) for
+    the cotangents g_h (N, W) and g_alpha (N,). On the card the kernels
+    read only the bf16 rounding of `encoded` (f32 or bf16, as the autograd
+    Function saves it).
 
     CPU tensors take `plain_backbone_bwd`. CUDA tensors launch the backward
-    kernels (one call counted in `fused_backbone_bwd.launches`); the
-    gradients are bit-identical from run to run.
+    kernels (one call counted in `fused_backbone_bwd.launches`) on
+    `buffers` as in `fused_backbone_fwd`; the gradients are bit-identical
+    from run to run on one card.
     """
     if encoded.device.type == "cpu":
         return plain_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
-    _backbone_kernel_checks(cfg, encoded, [encoded, g_h, g_alpha] + list(packed.values()))
-    n, pe = encoded.shape
-    width, layers, skip = cfg.layers_width, cfg.backbone_layers_count, cfg.skip_layer_idx
-    device = encoded.device
-    weights, biases = backbone_buffers(cfg, packed)
-    encoded, g_h, g_alpha = encoded.contiguous(), g_h.contiguous(), g_alpha.contiguous()
-
-    tiles = -(-n // _BACKBONE_TILE)
-    n_pad = tiles * _BACKBONE_TILE
-    chunks = -(-n_pad // _BACKBONE_CHUNK)
-    rows_pad = _backbone_grad_rows(cfg)
-    tp_ld = layers * width + width + 1
-    d_encoded = torch.empty((n, pe), dtype=torch.float32, device=device)
-    grads_out = torch.zeros((rows_pad * width + tp_ld,), dtype=torch.float32, device=device)
-    if n:
-        x_scr = torch.empty((n_pad, _BACKBONE_PE + layers * width), dtype=torch.bfloat16, device=device)
-        g_scr = torch.empty((n_pad, layers * width), dtype=torch.bfloat16, device=device)
-        tile_part = torch.empty((tiles, tp_ld), dtype=torch.float32, device=device)
-        partial = torch.empty((chunks, rows_pad, width), dtype=torch.float32, device=device)
-        lib = _backbone_library()
-        err = lib.fused_backbone_bwd_launch(
-            encoded.data_ptr(), g_h.data_ptr(), g_alpha.data_ptr(), weights.data_ptr(),
-            biases.data_ptr(), d_encoded.data_ptr(), x_scr.data_ptr(), g_scr.data_ptr(),
-            tile_part.data_ptr(), partial.data_ptr(), grads_out.data_ptr(),
-            n, pe, width, layers, skip, torch.cuda.current_stream(device).cuda_stream,
-        )
-        if err != 0:
-            raise RuntimeError(f"fused_backbone_bwd kernel launch failed with CUDA error {err}")
+    out = _backbone_bwd(cfg, packed, encoded, g_h, g_alpha, buffers, None)
+    if encoded.shape[0]:
         fused_backbone_bwd.launches += 1
-
-    return _unpack_backbone_grads(cfg, grads_out, pe), d_encoded
+    return out
 
 
 fused_backbone_bwd.launches = 0
 
 
+def backbone_bwd_breakdown(cfg, packed, encoded, g_h, g_alpha) -> Dict[str, float]:
+    """One backward on the card, timed by CUDA events around its three
+    kernels (a measurement entry, not counted in the launches): ms of the
+    per-tile kernel, the weight-gradient GEMM and the reduction."""
+    ms = (ctypes.c_float * 3)()
+    _backbone_bwd(cfg, packed, encoded, g_h, g_alpha, None, ms)
+    return {"tile_ms": ms[0], "dw_ms": ms[1], "reduce_ms": ms[2]}
+
+
 class _FusedBackbone(torch.autograd.Function):
     """Forward: fused_backbone_fwd; backward: fused_backbone_bwd on the saved
-    (encoded, weights), as the JAX custom VJP saves (packed, encoded)."""
+    (encoded, weights), as the JAX custom VJP saves (packed, encoded). On
+    the card the forward's weight image is built once and kept for the
+    backward, and the encodings are kept as their bf16 rounding, all the
+    kernels read of them (half the memory of the f32 encodings)."""
 
     @staticmethod
     def forward(ctx, cfg, encoded, *tensors):
         packed = dict(zip(_backbone_names(cfg), tensors))
         ctx.cfg = cfg
-        ctx.save_for_backward(encoded, *tensors)
-        return fused_backbone_fwd(cfg, packed, encoded)
+        if encoded.device.type == "cpu":
+            ctx.buffers = None
+            ctx.save_for_backward(encoded, *tensors)
+        else:
+            ctx.buffers = backbone_buffers(cfg, packed)
+            ctx.save_for_backward(encoded.to(torch.bfloat16), *tensors)
+        return fused_backbone_fwd(cfg, packed, encoded, ctx.buffers)
 
     @staticmethod
     def backward(ctx, g_h, g_alpha):
@@ -683,7 +808,8 @@ class _FusedBackbone(torch.autograd.Function):
             g_h = torch.zeros(encoded.shape[0], ctx.cfg.layers_width, device=encoded.device)
         if g_alpha is None:
             g_alpha = torch.zeros(encoded.shape[0], device=encoded.device)
-        grads, d_encoded = fused_backbone_bwd(ctx.cfg, packed, encoded, g_h, g_alpha)
+        grads, d_encoded = fused_backbone_bwd(ctx.cfg, packed, encoded, g_h, g_alpha, ctx.buffers)
+        ctx.buffers = None
         return (None, d_encoded) + tuple(grads[k].reshape(packed[k].shape) for k in names)
 
 

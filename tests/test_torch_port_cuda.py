@@ -90,33 +90,45 @@ def test_session_on_the_card_launches_the_kernel_per_object(card):
 
 BACKBONE = NerfMLPConfig(output_features=3, compute_dtype="bfloat16", use_fused_backbone=True,
                          position_encoder=PositionalEncoderConfig(octaves=10))
+# The wgmma width and the ring's slot size follow layers_width.
+NARROW = {
+    128: NerfMLPConfig(layers_width=128, backbone_layers_count=6, skip_layer_idx=3, output_features=3,
+                       compute_dtype="bfloat16", use_fused_backbone=True,
+                       position_encoder=PositionalEncoderConfig(octaves=10)),
+    64: NerfMLPConfig(layers_width=64, backbone_layers_count=4, skip_layer_idx=2, output_features=3,
+                      compute_dtype="bfloat16", use_fused_backbone=True,
+                      position_encoder=PositionalEncoderConfig(octaves=4)),
+}
 
 
-def backbone_inputs(card, points, seed=1):
-    nerf = initialize_(AdaInNerfMLP(BACKBONE, 64, device=card), torch.Generator().manual_seed(0))
+def backbone_inputs(card, points, seed=1, cfg=BACKBONE):
+    nerf = initialize_(AdaInNerfMLP(cfg, 64, device=card), torch.Generator().manual_seed(0))
     packed = {k: v.detach().contiguous() for k, v in nerf.backbone_params().items()}
     g = torch.Generator().manual_seed(seed)
-    encoded = positional_encoding(torch.rand(points, 3, generator=g) * 2 - 1, 10, True).to(card)
-    g_h = (torch.randn(points, 256, generator=g) * 1e-3).to(card)
+    octaves = cfg.position_encoder.octaves
+    encoded = positional_encoding(torch.rand(points, 3, generator=g) * 2 - 1, octaves, True).to(card)
+    g_h = (torch.randn(points, cfg.layers_width, generator=g) * 1e-3).to(card)
     g_alpha = (torch.randn(points, generator=g) * 1e-3).to(card)
     return packed, encoded, g_h, g_alpha
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("points", [18432, 1000])
-def test_backbone_kernels_match_plain_on_the_card(card, points):
-    """Tennis widths (8x256, encoding 63): B2 and B3 against their plain
-    versions on the same card, a ragged last tile included, B3
-    bit-identical across launches, each launch counted once."""
-    packed, encoded, g_h, g_alpha = backbone_inputs(card, points)
+@pytest.mark.parametrize("points,width", [(18432, 256), (1000, 256), (37, 256), (1000, 128), (37, 128), (1000, 64)])
+def test_backbone_kernels_match_plain_on_the_card(card, points, width):
+    """B2 and B3 against their plain versions on the same card, at the
+    tennis widths (8x256, encoding 63) and narrower ones, a ragged last tile
+    and a launch of less than one 128-point tile included, B3 bit-identical
+    across launches, each launch counted once."""
+    cfg = BACKBONE if width == 256 else NARROW[width]
+    packed, encoded, g_h, g_alpha = backbone_inputs(card, points, cfg=cfg)
     before = (fused_nerf.fused_backbone_fwd.launches, fused_nerf.fused_backbone_bwd.launches)
     with torch.no_grad():
-        got = fused_nerf.fused_backbone_fwd(BACKBONE, packed, encoded)
-        grads, d_encoded = fused_nerf.fused_backbone_bwd(BACKBONE, packed, encoded, g_h, g_alpha)
-        again, d_encoded_again = fused_nerf.fused_backbone_bwd(BACKBONE, packed, encoded, g_h, g_alpha)
+        got = fused_nerf.fused_backbone_fwd(cfg, packed, encoded)
+        grads, d_encoded = fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+        again, d_encoded_again = fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
         torch.cuda.synchronize()
-        ref = fused_nerf.plain_backbone_fwd(BACKBONE, packed, encoded)
-        ref_grads, ref_d_encoded = fused_nerf.plain_backbone_bwd(BACKBONE, packed, encoded, g_h, g_alpha)
+        ref = fused_nerf.plain_backbone_fwd(cfg, packed, encoded)
+        ref_grads, ref_d_encoded = fused_nerf.plain_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
     assert (fused_nerf.fused_backbone_fwd.launches, fused_nerf.fused_backbone_bwd.launches) == (before[0] + 1, before[1] + 2)
     assert torch.equal(d_encoded, d_encoded_again) and all(torch.equal(grads[k], again[k]) for k in grads)
     for g_, r in zip(got, ref):  # chip_smoke.py states these bounds and why
