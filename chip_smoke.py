@@ -34,7 +34,9 @@ Phases, each fatal on failure:
    against their plain versions at the phase-3 shape (16 x 9, F 256, 2
    layers), a ragged 5 x 6 batch for each other RolloutConfig branch and the
    play loop's 1 x 128 dynamics, B5 twice (bit-identical), and time kernel,
-   plain version and bound;
+   plain version and bound, B5's two kernels apart (CUDA events around
+   each), and each case's cluster size, shared memory and how many of its
+   clusters the card places at once (cudaOccupancyMaxActiveClusters);
 9. one phase-3 G+D step at full width on the card and on the CPU from the
    same seeded weights and the same random draws: loss, metrics, both
    passes' gradients, parameters, running statistics, u/sigma, centroids
@@ -786,6 +788,15 @@ def phase8_rollout_kernels(device="cuda"):
                     "bwd_ms": cuda_ms(lambda: fr.fused_rollout_bwd(cfg, packed, gt, res, cots, A)),
                     "bwd_plain_ms": cuda_ms(lambda: fr.plain_rollout_bwd(cfg, packed, gt, ref_res, cots, A)),
                 }
+                # The launches apart: CUDA events around each (B4: the image
+                # gather, the rollout; B5: the gather, the recurrence, the
+                # weight gradients).
+                for key, call in (
+                        ("fwd_res", lambda: fr.rollout_fwd_breakdown(cfg, packed, inputs, gt, True)),
+                        ("fwd", lambda: fr.rollout_fwd_breakdown(cfg, packed, inputs, gt, False)),
+                        ("bwd", lambda: fr.rollout_bwd_breakdown(cfg, packed, gt, res, cots, A))):
+                    runs = [call() for _ in range(8)][1:]
+                    timing.update({f"{key}_{k}": statistics.median(b[k] for b in runs) for k in runs[0]})
             timing.update(
                 fwd_res_bound_ms=bound_ms(ff, fb)[0], fwd_bound_ms=bound_ms(ff, fb_nores)[0],
                 fwd_bound_by=bound_ms(ff, fb)[1], bwd_bound_ms=bound_ms(bf, bb)[0], bwd_bound_by=bound_ms(bf, bb)[1],
@@ -793,16 +804,40 @@ def phase8_rollout_kernels(device="cuda"):
                 bwd_mbytes=bb / 1e6,
             )
             row.update(timing)
+        if device == "cuda":
+            # The gather of the weight images against its plain version.
+            S, D, V = inputs[2].shape[-1], inputs[3].shape[-1], inputs[5].shape[-1]
+            layout = fr.rollout_layout(packed.wb.shape[0], len(packed.wx), 9 + S + D + A + V, 9 + S + D)
+            with torch.no_grad():
+                images = (fr.card_image(packed, S, D, A, V, True), fr.card_image(packed, S, D, A, V, False))
+                ref_images = (fr.rollout_fwd_image(packed, layout), fr.rollout_bwd_image(packed, layout))
+            if not all(torch.equal(a, b) for a, b in zip(images[0] + images[1:], ref_images[0] + ref_images[1:])):
+                raise SmokeFailure(f"B4/B5 {name}: the card's weight images differ from rollout_fwd_image / _bwd_image")
+            # The cluster each kernel runs on and how many of them the card
+            # places at once with this shared memory.
+            for kind, fwd in (("fwd", True), ("bwd", False)):
+                n, smem, clusters = fr.max_active_clusters(packed, fwd)
+                if clusters < 1:
+                    raise SmokeFailure(f"B4/B5 {name}: no {kind} cluster of {n} CTAs with {smem} B places on the card")
+                row.update({f"{kind}_cluster": n, f"{kind}_smem_bytes": smem, f"{kind}_max_active_clusters": clusters})
         rows.append(row)
         print(f"B4/B5 {name} ({batch} x {T}, F {row['features']}, {row['layers']} layers): B4 max err "
               f"{row['fwd_max_rel_err']:.3e} (mean {row['fwd_mean_rel_err']:.3e}) of each output's largest "
               f"magnitude, residuals included; B5 bit-identical across two launches, max err "
               f"{row['bwd_max_rel_err']:.3e} (mean {row['bwd_mean_rel_err']:.3e})"
+              + (f"; clusters of {row['fwd_cluster']} CTAs, {row['fwd_smem_bytes']} / {row['bwd_smem_bytes']} B "
+                 f"shared memory each (B4 / B5), {row['fwd_max_active_clusters']} / "
+                 f"{row['bwd_max_active_clusters']} clusters place at once" if device == "cuda" else "")
               + (f"; B4 {timing['fwd_res_ms']:.4f} ms with residuals / {timing['fwd_ms']:.4f} ms without "
                  f"(plain {timing['fwd_res_plain_ms']:.4f} / {timing['fwd_plain_ms']:.4f}, bound "
                  f"{timing['fwd_res_bound_ms']:.4f} / {timing['fwd_bound_ms']:.4f}, {timing['fwd_bound_by']}); "
                  f"B5 {timing['bwd_ms']:.4f} ms (plain {timing['bwd_plain_ms']:.4f}, bound "
-                 f"{timing['bwd_bound_ms']:.4f}, {timing['bwd_bound_by']})" if index == 0 and timing else ""))
+                 f"{timing['bwd_bound_ms']:.4f}, {timing['bwd_bound_by']}); the launches alone: B4 gather "
+                 f"{timing['fwd_res_image_ms']:.4f} + rollout {timing['fwd_res_kernel_ms']:.4f} ms with residuals, "
+                 f"{timing['fwd_image_ms']:.4f} + {timing['fwd_kernel_ms']:.4f} without; B5 gather "
+                 f"{timing['bwd_image_ms']:.4f} + recurrence {timing['bwd_recurrence_ms']:.4f} + weight "
+                 f"gradients {timing['bwd_wgrad_ms']:.4f} ms"
+                 if index == 0 and timing else ""))
     return rows, timing
 
 
@@ -1322,7 +1357,8 @@ def main() -> int:
         json.dump({"card": smi, "shapes": shapes, "step_ms": step_ms, "frame_ms": frame_ms,
                    "backbone_fwd_shapes": fwd_rows, "backbone_bwd_shapes": bwd_rows,
                    "train_card_vs_cpu": card_vs_cpu, "phase2": phase2, "rollout_shapes": rollout_rows,
-                   "phase3_card_vs_cpu": phase3_card_vs_cpu, "phase3": phase3, "kernels": kernels}, f, indent=1)
+                   "phase3_card_vs_cpu": phase3_card_vs_cpu, "phase3": phase3, "kernels": kernels,
+                   "ptxas": reports}, f, indent=1)
     print(
         "tf32: torch.backends.cuda.matmul.allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn.allow_tf32="

@@ -18,12 +18,19 @@ kernel's backward has a plain twin to be held against. `fused_rollout` is
 the torch.autograd.Function over both; it collects residuals only when
 autograd needs them. All functions are single-object; the caller loops
 over objects (they have distinct parameters and may have distinct configs).
+
+The kernels split each 16-row tile over a thread-block cluster
+(`rollout_layout`) and stream per-CTA slices of a weight image that the
+launchers gather on the card at every call; `rollout_fwd_image` and
+`rollout_bwd_image` are that gather's plain versions, which the tests read
+through a copy of the kernels' index arithmetic.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -33,9 +40,17 @@ from playableenvironments_tpu_torch.ops import fused_nerf
 GATES = ("i", "f", "g", "o")
 
 _SOURCE = fused_nerf._ROLLOUT_SOURCE
-# Limits of csrc/fused_rollout.cu: batch rows per CTA, layers, features and
-# the shared memory one CTA may take on an H100.
+# Limits of csrc/fused_rollout.cu: batch rows per cluster, CTAs per cluster
+# (non-portable size; 8 where F is not a multiple of 64), consumer threads
+# per CTA, floats per ring slot, ring slots, layers, features, and the
+# shared memory one CTA may take on an H100 (the exchange and ring barriers
+# take _BAR_BYTES of it).
 _TILE = 16
+_CLUSTER = 16
+_CONSUMERS = 256
+_SLOT_FLOATS = 4096
+_MAX_STAGES = 8
+_BAR_BYTES = (2 * _MAX_STAGES + 1) * 8
 _MAX_LAYERS = 4
 _MAX_FEATURES = 256
 _MAX_SMEM = 232448
@@ -402,12 +417,13 @@ def plain_rollout_bwd(cfg: RolloutConfig, params: PackedParams, gt_count: int, r
 def _library() -> ctypes.CDLL:
     """csrc/fused_rollout.cu, built and loaded once per process."""
     lib = fused_nerf._load(_SOURCE)
-    lib.fused_rollout_fwd_launch.argtypes = (
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 + [ctypes.c_float] * 4 + [ctypes.c_void_p])
-    lib.fused_rollout_bwd_launch.argtypes = (
-        [ctypes.c_void_p] * 17 + [ctypes.c_int] * 12 + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-    lib.fused_rollout_fwd_launch.restype = ctypes.c_int
-    lib.fused_rollout_bwd_launch.restype = ctypes.c_int
+    lib.fused_rollout_fwd_launch.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+    lib.fused_rollout_bwd_launch.argtypes = [ctypes.c_void_p] * 23
+    lib.fused_rollout_image_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+    lib.fused_rollout_max_clusters.argtypes = [ctypes.c_int] * 3
+    for fn in (lib.fused_rollout_fwd_launch, lib.fused_rollout_bwd_launch, lib.fused_rollout_image_launch,
+               lib.fused_rollout_max_clusters):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -418,14 +434,127 @@ def _pointers(tensors: Sequence[torch.Tensor]) -> ctypes.c_void_p:
     return ctypes.cast(array, ctypes.c_void_p)  # the cast keeps a reference to the array
 
 
-def _smem_bytes(features, layers, in0, head, state_width, fwd) -> int:
-    """Dynamic shared memory of one CTA (csrc/fused_rollout.cu's layout)."""
-    z_width = max(4 * features, features + head)
+class RolloutLayout(NamedTuple):
+    """How csrc/fused_rollout.cu splits one 16-row tile over a cluster of
+    CTAs: CTA q owns hidden units [q U, (q + 1) U) of every gate and layer
+    (and the same backbone columns), head columns [q HU, (q + 1) HU) in the
+    forward and input-gradient columns [q XU, (q + 1) XU) in the backward."""
+
+    cluster: int  # n, CTAs per 16-row tile
+    units: int  # U = F / n
+    head_cols: int  # HU = ceil(H / n), rounded up to 4
+    in_cols: int  # XU = ceil(in0 / n), rounded up to 4
+    features: int
+    layers: int
+    in0: int
+    head: int
+
+
+def _round4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def rollout_layout(features: int, layers: int, in0: int, head: int) -> RolloutLayout:
+    """The cluster split for these sizes: 16 CTAs where F is a multiple of
+    64, else 8, so that each CTA's U units are a multiple of 4 (16-byte
+    rows of the weight image)."""
+    n = _CLUSTER if features % (4 * _CLUSTER) == 0 else _CLUSTER // 2
+    return RolloutLayout(n, features // n, _round4(-(-head // n)), _round4(-(-in0 // n)), features, layers, in0,
+                         head)
+
+
+def rollout_segments(layout: RolloutLayout, fwd: bool) -> List[Tuple[int, int]]:
+    """The (K rows, W floats per row) segments of one CTA's weight image, in
+    the order the kernel streams them each step (forward_segments /
+    backward_segments in the source)."""
+    F, U = layout.features, layout.units
     if fwd:
-        floats = _TILE * (state_width + in0 + 2 * layers * features + z_width)
+        segments = []
+        for layer in range(layout.layers):
+            segments += [(F, 4 * U), (layout.in0 if layer == 0 else F, 4 * U)]
+        return segments + [(F, U), (F, layout.head_cols)]
+    return [(layout.head, U), (F, U)] + [
+        (4 * F, U + (U if layer > 0 else layout.in_cols)) for layer in range(layout.layers - 1, -1, -1)]
+
+
+def _image(layout: RolloutLayout, fwd: bool, like: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """An empty (n, per-CTA floats) image and each segment's (n, K, W) view of it."""
+    segments = rollout_segments(layout, fwd)
+    image = like.new_empty(layout.cluster, sum(k * w for k, w in segments))
+    views, offset = [], 0
+    for k, w in segments:
+        views.append(image[:, offset:offset + k * w].view(layout.cluster, k, w))
+        offset += k * w
+    return image, views
+
+
+def rollout_fwd_image(params: PackedParams, layout: RolloutLayout) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward's per-call weight image (a gather, no product): for CTA q,
+    each layer's wh then wx restricted to its units' gate columns, k-major,
+    column u * 4 + gate; then wb's columns [q U, (q + 1) U) and whead's
+    columns [q HU, (q + 1) HU) (zero past H). And the biases in the same
+    column orders: (n, L 4U + U + HU)."""
+    n, U, HU, F = layout.cluster, layout.units, layout.head_cols, layout.features
+    image, views = _image(layout, True, params.wb)
+    for layer in range(layout.layers):
+        for j, w in enumerate((params.wh[layer], params.wx[layer])):
+            views[2 * layer + j].view(n, w.shape[0], U, 4).copy_(w.reshape(w.shape[0], 4, n, U).permute(2, 0, 3, 1))
+    views[-2].copy_(params.wb.reshape(F, n, U).permute(1, 0, 2))
+    pad = n * HU - layout.head
+    views[-1].copy_(torch.nn.functional.pad(params.whead, (0, pad)).reshape(F, n, HU).permute(1, 0, 2))
+    bias = torch.cat([b.reshape(4, n, U).permute(1, 2, 0).reshape(n, 4 * U) for b in params.bh]
+                     + [params.bb.reshape(n, U), torch.nn.functional.pad(params.bhead, (0, pad)).reshape(n, HU)], dim=1)
+    return image, bias
+
+
+def rollout_bwd_image(params: PackedParams, layout: RolloutLayout) -> torch.Tensor:
+    """The backward's per-call weight image (a gather, no product): for CTA
+    q, whead's rows [q U, (q + 1) U) and wb's, each k-major over their
+    columns; then per layer, top down, over the 4F gate columns c: wh[own
+    units, c] beside wx[own units, c] (layer 0: wx's input rows
+    [q XU, (q + 1) XU), zero past in0)."""
+    n, U, XU, F = layout.cluster, layout.units, layout.in_cols, layout.features
+    image, views = _image(layout, False, params.wb)
+    views[0].copy_(params.whead.reshape(n, U, layout.head).permute(0, 2, 1))
+    views[1].copy_(params.wb.reshape(n, U, F).permute(0, 2, 1))
+    for i, layer in enumerate(range(layout.layers - 1, -1, -1)):
+        view = views[2 + i]
+        view[:, :, :U].copy_(params.wh[layer].reshape(n, U, 4 * F).permute(0, 2, 1))
+        wx = params.wx[layer]
+        if layer == 0:
+            wx = torch.nn.functional.pad(wx, (0, 0, 0, n * XU - layout.in0))
+        view[:, :, U:].copy_(wx.reshape(n, -1, 4 * F).permute(0, 2, 1))
+    return image
+
+
+def _smem_bytes(layout: RolloutLayout, stages: int, fwd: bool) -> int:
+    """Dynamic shared memory of one CTA (fwd_smem / bwd_smem in the source)."""
+    n, U, HU, XU, F, L = (layout.cluster, layout.units, layout.head_cols, layout.in_cols, layout.features,
+                          layout.layers)
+    t, SW = _TILE, layout.head - 3
+    floats = stages * _SLOT_FLOATS + _CONSUMERS * t + _round4(t * SW)  # ring, k-group partials, state
+    if fwd:
+        floats += (2 * L * F * t + F * t + n * HU * t + layout.in0 * t + _round4(t * (layout.in0 - 3))
+                   + t * max(U, HU) + L * U * t + _round4(L * 4 * U + U + HU))
     else:
-        floats = _TILE * (state_width + 6 + 2 * layers * features + z_width + max(in0, features))
-    return 4 * floats
+        prefetch = _round4(12 + U + 6 * L * U + SW)
+        floats += (4 * F * t + F * t + n * XU * t + layout.head * t + 6 * t + 2 * L * U * t + 2 * t * prefetch
+                   + t * (U + max(U, XU)) + t * max(4 * U, XU))
+    return 4 * floats + _BAR_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def _stages(layout: RolloutLayout, fwd: bool) -> int:
+    """Ring slots: as many as fit beside the rest, at most 8; at least 2."""
+    spare = _MAX_SMEM - _smem_bytes(layout, 0, fwd)
+    stages = min(_MAX_STAGES, spare // (4 * _SLOT_FLOATS))
+    if stages < 2:
+        raise ValueError(f"the rollout {'forward' if fwd else 'backward'} needs {_smem_bytes(layout, 2, fwd)} "
+                         f"bytes of shared memory per CTA, more than the card's {_MAX_SMEM}")
+    if max(w for _, w in rollout_segments(layout, fwd)) > _CONSUMERS:
+        raise ValueError(f"the rollout's input width {layout.in0} is too wide for its cluster split")
+    return stages
 
 
 def _kernel_checks(cfg: RolloutConfig, params: PackedParams, tensors: Sequence[torch.Tensor], T: int) -> None:
@@ -473,136 +602,279 @@ def check_shapes(params: PackedParams, batch: int, T: int, S: int, D: int, A: in
             raise ValueError(f"{name} has shape {tuple(got[name].shape)}, the kernels need {shape}")
 
 
-def _dims(params: PackedParams, style: torch.Tensor, deform: torch.Tensor):
-    features, layers = params.wb.shape[0], len(params.wx)
-    in0 = params.wx[0].shape[0]
-    head = params.whead.shape[1]
-    state_width = 6 + style.shape[-1] + deform.shape[-1]
-    return features, layers, in0, head, state_width
+# Signatures (config, sizes, and every tensor's shape, type and device) that
+# passed _kernel_checks and check_shapes; a wrapper call checks again only
+# what it has not seen.
+_VALIDATED = set()
 
 
-def _check_smem(params, style, deform, fwd: bool) -> None:
-    features, layers, in0, head, state_width = _dims(params, style, deform)
-    need = _smem_bytes(features, layers, in0, head, state_width, fwd)
-    if need > _MAX_SMEM:
-        raise ValueError(f"the rollout {'forward' if fwd else 'backward'} needs {need} bytes of shared memory "
-                         f"per CTA, more than the card's {_MAX_SMEM}")
+def _validate(cfg: RolloutConfig, params: PackedParams, T: int, sizes: Tuple[int, ...],
+              named: Dict[str, torch.Tensor]) -> None:
+    """_kernel_checks and check_shapes (sizes: batch, S, D, A, V), once per signature."""
+    tensors = list(named.values()) + param_list(params)
+    key = (cfg, T, sizes, tuple(named), tuple((t.shape, t.dtype, t.device) for t in tensors))
+    if key in _VALIDATED:
+        return
+    _kernel_checks(cfg, params, list(named.values()), T)
+    batch, S, D, A, V = sizes
+    check_shapes(params, batch, T, S, D, A, V, named)
+    _VALIDATED.add(key)
 
 
-def _config_args(cfg: RolloutConfig):
+def _launch_args(cfg: RolloutConfig, layout: RolloutLayout, batch: int, T: int, S: int, D: int, A: int, V: int,
+                 gt_count: int, stages: int):
+    """The launchers' int and float arrays (make_dims in the source)."""
     forced = cfg.force_axis_translation
-    return [cfg.rotation_axis, int(cfg.force_rotations_zero), int(forced is not None)], [
-        float(forced or 0.0)] + [1.0 / b for b in cfg.box_size]
+    ints = [batch, T, layout.features, layout.layers, S, D, A, V, gt_count, cfg.rotation_axis,
+            int(cfg.force_rotations_zero), int(forced is not None), layout.cluster, layout.units, layout.head_cols,
+            layout.in_cols, stages]
+    floats = [float(forced or 0.0)] + [1.0 / b for b in cfg.box_size]
+    return (ctypes.c_int * len(ints))(*ints), (ctypes.c_float * len(floats))(*floats)
+
+
+def _weights(params: PackedParams):
+    """The parameters in param_list order, as the launchers read them, and
+    their (row, column) strides: the weights as they lie (pack_dynamics_params's
+    wb is a transposed view), the vectors (1, n) with a unit column stride."""
+    weights, strides = [], []
+    for p in param_list(params):
+        stride = p.stride()
+        if p.shape[0] == 1 and stride[1] != 1:
+            p = p.contiguous()
+            stride = p.stride()
+        weights.append(p)
+        strides += stride
+    return weights, (ctypes.c_int * len(strides))(*strides)
+
+
+class _Block(NamedTuple):
+    """Tensors laid out in one allocation: (shape, strides, offset) each,
+    every offset 16-byte aligned (the kernels copy rows 16 bytes at a
+    time), and the allocation's size in floats."""
+
+    parts: Tuple[Tuple[Tuple[int, ...], Tuple[int, ...], int], ...]
+    floats: int
+
+
+def _block(shapes: Sequence[Sequence[int]]) -> _Block:
+    parts, offset = [], 0
+    for shape in shapes:
+        strides = [1] * len(shape)
+        for i in range(len(shape) - 2, -1, -1):
+            strides[i] = strides[i + 1] * shape[i + 1]
+        parts.append((tuple(shape), tuple(strides), offset))
+        offset += _round4(math.prod(shape))
+    return _Block(tuple(parts), offset)
+
+
+def _carve(block: _Block, device) -> List[torch.Tensor]:
+    """The block's tensors, views of one new allocation."""
+    buffer = torch.empty(block.floats, device=device)
+    return [buffer.as_strided(shape, strides, offset) for shape, strides, offset in block.parts]
+
+
+def _scratch(block: _Block, device) -> Tuple[torch.Tensor, List[int]]:
+    """One new allocation (keep it alive for the launch) and the device
+    address of each of the block's parts in it."""
+    buffer = torch.empty(block.floats, device=device)
+    base = buffer.data_ptr()
+    return buffer, [base + 4 * offset for _, _, offset in block.parts]
+
+
+def _image_shapes(layout: RolloutLayout, fwd: bool) -> List[Tuple[int, int]]:
+    """The weight image (n, per-CTA floats), and for the forward its biases."""
+    shapes = [(layout.cluster, sum(k * w for k, w in rollout_segments(layout, fwd)))]
+    if fwd:
+        shapes.append((layout.cluster, layout.layers * 4 * layout.units + layout.units + layout.head_cols))
+    return shapes
+
+
+class _Plan(NamedTuple):
+    """What a launch of these sizes and this configuration needs besides
+    the tensors: the split, the ring, the launchers' arguments and the
+    layouts of the buffers it allocates."""
+
+    layout: RolloutLayout
+    ints: ctypes.Array
+    floats: ctypes.Array
+    outputs: Optional[_Block]  # forward: the four states
+    extra: Optional[_Block]  # forward: the residuals; backward: state, action and variation gradients
+    scratch: _Block  # the weight image (and biases), the backward's dz, dy, dhead and d_final
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(cfg: RolloutConfig, fwd: bool, collect: bool, batch: int, T: int, S: int, D: int, A: int, V: int,
+          features: int, layers: int, gt_count: int) -> _Plan:
+    in0, head = 9 + S + D + A + V, 9 + S + D
+    layout = rollout_layout(features, layers, in0, head)
+    ints, floats = _launch_args(cfg, layout, batch, T, S, D, A, V, gt_count, _stages(layout, fwd))
+    steps, F = T - 1, features
+    if fwd:
+        outputs = _block([(batch, T, w) for w in (3, 3, S, D)])
+        widths = {"cur_rot": 3, "cur_trans": 3, "cur_style": S, "cur_deform": D, "x0": in0, "y": F, "head": head}
+        for layer in range(layers):
+            widths.update({f"gates_{layer}": 4 * F, f"c_{layer}": F, f"h_{layer}": F})
+        extra = _block([(steps, batch, widths[k]) for k in residual_keys(layers)]) if collect else None
+        scratch = _block(_image_shapes(layout, True))
+    else:
+        outputs = None
+        extra = _block([(batch, T, w) for w in (3, 3, S, D)] + [(batch, steps, A), (batch, steps, V)])
+        scratch = _block(_image_shapes(layout, False) + [(layers, steps, batch, 4 * F), (steps, batch, F),
+                                                         (steps, batch, head), (2, layers, batch, F)])
+    return _Plan(layout, ints, floats, outputs, extra, scratch)
+
+
+def card_image(params: PackedParams, S: int, D: int, A: int, V: int, fwd: bool):
+    """The weight image (and for the forward its biases) as the launchers
+    gather it on the card: held against rollout_fwd_image / rollout_bwd_image,
+    its plain versions, by the smoke run."""
+    F, L = params.wb.shape[0], len(params.wx)
+    layout = rollout_layout(F, L, 9 + S + D + A + V, 9 + S + D)
+    images = _carve(_block(_image_shapes(layout, fwd)), params.wb.device)
+    ints, floats = _launch_args(RolloutConfig(0, False, None, (1.0, 1.0, 1.0)), layout, 1, 2, S, D, A, V, 0, 2)
+    weights, strides = _weights(params)
+    err = _library().fused_rollout_image_launch(
+        ctypes.addressof(ints), ctypes.addressof(floats), _pointers(weights), ctypes.addressof(strides), int(fwd),
+        images[0].data_ptr(), images[1].data_ptr() if fwd else None,
+        torch.cuda.current_stream(images[0].device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the rollout's image gather failed with CUDA error {err}")
+    return tuple(images) if fwd else images[0]
+
+
+def max_active_clusters(params: PackedParams, fwd: bool) -> Tuple[int, int, int]:
+    """(CTAs per cluster, shared memory bytes per CTA, clusters the card
+    holds at once: cudaOccupancyMaxActiveClusters) for the rollout kernel at
+    these sizes; a measurement entry for the smoke run."""
+    layout = rollout_layout(params.wb.shape[0], len(params.wx), params.wx[0].shape[0], params.whead.shape[1])
+    smem = _smem_bytes(layout, _stages(layout, fwd), fwd)
+    clusters = _library().fused_rollout_max_clusters(int(fwd), layout.cluster, smem)
+    if clusters < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA error {-clusters}")
+    return layout.cluster, smem, clusters
+
+
+def _rollout_fwd(cfg: RolloutConfig, params: PackedParams, inputs: Sequence[torch.Tensor], gt_count: int,
+                 collect_residuals: bool, ms=None):
+    rotations, style, deform, actions, variations = inputs[0], inputs[2], inputs[3], inputs[4], inputs[5]
+    batch, T = rotations.shape[0], rotations.shape[1]
+    S, D, A, V = style.shape[-1], deform.shape[-1], actions.shape[-1], variations.shape[-1]
+    _validate(cfg, params, T, (batch, S, D, A, V), dict(zip(
+        ("rotations", "translations", "style", "deformation", "actions", "variations"), inputs)))
+    layers = len(params.wx)
+    plan = _plan(cfg, True, collect_residuals, batch, T, S, D, A, V, params.wb.shape[0], layers, gt_count)
+    inputs = [t.contiguous() for t in inputs]
+    device = rotations.device
+    out = _carve(plan.outputs, device)
+    residuals = dict(zip(residual_keys(layers), _carve(plan.extra, device))) if collect_residuals else None
+    scratch, (image, bias) = _scratch(plan.scratch, device)  # scratch alive until the launch is enqueued
+    weights, strides = _weights(params)
+    res_array = _pointers(list(residuals.values())) if residuals else None
+    err = _library().fused_rollout_fwd_launch(
+        ctypes.addressof(plan.ints), ctypes.addressof(plan.floats), _pointers(weights), ctypes.addressof(strides),
+        image, bias, *(t.data_ptr() for t in inputs), *(t.data_ptr() for t in out), res_array,
+        int(collect_residuals), None if ms is None else ctypes.addressof(ms),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_rollout_fwd kernel launch failed with CUDA error {err}")
+    return tuple(out), residuals
 
 
 def fused_rollout_fwd(cfg: RolloutConfig, params: PackedParams, rotations, translations, style, deform, actions,
                       variations, gt_count: int, collect_residuals: bool):
     """The rollout forward: (four (B, T, .) outputs, residuals or None).
 
-    CPU tensors take `plain_rollout_fwd`. CUDA tensors launch B4 (counted in
-    `fused_rollout_fwd.launches`); any other device, an unsupported shape,
-    or a failed build or launch raises.
+    CPU tensors take `plain_rollout_fwd`. CUDA tensors launch B4 on clusters
+    of CTAs (counted in `fused_rollout_fwd.launches`) after the gather of
+    this call's weight image; any other device, an unsupported shape, a
+    cluster the card cannot place, or a failed build or launch raises.
     """
     gt_count = int(gt_count)
-    if rotations.device.type == "cpu":
-        return plain_rollout_fwd(cfg, params, rotations, translations, style, deform, actions, variations,
-                                 gt_count, collect_residuals)
     inputs = [rotations, translations, style, deform, actions, variations]
-    batch, T = rotations.shape[0], rotations.shape[1]
-    _kernel_checks(cfg, params, inputs, T)
-    _check_smem(params, style, deform, True)
-    features, layers, in0, head, _ = _dims(params, style, deform)
-    A, V = actions.shape[-1], variations.shape[-1]
-    check_shapes(params, batch, T, style.shape[-1], deform.shape[-1], A, V, dict(zip(
-        ("rotations", "translations", "style", "deformation", "actions", "variations"), inputs)))
-    inputs = [t.contiguous() for t in inputs]
-    weights = [p.contiguous() for p in param_list(params)]
-    device = rotations.device
-    out = [torch.empty(batch, T, t.shape[-1], device=device) for t in inputs[:4]]
-    residuals = None
-    if collect_residuals:
-        S, D = style.shape[-1], deform.shape[-1]
-        widths = {"cur_rot": 3, "cur_trans": 3, "cur_style": S, "cur_deform": D, "x0": in0, "y": features,
-                  "head": head}
-        for layer in range(layers):
-            widths.update({f"gates_{layer}": 4 * features, f"c_{layer}": features, f"h_{layer}": features})
-        residuals = {k: torch.empty(T - 1, batch, widths[k], device=device) for k in residual_keys(layers)}
-    ints, floats = _config_args(cfg)
-    weight_array = _pointers(weights)
-    res_array = _pointers([residuals[k] for k in residual_keys(layers)]) if residuals else None
-    err = _library().fused_rollout_fwd_launch(
-        weight_array, *(t.data_ptr() for t in inputs), *(t.data_ptr() for t in out), res_array,
-        batch, T, features, layers, style.shape[-1], deform.shape[-1], A, V, gt_count, *ints,
-        int(residuals is not None), *floats, torch.cuda.current_stream(device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"fused_rollout_fwd kernel launch failed with CUDA error {err}")
+    if rotations.device.type == "cpu":
+        return plain_rollout_fwd(cfg, params, *inputs, gt_count, collect_residuals)
+    result = _rollout_fwd(cfg, params, inputs, gt_count, collect_residuals)
     fused_rollout_fwd.launches += 1
-    return tuple(out), residuals
+    return result
+
+
+def rollout_fwd_breakdown(cfg: RolloutConfig, params: PackedParams, inputs: Sequence[torch.Tensor], gt_count: int,
+                          collect_residuals: bool) -> Dict[str, float]:
+    """One forward on the card, timed by CUDA events around its two launches
+    (a measurement entry, not counted in the launches): ms of the image
+    gather and of the rollout kernel."""
+    ms = (ctypes.c_float * 2)()
+    _rollout_fwd(cfg, params, list(inputs), int(gt_count), collect_residuals, ms)
+    return {"image_ms": ms[0], "kernel_ms": ms[1]}
 
 
 fused_rollout_fwd.launches = 0
+
+
+def _rollout_bwd(cfg: RolloutConfig, params: PackedParams, gt_count: int, residuals: Dict[str, torch.Tensor],
+                 cotangents: Sequence[torch.Tensor], actions_dim: int, ms=None):
+    batch, T = cotangents[0].shape[0], cotangents[0].shape[1]
+    layers = len(params.wx)
+    res_list = [residuals[k] for k in residual_keys(layers)]
+    features, in0, head = params.wb.shape[0], params.wx[0].shape[0], params.whead.shape[1]
+    S, D = cotangents[2].shape[-1], cotangents[3].shape[-1]
+    V = in0 - 9 - S - D - actions_dim
+    names = ("d_rotations", "d_translations", "d_style", "d_deformation")
+    _validate(cfg, params, T, (batch, S, D, actions_dim, V), {**dict(zip(names, cotangents)), **residuals})
+    plan = _plan(cfg, False, True, batch, T, S, D, actions_dim, V, features, layers, gt_count)
+    device = cotangents[0].device
+    cotangents = [c.contiguous() for c in cotangents]
+    # The recurrence copies residual rows 16 bytes at a time.
+    res_list = [r.contiguous() for r in res_list]
+    res_list = [r if r.data_ptr() % 16 == 0 else r.clone() for r in res_list]
+    # Contiguous whatever the parameters' layout (pack_dynamics_params's wb is a
+    # transposed view): the kernel writes each gradient row-major.
+    grads = [torch.empty(p.shape, device=device) for p in param_list(params)]
+    *g_states, g_actions, g_variations = _carve(plan.extra, device)
+    scratch, (image, dz, dy, dhead, d_final) = _scratch(plan.scratch, device)  # alive until enqueued
+    weights, strides = _weights(params)
+    err = _library().fused_rollout_bwd_launch(
+        ctypes.addressof(plan.ints), ctypes.addressof(plan.floats), _pointers(weights), ctypes.addressof(strides),
+        image, _pointers(res_list), *(c.data_ptr() for c in cotangents), _pointers(grads),
+        *(g.data_ptr() for g in g_states), g_actions.data_ptr(), g_variations.data_ptr(), dz, dy, dhead, d_final,
+        None if ms is None else ctypes.addressof(ms), torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_rollout_bwd kernel launch failed with CUDA error {err}")
+    return (params_from_list(grads, layers),) + tuple(g_states) + (g_actions, g_variations)
 
 
 def fused_rollout_bwd(cfg: RolloutConfig, params: PackedParams, gt_count: int, residuals: Dict[str, torch.Tensor],
                       cotangents: Sequence[torch.Tensor], actions_dim: int):
     """The rollout backward, as `plain_rollout_bwd` returns it.
 
-    CPU tensors take `plain_rollout_bwd`. CUDA tensors launch B5 (its
-    reverse recurrence, then its weight-gradient kernel; one call counted in
+    CPU tensors take `plain_rollout_bwd`. CUDA tensors launch B5 (the
+    gather of this call's weight image, the reverse recurrence on the
+    forward's clusters, then the weight-gradient kernel; one call counted in
     `fused_rollout_bwd.launches`); the gradients are bit-identical from run
     to run.
     """
     gt_count = int(gt_count)
     if cotangents[0].device.type == "cpu":
         return plain_rollout_bwd(cfg, params, gt_count, residuals, cotangents, actions_dim)
-    batch, T = cotangents[0].shape[0], cotangents[0].shape[1]
-    layers = len(params.wx)
-    res_list = [residuals[k] for k in residual_keys(layers)]
-    _kernel_checks(cfg, params, list(cotangents) + res_list, T)
-    _check_smem(params, cotangents[2], cotangents[3], False)
-    features, layers, in0, head, _ = _dims(params, cotangents[2], cotangents[3])
-    S, D = cotangents[2].shape[-1], cotangents[3].shape[-1]
-    V = in0 - 9 - S - D - actions_dim
-    names = ("d_rotations", "d_translations", "d_style", "d_deformation")
-    check_shapes(params, batch, T, S, D, actions_dim, V, {**dict(zip(names, cotangents)), **residuals})
-    device = cotangents[0].device
-    cotangents = [c.contiguous() for c in cotangents]
-    res_list = [r.contiguous() for r in res_list]
-    # The recurrence reads W^T (each weight transposed once, a copy, no product).
-    transposed = []
-    for layer in range(layers):
-        transposed += [params.wx[layer].t().contiguous(), params.wh[layer].t().contiguous(),
-                       params.c_init[layer].contiguous(), params.h_init[layer].contiguous()]
-    transposed += [params.wb.t().contiguous(), params.whead.t().contiguous()]
-    # Contiguous whatever the parameters' layout (pack_dynamics_params's wb is a
-    # transposed view): the kernel writes each gradient row-major.
-    grads = [torch.empty(p.shape, device=device) for p in param_list(params)]
-    g_states = [torch.empty(batch, T, c.shape[-1], device=device) for c in cotangents]
-    g_actions = torch.empty(batch, T - 1, actions_dim, device=device)
-    g_variations = torch.empty(batch, T - 1, V, device=device)
-    steps = T - 1
-    dz = torch.empty(layers, steps, batch, 4 * features, device=device)
-    dy = torch.empty(steps, batch, features, device=device)
-    dhead = torch.empty(steps, batch, head, device=device)
-    d_final = torch.empty(2, layers, batch, features, device=device)
-    ints, floats = _config_args(cfg)
-    arrays = [_pointers(transposed), _pointers(res_list), _pointers(grads)]
-    err = _library().fused_rollout_bwd_launch(
-        arrays[0], arrays[1], *(c.data_ptr() for c in cotangents), arrays[2],
-        *(g.data_ptr() for g in g_states), g_actions.data_ptr(), g_variations.data_ptr(),
-        dz.data_ptr(), dy.data_ptr(), dhead.data_ptr(), d_final.data_ptr(),
-        batch, T, features, layers, S, D, actions_dim, V, gt_count, *ints, *floats[1:],
-        torch.cuda.current_stream(device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"fused_rollout_bwd kernel launch failed with CUDA error {err}")
+    grads = _rollout_bwd(cfg, params, gt_count, residuals, cotangents, actions_dim)
     fused_rollout_bwd.launches += 1
-    g_params = params_from_list(grads, layers)
-    return (g_params,) + tuple(g_states) + (g_actions, g_variations)
+    return grads
 
 
 fused_rollout_bwd.launches = 0
+
+
+def rollout_bwd_breakdown(cfg: RolloutConfig, params: PackedParams, gt_count: int,
+                          residuals: Dict[str, torch.Tensor], cotangents: Sequence[torch.Tensor],
+                          actions_dim: int) -> Dict[str, float]:
+    """One backward on the card, timed by CUDA events around its three
+    launches (a measurement entry, not counted in the launches): ms of the
+    image gather, the reverse recurrence and the weight-gradient kernel."""
+    ms = (ctypes.c_float * 3)()
+    _rollout_bwd(cfg, params, int(gt_count), residuals, cotangents, actions_dim, ms)
+    return {"image_ms": ms[0], "recurrence_ms": ms[1], "wgrad_ms": ms[2]}
 
 
 # ---------------------------------------------------------------------------

@@ -13,15 +13,19 @@ from typing import Sequence
 
 import torch
 
+from playableenvironments_tpu_torch.utils.device import resolve_device
+
 RNG_STREAMS = ("ray_sampling", "sampling", "alpha_noise", "style_shuffle", "divergence", "action_sampling", "gumbel")
 
 
 class RngStreams:
     """One torch.Generator per stream on `device` (draws are made where they
-    are used), seeded from `seed` and the stream's index."""
+    are used), seeded from `seed` and the stream's index. The default is the
+    card, as for every entry point; without one this raises unless the
+    caller asks for the CPU."""
 
-    def __init__(self, seed: int, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, seed: int, device="cuda"):
+        self.device = resolve_device(device)
         self.generators = {
             name: torch.Generator(device=self.device).manual_seed(seed * len(RNG_STREAMS) + i)
             for i, name in enumerate(RNG_STREAMS)

@@ -177,10 +177,12 @@ def rollout_setup(card, batch, T, cfg, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,T,axis,force_rot,forced,gt", [
-    (16, 9, 2, True, 0.0, 5), (5, 6, 2, True, 0.0, 3), (5, 6, 1, False, None, 1), (5, 6, 0, False, 0.01, 0)])
+    (16, 9, 2, True, 0.0, 5), (5, 6, 2, True, 0.0, 3), (5, 6, 1, False, None, 1), (5, 6, 0, False, 0.01, 0),
+    (33, 9, 2, True, 0.0, 5), (33, 6, 1, False, None, 2)])
 def test_rollout_kernels_match_plain_on_the_card(card, batch, T, axis, force_rot, forced, gt):
-    """B4 and B5 at the phase-3 shape and a ragged batch in each branch of
-    RolloutConfig against their plain versions on the same card (1e-4 of
+    """B4 and B5 at the phase-3 shape, a ragged batch in each branch of
+    RolloutConfig and a batch of 33 (three clusters, the last ragged)
+    against their plain versions on the same card (1e-4 of
     each output's largest magnitude, chip_smoke.py states why), B5
     bit-identical across launches, each launch counted once."""
     from playableenvironments_tpu_torch.ops import fused_rollout as fr
