@@ -7,16 +7,19 @@ tennis phase-2 train step and the tennis phase-3 (action module) G+D step.
 Phases, each fatal on failure:
 1. build the port's CUDA kernels (csrc/fused_nerf.cu, csrc/fused_backbone.cu,
    csrc/fused_rollout.cu), one nvcc per source, started together;
-2. hold the B1 kernel against its plain PyTorch version at the four per-frame
-   launch shapes of the tennis scene, and time kernel, plain version, a
-   library yardstick (the same MLP as a chain of bf16 torch.matmul, never
-   called by the port) and the bound;
+2. hold the B1 kernel against its plain PyTorch version for each of the
+   tennis frame's four objects alone and for the frame as one grouped
+   launch, and time each, the plain version, a library yardstick (the same
+   MLP as a chain of bf16 torch.matmul, never called by the port) and the
+   bound; print the weight-image bytes a frame from L2, the clusters the
+   card places at once and ptxas's registers, shared memory and spills for
+   the kernel;
 3. check a small frame, its composited NeRF features and the dynamics state
    against the same seeded modules on the CPU;
 4. drive the main path: configs/tennis.yaml at full width with seeded random
    weights, an InteractiveSession at 512x288 (strides 4 and 8), scripted
    steps for both players; every frame (288, 512, 3), finite, in [0, 1], and
-   4 kernel launches per frame;
+   one grouped B1 launch covering 4 objects per frame;
 5. hold the fused backbone's forward (B2) and backward (B3) kernels against
    their plain versions at the four per-step launch shapes of the phase-2
    step and a ragged one, B3 twice on the same inputs (bit-identical), and
@@ -105,6 +108,24 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_ms_back_to_back(fn, warmup: int = 3, reps: int = 20) -> float:
+    """CUDA-event time of `reps` calls of `fn` enqueued back to back, per
+    call: the device's time where the host enqueues faster than the card
+    runs, without the wrapper's host time between events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def tennis_encoding(torch, device):
@@ -1136,6 +1157,137 @@ def phase10_main_path(steps=PHASE3_STEPS, device="cuda"):
             "discriminator_losses": d_losses, "peak_memory_bytes": peak}
 
 
+def ptxas_entries(report: str) -> dict:
+    """{kernel entry (mangled): {"registers", "spill_stores", "spill_loads",
+    "smem"}} from nvcc -Xptxas -v output."""
+    import re
+
+    entries, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            entries[name] = {}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                entries[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                entries[name]["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                entries[name]["smem"] = int(m.group(1)) if m else 0
+    return entries
+
+
+def phase2_adain_kernels(scene, reports, device="cuda"):
+    """B1 at the tennis frame's four objects (each its own seeded weights):
+    each object alone through fused_adain_nerf, then the frame as one
+    grouped launch (fused_adain_nerf_group), each held object by object
+    against plain_adain_nerf; times of kernel, plain version, library
+    chain and bound per object, and of the grouped launch; the weight-image
+    bytes a frame from L2, the clusters placed at once and ptxas's report
+    for the kernel. Returns (per-object rows, the group's row)."""
+    import torch
+
+    from playableenvironments_tpu_torch.models.encoding import positional_encoding
+    from playableenvironments_tpu_torch.models.layers import initialize_
+    from playableenvironments_tpu_torch.models.nerf import AdaInNerfMLP
+    from playableenvironments_tpu_torch.ops import fused_nerf
+
+    cfg = scene.object_models[0].nerf
+    generator = torch.Generator().manual_seed(0)
+    shapes, items, refs = [], [], []
+    for name, rays, samples in TENNIS_LAUNCHES:
+        nerf = AdaInNerfMLP(cfg, scene.object_models[0].style_features, device=device)
+        initialize_(nerf, generator)
+        weights = nerf.kernel_weights()
+        bf16_weights = {k: v.to(torch.bfloat16) for k, v in weights.packed.items()}
+        points = rays * samples
+        positions = torch.rand(points, 3, generator=generator) * 2.0 - 1.0
+        encoded = positional_encoding(positions, cfg.position_encoder.octaves, True)
+        encoded = encoded.to(device=device, dtype=torch.bfloat16)
+        style = torch.randn(rays, 64, generator=generator).to(device)
+        with torch.no_grad():
+            s0, b0 = fused_nerf.fold_adain_stats(nerf.adain_0, style)
+            s1, b1 = fused_nerf.fold_adain_stats(nerf.adain_1, style)
+            args = (encoded, s0, b0, s1, b1)
+            items.append(fused_nerf.AdaInNerfItem(weights, *args, samples))
+            feats, alpha = fused_nerf.fused_adain_nerf(cfg, weights, *args, samples_per_ray=samples)
+            torch.cuda.synchronize()
+            refs.append(fused_nerf.plain_adain_nerf(cfg, weights.packed, *args, samples))
+            errs = [check_close(f"B1 {name} {out}", got, ref, KERNEL_ATOL, KERNEL_RTOL, KERNEL_MEAN_ATOL)
+                    for out, got, ref in zip(("features", "alpha"), (feats, alpha), refs[-1])]
+            rel = max((got - ref).abs().div(ref.abs().clamp(min=1e-3)).max().item()
+                      for got, ref in zip((feats, alpha), refs[-1]))
+            ms = cuda_ms(lambda: fused_nerf.fused_adain_nerf(cfg, weights, *args, samples_per_ray=samples))
+            plain_ms = cuda_ms(lambda: fused_nerf.plain_adain_nerf(cfg, weights.packed, *args, samples))
+            library_ms = cuda_ms(lambda: library_mlp(cfg, bf16_weights, *args, samples))
+        flops, bytes_ = mlp_work(cfg, weights.packed, points, rays)
+        bound_ms = max(flops / PEAK_BF16_FLOPS, bytes_ / PEAK_BYTES_PER_S) * 1e3
+        shapes.append({
+            "object": name, "rays": rays, "samples": samples, "points": points,
+            "max_abs_err": max(e[0] for e in errs), "max_rel_err": rel, "mean_abs_err": max(e[1] for e in errs),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if flops / PEAK_BF16_FLOPS > bytes_ / PEAK_BYTES_PER_S else "bytes",
+            "gflop": flops / 1e9, "mbytes": bytes_ / 1e6,
+        })
+        print(
+            f"B1 {name} alone ({rays} rays x {samples} = {points} points): "
+            f"max abs err {shapes[-1]['max_abs_err']:.3e}, max rel err {rel:.3e}, "
+            f"mean abs err {shapes[-1]['mean_abs_err']:.3e}; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({shapes[-1]['bound_by']}), {flops / ms / 1e9:.1f} TFLOP/s"
+        )
+
+    # The frame's four objects in one grouped launch.
+    with torch.no_grad():
+        launches, objects = fused_nerf.fused_adain_nerf.launches, fused_nerf.fused_adain_nerf.objects
+        outs = fused_nerf.fused_adain_nerf_group(cfg, items)
+        torch.cuda.synchronize()
+        if (fused_nerf.fused_adain_nerf.launches - launches, fused_nerf.fused_adain_nerf.objects - objects) != (
+                1, len(items)):
+            raise SmokeFailure("the grouped B1 call did not make one launch covering the frame's objects")
+        errs = []
+        for (name, _, _), (feats, alpha), ref in zip(TENNIS_LAUNCHES, outs, refs):
+            errs += [check_close(f"B1 group {name} {out}", got, r, KERNEL_ATOL, KERNEL_RTOL, KERNEL_MEAN_ATOL)
+                     for out, got, r in zip(("features", "alpha"), (feats, alpha), ref)]
+        group_ms = cuda_ms(lambda: fused_nerf.fused_adain_nerf_group(cfg, items))
+        back_to_back_ms = cuda_ms_back_to_back(lambda: fused_nerf.fused_adain_nerf_group(cfg, items))
+    total = {k: sum(r[k] for r in shapes) for k in ("ms", "plain_ms", "library_ms", "bound_ms", "gflop")}
+    lib = fused_nerf._library()
+    ctas = lib.fused_adain_nerf_cluster_size()
+    out_features = items[0].weights.packed["w_out"].shape[1]
+    clusters = lib.fused_adain_nerf_max_clusters(cfg.layers_width, out_features)
+    table = fused_nerf.adain_pair_table([r["points"] for r in shapes], ctas)
+    image_bytes = items[0].weights.image.numel() * 2
+    group = {
+        "ms": group_ms, "back_to_back_ms": back_to_back_ms, "max_abs_err": max(e[0] for e in errs),
+        "mean_abs_err": max(e[1] for e in errs),
+        "single_ms": total["ms"], "plain_ms": total["plain_ms"], "library_ms": total["library_ms"],
+        "bound_ms": total["bound_ms"], "tflops": total["gflop"] / group_ms, "cluster_ctas": ctas,
+        "clusters": clusters, "pairs": table[-1], "image_bytes": image_bytes,
+        "l2_weight_bytes": table[-1] * image_bytes,
+        "ptxas": {k: v for k, v in ptxas_entries(reports.get("fused_nerf.cu", "")).items()
+                  if "adain_nerf_kernel" in k},
+    }
+    if clusters <= 0:
+        raise SmokeFailure(f"fused_adain_nerf_max_clusters returned {clusters}")
+    print(
+        f"B1 grouped frame (4 objects, {table[-1]} units of {ctas} tiles on {min(clusters, table[-1])} clusters of "
+        f"{ctas} CTAs; the card places {clusters} at once): max abs err {group['max_abs_err']:.3e}, mean abs err "
+        f"{group['mean_abs_err']:.3e}; grouped launch {group_ms:.4f} ms ({group['tflops']:.1f} TFLOP/s, "
+        f"{100 * total['bound_ms'] / group_ms:.1f}% of the bf16 bound; {back_to_back_ms:.4f} ms a launch back to back), "
+        f"one launch per object {total['ms']:.4f} ms, "
+        f"library chain {total['library_ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
+        f"bound {total['bound_ms']:.4f} ms; weight image {image_bytes} B, {group['l2_weight_bytes'] / 1e9:.3f} GB "
+        f"a frame from L2"
+    )
+    for entry, info in group["ptxas"].items():
+        print(f"  ptxas adain_nerf_kernel {entry}: {info}")
+    return shapes, group
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1149,9 +1301,6 @@ def main() -> int:
 
     from playableenvironments_tpu_torch.cli.play import InteractiveSession
     from playableenvironments_tpu_torch.config import scene_from_yaml
-    from playableenvironments_tpu_torch.models.encoding import positional_encoding
-    from playableenvironments_tpu_torch.models.nerf import AdaInNerfMLP
-    from playableenvironments_tpu_torch.models.layers import initialize_
     from playableenvironments_tpu_torch.ops import fused_nerf
     from playableenvironments_tpu_torch.render.fast import frame_rays, render_rays_fast
 
@@ -1169,63 +1318,12 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    # ---- 2. kernel vs plain version at the tennis launch shapes -------------
+    # ---- 2. B1 vs plain version: each tennis object alone, then the frame's grouped launch
     scene = scene_from_yaml(os.path.join(repo, "configs", "tennis.yaml"))
-    cfg = scene.object_models[0].nerf
-    generator = torch.Generator().manual_seed(0)
-    nerf = AdaInNerfMLP(cfg, scene.object_models[0].style_features, device=device)
-    initialize_(nerf, generator)
-    weights = nerf.kernel_weights()
-    bf16_weights = {k: v.to(torch.bfloat16) for k, v in weights.packed.items()}
-    shapes = []
-    for name, rays, samples in TENNIS_LAUNCHES:
-        points = rays * samples
-        positions = torch.rand(points, 3, generator=generator) * 2.0 - 1.0
-        encoded = positional_encoding(positions, cfg.position_encoder.octaves, True)
-        encoded = encoded.to(device=device, dtype=torch.bfloat16)
-        style = torch.randn(rays, 64, generator=generator).to(device)
-        with torch.no_grad():
-            s0, b0 = fused_nerf.fold_adain_stats(nerf.adain_0, style)
-            s1, b1 = fused_nerf.fold_adain_stats(nerf.adain_1, style)
-            args = (encoded, s0, b0, s1, b1)
-            feats, alpha = fused_nerf.fused_adain_nerf(cfg, weights, *args, samples_per_ray=samples)
-            torch.cuda.synchronize()
-            ref_feats, ref_alpha = fused_nerf.plain_adain_nerf(cfg, weights.packed, *args, samples)
-            errs, mean_errs = [], []
-            for got, ref in ((feats, ref_feats), (alpha, ref_alpha)):
-                if got.shape != ref.shape or not torch.isfinite(got).all():
-                    return fail(f"{name}: kernel output has shape {tuple(got.shape)} or non-finite values")
-                diff = (got - ref).abs()
-                within = bool((diff <= KERNEL_ATOL + KERNEL_RTOL * ref.abs()).all())
-                if not within or not diff.mean().item() <= KERNEL_MEAN_ATOL:
-                    return fail(
-                        f"{name}: kernel differs from its plain version by up to "
-                        f"{diff.max().item():.3e}, {diff.mean().item():.3e} on average"
-                    )
-                mean_errs.append(diff.mean().item())
-                errs.append(diff.max().item())
-                errs.append((diff / ref.abs().clamp(min=1e-3)).max().item())
-            ms = cuda_ms(lambda: fused_nerf.fused_adain_nerf(cfg, weights, *args, samples_per_ray=samples))
-            plain_ms = cuda_ms(lambda: fused_nerf.plain_adain_nerf(cfg, weights.packed, *args, samples))
-            library_ms = cuda_ms(lambda: library_mlp(cfg, bf16_weights, *args, samples))
-        flops, bytes_ = mlp_work(cfg, weights.packed, points, rays)
-        bound_ms = max(flops / PEAK_BF16_FLOPS, bytes_ / PEAK_BYTES_PER_S) * 1e3
-        shapes.append({
-            "object": name, "rays": rays, "samples": samples, "points": points,
-            "max_abs_err": max(errs[0], errs[2]), "max_rel_err": max(errs[1], errs[3]),
-            "mean_abs_err": max(mean_errs),
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if flops / PEAK_BF16_FLOPS > bytes_ / PEAK_BYTES_PER_S else "bytes",
-            "gflop": flops / 1e9, "mbytes": bytes_ / 1e6,
-        })
-        print(
-            f"kernel {name} ({rays} rays x {samples} = {points} points): "
-            f"max abs err {shapes[-1]['max_abs_err']:.3e}, max rel err {shapes[-1]['max_rel_err']:.3e}, "
-            f"mean abs err {shapes[-1]['mean_abs_err']:.3e}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({shapes[-1]['bound_by']}), "
-            f"{flops / ms / 1e9:.1f} TFLOP/s"
-        )
+    try:
+        shapes, group = phase2_adain_kernels(scene, reports)
+    except SmokeFailure as e:
+        return fail(str(e))
 
     # ---- 3. the card against the CPU on a small frame ----------------------
     small = dict(image_size=(48, 64), patch_strides=STRIDES,
@@ -1270,24 +1368,26 @@ def main() -> int:
     )
     encoding = tennis_encoding(torch, device)
     fused_nerf.fused_adain_nerf.launches = 0
+    fused_nerf.fused_adain_nerf.objects = 0
     frames = [session.start(encoding)]
     step_ms = []
     for i in range(STEPS):
         start = time.perf_counter()
         frames.append(session.step(list(ACTIONS[i % len(ACTIONS)])))
         step_ms.append((time.perf_counter() - start) * 1e3)
-    launches = fused_nerf.fused_adain_nerf.launches
+    launches, objects = fused_nerf.fused_adain_nerf.launches, fused_nerf.fused_adain_nerf.objects
     for i, frame in enumerate(frames):
         if frame.shape != (IMAGE_SIZE[0], IMAGE_SIZE[1], 3):
             return fail(f"frame {i} has shape {frame.shape}")
         if not np.isfinite(frame).all() or frame.min() < 0.0 or frame.max() > 1.0:
             return fail(f"frame {i} is not finite or leaves [0, 1]")
-    if launches != 4 * len(frames):
-        return fail(f"{launches} kernel launches for {len(frames)} frames, expected 4 per frame")
+    if (launches, objects) != (len(frames), len(TENNIS_LAUNCHES) * len(frames)):
+        return fail(f"{launches} B1 launches covering {objects} objects for {len(frames)} frames, expected one "
+                    f"grouped launch of {len(TENNIS_LAUNCHES)} objects per frame")
     steady = step_ms[2:]
     frame_ms = statistics.median(steady)
     print(
-        f"play loop 512x288: {len(frames)} frames, {launches} kernel launches; "
+        f"play loop 512x288: {len(frames)} frames, {launches} grouped B1 launches covering {objects} objects; "
         f"median step {frame_ms:.3f} ms ({1e3 / frame_ms:.2f} fps) over steps 3-{STEPS}; "
         f"all steps ms {[round(t, 3) for t in step_ms]}"
     )
@@ -1321,9 +1421,13 @@ def main() -> int:
             "library_ms": total["library_ms"],
         }
 
+    # B1: one grouped launch a frame; plain, library and bound summed over
+    # the frame's four objects.
+    b1 = kernel_entry("fused_adain_nerf", "fused_nerf.cu", "playableenvironments_tpu/ops/fused_nerf.py:111",
+                      launches, shapes)
+    b1.update(ms=group["ms"], max_abs_err=max(b1["max_abs_err"], group["max_abs_err"]))
     kernels = [
-        kernel_entry("fused_adain_nerf", "fused_nerf.cu", "playableenvironments_tpu/ops/fused_nerf.py:111",
-                     launches, shapes),
+        b1,
         kernel_entry("fused_backbone_fwd", "fused_backbone.cu", "playableenvironments_tpu/ops/fused_nerf.py:375",
                      phase2["launches"][0], fwd_rows),
         kernel_entry("fused_backbone_bwd", "fused_backbone.cu", "playableenvironments_tpu/ops/fused_nerf.py:404",
@@ -1354,7 +1458,7 @@ def main() -> int:
     ).stdout.strip()
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "shapes": shapes, "step_ms": step_ms, "frame_ms": frame_ms,
+        json.dump({"card": smi, "shapes": shapes, "group": group, "step_ms": step_ms, "frame_ms": frame_ms,
                    "backbone_fwd_shapes": fwd_rows, "backbone_bwd_shapes": bwd_rows,
                    "train_card_vs_cpu": card_vs_cpu, "phase2": phase2, "rollout_shapes": rollout_rows,
                    "phase3_card_vs_cpu": phase3_card_vs_cpu, "phase3": phase3, "kernels": kernels,
@@ -1364,7 +1468,8 @@ def main() -> int:
         f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn.allow_tf32="
         f"{torch.backends.cudnn.allow_tf32} (PyTorch defaults; the port sets neither)"
     )
-    print("kernel ms/plain_ms/library_ms/bound_ms are sums over the launches of one frame (fused_adain_nerf) or "
+    print("kernel ms/plain_ms/library_ms/bound_ms are per frame for fused_adain_nerf (ms: its one grouped launch; "
+          "plain, library and bound: sums over the frame's four objects) or sums over the launches of "
           "one train step (the others: the four phase-2 shapes for fused_backbone_fwd/bwd; 2 + 2 B4 and 2 B5 "
           "launches of the phase-3 shape); fused_backbone_fwd/bwd ms are whole wrapper calls as the autograd "
           "Function makes them (the forward's weight-image build included; phase 5 prints the kernels' own "

@@ -4,12 +4,15 @@ Port of playableenvironments_tpu/ops/fused_nerf.py:
 - the inference half, `fused_adain_nerf`: the per-point pipeline 8x256
   backbone with mid skip -> alpha head + AdaIN-modulated feature head, over
   pre-encoded points, with eval-mode BN statistics folded into a per-ray
-  scale/bias (csrc/fused_nerf.cu);
+  scale/bias (csrc/fused_nerf.cu). `fused_adain_nerf_group` runs several
+  objects of one MLP configuration in one launch; `fused_adain_nerf` keeps
+  the JAX function's per-object interface as a group of one;
 - the trainable backbone, `fused_backbone`: backbone + alpha head as a
   torch.autograd.Function whose forward (`fused_backbone_fwd`) and backward
   (`fused_backbone_bwd`) are kernels (csrc/fused_backbone.cu).
-Both sources are sm_90a, bf16 tensor cores with f32 accumulation, built with
-nvcc at first use and loaded with ctypes.
+Both sources are sm_90a, bf16 tensor cores with f32 accumulation, share
+csrc/nerf_wgmma.cuh, and are built with nvcc at first use and loaded with
+ctypes.
 
 Each wrapper launches its kernel for CUDA tensors. For CPU tensors it runs
 the plain PyTorch version of the same function (`plain_adain_nerf`,
@@ -29,7 +32,7 @@ import subprocess
 import tempfile
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,14 +40,20 @@ from playableenvironments_tpu_torch.config import NerfMLPConfig
 from playableenvironments_tpu_torch.core.bbox import aabb_contains, aabb_size
 from playableenvironments_tpu_torch.models.encoding import positional_encoding
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fused_nerf.cu"
-_BACKBONE_SOURCE = _SOURCE.with_name("fused_backbone.cu")
-_ROLLOUT_SOURCE = _SOURCE.with_name("fused_rollout.cu")  # B4/B5, wrapped in ops/fused_rollout.py
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SOURCE = _CSRC / "fused_nerf.cu"
+_BACKBONE_SOURCE = _CSRC / "fused_backbone.cu"
+_ROLLOUT_SOURCE = _CSRC / "fused_rollout.cu"  # B4/B5, wrapped in ops/fused_rollout.py
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
-# Limits of the kernel's shared-memory layout (csrc/fused_nerf.cu).
-_MAX_WIDTH = 256
+# Limits of the B1 kernel's layout (csrc/fused_nerf.cu): the widths whose
+# feature-head slots it takes, the encoding columns and outputs it pads to,
+# the objects of one launch.
+_ADAIN_WIDTHS = (128, 256)
 _MAX_PE = 64
+_MAX_OUT = 256
+_ADAIN_MAX_OBJECTS = 16
+_MAX_WIDTH = 256  # the backbone kernels' widest layer (csrc/fused_backbone.cu)
 
 
 def fold_adain_stats(adain, style: torch.Tensor, eps: float = 1e-5):
@@ -118,8 +127,51 @@ def plain_adain_nerf(
     return mm(f, packed["w_out"]) + packed["b_out"], alpha
 
 
-def _round16(n: int) -> int:
-    return (n + 15) // 16 * 16
+@dataclass(frozen=True)
+class NerfKernelWeights:
+    """One object's MLP weights: `packed` in the JAX layout (what the plain
+    version reads), the kernel's bf16 weight image (`adain_image`; None for
+    a width the kernel does not take, which then runs only on the CPU) and
+    its f32 biases b_0 .. b_{L-1}, b_alpha, b_out."""
+
+    packed: Dict[str, torch.Tensor]
+    image: Optional[torch.Tensor]
+    biases: torch.Tensor
+    pe: int
+
+
+def _swizzled_blocks(w: torch.Tensor) -> torch.Tensor:
+    """(64 a, 64 b) -> a x b unswizzled 64 x 64 blocks, slot-major: block
+    (i, j) holds rows 64 i .. and columns 64 j .. of `w`."""
+    rows, cols = w.shape
+    return w.reshape(rows // _BLOCK, _BLOCK, cols // _BLOCK, _BLOCK).permute(0, 2, 1, 3).reshape(-1, _BLOCK * _BLOCK)
+
+
+def adain_image(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """B1's bf16 weight image as csrc/fused_nerf.cu reads it: the backbone
+    image of `backbone_buffers` (slots, then w_alpha), then the feature
+    head's 64-row slots, each its 64 x 64 blocks in wgmma's 128-byte
+    swizzle: W_f0's columns [0, W / 2), its columns [W / 2, W) (the kernel
+    runs f0 in two passes), W_f1 (W, W / 2), W_out (W / 2, outputs rounded
+    up to 64, zero-padded), built on the weights' device by gathers.
+    Raises for a configuration the kernel does not take."""
+    width, pe, out = cfg.layers_width, packed["w0"].shape[0], packed["w_out"].shape[1]
+    if width not in _ADAIN_WIDTHS:
+        raise ValueError(f"layers_width {width}: the AdaIN-NeRF kernel takes {_ADAIN_WIDTHS}")
+    if pe > _MAX_PE:
+        raise ValueError(f"encoding width {pe} exceeds the kernel's {_MAX_PE}")
+    if out > _MAX_OUT:
+        raise ValueError(f"output_features {out} exceeds the kernel's {_MAX_OUT}")
+    if cfg.skip_layer_idx == 0:
+        raise ValueError("skip_layer_idx 0 (skip into the first layer) is not supported")
+    half = width // 2
+    with torch.no_grad():
+        backbone, _ = backbone_buffers(cfg, packed)
+        mats = [packed["w_f0"][:, :half], packed["w_f0"][:, half:], packed["w_f1"],
+                _padded(packed["w_out"], half, -(-out // _BLOCK) * _BLOCK)]
+        blocks = torch.cat([_swizzled_blocks(m.to(torch.bfloat16)) for m in mats])
+        head = blocks[:, _unswizzle(blocks.device)]
+        return torch.cat([backbone, head.reshape(-1)])
 
 
 def _padded(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -129,78 +181,63 @@ def _padded(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return z
 
 
-@dataclass(frozen=True)
-class NerfKernelWeights:
-    """One object's MLP weights: `packed` in the JAX layout (what the plain
-    version reads) and the same weights as the kernel's flat buffers (bf16
-    matrices zero-padded to multiples of 16, f32 biases; the order is
-    documented in csrc/fused_nerf.cu)."""
-
-    packed: Dict[str, torch.Tensor]
-    weights: torch.Tensor
-    biases: torch.Tensor
-    pe: int
-
-
 def kernel_weights(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> NerfKernelWeights:
-    """Pack and pad `packed` once into the kernel's buffers (on the weights'
-    device). Raises for widths the kernel's layout does not take."""
-    width = cfg.layers_width
-    layers = cfg.backbone_layers_count
-    skip = cfg.skip_layer_idx
+    """Build the kernel's buffers from `packed` once (on the weights'
+    device): the image for the widths the kernel takes (raising for an
+    encoding, output count or skip it does not take), the biases always."""
     pe = packed["w0"].shape[0]
-    out = packed["w_out"].shape[1]
-    if width % 32 or width > _MAX_WIDTH:
-        raise ValueError(f"layers_width {width} must be a multiple of 32, at most {_MAX_WIDTH}")
-    if pe > _MAX_PE:
-        raise ValueError(f"encoding width {pe} exceeds the kernel's {_MAX_PE}")
-    if out > _MAX_WIDTH:
-        raise ValueError(f"output_features {out} exceeds the kernel's {_MAX_WIDTH}")
-    if skip == 0:
-        raise ValueError("skip_layer_idx 0 (skip into the first layer) is not supported")
-    pe_pad = _round16(pe)
-
     with torch.no_grad():
-        mats = []
-        for i in range(layers):
-            w = packed[f"w{i}"]
-            if i == 0:
-                mats.append(_padded(w, pe_pad, width))
-            elif i == skip:
-                mats.append(torch.cat([w[:width], _padded(w[width:], pe_pad, width)]))
-            else:
-                mats.append(w)
-        mats += [
-            packed["w_alpha"].reshape(1, width),
-            packed["w_f0"],
-            packed["w_f1"],
-            _padded(packed["w_out"], width // 2, _round16(out)),
-        ]
-        weights = torch.cat([m.reshape(-1) for m in mats]).to(torch.bfloat16).contiguous()
+        image = adain_image(cfg, packed) if cfg.layers_width in _ADAIN_WIDTHS else None
         biases = torch.cat(
-            [packed[f"b{i}"] for i in range(layers)] + [packed["b_alpha"], packed["b_out"]]
+            [packed[f"b{i}"] for i in range(cfg.backbone_layers_count)] + [packed["b_alpha"], packed["b_out"]]
         ).to(torch.float32).contiguous()
-    return NerfKernelWeights(
-        packed={k: v.detach() for k, v in packed.items()},
-        weights=weights,
-        biases=biases,
-        pe=pe,
-    )
+    return NerfKernelWeights(packed={k: v.detach() for k, v in packed.items()}, image=image, biases=biases, pe=pe)
 
 
-def _library_path(source: Path) -> Path:
-    digest = hashlib.sha1(source.read_bytes()).hexdigest()[:12]
-    return _BUILD_DIR / f"{source.stem}-{digest}.so"
+def adain_pair_table(n_points: Sequence[int], ctas: int = 2) -> List[int]:
+    """The pair prefix table of one grouped launch: object o's pairs (units
+    of `ctas` 128-point tiles, one tile per CTA of a cluster) are
+    [table[o], table[o + 1]); a pair never holds two objects' points."""
+    table = [0]
+    for n in n_points:
+        tiles = -(-n // _BACKBONE_TILE)
+        table.append(table[-1] + -(-tiles // ctas))
+    return table
 
 
-def build_kernels(sources: Tuple[Path, ...] = (_SOURCE, _BACKBONE_SOURCE, _ROLLOUT_SOURCE)) -> Dict[str, str]:
+def _included_headers(source: Path) -> List[Path]:
+    """The csrc/*.cuh files `source` includes (#include "x.cuh"), looked up
+    beside it, then in csrc/."""
+    headers = []
+    for line in source.read_text().splitlines():
+        parts = line.split('"')
+        if line.startswith("#include") and len(parts) == 3 and parts[1].endswith(".cuh"):
+            header = source.with_name(parts[1])
+            headers.append(header if header.exists() else _CSRC / parts[1])
+    return headers
+
+
+def _library_path(source: Path, defines: Tuple[str, ...] = ()) -> Path:
+    """The library built from `source` with `defines`, named by a digest of
+    the source, every header it includes and the defines."""
+    digest = hashlib.sha1(source.read_bytes())
+    for header in _included_headers(source):
+        digest.update(header.read_bytes())
+    for define in defines:
+        digest.update(define.encode())
+    return _BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:12]}.so"
+
+
+def build_kernels(sources: Tuple[Path, ...] = (_SOURCE, _BACKBONE_SOURCE, _ROLLOUT_SOURCE),
+                  defines: Tuple[str, ...] = ()) -> Dict[str, str]:
     """Compile each CUDA source with nvcc for sm_90a into the build
-    directory, once per source content; the nvcc processes run together.
+    directory, once per content (the source, its headers from csrc/ and the
+    `defines`, each NAME=VALUE); the nvcc processes run together.
 
     :return: {source name: nvcc's report (registers, shared memory, spills)},
         "" for a library that was already built.
     """
-    todo = [s for s in sources if not _library_path(s).exists()]
+    todo = [s for s in sources if not _library_path(s, defines).exists()]
     if not todo:
         return {s.name: "" for s in sources}
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
@@ -214,7 +251,8 @@ def build_kernels(sources: Tuple[Path, ...] = (_SOURCE, _BACKBONE_SOURCE, _ROLLO
         os.close(fd)
         cmd = [
             nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(source),
+            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(_CSRC),
+            *(f"-D{d}" for d in defines), "-o", tmp, str(source),
         ]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((source, tmp, proc))
@@ -225,27 +263,39 @@ def build_kernels(sources: Tuple[Path, ...] = (_SOURCE, _BACKBONE_SOURCE, _ROLLO
             os.unlink(tmp)
             failures.append(f"nvcc failed on {source.name}:\n{output}")
         else:
-            os.replace(tmp, _library_path(source))
+            os.replace(tmp, _library_path(source, defines))
             reports[source.name] = output
     if failures:
         raise RuntimeError("\n".join(failures))
     return reports
 
 
-def _load(source: Path) -> ctypes.CDLL:
-    build_kernels((source,))
-    return ctypes.CDLL(str(_library_path(source)))
+def _load(source: Path, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    build_kernels((source,), defines)
+    return ctypes.CDLL(str(_library_path(source, defines)))
+
+
+def adain_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """csrc/fused_nerf.cu built with `defines` and loaded, its functions
+    typed (the port's own build has none; scripts/ablate_adain_nerf.py
+    loads variants)."""
+    lib = _load(_SOURCE, defines)
+    lib.fused_adain_nerf_group_launch.argtypes = (
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
+    lib.fused_adain_nerf_group_launch.restype = ctypes.c_int
+    lib.fused_adain_nerf_max_clusters.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.fused_adain_nerf_max_clusters.restype = ctypes.c_int
+    lib.fused_adain_nerf_cluster_size.argtypes = []
+    lib.fused_adain_nerf_cluster_size.restype = ctypes.c_int
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    """The built kernel library, loaded once per process. Reached only when
-    a CUDA tensor reaches the kernel."""
-    lib = _load(_SOURCE)
-    fn = lib.fused_adain_nerf_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+    """The built B1 kernel library, loaded once per process. Reached only
+    when a CUDA tensor reaches the kernel."""
+    return adain_library()
 
 
 @functools.lru_cache(maxsize=None)
@@ -260,6 +310,113 @@ def _backbone_library() -> ctypes.CDLL:
     return lib
 
 
+class AdaInNerfItem(NamedTuple):
+    """One object of a grouped launch: its weights, (N, pe) encodings, per-ray
+    modulation (N / samples_per_ray rows; scale0/bias0 W columns,
+    scale1/bias1 W // 2) and samples per ray (N = rays * samples_per_ray,
+    ray-major)."""
+
+    weights: NerfKernelWeights
+    encoded: torch.Tensor
+    scale0: torch.Tensor
+    bias0: torch.Tensor
+    scale1: torch.Tensor
+    bias1: torch.Tensor
+    samples_per_ray: int = 1
+
+
+def _check_item(cfg: NerfMLPConfig, item: AdaInNerfItem) -> None:
+    n, pe = item.encoded.shape
+    width, samples = cfg.layers_width, item.samples_per_ray
+    if samples < 1 or n % samples:
+        raise ValueError(f"point count {n} not divisible by samples {samples}")
+    rays = n // samples
+    for name, cols in (("scale0", width), ("bias0", width), ("scale1", width // 2), ("bias1", width // 2)):
+        t = getattr(item, name)
+        if tuple(t.shape) != (rays, cols):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(rays, cols)}")
+    if pe != item.weights.pe:
+        raise ValueError(f"encoding width {pe} != the weights' {item.weights.pe}")
+
+
+def fused_adain_nerf_group(cfg: NerfMLPConfig, items: Sequence[AdaInNerfItem]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The MLP over several objects of one configuration, each with its own
+    weights, encodings and modulation: [((N, output_features) f32 features,
+    (N,) f32 raw alpha)] in the order of `items`.
+
+    CPU tensors take `plain_adain_nerf` object by object. CUDA tensors run
+    one kernel launch for up to 16 objects (objects without points take
+    none), walking the pair table of `adain_pair_table`; each launch adds 1
+    to `fused_adain_nerf.launches` and its objects to
+    `fused_adain_nerf.objects`. Any other device, a width the kernel does not
+    take, or a failed build or launch raises.
+    """
+    for item in items:
+        _check_item(cfg, item)
+    if not items:
+        return []
+    device = items[0].encoded.device
+    if device.type == "cpu":
+        return [plain_adain_nerf(cfg, it.weights.packed, it.encoded, it.scale0, it.bias0, it.scale1, it.bias1,
+                                 it.samples_per_ray) for it in items]
+    if device.type != "cuda":
+        raise ValueError(f"fused_adain_nerf runs on cuda or cpu tensors, not {device}")
+    if cfg.layers_width not in _ADAIN_WIDTHS or any(it.weights.image is None for it in items):
+        raise ValueError(f"layers_width {cfg.layers_width}: the AdaIN-NeRF kernel takes {_ADAIN_WIDTHS}")
+
+    out_features = items[0].weights.packed["w_out"].shape[1]
+    for it in items:
+        for t in (it.encoded, it.scale0, it.bias0, it.scale1, it.bias1, it.weights.image, it.weights.biases):
+            if t.device != device:
+                raise ValueError(f"all inputs must be on {device}, got one on {t.device}")
+        for t in (it.scale0, it.bias0, it.scale1, it.bias1):
+            if t.dtype != torch.float32:
+                raise ValueError(f"modulation must be float32, got {t.dtype}")
+        if it.weights.packed["w_out"].shape[1] != out_features:
+            raise ValueError("the objects of one group must have the same output_features")
+    # One allocation per output for the whole group, split into views.
+    counts = [it.encoded.shape[0] for it in items]
+    features = torch.empty((sum(counts), out_features), dtype=torch.float32, device=device).split(counts)
+    alphas = torch.empty((sum(counts),), dtype=torch.float32, device=device).split(counts)
+    # Objects with points; the kernel reads modulation rows with their stride
+    # (fold_adain_stats' scale and bias are column halves of one array), in
+    # aligned pairs of floats.
+    launch = [i for i, n in enumerate(counts) if n]
+    lib = _library()
+    ctas = lib.fused_adain_nerf_cluster_size()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for first in range(0, len(launch), _ADAIN_MAX_OBJECTS):
+        chunk = launch[first : first + _ADAIN_MAX_OBJECTS]
+        ptrs, ints, keep = [], [], []  # keep: the temporaries stay alive until the launch is enqueued
+        for i in chunk:
+            it = items[i]
+            encoded = it.encoded.to(torch.bfloat16).contiguous()
+            keep.append(encoded)
+            ptrs.append(encoded.data_ptr())
+            ints += [counts[i], it.samples_per_ray]
+            for t in (it.scale0, it.bias0, it.scale1, it.bias1):
+                stride, ptr = t.stride(), t.data_ptr()
+                if stride[1] != 1 or stride[0] % 2 or ptr % 8:
+                    t = t.contiguous()
+                    keep.append(t)
+                    stride, ptr = t.stride(), t.data_ptr()
+                ptrs.append(ptr)
+                ints.append(stride[0])
+            ptrs += [it.weights.image.data_ptr(), it.weights.biases.data_ptr(), features[i].data_ptr(),
+                     alphas[i].data_ptr()]
+        table = adain_pair_table([counts[i] for i in chunk], ctas)
+        err = lib.fused_adain_nerf_group_launch(
+            len(chunk), (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
+            (ctypes.c_int * len(table))(*table), items[0].weights.pe, cfg.layers_width,
+            cfg.backbone_layers_count, cfg.skip_layer_idx, out_features, stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"fused_adain_nerf kernel launch failed with CUDA error {err}")
+        fused_adain_nerf.launches += 1
+        fused_adain_nerf.objects += len(chunk)
+    return list(zip(features, alphas))
+
+
 def fused_adain_nerf(
     cfg: NerfMLPConfig,
     weights: NerfKernelWeights,
@@ -270,70 +427,70 @@ def fused_adain_nerf(
     bias1: torch.Tensor,
     samples_per_ray: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The MLP over pre-encoded points, ray-major (N = rays * samples_per_ray).
+    """The MLP over one object's pre-encoded points, ray-major (N = rays *
+    samples_per_ray): `fused_adain_nerf_group` of one item.
 
-    :param encoded: (N, pe) encodings (rounded to bf16 here).
+    :param encoded: (N, pe) encodings (rounded to bf16 on the card).
     :param scale0/bias0: (N / samples_per_ray, W) f32 per-ray modulation;
         scale1/bias1 (N / samples_per_ray, W // 2).
     :return: ((N, output_features) f32 features, (N,) f32 raw alpha).
-
-    CPU tensors take `plain_adain_nerf`. CUDA tensors launch the kernel
-    (counted in `fused_adain_nerf.launches`); any other device, or a failed
-    build or launch, raises.
     """
-    n, pe = encoded.shape
-    width = cfg.layers_width
-    if samples_per_ray < 1 or n % samples_per_ray:
-        raise ValueError(f"point count {n} not divisible by samples {samples_per_ray}")
-    rays = n // samples_per_ray
-    for name, t, cols in (
-        ("scale0", scale0, width), ("bias0", bias0, width),
-        ("scale1", scale1, width // 2), ("bias1", bias1, width // 2),
-    ):
-        if tuple(t.shape) != (rays, cols):
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(rays, cols)}")
-    if pe != weights.pe:
-        raise ValueError(f"encoding width {pe} != the weights' {weights.pe}")
-
-    if encoded.device.type == "cpu":
-        return plain_adain_nerf(
-            cfg, weights.packed, encoded, scale0, bias0, scale1, bias1, samples_per_ray
-        )
-    if encoded.device.type != "cuda":
-        raise ValueError(f"fused_adain_nerf runs on cuda or cpu tensors, not {encoded.device}")
-
-    device = encoded.device
-    mods = [scale0, bias0, scale1, bias1]
-    for t in mods + [weights.weights, weights.biases]:
-        if t.device != device:
-            raise ValueError(f"all inputs must be on {device}, got one on {t.device}")
-    for t in mods:
-        if t.dtype != torch.float32:
-            raise ValueError(f"modulation must be float32, got {t.dtype}")
-    encoded = encoded.to(torch.bfloat16).contiguous()
-    mods = [t.contiguous() for t in mods]
-    out_features = weights.packed["w_out"].shape[1]
-    features = torch.empty((n, out_features), dtype=torch.float32, device=device)
-    alpha = torch.empty((n,), dtype=torch.float32, device=device)
-    if n == 0:
-        return features, alpha
-
-    lib = _library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.fused_adain_nerf_launch(
-        encoded.data_ptr(), *(t.data_ptr() for t in mods),
-        weights.weights.data_ptr(), weights.biases.data_ptr(),
-        features.data_ptr(), alpha.data_ptr(),
-        n, samples_per_ray, pe, width, cfg.backbone_layers_count,
-        cfg.skip_layer_idx, out_features, stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"fused_adain_nerf kernel launch failed with CUDA error {err}")
-    fused_adain_nerf.launches += 1
-    return features, alpha
+    item = AdaInNerfItem(weights, encoded, scale0, bias0, scale1, bias1, samples_per_ray)
+    return fused_adain_nerf_group(cfg, [item])[0]
 
 
 fused_adain_nerf.launches = 0
+fused_adain_nerf.objects = 0
+
+
+class ObjectField(NamedTuple):
+    """One object's eval-mode field query for `fused_object_field_eval_group`:
+    its bounding box, models.nerf.AdaInNerfMLP, (..., rays, samples, 3)
+    object-frame points, (..., rays, 1, style_features) style (constant
+    along each ray) and the alpha of empty space."""
+
+    bounding_box: object
+    nerf: object
+    positions: torch.Tensor
+    style: torch.Tensor
+    empty_space_alpha: float
+
+
+def fused_object_field_eval_group(
+    cfg: NerfMLPConfig, fields: Sequence[ObjectField]
+) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Eval-mode object fields of one NeRF configuration through one grouped
+    MLP call: bbox mask, bbox normalization, positional encoding and the
+    AdaIN fold here per object, the MLP in the kernel, empty-space masking
+    after.
+
+    :return: per field, ((..., rays, samples, F) features, (..., rays,
+        samples) raw alphas).
+    """
+    items, masks = [], []
+    for f in fields:
+        positions = f.positions
+        box = torch.as_tensor(f.bounding_box, dtype=positions.dtype, device=positions.device)
+        masks.append(aabb_contains(box, positions))
+        ray_shape = positions.shape[:-2]
+        style_rays = f.style[..., 0, :].expand(ray_shape + f.style.shape[-1:])
+        flat_style = style_rays.reshape(-1, f.style.shape[-1])
+        pe_cfg = cfg.position_encoder
+        encoded = positional_encoding(positions.reshape(-1, 3) / aabb_size(box), pe_cfg.octaves,
+                                      pe_cfg.append_original)
+        scale0, bias0 = fold_adain_stats(f.nerf.adain_0, flat_style)
+        scale1, bias1 = fold_adain_stats(f.nerf.adain_1, flat_style)
+        items.append(AdaInNerfItem(f.nerf.kernel_weights(), encoded, scale0, bias0, scale1, bias1,
+                                   positions.shape[-2]))
+
+    results = []
+    for f, mask, (features, alpha) in zip(fields, masks, fused_adain_nerf_group(cfg, items)):
+        batch_shape = f.positions.shape[:-1]
+        features = features.reshape(batch_shape + (features.shape[-1],))
+        alpha = alpha.reshape(batch_shape)
+        results.append((torch.where(mask[..., None], features, 0.0),
+                        torch.where(mask, alpha, float(f.empty_space_alpha))))
+    return results
 
 
 def fused_object_field_eval(
@@ -344,41 +501,16 @@ def fused_object_field_eval(
     style: torch.Tensor,
     empty_space_alpha: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Eval-mode object field through the fused MLP: bbox mask, bbox
-    normalization and positional encoding here, the MLP in the kernel,
-    empty-space masking after.
+    """One object's eval-mode field through the fused MLP
+    (`fused_object_field_eval_group` of one field).
 
     :param nerf: models.nerf.AdaInNerfMLP.
     :param positions: (..., rays, samples, 3) object-frame points.
     :param style: (..., rays, 1, style_features), constant along each ray.
     :return: ((..., rays, samples, F) features, (..., rays, samples) raw alphas).
     """
-    box = torch.as_tensor(bounding_box, dtype=positions.dtype, device=positions.device)
-    mask = aabb_contains(box, positions)
-
-    batch_shape = positions.shape[:-1]
-    samples_per_ray = positions.shape[-2]
-    ray_shape = batch_shape[:-1]
-    flat_positions = positions.reshape(-1, 3)
-    style_rays = style[..., 0, :].expand(ray_shape + style.shape[-1:])
-    flat_style = style_rays.reshape(-1, style.shape[-1])
-
-    pe_cfg = cfg.position_encoder
-    encoded = positional_encoding(
-        flat_positions / aabb_size(box), pe_cfg.octaves, pe_cfg.append_original
-    )
-    scale0, bias0 = fold_adain_stats(nerf.adain_0, flat_style)
-    scale1, bias1 = fold_adain_stats(nerf.adain_1, flat_style)
-
-    features, alpha = fused_adain_nerf(
-        cfg, nerf.kernel_weights(), encoded, scale0, bias0, scale1, bias1,
-        samples_per_ray=samples_per_ray,
-    )
-    features = features.reshape(batch_shape + (features.shape[-1],))
-    alpha = alpha.reshape(batch_shape)
-    features = torch.where(mask[..., None], features, 0.0)
-    alpha = torch.where(mask, alpha, float(empty_space_alpha))
-    return features, alpha
+    field = ObjectField(bounding_box, nerf, positions, style, empty_space_alpha)
+    return fused_object_field_eval_group(cfg, [field])[0]
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Eval-mode frame rendering: per-object compacted ray domains, the fused
-NeRF MLP kernel, sort-free compositing across objects, and the
+NeRF MLP kernel (one grouped launch for the objects of each NeRF
+configuration), sort-free compositing across objects, and the
 multiresolution decode.
 
 Port of playableenvironments_tpu/render/fast.py (`_bender_displacements`,
@@ -179,8 +180,9 @@ def render_rays_fast(
     )
     in_scene_f = object_in_scene.expand(lead + (objects,)).reshape(l, objects)
 
-    # ---- Phase 1: per-object geometry, compaction, field evaluation ------
-    per = []
+    # ---- Phase 1: per-object geometry and compaction, then the fields of
+    # all objects of one NeRF configuration in one grouped MLP call --------
+    per, fields = [], {}
     for object_idx in range(objects):
         model_idx = object_ids.model_idx_by_object_idx(object_idx)
         cfg = scene.object_models[model_idx]
@@ -229,10 +231,23 @@ def render_rays_fast(
             eval_positions = positions_c
 
         style_points = obj_style[:, None, None].expand(l, budget, 1, obj_style.shape[-1])
-        feats_c, alpha_c = fused_nerf.fused_object_field_eval(
-            cfg.nerf, cfg.bounding_box, field.nerf, eval_positions, style_points,
-            cfg.empty_space_alpha,
-        )
+        fields.setdefault(cfg.nerf, []).append((object_idx, fused_nerf.ObjectField(
+            cfg.bounding_box, field.nerf, eval_positions, style_points, cfg.empty_space_alpha,
+        )))
+        per.append({
+            "order": order, "inv": inv, "budget": budget, "compact": compact,
+            "t_full": t_full, "t_c": t_c, "in_box": in_box, "disp_c": disp_c, "dirn_c": dirn_c,
+        })
+
+    evaluated = {}
+    for nerf_cfg, group in fields.items():
+        outputs = fused_nerf.fused_object_field_eval_group(nerf_cfg, [f for _, f in group])
+        evaluated.update(zip((object_idx for object_idx, _ in group), outputs))
+
+    for object_idx, entry in enumerate(per):
+        cfg = scene.object_models[object_ids.model_idx_by_object_idx(object_idx)]
+        feats_c, alpha_c = evaluated[object_idx]
+        in_box = entry.pop("in_box")
 
         # Empty-space masking on the unbent positions, and absent objects.
         feats_c = torch.where(in_box[..., None], feats_c, 0.0)
@@ -242,12 +257,7 @@ def render_rays_fast(
         )
         if scene.apply_activation:
             feats_c = torch.sigmoid(feats_c)
-
-        per.append({
-            "order": order, "inv": inv, "budget": budget, "compact": compact,
-            "t_full": t_full, "t_c": t_c, "raw_alpha_c": alpha_c,
-            "feats_c": feats_c, "disp_c": disp_c, "dirn_c": dirn_c,
-        })
+        entry["raw_alpha_c"], entry["feats_c"] = alpha_c, feats_c
 
     # ---- Phase 2: successor distances + alphas per object ----------------
     # Total order = (t, object index) lexicographic. Other objects' t comes

@@ -41,7 +41,7 @@ def kind_of(name: str) -> str:
         return "fused rollout (B4/B5)"
     if "backbone_" in lowered:
         return "fused backbone (B2/B3)"
-    if "fused_adain_nerf" in lowered:
+    if "adain_nerf" in lowered:
         return "B1"
     if "conv" in lowered or "cudnn" in lowered or "implicit" in lowered or "wgrad" in lowered or "dgrad" in lowered:
         return "convolution (cuDNN)"

@@ -55,6 +55,50 @@ def test_kernel_matches_plain_on_the_card(card, rays, samples):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", [256, 128])
+def test_grouped_kernel_matches_plain_on_the_card(card, width):
+    """The tennis frame's four objects and a ragged one (odd tile count),
+    each with its own weights, in one grouped launch, each object against
+    its plain version; then the same group twice, bit-identical."""
+    cfg = NerfMLPConfig(layers_width=width)
+    specs = [(4320, 4), (11520, 4), (1440, 32), (1440, 32), (37, 3)]
+    g = torch.Generator().manual_seed(1)
+    items = []
+    for i, (rays, samples) in enumerate(specs):
+        nerf = initialize_(AdaInNerfMLP(cfg, 64, device=card), torch.Generator().manual_seed(10 + i))
+        encoded = positional_encoding(torch.rand(rays * samples, 3, generator=g) * 2 - 1, 10, True).to(card)
+        style = torch.randn(rays, 64, generator=g).to(card)
+        with torch.no_grad():
+            mods = [*fused_nerf.fold_adain_stats(nerf.adain_0, style),
+                    *fused_nerf.fold_adain_stats(nerf.adain_1, style)]
+        items.append(fused_nerf.AdaInNerfItem(nerf.kernel_weights(), encoded, *mods, samples))
+    before = (fused_nerf.fused_adain_nerf.launches, fused_nerf.fused_adain_nerf.objects)
+    with torch.no_grad():
+        got = fused_nerf.fused_adain_nerf_group(cfg, items)
+        again = fused_nerf.fused_adain_nerf_group(cfg, items)
+        torch.cuda.synchronize()
+        assert (fused_nerf.fused_adain_nerf.launches, fused_nerf.fused_adain_nerf.objects) == (
+            before[0] + 2, before[1] + 2 * len(items))
+        for item, out, out_again in zip(items, got, again):
+            ref = fused_nerf.plain_adain_nerf(cfg, item.weights.packed, *item[1:6], item.samples_per_ray)
+            for g_, g2, r in zip(out, out_again, ref):
+                assert torch.equal(g_, g2)
+                diff = (g_ - r).abs()
+                assert bool((diff <= 3e-2 + 1e-2 * r.abs()).all()) and diff.mean().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_what_its_layout_does_not_take(card):
+    cfg = NerfMLPConfig(layers_width=192)
+    nerf = AdaInNerfMLP(cfg, 64, device=card)
+    mods = [torch.zeros(2, 192, device=card), torch.zeros(2, 192, device=card),
+            torch.zeros(2, 96, device=card), torch.zeros(2, 96, device=card)]
+    with pytest.raises(ValueError, match="takes"):
+        fused_nerf.fused_adain_nerf(cfg, nerf.kernel_weights(), torch.zeros(8, 63, device=card), *mods,
+                                    samples_per_ray=4)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_host_modulation(card):
     cfg = NerfMLPConfig()
     nerf = AdaInNerfMLP(cfg, 64, device=card)
@@ -65,8 +109,8 @@ def test_kernel_rejects_host_modulation(card):
 
 @pytest.mark.cuda
 def test_session_on_the_card_launches_the_kernel_per_object(card):
-    """Tennis at 48x64: 4 launches per frame, and the frames match the same
-    seeded session on the CPU."""
+    """Tennis at 48x64: the frame's 4 objects in one grouped launch per
+    frame, and the frames match the same seeded session on the CPU."""
     scene = scene_from_yaml(str(REPO / "configs" / "tennis.yaml"))
     small = dict(image_size=(48, 64), patch_strides=(4, 8), focal_length_multiplier=0.51417 * 64 / 512)
     card_session = InteractiveSession.from_scene(scene, device=card, **small)
@@ -80,10 +124,10 @@ def test_session_on_the_card_launches_the_kernel_per_object(card):
         torch.full((1, 1, 1), 600.0), torch.zeros(1, 1, n, 3), translations,
         torch.ones(1, 1, n, 64) * 0.1, torch.ones(1, 1, n, 32) * 0.1, torch.ones(1, 1, n, dtype=torch.bool),
     )
-    before = fused_nerf.fused_adain_nerf.launches
+    before = (fused_nerf.fused_adain_nerf.launches, fused_nerf.fused_adain_nerf.objects)
     frames = [(card_session.start(encoding), host_session.start(encoding))]
     frames.append((card_session.step([1, 2]), host_session.step([1, 2])))
-    assert fused_nerf.fused_adain_nerf.launches == before + 8
+    assert (fused_nerf.fused_adain_nerf.launches, fused_nerf.fused_adain_nerf.objects) == (before[0] + 2, before[1] + 8)
     for got, ref in frames:
         np.testing.assert_allclose(got, ref, atol=1e-2)
 

@@ -3,7 +3,7 @@ package: the bf16-emulating plain version against JAX fused_adain_nerf
 (interpret mode) and fused_object_field_eval at 5e-3 (identical bf16 operand
 rounding, but another f32 summation order can flip an occasional bf16
 rounding), the encoding and the modulation folding at 1e-5. The
-kernel's flat weight layout is checked on the CPU by reading it the way
+kernel's swizzled weight image is checked on the CPU by reading it the way
 csrc/fused_nerf.cu does; the kernel itself runs only on a card
 (test_torch_port_cuda.py)."""
 
@@ -120,46 +120,51 @@ def test_object_field_eval_matches_jax(setup):
     assert outside.any() and not outside.all()
 
 
-def _kernel_on_cpu(weights, cfg, encoded, mods, samples):
-    """The kernel's arithmetic read from its flat buffers with the offsets
-    csrc/fused_nerf.cu walks (padded K, encoding at columns [W, W + pe_pad)),
-    in torch on the CPU."""
+def _slot_element(slot_offset, k, n):
+    """Element offset of (row k, column n) of a 64-row weight slot that
+    starts `slot_offset` elements into the image: column block n // 64 of
+    64 x 64, each row 128 bytes whose 16-byte chunks are XOR-ed with k % 8
+    (the MN-major B operand of csrc/fused_nerf.cu's wgmma)."""
+    return slot_offset + (n // 64) * 4096 + k * 64 + (((n % 64) // 8) ^ (k % 8)) * 8 + n % 8
+
+
+def _read_image(image, cfg, pe, out):
+    """Every weight matrix read back from B1's image with the slot offsets
+    csrc/fused_nerf.cu streams (in elements): backbone slots of 64 W, then
+    w_alpha (W), then W_f0's columns [0, W/2) and [W/2, W), each W/64 slots
+    of 32 W, W_f1's W/64 slots of 32 W and W_out's W/128 slots of 64 NO, NO
+    = out rounded up to 64. Returns ({name: (rows, columns) matrix, padding
+    included}, elements read)."""
     width, layers, skip = cfg.layers_width, cfg.backbone_layers_count, cfg.skip_layer_idx
-    n, pe = encoded.shape
-    pe_pad = (pe + 15) // 16 * 16
-    out = weights.packed["w_out"].shape[1]
-    out_pad = (out + 15) // 16 * 16
-    w = weights.weights.float()
-    b = weights.biases
-    a = torch.zeros(n, width + pe_pad)
-    a[:, width : width + pe] = encoded.to(torch.bfloat16).float()
-    wo = bo = 0
+    nb, no = width // 64, -(-out // 64) * 64
+    k = torch.arange(64)[:, None]
 
-    def take(k, cols):
-        nonlocal wo
-        m = w[wo : wo + k * cols].reshape(k, cols)
-        wo += k * cols
-        return m
+    def slot(offset, cols):
+        return image[_slot_element(offset, k, torch.arange(cols)[None, :])]
 
+    mats, offset = {}, 0
     for i in range(layers):
-        k = pe_pad if i == 0 else (width + pe_pad if i == skip else width)
-        lhs = a[:, width : width + pe_pad] if i == 0 else a[:, :k]
-        a[:, :width] = torch.relu(lhs @ take(k, width) + b[bo : bo + width]).to(torch.bfloat16).float()
-        bo += width
-    alpha = a[:, :width] @ take(1, width)[0] + b[bo]
-    bo += 1
-    per_point = [m.repeat_interleave(samples, dim=0) for m in mods]
-    f = torch.relu((a[:, :width] @ take(width, width)) * per_point[0] + per_point[1])
-    f = torch.relu((f.to(torch.bfloat16).float() @ take(width, width // 2)) * per_point[2] + per_point[3])
-    features = f.to(torch.bfloat16).float() @ take(width // 2, out_pad)
-    assert wo == w.numel()
-    return features[:, :out] + b[bo:], alpha
+        slots = 1 if i == 0 else nb + (i == skip)
+        mats[f"w{i}"] = torch.cat([slot(offset + j * 64 * width, width) for j in range(slots)])
+        offset += slots * 64 * width
+    mats["w_alpha"] = image[offset : offset + width].reshape(width, 1)
+    offset += width
+    for name, slots, cols in (("w_f0_lo", nb, width // 2), ("w_f0_hi", nb, width // 2), ("w_f1", nb, width // 2),
+                              ("w_out", nb // 2, no)):
+        mats[name] = torch.cat([slot(offset + j * 64 * cols, cols) for j in range(slots)])
+        offset += slots * 64 * cols
+    mats["w_f0"] = torch.cat([mats.pop("w_f0_lo"), mats.pop("w_f0_hi")], dim=1)
+    return mats, offset
 
 
-@pytest.mark.parametrize("shape", [(3, 32, 2, 21, 24), (8, 256, 4, 63, 192), (5, 64, 9, 27, 40)])
+@pytest.mark.parametrize("shape", [(3, 128, 2, 21, 24), (8, 256, 4, 63, 192), (5, 256, 9, 27, 40),
+                                   (6, 128, 3, 63, 250)])
 def test_kernel_weight_layout(shape):
-    """Layers, width, skip, encoding width, outputs: the flat buffers hold
-    exactly the weights, zero-padded where the kernel pads."""
+    """Layers, width, skip, encoding width, outputs: B1's weight image, read
+    back element by element with the kernel's slot and swizzle arithmetic,
+    holds exactly the bf16 weights, zero where the kernel pads (the
+    encoding rows to 64, W_out's columns to a multiple of 64), and nothing
+    else."""
     layers, width, skip, pe, out = shape
     octaves = (pe - 3) // 6
     cfg = NerfMLPConfig(
@@ -168,15 +173,21 @@ def test_kernel_weight_layout(shape):
     )
     nerf = initialize_(AdaInNerfMLP(cfg, 8, device="cpu"), torch.Generator().manual_seed(1))
     weights = nerf.kernel_weights()
-    g = torch.Generator().manual_seed(2)
-    samples, rays = 4, 5
-    encoded = torch.rand(rays * samples, pe, generator=g) * 2 - 1
-    mods = [torch.randn(rays, c, generator=g) for c in (width, width, width // 2, width // 2)]
-    with torch.no_grad():
-        plain = fused_nerf.plain_adain_nerf(cfg, weights.packed, encoded, *mods, samples)
-        emulated = _kernel_on_cpu(weights, cfg, encoded, mods, samples)
-    for e, p in zip(emulated, plain):
-        np.testing.assert_allclose(e.numpy(), p.numpy(), atol=1e-4, rtol=1e-4)
+    mats, used = _read_image(weights.image, cfg, pe, out)
+    assert used == weights.image.numel()
+    assert weights.image.dtype == torch.bfloat16
+    for name, got in mats.items():
+        want = weights.packed[name].to(torch.bfloat16)
+        if name == "w0" or (name == f"w{skip}" and skip < layers):
+            # The encoding's rows, zero-padded to 64.
+            h = 0 if name == "w0" else width
+            want = torch.cat([want[:h], want[h:], want.new_zeros(64 - pe, width)])
+        elif name == "w_out":
+            want = torch.cat([want, want.new_zeros(width // 2, got.shape[1] - out)], dim=1)
+        assert torch.equal(got, want), name
+    biases = torch.cat([weights.packed[f"b{i}"] for i in range(layers)]
+                       + [weights.packed["b_alpha"], weights.packed["b_out"]])
+    assert torch.equal(weights.biases, biases)
 
 
 def test_kernel_weights_follow_parameter_updates(setup):
@@ -207,9 +218,18 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(setup):
         fused_nerf.fused_adain_nerf(cfg, weights, torch.zeros(8, pe + 1), *good, samples_per_ray=4)
     with pytest.raises(ValueError, match="cuda or cpu"):
         fused_nerf.fused_adain_nerf(cfg, weights, enc.to("meta"), *(m.to("meta") for m in good), samples_per_ray=4)
-    for bad in (dict(layers_width=48), dict(layers_width=512), dict(skip_layer_idx=0),
-                dict(position_encoder=PositionalEncoderConfig(octaves=11))):
-        bad_cfg = NerfMLPConfig(**{**dict(layers_width=32, backbone_layers_count=3, output_features=8,
+    for bad in (dict(skip_layer_idx=0), dict(position_encoder=PositionalEncoderConfig(octaves=11)),
+                dict(output_features=257)):
+        bad_cfg = NerfMLPConfig(**{**dict(layers_width=128, backbone_layers_count=3, output_features=8,
                                           skip_layer_idx=1), **bad})
         with pytest.raises(ValueError):
             AdaInNerfMLP(bad_cfg, 4, device="cpu").kernel_weights()
+    # The image's feature-head slots take W 128 or 256; other widths run only
+    # the plain version (on the CPU) and have no image.
+    assert weights.image is None and cfg.layers_width not in (128, 256)
+    for width in (48, 64, 192, 512):
+        narrow = NerfMLPConfig(layers_width=width, backbone_layers_count=3, output_features=8, skip_layer_idx=1)
+        nerf = AdaInNerfMLP(narrow, 4, device="cpu")
+        assert nerf.kernel_weights().image is None
+        with pytest.raises(ValueError, match="takes"):
+            fused_nerf.adain_image(narrow, fused_nerf.pack_nerf_params(narrow, nerf))
