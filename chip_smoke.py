@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one card: the tennis play loop, the
-tennis phase-2 train step and the tennis phase-3 (action module) G+D step.
+tennis phase-2 train step, the tennis phase-3 (action module) G+D step and
+the data path from a dataset on disk to each of them.
 
     python3 chip_smoke.py
 
@@ -48,7 +49,17 @@ Phases, each fatal on failure:
    observations, 2 players, dynamics 2 x 256, action network 3 x 128, GAN
    and ACMV) for 20 steps; finite losses and parameters, both parameter
    groups, the centroids and the MI matrices moved, 4 B4 and 2 B5 launches
-   per step, the median step time and the peak memory.
+   per step, the median step time and the peak memory;
+11. from video on disk: write a tennis-shaped dataset (2 players, 288x512)
+   with the port's Video and load it back through cli/common.py's
+   build_dataset; the eval-mode scene encoding of a test batch (bs 4) on the
+   card and on the CPU; InteractiveSession.initialize(batch) and 12 steps
+   (one grouped B1 launch of 4 objects a frame, the first frame against the
+   CPU session's); the reconstructed test split at batch 4 (one B1 launch a
+   batch, that launch held against plain_adain_nerf); the phase-3 encoding
+   cache of the train split (save, load, fingerprint) and G+D steps over
+   its batches and with step_with_batch on dataset batches (4 B4 and 2 B5
+   launches a step). It prints the PNG codec it used.
 Details go to chiprun_out/chip_smoke.json. Prints one JSON line of kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX.
 """
@@ -183,7 +194,7 @@ def mlp_work(cfg, packed, points: int, rays: int):
 
 
 class SmokeFailure(Exception):
-    """A failed check of phases 5-10 (main() reports it and exits 1)."""
+    """A failed check of phases 2-11 (main() reports it and exits 1)."""
 
 
 # ---- phase-2 training (phases 5-7) -------------------------------------------
@@ -1157,6 +1168,385 @@ def phase10_main_path(steps=PHASE3_STEPS, device="cuda"):
             "discriminator_losses": d_losses, "peak_memory_bytes": peak}
 
 
+# ---- phase 11: from video on disk to the card ---------------------------------
+
+# The dataset phase 11 writes (1 camera, 288x512 frames, 2 players on random
+# walks from numpy seed 0): videos and frames per split; the camera behind
+# the court looking down it; the raw tennis focal, which the frames are
+# rendered at times the tennis focal multiplier; each player's (x, y) range.
+DATA_SPLITS = {"train": (2, 40), "test": (2, 12)}
+DATA_CAMERA = ((1.2, 0.0, 0.0), (0.0, -30.0, 10.0))
+DATA_FOCAL = 600.0
+DATA_PLAYERS = (((-4.0, 4.0), (-10.0, -2.0)), ((-4.0, 4.0), (2.0, 10.0)))
+CREATOR_BATCH = 4
+CACHE_BATCH = 32
+PHASE11_CACHE_STEPS, PHASE11_BATCH_STEPS = 6, 3
+# The eval-mode encoding, card vs CPU (beside phase 6's train-mode step): the
+# object encoders' convolutions run in TF32 on the card (~1e-3 relative a
+# convolution) through up to 20 convolutions, with running statistics and
+# no batch norm to amplify it; styles and deformations are held to 2e-2 of
+# each field's largest magnitude element-wise and 2e-3 in the mean. The
+# poses come from the boxes and cameras through f32 arithmetic alone: 1e-4
+# of their largest magnitude. object_in_scene and the cameras exactly.
+CODE_REL_ATOL, CODE_REL_MEAN, POSE_REL_ATOL = 2e-2, 2e-3, 1e-4
+# B1 at the creator's batch-4 launch: each object's output equals its launch
+# alone bit for bit (the pair table, tile counts and offsets at 4x a frame's
+# points), and against plain_adain_nerf it is held to phase 2's bounds
+# (KERNEL_ATOL and the rest) in units of the output's mean magnitude where
+# that exceeds 1. Those bounds are absolute, set where the outputs are O(1);
+# bf16 operand rounding errs in proportion to the activations, which grow
+# with the AdaIN modulation. The random encoders give player 1 a modulation
+# of up to 8 and outputs of mean magnitude ~3, and then the plain version
+# itself moves by 4.4e-2 (mean 8.8e-5) against the same products summed in
+# float64, as far as the kernel does (scripts/check_b1_batch.py).
+
+
+def write_tennis_dataset(root):
+    """Phase 11's dataset under `root`, written by the port's Video; returns
+    (ms to write a frame, the PNG codec)."""
+    from playableenvironments_tpu_torch.data import synthetic, video
+
+    codec = video.png_codec()
+    frames = sum(v * f for v, f in DATA_SPLITS.values())
+    start = time.perf_counter()
+    synthetic.make_two_player_dataset(
+        root, height=IMAGE_SIZE[0], width=IMAGE_SIZE[1], focal=DATA_FOCAL,
+        focal_length_multiplier=FOCAL_LENGTH_MULTIPLIER, camera_rotation=DATA_CAMERA[0],
+        camera_translation=DATA_CAMERA[1], player_ranges=DATA_PLAYERS, seed=0, splits=tuple(DATA_SPLITS),
+        frames_by_split=DATA_SPLITS,
+    )
+    return (time.perf_counter() - start) * 1e3 / frames, codec
+
+
+def tennis_config(repo, root, section="training", **overrides):
+    """configs/tennis.yaml with `data.data_root` at `root` and the batching
+    of `section` (`training` or `playable_model_training`), with
+    `overrides`, as `training.batching`."""
+    from playableenvironments_tpu_torch.cli.common import load_yaml, with_batching_overrides
+
+    cfg = load_yaml(os.path.join(repo, "configs", "tennis.yaml"))
+    cfg["data"]["data_root"] = root
+    cfg["training"] = {**cfg.get("training", {}), "batching": cfg[section]["batching"]}
+    return with_batching_overrides(cfg, **overrides)
+
+
+def compare_encodings(label, got, ref):
+    """Max errors of a card encoding against the CPU's, relative to each
+    field's largest magnitude; raises beyond the bounds stated above."""
+    import torch
+
+    errors = {}
+    for field in ("camera_rotations", "camera_translations", "focals", "object_rotations", "object_translations",
+                  "object_style", "object_deformation", "object_in_scene"):
+        g, r = getattr(got, field).cpu(), getattr(ref, field)
+        if g.shape != r.shape:
+            raise SmokeFailure(f"{label} {field}: shape {tuple(g.shape)} vs {tuple(r.shape)}")
+        if field in ("camera_rotations", "camera_translations", "focals", "object_in_scene"):
+            if not torch.equal(g, r):
+                raise SmokeFailure(f"{label} {field} differs between the card and the CPU")
+            continue
+        if not bool(torch.isfinite(g).all()):
+            raise SmokeFailure(f"{label} {field} is not finite")
+        scale = max(r.abs().max().item(), 1e-30)
+        diff = (g - r).abs()
+        errors[field] = (diff.max().item() / scale, diff.mean().item() / scale)
+        atol, mean = (POSE_REL_ATOL, POSE_REL_ATOL) if field.startswith("object_r") or field.startswith(
+            "object_t") else (CODE_REL_ATOL, CODE_REL_MEAN)
+        if not (errors[field][0] <= atol and errors[field][1] <= mean):
+            raise SmokeFailure(f"{label} {field}: card vs CPU err {errors[field][0]:.3e} of its largest magnitude, "
+                               f"mean {errors[field][1]:.3e}")
+    return errors
+
+
+def phase3_data_trainer(env_model, device):
+    """phase3_trainer's configuration over the frozen `env_model`."""
+    from playableenvironments_tpu_torch.render.playable_model import PlayableEnvironmentModel
+    from playableenvironments_tpu_torch.train.trainer_playable import (
+        PlayableLossWeights, PlayableTrainer, PlayableTrainingConfig,
+    )
+
+    model = PlayableEnvironmentModel(phase3_scene(), with_discriminators=True, device=device, seed=0)
+    return PlayableTrainer(model, PlayableTrainingConfig(
+        ground_truth_observations_start=PHASE3_GT, loss_weights=PlayableLossWeights(gan=0.1, acmv=0.1)),
+        environment_model=env_model)
+
+
+def phase11_from_data(repo, scene, play_median_ms, phase3_median_ms, device="cuda"):
+    """The data path on the card: write a tennis-shaped dataset (11a), the
+    eval-mode encoding of a test batch card vs CPU (11b), play from a batch
+    (11c), the reconstructed test split at batch 4 (11d), phase 3 from the
+    encoding cache and from dataset batches (11e)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from playableenvironments_tpu_torch.cli.common import build_dataset
+    from playableenvironments_tpu_torch.cli.play import InteractiveSession
+    from playableenvironments_tpu_torch.data.batching import collate
+    from playableenvironments_tpu_torch.data.dataset import MulticameraVideoDataset
+    from playableenvironments_tpu_torch.data.video import Video, _save_image
+    from playableenvironments_tpu_torch.eval.creators import FrameRenderer, ReconstructedDatasetCreator
+    from playableenvironments_tpu_torch.ops import fused_nerf
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+    from playableenvironments_tpu_torch.render.environment_model import EnvironmentModel
+    from playableenvironments_tpu_torch.train.encoding_cache import EncodingCache, params_fingerprint
+    from playableenvironments_tpu_torch.utils.random import RngStreams
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 11a. the dataset ---------------------------------------------
+        root = os.path.join(tmp, "tennis")
+        write_ms, codec = write_tennis_dataset(root)
+        test = build_dataset(tennis_config(repo, root, observations_count=1, skip_frames=0), "test")
+        clip = Video().load(test.videos[0].videos[0].path)
+        start = time.perf_counter()
+        decoded = [clip.get_frame(i) for i in range(clip.frames_count)]
+        read_ms = (time.perf_counter() - start) * 1e3 / clip.frames_count
+        start = time.perf_counter()
+        for i, frame in enumerate(decoded):
+            _save_image(frame, os.path.join(tmp, f"{i:05}.png"))
+        png_ms = (time.perf_counter() - start) * 1e3 / len(decoded)
+        if len(test) != DATA_SPLITS["test"][0] * DATA_SPLITS["test"][1]:
+            raise SmokeFailure(f"the test split loads as {len(test)} frames")
+        sample = test[0]
+        if sample["observations"].shape != (1, 1) + IMAGE_SIZE + (3,) or sample["bounding_boxes"].shape != (1, 1, 2, 4):
+            raise SmokeFailure(f"a test sample has observations {sample['observations'].shape}, boxes "
+                               f"{sample['bounding_boxes'].shape}")
+        out["data"] = {"codec": codec, "write_ms_a_frame": png_ms, "dataset_ms_a_frame": write_ms,
+                       "read_ms_a_frame": read_ms}
+        print(f"11a dataset: {DATA_SPLITS} (videos, frames) at {IMAGE_SIZE[1]}x{IMAGE_SIZE[0]}, 2 players; PNG codec "
+              f"{codec}; {png_ms:.2f} ms to write a frame's PNG and {read_ms:.2f} ms to decode one ({write_ms:.2f} ms "
+              f"a frame to write the dataset, its analytic render included)")
+
+        # ---- 11b. the eval-mode encoding, card vs CPU -----------------------
+        batch = next(test.iterate_batches(4, shuffle=False))
+        card, host = (InteractiveSession.from_scene(scene, image_size=IMAGE_SIZE, patch_strides=STRIDES,
+                                                    focal_length_multiplier=FOCAL_LENGTH_MULTIPLIER, device=dev,
+                                                    seed=0) for dev in (device, "cpu"))
+        encoding = card.renderer.encode(batch)
+        errors = compare_encodings("11b encoding", encoding, host.renderer.encode(batch))
+        encode_ms = cuda_ms(lambda: card.renderer.encode(batch)) if device == "cuda" else 0.0
+        out["encoding"] = {"errors": errors, "ms": encode_ms}
+        print(f"11b eval encoding (bs 4 x 1 obs, {IMAGE_SIZE[1]}x{IMAGE_SIZE[0]}, 4 objects): card vs CPU "
+              + ", ".join(f"{k} {v[0]:.3e} (mean {v[1]:.3e})" for k, v in errors.items())
+              + f" of each field's largest magnitude; {encode_ms:.3f} ms on the card (median of 20)")
+
+        # ---- 11c. play from a batch ------------------------------------------
+        first = next(test.iterate_batches(1, shuffle=False))
+        fused_nerf.fused_adain_nerf.launches = 0
+        fused_nerf.fused_adain_nerf.objects = 0
+        play = [card.initialize(first)]
+        step_ms = []
+        for i in range(STEPS):
+            start = time.perf_counter()
+            play.append(card.step(list(ACTIONS[i % len(ACTIONS)])))
+            step_ms.append((time.perf_counter() - start) * 1e3)
+        launches, objects = fused_nerf.fused_adain_nerf.launches, fused_nerf.fused_adain_nerf.objects
+        ref = host.initialize(first)
+        frame_err = float(np.abs(play[0] - ref).max())
+        for i, frame in enumerate(play):
+            if frame.shape != IMAGE_SIZE + (3,) or not np.isfinite(frame).all():
+                raise SmokeFailure(f"11c frame {i} has shape {frame.shape} or is not finite")
+        if device == "cuda" and (launches, objects) != (len(play), 4 * len(play)):
+            raise SmokeFailure(f"11c: {launches} B1 launches covering {objects} objects for {len(play)} frames")
+        if not frame_err <= FRAME_ATOL:
+            raise SmokeFailure(f"11c: the first frame differs from the CPU session's by {frame_err:.3e}")
+        median = statistics.median(step_ms[2:])
+        out["play"] = {"launches": launches, "objects": objects, "frame_err": frame_err, "step_ms": step_ms,
+                       "median_step_ms": median}
+        print(f"11c play from a batch: initialize + {STEPS} steps at {IMAGE_SIZE[1]}x{IMAGE_SIZE[0]}, {launches} grouped "
+              f"B1 launches "
+              f"covering {objects} objects; first frame card vs CPU max abs err {frame_err:.3e} (tolerance "
+              f"{FRAME_ATOL}); median step {median:.3f} ms vs {play_median_ms:.3f} ms from an encoding (phase 4)")
+
+        # ---- 11d. the reconstructed test split --------------------------------
+        grouped = fused_nerf.fused_adain_nerf_group
+        captured = []
+
+        def capture(cfg, items):
+            outs = grouped(cfg, items)
+            if not captured:
+                captured.append((cfg, items, outs))
+            return outs
+
+        mirror = os.path.join(tmp, "mirror")
+        creator = ReconstructedDatasetCreator(FrameRenderer(card.renderer.model, card.autoencoder, IMAGE_SIZE,
+                                                            STRIDES), batch_size=CREATOR_BATCH)
+        fused_nerf.fused_adain_nerf_group = capture
+        fused_nerf.fused_adain_nerf.launches = 0
+        fused_nerf.fused_adain_nerf.objects = 0
+        try:
+            if device == "cuda":
+                torch.cuda.synchronize()
+            start = time.perf_counter()
+            creator.reconstruct_dataset(test, mirror)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            creator_s = time.perf_counter() - start
+        finally:
+            fused_nerf.fused_adain_nerf_group = grouped
+        launches, objects = fused_nerf.fused_adain_nerf.launches, fused_nerf.fused_adain_nerf.objects
+        total = len(test)
+        batches = -(-total // CREATOR_BATCH)
+        pngs = sum(f.endswith(".png") for _, _, files in os.walk(mirror) for f in files)
+        reloaded = MulticameraVideoDataset(mirror, observations_count=1)
+        if pngs != total or len(reloaded) != total:
+            raise SmokeFailure(f"11d: {pngs} PNGs, a mirror of {len(reloaded)} frames, for {total} frames")
+        if device == "cuda" and (launches, objects) != (batches, 4 * batches):
+            raise SmokeFailure(f"11d: {launches} B1 launches covering {objects} objects for {batches} batches")
+        cfg, items, outs = captured[0]
+        rows, scales = [], []
+        with torch.no_grad():
+            for index, (item, (feats, alpha)) in enumerate(zip(items, outs)):
+                args = (item.encoded, item.scale0, item.bias0, item.scale1, item.bias1)
+                alone = fused_nerf.fused_adain_nerf(cfg, item.weights, *args, samples_per_ray=item.samples_per_ray)
+                if not all(torch.equal(a, b) for a, b in zip(alone, (feats, alpha))):
+                    raise SmokeFailure(f"11d: object {index} of the batch-{CREATOR_BATCH} B1 launch differs from "
+                                       "the same object launched alone")
+                refs = fused_nerf.plain_adain_nerf(cfg, item.weights.packed, *args, item.samples_per_ray)
+                pair = []
+                for name, got, ref in (("features", feats, refs[0]), ("alpha", alpha, refs[1])):
+                    scale = max(1.0, ref.abs().mean().item())
+                    scales.append(scale)
+                    err = check_close(f"11d B1 batch-{CREATOR_BATCH} object {index} {name} (over {scale:.3f})",
+                                      got / scale, ref / scale, KERNEL_ATOL, KERNEL_RTOL, KERNEL_MEAN_ATOL)
+                    pair.append((err[0] * scale, err[1] * scale))
+                rows.append(pair)
+            b1_ms = cuda_ms(lambda: grouped(cfg, items)) if device == "cuda" else 0.0
+            b1_back_ms = cuda_ms_back_to_back(lambda: grouped(cfg, items)) if device == "cuda" else 0.0
+        work = [mlp_work(cfg, item.weights.packed, item.encoded.shape[0], item.scale0.shape[0]) for item in items]
+        flops, bytes_ = sum(w[0] for w in work), sum(w[1] for w in work)
+        b1_bound = max(flops / PEAK_BF16_FLOPS, bytes_ / PEAK_BYTES_PER_S) * 1e3
+        points = sum(item.encoded.shape[0] for item in items)
+        out["creator"] = {
+            "frames": total, "batches": batches, "launches": launches, "objects": objects, "seconds": creator_s,
+            "frames_per_s": total / creator_s, "ms_a_batch": creator_s * 1e3 / batches, "b1_points": points,
+            "b1_ms": b1_ms, "b1_back_to_back_ms": b1_back_ms, "b1_bound_ms": b1_bound,
+            "b1_bound_by": "operations" if flops / PEAK_BF16_FLOPS > bytes_ / PEAK_BYTES_PER_S else "bytes",
+            "b1_max_abs_err": max(r[0] for pair in rows for r in pair),
+            "b1_mean_abs_err": max(r[1] for pair in rows for r in pair), "b1_output_scales": scales,
+        }
+        print(f"11d reconstructed test split: {total} frames in {batches} batches of {CREATOR_BATCH}, {launches} B1 "
+              f"launches covering {objects} objects, {pngs} PNGs, the mirror loads; {total / creator_s:.2f} frames/s, "
+              f"{creator_s * 1e3 / batches:.1f} ms a batch; the batch-{CREATOR_BATCH} B1 launch ({points} points): "
+              f"each object bit-identical to its launch alone, max abs err {out['creator']['b1_max_abs_err']:.3e}, "
+              f"mean {out['creator']['b1_mean_abs_err']:.3e} against plain (output scales "
+              f"{[round(x, 3) for x in scales]}); {b1_ms:.4f} ms ({b1_back_ms:.4f} ms back to back) against a {b1_bound:.4f} ms bound")
+        del captured, items, outs, card, host
+
+        # ---- 11e. phase 3 from the encoding cache and from batches -----------
+        train = build_dataset(tennis_config(repo, root, "playable_model_training"), "train")
+        env_model = EnvironmentModel(phase3_scene(), FOCAL_LENGTH_MULTIPLIER, device=device, seed=0)
+        trainer = phase3_data_trainer(env_model, device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        cache = EncodingCache.build(trainer.encode_batch, train, batch_size=CACHE_BATCH)
+        cache_s = time.perf_counter() - start
+        cached_frames = cache.encoding.object_style.shape[0]
+        fingerprint = params_fingerprint(env_model)
+        path = os.path.join(tmp, "encoding_cache.npz")
+        cache.save(path, fingerprint=fingerprint)
+        loaded = EncodingCache.load(path, fingerprint=fingerprint)
+        for field, leaf in vars(cache.encoding).items():
+            if not np.array_equal(getattr(loaded.encoding, field), leaf):
+                raise SmokeFailure(f"11e: the cache's {field} changed through save and load")
+        try:
+            EncodingCache.load(path, fingerprint=fingerprint * 1.001)
+            raise SmokeFailure("11e: a stale fingerprint loaded")
+        except ValueError:
+            pass
+        T = train.observations_count
+
+        def cache_batches():
+            for epoch in range(PHASE11_CACHE_STEPS):
+                yield from loaded.iterate_encoding_batches(PHASE3_BATCH, T, seed=epoch, device=device)
+
+        batches = cache_batches()
+        trainer.init_state_from_encoding(next(batches), seed=0)
+        rng = RngStreams(0, device)
+        fr.fused_rollout_fwd.launches = 0
+        fr.fused_rollout_bwd.launches = 0
+        cache_ms, gather_ms, losses = [], [], []
+        for _ in range(PHASE11_CACHE_STEPS):
+            start = time.perf_counter()
+            encoding = next(batches)
+            gather_ms.append((time.perf_counter() - start) * 1e3)
+            start = time.perf_counter()
+            metrics = trainer.fused_step(encoding, rng)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            cache_ms.append((time.perf_counter() - start) * 1e3)
+            losses.append(metrics["loss"].item())
+        cache_launches = (fr.fused_rollout_fwd.launches, fr.fused_rollout_bwd.launches)
+        def dataset_batches():
+            for epoch in range(PHASE11_BATCH_STEPS):
+                yield from train.iterate_batches(PHASE3_BATCH, seed=epoch)
+
+        # Steps while the prefetch thread decodes the next batch on the host,
+        # as a training loop runs them, then the same number on batches
+        # decoded beforehand.
+        batch_iter = dataset_batches()
+        fr.fused_rollout_fwd.launches = 0
+        fr.fused_rollout_bwd.launches = 0
+        batch_ms, load_ms = [], []
+        for _ in range(PHASE11_BATCH_STEPS):
+            start = time.perf_counter()
+            batch = next(batch_iter)
+            load_ms.append((time.perf_counter() - start) * 1e3)
+            start = time.perf_counter()
+            metrics = trainer.step_with_batch(batch, rng)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            batch_ms.append((time.perf_counter() - start) * 1e3)
+            losses.append(metrics["loss"].item())
+        batch_iter.close()
+        batch_launches = (fr.fused_rollout_fwd.launches, fr.fused_rollout_bwd.launches)
+        preloaded = [collate([train[(b * PHASE3_BATCH + i) % len(train)] for i in range(PHASE3_BATCH)])
+                     for b in range(PHASE11_BATCH_STEPS)]
+        quiet_ms = []
+        for batch in preloaded:
+            start = time.perf_counter()
+            metrics = trainer.step_with_batch(batch, rng)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            quiet_ms.append((time.perf_counter() - start) * 1e3)
+            losses.append(metrics["loss"].item())
+        del preloaded
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        if not all(math.isfinite(x) for x in losses):
+            raise SmokeFailure(f"11e losses {losses}")
+        if device == "cuda" and (cache_launches != (4 * PHASE11_CACHE_STEPS, 2 * PHASE11_CACHE_STEPS)
+                                 or batch_launches != (4 * PHASE11_BATCH_STEPS, 2 * PHASE11_BATCH_STEPS)):
+            raise SmokeFailure(f"11e: B4/B5 launches {cache_launches} in {PHASE11_CACHE_STEPS} cache steps, "
+                               f"{batch_launches} in {PHASE11_BATCH_STEPS} batch steps; expected 4 and 2 a step")
+        cache_median = statistics.median(cache_ms[2:])
+        batch_median = statistics.median(batch_ms[1:])
+        quiet_median = statistics.median(quiet_ms)
+        out["phase3"] = {
+            "cache_frames": cached_frames, "cache_s": cache_s, "cache_frames_per_s": cached_frames / cache_s,
+            "cache_launches": cache_launches, "cache_step_ms": cache_ms, "cache_median_step_ms": cache_median,
+            "gather_ms": gather_ms, "batch_launches": batch_launches, "batch_step_ms": batch_ms,
+            "batch_median_step_ms": batch_median, "batch_load_ms": load_ms, "preloaded_step_ms": quiet_ms,
+            "preloaded_median_step_ms": quiet_median, "losses": losses,
+            "peak_memory_bytes": peak, "fingerprint": fingerprint,
+        }
+        print(f"11e phase 3 from data: cache of {cached_frames} frames built in {cache_s:.2f} s "
+              f"({cached_frames / cache_s:.1f} frames/s, batches of {CACHE_BATCH}), saved and loaded (fingerprint "
+              f"{fingerprint:.6e}, a stale one refused); {PHASE11_CACHE_STEPS} G+D steps over cache batches "
+              f"(bs {PHASE3_BATCH} x {T}): B4 {cache_launches[0]}, B5 {cache_launches[1]} launches, median step "
+              f"{cache_median:.3f} ms (gather + copy {statistics.median(gather_ms):.3f} ms) vs {phase3_median_ms:.3f} "
+              f"ms over a fixed encoding (phase 10); {PHASE11_BATCH_STEPS} step_with_batch steps on dataset batches "
+              f"(bs {PHASE3_BATCH} x {T} at {IMAGE_SIZE[1]}x{IMAGE_SIZE[0]}): B4 {batch_launches[0]}, B5 {batch_launches[1]} launches, "
+              f"median step {batch_median:.3f} ms beside the prefetch thread's decode of the next batch "
+              f"({quiet_median:.3f} ms on batches decoded beforehand; waiting for a batch "
+              f"{statistics.median(load_ms):.1f} ms apart); "
+              f"peak memory {peak / 2**20:.1f} MiB")
+    return out
+
+
 def ptxas_entries(report: str) -> dict:
     """{kernel entry (mangled): {"registers", "spill_stores", "spill_loads",
     "smem"}} from nvcc -Xptxas -v output."""
@@ -1400,6 +1790,7 @@ def main() -> int:
         rollout_rows, rollout_timing = phase8_rollout_kernels()
         phase3_card_vs_cpu = phase9_card_vs_cpu()
         phase3 = phase10_main_path()
+        phase11 = phase11_from_data(repo, scene, frame_ms, phase3["median_step_ms"])
     except SmokeFailure as e:
         return fail(str(e))
 
@@ -1425,7 +1816,10 @@ def main() -> int:
     # the frame's four objects.
     b1 = kernel_entry("fused_adain_nerf", "fused_nerf.cu", "playableenvironments_tpu/ops/fused_nerf.py:111",
                       launches, shapes)
-    b1.update(ms=group["ms"], max_abs_err=max(b1["max_abs_err"], group["max_abs_err"]))
+    b1.update(ms=group["ms"], max_abs_err=max(b1["max_abs_err"], group["max_abs_err"], phase11["creator"]["b1_max_abs_err"]),
+              launches_by_path={"play": launches, "play_from_batch": phase11["play"]["launches"],
+                                "reconstruction": phase11["creator"]["launches"]},
+              batch4_ms=phase11["creator"]["b1_ms"], batch4_bound_ms=phase11["creator"]["b1_bound_ms"])
     kernels = [
         b1,
         kernel_entry("fused_backbone_fwd", "fused_backbone.cu", "playableenvironments_tpu/ops/fused_nerf.py:375",
@@ -1452,6 +1846,10 @@ def main() -> int:
          "plain_ms": 2 * t["bwd_plain_ms"], "bound_ms": 2 * t["bwd_bound_ms"], "bound_by": t["bwd_bound_by"],
          "library_ms": None},
     ]
+    p11 = phase11["phase3"]
+    for entry, which in zip(kernels[3:], (0, 1)):
+        entry["launches_by_path"] = {"phase3": phase3["launches"][which], "phase3_cache": p11["cache_launches"][which],
+                                     "phase3_batch": p11["batch_launches"][which]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1461,7 +1859,7 @@ def main() -> int:
         json.dump({"card": smi, "shapes": shapes, "group": group, "step_ms": step_ms, "frame_ms": frame_ms,
                    "backbone_fwd_shapes": fwd_rows, "backbone_bwd_shapes": bwd_rows,
                    "train_card_vs_cpu": card_vs_cpu, "phase2": phase2, "rollout_shapes": rollout_rows,
-                   "phase3_card_vs_cpu": phase3_card_vs_cpu, "phase3": phase3, "kernels": kernels,
+                   "phase3_card_vs_cpu": phase3_card_vs_cpu, "phase3": phase3, "phase11": phase11, "kernels": kernels,
                    "ptxas": reports}, f, indent=1)
     print(
         "tf32: torch.backends.cuda.matmul.allow_tf32="

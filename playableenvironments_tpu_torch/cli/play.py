@@ -3,9 +3,10 @@
 Port of playableenvironments_tpu/cli/play.py::InteractiveSession: scene
 state and dynamics carries held between user actions, one dynamics step per
 dynamic object and a full re-render per step. The session starts from a
-SceneEncoding; encoding video into one (the JAX session's
-`initialize(batch)`) needs the object and parameter encoders, which come
-with the phase-2 slice.
+dataset batch (`initialize`: frame 0 encoded in eval mode through
+eval.creators.FrameRenderer, as the JAX session does) or from a
+SceneEncoding (`start`). The CLI's `main()` needs checkpoint restore and is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -33,11 +34,14 @@ class InteractiveSession:
         image_size: Tuple[int, int],
         patch_strides: Optional[Sequence[int]] = None,
         focal_length_multiplier: float = 1.0,
+        environment_model=None,
     ):
         """:param composer: render.composer.SceneComposer; :param autoencoder:
         models.autoencoder.MultiresAutoencoder or None; :param playable_model:
-        render.playable_model.PlayableEnvironmentModel. All on one device,
-        which is where the session runs."""
+        render.playable_model.PlayableEnvironmentModel; :param
+        environment_model: render.environment_model.EnvironmentModel holding
+        `composer`, needed by `initialize` only. All on one device, which is
+        where the session runs."""
         self.scene = scene
         self.composer = composer
         self.autoencoder = autoencoder
@@ -50,6 +54,13 @@ class InteractiveSession:
         self.encoding: Optional[SceneEncoding] = None
         self.carries: List = []
         self.initial_style: Optional[torch.Tensor] = None
+        self.renderer = None
+        if environment_model is not None:
+            from playableenvironments_tpu_torch.eval.creators import FrameRenderer
+
+            if environment_model.composer is not composer:
+                raise ValueError("the environment model must hold the session's composer")
+            self.renderer = FrameRenderer(environment_model, autoencoder, image_size, patch_strides)
 
     @classmethod
     def from_scene(
@@ -62,12 +73,14 @@ class InteractiveSession:
         seed: int = 0,
     ) -> "InteractiveSession":
         """A session over seeded random weights for `scene` on `device`
-        (compat.from_flax loads trained ones into its modules)."""
+        (compat.from_flax loads trained ones into its modules). The
+        environment model's composer is seeded as a SceneComposer of its
+        own would be, its object encoders from `seed` + 1."""
         from playableenvironments_tpu_torch.models.autoencoder import MultiresAutoencoder
-        from playableenvironments_tpu_torch.render.composer import SceneComposer
+        from playableenvironments_tpu_torch.render.environment_model import EnvironmentModel
         from playableenvironments_tpu_torch.render.playable_model import PlayableEnvironmentModel
 
-        composer = SceneComposer(scene, device=device, seed=seed)
+        model = EnvironmentModel(scene, focal_length_multiplier, device=device, seed=seed)
         autoencoder = (
             MultiresAutoencoder(scene.autoencoder, device=device, seed=seed + 1)
             if scene.autoencoder is not None
@@ -75,8 +88,8 @@ class InteractiveSession:
         )
         playable = PlayableEnvironmentModel(scene, device=device, seed=seed + 2)
         return cls(
-            scene, composer, autoencoder, playable, image_size, patch_strides,
-            focal_length_multiplier,
+            scene, model.composer, autoencoder, playable, image_size, patch_strides,
+            focal_length_multiplier, environment_model=model,
         )
 
     def render(self, encoding: SceneEncoding) -> torch.Tensor:
@@ -86,6 +99,14 @@ class InteractiveSession:
             patch_strides=self.patch_strides,
             focal_length_multiplier=self.focal_length_multiplier,
         )
+
+    def initialize(self, batch) -> np.ndarray:
+        """Encode a data.batching.Batch in eval mode, take frame 0 of its
+        first observation as the state and render it.
+        :return: (H, W, 3) float32 frame."""
+        if self.renderer is None:
+            raise ValueError("initialize(batch) needs the session's environment_model")
+        return self.start(self.renderer.encode(batch))
 
     def start(self, encoding: SceneEncoding) -> np.ndarray:
         """Take frame 0 of `encoding` as the state and render it.

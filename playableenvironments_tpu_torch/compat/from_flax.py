@@ -77,12 +77,13 @@ def load_environment(composer, autoencoder, variables: Mapping) -> None:
         )
 
 
-def load_environment_model(model, variables: Mapping) -> list:
+def load_environment_model(model, variables: Mapping, autoencoder=None) -> list:
     """EnvironmentModel variables -> render.environment_model.EnvironmentModel:
     `composer` and every `object_encoder_i`, params and batch_stats,
-    strictly. Subtrees the phase-2 step does not build (the autoencoder,
-    camera offsets) are skipped and named in the returned list; any other
-    top-level subtree raises.
+    strictly; with `autoencoder` (a MultiresAutoencoder) also its decoder
+    from the `autoencoder` subtree (encoder leaves are not read). Subtrees
+    left unread (the autoencoder without one, camera offsets) are named in
+    the returned list; any other top-level subtree raises.
 
     :return: sorted names of the skipped subtrees.
     """
@@ -98,7 +99,12 @@ def load_environment_model(model, variables: Mapping) -> list:
         raise KeyError(f"no flax subtree for {sorted(missing)}")
     for name in sorted(expected):
         load_flax_tree(getattr(model, name), params[name], stats.get(name))
-    return sorted(set(params) & skippable)
+    skipped = set(params) & skippable
+    if autoencoder is not None:
+        load_flax_tree(autoencoder.decoder, params["autoencoder"]["decoder"],
+                       stats.get("autoencoder", {}).get("decoder"))
+        skipped.discard("autoencoder")
+    return sorted(skipped)
 
 
 def _spectral_norm_stats(stats: Mapping) -> dict:

@@ -1,8 +1,10 @@
 """Phase-3 trainer: the action module over frozen scene encodings.
 
-Port of playableenvironments_tpu/train/trainer_playable.py on the
-scene-encoding path (`fused_step`: one generator step, then one
-discriminator step, on one encoding): state reconstruction (rotations
+Port of playableenvironments_tpu/train/trainer_playable.py: `fused_step`
+(one generator step, then one discriminator step, on one encoding), and
+from a raw batch `encode_batch` (the frozen environment model's scene
+encoding in eval mode, under no_grad), `step_with_batch` and
+`init_state`. The losses: state reconstruction (rotations
 compared in (sin, cos) space), action-direction KL, EMA-smoothed action
 mutual information, entropy, ACMV (camera-relative too) and the GAN. The
 per-object centroids and MI matrices, which the JAX TrainState keeps in
@@ -16,9 +18,8 @@ which the JAX generator transform zeroes; here they land in the
 discriminators' `.grad`, which the discriminator step clears before its
 own backward. One G+D pair advances the trainer's step once.
 
-Not ported yet: the raw-batch paths (`encode_batch`, `step_with_batch`,
-`init_state` from a batch), which need the eval-mode scene encoding over a
-raw batch, and the encoding cache.
+The frozen environment model is the trainer's, in eval mode and without
+gradients; the JAX TrainState carries it in `extra["environment"]`.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from playableenvironments_tpu_torch.config import ObjectIds
+from playableenvironments_tpu_torch.data.batching import Batch
 from playableenvironments_tpu_torch.models.action import init_centroids
 from playableenvironments_tpu_torch.models.layers import encode_rotation
 from playableenvironments_tpu_torch.render.playable_model import PlayableEnvironmentModel
@@ -101,8 +103,16 @@ def masked_mse(a: torch.Tensor, b: torch.Tensor, validity: torch.Tensor) -> torc
 class PlayableTrainer:
     """The phase-3 G+D step over a PlayableEnvironmentModel."""
 
-    def __init__(self, playable_model: PlayableEnvironmentModel, cfg: PlayableTrainingConfig):
+    def __init__(self, playable_model: PlayableEnvironmentModel, cfg: PlayableTrainingConfig,
+                 environment_model=None):
+        """:param environment_model: the frozen render.environment_model.
+        EnvironmentModel whose scene encodings the batch paths train on
+        (put in eval mode, its parameters out of autograd); None where the
+        trainer only sees encodings."""
         self.playable_model = playable_model
+        self.environment_model = environment_model
+        if environment_model is not None:
+            environment_model.eval().requires_grad_(False)
         self.cfg = cfg
         self.object_ids = ObjectIds(playable_model.scene)
         self.centroids: List[torch.Tensor] = []
@@ -141,6 +151,24 @@ class PlayableTrainer:
             self.centroids.append(init_centroids(generator, cfg.actions_count, cfg.action_space_dimension, device))
             self.mi_matrices.append(torch.full((cfg.actions_count, cfg.actions_count),
                                                1.0 / cfg.actions_count ** 2, device=device))
+
+    def init_state(self, batch: Batch, seed: int = 0) -> None:
+        """init_state_from_encoding on the frozen encoding of `batch`."""
+        self.init_state_from_encoding(self.encode_batch(batch), seed)
+
+    def encode_batch(self, batch: Batch) -> SceneEncoding:
+        """The frozen scene encoding of a raw batch: the environment model
+        in eval mode (running statistics, no style shuffle, no draw) under
+        no_grad, on the playable model's device. Not inference_mode: the
+        generator's backward saves the encoding."""
+        if self.environment_model is None:
+            raise ValueError("encode_batch needs the trainer's environment_model")
+        device = next(self.playable_model.parameters()).device
+        with torch.no_grad():
+            encoding, _ = self.environment_model.compute_scene_encoding(
+                *batch.to(device).environment_model_args(), shuffle_style=False, train=False,
+            )
+        return encoding
 
     def _per_object(self, per_model: List[torch.Tensor]) -> List[torch.Tensor]:
         return [per_model[self.object_ids.animation_model_idx_by_dynamic_object_idx(i)]
@@ -247,6 +275,13 @@ class PlayableTrainer:
         loss.backward()
         self.discriminator_optimizer.step()
         return {"discriminator_loss": loss.detach()}
+
+    def step_with_batch(self, batch: Batch, rng) -> Dict[str, torch.Tensor]:
+        """Encode once, then fused_step on the shared encoding. The JAX step
+        splits its key three ways (environment, generator, discriminator);
+        the eval-mode encoding draws nothing, so here the generator and
+        discriminator passes draw from `rng` in that order."""
+        return self.fused_step(self.encode_batch(batch), rng)
 
     def fused_step(self, encoding: SceneEncoding, rng) -> Dict[str, torch.Tensor]:
         """The generator step and, with discriminators, the discriminator

@@ -185,7 +185,9 @@ def test_port_imports_no_jax():
                    "models/parameter_encoders.py", "render/environment_model.py", "data/batching.py",
                    "train/losses.py", "train/state.py", "train/trainer_synthesis.py", "utils/random.py",
                    "ops/fused_rollout.py", "models/action.py", "models/discriminator.py",
-                   "render/playable_model.py", "train/trainer_playable.py"):
+                   "render/playable_model.py", "train/trainer_playable.py", "data/video.py",
+                   "data/native_loader.py", "data/synthetic.py", "data/dataset.py", "cli/common.py",
+                   "eval/creators.py", "train/encoding_cache.py"):
         assert f"playableenvironments_tpu_torch/{module}" in names, module
     assert len(names) > 30
     assert not offenders, offenders

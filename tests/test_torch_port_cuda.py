@@ -345,3 +345,85 @@ def test_rollout_kernel_takes_the_reference_atan2(card):
             got = fr.fused_rollout_fwd(cfg, params, *inputs, 1, False)[0][0]
             ref = fr.plain_rollout_fwd(cfg, params, *inputs, 1, False)[0][0]
         assert (got - ref).abs().max().item() <= 1e-5, (s, c)
+
+
+SMALL = dict(image_size=(48, 64), patch_strides=(4, 8), focal_length_multiplier=0.51417 * 64 / 512)
+
+
+def small_dataset(root, frames_by_split):
+    """chip_smoke.py phase 11's dataset at 48x64."""
+    from playableenvironments_tpu_torch.data.synthetic import make_two_player_dataset
+
+    sys_path_repo()
+    import chip_smoke
+
+    make_two_player_dataset(root, height=48, width=64, focal=chip_smoke.DATA_FOCAL,
+                            focal_length_multiplier=SMALL["focal_length_multiplier"],
+                            camera_rotation=chip_smoke.DATA_CAMERA[0], camera_translation=chip_smoke.DATA_CAMERA[1],
+                            player_ranges=chip_smoke.DATA_PLAYERS, splits=tuple(frames_by_split),
+                            frames_by_split=frames_by_split)
+    return root
+
+
+@pytest.mark.cuda
+def test_play_from_a_batch_on_the_card(card, tmp_path):
+    """Tennis at 48x64: initialize(batch) and a step, one grouped B1 launch
+    of 4 objects a frame, the frames as the same seeded session's on the
+    CPU."""
+    from playableenvironments_tpu_torch.data.dataset import MulticameraVideoDataset
+
+    root = small_dataset(str(tmp_path), {"test": (1, 3)})
+    batch = next(MulticameraVideoDataset(f"{root}/test", observations_count=1).iterate_batches(1, shuffle=False))
+    scene = scene_from_yaml(str(REPO / "configs" / "tennis.yaml"))
+    card_session = InteractiveSession.from_scene(scene, device=card, **SMALL)
+    host_session = InteractiveSession.from_scene(scene, device="cpu", **SMALL)
+    before = (fused_nerf.fused_adain_nerf.launches, fused_nerf.fused_adain_nerf.objects)
+    frames = [(card_session.initialize(batch), host_session.initialize(batch))]
+    frames.append((card_session.step([1, 2]), host_session.step([1, 2])))
+    assert (fused_nerf.fused_adain_nerf.launches, fused_nerf.fused_adain_nerf.objects) == (before[0] + 2, before[1] + 8)
+    for got, ref in frames:
+        np.testing.assert_allclose(got, ref, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_reconstruction_at_batch_4_launches_once_a_batch(card, tmp_path):
+    """The creator over 6 frames at batch 4: 2 B1 launches of 4 objects, a
+    PNG for every frame, a mirror that loads as a dataset."""
+    from playableenvironments_tpu_torch.data.dataset import MulticameraVideoDataset
+    from playableenvironments_tpu_torch.eval.creators import FrameRenderer, ReconstructedDatasetCreator
+
+    root = small_dataset(str(tmp_path / "data"), {"test": (2, 3)})
+    scene = scene_from_yaml(str(REPO / "configs" / "tennis.yaml"))
+    session = InteractiveSession.from_scene(scene, device=card, **SMALL)
+    renderer = FrameRenderer(session.renderer.model, session.autoencoder, SMALL["image_size"], SMALL["patch_strides"])
+    before = (fused_nerf.fused_adain_nerf.launches, fused_nerf.fused_adain_nerf.objects)
+    mirror = str(tmp_path / "mirror")
+    ReconstructedDatasetCreator(renderer, batch_size=4).reconstruct_dataset(
+        MulticameraVideoDataset(f"{root}/test", observations_count=1), mirror)
+    assert (fused_nerf.fused_adain_nerf.launches, fused_nerf.fused_adain_nerf.objects) == (before[0] + 2, before[1] + 8)
+    assert len(list(pathlib.Path(mirror).rglob("*.png"))) == 6
+    assert len(MulticameraVideoDataset(mirror, observations_count=1)) == 6
+
+
+@pytest.mark.cuda
+def test_step_with_batch_launches_the_rollout_kernels(card, tmp_path):
+    """phase 3 from a dataset batch (bs 2 x 9 at 48x64) on the card: the
+    frozen encoding, then 4 B4 and 2 B5 launches, finite losses."""
+    from playableenvironments_tpu_torch.data.dataset import MulticameraVideoDataset
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+    from playableenvironments_tpu_torch.render.environment_model import EnvironmentModel
+    from playableenvironments_tpu_torch.utils.random import RngStreams
+
+    sys_path_repo()
+    import chip_smoke
+
+    root = small_dataset(str(tmp_path), {"train": (1, 10)})
+    batch = next(MulticameraVideoDataset(f"{root}/train", observations_count=9).iterate_batches(2, shuffle=False))
+    env_model = EnvironmentModel(chip_smoke.phase3_scene(), SMALL["focal_length_multiplier"], device=card)
+    trainer = chip_smoke.phase3_data_trainer(env_model, card)
+    trainer.init_state(batch)
+    before = (fr.fused_rollout_fwd.launches, fr.fused_rollout_bwd.launches)
+    metrics = trainer.step_with_batch(batch, RngStreams(0, card))
+    torch.cuda.synchronize()
+    assert (fr.fused_rollout_fwd.launches, fr.fused_rollout_bwd.launches) == (before[0] + 4, before[1] + 2)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
