@@ -59,7 +59,21 @@ Phases, each fatal on failure:
    batch, that launch held against plain_adain_nerf); the phase-3 encoding
    cache of the train split (save, load, fingerprint) and G+D steps over
    its batches and with step_with_batch on dataset batches (4 B4 and 2 B5
-   launches a step). It prints the PNG codec it used.
+   launches a step). It prints the PNG codec it used;
+12. the Minecraft family (configs/minecraft.yaml at full width and depth):
+   B1 at the Minecraft frame's shapes (the uncompacted background and two
+   players of one weight image, 276,480 points in one launch of 3 objects)
+   and at the creator's batch of 4, each object against plain_adain_nerf,
+   timed with the plain version, the library chain and the bound; a frame
+   and its skybox card vs CPU, with the background samples the overlap fix
+   masks and the skybox MLP's time; the play loop at 512x288 (one B1
+   launch of 3 objects a frame); from a Minecraft dataset on disk, the eval
+   encoding with the learned pose encoder (card vs CPU), play from a batch
+   and the creator at batch 4; phase 3 over the Minecraft encoding cache
+   (bs 16 x 9, the generator step alone: 2 B4 and 2 B5 launches a step) and
+   one step card vs CPU.
+`python3 chip_smoke.py --phase 12` builds the kernels and runs phase 12
+alone (no kernels line, no contract line).
 Details go to chiprun_out/chip_smoke.json. Prints one JSON line of kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX.
 """
@@ -1230,9 +1244,12 @@ def tennis_config(repo, root, section="training", **overrides):
     return with_batching_overrides(cfg, **overrides)
 
 
-def compare_encodings(label, got, ref):
+def compare_encodings(label, got, ref, learned_rotations=False):
     """Max errors of a card encoding against the CPU's, relative to each
-    field's largest magnitude; raises beyond the bounds stated above."""
+    field's largest magnitude; raises beyond the bounds stated above. With
+    `learned_rotations` (the Minecraft players' pose CNN, whose TF32
+    convolutions move its yaw as they move the codes) the rotations are held
+    to the codes' bounds."""
     import torch
 
     errors = {}
@@ -1250,8 +1267,8 @@ def compare_encodings(label, got, ref):
         scale = max(r.abs().max().item(), 1e-30)
         diff = (g - r).abs()
         errors[field] = (diff.max().item() / scale, diff.mean().item() / scale)
-        atol, mean = (POSE_REL_ATOL, POSE_REL_ATOL) if field.startswith("object_r") or field.startswith(
-            "object_t") else (CODE_REL_ATOL, CODE_REL_MEAN)
+        geometric = field == "object_translations" or (field == "object_rotations" and not learned_rotations)
+        atol, mean = (POSE_REL_ATOL, POSE_REL_ATOL) if geometric else (CODE_REL_ATOL, CODE_REL_MEAN)
         if not (errors[field][0] <= atol and errors[field][1] <= mean):
             raise SmokeFailure(f"{label} {field}: card vs CPU err {errors[field][0]:.3e} of its largest magnitude, "
                                f"mean {errors[field][1]:.3e}")
@@ -1547,6 +1564,498 @@ def phase11_from_data(repo, scene, play_median_ms, phase3_median_ms, device="cud
     return out
 
 
+# ---- phase 12: the Minecraft family ------------------------------------------
+
+# configs/minecraft.yaml's frame at 512x288 (strides 4 and 8: 11,520 rays):
+# B1's items per frame, (object, rays, samples): the uncompacted background
+# and the two players of one object model, compacted to 1/8 of the rays.
+MINECRAFT_LAUNCHES = (("background", 11520, 16), ("player_1", 1440, 32), ("player_2", 1440, 32))
+MINECRAFT_FOCAL = 512.0  # the focal stored with the 512-wide frames; minecraft.yaml renders at 0.5 of it
+MINECRAFT_MULTIPLIER = 0.5  # configs/minecraft.yaml data.focal_length_multiplier
+MINECRAFT_ACTIONS = [(1, 2), (3, 4), (0, 6), (5, 1), (2, 2), (6, 0)]
+PHASE12_CACHE_STEPS = 20
+# The skybox's features on the card against the CPU's: plain f32 products
+# (cuBLAS with TF32 off, PyTorch's default for matmul), ~1e-6 relative a
+# product through 11 layers; held to 1e-3 of the largest magnitude.
+SKYBOX_REL_ATOL = 1e-3
+
+
+def minecraft_config(repo, root=None, section="training", **overrides):
+    """configs/minecraft.yaml, with `data.data_root` at `root` and the
+    batching of `section` as `training.batching`, with `overrides`."""
+    from playableenvironments_tpu_torch.cli.common import load_yaml, with_batching_overrides
+
+    cfg = load_yaml(os.path.join(repo, "configs", "minecraft.yaml"))
+    if root is not None:
+        cfg["data"]["data_root"] = root
+    cfg["training"] = {**cfg.get("training", {}), "batching": cfg[section]["batching"]}
+    return with_batching_overrides(cfg, **overrides)
+
+
+def minecraft_encoding(torch, device):
+    """A Minecraft frame-0 state: data.synthetic's Minecraft camera (yawed,
+    pitched down at 3.5 m), both players on the ground inside the
+    background's slab, turned about y."""
+    from playableenvironments_tpu_torch.data.synthetic import MINECRAFT_GEOMETRY
+    from playableenvironments_tpu_torch.scene.encoding import SceneEncoding
+
+    n = 4
+    translations = torch.zeros(1, 1, n, 3)
+    translations[0, 0, 2] = torch.tensor([-1.0, 0.0, -1.0])
+    translations[0, 0, 3] = torch.tensor([1.5, 0.0, -0.5])
+    rotations = torch.zeros(1, 1, n, 3)
+    rotations[0, 0, 2:, 1] = torch.tensor([0.4, -0.7])
+    generator = torch.Generator().manual_seed(12)
+    return SceneEncoding(
+        camera_rotations=torch.tensor([[[MINECRAFT_GEOMETRY["camera_rotation"]]]], dtype=torch.float32),
+        camera_translations=torch.tensor([[[MINECRAFT_GEOMETRY["camera_translation"]]]], dtype=torch.float32),
+        focals=torch.full((1, 1, 1), MINECRAFT_FOCAL),
+        object_rotations=rotations,
+        object_translations=translations,
+        object_style=torch.randn(1, 1, n, 32, generator=generator) * 0.3,
+        object_deformation=torch.randn(1, 1, n, 32, generator=generator) * 0.3,
+        object_in_scene=torch.ones(1, 1, n, dtype=torch.bool),
+    ).map(lambda x: x.to(device))
+
+
+def masked_background_samples(scene, args):
+    """How many samples of the background (object 0) the overlap fix masks
+    among render_rays_fast's inputs `args`."""
+    from playableenvironments_tpu_torch.config import ObjectIds
+    from playableenvironments_tpu_torch.core import compositing
+    from playableenvironments_tpu_torch.render import fast
+
+    origins, directions, normals, w2o, _, _, in_scene = args
+    ids = ObjectIds(scene)
+    lead = tuple(directions.shape[:-2])
+    objects = ids.objects_count
+
+    def flat(x, tail):
+        return x.expand(lead + tail).reshape((-1,) + tail)
+
+    o, n = flat(origins, (3,)), flat(normals, (3,))
+    d = directions.reshape((-1,) + tuple(directions.shape[-2:]))
+    w2o, in_scene = flat(w2o, (objects, 4, 4)), flat(in_scene, (objects,))
+    t = [fast.object_samples(scene.object_models[ids.model_idx_by_object_idx(i)], o, d, n, w2o[:, i],
+                             in_scene[:, i])[3] for i in range(objects)]
+    mask = sum(compositing.overlap_fix_mask(t[0], t[i]).int() for i in range(ids.static_objects_count, objects))
+    return int((mask > 0).sum())
+
+
+def minecraft_b1_items(cfg, frames, device, seed=12):
+    """B1's items of `frames` Minecraft frames at 512x288 in one launch, as
+    render_rays_fast groups them (each object's points over all frames):
+    the background with its own seeded weights, both players with one
+    model's weights (one image). Returns (items, per item: bf16 weights)."""
+    import torch
+
+    from playableenvironments_tpu_torch.models.encoding import positional_encoding
+    from playableenvironments_tpu_torch.models.layers import initialize_
+    from playableenvironments_tpu_torch.models.nerf import AdaInNerfMLP
+    from playableenvironments_tpu_torch.ops import fused_nerf
+
+    generator = torch.Generator().manual_seed(seed)
+    background = initialize_(AdaInNerfMLP(cfg, 32, device=device), generator)
+    player = initialize_(AdaInNerfMLP(cfg, 32, device=device), generator)
+    items = []
+    for (name, rays, samples), nerf in zip(MINECRAFT_LAUNCHES, (background, player, player)):
+        rays *= frames
+        positions = torch.rand(rays * samples, 3, generator=generator) * 2.0 - 1.0
+        encoded = positional_encoding(positions, cfg.position_encoder.octaves, True).to(device, torch.bfloat16)
+        style = (torch.randn(rays, 32, generator=generator) * 0.3).to(device)
+        with torch.no_grad():
+            mods = [*fused_nerf.fold_adain_stats(nerf.adain_0, style), *fused_nerf.fold_adain_stats(nerf.adain_1, style)]
+        items.append(fused_nerf.AdaInNerfItem(nerf.kernel_weights(), encoded, *mods, samples))
+    return items
+
+
+def minecraft_b1_launch(cfg, items, label, device="cuda"):
+    """One grouped launch of `items` held object by object against
+    plain_adain_nerf (phase 11's bounds in units of the output's mean
+    magnitude where above 1); its time as called and back to back, the plain
+    version's and the bf16 library chain's (both summed over the items) and
+    the bound (each input read once: the players' shared weights once)."""
+    import torch
+
+    from playableenvironments_tpu_torch.ops import fused_nerf
+
+    with torch.no_grad():
+        launches, objects = fused_nerf.fused_adain_nerf.launches, fused_nerf.fused_adain_nerf.objects
+        outs = fused_nerf.fused_adain_nerf_group(cfg, items)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counted = (fused_nerf.fused_adain_nerf.launches - launches, fused_nerf.fused_adain_nerf.objects - objects)
+        if device == "cuda" and counted != (1, len(items)):
+            raise SmokeFailure(f"{label}: {counted[0]} B1 launches covering {counted[1]} objects, expected 1 of "
+                               f"{len(items)}")
+        errs, scales = [], []
+        for index, (item, (feats, alpha)) in enumerate(zip(items, outs)):
+            args = (item.encoded, item.scale0, item.bias0, item.scale1, item.bias1)
+            ref = fused_nerf.plain_adain_nerf(cfg, item.weights.packed, *args, item.samples_per_ray)
+            for name, got, r in (("features", feats, ref[0]), ("alpha", alpha, ref[1])):
+                scale = max(1.0, r.abs().mean().item())
+                scales.append(scale)
+                err = check_close(f"{label} object {index} {name} (over {scale:.3f})", got / scale, r / scale,
+                                  KERNEL_ATOL, KERNEL_RTOL, KERNEL_MEAN_ATOL)
+                errs.append((err[0] * scale, err[1] * scale))
+        del outs, ref
+        timed = device == "cuda"
+        group_ms = cuda_ms(lambda: fused_nerf.fused_adain_nerf_group(cfg, items)) if timed else 0.0
+        back_ms = cuda_ms_back_to_back(lambda: fused_nerf.fused_adain_nerf_group(cfg, items)) if timed else 0.0
+
+        def plain():
+            for it in items:
+                fused_nerf.plain_adain_nerf(cfg, it.weights.packed, it.encoded, it.scale0, it.bias0, it.scale1,
+                                            it.bias1, it.samples_per_ray)
+
+        bf16 = {}
+        for it in items:
+            bf16.setdefault(id(it.weights), {k: v.to(torch.bfloat16) for k, v in it.weights.packed.items()})
+
+        def library():
+            for it in items:
+                library_mlp(cfg, bf16[id(it.weights)], it.encoded, it.scale0, it.bias0, it.scale1, it.bias1,
+                            it.samples_per_ray)
+
+        plain_ms = cuda_ms(plain, warmup=1, reps=5) if timed else 0.0
+        library_ms = cuda_ms(library) if timed else 0.0
+    flops = bytes_ = 0.0
+    seen = set()
+    for it in items:
+        points = it.encoded.shape[0]
+        f, b = mlp_work(cfg, it.weights.packed, points, it.scale0.shape[0])
+        if id(it.weights) in seen:  # a shared weight image is read once
+            _, b0 = mlp_work(cfg, it.weights.packed, 0, 0)
+            b -= b0
+        seen.add(id(it.weights))
+        flops, bytes_ = flops + f, bytes_ + b
+    bound = max(flops / PEAK_BF16_FLOPS, bytes_ / PEAK_BYTES_PER_S) * 1e3
+    return {
+        "points": sum(it.encoded.shape[0] for it in items), "objects": len(items),
+        "weight_images": len(seen),
+        "max_abs_err": max(e[0] for e in errs), "mean_abs_err": max(e[1] for e in errs), "output_scales": scales,
+        "ms": group_ms, "back_to_back_ms": back_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound, "bound_by": "operations" if flops / PEAK_BF16_FLOPS > bytes_ / PEAK_BYTES_PER_S else "bytes",
+        "gflop": flops / 1e9, "mbytes": bytes_ / 1e6,
+    }
+
+
+def minecraft_phase3_step(trainer, encoding, rng):
+    """(metrics, gradients, state, centroids + MI matrices) after one
+    fused_step (the generator step alone: minecraft.yaml sets no GAN
+    weight, so the model has no discriminators)."""
+    metrics = trainer.fused_step(encoding, rng)
+    model = trainer.playable_model
+    return (metrics, {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+            {k: v.detach().clone() for k, v in model.state_dict().items()},
+            [c.clone() for c in trainer.centroids + trainer.mi_matrices])
+
+
+def phase12_minecraft(repo, device="cuda"):
+    """The Minecraft family (configs/minecraft.yaml at full width and depth,
+    seeded random weights): B1 at the Minecraft frame's shapes and the
+    creator's batch of 4 (12a); a frame and its skybox, card vs CPU (12b);
+    the play loop at 512x288 (12c); from a Minecraft dataset on disk: the
+    eval encoding with the learned pose encoder, play from a batch and the
+    creator at batch 4 (12d); phase 3 over the Minecraft encoding cache and
+    one step card vs CPU (12e)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from playableenvironments_tpu_torch.cli.common import build_dataset, playable_training_config
+    from playableenvironments_tpu_torch.cli.play import InteractiveSession
+    from playableenvironments_tpu_torch.config import scene_from_yaml
+    from playableenvironments_tpu_torch.data import synthetic
+    from playableenvironments_tpu_torch.eval.creators import FrameRenderer, ReconstructedDatasetCreator
+    from playableenvironments_tpu_torch.ops import fused_nerf
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+    from playableenvironments_tpu_torch.core.rays import transform_rays
+    from playableenvironments_tpu_torch.render.fast import frame_rays, render_rays_fast
+    from playableenvironments_tpu_torch.render.playable_model import PlayableEnvironmentModel
+    from playableenvironments_tpu_torch.train.encoding_cache import EncodingCache
+    from playableenvironments_tpu_torch.train.trainer_playable import PlayableTrainer
+    from playableenvironments_tpu_torch.utils.random import RngStreams
+
+    cuda = device == "cuda"
+    scene = scene_from_yaml(os.path.join(repo, "configs", "minecraft.yaml"))
+    cfg = scene.object_models[0].nerf
+    if scene.object_models[2].nerf != cfg:
+        raise SmokeFailure("the Minecraft background and players no longer share a NeRF configuration")
+    out = {}
+
+    # ---- 12a. B1 at the Minecraft frame's shapes, and the creator's batch of 4
+    phase_start = time.perf_counter()
+    frame = minecraft_b1_launch(cfg, minecraft_b1_items(cfg, 1, device), "12a B1 Minecraft frame", device)
+    batch4 = minecraft_b1_launch(cfg, minecraft_b1_items(cfg, 4, device), "12a B1 Minecraft batch of 4", device)
+    out["b1"] = {"frame": frame, "batch4": batch4, "seconds": time.perf_counter() - phase_start}
+    for label, row in (("frame", frame), (f"creator batch of 4", batch4)):
+        print(f"12a B1 Minecraft {label} (background {MINECRAFT_LAUNCHES[0][1]} rays x 16, two players of one weight "
+              f"image {MINECRAFT_LAUNCHES[1][1]} rays x 32 each, per frame; {row['points']} points in one launch of "
+              f"{row['objects']} objects): max abs err {row['max_abs_err']:.3e}, mean {row['mean_abs_err']:.3e} "
+              f"against plain (output scales {[round(x, 3) for x in row['output_scales']]}); {row['ms']:.4f} ms as "
+              f"called, {row['back_to_back_ms']:.4f} ms back to back; bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}, {100 * row['bound_ms'] / max(row['ms'], 1e-9):.1f}% of it); bf16 torch.matmul "
+              f"chain {row['library_ms']:.4f} ms; plain {row['plain_ms']:.4f} ms")
+
+    # ---- 12b. a Minecraft frame on the card against the CPU -------------------
+    phase_start = time.perf_counter()
+    small = dict(image_size=(48, 64), patch_strides=STRIDES, focal_length_multiplier=MINECRAFT_MULTIPLIER * 64 / 512)
+    card = InteractiveSession.from_scene(scene, device=device, seed=0, **small)
+    host = InteractiveSession.from_scene(scene, device="cpu", seed=0, **small)
+    encoding = minecraft_encoding(torch, "cpu")
+    got, ref = card.start(encoding), host.start(encoding)
+    frame_err = float(np.abs(got - ref).max())
+    if not frame_err <= FRAME_ATOL:
+        raise SmokeFailure(f"12b: the Minecraft frame differs from the CPU's by {frame_err:.3e}")
+    args = [frame_rays(s.encoding, **small) for s in (card, host)]
+    integrals = [render_rays_fast(scene, s.composer, *a)["coarse"] for s, a in zip((card, host), args)]
+    errors = {}
+    for part, fields, (atol, mean) in (("global", ("integrated_features", "opacity", "depth"), (2e-2, 1e-3)),
+                                       ("object_1", ("integrated_features",), (SKYBOX_REL_ATOL, SKYBOX_REL_ATOL))):
+        for field in fields:
+            g, r = integrals[0][part][field].cpu(), integrals[1][part][field]
+            diff = (g - r).abs()
+            scale = r.abs().max().item()
+            errors[f"{part}.{field}"] = (diff.max().item() / max(scale, 1e-30), diff.mean().item() / max(scale, 1e-30))
+            if not (scale > 0 and diff.max().item() <= atol * scale and diff.mean().item() <= mean * scale):
+                raise SmokeFailure(f"12b {part} {field}: card vs CPU err up to {diff.max().item():.3e}, mean "
+                                   f"{diff.mean().item():.3e}, scale {scale:.3e}")
+    if not integrals[1]["object_1"]["opacity"].min().item() > 0.5:
+        raise SmokeFailure("12b: the skybox does not cover the frame")
+    masked_small = masked_background_samples(scene, args[1])
+    del card, host, integrals
+    # The skybox MLP and the masked samples at the play frame's 11,520 rays.
+    session = InteractiveSession.from_scene(scene, image_size=IMAGE_SIZE, patch_strides=STRIDES,
+                                            focal_length_multiplier=MINECRAFT_MULTIPLIER, device=device, seed=0)
+    play_args = frame_rays(minecraft_encoding(torch, device), IMAGE_SIZE, STRIDES, MINECRAFT_MULTIPLIER)
+    masked = masked_background_samples(scene, play_args)
+    sky = session.composer.object_model(1)
+    rays = play_args[1].reshape(-1, 3)
+    with torch.no_grad():
+        # The skybox's rays in its frame, as render_rays_fast hands them over.
+        sky_origins, sky_dirs, _ = transform_rays(play_args[0].reshape(-1, 3), rays[None], play_args[2].reshape(-1, 3),
+                                                  play_args[3].reshape(-1, 4, 4, 4)[:, 1])
+        sky_style = play_args[4].reshape(-1, 4, 32)[:, 1][:, None]
+        sky_origins = sky_origins[:, None].expand_as(sky_dirs)
+        sky_ms = cuda_ms(lambda: sky.nerf(sky_origins, sky_dirs, scene.object_models[1].bounding_box, sky_style,
+                                          None, True)) if cuda else 0.0
+    out["frame"] = {"frame_err": frame_err, "errors": errors, "masked_samples_48x64": masked_small,
+                    "masked_samples_512x288": masked, "background_samples_512x288": 11520 * 16,
+                    "skybox_ms": sky_ms, "seconds": time.perf_counter() - phase_start}
+    print(f"12b Minecraft frame 48x64 card vs CPU: frame max abs err {frame_err:.3e} (tolerance {FRAME_ATOL}); "
+          + ", ".join(f"{k} {v[0]:.3e} (mean {v[1]:.3e})" for k, v in errors.items())
+          + f" of the largest magnitude (skybox features to {SKYBOX_REL_ATOL}); the overlap fix masks {masked_small} "
+          f"background samples at 48x64 and {masked} of {11520 * 16} at 512x288; the skybox MLP over 11,520 rays "
+          f"{sky_ms:.4f} ms")
+
+    # ---- 12c. the Minecraft play loop at 512x288 ------------------------------
+    phase_start = time.perf_counter()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    fused_nerf.fused_adain_nerf.launches = 0
+    fused_nerf.fused_adain_nerf.objects = 0
+    frames = [session.start(minecraft_encoding(torch, device))]
+    step_ms = []
+    for i in range(STEPS):
+        start = time.perf_counter()
+        frames.append(session.step(list(MINECRAFT_ACTIONS[i % len(MINECRAFT_ACTIONS)])))
+        step_ms.append((time.perf_counter() - start) * 1e3)
+    launches, objects = fused_nerf.fused_adain_nerf.launches, fused_nerf.fused_adain_nerf.objects
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    for i, f in enumerate(frames):
+        if f.shape != IMAGE_SIZE + (3,) or not np.isfinite(f).all() or f.min() < 0.0 or f.max() > 1.0:
+            raise SmokeFailure(f"12c frame {i} has shape {f.shape} or leaves [0, 1]")
+    if cuda and (launches, objects) != (len(frames), 3 * len(frames)):
+        raise SmokeFailure(f"12c: {launches} B1 launches covering {objects} objects for {len(frames)} frames, "
+                           "expected one of 3 a frame")
+    moved = [float(np.abs(session.encoding.object_translations[0, 0, i].cpu().numpy()
+                          - minecraft_encoding(torch, "cpu").object_translations[0, 0, i].numpy()).max())
+             for i in (2, 3)]
+    median = statistics.median(step_ms[2:])
+    out["play"] = {"launches": launches, "objects": objects, "step_ms": step_ms, "median_step_ms": median,
+                   "peak_memory_bytes": peak, "players_moved": moved, "seconds": time.perf_counter() - phase_start}
+    print(f"12c Minecraft play loop 512x288: {len(frames)} frames, {launches} grouped B1 launches covering {objects} "
+          f"objects; median step {median:.3f} ms ({1e3 / median:.2f} fps) over steps 3-{STEPS}; all steps ms "
+          f"{[round(t, 3) for t in step_ms]}; players moved {[round(m, 3) for m in moved]}; peak memory "
+          f"{peak / 2**20:.1f} MiB")
+    del session, frames
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 12d. from a Minecraft dataset on disk ----------------------------
+        phase_start = time.perf_counter()
+        root = os.path.join(tmp, "minecraft")
+        synthetic.make_two_player_dataset(
+            root, height=IMAGE_SIZE[0], width=IMAGE_SIZE[1], focal=MINECRAFT_FOCAL, seed=0,
+            splits=tuple(DATA_SPLITS), frames_by_split=DATA_SPLITS, **synthetic.MINECRAFT_GEOMETRY,
+        )
+        test = build_dataset(minecraft_config(repo, root, observations_count=1, skip_frames=0), "test")
+        batch = next(test.iterate_batches(4, shuffle=False))
+        card, host = (InteractiveSession.from_scene(scene, image_size=IMAGE_SIZE, patch_strides=STRIDES,
+                                                    focal_length_multiplier=MINECRAFT_MULTIPLIER, device=dev, seed=0)
+                      for dev in (device, "cpu"))
+        encoding = card.renderer.encode(batch)
+        errors = compare_encodings("12d Minecraft encoding", encoding, host.renderer.encode(batch),
+                                   learned_rotations=True)
+        yaw = encoding.object_rotations[..., 2:, 1]
+        if not bool((yaw != 0).all()) or bool((encoding.object_rotations[..., 2:, 0::2] != 0).any()):
+            raise SmokeFailure("12d: the learned pose encoder's rotations are not about y alone")
+        encode_ms = cuda_ms(lambda: card.renderer.encode(batch)) if cuda else 0.0
+        first = next(test.iterate_batches(1, shuffle=False))
+        fused_nerf.fused_adain_nerf.launches = 0
+        fused_nerf.fused_adain_nerf.objects = 0
+        play = [card.initialize(first)]
+        play_ms = []
+        for i in range(STEPS):
+            start = time.perf_counter()
+            play.append(card.step(list(MINECRAFT_ACTIONS[i % len(MINECRAFT_ACTIONS)])))
+            play_ms.append((time.perf_counter() - start) * 1e3)
+        launches, objects = fused_nerf.fused_adain_nerf.launches, fused_nerf.fused_adain_nerf.objects
+        for i, f in enumerate(play):
+            if f.shape != IMAGE_SIZE + (3,) or not np.isfinite(f).all():
+                raise SmokeFailure(f"12d play frame {i} has shape {f.shape} or is not finite")
+        if cuda and (launches, objects) != (len(play), 3 * len(play)):
+            raise SmokeFailure(f"12d play: {launches} B1 launches covering {objects} objects for {len(play)} frames")
+        mirror = os.path.join(tmp, "mirror")
+        creator = ReconstructedDatasetCreator(FrameRenderer(card.renderer.model, card.autoencoder, IMAGE_SIZE,
+                                                            STRIDES), batch_size=CREATOR_BATCH)
+        fused_nerf.fused_adain_nerf.launches = 0
+        fused_nerf.fused_adain_nerf.objects = 0
+        if cuda:
+            torch.cuda.synchronize()
+        start = time.perf_counter()
+        creator.reconstruct_dataset(test, mirror)
+        if cuda:
+            torch.cuda.synchronize()
+        creator_s = time.perf_counter() - start
+        creator_launches = (fused_nerf.fused_adain_nerf.launches, fused_nerf.fused_adain_nerf.objects)
+        total = len(test)
+        batches = -(-total // CREATOR_BATCH)
+        pngs = sum(f.endswith(".png") for _, _, files in os.walk(mirror) for f in files)
+        if pngs != total:
+            raise SmokeFailure(f"12d creator: {pngs} PNGs for {total} frames")
+        if cuda and creator_launches != (batches, 3 * batches):
+            raise SmokeFailure(f"12d creator: B1 launches and objects {creator_launches} for {batches} batches")
+        play_median = statistics.median(play_ms[2:])
+        out["data"] = {"encoding_errors": errors, "encode_ms": encode_ms, "play_launches": launches,
+                       "play_objects": objects, "play_step_ms": play_ms, "play_median_step_ms": play_median,
+                       "creator_frames": total, "creator_seconds": creator_s, "creator_frames_per_s": total / creator_s,
+                       "creator_launches": creator_launches, "seconds": time.perf_counter() - phase_start}
+        print(f"12d Minecraft data path ({DATA_SPLITS} (videos, frames) at {IMAGE_SIZE[1]}x{IMAGE_SIZE[0]}, "
+              f"data.synthetic's Minecraft geometry): eval encoding of bs 4 x 1 with the learned pose encoder "
+              f"{encode_ms:.3f} ms (median of 20), card vs CPU "
+              + ", ".join(f"{k} {v[0]:.3e} (mean {v[1]:.3e})" for k, v in errors.items())
+              + f" of each field's largest magnitude; play from a batch: {launches} B1 launches covering {objects} "
+              f"objects, median step {play_median:.3f} ms; the creator over {total} test frames at batch "
+              f"{CREATOR_BATCH}: {total / creator_s:.2f} frames/s, {creator_launches[0]} B1 launches covering "
+              f"{creator_launches[1]} objects")
+        env_model = card.renderer.model
+        del card, host, creator
+
+        # ---- 12e. phase 3 over the Minecraft encoding cache -------------------
+        phase_start = time.perf_counter()
+        cfg_yaml = minecraft_config(repo, root, "playable_model_training")
+        train = build_dataset(cfg_yaml, "train")
+        T = train.observations_count
+        bs = int(cfg_yaml["playable_model_training"]["batching"]["batch_size"])
+        train_cfg = playable_training_config(cfg_yaml)
+        if train_cfg.loss_weights.gan != 0.0:
+            raise SmokeFailure("minecraft.yaml's phase 3 sets a GAN weight; phase 12e expects none")
+        trainer = PlayableTrainer(PlayableEnvironmentModel(scene, device=device, seed=0), train_cfg,
+                                  environment_model=env_model)
+        start = time.perf_counter()
+        cache = EncodingCache.build(trainer.encode_batch, train, batch_size=CACHE_BATCH)
+        cache_s = time.perf_counter() - start
+        cached_frames = cache.encoding.object_style.shape[0]
+
+        def cache_batches(target):
+            epoch = 0
+            while True:
+                yield from cache.iterate_encoding_batches(bs, T, seed=epoch, device=target)
+                epoch += 1
+
+        batches = cache_batches(device)
+        trainer.init_state_from_encoding(next(batches), seed=0)
+        rng = RngStreams(0, device)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        fr.fused_rollout_fwd.launches = 0
+        fr.fused_rollout_bwd.launches = 0
+        step_ms, losses = [], []
+        for _ in range(PHASE12_CACHE_STEPS):
+            encoding = next(batches)
+            start = time.perf_counter()
+            metrics = trainer.fused_step(encoding, rng)
+            if cuda:
+                torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - start) * 1e3)
+            losses.append(metrics["loss"].item())
+        cache_launches = (fr.fused_rollout_fwd.launches, fr.fused_rollout_bwd.launches)
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        if not all(math.isfinite(x) for x in losses):
+            raise SmokeFailure(f"12e losses {losses}")
+        if cuda and cache_launches != (2 * PHASE12_CACHE_STEPS, 2 * PHASE12_CACHE_STEPS):
+            raise SmokeFailure(f"12e: B4/B5 launches {cache_launches} in {PHASE12_CACHE_STEPS} steps, expected 2 and 2 "
+                               "a step (the generator pass of 2 players)")
+        # One step card vs CPU, at phase 9's tolerances, on one cache batch.
+        host_batch = next(cache.iterate_encoding_batches(bs, T, seed=99, device="cpu"))
+        recorded = RecordedStreams(0)
+        outputs = []
+        for index, dev in enumerate(("cpu", device)):
+            step_trainer = PlayableTrainer(PlayableEnvironmentModel(scene, device=dev, seed=1), train_cfg)
+            batch_on = host_batch.map(lambda x: x.to(dev))
+            step_trainer.init_state_from_encoding(batch_on, seed=0)
+            rng_on = recorded if index == 0 else ReplayedStreams(recorded.draws, dev)
+            outputs.append(minecraft_phase3_step(step_trainer, batch_on, rng_on))
+        (ref_metrics, ref_grads, ref_state, ref_extra), (metrics, grads, state, extra) = outputs
+        problems = []
+        for name, ref in ref_metrics.items():
+            if not abs(metrics[name].item() - ref.item()) <= 1e-3 * abs(ref.item()) + 1e-6:
+                problems.append(f"metric {name}: {metrics[name].item():.6e} vs {ref.item():.6e}")
+        g_err, g_mean, noise = _compare_grads("G", grads, ref_grads, problems)
+        param_err, clear = _compare_parameters("G", state, ref_state, ref_grads, noise, train_cfg.learning_rate,
+                                               problems)
+        buffer_err = 0.0
+        for name in (n for n in ref_state if n not in ref_grads):
+            err = (state[name].cpu() - ref_state[name]).abs().max().item() / max(ref_state[name].abs().max().item(),
+                                                                                 1e-30)
+            buffer_err = max(buffer_err, err)
+            if not err <= 1e-3:
+                problems.append(f"buffer {name}: err {err:.3e} of its largest")
+        extra_err = max((g.cpu() - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+                        for g, r in zip(extra, ref_extra))
+        if not extra_err <= 1e-3:
+            problems.append(f"centroids or MI matrices: err {extra_err:.3e} of their largest")
+        if problems:
+            for problem in problems[:12]:
+                print(f"  12e card vs CPU: {problem}")
+            raise SmokeFailure(f"12e card vs CPU Minecraft phase-3 step: {len(problems)} checks failed, first: "
+                               f"{problems[0]}")
+        median = statistics.median(step_ms[2:])
+        out["phase3"] = {
+            "cache_frames": cached_frames, "cache_s": cache_s, "cache_frames_per_s": cached_frames / cache_s,
+            "launches": cache_launches, "step_ms": step_ms, "median_step_ms": median, "losses": losses,
+            "peak_memory_bytes": peak, "card_vs_cpu": {
+                "loss": metrics["loss"].item(), "ref_loss": ref_metrics["loss"].item(), "grad_rel_err": g_err,
+                "grad_mean_rel_err": g_mean[0], "param_err": param_err, "sign_clear_elements": clear,
+                "buffer_err": buffer_err, "extra_err": extra_err},
+            "seconds": time.perf_counter() - phase_start,
+        }
+        print(f"12e Minecraft phase 3 over the encoding cache: {cached_frames} frames encoded in {cache_s:.2f} s "
+              f"({cached_frames / cache_s:.1f} frames/s, the learned pose encoder included); "
+              f"{PHASE12_CACHE_STEPS} generator steps (minecraft.yaml: no GAN, no discriminators) at bs {bs} x {T}, "
+              f"2 players with an animation model each (dynamics 128, style 32): B4 {cache_launches[0]}, B5 "
+              f"{cache_launches[1]} launches; median step {median:.3f} ms over steps 3-{PHASE12_CACHE_STEPS}; peak "
+              f"memory {peak / 2**20:.1f} MiB; one step card vs CPU: loss {metrics['loss'].item():.6f} vs "
+              f"{ref_metrics['loss'].item():.6f}, gradients within {g_err:.3e} of their model's largest (mean "
+              f"{g_mean[0]:.3e}), {clear} parameter elements with a clear sign within {param_err:.3e}, running "
+              f"statistics within {buffer_err:.3e}, centroids and MI matrices within {extra_err:.3e}")
+    return out
+
+
 def ptxas_entries(report: str) -> dict:
     """{kernel entry (mangled): {"registers", "spill_stores", "spill_loads",
     "smem"}} from nvcc -Xptxas -v output."""
@@ -1697,6 +2206,13 @@ def main() -> int:
     device = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
+    # Seconds of each phase, from the end of the one before.
+    phase_seconds, clock = {}, [time.perf_counter()]
+
+    def done(phase):
+        clock.append(time.perf_counter())
+        phase_seconds[phase] = round(clock[-1] - clock[-2], 1)
+
     # ---- 1. build (one nvcc per source, started together) ------------------
     start = time.perf_counter()
     reports = fused_nerf.build_kernels()
@@ -1708,12 +2224,25 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
+    done("1")
+    if sys.argv[1:] == ["--phase", "12"]:
+        try:
+            phase12_minecraft(repo)
+        except SmokeFailure as e:
+            return fail(str(e))
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True).stdout.strip())
+        print("phase 12 alone: passed")
+        return 0
+
     # ---- 2. B1 vs plain version: each tennis object alone, then the frame's grouped launch
     scene = scene_from_yaml(os.path.join(repo, "configs", "tennis.yaml"))
     try:
         shapes, group = phase2_adain_kernels(scene, reports)
     except SmokeFailure as e:
         return fail(str(e))
+
+    done("2")
 
     # ---- 3. the card against the CPU on a small frame ----------------------
     small = dict(image_size=(48, 64), patch_strides=STRIDES,
@@ -1751,6 +2280,8 @@ def main() -> int:
         print(f"small frame {field}: card vs CPU max abs err {diff.max().item():.3e}, "
               f"mean {diff.mean().item():.3e} (values in [{ref.min().item():.3f}, {ref.max().item():.3f}])")
 
+    done("3")
+
     # ---- 4. the main path: the tennis play loop at 512x288 ----------------
     session = InteractiveSession.from_scene(
         scene, image_size=IMAGE_SIZE, patch_strides=STRIDES,
@@ -1782,15 +2313,26 @@ def main() -> int:
         f"all steps ms {[round(t, 3) for t in step_ms]}"
     )
 
-    # ---- 5-7. phase-2 training, 8-10. phase-3 training ------------------------
+    done("4")
+
+    # ---- 5-7. phase-2 training, 8-10. phase-3 training, 11. data, 12. Minecraft
     try:
         fwd_rows, bwd_rows = phase5_backbone_kernels()
+        done("5")
         card_vs_cpu = phase6_card_vs_cpu()
+        done("6")
         phase2 = phase7_main_path()
+        done("7")
         rollout_rows, rollout_timing = phase8_rollout_kernels()
+        done("8")
         phase3_card_vs_cpu = phase9_card_vs_cpu()
+        done("9")
         phase3 = phase10_main_path()
+        done("10")
         phase11 = phase11_from_data(repo, scene, frame_ms, phase3["median_step_ms"])
+        done("11")
+        phase12 = phase12_minecraft(repo)
+        done("12")
     except SmokeFailure as e:
         return fail(str(e))
 
@@ -1816,10 +2358,18 @@ def main() -> int:
     # the frame's four objects.
     b1 = kernel_entry("fused_adain_nerf", "fused_nerf.cu", "playableenvironments_tpu/ops/fused_nerf.py:111",
                       launches, shapes)
-    b1.update(ms=group["ms"], max_abs_err=max(b1["max_abs_err"], group["max_abs_err"], phase11["creator"]["b1_max_abs_err"]),
+    mc = phase12["b1"]
+    b1.update(ms=group["ms"], max_abs_err=max(b1["max_abs_err"], group["max_abs_err"], phase11["creator"]["b1_max_abs_err"],
+                                              mc["frame"]["max_abs_err"], mc["batch4"]["max_abs_err"]),
               launches_by_path={"play": launches, "play_from_batch": phase11["play"]["launches"],
-                                "reconstruction": phase11["creator"]["launches"]},
-              batch4_ms=phase11["creator"]["b1_ms"], batch4_bound_ms=phase11["creator"]["b1_bound_ms"])
+                                "reconstruction": phase11["creator"]["launches"],
+                                "minecraft_play": phase12["play"]["launches"],
+                                "minecraft_play_from_batch": phase12["data"]["play_launches"],
+                                "minecraft_reconstruction": phase12["data"]["creator_launches"][0]},
+              batch4_ms=phase11["creator"]["b1_ms"], batch4_bound_ms=phase11["creator"]["b1_bound_ms"],
+              minecraft={k: mc["frame"][k] for k in ("points", "ms", "back_to_back_ms", "plain_ms", "library_ms",
+                                                      "bound_ms", "bound_by", "max_abs_err")},
+              minecraft_batch4={k: mc["batch4"][k] for k in ("points", "ms", "back_to_back_ms", "bound_ms")})
     kernels = [
         b1,
         kernel_entry("fused_backbone_fwd", "fused_backbone.cu", "playableenvironments_tpu/ops/fused_nerf.py:375",
@@ -1849,7 +2399,8 @@ def main() -> int:
     p11 = phase11["phase3"]
     for entry, which in zip(kernels[3:], (0, 1)):
         entry["launches_by_path"] = {"phase3": phase3["launches"][which], "phase3_cache": p11["cache_launches"][which],
-                                     "phase3_batch": p11["batch_launches"][which]}
+                                     "phase3_batch": p11["batch_launches"][which],
+                                     "minecraft_phase3_cache": phase12["phase3"]["launches"][which]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1859,8 +2410,10 @@ def main() -> int:
         json.dump({"card": smi, "shapes": shapes, "group": group, "step_ms": step_ms, "frame_ms": frame_ms,
                    "backbone_fwd_shapes": fwd_rows, "backbone_bwd_shapes": bwd_rows,
                    "train_card_vs_cpu": card_vs_cpu, "phase2": phase2, "rollout_shapes": rollout_rows,
-                   "phase3_card_vs_cpu": phase3_card_vs_cpu, "phase3": phase3, "phase11": phase11, "kernels": kernels,
-                   "ptxas": reports}, f, indent=1)
+                   "phase3_card_vs_cpu": phase3_card_vs_cpu, "phase3": phase3, "phase11": phase11, "phase12": phase12,
+                   "kernels": kernels,
+                   "phase_seconds": phase_seconds, "ptxas": reports}, f, indent=1)
+    print(f"phase seconds: {phase_seconds}")
     print(
         "tf32: torch.backends.cuda.matmul.allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn.allow_tf32="
@@ -1872,7 +2425,9 @@ def main() -> int:
           "launches of the phase-3 shape); fused_backbone_fwd/bwd ms are whole wrapper calls as the autograd "
           "Function makes them (the forward's weight-image build included; phase 5 prints the kernels' own "
           "times beside them); max_abs_err of fused_backbone_bwd and fused_rollout_fwd/bwd is "
-          "relative to each output's largest magnitude; fused_rollout bounds use the f32 peak "
+          "relative to each output's largest magnitude; fused_adain_nerf's `minecraft` is the Minecraft frame's one "
+          "grouped launch of 3 objects (phase 12a; plain, library and bound summed over them) and "
+          "`minecraft_batch4` the creator's batch of 4; fused_rollout bounds use the f32 peak "
           f"({PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s), the others the bf16 one ({PEAK_BF16_FLOPS / 1e12:.0f})")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -2,7 +2,8 @@
 
 Port of the builders of playableenvironments_tpu/cli/common.py
 (`load_yaml`, `with_batching_overrides`, `build_dataset`,
-`build_environment_model`). The YAML schema is the JAX package's: `data`,
+`build_environment_model`) and of the phase-3 CLI's trainer configuration
+(`playable_training_config`). The YAML schema is the JAX package's: `data`,
 `model`, `playable_model`, `training`, `playable_model_training`,
 `evaluation`. The meshes and training runners come with the CLIs.
 """
@@ -61,4 +62,54 @@ def build_environment_model(cfg: Dict[str, Any], device="cuda", seed: int = 0):
         enable_camera_offsets=bool(cfg.get("model", {}).get("enable_camera_parameters_offsets", False)),
         device=device,
         seed=seed,
+    )
+
+
+def playable_training_config(cfg: Dict[str, Any]):
+    """train.trainer_playable.PlayableTrainingConfig of
+    `cfg["playable_model_training"]`, read as the JAX phase-3 CLI reads it
+    (cli/train_playable.py); the discriminators are wanted where its
+    `gan` weight is above 0."""
+    from playableenvironments_tpu_torch.train.trainer_playable import (
+        PlayableLossWeights,
+        PlayableTrainingConfig,
+    )
+
+    t = cfg["playable_model_training"]
+    w = t.get("loss_weights", {})
+    batching = t.get("batching", {})
+    return PlayableTrainingConfig(
+        learning_rate=float(t.get("learning_rate", 5e-4)),
+        lr_gamma=float(t.get("lr_gamma", 0.926118)),
+        lr_decay_iterations=int(t.get("lr_decay_iterations", 10000)),
+        weight_decay=float(t.get("weight_decay", 0.0)),
+        max_steps=int(t.get("max_steps", 300000)),
+        ground_truth_observations_start=int(t.get("ground_truth_observations_start", 6)),
+        ground_truth_observations_end=int(t.get("ground_truth_observations_end", 6)),
+        ground_truth_observations_steps=int(t.get("ground_truth_observations_steps", 16000)),
+        observations_count=int(batching.get("observations_count", 9)),
+        observations_count_start=int(batching.get("observations_count_start", batching.get("observations_count", 9))),
+        observations_count_steps=int(batching.get("observations_count_steps", 25000)),
+        mutual_information_alpha=float(t.get("mutual_information_estimation_alpha", 0.2)),
+        mutual_information_entropy_lambda=float(t.get("mutual_information_entropy_lambda", 1.0)),
+        betas=tuple(float(b) for b in t.get("betas", (0.9, 0.999))),
+        discriminator_learning_rate=(
+            float(t["discriminator_learning_rate"]) if "discriminator_learning_rate" in t else None
+        ),
+        discriminator_weight_decay=(
+            float(t["discriminator_weight_decay"]) if "discriminator_weight_decay" in t else None
+        ),
+        use_camera_relative_acmv=bool(t.get("use_camera_relative_acmv", False)),
+        acmv_rotation_axis=t.get("acmv_rotation_axis"),
+        loss_weights=PlayableLossWeights(
+            rotations_rec=float(w.get("rotations_rec_lambda", 1.0)),
+            translations_rec=float(w.get("translations_rec_lambda", 1.0)),
+            style_rec=float(w.get("style_rec_lambda", 1.0)),
+            deformation_rec=float(w.get("deformation_rec_lambda", 1.0)),
+            entropy=float(w.get("entropy_lambda", 0.0)),
+            action_directions_kl=float(w.get("action_directions_kl_lambda", 1e-4)),
+            action_mutual_information=float(w.get("action_mutual_information_lambda", 0.15)),
+            acmv=float(w.get("acmv_lambda", 0.0)),
+            gan=float(w.get("gan_lambda", 0.0)),
+        ),
     )

@@ -79,7 +79,8 @@ def load_environment(composer, autoencoder, variables: Mapping) -> None:
 
 def load_environment_model(model, variables: Mapping, autoencoder=None) -> list:
     """EnvironmentModel variables -> render.environment_model.EnvironmentModel:
-    `composer` and every `object_encoder_i`, params and batch_stats,
+    `composer` (AdaIN and skybox NeRFs, benders), every `object_encoder_i`
+    and every `parameters_encoder_i` (the learned pose CNNs), params and batch_stats,
     strictly; with `autoencoder` (a MultiresAutoencoder) also its decoder
     from the `autoencoder` subtree (encoder leaves are not read). Subtrees
     left unread (the autoencoder without one, camera offsets) are named in
@@ -89,7 +90,8 @@ def load_environment_model(model, variables: Mapping, autoencoder=None) -> list:
     """
     params = variables["params"]
     stats = variables.get("batch_stats", {})
-    expected = {"composer"} | {n for n, _ in model.named_children() if n.startswith("object_encoder_")}
+    expected = {"composer"} | {n for n, _ in model.named_children()
+                               if n.startswith(("object_encoder_", "parameters_encoder_"))}
     skippable = {"autoencoder", "camera_offsets"}
     unknown = set(params) - expected - skippable
     if unknown:

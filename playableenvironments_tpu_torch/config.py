@@ -294,6 +294,37 @@ class ObjectIds:
         )
 
 
+def animation_model_indexes(scene: SceneConfig) -> Tuple[int, ...]:
+    """The animation model of each dynamic object.
+
+    Where the scene has no more animation models than dynamic object
+    models, one per dynamic object model, as ObjectIds maps them (dynamic
+    objects of one model share it). A scene with more (configs/minecraft.yaml:
+    two players of one object model, one animation model each) has one per
+    dynamic object; the JAX package cannot build such a scene's playable
+    model (it looks up an object model per animation model).
+    """
+    ids = ObjectIds(scene)
+    count = len(scene.animation_models)
+    if count <= ids.dynamic_models_count:
+        return tuple(ids.animation_model_idx_by_dynamic_object_idx(d) for d in range(ids.dynamic_objects_count))
+    if count != ids.dynamic_objects_count:
+        raise ValueError(
+            f"{count} animation models for {ids.dynamic_objects_count} dynamic objects of "
+            f"{ids.dynamic_models_count} object models: one per object model or one per object"
+        )
+    return tuple(range(count))
+
+
+def animation_object_models(scene: SceneConfig) -> Tuple[int, ...]:
+    """The object model (its bounding box) that each animation model moves."""
+    ids = ObjectIds(scene)
+    models = {}
+    for dynamic_idx, anim_idx in enumerate(animation_model_indexes(scene)):
+        models.setdefault(anim_idx, ids.model_idx_by_dynamic_object_idx(dynamic_idx))
+    return tuple(models.get(k, ids.static_models_count + k) for k in range(len(scene.animation_models)))
+
+
 # ---------------------------------------------------------------------------
 # Dict / YAML loading
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Volume-rendering integration and sort-free multi-object composition.
 
 Port of playableenvironments_tpu/core/compositing.py: `position_distances`,
-`alphas_from_raw`, `compositing_weights`, `integrate` and
-`compose_integrate_sortfree`. Where the JAX functions draw noise from a key,
+`alphas_from_raw`, `compositing_weights`, `integrate`,
+`compose_integrate_sortfree`, and the Minecraft overlap fix
+(`overlap_fix_mask`, `apply_overlap_fix`). Where the JAX functions draw noise from a key,
 these take the noise tensor itself (`noise`, a unit normal draw of the raw
 alphas' shape, or None without perturbation).
 """
@@ -87,6 +88,50 @@ def integrate(
         ),
         "integrated_divergence": torch.mean(alphas.detach() * torch.abs(ray_divergences), dim=-1),
     }
+
+
+def overlap_fix_mask(static_t: torch.Tensor, dynamic_t: torch.Tensor) -> torch.Tensor:
+    """True where a static object's samples fall inside a dynamic object's
+    sampled t interval: lo <= t < hi with lo = dynamic_t[..., 0] and hi =
+    dynamic_t[..., min(S_static, S_dynamic) - 1].
+
+    The upper end indexes the dynamic object's samples with the static
+    object's count, as the reference does (and the JAX package after it),
+    so with fewer static than dynamic samples the interval ends early.
+
+    :param static_t: (..., positions); dynamic_t (..., dyn_positions).
+    :return: (..., positions) bool, True = suppress the sample.
+    """
+    hi_idx = min(static_t.shape[-1], dynamic_t.shape[-1]) - 1
+    lo = dynamic_t[..., :1]
+    hi = dynamic_t[..., hi_idx : hi_idx + 1]
+    return (static_t >= lo) & (static_t < hi)
+
+
+def apply_overlap_fix(
+    raw_alphas: torch.Tensor,
+    ray_positions_t: torch.Tensor,
+    ray_positions: torch.Tensor,
+    ray_displacements: torch.Tensor,
+    ray_divergences: torch.Tensor,
+    ray_origins: torch.Tensor,
+    mask: torch.Tensor,
+):
+    """Suppress masked samples: alpha -> -10 (empty space), t -> 0, position
+    -> the ray origin, displacement and divergence -> 0.
+
+    :param ray_origins: (..., 3), broadcast over the positions axis.
+    :param mask: (..., positions) True = suppress.
+    :return: the five inputs with the masked samples replaced.
+    """
+    m3 = mask[..., None]
+    return (
+        torch.where(mask, -10.0, raw_alphas),
+        torch.where(mask, 0.0, ray_positions_t),
+        torch.where(m3, ray_origins[..., None, :], ray_positions),
+        torch.where(m3, 0.0, ray_displacements),
+        torch.where(mask, 0.0, ray_divergences),
+    )
 
 
 def compose_integrate_sortfree(

@@ -44,6 +44,15 @@ def _euler_matrix(rotation: np.ndarray) -> np.ndarray:
     return ry @ rx @ rz
 
 
+def _ground_point(xy: Tuple[float, float], height: float, up_axis: int) -> np.ndarray:
+    """The world point at ground coordinates `xy` (the two axes other than
+    `up_axis`, in order) and `height` along `up_axis`."""
+    point = np.zeros(3, np.float32)
+    point[[a for a in range(3) if a != up_axis]] = xy
+    point[up_axis] = height
+    return point
+
+
 def render_frame(
     player_xy: Tuple[float, float],
     camera_rotation: np.ndarray,
@@ -51,9 +60,12 @@ def render_frame(
     focal: float,
     height: int,
     width: int,
+    up_axis: int = 2,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Analytic render: per-pixel ray vs ground plane and player cuboid.
 
+    :param player_xy: the player's ground coordinates (the axes other than
+        `up_axis`); :param up_axis: 2 (z up, tennis) or 1 (y up, Minecraft).
     :return: ((H, W, 3) image, (4,) normalized (l, t, r, b) player box).
     """
     rot = _euler_matrix(camera_rotation)
@@ -71,17 +83,16 @@ def render_frame(
 
     image = np.broadcast_to(SKY_COLOR, (height, width, 3)).copy()
 
-    # Ground plane z = 0 (world z up in the tennis convention).
-    dz = dirs_world[..., 2]
-    t_ground = np.where(np.abs(dz) > 1e-6, -origin[2] / dz, np.inf)
+    # Ground plane: 0 along the up axis.
+    dz = dirs_world[..., up_axis]
+    t_ground = np.where(np.abs(dz) > 1e-6, -origin[up_axis] / dz, np.inf)
     ground_hit = (t_ground > 0) & np.isfinite(t_ground)
     image[ground_hit] = GROUND_COLOR
 
-    # Player cuboid standing at (x, y, 0)..(x, y, h): slab test.
-    px, py = player_xy
+    # Player cuboid standing on the ground at player_xy: slab test.
     sx, sy, sz = PLAYER_SIZE
-    low = np.asarray([px - sx / 2, py - sy / 2, 0.0], np.float32)
-    high = np.asarray([px + sx / 2, py + sy / 2, sz], np.float32)
+    low = _ground_point((player_xy[0] - sx / 2, player_xy[1] - sy / 2), 0.0, up_axis)
+    high = _ground_point((player_xy[0] + sx / 2, player_xy[1] + sy / 2), sz, up_axis)
     with np.errstate(divide="ignore", invalid="ignore"):
         t1 = (low - origin) / dirs_world
         t2 = (high - origin) / dirs_world
@@ -193,18 +204,23 @@ def make_two_player_dataset(
     seed: int = 0,
     splits: Sequence[str] = ("train", "validation", "test"),
     frames_by_split: Optional[dict] = None,
+    up_axis: int = 2,
 ) -> str:
     """A 1-camera dataset with two players (the tennis scenes' two dynamic
-    objects), each on its own smooth random walk inside its (x, y) range,
-    drawn as in `make_synthetic_dataset` (player 2 in blue over player 1's
-    frame) with one box per player a frame and actions from player 1's
-    movement.
+    objects), each on its own smooth random walk inside its range of ground
+    coordinates, drawn as in `make_synthetic_dataset` (player 2 in blue over
+    player 1's frame) with one box per player a frame and actions from
+    player 1's movement.
 
     :param focal: the focal stored with each frame (pixels of the frames
         the dataset's focals refer to); frames are rendered with
         focal * focal_length_multiplier.
+    :param player_ranges: per player, the ranges of its two ground
+        coordinates (the axes other than `up_axis`, in order).
     :param frames_by_split: optional {split: (videos, frames)} overriding
         `videos` and `frames` per split.
+    :param up_axis: 2 for the tennis geometry (z up), 1 for Minecraft's
+        (y up; `MINECRAFT_GEOMETRY` holds the rest of it).
     """
     rng = np.random.default_rng(seed)
     rotation = np.asarray(camera_rotation, np.float32)
@@ -222,9 +238,9 @@ def make_two_player_dataset(
                 pos = np.clip(pos + velocity, lows, highs)
                 actions.append(int(np.argmax([velocity[0, 1], -velocity[0, 1], velocity[0, 0], -velocity[0, 0]])))
                 image, box_1 = render_frame(tuple(pos[0]), rotation, translation, focal * focal_length_multiplier,
-                                            height, width)
+                                            height, width, up_axis)
                 image_2, box_2 = render_frame(tuple(pos[1]), rotation, translation,
-                                              focal * focal_length_multiplier, height, width)
+                                              focal * focal_length_multiplier, height, width, up_axis)
                 image[np.all(image_2 == PLAYER_COLOR, axis=-1)] = PLAYER_2_COLOR
                 images.append(image)
                 boxes.append(np.stack([box_1, box_2], axis=-1))  # disk layout (4, objects)
@@ -241,3 +257,18 @@ def make_two_player_dataset(
             )
             MulticameraVideo([video]).save(os.path.join(root, split, f"{video_idx:05}"), exists_ok=True)
     return root
+
+
+# make_two_player_dataset's arguments for the Minecraft geometry
+# (configs/minecraft.yaml): y up, the focal multiplier 0.5, a camera yawed
+# away from the world axes (the learned pose encoder adds its yaw offset to
+# the camera's), and two players whose 0.8 x 1.8 x 0.8 cuboids fit the
+# player box [-0.6, 0.6] x [0, 2.1] x [-1.2, 1.2] and stand inside the
+# background's slab [-10, 10] x [-0.6, 2] x [-10, 10], in view.
+MINECRAFT_GEOMETRY = dict(
+    up_axis=1,
+    focal_length_multiplier=0.5,
+    camera_rotation=(-0.35, 0.3, 0.0),
+    camera_translation=(3.0, 3.5, 9.0),
+    player_ranges=(((-2.0, 0.5), (-2.5, 1.0)), ((0.5, 3.0), (-2.5, 1.0))),
+)

@@ -72,18 +72,15 @@ class CycleGanResnetBlock(nn.Module):
 
 
 class MultiresDecoder(nn.Module):
-    """Reference DecoderV6 (the v8 autoencoder) in eval mode: from the
-    lowest-resolution latent upward, bottleneck blocks, bilinear-upsample
-    convs and skip concatenation of the next level's latent, then a 7x7
-    conv + sigmoid."""
+    """Reference DecoderV6 (the v8 autoencoder) and DecoderV7 (v9) in eval
+    mode: from the lowest-resolution latent upward, bottleneck blocks,
+    bilinear-upsample convs and skip concatenation of the next level's
+    latent, then a 7x7 conv + sigmoid. v9 adds a ReLU after each bottleneck
+    block and, in sets of 3 or more upsamplings, `mid_res` blocks (each
+    followed by a ReLU) after the second-to-last upsampling."""
 
     def __init__(self, cfg: AutoencoderConfig, device=None):
         super().__init__()
-        if cfg.variant != "v8":
-            raise NotImplementedError(
-                f"autoencoder variant {cfg.variant!r} (the Minecraft v9 decoder) is "
-                "not ported yet; it comes with the Minecraft slice"
-            )
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
                 f"decoder compute_dtype {cfg.compute_dtype!r}: the port's decoder "
@@ -111,23 +108,35 @@ class MultiresDecoder(nn.Module):
                 self.add_module(f"up_bn_{set_idx}_{i}", nn.BatchNorm2d(initial * mult // 2, device=device))
                 mult //= 2
                 channels = initial * mult
+                if self._mid_res(downs, i):
+                    for b in range(cfg.bottleneck_blocks):
+                        self.add_module(f"mid_res_{set_idx}_{b}", CycleGanResnetBlock(channels, channels, device))
             if set_idx != len(reversed_counts) - 1:
                 channels += levels[-set_idx - 2]
         self.final_conv = nn.Conv2d(channels, cfg.input_features, 7, device=device)
+
+    def _mid_res(self, downs: int, i: int) -> bool:
+        return self.cfg.variant == "v9" and downs >= 3 and i == downs - 2
 
     def forward(self, encoded_levels: List[torch.Tensor]) -> torch.Tensor:
         """:param encoded_levels: per-level NCHW latents, level 0 at the
         highest resolution. :return: (N, input_features, H, W) in [0, 1]."""
         cfg = self.cfg
+        deep = cfg.variant == "v9"
         y = encoded_levels[-1]
         reversed_counts = list(reversed(cfg.downsampling_layers_count))
         for set_idx, downs in enumerate(reversed_counts):
             for b in range(cfg.bottleneck_blocks):
                 y = getattr(self, f"bottleneck_{set_idx}_{b}")(y)
+                if deep:
+                    y = torch.relu(y)
             for i in range(downs):
                 y = reflect_pad_hw(upsample2x_bilinear(y), 1)
                 y = getattr(self, f"up_{set_idx}_{i}")(y)
                 y = torch.relu(getattr(self, f"up_bn_{set_idx}_{i}")(y))
+                if self._mid_res(downs, i):
+                    for b in range(cfg.bottleneck_blocks):
+                        y = torch.relu(getattr(self, f"mid_res_{set_idx}_{b}")(y))
             if set_idx != len(reversed_counts) - 1:
                 skip = encoded_levels[-set_idx - 2]
                 y = torch.cat([y, skip], dim=1)

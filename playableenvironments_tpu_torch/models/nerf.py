@@ -2,11 +2,12 @@
 the per-object field.
 
 Port of playableenvironments_tpu/models/nerf.py: AdaInNerfMLP,
-PositionalRayBender and ObjectRadianceField, with the flax parameter names
-(backbone_i, alpha_head, feat_0/1, feat_out, adain_0/1, ray_bender/backbone_i,
-output_head). Their `forward` is the training path (and eval with
-`use_running_average`); the eval frame path reads the same weights through
-render/fast.py and the B1 kernel (ops/fused_nerf.py).
+SkyboxNerfMLP, PositionalRayBender and ObjectRadianceField, with the flax
+parameter names (backbone_i, alpha_head, feat_0/1, feat_out, adain_0/1,
+ray_bender/backbone_i, output_head). Their `forward` is the training path
+(and eval with `use_running_average`); the eval frame path reads the same
+weights through render/fast.py, the AdaIN NeRF through the B1 kernel
+(ops/fused_nerf.py), the skybox as plain products, once per ray.
 
 Matmuls run in `compute_dtype` as flax's Dense with `dtype` does (operands
 and outputs in that dtype), the fused backbone through the B2/B3 kernels;
@@ -55,17 +56,9 @@ class AdaInNerfMLP(nn.Module):
     def __init__(self, cfg: NerfMLPConfig, style_features: int, device=None):
         super().__init__()
         self.cfg = cfg
-        w = cfg.layers_width
-        pe = _encoding_size(3, cfg.position_encoder)
-        for i in range(cfg.backbone_layers_count):
-            fan_in = pe if i == 0 else (w + pe if i == cfg.skip_layer_idx else w)
-            self.add_module(f"backbone_{i}", nn.Linear(fan_in, w, device=device))
-        self.alpha_head = nn.Linear(w, 1, device=device)
-        self.feat_0 = nn.Linear(w, w, bias=False, device=device)
-        self.adain_0 = AffineTransformAdaIn(w, style_features, device=device)
-        self.feat_1 = nn.Linear(w, w // 2, bias=False, device=device)
-        self.adain_1 = AffineTransformAdaIn(w // 2, style_features, device=device)
-        self.feat_out = nn.Linear(w // 2, cfg.output_features, device=device)
+        _add_backbone(self, cfg, _encoding_size(3, cfg.position_encoder), device)
+        self.alpha_head = nn.Linear(cfg.layers_width, 1, device=device)
+        _add_feature_head(self, cfg, style_features, device)
         self._kernel_cache: Optional[Tuple[tuple, fused_nerf.NerfKernelWeights]] = None
 
     def kernel_weights(self) -> fused_nerf.NerfKernelWeights:
@@ -114,19 +107,87 @@ class AdaInNerfMLP(nn.Module):
             h = h_flat.reshape(encoded.shape[:-1] + (cfg.layers_width,))
             alpha = alpha_flat.reshape(encoded.shape[:-1])
         else:
-            encoded = encoded.to(dtype)
-            h = encoded
-            for i in range(cfg.backbone_layers_count):
-                if i == cfg.skip_layer_idx:
-                    h = torch.cat([h, encoded], dim=-1)
-                h = torch.relu(dense(h, getattr(self, f"backbone_{i}"), dtype))
+            h = _backbone(self, cfg, encoded.to(dtype), dtype)
             alpha = dense(h, self.alpha_head, dtype)[..., 0].to(torch.float32)
+        return _feature_head(self, h, style, mask, use_running_average, dtype), alpha
 
-        f = dense(h, self.feat_0, dtype).to(torch.float32)
-        f = torch.relu(self.adain_0(f, style, mask, use_running_average))
-        f = dense(f, self.feat_1, dtype).to(torch.float32)
-        f = torch.relu(self.adain_1(f, style, mask, use_running_average))
-        return dense(f, self.feat_out, dtype).to(torch.float32), alpha
+
+class SkyboxNerfMLP(nn.Module):
+    """Fully opaque skybox: features from the positional encoding of the
+    box-normalized ray origin and the unit ray direction (6 inputs), alpha
+    forced to 10. It ignores the sample position, so callers evaluate it
+    once per ray and broadcast over the samples."""
+
+    occupied_space_alpha = 10.0
+
+    def __init__(self, cfg: NerfMLPConfig, style_features: int, device=None):
+        super().__init__()
+        self.cfg = cfg
+        _add_backbone(self, cfg, _encoding_size(6, cfg.position_encoder), device)
+        _add_feature_head(self, cfg, style_features, device)
+
+    def forward(
+        self,
+        origins: torch.Tensor,
+        directions: torch.Tensor,
+        box,
+        style: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+        use_running_average: bool = False,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:param origins, directions: (..., 3) object-frame ray origins and
+        directions; :param box: the object's (3, 2) bounding box.
+        :param style: broadcastable (..., style_features).
+        :param mask: (...) validity for the AdaIN statistics.
+        :return: ((..., output_features) f32 features, (...) alphas of 10).
+        """
+        cfg = self.cfg
+        pe_cfg = cfg.position_encoder
+        unit_dirs = directions / torch.linalg.norm(directions, dim=-1, keepdim=True)
+        x = torch.cat([origins / aabb_size(_box(box, origins)), unit_dirs], dim=-1)
+        dtype = getattr(torch, cfg.compute_dtype)
+        encoded = positional_encoding(x, pe_cfg.octaves, pe_cfg.append_original).to(dtype)
+        features = _feature_head(self, _backbone(self, cfg, encoded, dtype), style, mask, use_running_average,
+                                 dtype)
+        return features, torch.full(features.shape[:-1], self.occupied_space_alpha, dtype=features.dtype,
+                                    device=features.device)
+
+
+def _add_backbone(module: nn.Module, cfg: NerfMLPConfig, pe: int, device) -> None:
+    """`backbone_i`: L layers of width W over a `pe`-wide encoding, which is
+    concatenated again at `skip_layer_idx`."""
+    w = cfg.layers_width
+    for i in range(cfg.backbone_layers_count):
+        fan_in = pe if i == 0 else (w + pe if i == cfg.skip_layer_idx else w)
+        module.add_module(f"backbone_{i}", nn.Linear(fan_in, w, device=device))
+
+
+def _add_feature_head(module: nn.Module, cfg: NerfMLPConfig, style_features: int, device) -> None:
+    """feat_0 (W) -> adain_0 -> feat_1 (W / 2) -> adain_1 -> feat_out."""
+    w = cfg.layers_width
+    module.feat_0 = nn.Linear(w, w, bias=False, device=device)
+    module.adain_0 = AffineTransformAdaIn(w, style_features, device=device)
+    module.feat_1 = nn.Linear(w, w // 2, bias=False, device=device)
+    module.adain_1 = AffineTransformAdaIn(w // 2, style_features, device=device)
+    module.feat_out = nn.Linear(w // 2, cfg.output_features, device=device)
+
+
+def _backbone(module: nn.Module, cfg: NerfMLPConfig, encoded: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    h = encoded
+    for i in range(cfg.backbone_layers_count):
+        if i == cfg.skip_layer_idx:
+            h = torch.cat([h, encoded], dim=-1)
+        h = torch.relu(dense(h, getattr(module, f"backbone_{i}"), dtype))
+    return h
+
+
+def _feature_head(module: nn.Module, h, style, mask, use_running_average: bool, dtype) -> torch.Tensor:
+    """Dense -> AdaIN -> ReLU -> Dense -> AdaIN -> ReLU -> Dense, AdaIN in f32."""
+    f = dense(h, module.feat_0, dtype).to(torch.float32)
+    f = torch.relu(module.adain_0(f, style, mask, use_running_average))
+    f = dense(f, module.feat_1, dtype).to(torch.float32)
+    f = torch.relu(module.adain_1(f, style, mask, use_running_average))
+    return dense(f, module.feat_out, dtype).to(torch.float32)
 
 
 class PositionalRayBender(nn.Module):
@@ -183,12 +244,8 @@ class ObjectRadianceField(nn.Module):
     def __init__(self, cfg: ObjectModelConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        if cfg.nerf.kind != "adain":
-            raise NotImplementedError(
-                f"nerf kind {cfg.nerf.kind!r} (the Minecraft skybox) is not "
-                "ported yet; it comes with the Minecraft slice"
-            )
-        self.nerf = AdaInNerfMLP(cfg.nerf, cfg.style_features, device=device)
+        mlp = SkyboxNerfMLP if cfg.nerf.kind == "skybox" else AdaInNerfMLP
+        self.nerf = mlp(cfg.nerf, cfg.style_features, device=device)
         if cfg.bender.kind == "positional":
             self.ray_bender = PositionalRayBender(
                 cfg.bender, cfg.deformation_features, device=device
@@ -211,6 +268,11 @@ class ObjectRadianceField(nn.Module):
             (..., rays, positions) divergences).
         """
         cfg = self.cfg
+        if cfg.nerf.kind == "skybox":
+            raise NotImplementedError(
+                "the skybox in the training composer (it reads ray origins and directions) is not "
+                "ported yet; the eval frame path (render.fast) renders it"
+            )
         mask = aabb_contains(_box(cfg.bounding_box, ray_positions), ray_positions)
         style_b = style[..., None, None, :]
         deformation_b = deformation[..., None, None, :]

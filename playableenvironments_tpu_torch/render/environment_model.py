@@ -7,8 +7,7 @@ from the object encoders (with the temporal style shuffle), the scene
 encoding, ray sampling (weighted, uniform, or the whole-image strided
 grid), the composed render and the ray-to-object distances. Random draws
 come from `rng` (utils.random.RngStreams). Patch sampling with the decoder
-(`decode_patches`), per-frame camera offsets and the learned pose encoder
-raise NotImplementedError.
+(`decode_patches`) and per-frame camera offsets raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,7 +23,11 @@ from playableenvironments_tpu_torch.core import rays as rays_lib
 from playableenvironments_tpu_torch.core.transforms3d import euler_translation_to_matrix, invert_rigid
 from playableenvironments_tpu_torch.models.layers import initialize_
 from playableenvironments_tpu_torch.models.object_encoders import object_encoder
-from playableenvironments_tpu_torch.models.parameter_encoders import classic_object_poses, static_object_poses
+from playableenvironments_tpu_torch.models.parameter_encoders import (
+    ObjectParametersEncoderV4,
+    classic_object_poses,
+    static_object_poses,
+)
 from playableenvironments_tpu_torch.render import sampling
 from playableenvironments_tpu_torch.render.composer import SceneComposer
 from playableenvironments_tpu_torch.scene.encoding import SceneEncoding
@@ -32,19 +35,15 @@ from playableenvironments_tpu_torch.utils.device import resolve_device
 
 
 class EnvironmentModel(nn.Module):
-    """The synthesis model's training surface: `composer` and
-    `object_encoder_i` (the flax tree's names)."""
+    """The synthesis model's training surface: `composer`,
+    `object_encoder_i` and, for learned poses, `parameters_encoder_i` (the
+    flax tree's names)."""
 
     def __init__(self, scene: SceneConfig, focal_length_multiplier: float = 1.0,
                  enable_camera_offsets: bool = False, device="cuda", seed: int = 0):
         super().__init__()
         if enable_camera_offsets:
             raise NotImplementedError("per-frame camera offsets (enable_camera_offsets) are not ported yet")
-        if any(cfg.kind == "learned_v4" for cfg in scene.parameter_encoders):
-            raise NotImplementedError(
-                "the learned pose encoder (ObjectParametersEncoderV4, parameter encoder kind "
-                "'learned_v4', the Minecraft players) is not ported yet"
-            )
         device = resolve_device(device)
         self.scene = scene
         self.focal_length_multiplier = focal_length_multiplier
@@ -53,21 +52,30 @@ class EnvironmentModel(nn.Module):
         generator = torch.Generator().manual_seed(seed + 1)
         for i, cfg in enumerate(scene.object_encoders):
             self.add_module(f"object_encoder_{i}", initialize_(object_encoder(cfg, device=device), generator))
+        generator = torch.Generator().manual_seed(seed + 3)
+        for i, cfg in enumerate(scene.parameter_encoders):
+            if cfg.kind == "learned_v4":
+                self.add_module(f"parameters_encoder_{i}",
+                                initialize_(ObjectParametersEncoderV4(cfg, device=device), generator))
 
     # ---- scene encoding --------------------------------------------------
 
-    def _compute_object_poses(self, w2c_first, focals_first, bounding_boxes, boxes_validity, image_size):
+    def _compute_object_poses(self, observations, w2c_first, camera_rotations_first, focals_first, bounding_boxes,
+                              boxes_validity, train: bool):
         """Per-object o2w poses from each model's strategy (first camera;
-        camera parameters detached).
+        camera parameters detached). The learned strategy runs its CNN on the
+        first camera's frames, flattened over (B, T).
 
-        :param w2c_first: (B, T, 4, 4); focals_first (B, T);
+        :param observations: (B, T, C, H, W, 3); w2c_first (B, T, 4, 4);
+            camera_rotations_first (B, T, 3); focals_first (B, T);
             bounding_boxes (B, T, dynamic_objects, 4); boxes_validity (B, T, dynamic_objects).
         :return: ((B, T, O, 3) rotations, (B, T, O, 3) translations).
         """
         w2c_first, focals_first = w2c_first.detach(), focals_first.detach()
+        image_size = tuple(observations.shape[-3:-1])
         batch_shape = tuple(w2c_first.shape[:2])
         rotations, translations, dynamic_begin = [], [], 0
-        for cfg in self.scene.parameter_encoders:
+        for model_idx, cfg in enumerate(self.scene.parameter_encoders):
             if cfg.kind == "static":
                 rot, trans = static_object_poses(cfg, batch_shape, device=w2c_first.device)
             else:
@@ -75,7 +83,17 @@ class EnvironmentModel(nn.Module):
                 boxes = bounding_boxes[..., dynamic_begin : dynamic_begin + count, :]
                 validity = boxes_validity[..., dynamic_begin : dynamic_begin + count]
                 dynamic_begin += count
-                rot, trans = classic_object_poses(cfg, w2c_first, focals_first, boxes, validity, image_size)
+                if cfg.kind == "classic":
+                    rot, trans = classic_object_poses(cfg, w2c_first, focals_first, boxes, validity, image_size)
+                else:  # learned_v4
+                    rot, trans = getattr(self, f"parameters_encoder_{model_idx}")(
+                        observations[:, :, 0].reshape((-1,) + observations.shape[-3:]),
+                        w2c_first.reshape(-1, 4, 4), camera_rotations_first.reshape(-1, 3),
+                        focals_first.reshape(-1), boxes.reshape((-1,) + boxes.shape[-2:]),
+                        validity.reshape(-1, count), train=train,
+                    )
+                    rot = rot.reshape(batch_shape + rot.shape[-2:])
+                    trans = trans.reshape(batch_shape + trans.shape[-2:])
             rotations.append(rot)
             translations.append(trans)
         return torch.cat(rotations, dim=-2), torch.cat(translations, dim=-2)
@@ -179,8 +197,8 @@ class EnvironmentModel(nn.Module):
         c2w = euler_translation_to_matrix(camera_rotations, camera_translations)
         w2c = invert_rigid(c2w)
         object_rotations, object_translations = self._compute_object_poses(
-            w2c[:, :, 0], rescaled_focals[:, :, 0], bounding_boxes[:, :, 0],
-            bounding_boxes_validity[:, :, 0], (height, width),
+            observations, w2c[:, :, 0], camera_rotations[:, :, 0], rescaled_focals[:, :, 0],
+            bounding_boxes[:, :, 0], bounding_boxes_validity[:, :, 0], train,
         )
         o2w = euler_translation_to_matrix(object_rotations, object_translations)
         reconstructed_boxes, projected_points = self.compute_object_bounding_boxes(

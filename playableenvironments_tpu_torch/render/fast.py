@@ -7,7 +7,10 @@ Port of playableenvironments_tpu/render/fast.py (`_bender_displacements`,
 `render_rays_fast`, `render_frame_fast`), single device. Semantics match the
 JAX function step by step, including the stable hits-first compaction and
 its truncation at the budget, the `big` / 1e10 sentinels and the log-space
-1 - alpha.
+1 - alpha. The skybox runs its MLP once per ray, outside the kernel groups;
+the Minecraft overlap fix (`fix_object_overlaps`) suppresses static samples
+inside a dynamic object's interval, after which those objects' samples are
+no longer sorted in t and their successors come from a masked minimum.
 """
 
 from __future__ import annotations
@@ -114,6 +117,37 @@ def _scatter_rays(target: torch.Tensor, order: torch.Tensor, values: torch.Tenso
     return target.scatter_add_(1, index, values) if add else target.scatter_(1, index, values)
 
 
+def _next_within(t_a: torch.Tensor) -> torch.Tensor:
+    """Successor t within one object's own samples, robust to unsorted t:
+    the minimum over the samples after each one in (t, index) order, BIG
+    where there is none. Equals t[i + 1] where t is ascending."""
+    idx = torch.arange(t_a.shape[-1], device=t_a.device)
+    ti, tj = t_a[..., :, None], t_a[..., None, :]
+    later = (tj > ti) | ((tj == ti) & (idx[None, :] > idx[:, None]))
+    return torch.where(later, tj, torch.full_like(tj, BIG)).amin(dim=-1)
+
+
+def object_samples(cfg, origins, dirs, normals, w2o, in_scene):
+    """One object's ray geometry: the rays in its frame, whether they hit
+    its box, and the deterministic (perturb off) sample distances.
+
+    :param origins: (L, 3); dirs (L, R, 3); normals (L, 3); w2o (L, 4, 4);
+        in_scene (L,).
+    :return: ((L, 3) object-frame origins, (L, R, 3) directions, (L, R) hit,
+        (L, R, S) sample t).
+    """
+    box = torch.as_tensor(cfg.bounding_box, dtype=dirs.dtype, device=dirs.device)
+    samples = cfg.positions_count_coarse
+    o_origins, o_dirs, _ = rays_lib.transform_rays(origins, dirs, normals, w2o)
+    z_near, z_far = bbox_lib.ray_aabb_bounds(o_origins, o_dirs, box, in_scene)
+    hit = z_far > z_near
+    z_near = torch.clamp(z_near, cfg.z_near_min, cfg.z_far_max)
+    z_far = torch.clamp(z_far, cfg.z_near_min, cfg.z_far_max)
+    # The f32 linspace of the JAX package: i / (S - 1), endpoints exact.
+    fractions = torch.arange(samples, dtype=dirs.dtype, device=dirs.device) / max(samples - 1, 1)
+    return o_origins, o_dirs, hit, z_near[..., None] + (z_far - z_near)[..., None] * fractions
+
+
 def _min_after(t_a, t_b, a_first: bool):
     """min over t_b strictly after each t_a in (t, object index) order; BIG
     where there is none. `a_first`: ties go after (t_a's object comes first)."""
@@ -142,6 +176,9 @@ def render_rays_fast(
     integration run there, and only per-ray integrals scatter back. Objects
     composite sort-free: each sample's successor and transmittance come from
     masked minima and sums over the other objects' samples on the same ray.
+    With `fix_object_overlaps`, static objects (which must not be compacted;
+    ValueError otherwise) lose the samples inside each dynamic object's t
+    interval (alpha -10, t 0), as in the JAX function.
 
     :param composer: render.composer.SceneComposer (the weights).
     :param ray_origins: (..., 3); ray_directions (..., rays, 3);
@@ -156,11 +193,6 @@ def render_rays_fast(
         raise NotImplementedError(
             "render.fast is coarse-only; use SceneComposer for use_fine "
             "objects (or set use_fine=False for interactive rendering)"
-        )
-    if scene.fix_object_overlaps:
-        raise NotImplementedError(
-            "fix_object_overlaps (the Minecraft scenes) is not ported yet; it "
-            "comes with the Minecraft slice"
         )
 
     lead = tuple(ray_directions.shape[:-2])
@@ -181,25 +213,18 @@ def render_rays_fast(
     in_scene_f = object_in_scene.expand(lead + (objects,)).reshape(l, objects)
 
     # ---- Phase 1: per-object geometry and compaction, then the fields of
-    # all objects of one NeRF configuration in one grouped MLP call --------
-    per, fields = [], {}
+    # all AdaIN objects of one NeRF configuration in one grouped MLP call;
+    # the skybox per ray, with plain products ---------------------------------
+    per, fields, evaluated = [], {}, {}
     for object_idx in range(objects):
         model_idx = object_ids.model_idx_by_object_idx(object_idx)
         cfg = scene.object_models[model_idx]
         field = composer.object_model(model_idx)
         box = torch.as_tensor(cfg.bounding_box, dtype=dtype, device=device)
         samples = cfg.positions_count_coarse
-
-        o_origins, o_dirs, _ = rays_lib.transform_rays(
-            origins_f, dirs, normals_f, w2o_f[:, object_idx]
+        o_origins, o_dirs, hit, t_full = object_samples(
+            cfg, origins_f, dirs, normals_f, w2o_f[:, object_idx], in_scene_f[:, object_idx]
         )
-        z_near, z_far = bbox_lib.ray_aabb_bounds(o_origins, o_dirs, box, in_scene_f[:, object_idx])
-        hit = z_far > z_near
-        z_near = torch.clamp(z_near, cfg.z_near_min, cfg.z_far_max)
-        z_far = torch.clamp(z_far, cfg.z_near_min, cfg.z_far_max)
-        # The f32 linspace of the JAX package: i / (S - 1), endpoints exact.
-        fractions = torch.arange(samples, dtype=dtype, device=device) / max(samples - 1, 1)
-        t_full = z_near[..., None] + (z_far - z_near)[..., None] * fractions  # (L, R, S)
 
         compact = cfg.ray_compaction < 1.0
         budget = max(int(rays * cfg.ray_compaction), 1) if compact else rays
@@ -230,16 +255,27 @@ def render_rays_fast(
             disp_c = torch.zeros_like(positions_c)
             eval_positions = positions_c
 
-        style_points = obj_style[:, None, None].expand(l, budget, 1, obj_style.shape[-1])
-        fields.setdefault(cfg.nerf, []).append((object_idx, fused_nerf.ObjectField(
-            cfg.bounding_box, field.nerf, eval_positions, style_points, cfg.empty_space_alpha,
-        )))
+        if cfg.nerf.kind == "skybox":
+            # Constant along each ray; running statistics, so the mask of
+            # rays with a sample in the box feeds no statistic.
+            feats_ray, alpha_ray = field.nerf(
+                o_origins_c, o_dirs_c, cfg.bounding_box, obj_style[:, None], in_box.any(dim=-1), True
+            )
+            evaluated[object_idx] = (
+                feats_ray[..., None, :].expand(l, budget, samples, feats_ray.shape[-1]),
+                alpha_ray[..., None].expand(l, budget, samples),
+            )
+        else:
+            style_points = obj_style[:, None, None].expand(l, budget, 1, obj_style.shape[-1])
+            fields.setdefault(cfg.nerf, []).append((object_idx, fused_nerf.ObjectField(
+                cfg.bounding_box, field.nerf, eval_positions, style_points, cfg.empty_space_alpha,
+            )))
         per.append({
-            "order": order, "inv": inv, "budget": budget, "compact": compact,
-            "t_full": t_full, "t_c": t_c, "in_box": in_box, "disp_c": disp_c, "dirn_c": dirn_c,
+            "order": order, "inv": inv, "budget": budget, "compact": compact, "t_full": t_full,
+            "t_c": t_c, "in_box": in_box, "disp_c": disp_c, "dirn_c": dirn_c, "o_origins_c": o_origins_c,
+            "unsorted": False,
         })
 
-    evaluated = {}
     for nerf_cfg, group in fields.items():
         outputs = fused_nerf.fused_object_field_eval_group(nerf_cfg, [f for _, f in group])
         evaluated.update(zip((object_idx for object_idx, _ in group), outputs))
@@ -259,13 +295,40 @@ def render_rays_fast(
             feats_c = torch.sigmoid(feats_c)
         entry["raw_alpha_c"], entry["feats_c"] = alpha_c, feats_c
 
+    # ---- The overlap fix (Minecraft): full-domain static objects only. The
+    # masked samples' t becomes 0 mid-array, so these objects' samples are
+    # no longer sorted: their own successors come from _next_within.
+    if scene.fix_object_overlaps:
+        static_count = object_ids.static_objects_count
+        for entry in per[:static_count]:
+            if entry["compact"]:
+                raise ValueError(
+                    "fix_object_overlaps requires ray_compaction=1.0 on static objects (their samples are "
+                    "masked by dynamic objects' intervals over the full ray set)"
+                )
+            mask = torch.zeros_like(entry["t_c"], dtype=torch.bool)
+            for other in per[static_count:]:
+                mask |= compositing.overlap_fix_mask(entry["t_c"], other["t_full"])
+            disp = entry["disp_c"]
+            entry["raw_alpha_c"], entry["t_c"], _, entry["disp_c"], _ = compositing.apply_overlap_fix(
+                entry["raw_alpha_c"], entry["t_c"], torch.zeros_like(disp), disp,
+                torch.zeros_like(entry["t_c"]), entry["o_origins_c"], mask,
+            )
+            entry["t_full"] = entry["t_c"]  # full domain == compacted domain here
+            entry["unsorted"] = True
+
     # ---- Phase 2: successor distances + alphas per object ----------------
     # Total order = (t, object index) lexicographic. Other objects' t comes
     # from their full-ray geometry at this object's compacted rays.
     t_b_at = {}
     for a, entry in enumerate(per):
         t_a = entry["t_c"]
-        candidates = [torch.cat([t_a[..., 1:], torch.full_like(t_a[..., :1], BIG)], dim=-1)]
+        if entry["unsorted"]:
+            # Kept for the object's own integration in phase 3.
+            own_next = entry["own_next"] = _next_within(t_a)
+        else:
+            own_next = torch.cat([t_a[..., 1:], torch.full_like(t_a[..., :1], BIG)], dim=-1)
+        candidates = [own_next]
         for b, other in enumerate(per):
             if b == a:
                 continue
@@ -323,10 +386,14 @@ def render_rays_fast(
         _scatter_rays(global_packed, entry["order"], packed_contrib, add=True)
 
         # Per-object integration with its own sample spacing.
-        own_dist = torch.cat(
-            [t_a[..., 1:] - t_a[..., :-1], torch.full_like(t_a[..., :1], LAST_DISTANCE)],
-            dim=-1,
-        ) * entry["dirn_c"][..., None]
+        if entry["unsorted"]:
+            own_next = entry["own_next"]
+            own_dist = torch.where(own_next >= BIG, LAST_DISTANCE, own_next - t_a)
+        else:
+            own_dist = torch.cat(
+                [t_a[..., 1:] - t_a[..., :-1], torch.full_like(t_a[..., :1], LAST_DISTANCE)], dim=-1
+            )
+        own_dist = own_dist * entry["dirn_c"][..., None]
         own_alphas = 1.0 - torch.exp(-torch.relu(entry["raw_alpha_c"]) * own_dist)
         own_weights = compositing.compositing_weights(own_alphas)
         packed_obj = torch.cat(

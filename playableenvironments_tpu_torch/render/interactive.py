@@ -21,12 +21,9 @@ def action_inputs(
 ) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
     """Per-dynamic-object (one_hot, zero-variation) pairs from action ints.
     Out-of-range indices clamp to the object's valid range."""
-    object_ids = ObjectIds(playable_model.scene)
     one_hots, variations = [], []
     for dynamic_idx, action in enumerate(actions):
-        anim_cfg = playable_model.scene.animation_models[
-            object_ids.animation_model_idx_by_dynamic_object_idx(dynamic_idx)
-        ]
+        anim_cfg = playable_model.scene.animation_models[playable_model.animation_indexes[dynamic_idx]]
         action = max(0, min(int(action), anim_cfg.actions_count - 1))
         index = torch.tensor([action], device=device)
         one_hots.append(F.one_hot(index, anim_cfg.actions_count).to(torch.float32))

@@ -14,7 +14,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from playableenvironments_tpu_torch.config import ObjectIds, SceneConfig
+from playableenvironments_tpu_torch.config import (
+    ObjectIds,
+    SceneConfig,
+    animation_model_indexes,
+    animation_object_models,
+)
 from playableenvironments_tpu_torch.models.action import ObjectAnimationModel
 from playableenvironments_tpu_torch.models.discriminator import SequenceDiscriminator
 from playableenvironments_tpu_torch.models.layers import initialize_
@@ -23,7 +28,9 @@ from playableenvironments_tpu_torch.utils.device import resolve_device
 
 class PlayableEnvironmentModel(nn.Module):
     """One ObjectAnimationModel (`animation_model_{k}`) per dynamic object
-    model (dynamic objects sharing a model share its weights) and, with
+    model (dynamic objects sharing a model share its weights), or per
+    dynamic object where the scene has one for each
+    (config.animation_model_indexes), and, with
     `with_discriminators`, one SequenceDiscriminator (`discriminator_{k}`)
     per animation model over the JAX model's default codes: translations,
     action probabilities and action directions. Weights are seeded from
@@ -34,9 +41,9 @@ class PlayableEnvironmentModel(nn.Module):
         device = resolve_device(device)
         self.scene = scene
         self.object_ids = ObjectIds(scene)
+        self.animation_indexes = animation_model_indexes(scene)
         self.with_discriminators = with_discriminators
-        for anim_idx, cfg in enumerate(scene.animation_models):
-            model_idx = self.object_ids.static_models_count + anim_idx
+        for anim_idx, (cfg, model_idx) in enumerate(zip(scene.animation_models, animation_object_models(scene))):
             box = scene.object_models[model_idx].bounding_box
             self.add_module(f"animation_model_{anim_idx}", ObjectAnimationModel(cfg, box, device=device))
         if with_discriminators:
@@ -47,7 +54,7 @@ class PlayableEnvironmentModel(nn.Module):
         self.eval()
 
     def _animation_model(self, dynamic_idx: int) -> ObjectAnimationModel:
-        return getattr(self, f"animation_model_{self.object_ids.animation_model_idx_by_dynamic_object_idx(dynamic_idx)}")
+        return getattr(self, f"animation_model_{self.animation_indexes[dynamic_idx]}")
 
     def animate(self, encoding, ground_truth_observations: int, centroids: Sequence[torch.Tensor], rng,
                 update_stats: bool = True) -> List[Dict]:
@@ -79,7 +86,7 @@ class PlayableEnvironmentModel(nn.Module):
         logits = []
         for dynamic_idx, res in enumerate(results):
             object_idx = self.object_ids.object_idx_by_dynamic_object_idx(dynamic_idx)
-            anim_idx = self.object_ids.animation_model_idx_by_dynamic_object_idx(dynamic_idx)
+            anim_idx = self.animation_indexes[dynamic_idx]
             steps = res["sequence_validity"].shape[1]
             prefix = "reconstructed_" if use_reconstructed else ""
             translations = (res["reconstructed_object_translations"] if use_reconstructed

@@ -171,8 +171,7 @@ class PlayableTrainer:
         return encoding
 
     def _per_object(self, per_model: List[torch.Tensor]) -> List[torch.Tensor]:
-        return [per_model[self.object_ids.animation_model_idx_by_dynamic_object_idx(i)]
-                for i in range(self.object_ids.dynamic_objects_count)]
+        return [per_model[k] for k in self.playable_model.animation_indexes]
 
     def compute_losses(self, encoding: SceneEncoding, rng,
                        step: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict, List[Dict]]:
@@ -193,7 +192,7 @@ class PlayableTrainer:
 
         for dynamic_idx, res in enumerate(results):
             object_idx = self.object_ids.object_idx_by_dynamic_object_idx(dynamic_idx)
-            anim_idx = self.object_ids.animation_model_idx_by_dynamic_object_idx(dynamic_idx)
+            anim_idx = model.animation_indexes[dynamic_idx]
             prefix = f"object_{object_idx}_"
             validity = res["sequence_validity"]
             rot_rec = masked_mse(encode_rotation(res["reconstructed_object_rotations"]),

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time of one tennis play-loop step goes in the PyTorch port, on
-one CUDA card.
+"""Where the time of one play-loop step goes in the PyTorch port, on one
+CUDA card.
 
-    python3 scripts/profile_torch_play.py [--steps 6]
+    python3 scripts/profile_torch_play.py [--steps 6] [--config tennis|minecraft]
 
-Builds the chip_smoke.py session (configs/tennis.yaml, seeded weights,
-512x288, strides 4 and 8), warms up, then:
-- times the three parts of a step with the host clock around a
-  synchronize: the dynamics step, render_rays_fast, and the decode (the
-  remainder of render_frame_fast);
+Builds the chip_smoke.py session of the config (configs/tennis.yaml or
+configs/minecraft.yaml, seeded weights, 512x288, strides 4 and 8, the
+phase-4 or phase-12 frame-0 state), warms up, then:
+- times the parts of a step with the host clock around a synchronize: the
+  dynamics step, render_rays_fast (and within it the skybox MLP, where the
+  scene has one), and the decode (the remainder of render_frame_fast);
 - traces whole steps with torch.profiler and prints the device time by
   kernel name, the device-busy share of the step and the launch count.
-Writes the tables to chiprun_out/profile_torch_play.json.
+Writes the tables to chiprun_out/profile_torch_play.json
+(profile_torch_play_minecraft.json for Minecraft).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=6)
+    parser.add_argument("--config", choices=("tennis", "minecraft"), default="tennis")
     args = parser.parse_args()
 
     import torch
@@ -37,24 +40,39 @@ def main() -> int:
         print("profile_torch_play: needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from chip_smoke import ACTIONS, FOCAL_LENGTH_MULTIPLIER, IMAGE_SIZE, STRIDES, tennis_encoding
+    import chip_smoke
+    from chip_smoke import IMAGE_SIZE, STRIDES
     from playableenvironments_tpu_torch.cli.play import InteractiveSession
     from playableenvironments_tpu_torch.config import scene_from_yaml
+    from playableenvironments_tpu_torch.models.nerf import SkyboxNerfMLP
     from playableenvironments_tpu_torch.render import fast
     from playableenvironments_tpu_torch.render.interactive import action_inputs, interactive_step
 
-    scene = scene_from_yaml(os.path.join(REPO, "configs", "tennis.yaml"))
+    minecraft = args.config == "minecraft"
+    ACTIONS = chip_smoke.MINECRAFT_ACTIONS if minecraft else chip_smoke.ACTIONS
+    scene = scene_from_yaml(os.path.join(REPO, "configs", f"{args.config}.yaml"))
     session = InteractiveSession.from_scene(
-        scene, image_size=IMAGE_SIZE, patch_strides=STRIDES,
-        focal_length_multiplier=FOCAL_LENGTH_MULTIPLIER, device="cuda", seed=0,
+        scene, image_size=IMAGE_SIZE, patch_strides=STRIDES, device="cuda", seed=0,
+        focal_length_multiplier=chip_smoke.MINECRAFT_MULTIPLIER if minecraft else chip_smoke.FOCAL_LENGTH_MULTIPLIER,
     )
-    session.start(tennis_encoding(torch, "cuda"))
+    session.start((chip_smoke.minecraft_encoding if minecraft else chip_smoke.tennis_encoding)(torch, "cuda"))
     for i in range(3):
         session.step(list(ACTIONS[i]))
 
     # Parts of a step, host clock around a synchronize.
     real_render_rays = fast.render_rays_fast
+    real_skybox = SkyboxNerfMLP.forward
     parts = {"dynamics": [], "render_rays_fast": [], "decode_and_rest": [], "step": []}
+    if minecraft:
+        parts["skybox_mlp"] = []
+
+    def timed_skybox(*a, **k):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = real_skybox(*a, **k)
+        torch.cuda.synchronize()
+        parts["skybox_mlp"].append((time.perf_counter() - start) * 1e3)
+        return out
 
     def timed_render_rays(*a, **k):
         torch.cuda.synchronize()
@@ -65,6 +83,8 @@ def main() -> int:
         return out
 
     fast.render_rays_fast = timed_render_rays
+    if minecraft:
+        SkyboxNerfMLP.forward = timed_skybox
     try:
         for i in range(args.steps):
             torch.cuda.synchronize()
@@ -83,6 +103,7 @@ def main() -> int:
             parts["decode_and_rest"].append((t2 - t1) * 1e3 - parts["render_rays_fast"][-1])
     finally:
         fast.render_rays_fast = real_render_rays
+        SkyboxNerfMLP.forward = real_skybox
     medians = {k: statistics.median(v) for k, v in parts.items()}
     print("step parts, median ms (host clock, synchronized):",
           ", ".join(f"{k} {v:.3f}" for k, v in medians.items()))
@@ -115,7 +136,8 @@ def main() -> int:
     for r in rows[:25]:
         print(f"  {r['device_ms_per_step']:9.4f} ms {r['calls_per_step']:7.1f}x  {r['name'][:110]}")
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(REPO, "chiprun_out", "profile_torch_play.json"), "w") as f:
+    name = "profile_torch_play_minecraft.json" if minecraft else "profile_torch_play.json"
+    with open(os.path.join(REPO, "chiprun_out", name), "w") as f:
         json.dump({"parts_ms": parts, "medians_ms": medians, "traced_wall_ms": wall_ms,
                    "device_ms": device_ms, "device_ops": launches, "kernels": rows}, f, indent=1)
     return 0

@@ -427,3 +427,43 @@ def test_step_with_batch_launches_the_rollout_kernels(card, tmp_path):
     torch.cuda.synchronize()
     assert (fr.fused_rollout_fwd.launches, fr.fused_rollout_bwd.launches) == (before[0] + 4, before[1] + 2)
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+@pytest.mark.cuda
+def test_minecraft_frame_group_matches_plain_on_the_card(card):
+    """The Minecraft frame's B1 launch (configs/minecraft.yaml at 512x288):
+    the uncompacted background (11,520 strided-grid rays x 16 samples) and
+    two players of one object model (1,440 compacted rays x 32 samples
+    each) in one grouped launch, the players' items pointing at one weight
+    image; each object against its plain version, counted as one launch of
+    3 objects. Bounds as test_kernel_matches_plain_on_the_card, in units of
+    the output's mean magnitude where it exceeds 1 (chip_smoke.py phase 11
+    states why)."""
+    cfg = scene_from_yaml(str(REPO / "configs" / "minecraft.yaml")).object_models[0].nerf
+    g = torch.Generator().manual_seed(3)
+    background = initialize_(AdaInNerfMLP(cfg, 32, device=card), torch.Generator().manual_seed(20))
+    player = initialize_(AdaInNerfMLP(cfg, 32, device=card), torch.Generator().manual_seed(21))
+    items = []
+    for nerf, rays, samples in ((background, 11520, 16), (player, 1440, 32), (player, 1440, 32)):
+        encoded = positional_encoding(torch.rand(rays * samples, 3, generator=g) * 2 - 1, 10, True).to(card)
+        style = torch.randn(rays, 32, generator=g).to(card)
+        with torch.no_grad():
+            mods = [*fused_nerf.fold_adain_stats(nerf.adain_0, style),
+                    *fused_nerf.fold_adain_stats(nerf.adain_1, style)]
+        items.append(fused_nerf.AdaInNerfItem(nerf.kernel_weights(), encoded, *mods, samples))
+    assert items[1].weights.image.data_ptr() == items[2].weights.image.data_ptr()
+    before = (fused_nerf.fused_adain_nerf.launches, fused_nerf.fused_adain_nerf.objects)
+    with torch.no_grad():
+        got = fused_nerf.fused_adain_nerf_group(cfg, items)
+        torch.cuda.synchronize()
+    assert (fused_nerf.fused_adain_nerf.launches, fused_nerf.fused_adain_nerf.objects) == (
+        before[0] + 1, before[1] + 3)
+    assert sum(it.encoded.shape[0] for it in items) == 276480
+    for item, outputs in zip(items, got):
+        with torch.no_grad():
+            ref = fused_nerf.plain_adain_nerf(cfg, item.weights.packed, item.encoded, item.scale0, item.bias0,
+                                              item.scale1, item.bias1, item.samples_per_ray)
+        for g_, r in zip(outputs, ref):
+            scale = max(1.0, r.abs().mean().item())
+            diff = (g_ - r).abs() / scale
+            assert bool((diff <= 3e-2 + 1e-2 * r.abs() / scale).all()) and diff.mean().item() <= 1e-4

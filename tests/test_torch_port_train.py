@@ -215,10 +215,16 @@ def test_unported_options_raise():
     """Nothing falls back: each option of the phase-2 path that is not
     ported raises where it is asked for."""
     scene = to_port(fused_scene())
+    # The learned pose encoder is ported (tests/test_torch_port_minecraft.py);
+    # the training composer's Minecraft overlap fix is not.
     learned = dataclasses.replace(scene, parameter_encoders=(
         scene.parameter_encoders[0], dataclasses.replace(scene.parameter_encoders[1], kind="learned_v4")))
-    with pytest.raises(NotImplementedError, match="learned_v4"):
-        EnvironmentModel(learned, device="cpu")
+    assert hasattr(EnvironmentModel(learned, device="cpu"), "parameters_encoder_1")
+    overlapping = EnvironmentModel(dataclasses.replace(scene, fix_object_overlaps=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="fix_object_overlaps"):
+        overlapping.forward_from_observations(
+            *Batch(**{k: torch.from_numpy(v) for k, v in batch_arrays().items()}).environment_model_args(),
+            samples_per_image=0, patch_strides=STRIDES)
     with pytest.raises(NotImplementedError, match="camera offsets"):
         EnvironmentModel(scene, enable_camera_offsets=True, device="cpu")
     model = EnvironmentModel(scene, device="cpu")
