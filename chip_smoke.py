@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one card: the tennis play loop, the
-tennis phase-2 train step, the tennis phase-3 (action module) G+D step and
-the data path from a dataset on disk to each of them.
+tennis phase-2 train step, the tennis phase-3 (action module) G+D step, the
+data path from a dataset on disk to each of them, the Minecraft family, and
+the published training pipeline (phase 2's decoder path for tennis and
+Minecraft, phase 1).
 
     python3 chip_smoke.py
 
@@ -71,9 +73,25 @@ Phases, each fatal on failure:
    encoding with the learned pose encoder (card vs CPU), play from a batch
    and the creator at batch 4; phase 3 over the Minecraft encoding cache
    (bs 16 x 9, the generator step alone: 2 B4 and 2 B5 launches a step) and
-   one step card vs CPU.
-`python3 chip_smoke.py --phase 12` builds the kernels and runs phase 12
-alone (no kernels line, no contract line).
+   one step card vs CPU;
+13. the published training pipeline: B2 against its plain version on every
+   row of the phase-2 decoder path's largest launch and B3 at 1,048,613
+   points, twice (bit-identical), timed; (a) one decoder-path step of a
+   tiny tennis scene (48x64, patch 8, strides 4 and 8) card vs CPU, the
+   patch centres drawn once on the CPU; (b) configs/tennis.yaml's phase 2
+   at full width (patch 64 decoded by the v8 VAE, the autoencoder's rate
+   group frozen, bench.py's bf16 fused-backbone overrides) at its per-card
+   batch for 6 steps: losses finite, the composer moved, the autoencoder
+   still and the decoder's running statistics moved, 4 B2 and 4 B3
+   launches a step; (c) the same for Minecraft (a tiny step card vs CPU
+   with the overlap fix masking samples, then configs/minecraft.yaml's
+   phase 2 at full width, 4 steps, 3 + 3 launches a step); (d) one phase-1
+   step at the published widths, v8 and v9, f32 and bf16, card vs CPU on
+   the same noise; (e) bench.py's phase-1 step (bs 20 x 288x512, bf16,
+   VGG19 perceptual 0.1, KL 5e-6) for 6 steps. Each path prints its median
+   step and peak memory.
+`python3 chip_smoke.py --phase 12` (or `--phase 13`) builds the kernels and
+runs that phase alone (no kernels line, no contract line).
 Details go to chiprun_out/chip_smoke.json. Prints one JSON line of kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX.
 """
@@ -957,6 +975,10 @@ class RecordedStreams:
         self.draws.append(self.streams.gumbel(stream, shape))
         return self.draws[-1]
 
+    def uniform(self, stream, shape):
+        self.draws.append(self.streams.uniform(stream, shape))
+        return self.draws[-1]
+
 
 class ReplayedStreams:
     def __init__(self, draws, device):
@@ -971,7 +993,7 @@ class ReplayedStreams:
     def normal(self, stream, shape):
         return self._next(shape)
 
-    gumbel = normal
+    gumbel = uniform = normal
 
 
 def _fused_step_outputs(trainer, encoding, rng):
@@ -1028,15 +1050,16 @@ def _compare_grads(label, grads, ref_grads, problems):
     return worst, (worst_mean, worst_name), noise
 
 
-def _compare_parameters(label, state, ref_state, ref_grads, noise, lr, problems):
+def _compare_parameters(label, state, ref_state, ref_grads, noise, lr, problems, floor=1e-6):
     """Parameters after an Adam step: where the CPU gradient is clear of the
-    card-vs-CPU noise, to 1e-6 + 1e-4 relative; everywhere to 2 lr.
-    :return: (max error where the sign is clear, clear elements)."""
+    card-vs-CPU noise (and above `floor`), to 1e-6 + 1e-4 relative;
+    everywhere to 2 lr. :return: (max error where the sign is clear, clear
+    elements)."""
     worst, count = 0.0, 0
     for name, ref_grad in ref_grads.items():
         ref = ref_state[name]
         diff = (state[name].cpu() - ref).abs()
-        clear = ref_grad.abs() > max(2 * noise[name], 1e-6)
+        clear = ref_grad.abs() > max(2 * noise[name], floor)
         count += int(clear.sum())
         if clear.any():
             worst = max(worst, diff[clear].max().item())
@@ -2056,6 +2079,560 @@ def phase12_minecraft(repo, device="cuda"):
     return out
 
 
+# ---- the published phase-2 decoder path and phase 1 (phase 13) ----------------
+
+# Per-card batch of each cell (x its observations): the largest of 8, 4, 2
+# whose projected peak stays under 70 GB (PERF.md §4 gives the bs 1 and 2
+# peaks it is projected from).
+DECODER_BATCH = {"tennis": 2, "minecraft": 4}
+DECODER_OBSERVATIONS = {"tennis": 4, "minecraft": 3}
+DECODER_STEPS = {"tennis": 6, "minecraft": 4}
+DECODER_IMAGE = (288, 512)
+PHASE1_BATCH, PHASE1_STEPS = 20, 6
+# B3 against plain autograd at a launch of more than 2^20 points, ragged.
+B3_LARGE_POINTS = 1_048_576 + 37
+# The tiny card-vs-CPU scenes (13a, 13c): frames, patch and batch.
+TINY_IMAGE, TINY_PATCH, TINY_BATCH = (48, 64), 8, (2, 2)
+PHASE1_SMALL = (4, 64, 64)
+
+
+def published_phase2_config(repo, name):
+    """configs/<name>.yaml with bench.py's phase-2 overrides (_phase2_setup):
+    the NeRFs and benders in bf16 with the fused backbone (the only way the
+    training path reaches B2/B3); the autoencoder stays in the YAML's f32."""
+    from playableenvironments_tpu_torch.cli.common import load_yaml
+
+    cfg = load_yaml(os.path.join(repo, "configs", f"{name}.yaml"))
+    for block in cfg["model"]["object_models"]:
+        block["compute_dtype"] = "bfloat16"
+        block.setdefault("nerf_model", {})["use_fused_backbone"] = True
+    return cfg
+
+
+def tiny_published_config(repo, name):
+    """configs/<name>.yaml cut to a tiny scene for the card-vs-CPU steps:
+    NeRFs 3x32 with 24 outputs (the autoencoder's 8 + 16 latent channels),
+    benders 2x16, style 8 and deformation 4, object encoders on 16x32 and
+    16x16 crops, the autoencoder at bottleneck 16 with one block; f32, the
+    plain backbone (B2/B3 take widths 128 and 256 only)."""
+    from playableenvironments_tpu_torch.cli.common import load_yaml
+
+    cfg = load_yaml(os.path.join(repo, "configs", f"{name}.yaml"))
+    model = cfg["model"]
+    model["autoencoder"].update(bottleneck_features=16, bottleneck_blocks=1)
+    samples = {4: 4, 16: 4, 1: 1, 32: 8}
+    for block in model["object_models"]:
+        block.update(style_features=8, deformation_features=4,
+                     positions_count_coarse=samples[block["positions_count_coarse"]])
+        block["nerf_model"].update(layers_width=32, backbone_layers_count=3, skip_layer_idx=2, output_features=24,
+                                   position_encoder={"octaves": 3, "append_original": True})
+        if "positional" in block.get("ray_bender_model", {}).get("architecture", ""):
+            block["ray_bender_model"].update(layers_width=16, layers_count=2, skip_layer_idx=1,
+                                             position_encoder={"octaves": 2, "append_original": True,
+                                                               "num_steps": 100})
+    for block in model["object_encoders"]:
+        v5 = block["architecture"].endswith("v5")
+        block.update(style_features=8, deformation_features=4, input_size=[16, 32] if v5 else [16, 16])
+    for block in model["object_parameters_encoder"]:
+        if block.get("architecture", "").endswith("_v4"):
+            block.update(input_size=[32, 32])
+    return cfg
+
+
+def fused_launches_a_step(scene):
+    """B2 (and B3) launches of one training step: one per object whose
+    AdaIN NeRF takes the fused backbone (the skybox runs plain products)."""
+    from playableenvironments_tpu_torch.config import ObjectIds
+
+    ids = ObjectIds(scene)
+    nerfs = [scene.object_models[ids.model_idx_by_object_idx(i)].nerf for i in range(ids.objects_count)]
+    return sum(nerf.kind != "skybox" and nerf.use_fused_backbone for nerf in nerfs)
+
+
+def minecraft_batch(torch, bs, obs, height, width, device):
+    """A Minecraft-shaped batch: random frames from numpy seed 0,
+    data.synthetic's Minecraft camera, the two players' boxes below the
+    horizon."""
+    import numpy as np
+
+    from playableenvironments_tpu_torch.data.batching import Batch
+    from playableenvironments_tpu_torch.data.synthetic import MINECRAFT_GEOMETRY
+
+    rng = np.random.default_rng(0)
+    frames = torch.zeros(bs, obs, dtype=torch.int32)
+    boxes = torch.tensor([[0.35, 0.45, 0.45, 0.75], [0.55, 0.45, 0.65, 0.75]]).expand(bs, obs, 1, 2, 4)
+    return Batch(
+        observations=torch.from_numpy(rng.random((bs, obs, 1, height, width, 3), np.float32)),
+        camera_rotations=torch.tensor(MINECRAFT_GEOMETRY["camera_rotation"]).expand(bs, obs, 1, 3).contiguous(),
+        camera_translations=torch.tensor(MINECRAFT_GEOMETRY["camera_translation"]).expand(bs, obs, 1, 3).contiguous(),
+        focals=torch.full((bs, obs, 1), MINECRAFT_FOCAL * width / 512),
+        bounding_boxes=boxes.contiguous(), bounding_boxes_validity=torch.ones(bs, obs, 1, 2, dtype=torch.bool),
+        global_frame_indexes=frames, video_frame_indexes=frames, video_indexes=torch.zeros(bs, dtype=torch.int32),
+    ).to(device)
+
+
+def decoder_batch(torch, name, bs, obs, height, width, device):
+    if name == "tennis":
+        return phase2_batch(torch, bs, obs, height, width, device)
+    return minecraft_batch(torch, bs, obs, height, width, device)
+
+
+class CountedOverlapFix:
+    """Counts the static samples the training composer's overlap fix masks
+    (wraps core.compositing.apply_overlap_fix while in a `with`)."""
+
+    def __enter__(self):
+        from playableenvironments_tpu_torch.core import compositing
+
+        self.module, self.original, self.masked = compositing, compositing.apply_overlap_fix, 0
+
+        def counting(*args):
+            self.masked += int(args[-1].sum())
+            return self.original(*args)
+
+        compositing.apply_overlap_fix = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.module.apply_overlap_fix = self.original
+
+
+def _card_cpu_checks(label, card, host, lr, loss_rtol, stats_tol, cosine, grad_tol=None):
+    """Card vs CPU of one train step's (loss, metrics, grads, state after):
+    loss and metrics to `loss_rtol` relative; `cosine` = (per tensor, per
+    model): each gradient whose largest is at least 1e-3 of its model's to
+    the first cosine similarity with the CPU's, each model's gradients
+    taken together to the second, and every gradient, with `grad_tol`, to
+    that fraction of its model's largest element-wise; parameters as
+    _compare_parameters holds
+    them (not after bf16 steps), but for gradients under 1e-2 of their
+    model's largest, whose sign is noise, and under 1e-4; running
+    statistics to `stats_tol` of their largest magnitude. :return: the
+    worst errors."""
+    (loss, metrics, grads, state), (ref_loss, ref_metrics, ref_grads, ref_state) = card, host
+    problems = []
+    for name, ref in list(ref_metrics.items()) + [("loss", ref_loss)]:
+        got = metrics.get(name, loss) if name != "loss" else loss
+        if not abs(got.item() - ref.item()) <= loss_rtol * abs(ref.item()) + 1e-6:
+            problems.append(f"{name}: {got.item():.6e} vs {ref.item():.6e}")
+    if set(grads) != set(ref_grads):
+        problems.append("different parameters received gradients")
+
+    def group(name):
+        parts = name.split(".")
+        return ".".join(parts[:2]) if parts[0] in ("composer", "autoencoder") else parts[0]
+
+    scale, dots = {}, {}
+    for name, ref in ref_grads.items():
+        scale[group(name)] = max(scale.get(group(name), 0.0), ref.abs().max().item())
+        got, ref = grads[name].cpu().double(), ref.double()
+        dot = dots.setdefault(group(name), [0.0, 0.0, 0.0])
+        dot[0] += float((got * ref).sum())
+        dot[1] += float((got * got).sum())
+        dot[2] += float((ref * ref).sum())
+    worst_model_cos = 1.0
+    for model, (gr, gg, rr) in dots.items():
+        if rr > 0:
+            cos = gr / max(math.sqrt(gg * rr), 1e-300)
+            worst_model_cos = min(worst_model_cos, cos)
+            if not cos >= cosine[1]:
+                problems.append(f"{model}'s gradients: cosine {cos:.4f} with the CPU's")
+    worst, worst_cos, noise = 0.0, 1.0, {}
+    for name, ref in ref_grads.items():
+        got = grads[name].cpu()
+        noise[name] = (got - ref).abs().max().item()
+        own, model = ref.abs().max().item(), max(scale[group(name)], 1e-30)
+        rel = noise[name] / model
+        worst = max(worst, rel)
+        if grad_tol is not None and not rel <= grad_tol:
+            problems.append(f"gradient {name}: max err {rel:.3e} of its model's largest")
+        if own >= 1e-3 * model:
+            cos = float((got.double() * ref.double()).sum()) / max(got.double().norm().item() * ref.double().norm().item(),
+                                                                   1e-300)
+            worst_cos = min(worst_cos, cos)
+            if not cos >= cosine[0]:
+                problems.append(f"gradient {name}: cosine {cos:.4f} with the CPU's")
+        if own < 1e-2 * model:
+            noise[name] = math.inf  # a gradient of noise has no clear sign for Adam's step
+    # Adam's first update is lr g / (|g| + 1e-8): only where |g| >> 1e-8 is
+    # it the sign alone (at 1e-6 the epsilon still moves it by 1%).
+    param_err, clear = (0.0, 0) if grad_tol is None else _compare_parameters(
+        label, state, ref_state, ref_grads, noise, lr, problems, floor=1e-4)
+    stats_err = 0.0
+    for name, ref in ref_state.items():
+        if name in ref_grads or not ref.dtype.is_floating_point:
+            continue
+        err = (state[name].cpu() - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+        stats_err = max(stats_err, err)
+        if not err <= stats_tol:
+            problems.append(f"running statistic {name}: err {err:.3e} of its largest")
+    if problems:
+        for problem in problems[:12]:
+            print(f"  {label} card vs CPU: {problem}")
+        raise SmokeFailure(f"{label} card vs CPU: {len(problems)} checks failed, first: {problems[0]}")
+    return {"loss": loss.item(), "ref_loss": ref_loss.item(), "grad_rel_err": worst, "worst_cosine": worst_cos,
+            "worst_model_cosine": worst_model_cos,
+            "param_err": param_err, "sign_clear_elements": clear, "stats_err": stats_err, "grads": len(grads)}
+
+
+def _synthesis_step(torch, trainer, batch, rng):
+    model = trainer.model
+    model.train()
+    trainer.optimizer.zero_grad()
+    loss, metrics, _ = trainer.compute_losses(batch, rng, trainer.step)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+    trainer.optimizer.step()
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads, \
+        {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def phase13_decoder_card_vs_cpu(repo, name, devices=("cuda", "cpu")):
+    """13a / 13c: one decoder-path step of the tiny `name` scene at 48x64
+    (patch 8, strides (4, 8)) on the card and on the CPU from the same
+    seeded weights, the patch centres drawn once on the CPU; perturbation
+    and the style shuffle off, as phase 6. The autoencoder trains (no
+    freeze), so that every group moves."""
+    import dataclasses
+
+    import torch
+
+    from playableenvironments_tpu_torch.cli.common import build_environment_model, synthesis_training_config
+    from playableenvironments_tpu_torch.train.trainer_synthesis import SynthesisTrainer
+
+    cfg = tiny_published_config(repo, name)
+    train_cfg = dataclasses.replace(synthesis_training_config(cfg), patch_size=TINY_PATCH, perturb=False,
+                                    shuffle_style=False, frozen_autoencoder_steps=0)
+    bs, obs = TINY_BATCH
+    outputs, masked, recorded = [], [], RecordedStreams(13)
+    for i, device in enumerate(reversed(devices)):  # the CPU first: it draws
+        model = build_environment_model(cfg, device=device, seed=5)
+        batch = decoder_batch(torch, name, bs, obs, *TINY_IMAGE, device)
+        rng = recorded if i == 0 else ReplayedStreams(recorded.draws, device)
+        with CountedOverlapFix() as fix:
+            outputs.append(_synthesis_step(torch, SynthesisTrainer(model, train_cfg), batch, rng))
+        masked.append(fix.masked)
+    host, card = outputs
+    # The card runs the object encoders' and the decoder's convolutions in
+    # TF32 (cuDNN's default in PyTorch, which the port leaves alone): 10-bit
+    # products, amplified by the batch norms of these tiny scenes over few
+    # values (the CPU's own f32 gradients sit up to 2.3e-2 of a tensor's
+    # largest from float64 on the tiny Minecraft step,
+    # tests/test_torch_port_minecraft_train.py). On this card TF32 moved the
+    # tiny tennis loss by 1.1e-3 relative, single gradient elements by up
+    # to 0.30 of their model's largest, and some small tensors (batch-norm
+    # scales of a 16x16-crop encoder, an alpha head) to a cosine of 0.925
+    # with the CPU's, a model's gradients together to 0.982 (tennis) and
+    # 0.963 (Minecraft's skybox and an object encoder). So the loss and
+    # metrics are held to 5e-3, each gradient to a cosine of 0.8 with the
+    # CPU's, each model's gradients together to 0.9, and every element to
+    # 0.5 of its model's largest; the running statistics to 5e-2.
+    worst = _card_cpu_checks(f"13{'a' if name == 'tennis' else 'c'} {name}", card, host,
+                             train_cfg.learning_rate, 5e-3, 5e-2, (0.8, 0.9), grad_tol=0.5)
+    if name == "minecraft" and not (masked[0] == masked[1] and masked[0] > 0):
+        raise SmokeFailure(f"13c: the overlap fix masked {masked} background samples (card, CPU)")
+    worst["masked_background_samples"] = masked[0]
+    print(f"13{'a' if name == 'tennis' else 'c'} {name} decoder step card vs CPU ({bs} x {obs} obs, "
+          f"{TINY_IMAGE[0]}x{TINY_IMAGE[1]}, patch {TINY_PATCH}): loss {worst['loss']:.6f} vs {worst['ref_loss']:.6f}; "
+          f"{worst['grads']} gradients within {worst['grad_rel_err']:.3e} of their model's largest (cosine >= "
+          f"{worst['worst_cosine']:.4f} a tensor, {worst['worst_model_cosine']:.5f} a model); "
+          f"{worst['sign_clear_elements']} clear parameter elements within "
+          f"{worst['param_err']:.3e}; running statistics within {worst['stats_err']:.3e}"
+          + (f"; the overlap fix masked {masked[0]} background samples" if name == "minecraft" else ""))
+    return worst
+
+
+def phase13_decoder_main_path(repo, name, batch_size=None, steps=None, device="cuda"):
+    """13b / 13c: configs/<name>.yaml's phase 2 at full width through the
+    port's synthesis_training_config and build_environment_model (bench.py's
+    bf16 fused-backbone overrides), random 288x512 frames at the cell's
+    batch, seeded random weights: finite losses, composer parameters moved,
+    the autoencoder frozen (its parameters still, the decoder's running
+    statistics moved, the encoder's not), B2 and B3 launched once per
+    AdaIN object a step; the median step and the peak memory."""
+    import statistics as stats_lib
+
+    import torch
+
+    from playableenvironments_tpu_torch.cli.common import build_environment_model, synthesis_training_config
+    from playableenvironments_tpu_torch.ops import fused_nerf
+    from playableenvironments_tpu_torch.train.trainer_synthesis import SynthesisTrainer
+    from playableenvironments_tpu_torch.utils.random import RngStreams
+
+    bs = batch_size or DECODER_BATCH[name]
+    steps = steps or DECODER_STEPS[name]
+    obs = DECODER_OBSERVATIONS[name]
+    cfg = published_phase2_config(repo, name)
+    model = build_environment_model(cfg, device=device, seed=0)
+    train_cfg = synthesis_training_config(cfg)
+    if not (train_cfg.decode_patches and train_cfg.frozen_autoencoder_steps > steps):
+        raise SmokeFailure(f"{name}: the YAML's phase 2 is not the frozen decoder path: {train_cfg}")
+    trainer = SynthesisTrainer(model, train_cfg)
+    batch = decoder_batch(torch, name, bs, obs, *DECODER_IMAGE, device)
+    rng = RngStreams(0, device)
+    per_step = fused_launches_a_step(model.scene)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_nerf.fused_backbone_fwd.launches = 0
+    fused_nerf.fused_backbone_bwd.launches = 0
+    step_ms, losses = [], []
+    with CountedOverlapFix() as fix:
+        for _ in range(steps):
+            start = time.perf_counter()
+            metrics = trainer.train_step(batch, rng)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - start) * 1e3)
+            losses.append(metrics["loss"].item())
+    launches = (fused_nerf.fused_backbone_fwd.launches, fused_nerf.fused_backbone_bwd.launches)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise SmokeFailure(f"{name} decoder path losses {losses}")
+    state, params = model.state_dict(), dict(model.named_parameters())
+    if not all(bool(torch.isfinite(p).all()) for p in params.values()):
+        raise SmokeFailure(f"{name} decoder path: a parameter is not finite after {steps} steps")
+    moved = lambda names: sum(not torch.equal(state[n], before[n]) for n in names)  # noqa: E731
+    composer = [n for n in params if n.startswith("composer.")]
+    autoencoder = [n for n in params if n.startswith("autoencoder.")]
+    decoder_stats = [n for n in state if n.startswith("autoencoder.decoder.") and n.endswith(("running_mean",
+                                                                                             "running_var"))]
+    encoder_stats = [n for n in state if n.startswith("autoencoder.encoder.") and n.endswith(("running_mean",
+                                                                                             "running_var"))]
+    counts = {"composer": (moved(composer), len(composer)), "autoencoder": (moved(autoencoder), len(autoencoder)),
+              "decoder_stats": (moved(decoder_stats), len(decoder_stats)),
+              "encoder_stats": (moved(encoder_stats), len(encoder_stats))}
+    # A player whose box no patch of the batch reaches keeps its NeRF.
+    if not (counts["composer"][0] >= 0.5 * len(composer) and counts["autoencoder"][0] == 0
+            and counts["decoder_stats"][0] == len(decoder_stats) and counts["encoder_stats"][0] == 0):
+        raise SmokeFailure(f"{name} decoder path: moved (of) {counts}; expected the composer's parameters, the "
+                           "decoder's statistics, and no autoencoder parameter (frozen) or encoder statistic")
+    if launches != (per_step * steps, per_step * steps):
+        raise SmokeFailure(f"{name} decoder path: B2/B3 launches {launches} in {steps} steps, expected {per_step} "
+                           "each a step")
+    median = stats_lib.median(step_ms[2:])
+    rays = sum(p * p for p in _patch_sizes(train_cfg))
+    largest = bs * obs * rays * max(o.positions_count_coarse for o in model.scene.object_models)
+    print(f"13 {name} decoder path (bs {bs} x {obs} obs, {DECODER_IMAGE[0]}x{DECODER_IMAGE[1]}, patch "
+          f"{train_cfg.patch_size} at strides "
+          f"{train_cfg.patch_strides}: {rays} rays an image, B2/B3 up to {largest} points a launch): {steps} steps, "
+          f"B2 {launches[0]} and B3 {launches[1]} launches ({per_step} each a step); median step {median:.3f} ms "
+          f"over steps 3-{steps}; all steps ms {[round(t, 3) for t in step_ms]}; losses "
+          f"{[round(x, 6) for x in losses]}; moved (of): {counts}; overlap fix masked {fix.masked} background "
+          f"samples in {steps} steps; peak memory {peak / 2**30:.3f} GiB")
+    return {"batch": bs, "observations": obs, "launches": launches, "launches_a_step": per_step,
+            "step_ms": step_ms, "median_step_ms": median, "losses": losses, "peak_memory_bytes": peak,
+            "moved": counts, "masked_background_samples": fix.masked, "rays_an_image": rays,
+            "largest_launch_points": largest}
+
+
+def _patch_sizes(train_cfg):
+    from playableenvironments_tpu_torch.render.sampling import strided_patch_sizes
+
+    return strided_patch_sizes(train_cfg.patch_size, train_cfg.patch_strides)
+
+
+def phase13_backbone_kernels(points_b2):
+    """B2 against plain_backbone_fwd on every row of the decoder path's
+    largest launch (`points_b2`), and B3 against plain_backbone_bwd at
+    B3_LARGE_POINTS, twice (bit-identical); times of both, their plain
+    versions, the library chains and the bounds."""
+    import torch
+
+    from playableenvironments_tpu_torch.ops import fused_nerf
+
+    rows = {}
+    cfg, packed, encoded, g_h, g_alpha = phase5_inputs(points_b2, seed=31)
+    bf = {k: v.to(torch.bfloat16).requires_grad_() for k, v in packed.items()}
+    pe = encoded.shape[1]
+    with torch.no_grad():
+        h, alpha = fused_nerf.fused_backbone_fwd(cfg, packed, encoded)
+        ref_h, ref_alpha = fused_nerf.plain_backbone_fwd(cfg, packed, encoded)
+        err_h = check_close("B2 decoder path h", h, ref_h, KERNEL_ATOL, KERNEL_RTOL, KERNEL_MEAN_ATOL)
+        err_a = check_close("B2 decoder path alpha", alpha, ref_alpha, KERNEL_ATOL, KERNEL_RTOL, KERNEL_MEAN_ATOL)
+        del h, alpha, ref_h, ref_alpha
+        ms = cuda_ms(lambda: fused_nerf.fused_backbone_fwd(cfg, packed, encoded), warmup=2, reps=5)
+        plain_ms = cuda_ms(lambda: fused_nerf.plain_backbone_fwd(cfg, packed, encoded), warmup=1, reps=3)
+        library_ms = cuda_ms(lambda: library_backbone(torch, cfg, bf, encoded), warmup=1, reps=3)
+    flops, bytes_, _, _ = backbone_work(cfg, pe, points_b2)
+    rows["fwd"] = dict(points=points_b2, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=max(flops / PEAK_BF16_FLOPS, bytes_ / PEAK_BYTES_PER_S) * 1e3,
+                       bound_by="operations" if flops / PEAK_BF16_FLOPS > bytes_ / PEAK_BYTES_PER_S else "bytes",
+                       max_abs_err=max(err_h[0], err_a[0]), mean_abs_err=max(err_h[1], err_a[1]))
+    print(f"13 B2 at the decoder path's largest launch ({points_b2} points, every row held): max abs err "
+          f"{rows['fwd']['max_abs_err']:.3e}, mean {rows['fwd']['mean_abs_err']:.3e}; call {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {rows['fwd']['bound_ms']:.4f} ms")
+    del encoded, g_h, g_alpha, bf
+    torch.cuda.empty_cache()
+
+    points = B3_LARGE_POINTS
+    cfg, packed, encoded, g_h, g_alpha = phase5_inputs(points, seed=32)
+    saved = encoded.to(torch.bfloat16)
+    bf = {k: v.to(torch.bfloat16).requires_grad_() for k, v in packed.items()}
+    with torch.no_grad():
+        grads, d_enc = fused_nerf.fused_backbone_bwd(cfg, packed, saved, g_h, g_alpha)
+        again, d_enc_again = fused_nerf.fused_backbone_bwd(cfg, packed, saved, g_h, g_alpha)
+        if not (torch.equal(d_enc, d_enc_again) and all(torch.equal(grads[k], again[k]) for k in grads)):
+            raise SmokeFailure(f"B3 at {points} points: two launches on the same inputs differ")
+        del again, d_enc_again
+        ref_grads, ref_d_enc = fused_nerf.plain_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+        worst = worst_mean = 0.0
+        for key, got, ref in [("d_encoded", d_enc, ref_d_enc)] + [(k, grads[k], ref_grads[k]) for k in ref_grads]:
+            scale = ref.abs().max().item()
+            tol, mean_tol = ((D_ENCODED_REL_ATOL, D_ENCODED_REL_MEAN) if key == "d_encoded"
+                             else (GRAD_REL_ATOL, GRAD_REL_MEAN))
+            err, mean = check_close(f"B3 {points} {key}", got, ref, tol * scale, 0.0, mean_tol * scale)
+            worst, worst_mean = max(worst, err / scale), max(worst_mean, mean / scale)
+        del grads, d_enc, ref_grads, ref_d_enc
+        bwd_ms = cuda_ms(lambda: fused_nerf.fused_backbone_bwd(cfg, packed, saved, g_h, g_alpha), warmup=2, reps=5)
+        bwd_plain_ms = cuda_ms(lambda: fused_nerf.plain_backbone_bwd(cfg, packed, encoded, g_h, g_alpha),
+                               warmup=1, reps=3)
+    lib_h, lib_alpha = library_backbone(torch, cfg, bf, encoded)
+    cot = [g_h.to(torch.bfloat16), g_alpha.to(torch.bfloat16)]
+    bwd_library_ms = cuda_ms(lambda: torch.autograd.backward([lib_h, lib_alpha], cot, retain_graph=True),
+                             warmup=1, reps=3)
+    del lib_h, lib_alpha
+    _, _, flops, bytes_ = backbone_work(cfg, encoded.shape[1], points)
+    rows["bwd"] = dict(points=points, ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=bwd_library_ms,
+                       bound_ms=max(flops / PEAK_BF16_FLOPS, bytes_ / PEAK_BYTES_PER_S) * 1e3,
+                       bound_by="operations" if flops / PEAK_BF16_FLOPS > bytes_ / PEAK_BYTES_PER_S else "bytes",
+                       max_abs_err=worst, mean_abs_err=worst_mean)
+    print(f"13 B3 at {points} points (ragged): bit-identical across two launches; max err {worst:.3e}, mean "
+          f"{worst_mean:.3e} of each output's largest; call {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, library "
+          f"{bwd_library_ms:.4f} ms, bound {rows['bwd']['bound_ms']:.4f} ms")
+    del encoded, saved, g_h, g_alpha, bf
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase1_trainer(variant, dtype, device, perceptual=0.1, seed=0, **ae):
+    from playableenvironments_tpu_torch.config import AutoencoderConfig
+    from playableenvironments_tpu_torch.train.trainer_autoencoder import (
+        AutoencoderTrainer, AutoencoderTrainingConfig,
+    )
+
+    return AutoencoderTrainer(AutoencoderConfig(variant=variant, compute_dtype=dtype, **ae),
+                              AutoencoderTrainingConfig(perceptual_lambda=perceptual, kl_lambda=5e-6),
+                              device=device, seed=seed)
+
+
+def _phase1_step(trainer, images, rng):
+    model = trainer.model
+    model.train()
+    trainer.optimizer.zero_grad()
+    loss, metrics, _ = trainer.compute_losses(images, rng)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    trainer.optimizer.step()
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads, \
+        {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def phase13_phase1_card_vs_cpu(devices=("cuda", "cpu")):
+    """13d: one phase-1 step (the published widths, perceptual 0.1, KL
+    5e-6, VGG19 on its seeded weights) at PHASE1_SMALL on the card and on
+    the CPU, v8 and v9, f32 and bf16, the posterior noise drawn once on the
+    CPU. f32 as the decoder steps (TF32 convolutions on the card); bf16 by
+    the loss to 2e-2, each gradient's cosine with the CPU's to 0.8 and each
+    half's together to 0.9 (bf16 keeps 8 bits, and the batch norms'
+    backward cancels them; 0.96 for the worst tensor on v8)."""
+    import numpy as np
+    import torch
+
+    images = torch.from_numpy(np.random.default_rng(1).random(PHASE1_SMALL + (3,), np.float32))
+    results = {}
+    for variant in ("v8", "v9"):
+        for dtype in ("float32", "bfloat16"):
+            outputs, recorded = [], RecordedStreams(14)
+            for i, device in enumerate(reversed(devices)):  # the CPU first: it draws
+                trainer = phase1_trainer(variant, dtype, device)
+                rng = recorded if i == 0 else ReplayedStreams(recorded.draws, device)
+                outputs.append(_phase1_step(trainer, images.to(device), rng))
+            host, card = outputs
+            label = f"13d phase 1 {variant} {dtype}"
+            if dtype == "float32":
+                worst = _card_cpu_checks(label, card, host, 4e-4, 5e-3, 5e-2, (0.8, 0.9), grad_tol=0.5)
+            else:
+                worst = _card_cpu_checks(label, card, host, 4e-4, 2e-2, 5e-2, (0.8, 0.9))
+            results[f"{variant}_{dtype}"] = worst
+            print(f"{label} card vs CPU ({PHASE1_SMALL[0]} x {PHASE1_SMALL[1]}x{PHASE1_SMALL[2]}): loss "
+                  f"{worst['loss']:.6f} vs {worst['ref_loss']:.6f}; {worst['grads']} gradients "
+                  + f"with cosine >= {worst['worst_cosine']:.4f} ({worst['worst_model_cosine']:.5f} a half)"
+                  + (f", within {worst['grad_rel_err']:.3e} of their half's largest" if dtype == "float32" else "")
+                  + f"; running statistics within {worst['stats_err']:.3e}")
+    return results
+
+
+def phase13_phase1_main_path(batch_size=PHASE1_BATCH, steps=PHASE1_STEPS, image=DECODER_IMAGE, device="cuda"):
+    """13e: bench.py's phase-1 step (_phase1_setup: the v8 autoencoder at
+    the published widths in bf16, perceptual 0.1, KL 5e-6, bs 20 of
+    288x512 random images from numpy seed 0, VGG19 on seeded random
+    weights): finite, parameters and statistics moved, the VGG unchanged;
+    the median step and the peak memory."""
+    import statistics as stats_lib
+
+    import numpy as np
+    import torch
+
+    from playableenvironments_tpu_torch.utils.random import RngStreams
+
+    trainer = phase1_trainer("v8", "bfloat16", device)
+    images = torch.from_numpy(np.random.default_rng(0).random((batch_size,) + tuple(image) + (3,), np.float32)).to(
+        device)
+    rng = RngStreams(0, device)
+    model = trainer.model
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    vgg_before = {k: v.detach().clone() for k, v in trainer.vgg.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for _ in range(steps):
+        start = time.perf_counter()
+        metrics = trainer.train_step(images, rng)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - start) * 1e3)
+        losses.append({k: v.item() for k, v in metrics.items()})
+    peak = torch.cuda.max_memory_allocated()
+    state, params = model.state_dict(), dict(model.named_parameters())
+    if not all(math.isfinite(v) for m in losses for v in m.values()):
+        raise SmokeFailure(f"phase-1 losses {losses}")
+    moved_params = sum(not torch.equal(state[n], before[n]) for n in params)
+    stats = [n for n in state if n.endswith(("running_mean", "running_var"))]
+    moved_stats = sum(not torch.equal(state[n], before[n]) for n in stats)
+    vgg_still = all(torch.equal(v, vgg_before[k]) for k, v in trainer.vgg.state_dict().items())
+    if moved_params < 0.95 * len(params) or moved_stats < len(stats) or not vgg_still:
+        raise SmokeFailure(f"phase 1: {moved_params}/{len(params)} parameters and {moved_stats}/{len(stats)} "
+                           f"statistics moved, VGG unchanged: {vgg_still}")
+    median = stats_lib.median(step_ms[2:])
+    print(f"13e phase-1 step (v8 bf16, bs {batch_size} x {image[0]}x{image[1]}, perceptual 0.1, KL 5e-6): {steps} "
+          f"steps; median step {median:.3f} ms over steps 3-{steps}; all steps ms {[round(t, 3) for t in step_ms]}; "
+          f"losses {[round(m['loss'], 6) for m in losses]}; {moved_params}/{len(params)} parameters and "
+          f"{moved_stats}/{len(stats)} statistics moved, VGG unchanged; peak memory {peak / 2**30:.3f} GiB")
+    return {"step_ms": step_ms, "median_step_ms": median, "losses": losses, "peak_memory_bytes": peak,
+            "batch": batch_size}
+
+
+def phase13(repo):
+    """13a-13e (module docstring); the B2/B3 checks at the decoder path's
+    shapes first, while the card holds nothing else."""
+    from playableenvironments_tpu_torch.cli.common import synthesis_training_config
+    from playableenvironments_tpu_torch.config import scene_from_dict
+
+    results = {}
+    tennis_cfg = published_phase2_config(repo, "tennis")
+    scene = scene_from_dict(tennis_cfg["model"], tennis_cfg.get("playable_model"))
+    rays = sum(p * p for p in _patch_sizes(synthesis_training_config(tennis_cfg)))
+    largest = DECODER_BATCH["tennis"] * DECODER_OBSERVATIONS["tennis"] * rays * max(
+        o.positions_count_coarse for o in scene.object_models)
+    results["kernels"] = phase13_backbone_kernels(largest)
+    results["tennis_card_vs_cpu"] = phase13_decoder_card_vs_cpu(repo, "tennis")
+    results["tennis"] = phase13_decoder_main_path(repo, "tennis")
+    results["minecraft_card_vs_cpu"] = phase13_decoder_card_vs_cpu(repo, "minecraft")
+    results["minecraft"] = phase13_decoder_main_path(repo, "minecraft")
+    results["phase1_card_vs_cpu"] = phase13_phase1_card_vs_cpu()
+    results["phase1"] = phase13_phase1_main_path()
+    return results
+
+
 def ptxas_entries(report: str) -> dict:
     """{kernel entry (mangled): {"registers", "spill_stores", "spill_loads",
     "smem"}} from nvcc -Xptxas -v output."""
@@ -2225,14 +2802,18 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     done("1")
-    if sys.argv[1:] == ["--phase", "12"]:
+    alone = {"12": phase12_minecraft, "13": phase13}
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in alone:
         try:
-            phase12_minecraft(repo)
+            result = alone[sys.argv[2]](repo)
         except SmokeFailure as e:
             return fail(str(e))
+        os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(repo, "chiprun_out", f"chip_smoke_phase{sys.argv[2]}.json"), "w") as f:
+            json.dump(result, f, indent=1, default=str)
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, check=True).stdout.strip())
-        print("phase 12 alone: passed")
+        print(f"phase {sys.argv[2]} alone: passed")
         return 0
 
     # ---- 2. B1 vs plain version: each tennis object alone, then the frame's grouped launch
@@ -2333,6 +2914,8 @@ def main() -> int:
         done("11")
         phase12 = phase12_minecraft(repo)
         done("12")
+        phase13_results = phase13(repo)
+        done("13")
     except SmokeFailure as e:
         return fail(str(e))
 
@@ -2396,6 +2979,19 @@ def main() -> int:
          "plain_ms": 2 * t["bwd_plain_ms"], "bound_ms": 2 * t["bwd_bound_ms"], "bound_by": t["bwd_bound_by"],
          "library_ms": None},
     ]
+    # B2/B3 on the phase-2 decoder paths of both published configs (phase
+    # 13): their launches there, and each kernel held and timed at that
+    # path's largest launch (B2) and at more than 2^20 points (B3).
+    for entry, which in zip(kernels[1:3], ("fwd", "bwd")):
+        row = phase13_results["kernels"][which]
+        entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
+        entry["launches_by_path"] = {
+            "phase2": entry["launches"],
+            "tennis_decoder": phase13_results["tennis"]["launches"][which == "bwd"],
+            "minecraft_decoder": phase13_results["minecraft"]["launches"][which == "bwd"],
+        }
+        entry["decoder_path_launch"] = {k: row[k] for k in ("points", "ms", "plain_ms", "library_ms", "bound_ms",
+                                                            "bound_by", "max_abs_err")}
     p11 = phase11["phase3"]
     for entry, which in zip(kernels[3:], (0, 1)):
         entry["launches_by_path"] = {"phase3": phase3["launches"][which], "phase3_cache": p11["cache_launches"][which],
@@ -2411,6 +3007,7 @@ def main() -> int:
                    "backbone_fwd_shapes": fwd_rows, "backbone_bwd_shapes": bwd_rows,
                    "train_card_vs_cpu": card_vs_cpu, "phase2": phase2, "rollout_shapes": rollout_rows,
                    "phase3_card_vs_cpu": phase3_card_vs_cpu, "phase3": phase3, "phase11": phase11, "phase12": phase12,
+                   "phase13": phase13_results,
                    "kernels": kernels,
                    "phase_seconds": phase_seconds, "ptxas": reports}, f, indent=1)
     print(f"phase seconds: {phase_seconds}")
@@ -2427,7 +3024,9 @@ def main() -> int:
           "times beside them); max_abs_err of fused_backbone_bwd and fused_rollout_fwd/bwd is "
           "relative to each output's largest magnitude; fused_adain_nerf's `minecraft` is the Minecraft frame's one "
           "grouped launch of 3 objects (phase 12a; plain, library and bound summed over them) and "
-          "`minecraft_batch4` the creator's batch of 4; fused_rollout bounds use the f32 peak "
+          "`minecraft_batch4` the creator's batch of 4; fused_backbone_fwd/bwd's `decoder_path_launch` is one launch "
+          "at the phase-2 decoder path's largest shape (B2) and at 1,048,613 points (B3), phase 13; "
+          "fused_rollout bounds use the f32 peak "
           f"({PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s), the others the bf16 one ({PEAK_BF16_FLOPS / 1e12:.0f})")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -2,8 +2,9 @@
 
 Port of the builders of playableenvironments_tpu/cli/common.py
 (`load_yaml`, `with_batching_overrides`, `build_dataset`,
-`build_environment_model`) and of the phase-3 CLI's trainer configuration
-(`playable_training_config`). The YAML schema is the JAX package's: `data`,
+`build_environment_model`, `loss_weights_from_dict`,
+`synthesis_training_config`) and of the phase-1 and phase-3 CLIs' trainer
+configurations (`autoencoder_training_config`, `playable_training_config`). The YAML schema is the JAX package's: `data`,
 `model`, `playable_model`, `training`, `playable_model_training`,
 `evaluation`. The meshes and training runners come with the CLIs.
 """
@@ -112,4 +113,77 @@ def playable_training_config(cfg: Dict[str, Any]):
             acmv=float(w.get("acmv_lambda", 0.0)),
             gan=float(w.get("gan_lambda", 0.0)),
         ),
+    )
+
+
+def loss_weights_from_dict(d: Dict[str, Any]):
+    """train.trainer_synthesis.LossWeights of a `training.loss_weights`
+    section."""
+    from playableenvironments_tpu_torch.train.trainer_synthesis import LossWeights
+
+    return LossWeights(
+        reconstruction=float(d.get("reconstruction_loss_lambda", 1.0)),
+        perceptual=float(d.get("perceptual_loss_lambda", 0.0)),
+        ray_object_distance=float(d.get("ray_object_distance_loss_lambda", 0.0)),
+        bounding_box=float(d.get("bounding_box_loss_lambda", 0.0)),
+        displacements_magnitude=float(d.get("displacements_magnitude_loss_lambda", 0.0)),
+        divergence=float(d.get("divergence_loss_lambda", 0.0)),
+        opacity=float(d.get("opacity_loss_lambda", 0.0)),
+        attention=float(d.get("attention_loss_lambda", 0.0)),
+        sharpness=float(d.get("sharpness_loss_lambda", 0.0)),
+        sharpness_mean=float(d.get("sharpness_loss_mean", 0.5)),
+        sharpness_std=float(d.get("sharpness_loss_std", 0.15)),
+    )
+
+
+def synthesis_training_config(cfg: Dict[str, Any]):
+    """train.trainer_synthesis.SynthesisTrainingConfig of `cfg["training"]`:
+    with a `model.autoencoder`, the patch strides are the autoencoder's and
+    a `patch_size` above 0 selects the decoder path."""
+    from playableenvironments_tpu_torch.models.autoencoder import autoencoder_strides
+    from playableenvironments_tpu_torch.train.trainer_synthesis import SynthesisTrainingConfig
+
+    t = cfg["training"]
+    has_ae = "autoencoder" in cfg.get("model", {})
+    strides = ()
+    if has_ae:
+        scene = config_lib.scene_from_dict(cfg["model"], cfg.get("playable_model"))
+        strides = tuple(autoencoder_strides(scene.autoencoder))
+    return SynthesisTrainingConfig(
+        learning_rate=float(t.get("learning_rate", 5e-4)),
+        lr_gamma=float(t.get("lr_gamma", 0.926118)),
+        lr_decay_iterations=int(t.get("lr_decay_iterations", 10000)),
+        weight_decay=float(t.get("weight_decay", 0.0)),
+        max_steps=int(t.get("max_steps", 300000)),
+        samples_per_image=int(t.get("samples_per_image", 144)),
+        perturb=bool(t.get("perturb", True)),
+        shuffle_style=bool(t.get("shuffle_style", True)),
+        patch_size=int(t.get("patch_size", 0)),
+        patch_strides=strides,
+        loss_weights=loss_weights_from_dict(t.get("loss_weights", {})),
+        decode_patches=has_ae and int(t.get("patch_size", 0)) > 0,
+        crop_to_patch=bool(t.get("crop_to_patch", True)),
+        autoencoder_learning_rate=float(t.get("autoencoder_learning_rate", 1e-4)),
+        frozen_autoencoder_steps=int(t.get("frozen_autoencoder_steps", 0)),
+        remat=bool(t.get("remat", False)),
+    )
+
+
+def autoencoder_training_config(cfg: Dict[str, Any]):
+    """train.trainer_autoencoder.AutoencoderTrainingConfig of the
+    `autoencoder_training` section, or of `training` where there is none,
+    read as the JAX phase-1 CLI reads it."""
+    from playableenvironments_tpu_torch.train.trainer_autoencoder import AutoencoderTrainingConfig
+
+    t = cfg.get("autoencoder_training") or cfg["training"]
+    w = t.get("loss_weights", {})
+    return AutoencoderTrainingConfig(
+        learning_rate=float(t.get("learning_rate", 4e-4)),
+        lr_gamma=float(t.get("lr_gamma", 0.926118)),
+        lr_decay_iterations=int(t.get("lr_decay_iterations", 10000)),
+        max_steps=int(t.get("max_steps", 300000)),
+        kl_lambda=float(w.get("KL_loss_lambda", 5e-6)),
+        perceptual_lambda=float(w.get("perceptual_loss_lambda", 0.0)),
+        vgg_weights_path=str(t.get("vgg_weights_path", "")),
+        remat=bool(t.get("remat", False)),
     )

@@ -75,17 +75,13 @@ class InteractiveSession:
         """A session over seeded random weights for `scene` on `device`
         (compat.from_flax loads trained ones into its modules). The
         environment model's composer is seeded as a SceneComposer of its
-        own would be, its object encoders from `seed` + 1."""
-        from playableenvironments_tpu_torch.models.autoencoder import MultiresAutoencoder
+        own would be, its object encoders and its autoencoder (the
+        session's decoder) from `seed` + 1."""
         from playableenvironments_tpu_torch.render.environment_model import EnvironmentModel
         from playableenvironments_tpu_torch.render.playable_model import PlayableEnvironmentModel
 
         model = EnvironmentModel(scene, focal_length_multiplier, device=device, seed=seed)
-        autoencoder = (
-            MultiresAutoencoder(scene.autoencoder, device=device, seed=seed + 1)
-            if scene.autoencoder is not None
-            else None
-        )
+        autoencoder = getattr(model, "autoencoder", None)
         playable = PlayableEnvironmentModel(scene, device=device, seed=seed + 2)
         return cls(
             scene, model.composer, autoencoder, playable, image_size, patch_strides,

@@ -79,19 +79,21 @@ def load_environment(composer, autoencoder, variables: Mapping) -> None:
 
 def load_environment_model(model, variables: Mapping, autoencoder=None) -> list:
     """EnvironmentModel variables -> render.environment_model.EnvironmentModel:
-    `composer` (AdaIN and skybox NeRFs, benders), every `object_encoder_i`
-    and every `parameters_encoder_i` (the learned pose CNNs), params and batch_stats,
-    strictly; with `autoencoder` (a MultiresAutoencoder) also its decoder
-    from the `autoencoder` subtree (encoder leaves are not read). Subtrees
-    left unread (the autoencoder without one, camera offsets) are named in
-    the returned list; any other top-level subtree raises.
+    `composer` (AdaIN and skybox NeRFs, benders), every `object_encoder_i`,
+    every `parameters_encoder_i` (the learned pose CNNs) and, where the
+    model has one, the full `autoencoder` (encoder and decoder), params and
+    batch_stats, strictly; with `autoencoder` (a separate
+    MultiresAutoencoder, such as the play session's) also its decoder from
+    the `autoencoder` subtree. Subtrees left unread (camera offsets, the
+    autoencoder of a tree whose model has none and no separate one given)
+    are named in the returned list; any other top-level subtree raises.
 
     :return: sorted names of the skipped subtrees.
     """
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     expected = {"composer"} | {n for n, _ in model.named_children()
-                               if n.startswith(("object_encoder_", "parameters_encoder_"))}
+                               if n.startswith(("object_encoder_", "parameters_encoder_")) or n == "autoencoder"}
     skippable = {"autoencoder", "camera_offsets"}
     unknown = set(params) - expected - skippable
     if unknown:
@@ -101,7 +103,7 @@ def load_environment_model(model, variables: Mapping, autoencoder=None) -> list:
         raise KeyError(f"no flax subtree for {sorted(missing)}")
     for name in sorted(expected):
         load_flax_tree(getattr(model, name), params[name], stats.get(name))
-    skipped = set(params) & skippable
+    skipped = set(params) & skippable - expected
     if autoencoder is not None:
         load_flax_tree(autoencoder.decoder, params["autoencoder"]["decoder"],
                        stats.get("autoencoder", {}).get("decoder"))
@@ -168,3 +170,16 @@ def load_playable_extra(trainer, extra: Mapping) -> None:
     as_tensor = lambda x: torch.from_numpy(np.array(x, dtype=np.float32)).to(device)  # noqa: E731
     trainer.centroids = [as_tensor(extra["centroids"][str(i)]) for i in range(count)]
     trainer.mi_matrices = [as_tensor(extra["mi_matrices"][str(i)]) for i in range(count)]
+
+
+def load_autoencoder(autoencoder, variables: Mapping) -> None:
+    """MultiresAutoencoder variables (a phase-1 TrainState's params and
+    batch_stats: `encoder` and `decoder` subtrees) -> the port's
+    MultiresAutoencoder, strictly."""
+    load_flax_tree(autoencoder, variables["params"], variables.get("batch_stats"))
+
+
+def load_vgg(net, variables: Mapping) -> None:
+    """VGGFeatures variables (`conv{block}_{i}` kernels HWIO, biases) ->
+    eval.perceptual.VGGFeatures (OIHW), strictly."""
+    load_flax_tree(net, variables["params"])

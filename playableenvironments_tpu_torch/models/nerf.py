@@ -260,19 +260,18 @@ class ObjectRadianceField(nn.Module):
         canonical_pose: bool = False,
         use_running_average: bool = False,
         compute_divergence: bool = False,
+        ray_origins: Optional[torch.Tensor] = None,
+        ray_directions: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """:param ray_positions: (..., rays, positions, 3) object-frame points.
         :param style: (..., style_features); deformation (..., deformation_features).
+        :param ray_origins, ray_directions: (..., 3) and (..., rays, 3)
+            object-frame rays, read by the skybox only.
         :return: ((..., rays, positions, F) features, (..., rays, positions)
             raw alphas, (..., rays, positions, 3) displacements,
             (..., rays, positions) divergences).
         """
         cfg = self.cfg
-        if cfg.nerf.kind == "skybox":
-            raise NotImplementedError(
-                "the skybox in the training composer (it reads ray origins and directions) is not "
-                "ported yet; the eval frame path (render.fast) renders it"
-            )
         mask = aabb_contains(_box(cfg.bounding_box, ray_positions), ray_positions)
         style_b = style[..., None, None, :]
         deformation_b = deformation[..., None, None, :]
@@ -290,8 +289,18 @@ class ObjectRadianceField(nn.Module):
             displacements = torch.where(mask[..., None], displacements, 0.0)
         else:
             displacements = torch.zeros_like(ray_positions)
-        features, alpha = self.nerf(ray_positions + displacements, cfg.bounding_box, style_b, mask,
-                                    use_running_average)
+        if cfg.nerf.kind == "skybox":
+            # Constant along each ray: one evaluation per ray, repeated over
+            # the samples (autograd sums the repeats' gradients).
+            origins = ray_origins[..., None, :].expand(ray_directions.shape)
+            features, alpha = self.nerf(origins, ray_directions, cfg.bounding_box, style[..., None, :],
+                                        mask.any(dim=-1), use_running_average)
+            samples = ray_positions.shape[-2]
+            features = features[..., None, :].expand(features.shape[:-1] + (samples, features.shape[-1]))
+            alpha = alpha[..., None].expand(alpha.shape + (samples,))
+        else:
+            features, alpha = self.nerf(ray_positions + displacements, cfg.bounding_box, style_b, mask,
+                                        use_running_average)
         features = torch.where(mask[..., None], features, 0.0)
         alpha = torch.where(mask, alpha, cfg.empty_space_alpha)
         return features, alpha, displacements, divergences

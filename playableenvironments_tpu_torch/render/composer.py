@@ -4,9 +4,11 @@ Port of playableenvironments_tpu/render/composer.py: one
 ObjectRadianceField per object model (`object_model_i`), and `forward`, the
 training-mode render (per-object stratified samples with optional jitter,
 field evaluation, per-object integration and sort-free composition across
-objects with optional alpha noise). Eval frames read the same weights
-through render/fast.py::render_rays_fast. The fine hierarchy (`use_fine`)
-and `fix_object_overlaps` raise, as in the fast path.
+objects with optional alpha noise), with the Minecraft scenes' skybox
+(evaluated once per ray) and overlap fix (static samples inside a dynamic
+object's t interval suppressed before the composition). Eval frames read
+the same weights through render/fast.py::render_rays_fast. The fine
+hierarchy (`use_fine`) raises, as in the fast path.
 """
 
 from __future__ import annotations
@@ -71,8 +73,6 @@ class SceneComposer(nn.Module):
         object_ids = ObjectIds(scene)
         if any(cfg.use_fine for cfg in scene.object_models):
             raise NotImplementedError("use_fine (the hierarchical fine pass, sample_pdf) is not ported yet")
-        if scene.fix_object_overlaps:
-            raise NotImplementedError("fix_object_overlaps (the Minecraft scenes) is not ported yet")
         if perturb and rng is None:
             raise ValueError("perturb=True needs the random streams `rng`")
         if w2o_matrices.shape[-3] != object_ids.objects_count:
@@ -99,7 +99,7 @@ class SceneComposer(nn.Module):
             )
             features, raw_alphas, displacements, divergences = self.object_model(model_idx)(
                 positions, style[..., object_idx, :], deformation[..., object_idx, :], step,
-                canonical_pose, use_running_average, compute_divergence,
+                canonical_pose, use_running_average, compute_divergence, o_origins, o_directions,
             )
             # Absent objects are fully transparent.
             raw_alphas = torch.where(in_scene[..., None, None], raw_alphas, cfg.empty_space_alpha)
@@ -109,10 +109,10 @@ class SceneComposer(nn.Module):
                 "features": features, "raw_alphas": raw_alphas, "t": positions_t,
                 "displacements": displacements, "divergences": divergences,
             })
-        return {"coarse": self._compose_and_integrate(per_object, ray_directions, perturb, rng)}
+        return {"coarse": self._compose_and_integrate(per_object, ray_origins, ray_directions, perturb, rng)}
 
-    @staticmethod
-    def _compose_and_integrate(per_object: List[Dict], ray_directions, perturb: bool, rng) -> Dict:
+    def _compose_and_integrate(self, per_object: List[Dict], ray_origins, ray_directions, perturb: bool,
+                               rng) -> Dict:
         results = {}
         for object_idx, obj in enumerate(per_object):
             noise = rng.normal("alpha_noise", obj["raw_alphas"].shape) if perturb else None
@@ -121,13 +121,25 @@ class SceneComposer(nn.Module):
                 obj["displacements"], obj["divergences"], noise,
             )
         all_alphas = [o["raw_alphas"] for o in per_object]
+        all_t = [o["t"] for o in per_object]
+        all_displacements = [o["displacements"] for o in per_object]
+        all_divergences = [o["divergences"] for o in per_object]
+        if self.scene.fix_object_overlaps:
+            # Static samples inside any dynamic object's t interval become
+            # empty space at t = 0; the sort-free composition needs no order.
+            object_ids = ObjectIds(self.scene)
+            for s in range(object_ids.static_objects_count):
+                mask = torch.zeros_like(all_t[s], dtype=torch.bool)
+                for d in range(object_ids.static_objects_count, object_ids.objects_count):
+                    mask = mask | compositing.overlap_fix_mask(all_t[s], all_t[d])
+                all_alphas[s], all_t[s], _, all_displacements[s], all_divergences[s] = compositing.apply_overlap_fix(
+                    all_alphas[s], all_t[s], torch.zeros_like(all_displacements[s]), all_displacements[s],
+                    all_divergences[s], ray_origins[..., None, :], mask,
+                )
         shape = all_alphas[0].shape[:-1] + (sum(a.shape[-1] for a in all_alphas),)
         noise = rng.normal("alpha_noise", shape) if perturb else None
         results["global"] = compositing.compose_integrate_sortfree(
-            [o["features"] for o in per_object], all_alphas, [o["t"] for o in per_object],
-            ray_directions,
-            all_ray_displacements=[o["displacements"] for o in per_object],
-            all_ray_divergences=[o["divergences"] for o in per_object],
-            noise=noise,
+            [o["features"] for o in per_object], all_alphas, all_t, ray_directions,
+            all_ray_displacements=all_displacements, all_ray_divergences=all_divergences, noise=noise,
         )
         return results

@@ -4,10 +4,12 @@ Port of the training path of
 playableenvironments_tpu/render/environment_model.py: object poses from the
 parameter strategies, projected object boxes, object style/deformation codes
 from the object encoders (with the temporal style shuffle), the scene
-encoding, ray sampling (weighted, uniform, or the whole-image strided
-grid), the composed render and the ray-to-object distances. Random draws
-come from `rng` (utils.random.RngStreams). Patch sampling with the decoder
-(`decode_patches`) and per-frame camera offsets raise NotImplementedError.
+encoding, ray sampling (weighted, uniform, the whole-image strided grid,
+or one strided multi-resolution patch per image), the composed render, the
+ray-to-object distances and, on the decoder path (`decode_patches`), the
+autoencoder's decode of the rendered feature patches. Random draws come
+from `rng` (utils.random.RngStreams). Per-frame camera offsets raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,6 +23,11 @@ from playableenvironments_tpu_torch.config import ObjectIds, SceneConfig
 from playableenvironments_tpu_torch.core import bbox as bbox_lib
 from playableenvironments_tpu_torch.core import rays as rays_lib
 from playableenvironments_tpu_torch.core.transforms3d import euler_translation_to_matrix, invert_rigid
+from playableenvironments_tpu_torch.models.autoencoder import (
+    MultiresAutoencoder,
+    autoencoder_strides,
+    features_count_by_layer,
+)
 from playableenvironments_tpu_torch.models.layers import initialize_
 from playableenvironments_tpu_torch.models.object_encoders import object_encoder
 from playableenvironments_tpu_torch.models.parameter_encoders import (
@@ -36,8 +43,12 @@ from playableenvironments_tpu_torch.utils.device import resolve_device
 
 class EnvironmentModel(nn.Module):
     """The synthesis model's training surface: `composer`,
-    `object_encoder_i` and, for learned poses, `parameters_encoder_i` (the
-    flax tree's names)."""
+    `object_encoder_i`, for learned poses `parameters_encoder_i` and, where
+    the scene has one, the full `autoencoder` (encoder and decoder, as the
+    JAX model materializes both; the flax tree's names). The autoencoder
+    takes a generator of its own seeded from `seed` + 1, decoder first, so
+    that its decoder is the one the play session has always been seeded
+    with and no other module's weights move."""
 
     def __init__(self, scene: SceneConfig, focal_length_multiplier: float = 1.0,
                  enable_camera_offsets: bool = False, device="cuda", seed: int = 0):
@@ -57,6 +68,8 @@ class EnvironmentModel(nn.Module):
             if cfg.kind == "learned_v4":
                 self.add_module(f"parameters_encoder_{i}",
                                 initialize_(ObjectParametersEncoderV4(cfg, device=device), generator))
+        if scene.autoencoder is not None:
+            self.autoencoder = MultiresAutoencoder(scene.autoencoder, device=device, seed=seed + 1)
 
     # ---- scene encoding --------------------------------------------------
 
@@ -275,23 +288,30 @@ class EnvironmentModel(nn.Module):
         decode_patches: bool = False,
         rng=None,
     ) -> Dict:
-        """The full training path: encode, sample rays, render.
+        """The full training path: encode, sample rays, render and, with
+        `decode_patches`, decode the rendered feature patches.
 
-        Sampling: `samples_per_image == 0` with strides -> the whole-image
-        strided grid; otherwise weighted (scene.use_weighted_sampling) or
-        uniform rays, drawn from the "ray_sampling" stream.
+        Sampling: `patch_size > 0` -> one strided patch per image, its
+        centre drawn from the object-weighted distribution; otherwise
+        `samples_per_image == 0` with strides -> the whole-image strided
+        grid; otherwise weighted (scene.use_weighted_sampling) or uniform
+        rays. Draws come from the "ray_sampling" stream.
         """
-        if patch_size or decode_patches:
-            raise NotImplementedError(
-                "patch sampling and decode_patches (the autoencoder's train path) are not ported yet"
-            )
+        if decode_patches and (self.scene.autoencoder is None or not patch_size):
+            raise ValueError("decode_patches requires scene.autoencoder and patch sampling")
         height, width = observations.shape[-3], observations.shape[-2]
         encoding, aux = self.compute_scene_encoding(
             observations, camera_rotations, camera_translations, focals, bounding_boxes,
             bounding_boxes_validity, global_frame_indexes, shuffle_style, train, rng,
         )
         ray_directions, _, _ = rays_lib.camera_rays(height, width, aux["rescaled_focals"])
-        if samples_per_image == 0 and patch_strides:
+        if patch_size:
+            uniform = rng.uniform("ray_sampling", ray_directions.shape[:-3] + (1,))
+            sampled = sampling.sample_rays_strided_patch(
+                ray_directions, observations, patch_size, list(patch_strides),
+                aux["reconstructed_bounding_boxes"].detach(), self.scene.sampling_weights, uniform,
+            )
+        elif samples_per_image == 0 and patch_strides:
             sampled = sampling.sample_all_rays_strided_grid(ray_directions, observations, list(patch_strides))
         elif self.scene.use_weighted_sampling:
             uniform = rng.uniform("ray_sampling", ray_directions.shape[:-3] + (samples_per_image,))
@@ -312,12 +332,38 @@ class EnvironmentModel(nn.Module):
         origins = rays_lib.transform_points(torch.zeros_like(encoding.camera_rotations), c2w)
         world_directions = rays_lib.transform_points(sampled_directions, c2w[..., None, :, :], translate=False)
         results["ray_object_distances"] = self._ray_object_distances(origins, world_directions, aux["o2w"])
+        if decode_patches:
+            results = self.decode_rendered_patches(results, patch_size, train)
         results["observations"] = sampled_observations
         results["positions"] = sampled_positions
         results["scene_encoding"] = encoding
         for key in ("reconstructed_bounding_boxes", "reconstructed_3d_bounding_boxes",
                     "object_attention", "object_crops"):
             results[key] = aux[key]
+        return results
+
+    def decode_rendered_patches(self, results: Dict, patch_size: int, train: bool = True) -> Dict:
+        """Decode the rendered feature patches into RGB patches: the
+        features of each sample are the concatenated latent levels; per
+        level, the samples of that level's strided patch are folded into a
+        square patch, and the stack goes through the decoder. Adds to the
+        "global" results "reconstructed_observations" (B, T, C, P, P, 3),
+        P = patch_size * stride_0, and "splitted_integrated_features", the
+        per-level feature samples."""
+        strides = autoencoder_strides(self.scene.autoencoder)
+        counts = features_count_by_layer(self.scene.autoencoder)
+        global_results = results["coarse"]["global"]
+        features = global_results["integrated_features"]
+        patches, split_features, begin = [], [], 0
+        for level_idx, count in enumerate(counts):
+            chunk = sampling.split_strided_samples(features[..., begin : begin + count], patch_size, strides)[level_idx]
+            begin += count
+            split_features.append(chunk)
+            patches.append(sampling.samples_to_patch(chunk))
+        lead = patches[0].shape[:-3]
+        decoded = self.autoencoder.decode([p.reshape((-1,) + p.shape[-3:]) for p in patches], train=train)
+        global_results["reconstructed_observations"] = decoded.reshape(lead + decoded.shape[1:])
+        global_results["splitted_integrated_features"] = split_features
         return results
 
     def _ray_object_distances(self, ray_origins, ray_directions, o2w) -> torch.Tensor:

@@ -4,9 +4,11 @@ Port of playableenvironments_tpu/render/sampling.py: the whole-frame
 strided grid (`sample_all_rays_strided_grid`, `split_strided_grid_samples`)
 and the training samplers (`build_weight_image`,
 `sample_indices_from_weights`, `gather_pixels`, `indices_to_positions`,
-`sample_rays_uniform`, `sample_rays_weighted`). Where the JAX samplers draw
-from a key, these take the draws: uniform values in [0, 1) for the
-weighted sampler, integer indices for the uniform one. Pixel grids are
+`sample_rays_uniform`, `sample_rays_weighted`) and the decoder path's
+strided patches (`sample_rays_strided_patch`, `split_strided_samples`,
+`samples_to_patch`, `crop_region_from_patch_positions`). Where the JAX
+samplers draw from a key, these take the draws: uniform values in [0, 1)
+for the weighted and patch samplers, integer indices for the uniform one. Pixel grids are
 (..., H, W, F), samples (..., n, F), positions (..., n, 2) normalized
 (row, col).
 """
@@ -160,3 +162,115 @@ def sample_rays_weighted(
     h, w = ray_directions.shape[-3], ray_directions.shape[-2]
     idx = sample_indices_from_weights(build_weight_image(bounding_boxes, weights, h, w), uniform)
     return _gather_samples(ray_directions, observations, idx)
+
+
+def _align_start(start: torch.Tensor, stride: int) -> torch.Tensor:
+    """Move `start` to the nearest value congruent to stride // 2 (mod
+    stride), going down when possible. `start` may be negative: the
+    remainders are floor-mod (torch.remainder), as jnp.mod's."""
+    half = stride // 2
+    delta_down = torch.remainder(start - half, stride)
+    delta_up = torch.remainder(half - start, stride)
+    return torch.where(start >= half, start - delta_down, start + delta_up)
+
+
+def strided_patch_sizes(patch_size: int, strides: Sequence[int]) -> List[int]:
+    """Per-stride patch sides: the patch covers the same image region at
+    every stride, so sizes scale inversely to the stride."""
+    smallest = strides[0]
+    sizes = []
+    for s in strides:
+        if (patch_size * smallest) % s != 0:
+            raise ValueError(f"patch_size {patch_size} incompatible with stride {s}")
+        sizes.append((patch_size * smallest) // s)
+    return sizes
+
+
+def sample_rays_strided_patch(
+    ray_directions: torch.Tensor,
+    observations: torch.Tensor,
+    patch_size: int,
+    strides: Union[int, Sequence[int]],
+    bounding_boxes: torch.Tensor,
+    weights: Sequence[float],
+    uniform: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One grid-aligned multi-resolution patch per image: the centre is
+    drawn from the object-weighted distribution and clipped so that the
+    coarsest patch stays inside the image; for each stride s a
+    (p_s x p_s) grid of rays at the centres of (s x s) cells, strides
+    concatenated along the sample axis, smallest first.
+
+    :param uniform: (..., 1) draws in [0, 1) for the patch centre.
+    :return: ((..., sum p_s^2, 3) directions, observations, (..., sum, 2)
+        positions).
+    """
+    if isinstance(strides, int):
+        strides = [strides]
+    if patch_size % 2 != 0:
+        raise ValueError("patch_size must be even")
+    patch_sizes = strided_patch_sizes(patch_size, strides)
+    biggest_stride, biggest_patch = strides[-1], patch_sizes[-1]
+    h, w = ray_directions.shape[-3], ray_directions.shape[-2]
+    weight_image = build_weight_image(bounding_boxes, weights, h, w)
+    center_idx = sample_indices_from_weights(weight_image, uniform)[..., 0]
+    center_row = torch.div(center_idx, w, rounding_mode="floor")
+    center_col = center_idx % w
+    half = biggest_patch // 2
+    center_row = torch.clamp(center_row, half * biggest_stride, h - biggest_stride * (half - 1) - 1)
+    center_col = torch.clamp(center_col, half * biggest_stride, w - biggest_stride * (half - 1) - 1)
+    start_row = _align_start(center_row - half * biggest_stride, biggest_stride)
+    start_col = _align_start(center_col - half * biggest_stride, biggest_stride)
+
+    all_indices = []
+    for stride, p in zip(strides, patch_sizes):
+        offset = biggest_stride // 2 - stride // 2
+        steps = torch.arange(p, device=center_idx.device) * stride
+        rows = (start_row - offset)[..., None, None] + steps[:, None]
+        cols = (start_col - offset)[..., None, None] + steps[None, :]
+        all_indices.append((rows * w + cols).reshape(start_row.shape + (p * p,)))
+    return _gather_samples(ray_directions, observations, torch.cat(all_indices, dim=-1))
+
+
+def split_strided_samples(samples: torch.Tensor, patch_size: int, strides: Sequence[int]) -> List[torch.Tensor]:
+    """Split concatenated strided-patch samples (..., n, F) into per-stride
+    chunks."""
+    out, begin = [], 0
+    for p in strided_patch_sizes(patch_size, strides):
+        out.append(samples[..., begin : begin + p * p, :])
+        begin += p * p
+    return out
+
+
+def samples_to_patch(samples: torch.Tensor) -> torch.Tensor:
+    """(..., p^2, F) -> (..., p, p, F), row-major."""
+    p2, f = samples.shape[-2], samples.shape[-1]
+    p = int(round(p2 ** 0.5))
+    if p * p != p2:
+        raise ValueError(f"sample count {p2} is not a square")
+    return samples.reshape(samples.shape[:-2] + (p, p, f))
+
+
+def crop_region_from_patch_positions(
+    images: torch.Tensor, patch_positions: torch.Tensor, patch_size: int, stride: int
+) -> torch.Tensor:
+    """The pixel region a strided patch covers: it starts stride // 2
+    pixels before the first finest-stride sample and spans patch_size *
+    stride pixels. The start is recovered as JAX does: f32 position times
+    the image side, truncated.
+
+    :param images: (..., H, W, C); patch_positions (..., n, 2) normalized
+        (row, col) of the finest stride's samples.
+    :return: (..., patch_size * stride, patch_size * stride, C).
+    """
+    h, w = images.shape[-3], images.shape[-2]
+    first = patch_positions[..., 0, :]
+    size = patch_size * stride
+    start_row = torch.clamp((first[..., 0] * h).to(torch.int32) - stride // 2, 0, h - size)
+    start_col = torch.clamp((first[..., 1] * w).to(torch.int32) - stride // 2, 0, w - size)
+    steps = torch.arange(size, device=images.device)
+    rows = (start_row.long()[..., None] + steps)[..., :, None]
+    cols = (start_col.long()[..., None] + steps)[..., None, :]
+    flat = (rows * w + cols).reshape(start_row.shape + (size * size,))
+    crops = gather_pixels(images, flat)
+    return crops.reshape(crops.shape[:-2] + (size, size, images.shape[-1]))

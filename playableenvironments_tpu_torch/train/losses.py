@@ -1,9 +1,10 @@
-"""The phase-2 and phase-3 losses.
+"""The phase-1, phase-2 and phase-3 losses.
 
 Port of the phase-2 losses of playableenvironments_tpu/train/losses.py
-(masked means instead of boolean filtering; images in [0, 1]) and of its
-phase-3 losses: the Gaussian KL, the action entropy, the EMA-smoothed
-mutual information, the GAN objectives and ACMV.
+(masked means instead of boolean filtering; images in [0, 1]), the image
+losses of the decoder path and of phase 1 (`image_reconstruction_loss`,
+`spatial_kl_gaussian`) and its phase-3 losses: the Gaussian KL, the action
+entropy, the EMA-smoothed mutual information, the GAN objectives and ACMV.
 """
 
 from __future__ import annotations
@@ -30,6 +31,28 @@ def masked_mean(values: torch.Tensor, mask: Optional[torch.Tensor], eps: float =
 def reconstruction_loss(observations: torch.Tensor, reconstructed: torch.Tensor) -> torch.Tensor:
     """MSE between observations and reconstructions."""
     return torch.mean((observations - reconstructed) ** 2)
+
+
+def radial_weight_mask(height: int, width: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """(H, W) weights: 1 at the centre fading to 0 at the border
+    (Chebyshev distance)."""
+    rows = torch.abs(torch.arange(height, dtype=dtype, device=device) - (height - 1) / 2.0)[:, None]
+    cols = torch.abs(torch.arange(width, dtype=dtype, device=device) - (width - 1) / 2.0)[None, :]
+    distances = torch.maximum(rows, cols)
+    lo, hi = distances.min(), distances.max()
+    return 1.0 - (distances - lo) / (hi - lo)
+
+
+def image_reconstruction_loss(
+    observations: torch.Tensor, reconstructed: torch.Tensor, use_radial_weights: bool = False
+) -> torch.Tensor:
+    """Pixel MSE over (..., H, W, C) images, optionally centre-weighted."""
+    loss = (observations - reconstructed) ** 2
+    if use_radial_weights:
+        h, w = observations.shape[-3], observations.shape[-2]
+        mask = radial_weight_mask(h, w, loss.dtype, loss.device)[..., None]
+        loss = torch.sum(loss * mask, dim=(-3, -2)) / torch.sum(mask, dim=(-3, -2))
+    return loss.mean()
 
 
 def ray_object_distance_loss(
@@ -79,6 +102,18 @@ def kl_gaussian(distribution_parameters: torch.Tensor) -> torch.Tensor:
     """KL(q || N(0, I)) for (..., 2, dim) (mean, log variance) stacks."""
     mean = distribution_parameters[..., 0, :]
     log_variance = distribution_parameters[..., 1, :]
+    kl = 1.0 + log_variance - mean ** 2 - torch.exp(log_variance)
+    return -0.5 * torch.mean(torch.sum(kl, dim=-1))
+
+
+def spatial_kl_gaussian(distribution_parameters: torch.Tensor) -> torch.Tensor:
+    """KL to N(0, I) of spatial latents (..., H, W, 2F): the first half of
+    the channels is the mean, the second the log variance. Computed in f32
+    whatever the latents' dtype."""
+    distribution_parameters = distribution_parameters.to(torch.float32)
+    features = distribution_parameters.shape[-1] // 2
+    mean = distribution_parameters[..., :features]
+    log_variance = distribution_parameters[..., features:]
     kl = 1.0 + log_variance - mean ** 2 - torch.exp(log_variance)
     return -0.5 * torch.mean(torch.sum(kl, dim=-1))
 

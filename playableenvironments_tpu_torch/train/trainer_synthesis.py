@@ -2,10 +2,15 @@
 environment model.
 
 Port of playableenvironments_tpu/train/trainer_synthesis.py on the
-direct-ray path: reconstruction, ray-object distance, displacement
-magnitude, per-dynamic-object opacity and sharpness, attention and
-bounding-box losses, and the logged pose statistics. The divergence loss,
-the consistency passes, the decoder path (`decode_patches`) and
+direct-ray path and on the published configs' decoder path
+(`decode_patches`: one strided patch per image, its rendered features
+decoded by the autoencoder and held against the ground-truth crop of the
+patch's region; the autoencoder's own learning rate, held at 0 for
+`frozen_autoencoder_steps`): reconstruction, ray-object distance (direct
+path only), displacement magnitude, per-dynamic-object opacity and
+sharpness, attention and bounding-box losses, and the logged pose
+statistics. The perceptual weight is read and, as in the JAX trainer,
+applied nowhere. The divergence loss, the consistency passes and
 rematerialization raise NotImplementedError when they are asked for.
 """
 
@@ -18,6 +23,7 @@ import torch
 
 from playableenvironments_tpu_torch.config import ObjectIds
 from playableenvironments_tpu_torch.data.batching import Batch
+from playableenvironments_tpu_torch.render import sampling
 from playableenvironments_tpu_torch.render.environment_model import EnvironmentModel
 from playableenvironments_tpu_torch.train import losses
 from playableenvironments_tpu_torch.train.state import Optimizer
@@ -28,9 +34,9 @@ __all__ = ["LossWeights", "SynthesisTrainingConfig", "SynthesisTrainer", "RNG_ST
 
 @dataclass(frozen=True)
 class LossWeights:
-    """Phase-2 loss weights (`training.loss_weights`). The perceptual,
-    divergence and consistency losses are not ported: a non-zero weight
-    raises."""
+    """Phase-2 loss weights (`training.loss_weights`). `perceptual` is
+    read and not applied, as in the JAX trainer; the divergence and
+    consistency losses are not ported: a non-zero weight raises."""
 
     reconstruction: float = 1.0
     perceptual: float = 0.0
@@ -61,9 +67,13 @@ class SynthesisTrainingConfig:
     patch_size: int = 0
     patch_strides: Tuple[int, ...] = ()
     loss_weights: LossWeights = field(default_factory=LossWeights)
-    # Not ported yet; each raises when set (the decoder path's patch
-    # sampling and autoencoder, rematerialization).
+    # The decoder path: decode the rendered feature patches and hold them
+    # against the ground-truth crop of the patch's region.
     decode_patches: bool = False
+    crop_to_patch: bool = True
+    autoencoder_learning_rate: float = 1e-4
+    frozen_autoencoder_steps: int = 0
+    # Not ported yet; raises when set.
     remat: bool = False
 
 
@@ -72,10 +82,7 @@ class SynthesisTrainer:
 
     def __init__(self, model: EnvironmentModel, cfg: SynthesisTrainingConfig):
         unported = {
-            "decode_patches": cfg.decode_patches,
-            "patch_size": cfg.patch_size,
             "remat": cfg.remat,
-            "perceptual loss": cfg.loss_weights.perceptual,
             "divergence loss": cfg.loss_weights.divergence,
             "pose consistency loss": cfg.loss_weights.pose_consistency,
             "keypoint consistency loss": cfg.loss_weights.keypoint_consistency,
@@ -84,11 +91,23 @@ class SynthesisTrainer:
         for name, value in unported.items():
             if value:
                 raise NotImplementedError(f"{name} is not ported yet")
+        if cfg.decode_patches and cfg.patch_size and not cfg.crop_to_patch:
+            # The decoded output is a patch: it must be compared against the
+            # matching crop, not the whole image.
+            raise ValueError(
+                "decode_patches with patch_size > 0 requires crop_to_patch=True (the decoded patch must be "
+                "compared against the matching GT crop); set training.crop_to_patch or drop patch rendering"
+            )
         self.model = model
         self.cfg = cfg
         self.object_ids = ObjectIds(model.scene)
+        group_rates, freeze = {}, {}
+        if cfg.decode_patches:
+            group_rates["autoencoder"] = cfg.autoencoder_learning_rate
+            freeze["autoencoder"] = cfg.frozen_autoencoder_steps
         self.optimizer = Optimizer(
-            model, cfg.learning_rate, cfg.lr_gamma, cfg.lr_decay_iterations, cfg.weight_decay
+            model, cfg.learning_rate, cfg.lr_gamma, cfg.lr_decay_iterations, cfg.weight_decay,
+            group_learning_rates=group_rates, group_freeze_steps=freeze,
         )
 
     @property
@@ -103,10 +122,12 @@ class SynthesisTrainer:
             *batch.environment_model_args(),
             samples_per_image=self.cfg.samples_per_image,
             perturb=self.cfg.perturb,
+            patch_size=self.cfg.patch_size,
             patch_strides=self.cfg.patch_strides or None,
             shuffle_style=self.cfg.shuffle_style,
             step=step,
             train=True,
+            decode_patches=self.cfg.decode_patches,
             rng=rng,
         )
         static_objects = self.object_ids.static_objects_count
@@ -119,16 +140,31 @@ class SynthesisTrainer:
 
         global_results = results["coarse"]["global"]
         reconstructed = global_results["integrated_features"]
-        rec = losses.reconstruction_loss(sampled_observations, reconstructed)
+        if self.cfg.decode_patches:
+            target = batch.observations
+            if self.cfg.crop_to_patch:
+                finest_positions = sampling.split_strided_samples(
+                    results["positions"], self.cfg.patch_size, self.cfg.patch_strides
+                )[0]
+                target = sampling.crop_region_from_patch_positions(
+                    batch.observations, finest_positions, self.cfg.patch_size, self.cfg.patch_strides[0]
+                )
+            rec = losses.image_reconstruction_loss(target, global_results["reconstructed_observations"])
+        else:
+            rec = losses.reconstruction_loss(sampled_observations, reconstructed)
         disp = global_results["integrated_displacements_magnitude"].mean()
         metrics["coarse_reconstruction_loss"] = rec
         metrics["coarse_displacements_magnitude_loss"] = disp
         metrics["coarse_divergence_loss"] = global_results["integrated_divergence"].mean()
-        rod = losses.ray_object_distance_loss(
-            sampled_observations, reconstructed, results["ray_object_distances"][..., static_objects:]
-        )
-        metrics["coarse_ray_object_distance_loss"] = rod
-        total = w.reconstruction * rec + w.ray_object_distance * rod + w.displacements_magnitude * disp
+        total = w.reconstruction * rec
+        if not self.cfg.decode_patches:
+            # The decoder path renders feature patches, not RGB rays.
+            rod = losses.ray_object_distance_loss(
+                sampled_observations, reconstructed, results["ray_object_distances"][..., static_objects:]
+            )
+            metrics["coarse_ray_object_distance_loss"] = rod
+            total = total + w.ray_object_distance * rod
+        total = total + w.displacements_magnitude * disp
 
         for object_idx in range(static_objects, objects):
             dyn_idx = self.object_ids.dynamic_object_idx_by_object_idx(object_idx)

@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
 """Where the time of one train step goes in the PyTorch port, on one CUDA
-card: the phase-2 synthesis step or the phase-3 action-module G+D step.
+card: the phase-1 VAE step, the phase-2 synthesis step (direct rays or the
+published decoder path) or the phase-3 action-module G+D step.
 
-    python3 scripts/profile_torch_train.py [--phase 2|3] [--steps 4]
+    python3 scripts/profile_torch_train.py [--phase 1|2|3] [--decoder [--config tennis|minecraft]] [--steps 4]
 
 Builds chip_smoke.py's main path of that phase, seeded random weights:
-phase 2, bench.py's step (the tennis model at full width with the bf16
-fused backbone, bs 8 x 4 observations x 144 weighted rays at 288x512,
-Adam); phase 3, bench.py's fused G+D step (bs 16 x 9 observations, 2
-players, dynamics 2 x 256, action network 3 x 128, GAN and ACMV). Warms up
-two steps, then:
+phase 1, bench.py's step (chip_smoke.py 13e: the v8 autoencoder in bf16,
+bs 20 of 288x512, perceptual 0.1 and KL 5e-6, Adam); phase 2, bench.py's
+step (the tennis model at full width with the bf16 fused backbone, bs 8 x
+4 observations x 144 weighted rays at 288x512, Adam), or with `--decoder`
+the config's published decoder path at chip_smoke.py's per-card batch
+(13b / 13c: one strided patch an image decoded by the VAE, the
+autoencoder's frozen rate group); phase 3, bench.py's fused G+D step (bs
+16 x 9 observations, 2 players, dynamics 2 x 256, action network 3 x 128,
+GAN and ACMV). Warms up two steps, then:
 - times the parts of a step with the host clock around a synchronize:
-  phase 2, the forward with the losses, the backward, the optimizer
+  phases 1 and 2, the forward with the losses, the backward, the optimizer
   update; phase 3, the generator's forward with the losses, its backward,
   its Adam update, and the whole discriminator pass;
 - traces whole steps with torch.profiler and prints the device time by
   kernel name and by kind (the B2/B3 or B4/B5 kernels, GEMMs,
   convolutions and batch norm, the rest), the device-busy share of the
   step and the number of device operations.
-Writes the tables to chiprun_out/profile_torch_train.json (phase 2) or
-chiprun_out/profile_torch_train_phase3.json.
+Writes the tables to chiprun_out/profile_torch_train[_phase1|_phase3|
+_decoder_<config>].json.
 """
 
 from __future__ import annotations
@@ -82,13 +87,56 @@ def phase2_step():
     ))
     batch = phase2_batch(torch, 8, 4, 288, 512, "cuda")
     rng = RngStreams(0, "cuda")
+    return (lambda: trainer.train_step(batch, rng)), split_step(trainer, model,
+                                                                lambda: trainer.compute_losses(batch, rng, trainer.step))
+
+
+def decoder_step(config):
+    """(one train step, one step timed in parts) of chip_smoke.py's
+    decoder-path main path of `config` (13b / 13c)."""
+    import torch
+
+    from chip_smoke import DECODER_BATCH, DECODER_IMAGE, DECODER_OBSERVATIONS, decoder_batch, published_phase2_config
+    from playableenvironments_tpu_torch.cli.common import build_environment_model, synthesis_training_config
+    from playableenvironments_tpu_torch.train.trainer_synthesis import SynthesisTrainer
+    from playableenvironments_tpu_torch.utils.random import RngStreams
+
+    cfg = published_phase2_config(REPO, config)
+    model = build_environment_model(cfg, device="cuda", seed=0)
+    trainer = SynthesisTrainer(model, synthesis_training_config(cfg))
+    batch = decoder_batch(torch, config, DECODER_BATCH[config], DECODER_OBSERVATIONS[config], *DECODER_IMAGE, "cuda")
+    rng = RngStreams(0, "cuda")
+    return (lambda: trainer.train_step(batch, rng)), split_step(trainer, trainer.model,
+                                                                lambda: trainer.compute_losses(batch, rng, trainer.step))
+
+
+def phase1_step():
+    """(one train step, one step timed in parts) of chip_smoke.py's phase-1
+    main path (13e)."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import DECODER_IMAGE, PHASE1_BATCH, phase1_trainer
+    from playableenvironments_tpu_torch.utils.random import RngStreams
+
+    trainer = phase1_trainer("v8", "bfloat16", "cuda")
+    images = torch.from_numpy(np.random.default_rng(0).random((PHASE1_BATCH,) + DECODER_IMAGE + (3,),
+                                                               np.float32)).cuda()
+    rng = RngStreams(0, "cuda")
+    return (lambda: trainer.train_step(images, rng)), split_step(trainer, trainer.model,
+                                                                 lambda: trainer.compute_losses(images, rng))
+
+
+def split_step(trainer, model, forward):
+    """One optimizer step timed in parts: `forward()` (the loss first),
+    the backward, the update."""
 
     def parts(torch):
         model.train()
         trainer.optimizer.zero_grad()
         times = []
         _clock(torch, times)
-        loss, _, _ = trainer.compute_losses(batch, rng, trainer.step)
+        loss = forward()[0]
         _clock(torch, times)
         loss.backward()
         _clock(torch, times)
@@ -96,7 +144,7 @@ def phase2_step():
         _clock(torch, times)
         return ("forward_and_losses", "backward", "optimizer"), times
 
-    return (lambda: trainer.train_step(batch, rng)), parts
+    return parts
 
 
 def phase3_step():
@@ -131,9 +179,13 @@ def phase3_step():
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", type=int, choices=(2, 3), default=2)
+    parser.add_argument("--phase", type=int, choices=(1, 2, 3), default=2)
+    parser.add_argument("--decoder", action="store_true", help="phase 2 on the published decoder path")
+    parser.add_argument("--config", choices=("tennis", "minecraft"), default="tennis")
     parser.add_argument("--steps", type=int, default=4)
     args = parser.parse_args()
+    if args.decoder and args.phase != 2:
+        parser.error("--decoder is a phase-2 path")
 
     import torch
 
@@ -141,7 +193,12 @@ def main() -> int:
         print("profile_torch_train: needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    step_fn, parts_fn = phase2_step() if args.phase == 2 else phase3_step()
+    if args.phase == 1:
+        step_fn, parts_fn = phase1_step()
+    elif args.decoder:
+        step_fn, parts_fn = decoder_step(args.config)
+    else:
+        step_fn, parts_fn = phase2_step() if args.phase == 2 else phase3_step()
     for _ in range(2):
         step_fn()
 
@@ -152,7 +209,8 @@ def main() -> int:
                 ("step", times[1][-1] - times[1][0])]:
             parts.setdefault(name, []).append(ms * 1e3)
     medians = {k: statistics.median(v) for k, v in parts.items()}
-    print(f"phase-{args.phase} step parts, median ms (host clock, synchronized):",
+    label = f"phase-{args.phase}" + (f" {args.config} decoder-path" if args.decoder else "")
+    print(f"{label} step parts, median ms (host clock, synchronized):",
           ", ".join(f"{k} {v:.3f}" for k, v in medians.items()))
 
     from torch.profiler import ProfilerActivity, profile
@@ -192,7 +250,8 @@ def main() -> int:
     for r in rows[:30]:
         print(f"  {r['device_ms_per_step']:9.4f} ms {r['calls_per_step']:7.1f}x  {r['name'][:110]}")
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    name = "profile_torch_train.json" if args.phase == 2 else "profile_torch_train_phase3.json"
+    suffix = f"_decoder_{args.config}" if args.decoder else ("" if args.phase == 2 else f"_phase{args.phase}")
+    name = f"profile_torch_train{suffix}.json"
     with open(os.path.join(REPO, "chiprun_out", name), "w") as f:
         json.dump({"parts_ms": parts, "medians_ms": medians, "traced_wall_ms": wall_ms,
                    "device_ms": device_ms, "device_ops": launches, "device_ms_by_kind": kinds,

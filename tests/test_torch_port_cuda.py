@@ -467,3 +467,42 @@ def test_minecraft_frame_group_matches_plain_on_the_card(card):
             scale = max(1.0, r.abs().mean().item())
             diff = (g_ - r).abs() / scale
             assert bool((diff <= 3e-2 + 1e-2 * r.abs() / scale).all()) and diff.mean().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tennis", "minecraft"])
+def test_decoder_path_step_matches_the_cpu(card, name):
+    """One phase-2 decoder-path step of the tiny tennis / Minecraft scene
+    (chip_smoke.py 13a / 13c: 48x64, patch 8, strides (4, 8), the patch
+    centre drawn once on the CPU) on the card against the CPU, at phase 6's
+    bounds; the Minecraft overlap fix masks background samples on both."""
+    sys_path_repo()
+    import chip_smoke
+
+    worst = chip_smoke.phase13_decoder_card_vs_cpu(str(REPO), name, devices=(card.type, "cpu"))
+    assert worst["grads"] > 100
+    assert name == "tennis" or worst["masked_background_samples"] > 0
+
+
+@pytest.mark.cuda
+def test_decoder_path_launches_the_fused_backbone_and_freezes_the_autoencoder(card):
+    """Three steps of configs/tennis.yaml's phase 2 at full width and bs 1 x
+    4 of 288x512 (chip_smoke.py 13b): 4 B2 and 4 B3 launches a step, the
+    autoencoder frozen while the decoder's statistics move."""
+    sys_path_repo()
+    import chip_smoke
+
+    result = chip_smoke.phase13_decoder_main_path(str(REPO), "tennis", batch_size=1, steps=3, device=card)
+    assert result["launches"] == (12, 12) and all(np.isfinite(result["losses"]))
+
+
+@pytest.mark.cuda
+def test_phase1_step_matches_the_cpu(card):
+    """One phase-1 step at the published widths (v8 and v9, f32 and bf16;
+    chip_smoke.py 13d) on the card against the CPU, the posterior noise
+    drawn once on the CPU."""
+    sys_path_repo()
+    import chip_smoke
+
+    results = chip_smoke.phase13_phase1_card_vs_cpu(devices=(card.type, "cpu"))
+    assert set(results) == {"v8_float32", "v8_bfloat16", "v9_float32", "v9_bfloat16"}

@@ -32,6 +32,7 @@ from playableenvironments_tpu.cli.play import InteractiveSession as JaxSession
 from playableenvironments_tpu.data.batching import Batch as JaxBatch
 from playableenvironments_tpu.data.dataset import MulticameraVideoDataset as JaxDataset
 from playableenvironments_tpu.eval import creators as jcreators
+from playableenvironments_tpu.models.autoencoder import MultiresAutoencoder as JaxAutoencoder
 from playableenvironments_tpu.render.environment_model import EnvironmentModel as JaxEnvironmentModel
 from playableenvironments_tpu.render.playable_model import PlayableEnvironmentModel as JaxPlayable
 from playableenvironments_tpu_torch import config as port_config
@@ -173,11 +174,24 @@ def tennis_setup(root):
     jmodel = JaxEnvironmentModel(jscene, focal_length_multiplier=FOCAL_MULTIPLIER)
     encoders = encoder_variables(jmodel, dataset_batch(dataset, 2), seed=1)
     env = without_benders(jax_variables()[0])
-    variables = {kind: {**env[kind], **encoders[kind]} for kind in ("params", "batch_stats")}
+    variables = with_autoencoder_encoder(
+        {kind: {**env[kind], **encoders[kind]} for kind in ("params", "batch_stats")}, jscene)
     model = EnvironmentModel(pscene, FOCAL_MULTIPLIER, device="cpu")
     autoencoder = MultiresAutoencoder(pscene.autoencoder, device="cpu")
     assert load_environment_model(model, variables, autoencoder) == []
     return jmodel, model, autoencoder, variables, dataset
+
+
+def with_autoencoder_encoder(tree, jscene):
+    """`tree`, whose autoencoder holds a decoder only, with an encoder beside
+    it (a jitted init of the whole autoencoder, perturbed): the port's
+    model owns the full autoencoder and loads both halves."""
+    ae = JaxAutoencoder(jscene.autoencoder)
+    init = jax.jit(lambda k: ae.init(k, jnp.zeros((1, 16, 32, 3)), train=False))
+    full = jax.device_get(init(jax.random.PRNGKey(5)))
+    encoder = _perturbed({kind: full[kind]["encoder"] for kind in ("params", "batch_stats")}, np.random.default_rng(6))
+    return {kind: {**tree[kind], "autoencoder": {**tree[kind]["autoencoder"], "encoder": encoder[kind]}}
+            for kind in ("params", "batch_stats")}
 
 
 def dataset_batch(dataset, size):

@@ -186,15 +186,15 @@ def batch(dataset):
 @pytest.fixture(scope="module")
 def variables(batch):
     """The whole environment tree of the tiny scene from jitted JAX inits
-    (composer, object encoders, pose CNN, v9 decoder), perturbed."""
+    (composer, object encoders, pose CNN, the v9 autoencoder's encoder and
+    decoder), perturbed."""
     jscene, _ = scenes()
     jmodel = JaxEnvironmentModel(jscene, focal_length_multiplier=MULTIPLIER)
     key = jax.random.PRNGKey(0)
     init = jax.jit(lambda k, *a: jmodel.init(k, *a, method=init_with_composer))
     tree = jax.device_get(init(key, *jax_batch(batch).environment_model_args()))
     ae = JaxAutoencoder(jscene.autoencoder)
-    levels = [jnp.zeros((1, IMAGE[0] // 4, IMAGE[1] // 4, 8)), jnp.zeros((1, IMAGE[0] // 8, IMAGE[1] // 8, 16))]
-    ae_vars = jax.device_get(jax.jit(lambda k: ae.init(k, levels, False, method=JaxAutoencoder.decode))(key))
+    ae_vars = jax.device_get(jax.jit(lambda k: ae.init(k, jnp.zeros((1,) + IMAGE + (3,)), train=False))(key))
     tree = {kind: {**tree[kind], "autoencoder": ae_vars[kind]} for kind in ("params", "batch_stats")}
     return _perturbed(tree, np.random.default_rng(3))
 
@@ -216,8 +216,9 @@ def frame_args(arrays):
 
 def test_published_minecraft_config_builds_at_full_width():
     """cli/common.py builds configs/minecraft.yaml: the skybox NeRF, the
-    pose CNN, the v9 decoder, two animation models over one player model;
-    the training composer's overlap fix and skybox still raise."""
+    pose CNN, the v9 autoencoder, two animation models over one player
+    model, and its phase-1 and phase-2 trainer configurations (the decoder
+    path at patch 48 on the autoencoder's strides)."""
     cfg = common.load_yaml(str(REPO / "configs" / "minecraft.yaml"))
     model = common.build_environment_model(cfg, device="cpu")
     scene = model.scene
@@ -225,14 +226,17 @@ def test_published_minecraft_config_builds_at_full_width():
     assert model.composer.object_model(1).nerf.backbone_0.in_features == 126  # PE(origin, direction)
     assert isinstance(model.parameters_encoder_2, ObjectParametersEncoderV4)
     assert [n for n, _ in model.named_children()] == [
-        "composer", "object_encoder_0", "object_encoder_1", "object_encoder_2", "parameters_encoder_2"]
+        "composer", "object_encoder_0", "object_encoder_1", "object_encoder_2", "parameters_encoder_2", "autoencoder"]
     decoder = MultiresAutoencoder(scene.autoencoder, device="cpu").decoder
     assert scene.autoencoder.variant == "v9" and not any("mid_res" in n for n, _ in decoder.named_children())
     playable = PlayableEnvironmentModel(scene, device="cpu")
     assert playable.animation_indexes == (0, 1)
     assert common.playable_training_config(cfg).loss_weights.gan == 0.0
-    with pytest.raises(NotImplementedError, match="overlap"):
-        model.composer(*[None] * 7)
+    phase2 = common.synthesis_training_config(cfg)
+    assert (phase2.decode_patches, phase2.patch_size, phase2.patch_strides) == (True, 48, (4, 8))
+    assert (phase2.autoencoder_learning_rate, phase2.frozen_autoencoder_steps) == (1e-4, 1000)
+    phase1 = common.autoencoder_training_config(cfg)
+    assert (phase1.perceptual_lambda, phase1.kl_lambda) == (0.01, 5e-6)
 
 
 @pytest.mark.parametrize("train", [False, True])

@@ -213,30 +213,39 @@ def test_parameters_and_running_statistics_after_the_step_match_jax(port_run):
 
 def test_unported_options_raise():
     """Nothing falls back: each option of the phase-2 path that is not
-    ported raises where it is asked for."""
+    ported raises where it is asked for. The decoder path (patch sampling
+    and `decode_patches`), the training composer's overlap fix and the
+    phase-2 perceptual weight (read and applied nowhere, as in the JAX
+    trainer) are ported: they build and run (held against JAX by
+    tests/test_torch_port_decoder.py and test_torch_port_minecraft_train.py)."""
     scene = to_port(fused_scene())
-    # The learned pose encoder is ported (tests/test_torch_port_minecraft.py);
-    # the training composer's Minecraft overlap fix is not.
+    # The learned pose encoder is ported (tests/test_torch_port_minecraft.py).
     learned = dataclasses.replace(scene, parameter_encoders=(
         scene.parameter_encoders[0], dataclasses.replace(scene.parameter_encoders[1], kind="learned_v4")))
     assert hasattr(EnvironmentModel(learned, device="cpu"), "parameters_encoder_1")
+    batch = Batch(**{k: torch.from_numpy(v) for k, v in batch_arrays().items()})
     overlapping = EnvironmentModel(dataclasses.replace(scene, fix_object_overlaps=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="fix_object_overlaps"):
-        overlapping.forward_from_observations(
-            *Batch(**{k: torch.from_numpy(v) for k, v in batch_arrays().items()}).environment_model_args(),
-            samples_per_image=0, patch_strides=STRIDES)
+    out = overlapping.forward_from_observations(*batch.environment_model_args(), samples_per_image=0,
+                                                patch_strides=STRIDES)
+    assert bool(torch.isfinite(out["coarse"]["global"]["integrated_features"]).all())
     with pytest.raises(NotImplementedError, match="camera offsets"):
         EnvironmentModel(scene, enable_camera_offsets=True, device="cpu")
     model = EnvironmentModel(scene, device="cpu")
-    for changes in (dict(decode_patches=True), dict(patch_size=8), dict(remat=True),
+    for changes in (dict(remat=True),
                     dict(loss_weights=trainer_synthesis.LossWeights(divergence=0.1)),
-                    dict(loss_weights=trainer_synthesis.LossWeights(perceptual=0.1)),
-                    dict(loss_weights=trainer_synthesis.LossWeights(pose_consistency=0.1))):
+                    dict(loss_weights=trainer_synthesis.LossWeights(pose_consistency=0.1)),
+                    dict(loss_weights=trainer_synthesis.LossWeights(keypoint_consistency=0.1))):
         with pytest.raises(NotImplementedError):
             trainer_synthesis.SynthesisTrainer(model, trainer_synthesis.SynthesisTrainingConfig(**changes))
-    batch = Batch(**{k: torch.from_numpy(v) for k, v in batch_arrays().items()})
-    with pytest.raises(NotImplementedError, match="decode_patches"):
-        model.forward_from_observations(*batch.environment_model_args(), samples_per_image=4, decode_patches=True)
+    for changes in (dict(decode_patches=True, patch_size=8, patch_strides=STRIDES), dict(patch_size=8),
+                    dict(loss_weights=trainer_synthesis.LossWeights(perceptual=0.1))):
+        trainer_synthesis.SynthesisTrainer(model, trainer_synthesis.SynthesisTrainingConfig(**changes))
+    with pytest.raises(ValueError, match="crop_to_patch"):
+        trainer_synthesis.SynthesisTrainer(model, trainer_synthesis.SynthesisTrainingConfig(
+            decode_patches=True, patch_size=8, patch_strides=STRIDES, crop_to_patch=False))
+    with pytest.raises(ValueError, match="decode_patches requires"):  # the scene has no autoencoder
+        model.forward_from_observations(*batch.environment_model_args(), samples_per_image=4, patch_size=8,
+                                        patch_strides=STRIDES, decode_patches=True)
     with pytest.raises(NotImplementedError, match="compute_divergence"):
         model.forward_from_observations(*batch.environment_model_args(), samples_per_image=0, patch_strides=STRIDES,
                                         compute_divergence=True)
