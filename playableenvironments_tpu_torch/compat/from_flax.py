@@ -55,7 +55,7 @@ def load_flax_tree(module: nn.Module, params: Mapping, batch_stats: Optional[Map
                     f"{key!r} needs {tuple(state[key].shape)}"
                 )
             loaded[key] = tensor
-    missing = [k for k in state if k not in loaded and not k.endswith("num_batches_tracked")]
+    missing = [k for k in state if k not in loaded]
     if missing:
         raise KeyError(f"no flax leaf for {missing}")
     state.update(loaded)
@@ -77,16 +77,14 @@ def load_environment(composer, autoencoder, variables: Mapping) -> None:
         )
 
 
-def load_environment_model(model, variables: Mapping, autoencoder=None) -> list:
+def load_environment_model(model, variables: Mapping) -> list:
     """EnvironmentModel variables -> render.environment_model.EnvironmentModel:
     `composer` (AdaIN and skybox NeRFs, benders), every `object_encoder_i`,
     every `parameters_encoder_i` (the learned pose CNNs) and, where the
     model has one, the full `autoencoder` (encoder and decoder), params and
-    batch_stats, strictly; with `autoencoder` (a separate
-    MultiresAutoencoder, such as the play session's) also its decoder from
-    the `autoencoder` subtree. Subtrees left unread (camera offsets, the
-    autoencoder of a tree whose model has none and no separate one given)
-    are named in the returned list; any other top-level subtree raises.
+    batch_stats, strictly. Subtrees left unread (camera offsets, the
+    autoencoder of a tree whose model has none) are named in the returned
+    list; any other top-level subtree raises.
 
     :return: sorted names of the skipped subtrees.
     """
@@ -103,12 +101,7 @@ def load_environment_model(model, variables: Mapping, autoencoder=None) -> list:
         raise KeyError(f"no flax subtree for {sorted(missing)}")
     for name in sorted(expected):
         load_flax_tree(getattr(model, name), params[name], stats.get(name))
-    skipped = set(params) & skippable - expected
-    if autoencoder is not None:
-        load_flax_tree(autoencoder.decoder, params["autoencoder"]["decoder"],
-                       stats.get("autoencoder", {}).get("decoder"))
-        skipped.discard("autoencoder")
-    return sorted(skipped)
+    return sorted(set(params) & skippable - expected)
 
 
 def _spectral_norm_stats(stats: Mapping) -> dict:

@@ -11,24 +11,21 @@ lowering is a TPU matter); f32 convolutions follow
 torch.backends.cudnn.allow_tf32, which this module never sets.
 
 `compute_dtype` bfloat16 runs the convolutions in bf16 (parameters stay
-f32) and carries bf16 activations between them; batch norm takes its
-statistics in f32 and rounds only its normalized output, as flax's
-`BatchNorm(dtype=...)` does. Train mode normalizes with flax's batch
-statistics (E[x^2] - E[x]^2, clipped at 0) and updates the running ones with
-that biased variance at momentum 0.99; eval mode with f32 computes exactly
-what torch's BatchNorm2d computes (the play path's numbers).
+f32) and carries bf16 activations between them; batch norm is
+models/layers.py's flax one, which takes its statistics in f32 and rounds
+only its normalized output, as flax's `BatchNorm(dtype=...)` does.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from playableenvironments_tpu_torch.config import AutoencoderConfig
-from playableenvironments_tpu_torch.models.layers import _update_running, initialize_
+from playableenvironments_tpu_torch.models.layers import BatchNorm, initialize_
 from playableenvironments_tpu_torch.ops.padding import reflect_pad_hw
 from playableenvironments_tpu_torch.utils.device import resolve_device
 
@@ -65,31 +62,6 @@ def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return F.conv2d(x.to(dtype), layer.weight.to(dtype), bias)
 
 
-class FlaxBatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm2d's parameters and buffers under flax's semantics (module
-    docstring); the output is in `dtype`."""
-
-    def __init__(self, features: int, device=None):
-        super().__init__(features, momentum=None, device=device)
-        self.flax_momentum = 0.99
-
-    def forward(self, x: torch.Tensor, train: bool = False, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        if not train and x.dtype == torch.float32 and dtype == torch.float32:
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
-        xf = x.to(torch.float32)
-        if train:
-            dims = (0, 2, 3)
-            mean = xf.mean(dim=dims)
-            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
-            _update_running(self.running_mean, mean, self.flax_momentum)
-            _update_running(self.running_var, var, self.flax_momentum)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-        return y.to(dtype)
-
-
 class CycleGanResnetBlock(nn.Module):
     """[reflect-pad conv3x3 BN ReLU] x2 (second without ReLU), with a 1x1
     conv + BN projection on the skip when widths differ."""
@@ -97,12 +69,12 @@ class CycleGanResnetBlock(nn.Module):
     def __init__(self, in_features: int, out_features: int, device=None):
         super().__init__()
         self.conv1 = nn.Conv2d(in_features, out_features, 3, bias=False, device=device)
-        self.bn1 = FlaxBatchNorm2d(out_features, device=device)
+        self.bn1 = BatchNorm(out_features, device=device)
         self.conv2 = nn.Conv2d(out_features, out_features, 3, bias=False, device=device)
-        self.bn2 = FlaxBatchNorm2d(out_features, device=device)
+        self.bn2 = BatchNorm(out_features, device=device)
         if in_features != out_features:
             self.skip_conv = nn.Conv2d(in_features, out_features, 1, bias=False, device=device)
-            self.skip_bn = FlaxBatchNorm2d(out_features, device=device)
+            self.skip_bn = BatchNorm(out_features, device=device)
 
     def forward(self, x: torch.Tensor, train: bool = False, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         y = conv(self.conv1, reflect_pad_hw(x.to(dtype), 1), dtype)
@@ -129,13 +101,13 @@ class MultiresEncoder(nn.Module):
         counts = cfg.downsampling_layers_count
         initial = cfg.bottleneck_features // (2 ** sum(counts))
         self.initial_conv = nn.Conv2d(cfg.input_features, initial, 7, bias=False, device=device)
-        self.initial_bn = FlaxBatchNorm2d(initial, device=device)
+        self.initial_bn = BatchNorm(initial, device=device)
         channels, cumulative = initial, 0
         for set_idx, downs in enumerate(counts):
             for i in range(downs):
                 out = initial * 2 ** (cumulative + 1)
                 self.add_module(f"down_{set_idx}_{i}", nn.Conv2d(channels, out, 3, bias=False, device=device))
-                self.add_module(f"down_bn_{set_idx}_{i}", FlaxBatchNorm2d(out, device=device))
+                self.add_module(f"down_bn_{set_idx}_{i}", BatchNorm(out, device=device))
                 channels, cumulative = out, cumulative + 1
                 if self._mid_res(downs, i):
                     for b in range(cfg.bottleneck_blocks):
@@ -205,7 +177,7 @@ class MultiresDecoder(nn.Module):
                     f"up_{set_idx}_{i}",
                     nn.Conv2d(channels, initial * mult // 2, 3, bias=False, device=device),
                 )
-                self.add_module(f"up_bn_{set_idx}_{i}", FlaxBatchNorm2d(initial * mult // 2, device=device))
+                self.add_module(f"up_bn_{set_idx}_{i}", BatchNorm(initial * mult // 2, device=device))
                 mult //= 2
                 channels = initial * mult
                 if self._mid_res(downs, i):

@@ -126,7 +126,9 @@ class AffineTransformAdaIn(nn.Module):
 
 class BatchNorm(nn.Module):
     """flax nn.BatchNorm over NCHW channels: E[x^2] - E[x]^2 variance
-    (clipped at 0), epsilon 1e-5, momentum 0.99, scale and bias."""
+    (clipped at 0), epsilon 1e-5, momentum 0.99, scale and bias. As flax's
+    `BatchNorm(dtype=...)`, the statistics and the normalization are taken
+    in f32 and only the output is rounded to `dtype`."""
 
     def __init__(self, features: int, momentum: float = 0.99, epsilon: float = 1e-5, device=None):
         super().__init__()
@@ -137,7 +139,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features, device=device))
         self.register_buffer("running_var", torch.ones(features, device=device))
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        x = x.to(torch.float32)
         if train:
             dims = (0, 2, 3)
             mean = x.mean(dim=dims)
@@ -147,7 +150,7 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.epsilon) * self.weight
-        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return ((x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]).to(dtype)
 
 
 def gumbel_softmax(rng, logits: torch.Tensor, temperature: float = 1.0, hard: bool = True) -> torch.Tensor:
@@ -226,8 +229,6 @@ def initialize_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.weight.copy_(w / math.sqrt(fan_in))
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
-                m.reset_parameters()
             elif isinstance(m, BatchNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()

@@ -474,8 +474,9 @@ def test_minecraft_frame_group_matches_plain_on_the_card(card):
 def test_decoder_path_step_matches_the_cpu(card, name):
     """One phase-2 decoder-path step of the tiny tennis / Minecraft scene
     (chip_smoke.py 13a / 13c: 48x64, patch 8, strides (4, 8), the patch
-    centre drawn once on the CPU) on the card against the CPU, at phase 6's
-    bounds; the Minecraft overlap fix masks background samples on both."""
+    centre drawn once on the CPU) on the card against the CPU, with
+    full-precision convolutions, at chip_smoke.py's TOLERANCES_13; the
+    Minecraft overlap fix masks background samples on both."""
     sys_path_repo()
     import chip_smoke
 
@@ -500,7 +501,8 @@ def test_decoder_path_launches_the_fused_backbone_and_freezes_the_autoencoder(ca
 def test_phase1_step_matches_the_cpu(card):
     """One phase-1 step at the published widths (v8 and v9, f32 and bf16;
     chip_smoke.py 13d) on the card against the CPU, the posterior noise
-    drawn once on the CPU."""
+    drawn once on the CPU, at chip_smoke.py's TOLERANCES_13 (a bf16 step
+    also against the same step in f32)."""
     sys_path_repo()
     import chip_smoke
 

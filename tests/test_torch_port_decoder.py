@@ -191,7 +191,7 @@ def test_decoder_train_mode_matches_jax(dtype):
     expected = MultiresAutoencoder(port_config.AutoencoderConfig(**AE), device="cpu")
     load_autoencoder(expected, {"params": grads, "batch_stats": stats})
     buffers = [(name, buffer.numpy(), expected.decoder.get_buffer(name).numpy())
-               for name, buffer in model.decoder.named_buffers() if not name.endswith("num_batches_tracked")]
+               for name, buffer in model.decoder.named_buffers()]
     if dtype == "float32":
         np.testing.assert_allclose(out.detach().numpy(), ref, rtol=1e-5, atol=1e-5)
         for got, want in zip(inputs, level_grads):
@@ -349,8 +349,6 @@ def check_synthesis_step(port_model, got, ref, before, learning_rate, moment_sla
     ref_state = port_model(jafter).state_dict()
     start = port_model(before).state_dict()
     for name, value in state.items():
-        if name.endswith("num_batches_tracked"):
-            continue
         ref_value = ref_state[name]
         if name in grads:
             diff = (value - ref_value).abs()
@@ -453,6 +451,5 @@ def test_decode_rendered_patches_matches_jax():
     load_autoencoder(expected.autoencoder, {"params": variables["params"],
                                             "batch_stats": mutated["batch_stats"]["autoencoder"]})
     for name, buffer in model.autoencoder.decoder.named_buffers():
-        if not name.endswith("num_batches_tracked"):
-            np.testing.assert_allclose(buffer.numpy(), expected.autoencoder.decoder.get_buffer(name).numpy(),
-                                       rtol=1e-5, atol=1e-6, err_msg=name)
+        np.testing.assert_allclose(buffer.numpy(), expected.autoencoder.decoder.get_buffer(name).numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)

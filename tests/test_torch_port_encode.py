@@ -43,7 +43,6 @@ from playableenvironments_tpu_torch.data import synthetic
 from playableenvironments_tpu_torch.data.dataset import MulticameraVideoDataset
 from playableenvironments_tpu_torch.data.video import MulticameraVideo, PoseParametersNumpy, Video
 from playableenvironments_tpu_torch.eval.creators import FrameRenderer, ReconstructedDatasetCreator
-from playableenvironments_tpu_torch.models.autoencoder import MultiresAutoencoder
 from playableenvironments_tpu_torch.render.environment_model import EnvironmentModel
 from test_torch_port_play import ACTIONS, FOCAL_MULTIPLIER, IMAGE, STRIDES, _perturbed, jax_variables
 from test_torch_port_play import port_modules as play_modules
@@ -177,9 +176,8 @@ def tennis_setup(root):
     variables = with_autoencoder_encoder(
         {kind: {**env[kind], **encoders[kind]} for kind in ("params", "batch_stats")}, jscene)
     model = EnvironmentModel(pscene, FOCAL_MULTIPLIER, device="cpu")
-    autoencoder = MultiresAutoencoder(pscene.autoencoder, device="cpu")
-    assert load_environment_model(model, variables, autoencoder) == []
-    return jmodel, model, autoencoder, variables, dataset
+    assert load_environment_model(model, variables) == []
+    return jmodel, model, model.autoencoder, variables, dataset
 
 
 def with_autoencoder_encoder(tree, jscene):

@@ -202,9 +202,8 @@ def variables(batch):
 def port_environment(variables, **kwargs):
     _, pscene = scenes(**kwargs)
     model = EnvironmentModel(pscene, MULTIPLIER, device="cpu")
-    autoencoder = MultiresAutoencoder(pscene.autoencoder, device="cpu")
-    assert load_environment_model(model, variables, autoencoder) == []
-    return model, autoencoder
+    assert load_environment_model(model, variables) == []
+    return model, model.autoencoder
 
 
 def frame_args(arrays):

@@ -94,9 +94,8 @@ def test_encoder_train_mode_matches_jax(variant, downsampling):
     expected = MultiresAutoencoder(port_config.AutoencoderConfig(**kwargs), device="cpu")
     load_autoencoder(expected, {"params": variables["params"], "batch_stats": mutated["batch_stats"]})
     for name, buffer in model.encoder.named_buffers():
-        if not name.endswith("num_batches_tracked"):
-            np.testing.assert_allclose(buffer.numpy(), expected.encoder.get_buffer(name).numpy(), rtol=1e-5,
-                                       atol=1e-6, err_msg=name)
+        np.testing.assert_allclose(buffer.numpy(), expected.encoder.get_buffer(name).numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
@@ -239,8 +238,6 @@ def test_phase1_step_matches_jax():
     state, ref = model.state_dict(), port_autoencoder(jafter).state_dict()
     start = port_autoencoder(before).state_dict()
     for name, value in state.items():
-        if name.endswith("num_batches_tracked"):
-            continue
         if name in grads:
             diff, grad = (value - ref[name]).abs(), ref_grads[name].abs()
             clear = grad > max(1e-3 * grad.max().item(), 2 * atol[name])
