@@ -9,7 +9,8 @@ Minecraft, phase 1).
 
 Phases, each fatal on failure:
 1. build the port's CUDA kernels (csrc/fused_nerf.cu, csrc/fused_backbone.cu,
-   csrc/fused_rollout.cu), one nvcc per source, started together;
+   csrc/fused_backbone_f32.cu, csrc/fused_rollout.cu), one nvcc per source,
+   started together;
 2. hold the B1 kernel against its plain PyTorch version for each of the
    tennis frame's four objects alone and for the frame as one grouped
    launch, and time each, the plain version, a library yardstick (the same
@@ -90,9 +91,24 @@ Phases, each fatal on failure:
    step at the published widths, v8 and v9, f32 and bf16, card vs CPU on
    the same noise (a bf16 step also against the same step in f32); (e)
    bench.py's phase-1 step (bs 20 x 288x512, bf16, VGG19 perceptual 0.1,
-   KL 5e-6) for 6 steps. Each path prints its median step and peak memory.
-`python3 chip_smoke.py --phase 12` (or `--phase 13`) builds the kernels and
-runs that phase alone (no kernels line, no contract line).
+   KL 5e-6) for 6 steps. Each path prints its median step and peak memory;
+14. phase 2 with the reference's options (use_fine with separate fine
+   fields, the divergence loss, per-frame camera offsets at their own
+   rate, remat): (a) B2/B3 for f32 operands (csrc/fused_backbone_f32.cu)
+   against their plain versions at the direct-ray shapes, a ragged launch
+   and 14c's fine-pass launch, B3 twice (bit-identical), timed beside the
+   f32 torch.matmul chain and the FP32 bound; (b) one tiny decoder-path
+   step with every option on, card vs CPU on the CPU's draws in
+   full-precision convolutions, then the card's step without remat
+   against it; (c) configs/tennis.yaml's phase 2 at full width with every
+   option on and the fused backbone at the YAML's f32 (B2-f32 and B3-f32
+   launches a step counted, the recompute's included), median step and
+   peak; (d) remat's peaks and steps on 13b's path at bs 2 x 4 off and
+   on, the largest batch under 70 GB with it, phase 1 at bs 20 off and on;
+   (e) a use_fine model's frames through the composer-based path
+   (FrameRenderer(use_fast=False)): 48x64 card vs CPU and 512x288 timed.
+`python3 chip_smoke.py --phase 12` (or `--phase 13`, `--phase 14`) builds
+the kernels and runs that phase alone (no kernels line, no contract line).
 Details go to chiprun_out/chip_smoke.json. Prints one JSON line of kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX.
 """
@@ -100,6 +116,7 @@ last line {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -355,12 +372,13 @@ def backbone_work(cfg, pe: int, points: int):
     return fwd_flops, fwd_bytes, 3 * fwd_flops, bwd_bytes
 
 
-def library_backbone(torch, cfg, bf, encoded):
-    """The backbone + alpha head as a chain of bf16 torch.matmul calls over
-    bf16 weights `bf` (requiring grad): the yardstick `library_ms` of B2,
-    and its torch.autograd backward that of B3. Timed only; the port never
-    calls it."""
-    enc = encoded.to(torch.bfloat16)
+def library_backbone(torch, cfg, bf, encoded, dtype=None):
+    """The backbone + alpha head as a chain of torch.matmul calls over the
+    weights `bf` (requiring grad) in `dtype` (default bf16): the yardstick
+    `library_ms` of B2, and its torch.autograd backward that of B3 (f32
+    for the f32 kernels of phase 14, which PyTorch runs without TF32 by
+    default). Timed only; the port never calls it."""
+    enc = encoded.to(dtype or torch.bfloat16)
     h = enc
     for i in range(cfg.backbone_layers_count):
         if i == cfg.skip_layer_idx:
@@ -383,11 +401,12 @@ def check_close(name, got, ref, atol, rtol, mean_atol):
     return diff.max().item(), diff.mean().item()
 
 
-def phase5_inputs(points: int, seed: int = 2):
+def phase5_inputs(points: int, seed: int = 2, compute_dtype: str = "bfloat16", device="cuda"):
     """(cfg, packed weights, encodings, g_h, g_alpha) on the card for one
-    B2/B3 launch at the tennis widths: seeded random weights (biases
-    non-zero, so that no ReLU input is exactly 0), PE of random points in
-    [-1, 1], random cotangents."""
+    B2/B3 launch at the tennis widths (bf16 operands, or f32 ones for the
+    kernels of phase 14): seeded random weights (biases non-zero, so that
+    no ReLU input is exactly 0), PE of random points in [-1, 1], random
+    cotangents."""
     import torch
 
     from playableenvironments_tpu_torch.config import NerfMLPConfig, PositionalEncoderConfig
@@ -396,17 +415,17 @@ def phase5_inputs(points: int, seed: int = 2):
     from playableenvironments_tpu_torch.models.nerf import AdaInNerfMLP
 
     cfg = NerfMLPConfig(layers_width=256, backbone_layers_count=8, output_features=3, skip_layer_idx=4,
-                        position_encoder=PositionalEncoderConfig(octaves=10), compute_dtype="bfloat16",
+                        position_encoder=PositionalEncoderConfig(octaves=10), compute_dtype=compute_dtype,
                         use_fused_backbone=True)
     generator = torch.Generator().manual_seed(seed)
-    nerf = initialize_(AdaInNerfMLP(cfg, 64, device="cuda"), generator)
+    nerf = initialize_(AdaInNerfMLP(cfg, 64, device=device), generator)
     with torch.no_grad():
         for i in range(cfg.backbone_layers_count):
             getattr(nerf, f"backbone_{i}").bias.copy_(torch.randn(256, generator=generator) * 0.1)
     packed = {k: v.detach().contiguous() for k, v in nerf.backbone_params().items()}
-    encoded = positional_encoding(torch.rand(points, 3, generator=generator) * 2.0 - 1.0, 10, True).cuda()
-    g_h = (torch.randn(points, 256, generator=generator) * 1e-3).cuda()
-    g_alpha = (torch.randn(points, generator=generator) * 1e-3).cuda()
+    encoded = positional_encoding(torch.rand(points, 3, generator=generator) * 2.0 - 1.0, 10, True).to(device)
+    g_h = (torch.randn(points, 256, generator=generator) * 1e-3).to(device)
+    g_alpha = (torch.randn(points, generator=generator) * 1e-3).to(device)
     return cfg, packed, encoded, g_h, g_alpha
 
 
@@ -981,6 +1000,10 @@ class RecordedStreams:
         self.draws.append(self.streams.uniform(stream, shape))
         return self.draws[-1]
 
+    def permutation(self, stream, n):
+        self.draws.append(self.streams.permutation(stream, n))
+        return self.draws[-1]
+
 
 class ReplayedStreams:
     def __init__(self, draws, device):
@@ -996,6 +1019,9 @@ class ReplayedStreams:
         return self._next(shape)
 
     gumbel = uniform = normal
+
+    def permutation(self, stream, n):
+        return self._next((n,))
 
 
 def _fused_step_outputs(trainer, encoding, rng):
@@ -2682,6 +2708,523 @@ def phase13(repo):
     return results
 
 
+# ---- 14. phase 2 with the reference's options ---------------------------------
+
+# 14a: B2/B3 for f32 operands at the direct-ray phase-2 shapes (the four
+# launches of one step are two of each), a ragged launch of two backward
+# chunks, and the fine pass's largest launch of 14c. Each output is held to
+# F32_KERNEL_REL of its largest magnitude and F32_KERNEL_MEAN of it in the
+# mean; both sides sum exact f32 products in other orders.
+PHASE14_SHAPES = (("background", 4608 * 4), ("player", 4608 * 32))
+PHASE14_RAGGED = 70_001
+# Measured on an H100 (700 W): up to 4.3e-6 of an output's largest, 1.7e-6
+# in the mean (the ragged launch's d_encoded).
+F32_KERNEL_REL, F32_KERNEL_MEAN = 2e-5, 5e-6
+# 14b: the tiny tennis decoder scene with every option on; 14c: tennis.yaml
+# at full width with them, at PHASE14_BATCH x 4 for PHASE14_STEPS steps: bs
+# 1 x 4 peaks at 43.12 GB on an H100, nearly all of it activations that
+# grow with the batch (14c prints the share and bs 2's projection).
+PHASE14_DIVERGENCE = 0.1
+PHASE14_CAMERA_RATE = 1e-4
+PHASE14_CAMERA_MEMORY = 64
+PHASE14_BATCH, PHASE14_OBSERVATIONS, PHASE14_STEPS = 1, 4, 3
+# 14b's bounds, the arguments of _card_cpu_checks (as TOLERANCES_13):
+# card vs CPU, and the card's step with remat vs without.
+# Measured on an H100 (700 W): card vs CPU, gradients within 3.4e-4 of
+# their model's largest, norms 1.6e-3, the statistics 1.5e-5; the card's
+# step without remat against it, 2.6e-6, 8.0e-6 and 0. The bounds sit 2.5-8
+# times above these.
+TOLERANCES_14 = {
+    "options": dict(loss_rtol=1e-5, stats_tol=1e-4, grad_tol=1e-3, norm_tol=4e-3, cosine=0.9999),
+    "remat": dict(loss_rtol=1e-6, stats_tol=1e-6, grad_tol=2e-5, norm_tol=5e-5, cosine=0.99999),
+}
+# 14d: remat's memory on 13b's path and phase 1's; batches tried with remat.
+REMAT_STEPS = 3
+REMAT_BATCHES = (2, 3, 4)
+MEMORY_LIMIT = 70e9
+# 14e: a use_fine model's frames through the composer-based path.
+PHASE14_FRAME_TILE = 8192
+
+
+def options_config(repo, tiny):
+    """configs/tennis.yaml (the tiny cut of tiny_published_config, or full
+    width at the YAML's f32 with the fused backbone) with every option this
+    slice ports: use_fine on every object model at the YAML's (or the
+    tiny cut's coarse) fine counts, separate fine fields, the divergence
+    loss, per-frame camera offsets at their own nonzero rate, remat."""
+    from playableenvironments_tpu_torch.cli.common import load_yaml
+
+    cfg = tiny_published_config(repo, "tennis") if tiny else load_yaml(os.path.join(repo, "configs", "tennis.yaml"))
+    model = cfg["model"]
+    for block in model["object_models"]:
+        block["use_fine"] = True
+        if tiny:
+            block["positions_count_fine"] = block["positions_count_coarse"]
+        else:
+            block["nerf_model"]["use_fused_backbone"] = True
+    model.update(separate_fine=True, enable_camera_parameters_offsets=True,
+                 camera_parameters_memory_size=PHASE14_CAMERA_MEMORY)
+    training = cfg["training"]
+    training["loss_weights"]["divergence_loss_lambda"] = PHASE14_DIVERGENCE
+    training.update(camera_parameters_learning_rate=PHASE14_CAMERA_RATE, remat=True)
+    return cfg
+
+
+def options_batch(torch, bs, obs, height, width, device):
+    """phase2_batch with distinct frame indexes, so that several rows of
+    the camera table take part."""
+    batch = phase2_batch(torch, bs, obs, height, width, "cpu")
+    frames = torch.arange(bs * obs, dtype=torch.int32).reshape(bs, obs) % PHASE14_CAMERA_MEMORY
+    return dataclasses.replace(batch, global_frame_indexes=frames, video_frame_indexes=frames).to(device)
+
+
+def phase14_backbone_f32_kernels(fine_points, device="cuda"):
+    """14a: B2/B3 for f32 operands against plain_backbone_fwd/bwd at the
+    direct-ray shapes, the ragged launch and `fine_points` (14c's fine
+    pass, every row held); B3 twice, bit-identical; times of the wrapper
+    calls, the kernels alone, the plain versions, the f32 torch.matmul chain
+    (forward) and its autograd (backward) and the bounds at the card's
+    FP32 peak."""
+    import torch
+
+    from playableenvironments_tpu_torch.ops import fused_nerf
+
+    rows = []
+    shapes = PHASE14_SHAPES + (("ragged", PHASE14_RAGGED), ("fine", fine_points))
+    for index, (name, points) in enumerate(shapes):
+        cfg, packed, encoded, g_h, g_alpha = phase5_inputs(points, seed=40 + index, compute_dtype="float32",
+                                                           device=device)
+        f32 = {k: v.clone().requires_grad_() for k, v in packed.items()}
+        pe = encoded.shape[1]
+        worst, worst_mean = 0.0, 0.0
+        with torch.no_grad():
+            h, alpha = fused_nerf.fused_backbone_fwd(cfg, packed, encoded)
+            ref_h, ref_alpha = fused_nerf.plain_backbone_fwd(cfg, packed, encoded)
+            outputs = [("h", h, ref_h), ("alpha", alpha, ref_alpha)]
+            for key, got, ref in outputs:
+                scale = ref.abs().max().item()
+                err, mean = check_close(f"B2-f32 {name} {key}", got, ref, F32_KERNEL_REL * scale, 0.0,
+                                        F32_KERNEL_MEAN * scale)
+                worst, worst_mean = max(worst, err / scale), max(worst_mean, mean / scale)
+            fwd_err = (worst, worst_mean)
+            del h, alpha, ref_h, ref_alpha, outputs
+            grads, d_enc = fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+            again, d_enc_again = fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+            if not (torch.equal(d_enc, d_enc_again) and all(torch.equal(grads[k], again[k]) for k in grads)):
+                raise SmokeFailure(f"B3-f32 {name}: two launches on the same inputs differ")
+            del again, d_enc_again
+            ref_grads, ref_d_enc = fused_nerf.plain_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+            worst, worst_mean = 0.0, 0.0
+            for key, got, ref in [("d_encoded", d_enc, ref_d_enc)] + [(k, grads[k], ref_grads[k]) for k in ref_grads]:
+                scale = ref.abs().max().item()
+                err, mean = check_close(f"B3-f32 {name} {key}", got, ref, F32_KERNEL_REL * scale, 0.0,
+                                        F32_KERNEL_MEAN * scale)
+                worst, worst_mean = max(worst, err / scale), max(worst_mean, mean / scale)
+            bwd_err = (worst, worst_mean)
+            del grads, d_enc, ref_grads, ref_d_enc
+        row = {"object": name, "points": points, "fwd_max_rel_err": fwd_err[0], "fwd_mean_rel_err": fwd_err[1],
+               "bwd_max_rel_err": bwd_err[0], "bwd_mean_rel_err": bwd_err[1]}
+        if name != "ragged":
+            reps = 3 if name == "fine" else 10
+            with torch.no_grad():
+                buffers = fused_nerf.kernel_buffers(cfg, packed)
+                ms = cuda_ms(lambda: fused_nerf.fused_backbone_fwd(cfg, packed, encoded), warmup=1, reps=reps)
+                kernel_ms = cuda_ms(lambda: fused_nerf.fused_backbone_fwd(cfg, packed, encoded, buffers), warmup=1,
+                                    reps=reps)
+                plain_ms = cuda_ms(lambda: fused_nerf.plain_backbone_fwd(cfg, packed, encoded), warmup=1, reps=reps)
+                library_ms = cuda_ms(lambda: library_backbone(torch, cfg, f32, encoded, torch.float32), warmup=1,
+                                     reps=reps)
+                bwd_ms = cuda_ms(lambda: fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha),
+                                 warmup=1, reps=reps)
+                bwd_kernel_ms = cuda_ms(lambda: fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha,
+                                                                              buffers), warmup=1, reps=reps)
+                bwd_plain_ms = cuda_ms(lambda: fused_nerf.plain_backbone_bwd(cfg, packed, encoded, g_h, g_alpha),
+                                       warmup=1, reps=reps)
+            lib_h, lib_alpha = library_backbone(torch, cfg, f32, encoded, torch.float32)
+            bwd_library_ms = cuda_ms(lambda: torch.autograd.backward([lib_h, lib_alpha], [g_h, g_alpha],
+                                                                     retain_graph=True), warmup=1, reps=reps)
+            del lib_h, lib_alpha
+            fwd_flops, fwd_bytes, bwd_flops, bwd_bytes = backbone_work(cfg, pe, points)
+            row.update(
+                ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bwd_ms=bwd_ms,
+                bwd_kernel_ms=bwd_kernel_ms, bwd_plain_ms=bwd_plain_ms, bwd_library_ms=bwd_library_ms,
+                bound_ms=max(fwd_flops / PEAK_F32_FLOPS, fwd_bytes / PEAK_BYTES_PER_S) * 1e3,
+                bound_by="operations" if fwd_flops / PEAK_F32_FLOPS > fwd_bytes / PEAK_BYTES_PER_S else "bytes",
+                bwd_bound_ms=max(bwd_flops / PEAK_F32_FLOPS, bwd_bytes / PEAK_BYTES_PER_S) * 1e3,
+                bwd_bound_by="operations" if bwd_flops / PEAK_F32_FLOPS > bwd_bytes / PEAK_BYTES_PER_S else "bytes",
+                fwd_gflop=fwd_flops / 1e9, fwd_mbytes=fwd_bytes / 1e6, bwd_gflop=bwd_flops / 1e9,
+                bwd_mbytes=bwd_bytes / 1e6)
+            print(f"14a B2-f32 {name} ({points} points): call {ms:.4f} ms, kernel {kernel_ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, f32 torch.matmul chain {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}), {fwd_flops / kernel_ms / 1e9:.1f} TFLOP/s; B3-f32 call {bwd_ms:.4f} ms, "
+                  f"kernels {bwd_kernel_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, chain autograd "
+                  f"{bwd_library_ms:.4f} ms, bound {row['bwd_bound_ms']:.4f} ms, "
+                  f"{bwd_flops / bwd_kernel_ms / 1e9:.1f} TFLOP/s")
+        print(f"14a {name} ({points} points): B2-f32 max err {fwd_err[0]:.3e}, mean {fwd_err[1]:.3e}; B3-f32 "
+              f"bit-identical twice, max err {bwd_err[0]:.3e}, mean {bwd_err[1]:.3e} (of each output's largest; "
+              f"bounds {F32_KERNEL_REL}, {F32_KERNEL_MEAN})")
+        rows.append(row)
+        del encoded, g_h, g_alpha, f32, packed
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _options_step(trainer, batch, rng, remat):
+    import torch
+
+    trainer.cfg = dataclasses.replace(trainer.cfg, remat=remat)
+    return _synthesis_step(torch, trainer, batch, rng)
+
+
+def phase14_options_card_vs_cpu(repo, devices=("cuda", "cpu")):
+    """14b: one decoder-path step of the tiny tennis scene with every
+    option on (options_config), card vs CPU inside ieee_convolutions, the
+    draws made once on the CPU (perturbation and the style shuffle on);
+    then the same step on the card without remat, held against the card's
+    step with it."""
+    import torch
+
+    from playableenvironments_tpu_torch.cli.common import build_environment_model, synthesis_training_config
+    from playableenvironments_tpu_torch.train.trainer_synthesis import SynthesisTrainer
+
+    cfg = options_config(repo, tiny=True)
+    train_cfg = dataclasses.replace(synthesis_training_config(cfg), patch_size=TINY_PATCH, frozen_autoencoder_steps=0)
+    bs, obs = TINY_BATCH
+    outputs, recorded = [], RecordedStreams(15)
+    for i, device in enumerate(reversed(devices)):  # the CPU first: it draws
+        model = build_environment_model(cfg, device=device, seed=5)
+        batch = options_batch(torch, bs, obs, *TINY_IMAGE, device)
+        rng = recorded if i == 0 else ReplayedStreams(recorded.draws, device)
+        with ieee_convolutions(device):
+            outputs.append(_options_step(SynthesisTrainer(model, train_cfg), batch, rng, True))
+    host, card = outputs
+    worst = _card_cpu_checks("14b options step", card, host, train_cfg.learning_rate, **TOLERANCES_14["options"])
+    model = build_environment_model(cfg, device=devices[0], seed=5)
+    batch = options_batch(torch, bs, obs, *TINY_IMAGE, devices[0])
+    with ieee_convolutions(devices[0]):
+        loss, metrics, grads, state = _options_step(SynthesisTrainer(model, train_cfg), batch,
+                                                    ReplayedStreams(recorded.draws, devices[0]), False)
+    to_host = lambda tree: {k: v.cpu() for k, v in tree.items()}  # noqa: E731
+    plain = (loss.cpu(), to_host(metrics), to_host(grads), to_host(state))
+    remat = _card_cpu_checks("14b remat vs plain on the card", card, plain, train_cfg.learning_rate,
+                             **TOLERANCES_14["remat"])
+    fine = sorted({n.split(".")[1] for n in card[2] if ".object_model_fine_" in n})
+    print(f"14b options step card vs CPU ({bs} x {obs} obs, {TINY_IMAGE[0]}x{TINY_IMAGE[1]}, patch {TINY_PATCH}, "
+          f"use_fine with separate fields {fine}, divergence {PHASE14_DIVERGENCE}, camera offsets at "
+          f"{PHASE14_CAMERA_RATE}, remat): loss {worst['loss']:.6f} vs {worst['ref_loss']:.6f}; "
+          f"{_describe_checks(worst)}")
+    print(f"14b the same step on the card without remat: loss {remat['ref_loss']:.6f} vs {remat['loss']:.6f} with; "
+          f"{_describe_checks(remat)}")
+    return {"card_vs_cpu": worst, "remat_vs_plain": remat}
+
+
+def _moved(state, before, names):
+    import torch
+
+    return sum(not torch.equal(state[n], before[n]) for n in names), len(names)
+
+
+def phase14_main_path(repo, batch_size=PHASE14_BATCH, steps=PHASE14_STEPS, device="cuda"):
+    """14c: tennis.yaml's phase 2 at full width through
+    synthesis_training_config and build_environment_model with every
+    option on (options_config: use_fine with separate fields at the YAML's
+    fine counts, the fused backbone at the YAML's f32, divergence, camera
+    offsets, remat), random 288x512 frames: finite losses, the coarse and
+    fine fields, the bender and the camera table moved, the autoencoder
+    frozen, B2-f32 and B3-f32 launches a step counted from 0; the median
+    step and the peak memory."""
+    import statistics as stats_lib
+
+    import torch
+
+    from playableenvironments_tpu_torch.cli.common import build_environment_model, synthesis_training_config
+    from playableenvironments_tpu_torch.ops import fused_nerf
+    from playableenvironments_tpu_torch.train.trainer_synthesis import SynthesisTrainer
+    from playableenvironments_tpu_torch.utils.random import RngStreams
+
+    cfg = options_config(repo, tiny=False)
+    model = build_environment_model(cfg, device=device, seed=0)
+    train_cfg = synthesis_training_config(cfg)
+    if not (train_cfg.decode_patches and train_cfg.remat and train_cfg.camera_parameters_learning_rate > 0
+            and train_cfg.loss_weights.divergence > 0):
+        raise SmokeFailure(f"14c: the options are not all on: {train_cfg}")
+    trainer = SynthesisTrainer(model, train_cfg)
+    batch = options_batch(torch, batch_size, PHASE14_OBSERVATIONS, *DECODER_IMAGE, device)
+    rng = RngStreams(0, device)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # What does not grow with the batch: the weights, their copy above and
+    # Adam's two moments.
+    fixed = torch.cuda.memory_allocated() + 2 * sum(p.numel() * p.element_size() for p in model.parameters())
+    counters = (fused_nerf.backbone_f32_fwd, fused_nerf.backbone_f32_bwd, fused_nerf.fused_backbone_fwd,
+                fused_nerf.fused_backbone_bwd)
+    for counter in counters:
+        counter.launches = 0
+    step_ms, losses = [], []
+    for _ in range(steps):
+        start = time.perf_counter()
+        metrics = trainer.train_step(batch, rng)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - start) * 1e3)
+        losses.append({k: v.item() for k, v in metrics.items()})
+    launches = tuple(counter.launches for counter in counters)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for m in losses for v in m.values()):
+        raise SmokeFailure(f"14c losses {losses}")
+    state, params = model.state_dict(), dict(model.named_parameters())
+    if not all(bool(torch.isfinite(p).all()) for p in params.values()):
+        raise SmokeFailure(f"14c: a parameter is not finite after {steps} steps")
+    groups = {
+        "coarse_fields": [n for n in params if n.startswith("composer.object_model_") and "_fine_" not in n
+                          and ".ray_bender." not in n],
+        "fine_fields": [n for n in params if n.startswith("composer.object_model_fine_")],
+        "benders": [n for n in params if ".ray_bender." in n],
+        "camera_offsets": ["camera_offsets.storage"],
+        "autoencoder": [n for n in params if n.startswith("autoencoder.")],
+    }
+    moved = {k: _moved(state, before, v) for k, v in groups.items()}
+    if not (all(moved[k][0] >= 0.5 * moved[k][1] > 0 for k in ("coarse_fields", "fine_fields", "benders"))
+            and moved["camera_offsets"] == (1, 1) and moved["autoencoder"][0] == 0):
+        raise SmokeFailure(f"14c: moved (of) {moved}")
+    objects = fused_launches_a_step(model.scene)
+    # A step: every AdaIN object's coarse and fine pass, each NeRF's forward
+    # once more in its rematerialized region's recompute, one backward each.
+    expected = (4 * objects * steps, 2 * objects * steps, 0, 0)
+    if launches != expected:
+        raise SmokeFailure(f"14c: launches (B2-f32, B3-f32, B2, B3) {launches} in {steps} steps, expected {expected}")
+    median = stats_lib.median(step_ms[1:])
+    rays = sum(p * p for p in _patch_sizes(train_cfg))
+    fine_points = batch_size * PHASE14_OBSERVATIONS * rays * max(
+        o.positions_count_coarse + o.positions_count_fine for o in model.scene.object_models)
+    print(f"14c tennis.yaml phase 2 with every option (bs {batch_size} x {PHASE14_OBSERVATIONS} obs, "
+          f"{DECODER_IMAGE[0]}x{DECODER_IMAGE[1]}, patch {train_cfg.patch_size}, use_fine at the YAML's fine counts "
+          f"with separate fields, f32 fused backbone, divergence {PHASE14_DIVERGENCE}, camera offsets at "
+          f"{PHASE14_CAMERA_RATE}, remat): {steps} steps, B2-f32 {launches[0]} and B3-f32 {launches[1]} launches "
+          f"({launches[0] // steps} and {launches[1] // steps} a step, the recompute's included), bf16 B2/B3 "
+          f"{launches[2]}/{launches[3]}; median step {median:.3f} ms over steps 2-{steps}; all steps ms "
+          f"{[round(t, 3) for t in step_ms]}; losses {[round(m['loss'], 6) for m in losses]}; moved (of): {moved}; "
+          f"the fine pass's largest launch {fine_points} points; peak memory {peak / 2**30:.3f} GiB "
+          f"({peak / 1e9:.2f} GB), of which {fixed / 1e9:.2f} GB do not grow with the batch: bs "
+          f"{batch_size + 1} x {PHASE14_OBSERVATIONS} projects to "
+          f"{(fixed + (peak - fixed) * (batch_size + 1) / batch_size) / 1e9:.2f} GB")
+    return {"batch": batch_size, "observations": PHASE14_OBSERVATIONS, "launches": launches, "step_ms": step_ms,
+            "median_step_ms": median, "losses": losses, "peak_memory_bytes": peak, "fixed_memory_bytes": fixed,
+            "moved": moved, "fine_launch_points": fine_points, "model": model}
+
+
+def _decoder_path_peak(repo, batch_size, steps, remat, device="cuda"):
+    """13b's tennis decoder path (bench.py's bf16 overrides) with `remat`
+    on or off: (median step ms from step 2, peak bytes)."""
+    import statistics as stats_lib
+
+    import torch
+
+    from playableenvironments_tpu_torch.cli.common import build_environment_model, synthesis_training_config
+    from playableenvironments_tpu_torch.train.trainer_synthesis import SynthesisTrainer
+    from playableenvironments_tpu_torch.utils.random import RngStreams
+
+    cfg = published_phase2_config(repo, "tennis")
+    model = build_environment_model(cfg, device=device, seed=0)
+    trainer = SynthesisTrainer(model, dataclasses.replace(synthesis_training_config(cfg), remat=remat))
+    batch = decoder_batch(torch, "tennis", batch_size, DECODER_OBSERVATIONS["tennis"], *DECODER_IMAGE, device)
+    rng = RngStreams(0, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(steps):
+        start = time.perf_counter()
+        metrics = trainer.train_step(batch, rng)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - start) * 1e3)
+        if not math.isfinite(metrics["loss"].item()):
+            raise SmokeFailure(f"14d decoder path bs {batch_size} remat {remat}: loss {metrics['loss'].item()}")
+    peak = torch.cuda.max_memory_allocated()
+    del model, trainer, batch
+    torch.cuda.empty_cache()
+    return stats_lib.median(step_ms[1:]), peak
+
+
+def _phase1_peak(batch_size, steps, remat, device="cuda"):
+    import statistics as stats_lib
+
+    import numpy as np
+    import torch
+
+    from playableenvironments_tpu_torch.utils.random import RngStreams
+
+    trainer = phase1_trainer("v8", "bfloat16", device)
+    trainer.cfg = dataclasses.replace(trainer.cfg, remat=remat)
+    images = torch.from_numpy(np.random.default_rng(0).random((batch_size,) + DECODER_IMAGE + (3,), np.float32)).to(
+        device)
+    rng = RngStreams(0, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(steps):
+        start = time.perf_counter()
+        metrics = trainer.train_step(images, rng)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - start) * 1e3)
+        if not all(math.isfinite(v.item()) for v in metrics.values()):
+            raise SmokeFailure(f"14d phase 1 remat {remat}: metrics {metrics}")
+    peak = torch.cuda.max_memory_allocated()
+    del trainer, images
+    torch.cuda.empty_cache()
+    return stats_lib.median(step_ms[1:]), peak
+
+
+def phase14_remat_memory(repo):
+    """14d: remat's memory and time on 13b's tennis decoder path (options
+    off) at bs 2 x 4 off and on, then the largest of REMAT_BATCHES whose
+    peak with remat, projected from bs 1 and 2 and then measured, stays
+    under 70 GB; phase 1 at bs 20 off and on."""
+    out = {}
+    for remat in (False, True):
+        out[f"decoder_bs2_remat_{remat}"] = _decoder_path_peak(repo, 2, REMAT_STEPS, remat)
+    bs1 = _decoder_path_peak(repo, 1, 2, True)
+    per_image = out["decoder_bs2_remat_True"][1] - bs1[1]
+    fits = [bs for bs in REMAT_BATCHES if bs1[1] + (bs - 1) * per_image < MEMORY_LIMIT]
+    largest = max(fits) if fits else None
+    if largest and largest > 2:
+        out[f"decoder_bs{largest}_remat_True"] = _decoder_path_peak(repo, largest, REMAT_STEPS, True)
+    measured = {bs: out[f"decoder_bs{bs}_remat_True"][1] for bs in REMAT_BATCHES if f"decoder_bs{bs}_remat_True" in out}
+    under = [bs for bs, peak in measured.items() if peak < MEMORY_LIMIT]
+    out["decoder_largest_batch_with_remat"] = max(under) if under else None
+    for remat in (False, True):
+        out[f"phase1_bs{PHASE1_BATCH}_remat_{remat}"] = _phase1_peak(PHASE1_BATCH, REMAT_STEPS, remat)
+    text = "; ".join(f"{k}: median step {v[0]:.3f} ms, peak {v[1] / 1e9:.2f} GB" for k, v in out.items()
+                     if isinstance(v, tuple))
+    print(f"14d remat's memory: {text}; decoder path bs 1 with remat peaks at {bs1[1] / 1e9:.2f} GB, "
+          f"{per_image / 1e9:.2f} GB more an image of 4 observations; the largest per-card batch under "
+          f"{MEMORY_LIMIT / 1e9:.0f} GB with remat: {out['decoder_largest_batch_with_remat']} x 4 "
+          f"(the published 8 x 4 projects to {(bs1[1] + 7 * per_image) / 1e9:.2f} GB)")
+    out["decoder_bs1_remat_True"] = bs1
+    out["projected_bs8_remat_bytes"] = bs1[1] + 7 * per_image
+    return out
+
+
+def phase14_frames(repo, model=None, devices=("cuda", "cpu")):
+    """14e: a use_fine model's frames through render_frame_from_scene_encoding
+    and decode_rendered_grids (FrameRenderer(use_fast=False)): the tiny
+    options scene at 48x64 card vs CPU in full-precision convolutions, then
+    `model` (14c's, at full width) at 512x288 in tiles of
+    PHASE14_FRAME_TILE rays, timed, with its peak memory and B2-f32
+    launches."""
+    import numpy as np
+    import torch
+
+    from playableenvironments_tpu_torch.cli.common import build_environment_model
+    from playableenvironments_tpu_torch.eval.creators import FrameRenderer
+    from playableenvironments_tpu_torch.models.autoencoder import autoencoder_strides
+    from playableenvironments_tpu_torch.ops import fused_nerf
+    from playableenvironments_tpu_torch.scene.encoding import SceneEncoding
+
+    def encoding_for(scene, device):
+        generator = torch.Generator().manual_seed(16)
+        objects = len(scene.object_models)
+        style = scene.object_models[0].style_features
+        deformation = scene.object_models[0].deformation_features
+        translations = torch.zeros(1, 1, objects, 3)
+        translations[..., 2:, 0] = torch.tensor([-2.0, 2.0])[: objects - 2]
+        translations[..., 2:, 1] = torch.tensor([-5.0, -10.0])[: objects - 2]
+        return SceneEncoding(
+            torch.tensor([[[[-0.65, 0.0, 0.0]]]]), torch.tensor([[[[0.0, 18.0, 10.0]]]]), torch.full((1, 1, 1), 600.0),
+            torch.zeros(1, 1, objects, 3), translations, torch.randn(1, 1, objects, style, generator=generator) * 0.1,
+            torch.randn(1, 1, objects, deformation, generator=generator) * 0.1, torch.ones(1, 1, objects, dtype=torch.bool),
+        ).map(lambda x: x.to(device))
+
+    cfg = options_config(repo, tiny=True)
+    frames = []
+    for device in reversed(devices):
+        tiny = build_environment_model(cfg, device=device, seed=5).eval()
+        strides = autoencoder_strides(tiny.scene.autoencoder)
+        renderer = FrameRenderer(tiny, tiny.autoencoder, TINY_IMAGE, strides, ray_tile=100, use_fast=False)
+        with ieee_convolutions(device):
+            frames.append(renderer.render(encoding_for(tiny.scene, device)).cpu())
+    err = (frames[1] - frames[0]).abs().max().item()
+    if not (frames[0].shape == (1, 1, 1) + TINY_IMAGE + (3,) and err <= FRAME_ATOL):
+        raise SmokeFailure(f"14e use_fine frame {tuple(frames[0].shape)}: card vs CPU err {err:.3e}")
+    out = {"small_frame_max_abs_err": err}
+    if model is not None:
+        model.eval()
+        strides = autoencoder_strides(model.scene.autoencoder)
+        renderer = FrameRenderer(model, model.autoencoder, DECODER_IMAGE, strides, ray_tile=PHASE14_FRAME_TILE,
+                                 use_fast=False)
+        encoding = encoding_for(model.scene, devices[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_nerf.backbone_f32_fwd.launches = 0
+        times = []
+        for _ in range(3):
+            start = time.perf_counter()
+            frame = renderer.render(encoding)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+        launches = fused_nerf.backbone_f32_fwd.launches
+        frame = frame.cpu().numpy()
+        if not (frame.shape == (1, 1, 1) + DECODER_IMAGE + (3,) and np.isfinite(frame).all()):
+            raise SmokeFailure(f"14e full frame {frame.shape} not finite")
+        out.update(frame_ms=times, frame_median_ms=statistics.median(times[1:]),
+                   frame_peak_memory_bytes=torch.cuda.max_memory_allocated(), frame_launches=launches)
+        print(f"14e use_fine frame 48x64 card vs CPU (composer path, ray tiles of 100): max abs err {err:.3e} "
+              f"(tolerance {FRAME_ATOL}); 512x288 at full width (f32 fused backbone, tiles of {PHASE14_FRAME_TILE} "
+              f"rays): {[round(t, 3) for t in times]} ms, median {out['frame_median_ms']:.3f} ms after the first, "
+              f"{launches} B2-f32 launches in 3 frames, peak memory {out['frame_peak_memory_bytes'] / 1e9:.2f} GB")
+    return out
+
+
+def phase14(repo):
+    """14a-14e (module docstring). 14c runs first: its fine pass sets
+    14a's largest launch; 14a then runs while the card holds nothing
+    else."""
+    import torch
+
+    results = {"options_card_vs_cpu": phase14_options_card_vs_cpu(repo)}
+    main = phase14_main_path(repo)
+    model = main.pop("model")
+    results["main_path"] = main
+    results["frames"] = phase14_frames(repo, model)
+    del model
+    torch.cuda.empty_cache()
+    results["kernels"] = phase14_backbone_f32_kernels(main["fine_launch_points"])
+    results["remat_memory"] = phase14_remat_memory(repo)
+    return results
+
+
+def backbone_f32_entries(phase14_results):
+    """The kernels line's entries of B2/B3 for f32 operands (phase 14): ms,
+    plain, library and bound of one direct-ray step's four launches (two of
+    each 14a direct-ray shape), launches on 14c's main path (the remat
+    recompute's included) and on 14e's frames; the fine pass's largest
+    launch apart."""
+    k14 = {r["object"]: r for r in phase14_results["kernels"]}
+    main14 = phase14_results["main_path"]
+    entries = []
+    for which, prefix, replaces in (("fwd", "", "playableenvironments_tpu/ops/fused_nerf.py:375"),
+                                    ("bwd", "bwd_", "playableenvironments_tpu/ops/fused_nerf.py:404")):
+        step = [k14[name] for name, _ in PHASE14_SHAPES]
+        total = {key: 2 * sum(r[f"{prefix}{key}"] for r in step) for key in ("ms", "plain_ms", "library_ms",
+                                                                               "bound_ms")}
+        flops = sum(r[f"{which}_gflop"] for r in step) / PEAK_F32_FLOPS
+        moved = sum(r[f"{which}_mbytes"] for r in step) * 1e-3 / PEAK_BYTES_PER_S
+        fine = k14["fine"]
+        launches = main14["launches"][0 if which == "fwd" else 1]
+        by_path = {"options_phase2": launches}
+        if which == "fwd":
+            by_path["use_fine_frames"] = phase14_results["frames"]["frame_launches"]
+        entries.append({
+            "name": f"backbone_f32_{which}", "route": "cuda",
+            "source": "playableenvironments_tpu_torch/csrc/fused_backbone_f32.cu", "replaces": replaces,
+            "launches": launches, "max_abs_err": max(r[f"{which}_max_rel_err"] for r in k14.values()),
+            **total, "bound_by": "operations" if flops > moved else "bytes", "launches_by_path": by_path,
+            "kernel_ms": 2 * sum(r[f"{prefix}kernel_ms"] for r in step),
+            "main_path_launch": {"points": fine["points"], **{key: fine[f"{prefix}{key}"] for key in (
+                "ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}},
+        })
+    return entries
+
+
 def ptxas_entries(report: str) -> dict:
     """{kernel entry (mangled): {"registers", "spill_stores", "spill_loads",
     "smem"}} from nvcc -Xptxas -v output."""
@@ -2851,7 +3394,7 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     done("1")
-    alone = {"12": phase12_minecraft, "13": phase13}
+    alone = {"12": phase12_minecraft, "13": phase13, "14": phase14}
     if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in alone:
         try:
             result = alone[sys.argv[2]](repo)
@@ -2965,6 +3508,8 @@ def main() -> int:
         done("12")
         phase13_results = phase13(repo)
         done("13")
+        phase14_results = phase14(repo)
+        done("14")
     except SmokeFailure as e:
         return fail(str(e))
 
@@ -3041,8 +3586,9 @@ def main() -> int:
         }
         entry["decoder_path_launch"] = {k: row[k] for k in ("points", "ms", "plain_ms", "library_ms", "bound_ms",
                                                             "bound_by", "max_abs_err")}
+    kernels += backbone_f32_entries(phase14_results)
     p11 = phase11["phase3"]
-    for entry, which in zip(kernels[3:], (0, 1)):
+    for entry, which in zip(kernels[3:5], (0, 1)):
         entry["launches_by_path"] = {"phase3": phase3["launches"][which], "phase3_cache": p11["cache_launches"][which],
                                      "phase3_batch": p11["batch_launches"][which],
                                      "minecraft_phase3_cache": phase12["phase3"]["launches"][which]}
@@ -3056,7 +3602,7 @@ def main() -> int:
                    "backbone_fwd_shapes": fwd_rows, "backbone_bwd_shapes": bwd_rows,
                    "train_card_vs_cpu": card_vs_cpu, "phase2": phase2, "rollout_shapes": rollout_rows,
                    "phase3_card_vs_cpu": phase3_card_vs_cpu, "phase3": phase3, "phase11": phase11, "phase12": phase12,
-                   "phase13": phase13_results,
+                   "phase13": phase13_results, "phase14": phase14_results,
                    "kernels": kernels,
                    "phase_seconds": phase_seconds, "ptxas": reports}, f, indent=1)
     print(f"phase seconds: {phase_seconds}")
@@ -3075,7 +3621,10 @@ def main() -> int:
           "grouped launch of 3 objects (phase 12a; plain, library and bound summed over them) and "
           "`minecraft_batch4` the creator's batch of 4; fused_backbone_fwd/bwd's `decoder_path_launch` is one launch "
           "at the phase-2 decoder path's largest shape (B2) and at 1,048,613 points (B3), phase 13; "
-          "fused_rollout bounds use the f32 peak "
+          "backbone_f32_fwd/bwd are fused_backbone_fwd/bwd's kernels for f32 operands (phase 14): their ms, "
+          "plain, library (the f32 torch.matmul chain and its autograd) and bound sum one direct-ray step's four "
+          "launches, `main_path_launch` is the fine pass's largest launch of 14c; "
+          "fused_rollout and backbone_f32 bounds use the f32 peak "
           f"({PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s), the others the bf16 one ({PEAK_BF16_FLOPS / 1e12:.0f})")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -53,14 +53,18 @@ def build_environment_model(cfg: Dict[str, Any], device="cuda", seed: int = 0):
     """render.environment_model.EnvironmentModel of `cfg["model"]` on
     `device` with seeded weights (compat.from_flax loads trained ones).
     Per-frame camera offsets (`model.enable_camera_parameters_offsets`)
-    raise NotImplementedError there."""
+    get a table of `model.camera_parameters_memory_size` frames and one
+    column per camera of `training.batching.allowed_cameras`."""
     from playableenvironments_tpu_torch.render.environment_model import EnvironmentModel
 
     scene = config_lib.scene_from_dict(cfg["model"], cfg.get("playable_model"))
+    training_cameras = cfg.get("training", {}).get("batching", {}).get("allowed_cameras")
     return EnvironmentModel(
         scene,
         focal_length_multiplier=float(cfg.get("data", {}).get("focal_length_multiplier", 1.0)),
         enable_camera_offsets=bool(cfg.get("model", {}).get("enable_camera_parameters_offsets", False)),
+        camera_memory_size=int(cfg.get("model", {}).get("camera_parameters_memory_size", 1)),
+        training_cameras_count=len(training_cameras) if training_cameras else 1,
         device=device,
         seed=seed,
     )
@@ -165,6 +169,7 @@ def synthesis_training_config(cfg: Dict[str, Any]):
         crop_to_patch=bool(t.get("crop_to_patch", True)),
         autoencoder_learning_rate=float(t.get("autoencoder_learning_rate", 1e-4)),
         frozen_autoencoder_steps=int(t.get("frozen_autoencoder_steps", 0)),
+        camera_parameters_learning_rate=float(t.get("camera_parameters_learning_rate", 0.0)),
         remat=bool(t.get("remat", False)),
     )
 

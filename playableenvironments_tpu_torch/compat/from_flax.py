@@ -79,19 +79,22 @@ def load_environment(composer, autoencoder, variables: Mapping) -> None:
 
 def load_environment_model(model, variables: Mapping) -> list:
     """EnvironmentModel variables -> render.environment_model.EnvironmentModel:
-    `composer` (AdaIN and skybox NeRFs, benders), every `object_encoder_i`,
-    every `parameters_encoder_i` (the learned pose CNNs) and, where the
-    model has one, the full `autoencoder` (encoder and decoder), params and
-    batch_stats, strictly. Subtrees left unread (camera offsets, the
-    autoencoder of a tree whose model has none) are named in the returned
-    list; any other top-level subtree raises.
+    `composer` (AdaIN and skybox NeRFs, benders, the separate fine fields
+    `object_model_fine_i`), every `object_encoder_i`, every
+    `parameters_encoder_i` (the learned pose CNNs) and, where the model has
+    them, the full `autoencoder` (encoder and decoder) and the per-frame
+    `camera_offsets` table, params and batch_stats, strictly. Subtrees the
+    model has no counterpart for (camera offsets, the autoencoder) are left
+    unread and named in the returned list; any other top-level subtree
+    raises.
 
     :return: sorted names of the skipped subtrees.
     """
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     expected = {"composer"} | {n for n, _ in model.named_children()
-                               if n.startswith(("object_encoder_", "parameters_encoder_")) or n == "autoencoder"}
+                               if n.startswith(("object_encoder_", "parameters_encoder_"))
+                               or n in ("autoencoder", "camera_offsets")}
     skippable = {"autoencoder", "camera_offsets"}
     unknown = set(params) - expected - skippable
     if unknown:

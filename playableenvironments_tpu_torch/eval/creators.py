@@ -3,8 +3,10 @@ into a mirrored on-disk dataset for offline metric computation.
 
 Port of playableenvironments_tpu/eval/creators.py's full-frame path:
 `FrameRenderer` (scene encoding in eval mode, then render.fast's frame
-render with the decoder) and the plain `ReconstructedDatasetCreator`. The
-camera-manipulation and playability creators are not ported yet.
+render with the decoder, or with `use_fast=False` the composer-based frame
+path, which also takes `use_fine` models) and the plain
+`ReconstructedDatasetCreator`. The camera-manipulation and playability
+creators are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from playableenvironments_tpu_torch.data.dataset import MulticameraVideoDataset
 from playableenvironments_tpu_torch.data.video import Video, _save_image
+from playableenvironments_tpu_torch.render import sampling
 from playableenvironments_tpu_torch.render.fast import render_frame_fast
 from playableenvironments_tpu_torch.scene.encoding import SceneEncoding
 
@@ -40,15 +43,24 @@ class FrameRenderer:
     """The creators' full-frame path: scene encoding -> strided-grid render
     -> decoder, on the device the environment model lies on."""
 
-    def __init__(self, model, autoencoder, image_size, patch_strides: Optional[Sequence[int]] = None):
+    def __init__(self, model, autoencoder, image_size, patch_strides: Optional[Sequence[int]] = None,
+                 ray_tile: int = 0, use_fast: bool = True):
         """:param model: render.environment_model.EnvironmentModel (the
         composer and object encoders). :param autoencoder:
         models.autoencoder.MultiresAutoencoder or None. :param image_size:
-        (height, width) of the rendered frames."""
+        (height, width) of the rendered frames.
+        :param use_fast: render.fast's frame render (the B1 kernel); False
+            takes EnvironmentModel.render_frame_from_scene_encoding in tiles
+            of `ray_tile` rays and decode_rendered_grids, which decode with
+            the model's own autoencoder. As the JAX renderer, that path
+            returns the coarse pass's frames even when the scene has a fine
+            one."""
         self.model = model
         self.autoencoder = autoencoder
         self.image_size = tuple(image_size)
         self.patch_strides = list(patch_strides) if patch_strides else None
+        self.ray_tile = ray_tile
+        self.use_fast = use_fast
         self.device = next(model.parameters()).device
 
     @torch.no_grad()
@@ -63,10 +75,34 @@ class FrameRenderer:
 
     def render(self, encoding: SceneEncoding) -> torch.Tensor:
         """:return: (B, T, C, H, W, 3) frames in [0, 1]."""
-        return render_frame_fast(
-            self.model.scene, self.model.composer, self.autoencoder, encoding, self.image_size,
-            patch_strides=self.patch_strides, focal_length_multiplier=self.model.focal_length_multiplier,
-        )
+        if self.use_fast:
+            return render_frame_fast(
+                self.model.scene, self.model.composer, self.autoencoder, encoding, self.image_size,
+                patch_strides=self.patch_strides, focal_length_multiplier=self.model.focal_length_multiplier,
+            )
+        return self._render_composed(encoding)
+
+    @torch.no_grad()
+    def _render_composed(self, encoding: SceneEncoding) -> torch.Tensor:
+        out = self.model.render_frame_from_scene_encoding(encoding, self.image_size, self.patch_strides,
+                                                          self.ray_tile, train=False)
+        height, width = self.image_size
+        if self.autoencoder is not None and self.patch_strides:
+            out = self.model.decode_rendered_grids(out, self.image_size, train=False)
+            frames = out["coarse"]["global"]["reconstructed_observations"]
+        else:
+            features = out["coarse"]["global"]["integrated_features"]
+            if self.patch_strides:
+                features = sampling.split_strided_grid_samples(features, self.patch_strides, self.image_size)[0]
+                lead = features.shape[:-3]
+                flat = features.reshape((-1,) + features.shape[-3:]).permute(0, 3, 1, 2)
+                # jax.image.resize "bilinear" upsampling: half-pixel centres.
+                flat = torch.nn.functional.interpolate(flat, size=(height, width), mode="bilinear",
+                                                       align_corners=False, antialias=False)
+                frames = flat.permute(0, 2, 3, 1).reshape(lead + (height, width, flat.shape[1]))
+            else:
+                frames = features.reshape(features.shape[:-2] + (height, width, features.shape[-1]))
+        return torch.clamp(frames, 0.0, 1.0)
 
 
 class ReconstructedDatasetCreator:

@@ -14,6 +14,9 @@ torch.backends.cudnn.allow_tf32, which this module never sets.
 f32) and carries bf16 activations between them; batch norm is
 models/layers.py's flax one, which takes its statistics in f32 and rounds
 only its normalized output, as flax's `BatchNorm(dtype=...)` does.
+With `remat`, each convolution stage and each residual block is a
+rematerialized region (utils/remat.py): its convolution outputs are kept,
+its batch norms, activations, pads and pools recomputed in the backward.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from torch import nn
 from playableenvironments_tpu_torch.config import AutoencoderConfig
 from playableenvironments_tpu_torch.models.layers import BatchNorm, initialize_
 from playableenvironments_tpu_torch.ops.padding import reflect_pad_hw
+from playableenvironments_tpu_torch.utils import remat as remat_lib
 from playableenvironments_tpu_torch.utils.device import resolve_device
 
 
@@ -53,6 +57,10 @@ def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
     """x2 bilinear upsampling of NCHW, half-pixel centers, edges clamped:
     what jax.image.resize(..., "bilinear") gives for a factor of 2."""
     return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+
+def _region(remat: bool, fn, *args):
+    return remat_lib.checkpointed(fn, *args) if remat else fn(*args)
 
 
 def conv(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -122,27 +130,35 @@ class MultiresEncoder(nn.Module):
     def _mid_res(self, downs: int, i: int) -> bool:
         return self.cfg.variant == "v9" and downs >= 3 and i == 1
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False, remat: bool = False) -> List[torch.Tensor]:
         """:param x: (N, input_features, H, W). :return: per-level NCHW
         (mean ++ log variance), level 0 at the highest resolution."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.compute_dtype)
         deep = cfg.variant == "v9"
-        y = conv(self.initial_conv, reflect_pad_hw(x.to(dtype), 3), dtype)
-        y = torch.relu(self.initial_bn(y, train, dtype))
+
+        def initial(x):
+            y = conv(self.initial_conv, reflect_pad_hw(x.to(dtype), 3), dtype)
+            return torch.relu(self.initial_bn(y, train, dtype))
+
+        def down(y, set_idx, i):
+            y = conv(getattr(self, f"down_{set_idx}_{i}"), reflect_pad_hw(y.to(dtype), 1), dtype)
+            return F.avg_pool2d(torch.relu(getattr(self, f"down_bn_{set_idx}_{i}")(y, train, dtype)), 2)
+
+        def block(y, name, relu):
+            y = getattr(self, name)(y, train, dtype)
+            return torch.relu(y) if relu else y
+
+        y = _region(remat, initial, x)
         outputs = []
         for set_idx, downs in enumerate(cfg.downsampling_layers_count):
             for i in range(downs):
-                y = conv(getattr(self, f"down_{set_idx}_{i}"), reflect_pad_hw(y.to(dtype), 1), dtype)
-                y = torch.relu(getattr(self, f"down_bn_{set_idx}_{i}")(y, train, dtype))
-                y = F.avg_pool2d(y, 2)
+                y = _region(remat, down, y, set_idx, i)
                 if self._mid_res(downs, i):
                     for b in range(cfg.bottleneck_blocks):
-                        y = torch.relu(getattr(self, f"mid_res_{set_idx}_{b}")(y, train, dtype))
+                        y = _region(remat, block, y, f"mid_res_{set_idx}_{b}", True)
             for b in range(cfg.bottleneck_blocks):
-                y = getattr(self, f"bottleneck_{set_idx}_{b}")(y, train, dtype)
-                if deep and b != cfg.bottleneck_blocks - 1:
-                    y = torch.relu(y)
+                y = _region(remat, block, y, f"bottleneck_{set_idx}_{b}", deep and b != cfg.bottleneck_blocks - 1)
             outputs.append(y)
             y = torch.relu(y[:, : y.shape[1] // 2])
         return outputs
@@ -190,31 +206,38 @@ class MultiresDecoder(nn.Module):
     def _mid_res(self, downs: int, i: int) -> bool:
         return self.cfg.variant == "v9" and downs >= 3 and i == downs - 2
 
-    def forward(self, encoded_levels: List[torch.Tensor], train: bool = False) -> torch.Tensor:
+    def forward(self, encoded_levels: List[torch.Tensor], train: bool = False, remat: bool = False) -> torch.Tensor:
         """:param encoded_levels: per-level NCHW latents, level 0 at the
         highest resolution. :return: (N, input_features, H, W) f32 in [0, 1]."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.compute_dtype)
         deep = cfg.variant == "v9"
+
+        def block(y, name, relu):
+            y = getattr(self, name)(y, train, dtype)
+            return torch.relu(y) if relu else y
+
+        def up(y, set_idx, i):
+            y = conv(getattr(self, f"up_{set_idx}_{i}"), reflect_pad_hw(upsample2x_bilinear(y.to(dtype)), 1), dtype)
+            return torch.relu(getattr(self, f"up_bn_{set_idx}_{i}")(y, train, dtype))
+
+        def final(y):
+            return torch.sigmoid(conv(self.final_conv, reflect_pad_hw(y.to(dtype), 3), dtype).to(torch.float32))
+
         y = encoded_levels[-1]
         reversed_counts = list(reversed(cfg.downsampling_layers_count))
         for set_idx, downs in enumerate(reversed_counts):
             for b in range(cfg.bottleneck_blocks):
-                y = getattr(self, f"bottleneck_{set_idx}_{b}")(y, train, dtype)
-                if deep:
-                    y = torch.relu(y)
+                y = _region(remat, block, y, f"bottleneck_{set_idx}_{b}", deep)
             for i in range(downs):
-                y = reflect_pad_hw(upsample2x_bilinear(y.to(dtype)), 1)
-                y = conv(getattr(self, f"up_{set_idx}_{i}"), y, dtype)
-                y = torch.relu(getattr(self, f"up_bn_{set_idx}_{i}")(y, train, dtype))
+                y = _region(remat, up, y, set_idx, i)
                 if self._mid_res(downs, i):
                     for b in range(cfg.bottleneck_blocks):
-                        y = torch.relu(getattr(self, f"mid_res_{set_idx}_{b}")(y, train, dtype))
+                        y = _region(remat, block, y, f"mid_res_{set_idx}_{b}", True)
             if set_idx != len(reversed_counts) - 1:
                 skip = encoded_levels[-set_idx - 2]
                 y = torch.cat([y, skip], dim=1)
-        y = conv(self.final_conv, reflect_pad_hw(y.to(dtype), 3), dtype)
-        return torch.sigmoid(y.to(torch.float32))
+        return _region(remat, final, y)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -241,32 +264,32 @@ class MultiresAutoencoder(nn.Module):
         initialize_(self, torch.Generator().manual_seed(seed))
         self.eval()
 
-    def encode(self, observations: torch.Tensor, train: bool = False) -> List[torch.Tensor]:
+    def encode(self, observations: torch.Tensor, train: bool = False, remat: bool = False) -> List[torch.Tensor]:
         """:param observations: (N, H, W, input_features).
         :return: per-level (N, H/s, W/s, 2F) NHWC (mean ++ log variance)."""
-        return [_nhwc(level) for level in self.encoder(_nchw(observations), train)]
+        return [_nhwc(level) for level in self.encoder(_nchw(observations), train, remat)]
 
-    def decode(self, encoded_levels: List[torch.Tensor], train: bool = False) -> torch.Tensor:
+    def decode(self, encoded_levels: List[torch.Tensor], train: bool = False, remat: bool = False) -> torch.Tensor:
         """:param encoded_levels: per-level (N, H/s, W/s, F) NHWC latents.
         :return: (N, H, W, input_features) reconstruction in [0, 1]. Eval
         mode runs without autograd."""
         with torch.set_grad_enabled(train and torch.is_grad_enabled()):
-            return _nhwc(self.decoder([_nchw(level) for level in encoded_levels], train))
+            return _nhwc(self.decoder([_nchw(level) for level in encoded_levels], train, remat))
 
     @staticmethod
     def sample(mean: torch.Tensor, log_variance: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
         """Reparameterized posterior sample from unit normal `noise`."""
         return noise * torch.sqrt(torch.exp(log_variance)) + mean
 
-    def forward(self, observations: torch.Tensor, rng=None, train: bool = True) -> dict:
+    def forward(self, observations: torch.Tensor, rng=None, train: bool = True, remat: bool = False) -> dict:
         """Encode, sample each level (its mean without `rng`; with it, one
         unit normal draw of the level's shape from the "sampling" stream,
-        level by level) and decode.
+        level by level, outside any rematerialized region) and decode.
 
         :return: {"reconstructed_observations": (N, H, W, C),
             "encoded_observations": per-level NHWC (mean ++ log variance)}.
         """
-        encoded = self.encode(observations, train)
+        encoded = self.encode(observations, train, remat)
         sampled = []
         for level in encoded:
             half = level.shape[-1] // 2
@@ -276,4 +299,4 @@ class MultiresAutoencoder(nn.Module):
             else:
                 noise = rng.normal("sampling", mean.shape).to(device=mean.device, dtype=mean.dtype)
                 sampled.append(self.sample(mean, log_variance, noise))
-        return {"reconstructed_observations": self.decode(sampled, train), "encoded_observations": encoded}
+        return {"reconstructed_observations": self.decode(sampled, train, remat), "encoded_observations": encoded}

@@ -16,6 +16,7 @@ convention, so both updates are written out here, in place on the buffers.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -51,7 +52,28 @@ def masked_moments(
     return mean, var
 
 
+_FROZEN_STATISTICS = 0
+
+
+@contextlib.contextmanager
+def frozen_running_statistics():
+    """Inside the `with`, train-mode norms normalize by their batch
+    statistics as always but leave their running statistics as they are.
+    A rematerialized region re-runs its forward in the backward
+    (utils/remat.py), which would otherwise apply the momentum twice. A
+    process-wide count, not a thread-local one: the recompute runs on the
+    autograd engine's thread."""
+    global _FROZEN_STATISTICS
+    _FROZEN_STATISTICS += 1
+    try:
+        yield
+    finally:
+        _FROZEN_STATISTICS -= 1
+
+
 def _update_running(running: torch.Tensor, batch: torch.Tensor, momentum: float) -> None:
+    if _FROZEN_STATISTICS:
+        return
     with torch.no_grad():
         running.mul_(momentum).add_(batch.detach() * (1.0 - momentum))
 

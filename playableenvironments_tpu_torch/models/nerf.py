@@ -2,8 +2,9 @@
 the per-object field.
 
 Port of playableenvironments_tpu/models/nerf.py: AdaInNerfMLP,
-SkyboxNerfMLP, PositionalRayBender and ObjectRadianceField, with the flax
-parameter names (backbone_i, alpha_head, feat_0/1, feat_out, adain_0/1,
+SkyboxNerfMLP, PositionalRayBender and ObjectRadianceField (with the
+bender's Hutchinson divergence and, under remat, its regions), with the
+flax parameter names (backbone_i, alpha_head, feat_0/1, feat_out, adain_0/1,
 ray_bender/backbone_i, output_head). Their `forward` is the training path
 (and eval with `use_running_average`); the eval frame path reads the same
 weights through render/fast.py, the AdaIN NeRF through the B1 kernel
@@ -30,6 +31,7 @@ from playableenvironments_tpu_torch.core.bbox import aabb_contains, aabb_size
 from playableenvironments_tpu_torch.models.encoding import annealing_weights, positional_encoding
 from playableenvironments_tpu_torch.models.layers import AffineTransformAdaIn
 from playableenvironments_tpu_torch.ops import fused_nerf
+from playableenvironments_tpu_torch.utils import remat as remat_lib
 
 
 def _encoding_size(input_dims: int, pe_cfg) -> int:
@@ -262,45 +264,83 @@ class ObjectRadianceField(nn.Module):
         compute_divergence: bool = False,
         ray_origins: Optional[torch.Tensor] = None,
         ray_directions: Optional[torch.Tensor] = None,
+        divergence_probe: Optional[torch.Tensor] = None,
+        remat: bool = False,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """:param ray_positions: (..., rays, positions, 3) object-frame points.
         :param style: (..., style_features); deformation (..., deformation_features).
         :param ray_origins, ray_directions: (..., 3) and (..., rays, 3)
             object-frame rays, read by the skybox only.
+        :param compute_divergence: estimate the bent displacement field's
+            divergence by Hutchinson's e^T J e with the standard-normal probe
+            `divergence_probe` (the positions' shape; the caller draws it
+            from the "divergence" stream), differentiable in the bender's
+            parameters through the second-order graph. Zero under
+            `canonical_pose` and outside the box.
+        :param remat: the bender and the NeRF as rematerialized regions
+            (utils/remat.py): the NeRF under the selective policy, the
+            bender whole (its divergence takes a derivative inside).
         :return: ((..., rays, positions, F) features, (..., rays, positions)
             raw alphas, (..., rays, positions, 3) displacements,
             (..., rays, positions) divergences).
         """
         cfg = self.cfg
         mask = aabb_contains(_box(cfg.bounding_box, ray_positions), ray_positions)
-        style_b = style[..., None, None, :]
         deformation_b = deformation[..., None, None, :]
         divergences = torch.zeros(ray_positions.shape[:-1], dtype=ray_positions.dtype,
                                   device=ray_positions.device)
         if cfg.bender.kind == "positional":
-            if compute_divergence and not canonical_pose:
-                raise NotImplementedError(
-                    "compute_divergence (the Hutchinson divergence of the bender, "
-                    "divergence loss weight > 0) is not ported yet"
-                )
-            displacements = self.ray_bender(ray_positions, cfg.bounding_box, deformation_b, step)
+            with_divergence = compute_divergence and not canonical_pose
+            if with_divergence and divergence_probe is None:
+                raise ValueError("compute_divergence needs the probe `divergence_probe`")
+
+            def bend(positions, deformation_b, probe):
+                if with_divergence:
+                    return self._bend_with_divergence(positions, deformation_b, step, probe)
+                return self.ray_bender(positions, cfg.bounding_box, deformation_b, step), divergences
+
+            displacements, divergences = (remat_lib.checkpointed(bend, ray_positions, deformation_b, divergence_probe,
+                                                                 selective=False)
+                                          if remat else bend(ray_positions, deformation_b, divergence_probe))
             if canonical_pose:
                 displacements = displacements * 0.0
             displacements = torch.where(mask[..., None], displacements, 0.0)
+            divergences = torch.where(mask, divergences, 0.0)
         else:
             displacements = torch.zeros_like(ray_positions)
-        if cfg.nerf.kind == "skybox":
-            # Constant along each ray: one evaluation per ray, repeated over
-            # the samples (autograd sums the repeats' gradients).
-            origins = ray_origins[..., None, :].expand(ray_directions.shape)
-            features, alpha = self.nerf(origins, ray_directions, cfg.bounding_box, style[..., None, :],
-                                        mask.any(dim=-1), use_running_average)
-            samples = ray_positions.shape[-2]
-            features = features[..., None, :].expand(features.shape[:-1] + (samples, features.shape[-1]))
-            alpha = alpha[..., None].expand(alpha.shape + (samples,))
-        else:
-            features, alpha = self.nerf(ray_positions + displacements, cfg.bounding_box, style_b, mask,
-                                        use_running_average)
-        features = torch.where(mask[..., None], features, 0.0)
-        alpha = torch.where(mask, alpha, cfg.empty_space_alpha)
+
+        def radiance(ray_positions, displacements, style, ray_origins, ray_directions):
+            if cfg.nerf.kind == "skybox":
+                # Constant along each ray: one evaluation per ray, repeated
+                # over the samples (autograd sums the repeats' gradients).
+                origins = ray_origins[..., None, :].expand(ray_directions.shape)
+                features, alpha = self.nerf(origins, ray_directions, cfg.bounding_box, style[..., None, :],
+                                            mask.any(dim=-1), use_running_average)
+                samples = ray_positions.shape[-2]
+                features = features[..., None, :].expand(features.shape[:-1] + (samples, features.shape[-1]))
+                alpha = alpha[..., None].expand(alpha.shape + (samples,))
+            else:
+                features, alpha = self.nerf(ray_positions + displacements, cfg.bounding_box,
+                                            style[..., None, None, :], mask, use_running_average)
+            return torch.where(mask[..., None], features, 0.0), torch.where(mask, alpha, cfg.empty_space_alpha)
+
+        args = (ray_positions, displacements, style, ray_origins, ray_directions)
+        features, alpha = remat_lib.checkpointed(radiance, *args) if remat else radiance(*args)
         return features, alpha, displacements, divergences
+
+    def _bend_with_divergence(self, positions, deformation, step, probe):
+        """The bender's displacements and e^T (d displacements / d positions) e
+        for the probe e, as JAX's `nn.vjp` of the bender gives them. With
+        grad mode on, the vector-Jacobian product keeps its graph, so a loss
+        on the divergence reaches the bender's parameters (and the
+        positions) through second derivatives."""
+        outer_grad = torch.is_grad_enabled()
+        with torch.enable_grad():
+            if not positions.requires_grad:
+                positions = positions.detach().requires_grad_(True)
+            displacements = self.ray_bender(positions, self.cfg.bounding_box, deformation, step)
+            (e_jacobian,) = torch.autograd.grad(displacements, positions, probe, create_graph=outer_grad)
+        divergences = torch.sum(e_jacobian * probe, dim=-1)
+        if not outer_grad:
+            displacements, divergences = displacements.detach(), divergences.detach()
+        return displacements, divergences

@@ -9,10 +9,12 @@ Port of playableenvironments_tpu/ops/fused_nerf.py:
   the JAX function's per-object interface as a group of one;
 - the trainable backbone, `fused_backbone`: backbone + alpha head as a
   torch.autograd.Function whose forward (`fused_backbone_fwd`) and backward
-  (`fused_backbone_bwd`) are kernels (csrc/fused_backbone.cu).
-Both sources are sm_90a, bf16 tensor cores with f32 accumulation, share
-csrc/nerf_wgmma.cuh, and are built with nvcc at first use and loaded with
-ctypes.
+  (`fused_backbone_bwd`) are kernels: csrc/fused_backbone.cu for bf16
+  operands, csrc/fused_backbone_f32.cu (`backbone_f32_fwd`,
+  `backbone_f32_bwd`) for an f32 `compute_dtype`.
+The bf16 sources are sm_90a tensor-core kernels with f32 accumulation that
+share csrc/nerf_wgmma.cuh; the f32 one runs exact f32 products on the CUDA
+cores. All are built with nvcc at first use and loaded with ctypes.
 
 Each wrapper launches its kernel for CUDA tensors. For CPU tensors it runs
 the plain PyTorch version of the same function (`plain_adain_nerf`,
@@ -43,6 +45,7 @@ from playableenvironments_tpu_torch.models.encoding import positional_encoding
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCE = _CSRC / "fused_nerf.cu"
 _BACKBONE_SOURCE = _CSRC / "fused_backbone.cu"
+_BACKBONE_F32_SOURCE = _CSRC / "fused_backbone_f32.cu"
 _ROLLOUT_SOURCE = _CSRC / "fused_rollout.cu"  # B4/B5, wrapped in ops/fused_rollout.py
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
@@ -228,7 +231,7 @@ def _library_path(source: Path, defines: Tuple[str, ...] = ()) -> Path:
     return _BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:12]}.so"
 
 
-def build_kernels(sources: Tuple[Path, ...] = (_SOURCE, _BACKBONE_SOURCE, _ROLLOUT_SOURCE),
+def build_kernels(sources: Tuple[Path, ...] = (_SOURCE, _BACKBONE_SOURCE, _BACKBONE_F32_SOURCE, _ROLLOUT_SOURCE),
                   defines: Tuple[str, ...] = ()) -> Dict[str, str]:
     """Compile each CUDA source with nvcc for sm_90a into the build
     directory, once per content (the source, its headers from csrc/ and the
@@ -307,6 +310,18 @@ def _backbone_library() -> ctypes.CDLL:
                                               + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)])
     lib.fused_backbone_fwd_launch.restype = ctypes.c_int
     lib.fused_backbone_bwd_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _backbone_f32_library() -> ctypes.CDLL:
+    """csrc/fused_backbone_f32.cu, built and loaded once per process."""
+    lib = _load(_BACKBONE_F32_SOURCE)
+    lib.backbone_f32_fwd_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.backbone_f32_bwd_launch.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] + [ctypes.c_void_p]
+                                            + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    lib.backbone_f32_fwd_launch.restype = ctypes.c_int
+    lib.backbone_f32_bwd_launch.restype = ctypes.c_int
     return lib
 
 
@@ -660,11 +675,12 @@ def swizzled(row, col):
 
 
 def backbone_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The backbone's weights as csrc/fused_backbone.cu reads them: the bf16
-    weight image (every layer's 64-row slots, each W/64 swizzled 64 x 64
-    blocks, then w_alpha) and the f32 biases b_0 .. b_{L-1}, b_alpha. A
-    handful of small kernels a launch: the slots' rows in one cat, one
-    cast, one gather for the swizzle."""
+    """The backbone's weights as csrc/fused_backbone.cu (and B1, which
+    shares its backbone) reads them, whatever the configuration's
+    `compute_dtype`: the bf16 weight image (every layer's 64-row slots,
+    each W/64 swizzled 64 x 64 blocks, then w_alpha) and the f32 biases
+    b_0 .. b_{L-1}, b_alpha. A handful of small kernels a launch: the
+    slots' rows in one cat, one cast, one gather for the swizzle."""
     width = cfg.layers_width
     with torch.no_grad():
         rows = []
@@ -703,15 +719,19 @@ def _kernel_skip(cfg: NerfMLPConfig) -> int:
 
 def _backbone_kernel_checks(cfg: NerfMLPConfig, encoded: torch.Tensor, tensors) -> None:
     """Raises for what the kernels do not take: `tensors` must be f32 on
-    the card of `encoded`."""
+    the card of `encoded`. The kernels follow `compute_dtype`: bfloat16
+    operands (csrc/fused_backbone.cu, widths multiple of 64 up to 256) or
+    float32 (csrc/fused_backbone_f32.cu, widths 64, 128 and 256)."""
     if encoded.device.type != "cuda":
         raise ValueError(f"the fused backbone runs on cuda or cpu tensors, not {encoded.device}")
-    if cfg.compute_dtype != "bfloat16":
-        raise NotImplementedError(
-            f"the backbone kernels take bfloat16 operands; compute_dtype {cfg.compute_dtype!r} "
-            "has no kernel path on the card yet"
-        )
     width = cfg.layers_width
+    if cfg.compute_dtype == "float32":
+        if width not in _F32_WIDTHS:
+            raise ValueError(f"layers_width {width}: the f32 backbone kernels take widths {_F32_WIDTHS}")
+    elif cfg.compute_dtype != "bfloat16":
+        raise NotImplementedError(
+            f"the backbone kernels take bfloat16 or float32 operands, not compute_dtype {cfg.compute_dtype!r}"
+        )
     if width % 64 or width > _MAX_WIDTH:
         raise ValueError(f"layers_width {width} must be a multiple of 64, at most {_MAX_WIDTH}")
     if encoded.shape[1] > _BACKBONE_PE:
@@ -736,6 +756,8 @@ def fused_backbone_fwd(
     """
     if encoded.device.type == "cpu":
         return plain_backbone_fwd(cfg, packed, encoded)
+    if cfg.compute_dtype == "float32":
+        return backbone_f32_fwd(cfg, packed, encoded, buffers)
     _backbone_kernel_checks(cfg, encoded, [encoded] + list(packed.values()))
     n, pe = encoded.shape
     width = cfg.layers_width
@@ -894,6 +916,8 @@ def fused_backbone_bwd(
     """
     if encoded.device.type == "cpu":
         return plain_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+    if cfg.compute_dtype == "float32":
+        return backbone_f32_bwd(cfg, packed, encoded, g_h, g_alpha, buffers)
     out = _backbone_bwd(cfg, packed, encoded, g_h, g_alpha, buffers, None)
     if encoded.shape[0]:
         fused_backbone_bwd.launches += 1
@@ -912,23 +936,196 @@ def backbone_bwd_breakdown(cfg, packed, encoded, g_h, g_alpha) -> Dict[str, floa
     return {"tile_ms": ms[0], "dw_ms": ms[1], "reduce_ms": ms[2]}
 
 
+# ---- the f32 backbone kernels (csrc/fused_backbone_f32.cu) -------------------
+
+# Widths the f32 kernels take, points a tile, and tiles of points the
+# backward walks at a time (its X and G scratch hold one chunk).
+_F32_WIDTHS = (64, 128, 256)
+_F32_TILE = 64
+_F32_CHUNK_TILES = 1024
+
+
+def backbone_f32_weights(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+    """Each layer's weight as the f32 kernels pad it, (rows_i, W): the
+    encoding's rows zero-padded to 64 (layer 0, and after the activation
+    rows at the skip layer), the rows of `_backbone_grad_rows`' order."""
+    width, skip = cfg.layers_width, cfg.skip_layer_idx
+    out = []
+    for i in range(cfg.backbone_layers_count):
+        w = packed[f"w{i}"].to(torch.float32)
+        if i == 0:
+            out.append(torch.nn.functional.pad(w, (0, 0, 0, _BACKBONE_PE - w.shape[0])))
+        elif i == skip:
+            enc = w[width:]
+            out.append(torch.cat([w[:width], torch.nn.functional.pad(enc, (0, 0, 0, _BACKBONE_PE - enc.shape[0]))]))
+        else:
+            out.append(w)
+    return out
+
+
+def backbone_f32_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]):
+    """The backbone's weights as csrc/fused_backbone_f32.cu reads them:
+    (fwd, bwd, biases), f32. `fwd` is every layer's padded weight row-major
+    (`backbone_f32_weights`), then w_alpha; `bwd` every layer's transpose
+    (W x rows_i) at the same offsets; `biases` b_0 .. b_{L-1}, b_alpha."""
+    with torch.no_grad():
+        layers = backbone_f32_weights(cfg, packed)
+        fwd = torch.cat([w.reshape(-1) for w in layers] + [packed["w_alpha"].reshape(-1).to(torch.float32)])
+        bwd = torch.cat([w.t().reshape(-1) for w in layers])
+        biases = torch.cat([packed[f"b{i}"].reshape(-1) for i in range(cfg.backbone_layers_count)]
+                           + [packed["b_alpha"].reshape(-1)]).to(torch.float32)
+    return fwd.contiguous(), bwd.contiguous(), biases.contiguous()
+
+
+def backbone_f32_row_blocks(cfg: NerfMLPConfig) -> List[Tuple[int, int, int, int]]:
+    """The f32 weight-gradient kernel's row blocks: (first padded row,
+    X column of its first 64 rows, of its second 64 rows or -1, layer).
+    The X scratch row of a point holds the encoding (64 columns), then the
+    activations of layers 0 .. L-2 (W each); layer i reads its input's
+    64-column halves in its padded row order (the encoding for layer 0;
+    layer i - 1's activation, then the encoding at the skip layer), two a
+    block."""
+    width, layers, skip = cfg.layers_width, cfg.backbone_layers_count, _kernel_skip(cfg)
+    table, out_row = [], 0
+    for i in range(layers):
+        if i == 0:
+            halves = [0]
+        else:
+            halves = [_BACKBONE_PE + (i - 1) * width + _BLOCK * j for j in range(width // _BLOCK)]
+            halves += [0] if i == skip else []
+        for k in range(0, len(halves), 2):
+            table.append((out_row + _BLOCK * k, halves[k], halves[k + 1] if k + 1 < len(halves) else -1, i))
+        out_row += _BLOCK * len(halves)
+    return table
+
+
+def backbone_f32_scratch_shapes(cfg: NerfMLPConfig, n: int, sm_count: int) -> Dict[str, Tuple[int, ...]]:
+    """Shapes of the f32 backward's buffers for n points on a card of
+    `sm_count` SMs: x and g, the X and G scratch of one chunk of points
+    (`_F32_CHUNK_TILES` tiles of 64; row p holds point p of the chunk: X
+    as `backbone_f32_row_blocks` reads it, G_0 .. G_{L-1} and 64 columns of
+    padding); tile_part, the tile kernel's column sums, one row per CTA (as
+    many as SMs, at most one per tile); partial, one weight-gradient slab
+    per split of a chunk's points, as many splits as fill the SMs once."""
+    width, layers = cfg.layers_width, cfg.backbone_layers_count
+    chunk_tiles = min(-(-n // _F32_TILE), _F32_CHUNK_TILES)
+    rows = chunk_tiles * _F32_TILE
+    blocks = len(backbone_f32_row_blocks(cfg)) * -(-width // 128)
+    return {
+        "x": (rows, _BACKBONE_PE + (layers - 1) * width),
+        "g": (rows, layers * width + _BACKBONE_PE),
+        "tile_part": (min(chunk_tiles, sm_count), layers * width + width + 1),
+        "partial": (max(1, min(rows // 32, sm_count // blocks)), _backbone_grad_rows(cfg), width),
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def _row_block_table(layers: int, width: int, skip: int, device: torch.device) -> torch.Tensor:
+    cfg = NerfMLPConfig(layers_width=width, backbone_layers_count=layers, skip_layer_idx=skip)
+    return torch.tensor(backbone_f32_row_blocks(cfg), dtype=torch.int32).reshape(-1).to(device)
+
+
+def backbone_f32_fwd(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encoded: torch.Tensor,
+                     buffers=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 forward kernel (B2 for f32 operands) on the card over (N, E)
+    f32 encodings -> ((N, W) h, (N,) alpha), one launch counted in
+    `backbone_f32_fwd.launches`; `buffers` as backbone_f32_buffers gives
+    them, built here when not given. Raises for what it does not take."""
+    _backbone_kernel_checks(cfg, encoded, [encoded] + list(packed.values()))
+    n, pe = encoded.shape
+    width = cfg.layers_width
+    fwd, _, biases = buffers if buffers is not None else backbone_f32_buffers(cfg, packed)
+    encoded = encoded.contiguous()
+    h = torch.empty((n, width), dtype=torch.float32, device=encoded.device)
+    alpha = torch.empty((n,), dtype=torch.float32, device=encoded.device)
+    if n == 0:
+        return h, alpha
+    err = _backbone_f32_library().backbone_f32_fwd_launch(
+        encoded.data_ptr(), fwd.data_ptr(), biases.data_ptr(), h.data_ptr(), alpha.data_ptr(), n, pe, width,
+        cfg.backbone_layers_count, _kernel_skip(cfg), torch.cuda.current_stream(encoded.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"backbone_f32_fwd kernel launch failed with CUDA error {err}")
+    backbone_f32_fwd.launches += 1
+    return h, alpha
+
+
+backbone_f32_fwd.launches = 0
+
+
+def backbone_f32_bwd(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encoded: torch.Tensor,
+                     g_h: torch.Tensor, g_alpha: torch.Tensor, buffers=None):
+    """The f32 backward kernels (B3 for f32 operands) on the card: ({name:
+    gradient}, (N, E) d_encoded), one call counted in
+    `backbone_f32_bwd.launches`, bit-identical from run to run."""
+    _backbone_kernel_checks(cfg, encoded, [encoded, g_h, g_alpha] + list(packed.values()))
+    n, pe = encoded.shape
+    width, layers, skip = cfg.layers_width, cfg.backbone_layers_count, _kernel_skip(cfg)
+    device = encoded.device
+    buffers = buffers if buffers is not None else backbone_f32_buffers(cfg, packed)
+    encoded, g_h, g_alpha = encoded.contiguous(), g_h.contiguous(), g_alpha.contiguous()
+    d_encoded = torch.empty((n, pe), dtype=torch.float32, device=device)
+    grads_out = torch.empty((_backbone_grad_rows(cfg) * width + layers * width + width + 1,),
+                            dtype=torch.float32, device=device)
+    if n == 0:
+        return _unpack_backbone_grads(cfg, grads_out.zero_(), pe), d_encoded
+    shapes = backbone_f32_scratch_shapes(cfg, n, _sm_count(device))
+    scratch = {k: torch.empty(v, dtype=torch.float32, device=device) for k, v in shapes.items()}
+    table = _row_block_table(layers, width, cfg.skip_layer_idx, device)
+    fwd, bwd, biases = buffers
+    err = _backbone_f32_library().backbone_f32_bwd_launch(
+        encoded.data_ptr(), g_h.data_ptr(), g_alpha.data_ptr(), fwd.data_ptr(), bwd.data_ptr(), biases.data_ptr(),
+        d_encoded.data_ptr(), *(scratch[k].data_ptr() for k in ("x", "g", "tile_part", "partial")),
+        table.data_ptr(), table.numel() // 4, grads_out.data_ptr(), n, pe, width, layers, skip,
+        shapes["tile_part"][0], shapes["x"][0] // _F32_TILE, shapes["partial"][0], shapes["x"][1], shapes["g"][1],
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"backbone_f32_bwd kernel launch failed with CUDA error {err}")
+    backbone_f32_bwd.launches += 1
+    return _unpack_backbone_grads(cfg, grads_out, pe), d_encoded
+
+
+backbone_f32_bwd.launches = 0
+
+
+def kernel_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """The weight buffers of the backbone kernels of `cfg`'s operand dtype:
+    `backbone_f32_buffers` for float32, `backbone_buffers` for bf16."""
+    if cfg.compute_dtype == "float32":
+        return backbone_f32_buffers(cfg, packed)
+    return backbone_buffers(cfg, packed)
+
+
+def _runs_kernels(encoded: torch.Tensor) -> bool:
+    """Whether the fused backbone launches its kernels for `encoded` (a
+    tensor on the card) or runs its plain version (on the CPU)."""
+    return encoded.device.type != "cpu"
+
+
+def _saved_encoding(cfg: NerfMLPConfig, encoded: torch.Tensor) -> torch.Tensor:
+    """What the autograd Function keeps of the encodings for the backward
+    kernels: their bf16 rounding for bf16 operands (all B3 reads of them,
+    half the memory), the f32 encodings themselves for f32 ones."""
+    return encoded.to(torch.bfloat16) if cfg.compute_dtype == "bfloat16" else encoded
+
+
 class _FusedBackbone(torch.autograd.Function):
     """Forward: fused_backbone_fwd; backward: fused_backbone_bwd on the saved
     (encoded, weights), as the JAX custom VJP saves (packed, encoded). On
-    the card the forward's weight image is built once and kept for the
-    backward, and the encodings are kept as their bf16 rounding, all the
-    kernels read of them (half the memory of the f32 encodings)."""
+    the card the forward's weight images are built once and kept for the
+    backward, and the encodings as `_saved_encoding` keeps them."""
 
     @staticmethod
     def forward(ctx, cfg, encoded, *tensors):
         packed = dict(zip(_backbone_names(cfg), tensors))
         ctx.cfg = cfg
-        if encoded.device.type == "cpu":
+        if _runs_kernels(encoded):
+            ctx.buffers = kernel_buffers(cfg, packed)
+            ctx.save_for_backward(_saved_encoding(cfg, encoded), *tensors)
+        else:
             ctx.buffers = None
             ctx.save_for_backward(encoded, *tensors)
-        else:
-            ctx.buffers = backbone_buffers(cfg, packed)
-            ctx.save_for_backward(encoded.to(torch.bfloat16), *tensors)
         return fused_backbone_fwd(cfg, packed, encoded, ctx.buffers)
 
     @staticmethod

@@ -5,11 +5,16 @@ playableenvironments_tpu/render/environment_model.py: object poses from the
 parameter strategies, projected object boxes, object style/deformation codes
 from the object encoders (with the temporal style shuffle), the scene
 encoding, ray sampling (weighted, uniform, the whole-image strided grid,
-or one strided multi-resolution patch per image), the composed render, the
-ray-to-object distances and, on the decoder path (`decode_patches`), the
-autoencoder's decode of the rendered feature patches. Random draws come
-from `rng` (utils.random.RngStreams). Per-frame camera offsets raise
-NotImplementedError.
+or one strided multi-resolution patch per image), the composed render
+(with the hierarchical fine pass and the benders' divergence where asked),
+the ray-to-object distances and, on the decoder path (`decode_patches`),
+the autoencoder's decode of each pass's rendered feature patches; the
+learnable per-frame camera offsets (`CameraParametersStorage`); the
+composer-based frame render (`render_frame_from_scene_encoding`, the eval
+path of a `use_fine` model, which render/fast.py does not take) and its
+decode (`decode_rendered_grids`). Random draws come from `rng`
+(utils.random.RngStreams). `remat` rematerializes the composer's regions
+and the decoder's blocks (utils/remat.py).
 """
 
 from __future__ import annotations
@@ -41,6 +46,29 @@ from playableenvironments_tpu_torch.scene.encoding import SceneEncoding
 from playableenvironments_tpu_torch.utils.device import resolve_device
 
 
+class CameraParametersStorage(nn.Module):
+    """Per-(frame, camera) learnable camera corrections: 3 rotation + 3
+    translation + 1 focal offsets in one zero-initialized (memory, cameras,
+    7) table `storage`, gathered by frame index (clipped into the table),
+    scaled (translations x10, focals x1000) for the optimizer's
+    conditioning; zeros in eval mode."""
+
+    def __init__(self, memory_size: int, cameras_count: int, device=None):
+        super().__init__()
+        self.memory_size = memory_size
+        self.storage = nn.Parameter(torch.zeros(memory_size, cameras_count, 7, device=device))
+
+    def forward(self, frame_indexes: torch.Tensor, train: bool = True):
+        """:param frame_indexes: (...) integer frame indexes.
+        :return: ((..., cameras, 3) rotation, (..., cameras, 3) translation
+            and (..., cameras) focal offsets)."""
+        idx = torch.clamp(frame_indexes.long(), 0, self.memory_size - 1)
+        entries = self.storage[idx]
+        if not train:
+            entries = torch.zeros_like(entries)
+        return entries[..., :3], entries[..., 3:6] * 10.0, entries[..., 6] * 1000.0
+
+
 class EnvironmentModel(nn.Module):
     """The synthesis model's training surface: `composer`,
     `object_encoder_i`, for learned poses `parameters_encoder_i` and, where
@@ -48,16 +76,18 @@ class EnvironmentModel(nn.Module):
     JAX model materializes both; the flax tree's names). The autoencoder
     takes a generator of its own seeded from `seed` + 1, decoder first, so
     that its decoder is the one the play session has always been seeded
-    with and no other module's weights move."""
+    with and no other module's weights move. With `enable_camera_offsets`,
+    `camera_offsets` holds the per-frame camera corrections of
+    `camera_memory_size` frames and `training_cameras_count` cameras."""
 
     def __init__(self, scene: SceneConfig, focal_length_multiplier: float = 1.0,
-                 enable_camera_offsets: bool = False, device="cuda", seed: int = 0):
+                 enable_camera_offsets: bool = False, camera_memory_size: int = 1, training_cameras_count: int = 1,
+                 device="cuda", seed: int = 0):
         super().__init__()
-        if enable_camera_offsets:
-            raise NotImplementedError("per-frame camera offsets (enable_camera_offsets) are not ported yet")
         device = resolve_device(device)
         self.scene = scene
         self.focal_length_multiplier = focal_length_multiplier
+        self.enable_camera_offsets = enable_camera_offsets
         self.object_ids = ObjectIds(scene)
         self.composer = SceneComposer(scene, device=device, seed=seed)
         generator = torch.Generator().manual_seed(seed + 1)
@@ -70,8 +100,17 @@ class EnvironmentModel(nn.Module):
                                 initialize_(ObjectParametersEncoderV4(cfg, device=device), generator))
         if scene.autoencoder is not None:
             self.autoencoder = MultiresAutoencoder(scene.autoencoder, device=device, seed=seed + 1)
+        if enable_camera_offsets:
+            self.camera_offsets = CameraParametersStorage(camera_memory_size, training_cameras_count, device=device)
 
     # ---- scene encoding --------------------------------------------------
+
+    def _apply_camera_offsets(self, camera_rotations, camera_translations, focals, global_frame_indexes,
+                              train: bool):
+        if not self.enable_camera_offsets:
+            return camera_rotations, camera_translations, focals
+        rotation, translation, focal = self.camera_offsets(global_frame_indexes, train)
+        return camera_rotations + rotation, camera_translations + translation, focals + focal
 
     def _compute_object_poses(self, observations, w2c_first, camera_rotations_first, focals_first, bounding_boxes,
                               boxes_validity, train: bool):
@@ -206,6 +245,8 @@ class EnvironmentModel(nn.Module):
         if shuffle_style and rng is None:
             raise ValueError("shuffle_style needs the random streams `rng`")
         height, width = observations.shape[-3], observations.shape[-2]
+        camera_rotations, camera_translations, focals = self._apply_camera_offsets(
+            camera_rotations, camera_translations, focals, global_frame_indexes, train)
         rescaled_focals = focals * self.focal_length_multiplier
         c2w = euler_translation_to_matrix(camera_rotations, camera_translations)
         w2c = invert_rigid(c2w)
@@ -247,7 +288,7 @@ class EnvironmentModel(nn.Module):
 
     def render_sampled_rays(self, encoding: SceneEncoding, sampled_directions: torch.Tensor,
                             perturb: bool = False, rng=None, step=0, canonical_pose: bool = False,
-                            train: bool = True, compute_divergence: bool = False) -> Dict:
+                            train: bool = True, compute_divergence: bool = False, remat: bool = False) -> Dict:
         """Render (B, T, C, n, 3) camera-frame directions through the scene."""
         c2w = euler_translation_to_matrix(encoding.camera_rotations, encoding.camera_translations)
         origins = torch.zeros_like(encoding.camera_rotations)
@@ -264,7 +305,7 @@ class EnvironmentModel(nn.Module):
             origins, directions, normals, with_cameras(w2o), with_cameras(encoding.object_style),
             with_cameras(encoding.object_deformation), with_cameras(encoding.object_in_scene),
             perturb=perturb, rng=rng, step=step, canonical_pose=canonical_pose,
-            use_running_average=not train, compute_divergence=compute_divergence,
+            use_running_average=not train, compute_divergence=compute_divergence, remat=remat,
         )
 
     def forward_from_observations(
@@ -287,6 +328,7 @@ class EnvironmentModel(nn.Module):
         compute_divergence: bool = False,
         decode_patches: bool = False,
         rng=None,
+        remat: bool = False,
     ) -> Dict:
         """The full training path: encode, sample rays, render and, with
         `decode_patches`, decode the rendered feature patches.
@@ -295,7 +337,8 @@ class EnvironmentModel(nn.Module):
         centre drawn from the object-weighted distribution; otherwise
         `samples_per_image == 0` with strides -> the whole-image strided
         grid; otherwise weighted (scene.use_weighted_sampling) or uniform
-        rays. Draws come from the "ray_sampling" stream.
+        rays. Draws come from the "ray_sampling" stream. `remat`
+        rematerializes the composer's regions and the decoder's blocks.
         """
         if decode_patches and (self.scene.autoencoder is None or not patch_size):
             raise ValueError("decode_patches requires scene.autoencoder and patch sampling")
@@ -326,14 +369,14 @@ class EnvironmentModel(nn.Module):
 
         results = self.render_sampled_rays(
             encoding, sampled_directions, perturb=perturb, rng=rng, step=step,
-            canonical_pose=canonical_pose, train=train, compute_divergence=compute_divergence,
+            canonical_pose=canonical_pose, train=train, compute_divergence=compute_divergence, remat=remat,
         )
         c2w = aux["c2w"]
         origins = rays_lib.transform_points(torch.zeros_like(encoding.camera_rotations), c2w)
         world_directions = rays_lib.transform_points(sampled_directions, c2w[..., None, :, :], translate=False)
         results["ray_object_distances"] = self._ray_object_distances(origins, world_directions, aux["o2w"])
         if decode_patches:
-            results = self.decode_rendered_patches(results, patch_size, train)
+            results = self.decode_rendered_patches(results, patch_size, train, remat)
         results["observations"] = sampled_observations
         results["positions"] = sampled_positions
         results["scene_encoding"] = encoding
@@ -342,28 +385,100 @@ class EnvironmentModel(nn.Module):
             results[key] = aux[key]
         return results
 
-    def decode_rendered_patches(self, results: Dict, patch_size: int, train: bool = True) -> Dict:
-        """Decode the rendered feature patches into RGB patches: the
+    def decode_rendered_patches(self, results: Dict, patch_size: int, train: bool = True,
+                                remat: bool = False) -> Dict:
+        """Decode each pass's rendered feature patches into RGB patches: the
         features of each sample are the concatenated latent levels; per
         level, the samples of that level's strided patch are folded into a
-        square patch, and the stack goes through the decoder. Adds to the
-        "global" results "reconstructed_observations" (B, T, C, P, P, 3),
-        P = patch_size * stride_0, and "splitted_integrated_features", the
-        per-level feature samples."""
+        square patch, and the stack goes through the decoder. Adds to each
+        pass's "global" results "reconstructed_observations" (B, T, C, P, P,
+        3), P = patch_size * stride_0, and "splitted_integrated_features",
+        the per-level feature samples."""
         strides = autoencoder_strides(self.scene.autoencoder)
         counts = features_count_by_layer(self.scene.autoencoder)
-        global_results = results["coarse"]["global"]
-        features = global_results["integrated_features"]
-        patches, split_features, begin = [], [], 0
-        for level_idx, count in enumerate(counts):
-            chunk = sampling.split_strided_samples(features[..., begin : begin + count], patch_size, strides)[level_idx]
-            begin += count
-            split_features.append(chunk)
-            patches.append(sampling.samples_to_patch(chunk))
-        lead = patches[0].shape[:-3]
-        decoded = self.autoencoder.decode([p.reshape((-1,) + p.shape[-3:]) for p in patches], train=train)
-        global_results["reconstructed_observations"] = decoded.reshape(lead + decoded.shape[1:])
-        global_results["splitted_integrated_features"] = split_features
+        for pass_name in ("coarse", "fine"):
+            if pass_name not in results:
+                continue
+            global_results = results[pass_name]["global"]
+            features = global_results["integrated_features"]
+            patches, split_features, begin = [], [], 0
+            for level_idx, count in enumerate(counts):
+                chunk = sampling.split_strided_samples(features[..., begin : begin + count], patch_size,
+                                                       strides)[level_idx]
+                begin += count
+                split_features.append(chunk)
+                patches.append(sampling.samples_to_patch(chunk))
+            lead = patches[0].shape[:-3]
+            decoded = self.autoencoder.decode([p.reshape((-1,) + p.shape[-3:]) for p in patches], train=train,
+                                              remat=remat)
+            global_results["reconstructed_observations"] = decoded.reshape(lead + decoded.shape[1:])
+            global_results["splitted_integrated_features"] = split_features
+        return results
+
+    def render_frame_from_scene_encoding(self, encoding: SceneEncoding, image_size: Tuple[int, int],
+                                         patch_strides: Optional[Sequence[int]] = None, ray_tile: int = 0,
+                                         perturb: bool = False, rng=None, step=0, canonical_pose: bool = False,
+                                         train: bool = False) -> Dict:
+        """Render whole frames (on the strided feature grids with
+        `patch_strides`, else every pixel) through the composer: the
+        composer-based frame path, the only eval path of a `use_fine` model.
+        With `ray_tile`, the rays go through the composer in tiles of that
+        many, concatenated again (a memory bound the JAX function only
+        hints at inside its program). Outside train mode no graph is kept.
+
+        :return: composer results with the ray axis over the image grid
+            (sampling.split_strided_grid_samples folds it back), and
+            "positions" (..., n, 2).
+        """
+        height, width = image_size
+        rescaled_focals = encoding.focals * self.focal_length_multiplier
+        ray_directions, _, _ = rays_lib.camera_rays(height, width, rescaled_focals)
+        if patch_strides:
+            sampled_directions, _, sampled_positions = sampling.sample_all_rays_strided_grid(
+                ray_directions, torch.zeros_like(ray_directions), list(patch_strides))
+        else:
+            n = height * width
+            sampled_directions = ray_directions.reshape(ray_directions.shape[:-3] + (n, 3))
+            sampled_positions = rays_lib.pixel_grid_positions(height, width, device=ray_directions.device).reshape(
+                n, 2).expand(sampled_directions.shape[:-1] + (2,))
+
+        def render(directions):
+            return self.render_sampled_rays(encoding, directions, perturb=perturb, rng=rng, step=step,
+                                            canonical_pose=canonical_pose, train=train)
+
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            total = sampled_directions.shape[-2]
+            if ray_tile and total > ray_tile:
+                tiles = [render(sampled_directions[..., begin : begin + ray_tile, :])
+                         for begin in range(0, total, ray_tile)]
+                ray_axis = sampled_directions.dim() - 2
+                results = _concatenate_tiles(tiles, ray_axis)
+            else:
+                results = render(sampled_directions)
+        results["positions"] = sampled_positions
+        return results
+
+    def decode_rendered_grids(self, results: Dict, image_size: Tuple[int, int], train: bool = False) -> Dict:
+        """Decode each pass's whole-image strided feature grids (rendered on
+        `sample_all_rays_strided_grid` with the autoencoder's strides) into
+        full frames: per level, its grid is folded to (H/s, W/s) and the
+        decoder upsamples to full resolution. Adds "reconstructed_observations"
+        (B, T, C, H, W, 3) to each pass's "global" results."""
+        strides = autoencoder_strides(self.scene.autoencoder)
+        counts = features_count_by_layer(self.scene.autoencoder)
+        for pass_name in ("coarse", "fine"):
+            if pass_name not in results:
+                continue
+            global_results = results[pass_name]["global"]
+            features = global_results["integrated_features"]
+            grids, begin = [], 0
+            for level_idx, count in enumerate(counts):
+                grids.append(sampling.split_strided_grid_samples(features[..., begin : begin + count], strides,
+                                                                 image_size)[level_idx])
+                begin += count
+            lead = grids[0].shape[:-3]
+            decoded = self.autoencoder.decode([g.reshape((-1,) + g.shape[-3:]) for g in grids], train=train)
+            global_results["reconstructed_observations"] = decoded.reshape(lead + decoded.shape[1:])
         return results
 
     def _ray_object_distances(self, ray_origins, ray_directions, o2w) -> torch.Tensor:
@@ -380,3 +495,12 @@ class EnvironmentModel(nn.Module):
             along = torch.sum(rel * unit_dirs, dim=-1, keepdim=True) * unit_dirs
             distances.append(torch.sum((rel - along) ** 2, dim=-1))
         return torch.stack(distances, dim=-1)
+
+
+def _concatenate_tiles(tiles, axis: int):
+    """The tiles' result trees (nested dicts of tensors) joined along `axis`
+    of the rays, as `jax.tree.map(concatenate, *tiles)`."""
+    first = tiles[0]
+    if isinstance(first, dict):
+        return {k: _concatenate_tiles([t[k] for t in tiles], axis) for k in first}
+    return torch.cat(tiles, dim=axis)

@@ -6,7 +6,10 @@ the VGG19 perceptual L1 (the ground-truth branch without gradient); Adam
 with the staircase decay. The VGG runs on seeded random weights unless
 `vgg_weights_path` names a torchvision VGG19 checkpoint; it is frozen and
 outside the optimizer, as the JAX trainer keeps its variables outside the
-train state. Rematerialization (`remat`) raises NotImplementedError.
+train state. `remat` rematerializes the autoencoder's stages and blocks
+under the selective policy (the analogue of the JAX trainer's
+`dots_saveable` forward) and the perceptual term as one plain region, as
+the JAX trainer checkpoints it whole (utils/remat.py).
 """
 
 from __future__ import annotations
@@ -42,8 +45,6 @@ class AutoencoderTrainer:
     (N, H, W, 3) images."""
 
     def __init__(self, ae_cfg: AutoencoderConfig, cfg: AutoencoderTrainingConfig, device="cuda", seed: int = 0):
-        if cfg.remat:
-            raise NotImplementedError("remat (rematerialization) is not ported yet")
         self.ae_cfg = ae_cfg
         self.cfg = cfg
         self.model = MultiresAutoencoder(ae_cfg, device=device, seed=seed)
@@ -66,7 +67,7 @@ class AutoencoderTrainer:
         """(loss, metrics, outputs) of one train-mode forward; updates the
         running statistics in place. The posterior noise comes from `rng`'s
         "sampling" stream (MultiresAutoencoder.forward)."""
-        out = self.model(images, rng, train=True)
+        out = self.model(images, rng, train=True, remat=self.cfg.remat)
         reconstructed = out["reconstructed_observations"]
         rec = losses.image_reconstruction_loss(images, reconstructed)
         kl = torch.stack([losses.spatial_kl_gaussian(level) for level in out["encoded_observations"]]).mean()
@@ -74,8 +75,13 @@ class AutoencoderTrainer:
         metrics = {"loss": total, "reconstruction_loss": rec, "kl_loss": kl}
         if self.vgg is not None:
             from playableenvironments_tpu_torch.eval.perceptual import perceptual_loss
+            from playableenvironments_tpu_torch.utils.remat import checkpointed
 
-            perceptual, _ = perceptual_loss(self.vgg, images, reconstructed, self.ae_cfg.compute_dtype)
+            def perceptual_term(reconstructed):
+                return perceptual_loss(self.vgg, images, reconstructed, self.ae_cfg.compute_dtype)[0]
+
+            perceptual = (checkpointed(perceptual_term, reconstructed, selective=False) if self.cfg.remat
+                          else perceptual_term(reconstructed))
             total = total + self.cfg.perceptual_lambda * perceptual
             metrics["perceptual_loss"] = perceptual
             metrics["loss"] = total

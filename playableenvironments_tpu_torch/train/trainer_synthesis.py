@@ -6,12 +6,16 @@ direct-ray path and on the published configs' decoder path
 (`decode_patches`: one strided patch per image, its rendered features
 decoded by the autoencoder and held against the ground-truth crop of the
 patch's region; the autoencoder's own learning rate, held at 0 for
-`frozen_autoencoder_steps`): reconstruction, ray-object distance (direct
-path only), displacement magnitude, per-dynamic-object opacity and
-sharpness, attention and bounding-box losses, and the logged pose
-statistics. The perceptual weight is read and, as in the JAX trainer,
-applied nowhere. The divergence loss, the consistency passes and
-rematerialization raise NotImplementedError when they are asked for.
+`frozen_autoencoder_steps`): for the coarse pass and, with `use_fine`
+objects, the fine one, reconstruction, ray-object distance (direct path
+only), displacement magnitude, the annealed divergence, per-dynamic-object
+opacity and sharpness; attention and bounding-box losses, and the logged
+pose statistics. The per-frame camera offsets train in a rate group of
+their own (`camera_parameters_learning_rate`, 0 = frozen) when the model
+has them. `remat` rematerializes the forward's regions (utils/remat.py).
+The perceptual weight is read and, as in the JAX trainer, applied
+nowhere. The consistency passes raise NotImplementedError when they are
+asked for.
 """
 
 from __future__ import annotations
@@ -35,8 +39,8 @@ __all__ = ["LossWeights", "SynthesisTrainingConfig", "SynthesisTrainer", "RNG_ST
 @dataclass(frozen=True)
 class LossWeights:
     """Phase-2 loss weights (`training.loss_weights`). `perceptual` is
-    read and not applied, as in the JAX trainer; the divergence and
-    consistency losses are not ported: a non-zero weight raises."""
+    read and not applied, as in the JAX trainer; the consistency losses are
+    not ported: a non-zero weight raises."""
 
     reconstruction: float = 1.0
     perceptual: float = 0.0
@@ -73,7 +77,10 @@ class SynthesisTrainingConfig:
     crop_to_patch: bool = True
     autoencoder_learning_rate: float = 1e-4
     frozen_autoencoder_steps: int = 0
-    # Not ported yet; raises when set.
+    # The per-frame camera offsets' own rate (0.0: frozen), used when the
+    # model has them.
+    camera_parameters_learning_rate: float = 0.0
+    # Rematerialize the forward's regions (utils/remat.py).
     remat: bool = False
 
 
@@ -82,8 +89,6 @@ class SynthesisTrainer:
 
     def __init__(self, model: EnvironmentModel, cfg: SynthesisTrainingConfig):
         unported = {
-            "remat": cfg.remat,
-            "divergence loss": cfg.loss_weights.divergence,
             "pose consistency loss": cfg.loss_weights.pose_consistency,
             "keypoint consistency loss": cfg.loss_weights.keypoint_consistency,
             "keypoint opacity loss": cfg.loss_weights.keypoint_opacity,
@@ -102,6 +107,9 @@ class SynthesisTrainer:
         self.cfg = cfg
         self.object_ids = ObjectIds(model.scene)
         group_rates, freeze = {}, {}
+        if model.enable_camera_offsets:
+            # Only when the model has them, as in the JAX trainer.
+            group_rates["camera_offsets"] = cfg.camera_parameters_learning_rate
         if cfg.decode_patches:
             group_rates["autoencoder"] = cfg.autoencoder_learning_rate
             freeze["autoencoder"] = cfg.frozen_autoencoder_steps
@@ -127,8 +135,10 @@ class SynthesisTrainer:
             shuffle_style=self.cfg.shuffle_style,
             step=step,
             train=True,
+            compute_divergence=w.divergence > 0.0,
             decode_patches=self.cfg.decode_patches,
             rng=rng,
+            remat=self.cfg.remat,
         )
         static_objects = self.object_ids.static_objects_count
         objects = self.object_ids.objects_count
@@ -136,10 +146,10 @@ class SynthesisTrainer:
         object_in_scene = validity.any(dim=2)
         sampled_observations = results["observations"]
         metrics: Dict[str, torch.Tensor] = {}
+        divergence_annealing = (1.0 / 100.0) ** (1.0 - float(step) / self.cfg.max_steps)
         sharpness_annealing = min(1.0, float(step) / self.cfg.max_steps)
 
-        global_results = results["coarse"]["global"]
-        reconstructed = global_results["integrated_features"]
+        target = None
         if self.cfg.decode_patches:
             target = batch.observations
             if self.cfg.crop_to_patch:
@@ -149,31 +159,40 @@ class SynthesisTrainer:
                 target = sampling.crop_region_from_patch_positions(
                     batch.observations, finest_positions, self.cfg.patch_size, self.cfg.patch_strides[0]
                 )
-            rec = losses.image_reconstruction_loss(target, global_results["reconstructed_observations"])
-        else:
-            rec = losses.reconstruction_loss(sampled_observations, reconstructed)
-        disp = global_results["integrated_displacements_magnitude"].mean()
-        metrics["coarse_reconstruction_loss"] = rec
-        metrics["coarse_displacements_magnitude_loss"] = disp
-        metrics["coarse_divergence_loss"] = global_results["integrated_divergence"].mean()
-        total = w.reconstruction * rec
-        if not self.cfg.decode_patches:
-            # The decoder path renders feature patches, not RGB rays.
-            rod = losses.ray_object_distance_loss(
-                sampled_observations, reconstructed, results["ray_object_distances"][..., static_objects:]
-            )
-            metrics["coarse_ray_object_distance_loss"] = rod
-            total = total + w.ray_object_distance * rod
-        total = total + w.displacements_magnitude * disp
+        total = torch.zeros((), device=sampled_observations.device)
+        for pass_name in ("coarse", "fine"):
+            if pass_name not in results:
+                continue
+            global_results = results[pass_name]["global"]
+            reconstructed = global_results["integrated_features"]
+            if self.cfg.decode_patches:
+                rec = losses.image_reconstruction_loss(target, global_results["reconstructed_observations"])
+            else:
+                rec = losses.reconstruction_loss(sampled_observations, reconstructed)
+            disp = global_results["integrated_displacements_magnitude"].mean()
+            div = global_results["integrated_divergence"].mean()
+            metrics[f"{pass_name}_reconstruction_loss"] = rec
+            metrics[f"{pass_name}_displacements_magnitude_loss"] = disp
+            metrics[f"{pass_name}_divergence_loss"] = div
+            total = total + w.reconstruction * rec
+            if not self.cfg.decode_patches:
+                # The decoder path renders feature patches, not RGB rays.
+                rod = losses.ray_object_distance_loss(
+                    sampled_observations, reconstructed, results["ray_object_distances"][..., static_objects:]
+                )
+                metrics[f"{pass_name}_ray_object_distance_loss"] = rod
+                total = total + w.ray_object_distance * rod
+            total = total + w.displacements_magnitude * disp
+            total = total + w.divergence * divergence_annealing * div
 
-        for object_idx in range(static_objects, objects):
-            dyn_idx = self.object_ids.dynamic_object_idx_by_object_idx(object_idx)
-            opacity = results["coarse"][f"object_{object_idx}"]["opacity"]
-            op = losses.opacity_loss(opacity, validity[..., dyn_idx])
-            sh = losses.sharpness_loss(opacity, validity[..., dyn_idx], w.sharpness_mean, w.sharpness_std)
-            metrics[f"coarse_object_{object_idx}_opacity_loss"] = op
-            metrics[f"coarse_object_{object_idx}_sharpness_loss"] = sh
-            total = total + w.opacity * op + w.sharpness * sharpness_annealing * sh
+            for object_idx in range(static_objects, objects):
+                dyn_idx = self.object_ids.dynamic_object_idx_by_object_idx(object_idx)
+                opacity = results[pass_name][f"object_{object_idx}"]["opacity"]
+                op = losses.opacity_loss(opacity, validity[..., dyn_idx])
+                sh = losses.sharpness_loss(opacity, validity[..., dyn_idx], w.sharpness_mean, w.sharpness_std)
+                metrics[f"{pass_name}_object_{object_idx}_opacity_loss"] = op
+                metrics[f"{pass_name}_object_{object_idx}_sharpness_loss"] = sh
+                total = total + w.opacity * op + w.sharpness * sharpness_annealing * sh
 
         for object_idx in range(static_objects, objects):
             dyn_idx = self.object_ids.dynamic_object_idx_by_object_idx(object_idx)

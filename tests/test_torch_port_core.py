@@ -187,7 +187,7 @@ def test_port_imports_no_jax():
                    "ops/fused_rollout.py", "models/action.py", "models/discriminator.py",
                    "render/playable_model.py", "train/trainer_playable.py", "data/video.py",
                    "data/native_loader.py", "data/synthetic.py", "data/dataset.py", "cli/common.py",
-                   "eval/creators.py", "train/encoding_cache.py"):
+                   "eval/creators.py", "train/encoding_cache.py", "utils/remat.py"):
         assert f"playableenvironments_tpu_torch/{module}" in names, module
     assert len(names) > 30
     assert not offenders, offenders

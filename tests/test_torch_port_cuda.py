@@ -187,12 +187,83 @@ def test_backbone_kernels_match_plain_on_the_card(card, points, width):
 
 @pytest.mark.cuda
 def test_backbone_kernels_refuse_float32_operands(card):
-    packed, encoded, g_h, g_alpha = backbone_inputs(card, 64)
-    cfg = NerfMLPConfig(output_features=3, use_fused_backbone=True)
+    """The f32 kernels take widths 64, 128 and 256 and raise for others;
+    operand dtypes with no kernel (float16) raise."""
+    cfg = F32_BACKBONE[256]
+    odd = NerfMLPConfig(layers_width=192, output_features=3, compute_dtype="float32", use_fused_backbone=True,
+                        position_encoder=PositionalEncoderConfig(octaves=10))
+    packed, encoded, g_h, g_alpha = backbone_inputs(card, 64, cfg=odd)
+    with pytest.raises(ValueError, match="f32 backbone kernels take widths"):
+        fused_nerf.fused_backbone_fwd(odd, packed, encoded)
+    with pytest.raises(ValueError, match="f32 backbone kernels take widths"):
+        fused_nerf.fused_backbone_bwd(odd, packed, encoded, g_h, g_alpha)
+    half = NerfMLPConfig(output_features=3, compute_dtype="float16", use_fused_backbone=True)
+    packed, encoded, g_h, g_alpha = backbone_inputs(card, 64, cfg=cfg)
     with pytest.raises(NotImplementedError, match="compute_dtype"):
-        fused_nerf.fused_backbone_fwd(cfg, packed, encoded)
+        fused_nerf.fused_backbone_fwd(half, packed, encoded)
     with pytest.raises(NotImplementedError, match="compute_dtype"):
-        fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+        fused_nerf.fused_backbone_bwd(half, packed, encoded, g_h, g_alpha)
+
+
+F32_BACKBONE = {
+    256: NerfMLPConfig(output_features=3, compute_dtype="float32", use_fused_backbone=True,
+                       position_encoder=PositionalEncoderConfig(octaves=10)),
+    128: NerfMLPConfig(layers_width=128, backbone_layers_count=6, skip_layer_idx=3, output_features=3,
+                       compute_dtype="float32", use_fused_backbone=True,
+                       position_encoder=PositionalEncoderConfig(octaves=10)),
+    64: NerfMLPConfig(layers_width=64, backbone_layers_count=4, skip_layer_idx=0, output_features=3,
+                      compute_dtype="float32", use_fused_backbone=True,
+                      position_encoder=PositionalEncoderConfig(octaves=4)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("points,width", [(18432, 256), (70001, 256), (37, 256), (1000, 128), (1000, 64)])
+def test_backbone_f32_kernels_match_plain_on_the_card(card, points, width):
+    """B2 and B3 for f32 operands (csrc/fused_backbone_f32.cu) against the
+    plain f32 versions on the same card: the tennis widths, a launch of two
+    backward chunks with a ragged last tile, less than one tile, narrower
+    widths (64 without a skip layer). Each output within 1e-3 of its
+    largest magnitude and 1e-5 of it in the mean (chip_smoke.py phase 14a
+    states the measured errors), B3 bit-identical across launches, each
+    launch counted once."""
+    cfg = F32_BACKBONE[width]
+    packed, encoded, g_h, g_alpha = backbone_inputs(card, points, cfg=cfg)
+    before = (fused_nerf.backbone_f32_fwd.launches, fused_nerf.backbone_f32_bwd.launches)
+    with torch.no_grad():
+        got = fused_nerf.fused_backbone_fwd(cfg, packed, encoded)
+        grads, d_encoded = fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+        again, d_encoded_again = fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+        torch.cuda.synchronize()
+        ref = fused_nerf.plain_backbone_fwd(cfg, packed, encoded)
+        ref_grads, ref_d_encoded = fused_nerf.plain_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+    assert (fused_nerf.backbone_f32_fwd.launches, fused_nerf.backbone_f32_bwd.launches) == (before[0] + 1, before[1] + 2)
+    assert torch.equal(d_encoded, d_encoded_again) and all(torch.equal(grads[k], again[k]) for k in grads)
+    outputs = [("h", got[0], ref[0]), ("alpha", got[1], ref[1]), ("d_encoded", d_encoded, ref_d_encoded)]
+    for name, g_, r in outputs + [(k, grads[k], ref_grads[k]) for k in ref_grads]:
+        scale = r.abs().max().item()
+        diff = (g_ - r).abs()
+        assert diff.max().item() <= 1e-3 * scale and diff.mean().item() <= 1e-5 * scale, name
+
+
+@pytest.mark.cuda
+def test_fused_backbone_autograd_keeps_f32_encodings_for_the_f32_kernels(card):
+    """An f32 NeRF with the fused backbone launches B2 and B3 for f32
+    operands through the autograd Function, and none of the bf16 kernels."""
+    cfg = F32_BACKBONE[256]
+    packed, encoded, g_h, g_alpha = backbone_inputs(card, 500, cfg=cfg)
+    packed = {k: v.requires_grad_() for k, v in packed.items()}
+    encoded.requires_grad_()
+    before = [fused_nerf.backbone_f32_fwd.launches, fused_nerf.backbone_f32_bwd.launches,
+              fused_nerf.fused_backbone_fwd.launches, fused_nerf.fused_backbone_bwd.launches]
+    h, alpha = fused_nerf.fused_backbone(cfg, packed, encoded)
+    torch.autograd.backward([h, alpha], [g_h, g_alpha])
+    after = [fused_nerf.backbone_f32_fwd.launches, fused_nerf.backbone_f32_bwd.launches,
+             fused_nerf.fused_backbone_fwd.launches, fused_nerf.fused_backbone_bwd.launches]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 0, 0]
+    ref_grads, ref_d = fused_nerf.plain_backbone_bwd(cfg, {k: v.detach() for k, v in packed.items()},
+                                                     encoded.detach(), g_h, g_alpha)
+    assert (encoded.grad - ref_d).abs().max().item() <= 1e-3 * ref_d.abs().max().item()
 
 
 @pytest.mark.cuda
@@ -508,3 +579,18 @@ def test_phase1_step_matches_the_cpu(card):
 
     results = chip_smoke.phase13_phase1_card_vs_cpu(devices=(card.type, "cpu"))
     assert set(results) == {"v8_float32", "v8_bfloat16", "v9_float32", "v9_bfloat16"}
+
+
+@pytest.mark.cuda
+def test_options_step_matches_the_cpu(card):
+    """One decoder-path step of the tiny tennis scene with every option of
+    phase 2 on (use_fine with separate fields, divergence, camera offsets
+    at their own rate, remat; chip_smoke.py 14b) on the card against the
+    CPU on the CPU's draws, with full-precision convolutions, at
+    chip_smoke.py's TOLERANCES_14; then the card's step without remat
+    against it."""
+    sys_path_repo()
+    import chip_smoke
+
+    result = chip_smoke.phase14_options_card_vs_cpu(str(REPO), devices=(card.type, "cpu"))
+    assert result["card_vs_cpu"]["grads"] > 100 and result["remat_vs_plain"]["grads"] > 100

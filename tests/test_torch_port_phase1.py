@@ -211,11 +211,13 @@ def port_autoencoder(tree):
     return model
 
 
-def test_phase1_step_matches_jax():
-    before, (jmetrics, jgrads, jafter), draws, images = jax_step()
-    assert [name for name, _ in draws] == ["normal", "normal"]  # one posterior draw per level
-    trainer = trainer_autoencoder.AutoencoderTrainer(port_config.AutoencoderConfig(**AE),
-                                                     training_config(trainer_autoencoder), device="cpu")
+@functools.lru_cache(maxsize=None)
+def port_step(remat=False):
+    """The port's step on JAX's draws from JAX's variables: (metrics,
+    grads, state after, the VGG unchanged)."""
+    before, _, draws, images = jax_step()
+    cfg = dataclasses.replace(training_config(trainer_autoencoder), remat=remat)
+    trainer = trainer_autoencoder.AutoencoderTrainer(port_config.AutoencoderConfig(**AE), cfg, device="cpu")
     load_autoencoder(trainer.model, before)
     load_vgg(trainer.vgg, vgg_variables())
     vgg_before = {k: v.clone() for k, v in trainer.vgg.state_dict().items()}
@@ -223,11 +225,30 @@ def test_phase1_step_matches_jax():
     model.train()
     trainer.optimizer.zero_grad()
     replay = Replay(draws)
-    loss, metrics, _ = trainer.compute_losses(t(images), replay)
+    _, metrics, _ = trainer.compute_losses(t(images), replay)
     assert not replay.draws and replay.streams == ["sampling", "sampling"]
-    loss.backward()
+    metrics["loss"].backward()
     grads = {n: p.grad.clone() for n, p in model.named_parameters()}
     trainer.optimizer.step()
+    vgg_still = all(torch.equal(v, vgg_before[k]) for k, v in trainer.vgg.state_dict().items())
+    return ({k: v.detach() for k, v in metrics.items()}, grads, {k: v.clone() for k, v in model.state_dict().items()},
+            vgg_still)
+
+
+def test_phase1_step_matches_jax():
+    check_phase1_step_against_jax(remat=False)
+
+
+def test_phase1_remat_step_matches_jax():
+    """With `remat` (the autoencoder's stages and blocks and the perceptual
+    term rematerialized), against the same JAX step."""
+    check_phase1_step_against_jax(remat=True)
+
+
+def check_phase1_step_against_jax(remat):
+    before, (jmetrics, jgrads, jafter), draws, images = jax_step()
+    assert [name for name, _ in draws] == ["normal", "normal"]  # one posterior draw per level
+    metrics, grads, state, vgg_still = port_step(remat)
     assert set(metrics) == set(jmetrics) == {"loss", "reconstruction_loss", "kl_loss", "perceptual_loss"}
     for name, value in metrics.items():
         np.testing.assert_allclose(value.detach().numpy(), jmetrics[name], rtol=1e-5, err_msg=name)
@@ -235,7 +256,7 @@ def test_phase1_step_matches_jax():
     atol = {name: 10 * tol for name, tol in gradient_tolerances(ref_grads, list(grads)).items()}
     for name, grad in grads.items():
         np.testing.assert_allclose(grad.numpy(), ref_grads[name].numpy(), rtol=0, atol=atol[name], err_msg=name)
-    state, ref = model.state_dict(), port_autoencoder(jafter).state_dict()
+    ref = port_autoencoder(jafter).state_dict()
     start = port_autoencoder(before).state_dict()
     for name, value in state.items():
         if name in grads:
@@ -246,4 +267,19 @@ def test_phase1_step_matches_jax():
         else:
             np.testing.assert_allclose(value.numpy(), ref[name].numpy(), rtol=1e-5, atol=1e-6, err_msg=name)
             assert not torch.equal(value, start[name]), name
-    assert all(torch.equal(v, vgg_before[k]) for k, v in trainer.vgg.state_dict().items())
+    assert vgg_still
+
+
+def test_phase1_remat_step_matches_the_plain_step():
+    """`remat` in phase 1: the same loss terms, gradients and running
+    statistics (moved once, not again by the recompute) as the step
+    without it, to 1e-6 relative."""
+    (metrics, grads, state, _), (ref_metrics, ref_grads, ref_state, _) = port_step(True), port_step(False)
+    for name, value in metrics.items():
+        np.testing.assert_allclose(value.numpy(), ref_metrics[name].numpy(), rtol=1e-6, err_msg=name)
+    for name, grad in grads.items():
+        scale = ref_grads[name].abs().max().item()
+        np.testing.assert_allclose(grad.numpy(), ref_grads[name].numpy(), rtol=0, atol=1e-6 * scale + 1e-12,
+                                   err_msg=name)
+    for name, value in state.items():
+        np.testing.assert_allclose(value.numpy(), ref_state[name].numpy(), rtol=1e-6, atol=1e-9, err_msg=name)

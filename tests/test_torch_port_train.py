@@ -36,6 +36,7 @@ from playableenvironments_tpu_torch import config as port_config
 from playableenvironments_tpu_torch.compat.from_flax import load_environment_model
 from playableenvironments_tpu_torch.data.batching import Batch
 from playableenvironments_tpu_torch.render.environment_model import EnvironmentModel
+from playableenvironments_tpu_torch.render.fast import frame_rays, render_rays_fast
 from playableenvironments_tpu_torch.train import trainer_synthesis
 from playableenvironments_tpu_torch.utils.random import RngStreams
 from test_environment_model import tiny_scene
@@ -213,11 +214,14 @@ def test_parameters_and_running_statistics_after_the_step_match_jax(port_run):
 
 def test_unported_options_raise():
     """Nothing falls back: each option of the phase-2 path that is not
-    ported raises where it is asked for. The decoder path (patch sampling
-    and `decode_patches`), the training composer's overlap fix and the
-    phase-2 perceptual weight (read and applied nowhere, as in the JAX
-    trainer) are ported: they build and run (held against JAX by
-    tests/test_torch_port_decoder.py and test_torch_port_minecraft_train.py)."""
+    ported raises where it is asked for; today the three consistency
+    weights, and the fast eval path for `use_fine` objects, as the JAX
+    fast path does. The decoder path (patch sampling and
+    `decode_patches`), the training composer's overlap fix, the phase-2
+    perceptual weight (read and applied nowhere, as in the JAX trainer),
+    `remat`, the divergence, per-frame camera offsets and the fine
+    hierarchy are ported: they build and run (held against JAX by
+    tests/test_torch_port_{decoder,minecraft_train,options}.py)."""
     scene = to_port(fused_scene())
     # The learned pose encoder is ported (tests/test_torch_port_minecraft.py).
     learned = dataclasses.replace(scene, parameter_encoders=(
@@ -228,17 +232,16 @@ def test_unported_options_raise():
     out = overlapping.forward_from_observations(*batch.environment_model_args(), samples_per_image=0,
                                                 patch_strides=STRIDES)
     assert bool(torch.isfinite(out["coarse"]["global"]["integrated_features"]).all())
-    with pytest.raises(NotImplementedError, match="camera offsets"):
-        EnvironmentModel(scene, enable_camera_offsets=True, device="cpu")
+    assert hasattr(EnvironmentModel(scene, enable_camera_offsets=True, device="cpu"), "camera_offsets")
     model = EnvironmentModel(scene, device="cpu")
-    for changes in (dict(remat=True),
-                    dict(loss_weights=trainer_synthesis.LossWeights(divergence=0.1)),
-                    dict(loss_weights=trainer_synthesis.LossWeights(pose_consistency=0.1)),
-                    dict(loss_weights=trainer_synthesis.LossWeights(keypoint_consistency=0.1))):
+    for changes in (dict(loss_weights=trainer_synthesis.LossWeights(pose_consistency=0.1)),
+                    dict(loss_weights=trainer_synthesis.LossWeights(keypoint_consistency=0.1)),
+                    dict(loss_weights=trainer_synthesis.LossWeights(keypoint_opacity=0.1))):
         with pytest.raises(NotImplementedError):
             trainer_synthesis.SynthesisTrainer(model, trainer_synthesis.SynthesisTrainingConfig(**changes))
     for changes in (dict(decode_patches=True, patch_size=8, patch_strides=STRIDES), dict(patch_size=8),
-                    dict(loss_weights=trainer_synthesis.LossWeights(perceptual=0.1))):
+                    dict(loss_weights=trainer_synthesis.LossWeights(perceptual=0.1)), dict(remat=True),
+                    dict(loss_weights=trainer_synthesis.LossWeights(divergence=0.1))):
         trainer_synthesis.SynthesisTrainer(model, trainer_synthesis.SynthesisTrainingConfig(**changes))
     with pytest.raises(ValueError, match="crop_to_patch"):
         trainer_synthesis.SynthesisTrainer(model, trainer_synthesis.SynthesisTrainingConfig(
@@ -246,11 +249,18 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="decode_patches requires"):  # the scene has no autoencoder
         model.forward_from_observations(*batch.environment_model_args(), samples_per_image=4, patch_size=8,
                                         patch_strides=STRIDES, decode_patches=True)
-    with pytest.raises(NotImplementedError, match="compute_divergence"):
+    with pytest.raises(ValueError, match="compute_divergence need"):  # the probes come from the streams
         model.forward_from_observations(*batch.environment_model_args(), samples_per_image=0, patch_strides=STRIDES,
                                         compute_divergence=True)
+    out = model.forward_from_observations(*batch.environment_model_args(), samples_per_image=0, patch_strides=STRIDES,
+                                          compute_divergence=True, rng=RngStreams(0, "cpu"))
+    assert float(out["coarse"]["global"]["integrated_divergence"].detach().abs().max()) > 0
     fine = dataclasses.replace(scene, object_models=tuple(dataclasses.replace(om, use_fine=True)
                                                           for om in scene.object_models))
-    with pytest.raises(NotImplementedError, match="use_fine"):
-        EnvironmentModel(fine, device="cpu").forward_from_observations(
-            *batch.environment_model_args(), samples_per_image=0, patch_strides=STRIDES)
+    fine_model = EnvironmentModel(fine, device="cpu")
+    out = fine_model.forward_from_observations(*batch.environment_model_args(), samples_per_image=0,
+                                               patch_strides=STRIDES)
+    assert set(out) >= {"coarse", "fine"}
+    encoding = out["scene_encoding"]
+    with pytest.raises(NotImplementedError, match="coarse-only"):
+        render_rays_fast(fine, fine_model.composer, *frame_rays(encoding, (H, W), STRIDES))
