@@ -94,15 +94,17 @@ Phases, each fatal on failure:
    KL 5e-6) for 6 steps. Each path prints its median step and peak memory;
 14. phase 2 with the reference's options (use_fine with separate fine
    fields, the divergence loss, per-frame camera offsets at their own
-   rate, remat): (a) B2/B3 for f32 operands (csrc/fused_backbone_f32.cu)
-   against their plain versions at the direct-ray shapes, a ragged launch
-   and 14c's fine-pass launch, B3 twice (bit-identical), timed beside the
-   f32 torch.matmul chain and the FP32 bound; (b) one tiny decoder-path
+   rate, remat): (a) B2/B3 for f32 operands (csrc/fused_backbone_f32.cu,
+   3xTF32) at the direct-ray shapes, a ragged launch and 14c's fine-pass
+   launch: the weight images against their plain version bit for bit, B2
+   against its plain version, B3 twice (bit-identical) against the f64
+   backward at the kernel's ReLU pattern; timed beside the f32
+   torch.matmul chain, the FP32 and 3xTF32 bounds; (b) one tiny decoder-path
    step with every option on, card vs CPU on the CPU's draws in
    full-precision convolutions, then the card's step without remat
    against it; (c) configs/tennis.yaml's phase 2 at full width with every
-   option on and the fused backbone at the YAML's f32 (B2-f32 and B3-f32
-   launches a step counted, the recompute's included), median step and
+   option on and the fused backbone at the YAML's f32 (B2-f32, B3-f32 and
+   image-build launches a step counted, the recompute's included), median step and
    peak; (d) remat's peaks and steps on 13b's path at bs 2 x 4 off and
    on, the largest batch under 70 GB with it, phase 1 at bs 20 off and on;
    (e) a use_fine model's frames through the composer-based path
@@ -125,6 +127,8 @@ import subprocess
 import sys
 import time
 
+# nvcc's reports of this run's builds, by source (main fills it).
+BUILD_REPORTS = {}
 # The card's dense bf16 tensor-core peak and memory rate (H100 SXM data sheet).
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -2714,12 +2718,40 @@ def phase13(repo):
 # launches of one step are two of each), a ragged launch of two backward
 # chunks, and the fine pass's largest launch of 14c. Each output is held to
 # F32_KERNEL_REL of its largest magnitude and F32_KERNEL_MEAN of it in the
-# mean; both sides sum exact f32 products in other orders.
+# mean: B2-f32 against the plain version; B3-f32 against the plain backward
+# in f64 at the kernels' ReLU pattern (each layer's output > 0 from B2-f32,
+# `backbone_f32_layer_outputs`). That pattern is held on its own against
+# the f64 forward's (`relu_pattern_check`): each layer's pre-activations
+# within F32_RELU_BAND of their rounding scale s = sum |x w| + |b| of f64's,
+# every unit on the other side of f64's ReLU within that band of 0, and at
+# most F32_RELU_FLIPS such units a million of a layer's. The kernels (3xTF32
+# products, f32 sums) and the plain version (cuBLAS's f32 products) round
+# each pre-activation in other ways, and where one lies within that rounding
+# of 0 they take its ReLU's derivative on opposite sides: 0-6 units of a
+# layer at 18,432-147,456 points, 13-60 at 1.3 M (PERF.md), moving d_encoded
+# and the weight gradients by up to 1.3e-1 of their largest. The FFMA kernel
+# the 3xTF32 one replaced summed in cuBLAS's order and met its pattern. The
+# plain f32 version's distance and its units on the other side of the
+# kernels' are printed beside.
 PHASE14_SHAPES = (("background", 4608 * 4), ("player", 4608 * 32))
 PHASE14_RAGGED = 70_001
-# Measured on an H100 (700 W): up to 4.3e-6 of an output's largest, 1.7e-6
-# in the mean (the ragged launch's d_encoded).
+# Measured on an H100 (700 W): the FFMA kernels the 3xTF32 ones replaced up
+# to 4.3e-6 of an output's largest, 1.7e-6 in the mean; the 3xTF32 ones up
+# to 1.3e-6, 2.1e-7 in the mean (B3-f32 against f64 at its ReLU pattern).
 F32_KERNEL_REL, F32_KERNEL_MEAN = 2e-5, 5e-6
+# The kernels' ReLU pattern against f64's: pre-activation errors and units
+# on the other side in units of their rounding scale s (2^-16 = 256 times
+# f32's unit roundoff), and units on the other side a million of a layer's,
+# with a floor of F32_RELU_FLIPS_FLOOR for small launches. Measured on an
+# H100 (700 W): errors up to 3.9e-7 of s, units on the other side within
+# 8.4e-8 of it, 0.21 a million at most; a split that drops its small halves
+# (TF32 operands alone) is off by over 16 times the band
+# (tests/test_torch_port_backbone_f32.py).
+F32_RELU_BAND = 2.0 ** -16
+F32_RELU_FLIPS, F32_RELU_FLIPS_FLOOR = 1.0, 4
+# The card's dense TF32 tensor-core rate (H100 SXM data sheet); a 3xTF32
+# product costs three of its operations.
+PEAK_TF32_FLOPS = 494.7e12
 # 14b: the tiny tennis decoder scene with every option on; 14c: tennis.yaml
 # at full width with them, at PHASE14_BATCH x 4 for PHASE14_STEPS steps: bs
 # 1 x 4 peaks at 43.12 GB on an H100, nearly all of it activations that
@@ -2778,17 +2810,36 @@ def options_batch(torch, bs, obs, height, width, device):
     return dataclasses.replace(batch, global_frame_indexes=frames, video_frame_indexes=frames).to(device)
 
 
+def f32_bounds(flops, bytes_):
+    """The FP32 CUDA-core bound and the 3xTF32 tensor-core bound, each
+    ((ms, bound_by)): operations at 67 TFLOP/s, or three TF32 operations a
+    multiply-add at 494.7, against the bytes at the memory rate."""
+    out = []
+    for ops in (flops / PEAK_F32_FLOPS, 3 * flops / PEAK_TF32_FLOPS):
+        mem = bytes_ / PEAK_BYTES_PER_S
+        out.append((max(ops, mem) * 1e3, "operations" if ops > mem else "bytes"))
+    return out
+
+
 def phase14_backbone_f32_kernels(fine_points, device="cuda"):
-    """14a: B2/B3 for f32 operands against plain_backbone_fwd/bwd at the
-    direct-ray shapes, the ragged launch and `fine_points` (14c's fine
-    pass, every row held); B3 twice, bit-identical; times of the wrapper
-    calls, the kernels alone, the plain versions, the f32 torch.matmul chain
-    (forward) and its autograd (backward) and the bounds at the card's
-    FP32 peak."""
+    """14a: B2/B3 for f32 operands at the direct-ray shapes, the ragged
+    launch and `fine_points` (14c's fine pass, every row held): B2-f32
+    against plain_backbone_fwd and, layer by layer, its ReLU pattern against
+    the f64 forward's; B3-f32 twice, bit-identical, against the f64 backward
+    at that pattern (and, printed, against plain_backbone_bwd with the units
+    whose pattern differs); the weight images against their plain version
+    bit for bit. Times of the wrapper
+    calls, the image build, the kernels alone (B3's three kernels apart),
+    the plain versions, the f32 torch.matmul chain (forward) and its
+    autograd (backward); the FP32 and 3xTF32 bounds and the TFLOP/s against
+    each."""
     import torch
 
     from playableenvironments_tpu_torch.ops import fused_nerf
 
+    report = BUILD_REPORTS.get("fused_backbone_f32.cu", "")
+    for entry, info in ptxas_entries(report).items():
+        print(f"14a ptxas {entry}: {info}")
     rows = []
     shapes = PHASE14_SHAPES + (("ragged", PHASE14_RAGGED), ("fine", fine_points))
     for index, (name, points) in enumerate(shapes):
@@ -2798,6 +2849,11 @@ def phase14_backbone_f32_kernels(fine_points, device="cuda"):
         pe = encoded.shape[1]
         worst, worst_mean = 0.0, 0.0
         with torch.no_grad():
+            buffers = fused_nerf.backbone_f32_buffers(cfg, packed)
+            plain_buffers = fused_nerf.plain_backbone_f32_buffers(cfg, {k: v.cpu() for k, v in packed.items()})
+            for field, got, ref in zip(plain_buffers._fields, buffers, plain_buffers):
+                if not torch.equal(got.cpu(), ref):
+                    raise SmokeFailure(f"B2-f32 {name}: the card's {field} image differs from its plain version")
             h, alpha = fused_nerf.fused_backbone_fwd(cfg, packed, encoded)
             ref_h, ref_alpha = fused_nerf.plain_backbone_fwd(cfg, packed, encoded)
             outputs = [("h", h, ref_h), ("alpha", alpha, ref_alpha)]
@@ -2814,20 +2870,48 @@ def phase14_backbone_f32_kernels(fine_points, device="cuda"):
                 raise SmokeFailure(f"B3-f32 {name}: two launches on the same inputs differ")
             del again, d_enc_again
             ref_grads, ref_d_enc = fused_nerf.plain_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+            plain_worst = 0.0
+            for key, got, ref in [("d_encoded", d_enc, ref_d_enc)] + [(k, grads[k], ref_grads[k]) for k in ref_grads]:
+                plain_worst = max(plain_worst, ((got - ref).abs().max() / ref.abs().max()).item())
+            plain_acts = fused_nerf._plain_backbone_acts(cfg, packed, encoded, lambda x: x)
+            masks, pattern = fused_nerf.relu_pattern_check(
+                cfg, packed, encoded, fused_nerf.backbone_f32_layer_outputs(cfg, packed, encoded))
+            flips = [int((m != (a > 0)).sum()) for m, a in zip(masks, plain_acts)]
+            del ref_grads, ref_d_enc, plain_acts
+            torch.cuda.empty_cache()
+            flip_limit = max(F32_RELU_FLIPS_FLOOR, F32_RELU_FLIPS * points * cfg.layers_width / 1e6)
+            print(f"14a {name} ({points} points): the kernels' ReLU pattern against f64's, layers 0-"
+                  f"{cfg.backbone_layers_count - 1}: units on the other side {[r['flips'] for r in pattern]} "
+                  f"(limit {flip_limit:.1f}), their largest |z| / s "
+                  f"[{', '.join(format(r['flip_ratio'], '.3e') for r in pattern)}], pre-activation error / s "
+                  f"[{', '.join(format(r['error_ratio'], '.3e') for r in pattern)}] (band {F32_RELU_BAND:.3e})")
+            for layer, r in enumerate(pattern):
+                if not (r["flips"] <= flip_limit and r["flip_ratio"] <= F32_RELU_BAND
+                        and r["error_ratio"] <= F32_RELU_BAND):
+                    raise SmokeFailure(f"B2-f32 {name} layer {layer}: ReLU pattern against f64's {r} outside "
+                                       f"{flip_limit:.1f} units and {F32_RELU_BAND:.3e} of the rounding scale")
+            ref_grads, ref_d_enc = fused_nerf.plain_backbone_bwd(
+                cfg, {k: v.double() for k, v in packed.items()}, encoded.double(), g_h.double(), g_alpha.double(),
+                masks)
+            del masks
             worst, worst_mean = 0.0, 0.0
             for key, got, ref in [("d_encoded", d_enc, ref_d_enc)] + [(k, grads[k], ref_grads[k]) for k in ref_grads]:
+                ref = ref.reshape(got.shape)
                 scale = ref.abs().max().item()
-                err, mean = check_close(f"B3-f32 {name} {key}", got, ref, F32_KERNEL_REL * scale, 0.0,
+                err, mean = check_close(f"B3-f32 {name} {key}", got.double(), ref, F32_KERNEL_REL * scale, 0.0,
                                         F32_KERNEL_MEAN * scale)
                 worst, worst_mean = max(worst, err / scale), max(worst_mean, mean / scale)
             bwd_err = (worst, worst_mean)
             del grads, d_enc, ref_grads, ref_d_enc
+            torch.cuda.empty_cache()
         row = {"object": name, "points": points, "fwd_max_rel_err": fwd_err[0], "fwd_mean_rel_err": fwd_err[1],
-               "bwd_max_rel_err": bwd_err[0], "bwd_mean_rel_err": bwd_err[1]}
+               "bwd_max_rel_err": bwd_err[0], "bwd_mean_rel_err": bwd_err[1],
+               "bwd_plain_f32_max_rel_err": plain_worst, "relu_flips_vs_plain_f32": flips,
+               "relu_pattern_vs_f64": pattern}
         if name != "ragged":
             reps = 3 if name == "fine" else 10
             with torch.no_grad():
-                buffers = fused_nerf.kernel_buffers(cfg, packed)
+                image_ms = cuda_ms(lambda: fused_nerf.backbone_f32_buffers(cfg, packed), warmup=1, reps=reps)
                 ms = cuda_ms(lambda: fused_nerf.fused_backbone_fwd(cfg, packed, encoded), warmup=1, reps=reps)
                 kernel_ms = cuda_ms(lambda: fused_nerf.fused_backbone_fwd(cfg, packed, encoded, buffers), warmup=1,
                                     reps=reps)
@@ -2838,6 +2922,7 @@ def phase14_backbone_f32_kernels(fine_points, device="cuda"):
                                  warmup=1, reps=reps)
                 bwd_kernel_ms = cuda_ms(lambda: fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha,
                                                                               buffers), warmup=1, reps=reps)
+                breakdown = fused_nerf.backbone_f32_bwd_breakdown(cfg, packed, encoded, g_h, g_alpha, buffers)
                 bwd_plain_ms = cuda_ms(lambda: fused_nerf.plain_backbone_bwd(cfg, packed, encoded, g_h, g_alpha),
                                        warmup=1, reps=reps)
             lib_h, lib_alpha = library_backbone(torch, cfg, f32, encoded, torch.float32)
@@ -2845,26 +2930,36 @@ def phase14_backbone_f32_kernels(fine_points, device="cuda"):
                                                                      retain_graph=True), warmup=1, reps=reps)
             del lib_h, lib_alpha
             fwd_flops, fwd_bytes, bwd_flops, bwd_bytes = backbone_work(cfg, pe, points)
+            (fp32_fwd, fp32_fwd_by), (tf32_fwd, tf32_fwd_by) = f32_bounds(fwd_flops, fwd_bytes)
+            (fp32_bwd, fp32_bwd_by), (tf32_bwd, tf32_bwd_by) = f32_bounds(bwd_flops, bwd_bytes)
             row.update(
-                ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bwd_ms=bwd_ms,
-                bwd_kernel_ms=bwd_kernel_ms, bwd_plain_ms=bwd_plain_ms, bwd_library_ms=bwd_library_ms,
-                bound_ms=max(fwd_flops / PEAK_F32_FLOPS, fwd_bytes / PEAK_BYTES_PER_S) * 1e3,
-                bound_by="operations" if fwd_flops / PEAK_F32_FLOPS > fwd_bytes / PEAK_BYTES_PER_S else "bytes",
-                bwd_bound_ms=max(bwd_flops / PEAK_F32_FLOPS, bwd_bytes / PEAK_BYTES_PER_S) * 1e3,
-                bwd_bound_by="operations" if bwd_flops / PEAK_F32_FLOPS > bwd_bytes / PEAK_BYTES_PER_S else "bytes",
+                ms=ms, kernel_ms=kernel_ms, image_ms=image_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bwd_ms=bwd_ms, bwd_kernel_ms=bwd_kernel_ms, bwd_breakdown_ms=breakdown, bwd_plain_ms=bwd_plain_ms,
+                bwd_library_ms=bwd_library_ms,
+                fp32_bound_ms=fp32_fwd, tf32_bound_ms=tf32_fwd, bwd_fp32_bound_ms=fp32_bwd, bwd_tf32_bound_ms=tf32_bwd,
+                bound_ms=min(fp32_fwd, tf32_fwd), bound_by=tf32_fwd_by if tf32_fwd < fp32_fwd else fp32_fwd_by,
+                bwd_bound_ms=min(fp32_bwd, tf32_bwd), bwd_bound_by=tf32_bwd_by if tf32_bwd < fp32_bwd else fp32_bwd_by,
                 fwd_gflop=fwd_flops / 1e9, fwd_mbytes=fwd_bytes / 1e6, bwd_gflop=bwd_flops / 1e9,
                 bwd_mbytes=bwd_bytes / 1e6)
-            print(f"14a B2-f32 {name} ({points} points): call {ms:.4f} ms, kernel {kernel_ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, f32 torch.matmul chain {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                  f"({row['bound_by']}), {fwd_flops / kernel_ms / 1e9:.1f} TFLOP/s; B3-f32 call {bwd_ms:.4f} ms, "
-                  f"kernels {bwd_kernel_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, chain autograd "
-                  f"{bwd_library_ms:.4f} ms, bound {row['bwd_bound_ms']:.4f} ms, "
-                  f"{bwd_flops / bwd_kernel_ms / 1e9:.1f} TFLOP/s")
-        print(f"14a {name} ({points} points): B2-f32 max err {fwd_err[0]:.3e}, mean {fwd_err[1]:.3e}; B3-f32 "
-              f"bit-identical twice, max err {bwd_err[0]:.3e}, mean {bwd_err[1]:.3e} (of each output's largest; "
-              f"bounds {F32_KERNEL_REL}, {F32_KERNEL_MEAN})")
+            fwd_rate, bwd_rate = fwd_flops / kernel_ms / 1e9, bwd_flops / bwd_kernel_ms / 1e9
+            print(f"14a B2-f32 {name} ({points} points): call {ms:.4f} ms (image build {image_ms:.4f} ms), kernel "
+                  f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, f32 torch.matmul chain {library_ms:.4f} ms; bounds "
+                  f"FP32 {fp32_fwd:.4f} ms, 3xTF32 {tf32_fwd:.4f} ms ({tf32_fwd_by}); {fwd_rate:.1f} TFLOP/s = "
+                  f"{fwd_rate / (PEAK_F32_FLOPS / 1e12):.2f} of the FP32 peak, "
+                  f"{fwd_rate / (PEAK_TF32_FLOPS / 3e12):.2f} of the 3xTF32 one")
+            print(f"14a B3-f32 {name} ({points} points): call {bwd_ms:.4f} ms, kernels {bwd_kernel_ms:.4f} ms (tile "
+                  f"{breakdown['tile_ms']:.4f}, dW {breakdown['dw_ms']:.4f}, reduction {breakdown['reduce_ms']:.4f}), "
+                  f"plain {bwd_plain_ms:.4f} ms, chain autograd {bwd_library_ms:.4f} ms; bounds FP32 {fp32_bwd:.4f} "
+                  f"ms, 3xTF32 {tf32_bwd:.4f} ms ({tf32_bwd_by}); {bwd_rate:.1f} TFLOP/s = "
+                  f"{bwd_rate / (PEAK_F32_FLOPS / 1e12):.2f} of the FP32 peak, "
+                  f"{bwd_rate / (PEAK_TF32_FLOPS / 3e12):.2f} of the 3xTF32 one")
+        print(f"14a {name} ({points} points): images bit for bit; B2-f32 max err {fwd_err[0]:.3e}, mean "
+              f"{fwd_err[1]:.3e} (against the plain version); B3-f32 bit-identical twice, max err {bwd_err[0]:.3e}, "
+              f"mean {bwd_err[1]:.3e} (against f64 at the kernels' ReLU pattern; the plain f32 version "
+              f"{plain_worst:.3e}, ReLU units of layers 0-{cfg.backbone_layers_count - 1} on the other side {flips}); "
+              f"of each output's largest, bounds {F32_KERNEL_REL}, {F32_KERNEL_MEAN}")
         rows.append(row)
-        del encoded, g_h, g_alpha, f32, packed
+        del encoded, g_h, g_alpha, f32, packed, buffers
         torch.cuda.empty_cache()
     return rows
 
@@ -2958,7 +3053,7 @@ def phase14_main_path(repo, batch_size=PHASE14_BATCH, steps=PHASE14_STEPS, devic
     # Adam's two moments.
     fixed = torch.cuda.memory_allocated() + 2 * sum(p.numel() * p.element_size() for p in model.parameters())
     counters = (fused_nerf.backbone_f32_fwd, fused_nerf.backbone_f32_bwd, fused_nerf.fused_backbone_fwd,
-                fused_nerf.fused_backbone_bwd)
+                fused_nerf.fused_backbone_bwd, fused_nerf.backbone_f32_buffers)
     for counter in counters:
         counter.launches = 0
     step_ms, losses = [], []
@@ -2989,10 +3084,12 @@ def phase14_main_path(repo, batch_size=PHASE14_BATCH, steps=PHASE14_STEPS, devic
         raise SmokeFailure(f"14c: moved (of) {moved}")
     objects = fused_launches_a_step(model.scene)
     # A step: every AdaIN object's coarse and fine pass, each NeRF's forward
-    # once more in its rematerialized region's recompute, one backward each.
-    expected = (4 * objects * steps, 2 * objects * steps, 0, 0)
+    # once more in its rematerialized region's recompute, one backward each;
+    # each forward builds its weight images once (the pack kernel).
+    expected = (4 * objects * steps, 2 * objects * steps, 0, 0, 4 * objects * steps)
     if launches != expected:
-        raise SmokeFailure(f"14c: launches (B2-f32, B3-f32, B2, B3) {launches} in {steps} steps, expected {expected}")
+        raise SmokeFailure(f"14c: launches (B2-f32, B3-f32, B2, B3, f32 image builds) {launches} in {steps} steps, "
+                           f"expected {expected}")
     median = stats_lib.median(step_ms[1:])
     rays = sum(p * p for p in _patch_sizes(train_cfg))
     fine_points = batch_size * PHASE14_OBSERVATIONS * rays * max(
@@ -3001,8 +3098,8 @@ def phase14_main_path(repo, batch_size=PHASE14_BATCH, steps=PHASE14_STEPS, devic
           f"{DECODER_IMAGE[0]}x{DECODER_IMAGE[1]}, patch {train_cfg.patch_size}, use_fine at the YAML's fine counts "
           f"with separate fields, f32 fused backbone, divergence {PHASE14_DIVERGENCE}, camera offsets at "
           f"{PHASE14_CAMERA_RATE}, remat): {steps} steps, B2-f32 {launches[0]} and B3-f32 {launches[1]} launches "
-          f"({launches[0] // steps} and {launches[1] // steps} a step, the recompute's included), bf16 B2/B3 "
-          f"{launches[2]}/{launches[3]}; median step {median:.3f} ms over steps 2-{steps}; all steps ms "
+          f"({launches[0] // steps} and {launches[1] // steps} a step, the recompute's included; {launches[4]} image "
+          f"builds), bf16 B2/B3 {launches[2]}/{launches[3]}; median step {median:.3f} ms over steps 2-{steps}; all steps ms "
           f"{[round(t, 3) for t in step_ms]}; losses {[round(m['loss'], 6) for m in losses]}; moved (of): {moved}; "
           f"the fine pass's largest launch {fine_points} points; peak memory {peak / 2**30:.3f} GiB "
           f"({peak / 1e9:.2f} GB), of which {fixed / 1e9:.2f} GB do not grow with the batch: bs "
@@ -3204,23 +3301,33 @@ def backbone_f32_entries(phase14_results):
     for which, prefix, replaces in (("fwd", "", "playableenvironments_tpu/ops/fused_nerf.py:375"),
                                     ("bwd", "bwd_", "playableenvironments_tpu/ops/fused_nerf.py:404")):
         step = [k14[name] for name, _ in PHASE14_SHAPES]
-        total = {key: 2 * sum(r[f"{prefix}{key}"] for r in step) for key in ("ms", "plain_ms", "library_ms",
-                                                                               "bound_ms")}
-        flops = sum(r[f"{which}_gflop"] for r in step) / PEAK_F32_FLOPS
-        moved = sum(r[f"{which}_mbytes"] for r in step) * 1e-3 / PEAK_BYTES_PER_S
+        total = {key: 2 * sum(r[f"{prefix}{key}"] for r in step) for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "fp32_bound_ms", "tf32_bound_ms")}
         fine = k14["fine"]
         launches = main14["launches"][0 if which == "fwd" else 1]
         by_path = {"options_phase2": launches}
+        extra = {}
         if which == "fwd":
             by_path["use_fine_frames"] = phase14_results["frames"]["frame_launches"]
+            extra = {"image_ms": 2 * sum(r["image_ms"] for r in step), "image_launches": main14["launches"][4]}
+        else:
+            extra = {"breakdown_ms": {k: 2 * sum(r["bwd_breakdown_ms"][k] for r in step)
+                                      for k in ("tile_ms", "dw_ms", "reduce_ms")},
+                     "plain_f32_max_rel_err": max(r["bwd_plain_f32_max_rel_err"] for r in k14.values()),
+                     "relu_flips_vs_plain_f32": {r["object"]: r["relu_flips_vs_plain_f32"] for r in k14.values()},
+                     "relu_pattern_vs_f64": {r["object"]: r["relu_pattern_vs_f64"] for r in k14.values()}}
         entries.append({
             "name": f"backbone_f32_{which}", "route": "cuda",
             "source": "playableenvironments_tpu_torch/csrc/fused_backbone_f32.cu", "replaces": replaces,
             "launches": launches, "max_abs_err": max(r[f"{which}_max_rel_err"] for r in k14.values()),
-            **total, "bound_by": "operations" if flops > moved else "bytes", "launches_by_path": by_path,
-            "kernel_ms": 2 * sum(r[f"{prefix}kernel_ms"] for r in step),
+            **total, "bound_by": step[0][f"{prefix}bound_by"], "launches_by_path": by_path,
+            "kernel_ms": 2 * sum(r[f"{prefix}kernel_ms"] for r in step), **extra,
+            "ptxas": {k: v for k, v in ptxas_entries(BUILD_REPORTS.get("fused_backbone_f32.cu", "")).items()
+                      if ("fwd" if which == "fwd" else "bwd_tile") in k or (which == "fwd" and "pack" in k)
+                      or (which == "bwd" and ("dw_kernel" in k or "reduce" in k))},
             "main_path_launch": {"points": fine["points"], **{key: fine[f"{prefix}{key}"] for key in (
-                "ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}},
+                "ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "fp32_bound_ms",
+                "tf32_bound_ms")}},
         })
     return entries
 
@@ -3385,6 +3492,7 @@ def main() -> int:
     # ---- 1. build (one nvcc per source, started together) ------------------
     start = time.perf_counter()
     reports = fused_nerf.build_kernels()
+    BUILD_REPORTS.update(reports)
     print(f"build: {', '.join('csrc/' + name for name in reports)} in {time.perf_counter() - start:.1f} s")
     for name, report in reports.items():
         for line in report.splitlines():
@@ -3624,8 +3732,10 @@ def main() -> int:
           "backbone_f32_fwd/bwd are fused_backbone_fwd/bwd's kernels for f32 operands (phase 14): their ms, "
           "plain, library (the f32 torch.matmul chain and its autograd) and bound sum one direct-ray step's four "
           "launches, `main_path_launch` is the fine pass's largest launch of 14c; "
-          "fused_rollout and backbone_f32 bounds use the f32 peak "
-          f"({PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s), the others the bf16 one ({PEAK_BF16_FLOPS / 1e12:.0f})")
+          "fused_rollout bounds use the f32 peak "
+          f"({PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s), backbone_f32 the lower of that and the 3xTF32 one (three "
+          f"TF32 operations at {PEAK_TF32_FLOPS / 1e12:.1f} TFLOP/s a multiply-add, both beside it), the others "
+          f"the bf16 one ({PEAK_BF16_FLOPS / 1e12:.0f})")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
 // Shared by the NeRF MLP kernels for Hopper (sm_90a): B1's eval AdaIN-NeRF
-// MLP (fused_nerf.cu) and B2/B3's trainable backbone (fused_backbone.cu).
+// MLP (fused_nerf.cu) and B2/B3's trainable backbone (fused_backbone.cu,
+// and fused_backbone_f32.cu for f32 operands, which uses the PTX wrappers,
+// the ring and the backward's fixed-order column sums).
 //
 // PTX wrappers (mbarriers, bulk asynchronous copies, cluster addressing,
 // setmaxnreg, wgmma with its fences and 128-byte-swizzle descriptors) and
@@ -470,6 +472,51 @@ __device__ __forceinline__ void init_ring(Ring& r, uint32_t slots, uint32_t bars
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+}
+
+// ---- the backward kernels' column sums ------------------------------------------
+
+// Halves the values `s` a lane keeps, summing them with lane ^ M's other half.
+template <int H, int M>
+__device__ __forceinline__ void reduce_scatter(float* s, int lane) {
+  const bool up = lane & M;
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const float send = up ? s[k] : s[k + H];
+    const float keep = up ? s[k + H] : s[k];
+    s[k] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+  }
+}
+
+// out[c] = sum over the warpgroup's 64 rows of v at column c, c < W, or
+// out[c] += that sum unless `first`: each thread sums its two rows; the
+// warp's 8 row groups by a reduce-scatter over lane bits 2-4 (three rounds
+// of shuffles, each halving the columns a lane keeps); then the 4 warps in
+// order through the warpgroup's `staging`. `out` is the row of this CTA and
+// warpgroup, so the sum over its tiles is taken in a fixed order too.
+template <int W>
+__device__ __forceinline__ void column_sums(const float* v, float* staging, float* __restrict__ out, int wg, int t,
+                                            bool first) {
+  constexpr int N = W / 4;  // a thread's values: column pairs of its 2 rows summed
+  const int lane = t & 31, q = lane & 3;
+  float s[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) s[n] = v[4 * (n >> 1) + (n & 1)] + v[4 * (n >> 1) + 2 + (n & 1)];
+  reduce_scatter<N / 2, 4>(s, lane);
+  reduce_scatter<N / 4, 8>(s, lane);
+  reduce_scatter<N / 8, 16>(s, lane);
+  const int base = ((lane >> 2) & 1) * (N / 2) + ((lane >> 3) & 1) * (N / 4) + ((lane >> 4) & 1) * (N / 8);
+#pragma unroll
+  for (int k = 0; k < N / 8; ++k) {
+    const int n = base + k;
+    staging[(t >> 5) * 256 + 8 * (n >> 1) + 2 * q + (n & 1)] = s[k];
+  }
+  named_sync(1 + wg, 128);
+  for (int c = t; c < W; c += 128) {
+    const float sum = staging[c] + staging[256 + c] + staging[512 + c] + staging[768 + c];
+    out[c] = first ? sum : out[c] + sum;
+  }
+  named_sync(1 + wg, 128);
 }
 
 }  // namespace

@@ -12,9 +12,10 @@ Port of playableenvironments_tpu/ops/fused_nerf.py:
   (`fused_backbone_bwd`) are kernels: csrc/fused_backbone.cu for bf16
   operands, csrc/fused_backbone_f32.cu (`backbone_f32_fwd`,
   `backbone_f32_bwd`) for an f32 `compute_dtype`.
-The bf16 sources are sm_90a tensor-core kernels with f32 accumulation that
-share csrc/nerf_wgmma.cuh; the f32 one runs exact f32 products on the CUDA
-cores. All are built with nvcc at first use and loaded with ctypes.
+All are sm_90a tensor-core kernels with f32 accumulation that share
+csrc/nerf_wgmma.cuh; the f32 ones split each f32 operand into two TF32
+halves and run three TF32 products a multiply-add (3xTF32). All are built
+with nvcc at first use and loaded with ctypes.
 
 Each wrapper launches its kernel for CUDA tensors. For CPU tensors it runs
 the plain PyTorch version of the same function (`plain_adain_nerf`,
@@ -32,7 +33,7 @@ import os
 import shutil
 import subprocess
 import tempfile
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from pathlib import Path
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -317,11 +318,13 @@ def _backbone_library() -> ctypes.CDLL:
 def _backbone_f32_library() -> ctypes.CDLL:
     """csrc/fused_backbone_f32.cu, built and loaded once per process."""
     lib = _load(_BACKBONE_F32_SOURCE)
-    lib.backbone_f32_fwd_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.backbone_f32_bwd_launch.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] + [ctypes.c_void_p]
-                                            + [ctypes.c_int] * 10 + [ctypes.c_void_p])
-    lib.backbone_f32_fwd_launch.restype = ctypes.c_int
-    lib.backbone_f32_bwd_launch.restype = ctypes.c_int
+    lib.backbone_f32_pack_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_void_p] * 5
+                                             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.backbone_f32_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.backbone_f32_bwd_launch.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
+                                            + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)])
+    for fn in (lib.backbone_f32_pack_launch, lib.backbone_f32_fwd_launch, lib.backbone_f32_bwd_launch):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -611,12 +614,15 @@ def plain_backbone_bwd(
     encoded: torch.Tensor,
     g_h: torch.Tensor,
     g_alpha: torch.Tensor,
+    masks: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """The TPU backward kernel's explicit backward in plain PyTorch (not
     autograd): recompute the activations, back-propagate through the ReLU
     chain, split the skip layer's input gradient.
 
     :param g_h: (N, W) cotangent of h; :param g_alpha: (N,) of alpha.
+    :param masks: each layer's (N, W) ReLU pattern to take the derivative
+        at; by default the recomputed activations' own (> 0).
     :return: ({name: gradient in that weight's shape}, (N, E) d_encoded).
     """
     rnd = _operand_rounding(cfg)
@@ -630,7 +636,7 @@ def plain_backbone_bwd(
     g = g_h + rnd(g_alpha) @ rnd(packed["w_alpha"]).t()
     d_encoded = torch.zeros_like(encoded)
     for i in range(layers - 1, -1, -1):
-        g = g * (acts[i] > 0.0)
+        g = g * (acts[i] > 0.0 if masks is None else masks[i])
         if i == 0:
             layer_in = encoded
         elif i == cfg.skip_layer_idx:
@@ -648,6 +654,47 @@ def plain_backbone_bwd(
         else:
             g = g_in
     return grads, d_encoded
+
+
+def relu_pattern_check(
+    cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encoded: torch.Tensor, layer_outputs
+) -> Tuple[List[torch.Tensor], List[Dict[str, float]]]:
+    """Holds each layer's post-ReLU output, as some implementation computes
+    it, against the f64 forward (its own ReLUs, f64 products and sums).
+
+    Each unit's pre-activation z is measured in units of its rounding scale
+    s = sum_k |x_k w_kj| + |b_j| (f64 inputs x): an implementation with f32
+    sums is off by a few f32 ulps of s, and takes a ReLU on the other side
+    of f64's only where |z| lies within that.
+
+    :param layer_outputs: an iterable of the (N, W) outputs of layers 0, 1,
+        ..., consumed one at a time (a generator keeps one on the card).
+    :return: (each layer's ReLU pattern, output > 0; for each layer
+        {"flips": units whose pattern differs from f64's, "flip_ratio": the
+        largest |z| / s among them (0 without one), "error_ratio": the
+        largest |output - z| / s where both are positive}).
+    """
+    p = {k: v.double() for k, v in packed.items()}
+    enc = encoded.double()
+    h, masks, rows = enc, [], []
+    for i, out in zip(range(cfg.backbone_layers_count), layer_outputs):
+        if i == cfg.skip_layer_idx and i != 0:
+            h = torch.cat([h, enc], dim=-1)
+        scale = h.abs() @ p[f"w{i}"].abs() + p[f"b{i}"].abs()
+        z = h @ p[f"w{i}"] + p[f"b{i}"]
+        mask = out > 0
+        positive = z > 0
+        flipped = mask != positive
+        both = mask & positive
+        rows.append({
+            "flips": int(flipped.sum()),
+            "flip_ratio": (z.abs() / scale)[flipped].max().item() if bool(flipped.any()) else 0.0,
+            "error_ratio": ((out.double() - z).abs() / scale)[both].max().item() if bool(both.any()) else 0.0,
+        })
+        masks.append(mask)
+        h = torch.relu(z)
+        del scale, z, positive, flipped, both, out
+    return masks, rows
 
 
 def _layer_slots(cfg: NerfMLPConfig) -> List[List[Tuple[int, int]]]:
@@ -943,6 +990,18 @@ def backbone_bwd_breakdown(cfg, packed, encoded, g_h, g_alpha) -> Dict[str, floa
 _F32_WIDTHS = (64, 128, 256)
 _F32_TILE = 64
 _F32_CHUNK_TILES = 1024
+_F32_BLOCK_POINTS = 32  # points of a scratch block: one 128-byte feature row
+
+
+class F32Buffers(NamedTuple):
+    """The f32 kernels' weights (csrc/fused_backbone_f32.cu): the `fwd` and
+    `bwd` 3xTF32 images (2 x rows_pad x W floats each), the biases b_0 ..
+    b_{L-1}, b_alpha and w_alpha (W), f32."""
+
+    fwd: torch.Tensor
+    bwd: torch.Tensor
+    biases: torch.Tensor
+    w_alpha: torch.Tensor
 
 
 def backbone_f32_weights(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
@@ -963,28 +1022,121 @@ def backbone_f32_weights(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) ->
     return out
 
 
-def backbone_f32_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]):
-    """The backbone's weights as csrc/fused_backbone_f32.cu reads them:
-    (fwd, bwd, biases), f32. `fwd` is every layer's padded weight row-major
-    (`backbone_f32_weights`), then w_alpha; `bwd` every layer's transpose
-    (W x rows_i) at the same offsets; `biases` b_0 .. b_{L-1}, b_alpha."""
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 `x` rounded to TF32 (10 mantissa bits; nearest, ties away from
+    zero: PTX's cvt.rna.tf32.f32), kept in f32."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x = big + small as the f32 kernels split an operand: big = x rounded
+    to TF32, small = the rest rounded the same way."""
+    big = tf32_round(x)
+    return big, tf32_round(x.to(torch.float32) - big)
+
+
+def f32_fragment_offset(n, k):
+    """Float offset of (n, k) in one half of a slot: wgmma's K-major layout
+    without swizzle, core matrices of 8 n x 4 k floats (128 bytes), the two
+    of a k-step 32 floats apart, groups of 8 n 64 floats apart."""
+    return (n // 8) * 64 + (k // 4) * 32 + (n % 8) * 4 + k % 4
+
+
+def _logical_k(m):
+    """The logical k that reads physical row m of a k-step: the kernels take
+    the 8 K rows of a k-step in the order pi(k) = 2 (k % 4) + k / 4, so that
+    an accumulator fragment is the next product's A fragment."""
+    return (m // 2) + 4 * (m % 2)
+
+
+def plain_backbone_f32_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> F32Buffers:
+    """The f32 kernels' weights built in plain PyTorch, the plain version of
+    csrc/fused_backbone_f32.cu::backbone_f32_pack_kernel, bit for bit. Layer
+    i starts at float 2 W (padded rows before it) in both images:
+    - fwd: its in_i / 8 slots (k-steps of its padded input rows, taken in
+      `_logical_k`'s order), each big then small of (n = W output
+      columns) x 8 at `f32_fragment_offset`;
+    - bwd: W / 8 slots of its 64 encoding rows as n (layer 0, and first at
+      the skip layer), then (layers > 0) W / 8 slots of its W activation
+      rows, k over the output columns in the same order."""
+    width, skip = cfg.layers_width, _kernel_skip(cfg)
+    device = packed["w0"].device
+    fwd, bwd = [], []
     with torch.no_grad():
-        layers = backbone_f32_weights(cfg, packed)
-        fwd = torch.cat([w.reshape(-1) for w in layers] + [packed["w_alpha"].reshape(-1).to(torch.float32)])
-        bwd = torch.cat([w.t().reshape(-1) for w in layers])
+        for i, w in enumerate(backbone_f32_weights(cfg, packed)):
+            rows = w.shape[0]
+            big, small = tf32_split(w)
+            rr, c = torch.meshgrid(torch.arange(rows, device=device), torch.arange(width, device=device), indexing="ij")
+            f = torch.empty(2 * rows * width, dtype=torch.float32, device=device)
+            dst = (rr // 8) * 16 * width + f32_fragment_offset(c, _logical_k(rr % 8))
+            f[dst] = big
+            f[dst + 8 * width] = small
+            b = torch.empty_like(f)
+            n_rows = torch.full_like(rr, width)
+            nn, base = rr.clone(), torch.zeros_like(rr)
+            if i == 0:
+                n_rows[:] = _BACKBONE_PE
+            elif i == skip:
+                enc = rr >= width
+                n_rows[enc] = _BACKBONE_PE
+                nn[enc] -= width
+                base[~enc] = (width // 8) * 16 * _BACKBONE_PE
+            dst = base + (c // 8) * 16 * n_rows + f32_fragment_offset(nn, _logical_k(c % 8))
+            b[dst] = big
+            b[dst + 8 * n_rows] = small
+            fwd.append(f)
+            bwd.append(b)
         biases = torch.cat([packed[f"b{i}"].reshape(-1) for i in range(cfg.backbone_layers_count)]
                            + [packed["b_alpha"].reshape(-1)]).to(torch.float32)
-    return fwd.contiguous(), bwd.contiguous(), biases.contiguous()
+        w_alpha = packed["w_alpha"].reshape(-1).to(torch.float32)
+    return F32Buffers(torch.cat(fwd), torch.cat(bwd), biases.contiguous(), w_alpha.contiguous())
+
+
+def backbone_f32_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> F32Buffers:
+    """The f32 kernels' weights (`F32Buffers`, layouts in
+    `plain_backbone_f32_buffers`). CPU tensors take the plain version; on
+    the card one launch of backbone_f32_pack_kernel builds them from the
+    packed weights as they lie (strided views included), counted in
+    `backbone_f32_buffers.launches`. Raises for what the kernels do not
+    take."""
+    device = packed["w0"].device
+    if device.type == "cpu":
+        return plain_backbone_f32_buffers(cfg, packed)
+    width, layers, pe = cfg.layers_width, cfg.backbone_layers_count, packed["w0"].shape[0]
+    _backbone_kernel_checks(cfg, packed["w0"].new_empty((0, pe)), list(packed.values()))
+    rows = _backbone_grad_rows(cfg)
+    fwd = torch.empty(2 * rows * width, dtype=torch.float32, device=device)
+    bwd = torch.empty_like(fwd)
+    biases = torch.empty(layers * width + 1, dtype=torch.float32, device=device)
+    w_alpha = torch.empty(width, dtype=torch.float32, device=device)
+    ws = [packed[f"w{i}"] for i in range(layers)]
+    bs = [packed[f"b{i}"] for i in range(layers)]
+    err = _backbone_f32_library().backbone_f32_pack_launch(
+        (ctypes.c_void_p * layers)(*(w.data_ptr() for w in ws)),
+        (ctypes.c_longlong * (2 * layers))(*(s for w in ws for s in w.stride())),
+        (ctypes.c_void_p * layers)(*(b.data_ptr() for b in bs)),
+        (ctypes.c_longlong * layers)(*(b.stride()[-1] for b in bs)),
+        packed["w_alpha"].data_ptr(), packed["w_alpha"].stride()[0], packed["b_alpha"].data_ptr(),
+        fwd.data_ptr(), bwd.data_ptr(), biases.data_ptr(), w_alpha.data_ptr(), width, layers, _kernel_skip(cfg), pe,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"backbone_f32_pack kernel launch failed with CUDA error {err}")
+    backbone_f32_buffers.launches += 1
+    return F32Buffers(fwd, bwd, biases, w_alpha)
+
+
+backbone_f32_buffers.launches = 0
 
 
 def backbone_f32_row_blocks(cfg: NerfMLPConfig) -> List[Tuple[int, int, int, int]]:
-    """The f32 weight-gradient kernel's row blocks: (first padded row,
-    X column of its first 64 rows, of its second 64 rows or -1, layer).
-    The X scratch row of a point holds the encoding (64 columns), then the
-    activations of layers 0 .. L-2 (W each); layer i reads its input's
-    64-column halves in its padded row order (the encoding for layer 0;
-    layer i - 1's activation, then the encoding at the skip layer), two a
-    block."""
+    """The f32 weight-gradient kernel's row blocks: (first padded row, X
+    feature of its first 64 rows, of its second 64 rows or -1, layer). X
+    holds the encoding (features 0-63), then the activations of layers 0 ..
+    L-2 (W each); layer i reads its input's 64-feature halves in its padded
+    row order (the encoding for layer 0; layer i - 1's activation, then the
+    encoding at the skip layer), two a block."""
     width, layers, skip = cfg.layers_width, cfg.backbone_layers_count, _kernel_skip(cfg)
     table, out_row = [], 0
     for i in range(layers):
@@ -999,23 +1151,34 @@ def backbone_f32_row_blocks(cfg: NerfMLPConfig) -> List[Tuple[int, int, int, int
     return table
 
 
+def backbone_f32_dw_columns(cfg: NerfMLPConfig) -> int:
+    """Output columns of one weight-gradient CTA: min(W, 128)."""
+    return min(cfg.layers_width, 128)
+
+
 def backbone_f32_scratch_shapes(cfg: NerfMLPConfig, n: int, sm_count: int) -> Dict[str, Tuple[int, ...]]:
     """Shapes of the f32 backward's buffers for n points on a card of
-    `sm_count` SMs: x and g, the X and G scratch of one chunk of points
-    (`_F32_CHUNK_TILES` tiles of 64; row p holds point p of the chunk: X
-    as `backbone_f32_row_blocks` reads it, G_0 .. G_{L-1} and 64 columns of
-    padding); tile_part, the tile kernel's column sums, one row per CTA (as
-    many as SMs, at most one per tile); partial, one weight-gradient slab
-    per split of a chunk's points, as many splits as fill the SMs once."""
+    `sm_count` SMs. x and g: the X and G scratch of one chunk of points
+    (`_F32_CHUNK_TILES` tiles of 64), feature-major in blocks of 32 points,
+    X[b, f, swizzled(f, p % 32)] for point p = 32 b + p % 32 of the chunk,
+    the 16-byte chunks of a feature's 128-byte row XOR-ed with f % 8 (X:
+    the encoding, then the activations of layers 0 .. L-2; G: G_0 ..
+    G_{L-1}). tile_part: the tile kernel's column sums, a row per warpgroup
+    of its CTAs (as many as SMs, at most one per tile). partial: one
+    weight-gradient slab per split of a chunk's points, as many splits as
+    fill the SMs once. masks: each tile-kernel thread's ReLU mask bits
+    (W / 4 of them in two words; int32 for u32), per CTA and layer."""
     width, layers = cfg.layers_width, cfg.backbone_layers_count
     chunk_tiles = min(-(-n // _F32_TILE), _F32_CHUNK_TILES)
-    rows = chunk_tiles * _F32_TILE
-    blocks = len(backbone_f32_row_blocks(cfg)) * -(-width // 128)
+    grid = min(chunk_tiles, sm_count)
+    blocks = chunk_tiles * _F32_TILE // _F32_BLOCK_POINTS
+    dw_ctas = len(backbone_f32_row_blocks(cfg)) * (width // backbone_f32_dw_columns(cfg))
     return {
-        "x": (rows, _BACKBONE_PE + (layers - 1) * width),
-        "g": (rows, layers * width + _BACKBONE_PE),
-        "tile_part": (min(chunk_tiles, sm_count), layers * width + width + 1),
-        "partial": (max(1, min(rows // 32, sm_count // blocks)), _backbone_grad_rows(cfg), width),
+        "x": (blocks, _BACKBONE_PE + (layers - 1) * width, _F32_BLOCK_POINTS),
+        "g": (blocks, layers * width, _F32_BLOCK_POINTS),
+        "tile_part": (2 * grid, layers * width + width + 1),
+        "partial": (max(1, min(blocks, sm_count // dw_ctas)), _backbone_grad_rows(cfg), width),
+        "masks": (grid, layers, 2, 256),
     }
 
 
@@ -1026,7 +1189,7 @@ def _row_block_table(layers: int, width: int, skip: int, device: torch.device) -
 
 
 def backbone_f32_fwd(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encoded: torch.Tensor,
-                     buffers=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                     buffers: Optional[F32Buffers] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The f32 forward kernel (B2 for f32 operands) on the card over (N, E)
     f32 encodings -> ((N, W) h, (N,) alpha), one launch counted in
     `backbone_f32_fwd.launches`; `buffers` as backbone_f32_buffers gives
@@ -1034,15 +1197,16 @@ def backbone_f32_fwd(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encode
     _backbone_kernel_checks(cfg, encoded, [encoded] + list(packed.values()))
     n, pe = encoded.shape
     width = cfg.layers_width
-    fwd, _, biases = buffers if buffers is not None else backbone_f32_buffers(cfg, packed)
+    buffers = buffers if buffers is not None else backbone_f32_buffers(cfg, packed)
     encoded = encoded.contiguous()
     h = torch.empty((n, width), dtype=torch.float32, device=encoded.device)
     alpha = torch.empty((n,), dtype=torch.float32, device=encoded.device)
     if n == 0:
         return h, alpha
     err = _backbone_f32_library().backbone_f32_fwd_launch(
-        encoded.data_ptr(), fwd.data_ptr(), biases.data_ptr(), h.data_ptr(), alpha.data_ptr(), n, pe, width,
-        cfg.backbone_layers_count, _kernel_skip(cfg), torch.cuda.current_stream(encoded.device).cuda_stream,
+        encoded.data_ptr(), buffers.fwd.data_ptr(), buffers.biases.data_ptr(), buffers.w_alpha.data_ptr(),
+        h.data_ptr(), alpha.data_ptr(), n, pe, width, cfg.backbone_layers_count, _kernel_skip(cfg),
+        min(-(-n // _F32_TILE), _sm_count(encoded.device)), torch.cuda.current_stream(encoded.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"backbone_f32_fwd kernel launch failed with CUDA error {err}")
@@ -1053,11 +1217,20 @@ def backbone_f32_fwd(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encode
 backbone_f32_fwd.launches = 0
 
 
-def backbone_f32_bwd(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encoded: torch.Tensor,
-                     g_h: torch.Tensor, g_alpha: torch.Tensor, buffers=None):
-    """The f32 backward kernels (B3 for f32 operands) on the card: ({name:
-    gradient}, (N, E) d_encoded), one call counted in
-    `backbone_f32_bwd.launches`, bit-identical from run to run."""
+def backbone_f32_layer_outputs(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encoded: torch.Tensor):
+    """Yields the (N, W) post-ReLU output of layers 0, 1, ... as the f32
+    kernels compute it: B2-f32 over the first i + 1 layers, whose slots,
+    tiles and sums are B3-f32's recompute's. One launch a layer."""
+    for i in range(cfg.backbone_layers_count):
+        skip = cfg.skip_layer_idx if cfg.skip_layer_idx <= i else 0
+        part = replace(cfg, backbone_layers_count=i + 1, skip_layer_idx=skip)
+        yield backbone_f32_fwd(part, {k: packed[k] for k in _backbone_names(part)}, encoded)[0]
+
+
+def _backbone_f32_bwd(cfg, packed, encoded, g_h, g_alpha, buffers, ms):
+    """Launches the f32 backward kernels; `ms`, a ctypes array of 3 floats
+    or None, receives the tile, weight-gradient and reduction kernels'
+    milliseconds (the call then waits for each launch)."""
     _backbone_kernel_checks(cfg, encoded, [encoded, g_h, g_alpha] + list(packed.values()))
     n, pe = encoded.shape
     width, layers, skip = cfg.layers_width, cfg.backbone_layers_count, _kernel_skip(cfg)
@@ -1070,15 +1243,16 @@ def backbone_f32_bwd(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encode
     if n == 0:
         return _unpack_backbone_grads(cfg, grads_out.zero_(), pe), d_encoded
     shapes = backbone_f32_scratch_shapes(cfg, n, _sm_count(device))
-    scratch = {k: torch.empty(v, dtype=torch.float32, device=device) for k, v in shapes.items()}
+    scratch = {k: torch.empty(v, dtype=torch.int32 if k == "masks" else torch.float32, device=device)
+               for k, v in shapes.items()}
     table = _row_block_table(layers, width, cfg.skip_layer_idx, device)
-    fwd, bwd, biases = buffers
     err = _backbone_f32_library().backbone_f32_bwd_launch(
-        encoded.data_ptr(), g_h.data_ptr(), g_alpha.data_ptr(), fwd.data_ptr(), bwd.data_ptr(), biases.data_ptr(),
-        d_encoded.data_ptr(), *(scratch[k].data_ptr() for k in ("x", "g", "tile_part", "partial")),
-        table.data_ptr(), table.numel() // 4, grads_out.data_ptr(), n, pe, width, layers, skip,
-        shapes["tile_part"][0], shapes["x"][0] // _F32_TILE, shapes["partial"][0], shapes["x"][1], shapes["g"][1],
-        torch.cuda.current_stream(device).cuda_stream,
+        encoded.data_ptr(), g_h.data_ptr(), g_alpha.data_ptr(), buffers.fwd.data_ptr(), buffers.bwd.data_ptr(),
+        buffers.biases.data_ptr(), buffers.w_alpha.data_ptr(), d_encoded.data_ptr(),
+        *(scratch[k].data_ptr() for k in ("x", "g", "tile_part", "partial", "masks")), table.data_ptr(),
+        grads_out.data_ptr(), table.numel() // 4, n, pe, width, layers, skip, shapes["masks"][0],
+        shapes["x"][0] * _F32_BLOCK_POINTS // _F32_TILE, shapes["partial"][0],
+        torch.cuda.current_stream(device).cuda_stream, ms,
     )
     if err != 0:
         raise RuntimeError(f"backbone_f32_bwd kernel launch failed with CUDA error {err}")
@@ -1086,7 +1260,24 @@ def backbone_f32_bwd(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encode
     return _unpack_backbone_grads(cfg, grads_out, pe), d_encoded
 
 
+def backbone_f32_bwd(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encoded: torch.Tensor,
+                     g_h: torch.Tensor, g_alpha: torch.Tensor, buffers: Optional[F32Buffers] = None):
+    """The f32 backward kernels (B3 for f32 operands) on the card: ({name:
+    gradient}, (N, E) d_encoded), one call counted in
+    `backbone_f32_bwd.launches`, bit-identical from run to run."""
+    return _backbone_f32_bwd(cfg, packed, encoded, g_h, g_alpha, buffers, None)
+
+
 backbone_f32_bwd.launches = 0
+
+
+def backbone_f32_bwd_breakdown(cfg, packed, encoded, g_h, g_alpha, buffers=None) -> Dict[str, float]:
+    """One f32 backward on the card, timed by CUDA events around each of
+    its launches (counted in `backbone_f32_bwd.launches` as one call): ms
+    of the tile kernels, the weight-gradient kernels and the reduction."""
+    ms = (ctypes.c_float * 3)()
+    _backbone_f32_bwd(cfg, packed, encoded, g_h, g_alpha, buffers, ms)
+    return {"tile_ms": ms[0], "dw_ms": ms[1], "reduce_ms": ms[2]}
 
 
 def kernel_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of one train step goes in the PyTorch port, on one CUDA
-card: the phase-1 VAE step, the phase-2 synthesis step (direct rays or the
-published decoder path) or the phase-3 action-module G+D step.
+card: the phase-1 VAE step, the phase-2 synthesis step (direct rays, the
+published decoder path, or that path with every option) or the phase-3
+action-module G+D step.
 
-    python3 scripts/profile_torch_train.py [--phase 1|2|3] [--decoder [--config tennis|minecraft]] [--steps 4]
+    python3 scripts/profile_torch_train.py [--phase 1|2|3] [--decoder [--config tennis|minecraft]] [--options]
+        [--steps 4] [--repo DIR]
 
 Builds chip_smoke.py's main path of that phase, seeded random weights:
 phase 1, bench.py's step (chip_smoke.py 13e: the v8 autoencoder in bf16,
@@ -12,7 +14,10 @@ step (the tennis model at full width with the bf16 fused backbone, bs 8 x
 4 observations x 144 weighted rays at 288x512, Adam), or with `--decoder`
 the config's published decoder path at chip_smoke.py's per-card batch
 (13b / 13c: one strided patch an image decoded by the VAE, the
-autoencoder's frozen rate group); phase 3, bench.py's fused G+D step (bs
+autoencoder's frozen rate group), or with `--options` chip_smoke.py 14c's
+step (tennis.yaml's decoder path at bs 1 x 4 with use_fine, separate fine
+fields, the fused backbone at the YAML's f32, divergence, camera offsets
+and remat; chip_smoke.py::options_config); phase 3, bench.py's fused G+D step (bs
 16 x 9 observations, 2 players, dynamics 2 x 256, action network 3 x 128,
 GAN and ACMV). Warms up two steps, then:
 - times the parts of a step with the host clock around a synchronize:
@@ -20,11 +25,14 @@ GAN and ACMV). Warms up two steps, then:
   update; phase 3, the generator's forward with the losses, its backward,
   its Adam update, and the whole discriminator pass;
 - traces whole steps with torch.profiler and prints the device time by
-  kernel name and by kind (the B2/B3 or B4/B5 kernels, GEMMs,
-  convolutions and batch norm, the rest), the device-busy share of the
-  step and the number of device operations.
+  kernel name and by kind (the B2/B3 or B4/B5 kernels, B2-f32 and B3-f32
+  apart, GEMMs, convolutions and batch norm, the rest), each kind's share
+  of the device time, the device-busy share of the step and the number of
+  device operations.
+`--repo DIR` profiles the checkout at DIR (its package and chip_smoke.py)
+instead of this one, so that two commits can be read in one call.
 Writes the tables to chiprun_out/profile_torch_train[_phase1|_phase3|
-_decoder_<config>].json.
+_decoder_<config>|_options][_<DIR name>].json.
 """
 
 from __future__ import annotations
@@ -44,6 +52,12 @@ def kind_of(name: str) -> str:
     lowered = name.lower()
     if "rollout_" in lowered:
         return "fused rollout (B4/B5)"
+    if "backbone_f32_fwd" in lowered:
+        return "B2-f32"
+    if "backbone_f32_pack" in lowered:
+        return "B2-f32 weight images"
+    if "backbone_f32_" in lowered:
+        return "B3-f32"
     if "backbone_" in lowered:
         return "fused backbone (B2/B3)"
     if "adain_nerf" in lowered:
@@ -105,6 +119,25 @@ def decoder_step(config):
     model = build_environment_model(cfg, device="cuda", seed=0)
     trainer = SynthesisTrainer(model, synthesis_training_config(cfg))
     batch = decoder_batch(torch, config, DECODER_BATCH[config], DECODER_OBSERVATIONS[config], *DECODER_IMAGE, "cuda")
+    rng = RngStreams(0, "cuda")
+    return (lambda: trainer.train_step(batch, rng)), split_step(trainer, trainer.model,
+                                                                lambda: trainer.compute_losses(batch, rng, trainer.step))
+
+
+def options_step():
+    """(one train step, one step timed in parts) of chip_smoke.py's 14c:
+    tennis.yaml's phase 2 at full width with every option on."""
+    import torch
+
+    from chip_smoke import DECODER_IMAGE, PHASE14_BATCH, PHASE14_OBSERVATIONS, options_batch, options_config
+    from playableenvironments_tpu_torch.cli.common import build_environment_model, synthesis_training_config
+    from playableenvironments_tpu_torch.train.trainer_synthesis import SynthesisTrainer
+    from playableenvironments_tpu_torch.utils.random import RngStreams
+
+    cfg = options_config(REPO, tiny=False)
+    model = build_environment_model(cfg, device="cuda", seed=0)
+    trainer = SynthesisTrainer(model, synthesis_training_config(cfg))
+    batch = options_batch(torch, PHASE14_BATCH, PHASE14_OBSERVATIONS, *DECODER_IMAGE, "cuda")
     rng = RngStreams(0, "cuda")
     return (lambda: trainer.train_step(batch, rng)), split_step(trainer, trainer.model,
                                                                 lambda: trainer.compute_losses(batch, rng, trainer.step))
@@ -182,10 +215,17 @@ def main() -> int:
     parser.add_argument("--phase", type=int, choices=(1, 2, 3), default=2)
     parser.add_argument("--decoder", action="store_true", help="phase 2 on the published decoder path")
     parser.add_argument("--config", choices=("tennis", "minecraft"), default="tennis")
+    parser.add_argument("--options", action="store_true", help="phase 2 with every option (chip_smoke.py 14c)")
     parser.add_argument("--steps", type=int, default=4)
+    parser.add_argument("--repo", default=None, help="profile the checkout at this directory")
     args = parser.parse_args()
-    if args.decoder and args.phase != 2:
-        parser.error("--decoder is a phase-2 path")
+    if (args.decoder or args.options) and args.phase != 2:
+        parser.error("--decoder and --options are phase-2 paths")
+    if args.decoder and args.options:
+        parser.error("--options is the decoder path with every option; give one of the two")
+    global REPO
+    if args.repo:
+        REPO = os.path.abspath(args.repo)
 
     import torch
 
@@ -197,6 +237,8 @@ def main() -> int:
         step_fn, parts_fn = phase1_step()
     elif args.decoder:
         step_fn, parts_fn = decoder_step(args.config)
+    elif args.options:
+        step_fn, parts_fn = options_step()
     else:
         step_fn, parts_fn = phase2_step() if args.phase == 2 else phase3_step()
     for _ in range(2):
@@ -209,7 +251,8 @@ def main() -> int:
                 ("step", times[1][-1] - times[1][0])]:
             parts.setdefault(name, []).append(ms * 1e3)
     medians = {k: statistics.median(v) for k, v in parts.items()}
-    label = f"phase-{args.phase}" + (f" {args.config} decoder-path" if args.decoder else "")
+    label = f"phase-{args.phase}" + (f" {args.config} decoder-path" if args.decoder else "") + (
+        " tennis with every option" if args.options else "") + (f" ({REPO})" if args.repo else "")
     print(f"{label} step parts, median ms (host clock, synchronized):",
           ", ".join(f"{k} {v:.3f}" for k, v in medians.items()))
 
@@ -246,11 +289,14 @@ def main() -> int:
         kinds[r["kind"]] = kinds.get(r["kind"], 0.0) + r["device_ms_per_step"]
     print(f"traced: wall {wall_ms:.3f} ms/step, device busy {device_ms:.3f} ms/step "
           f"({100 * device_ms / wall_ms:.1f}%), {launches:.0f} device ops/step (profiler on)")
-    print("device ms/step by kind: " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(kinds.items(), key=lambda x: -x[1])))
+    print("device ms/step by kind (share of device time): " + ", ".join(
+        f"{k} {v:.3f} ({100 * v / device_ms:.1f}%)" for k, v in sorted(kinds.items(), key=lambda x: -x[1])))
     for r in rows[:30]:
         print(f"  {r['device_ms_per_step']:9.4f} ms {r['calls_per_step']:7.1f}x  {r['name'][:110]}")
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     suffix = f"_decoder_{args.config}" if args.decoder else ("" if args.phase == 2 else f"_phase{args.phase}")
+    suffix += "_options" if args.options else ""
+    suffix += f"_{os.path.basename(REPO)}" if args.repo else ""
     name = f"profile_torch_train{suffix}.json"
     with open(os.path.join(REPO, "chiprun_out", name), "w") as f:
         json.dump({"parts_ms": parts, "medians_ms": medians, "traced_wall_ms": wall_ms,

@@ -217,16 +217,27 @@ F32_BACKBONE = {
 }
 
 
+# chip_smoke.py's bounds on the f32 kernels' ReLU pattern against the f64
+# forward's (phase 14a): pre-activation errors and units on the other side
+# within 2^-16 of their rounding scale, at most 1 such unit a million of a
+# layer's, 4 at least.
+F32_RELU_BAND = 2.0 ** -16
+F32_RELU_FLIPS, F32_RELU_FLIPS_FLOOR = 1.0, 4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("points,width", [(18432, 256), (70001, 256), (37, 256), (1000, 128), (1000, 64)])
 def test_backbone_f32_kernels_match_plain_on_the_card(card, points, width):
-    """B2 and B3 for f32 operands (csrc/fused_backbone_f32.cu) against the
-    plain f32 versions on the same card: the tennis widths, a launch of two
-    backward chunks with a ragged last tile, less than one tile, narrower
-    widths (64 without a skip layer). Each output within 1e-3 of its
-    largest magnitude and 1e-5 of it in the mean (chip_smoke.py phase 14a
-    states the measured errors), B3 bit-identical across launches, each
-    launch counted once."""
+    """B2 and B3 for f32 operands (csrc/fused_backbone_f32.cu) on the same
+    card: the tennis widths, a launch of two backward chunks with a ragged
+    last tile, less than one tile, narrower widths (64 without a skip
+    layer). B2 against the plain f32 version, and each layer's ReLU pattern
+    against the f64 forward's (relu_pattern_check); B3 against the plain
+    backward in f64 at that pattern (chip_smoke.py phase 14a says why: the
+    plain f32 version takes a few ReLUs whose input lies within f32 rounding
+    of 0 on the other side). Each output within 1e-3 of its largest
+    magnitude and 1e-5 of it in the mean (14a states the measured errors),
+    B3 bit-identical across launches, each launch counted once."""
     cfg = F32_BACKBONE[width]
     packed, encoded, g_h, g_alpha = backbone_inputs(card, points, cfg=cfg)
     before = (fused_nerf.backbone_f32_fwd.launches, fused_nerf.backbone_f32_bwd.launches)
@@ -235,15 +246,44 @@ def test_backbone_f32_kernels_match_plain_on_the_card(card, points, width):
         grads, d_encoded = fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
         again, d_encoded_again = fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
         torch.cuda.synchronize()
+        launches = (fused_nerf.backbone_f32_fwd.launches, fused_nerf.backbone_f32_bwd.launches)
         ref = fused_nerf.plain_backbone_fwd(cfg, packed, encoded)
-        ref_grads, ref_d_encoded = fused_nerf.plain_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
-    assert (fused_nerf.backbone_f32_fwd.launches, fused_nerf.backbone_f32_bwd.launches) == (before[0] + 1, before[1] + 2)
+        masks, pattern = fused_nerf.relu_pattern_check(
+            cfg, packed, encoded, fused_nerf.backbone_f32_layer_outputs(cfg, packed, encoded))
+        ref_grads, ref_d_encoded = fused_nerf.plain_backbone_bwd(
+            cfg, {k: v.double() for k, v in packed.items()}, encoded.double(), g_h.double(), g_alpha.double(), masks)
+    assert launches == (before[0] + 1, before[1] + 2)
+    flip_limit = max(F32_RELU_FLIPS_FLOOR, F32_RELU_FLIPS * points * width / 1e6)
+    for layer, r in enumerate(pattern):
+        assert r["flips"] <= flip_limit, (layer, r)
+        assert r["flip_ratio"] <= F32_RELU_BAND and r["error_ratio"] <= F32_RELU_BAND, (layer, r)
     assert torch.equal(d_encoded, d_encoded_again) and all(torch.equal(grads[k], again[k]) for k in grads)
     outputs = [("h", got[0], ref[0]), ("alpha", got[1], ref[1]), ("d_encoded", d_encoded, ref_d_encoded)]
     for name, g_, r in outputs + [(k, grads[k], ref_grads[k]) for k in ref_grads]:
+        r = r.reshape(g_.shape).to(g_.dtype)
         scale = r.abs().max().item()
         diff = (g_ - r).abs()
         assert diff.max().item() <= 1e-3 * scale and diff.mean().item() <= 1e-5 * scale, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,strided", [(256, False), (256, True), (128, False), (64, True)])
+def test_backbone_f32_images_match_their_plain_version_on_the_card(card, width, strided):
+    """The card's pack kernel builds the f32 kernels' 3xTF32 weight images,
+    biases and w_alpha bit for bit as plain_backbone_f32_buffers does on
+    the CPU, from contiguous weights or the modules' transposed views, in
+    one counted launch."""
+    cfg = F32_BACKBONE[width]
+    nerf = initialize_(AdaInNerfMLP(cfg, 64, device=card), torch.Generator().manual_seed(3))
+    packed = {k: v.detach() for k, v in nerf.backbone_params().items()}
+    if not strided:
+        packed = {k: v.contiguous() for k, v in packed.items()}
+    before = fused_nerf.backbone_f32_buffers.launches
+    got = fused_nerf.backbone_f32_buffers(cfg, packed)
+    ref = fused_nerf.plain_backbone_f32_buffers(cfg, {k: v.cpu() for k, v in packed.items()})
+    assert fused_nerf.backbone_f32_buffers.launches == before + 1
+    for name, a, b in zip(ref._fields, got, ref):
+        assert torch.equal(a.cpu(), b), name
 
 
 @pytest.mark.cuda
