@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one card: the tennis play loop, the
 tennis phase-2 train step, the tennis phase-3 (action module) G+D step, the
-data path from a dataset on disk to each of them, the Minecraft family, and
-the published training pipeline (phase 2's decoder path for tennis and
-Minecraft, phase 1).
+data path from a dataset on disk to each of them, the Minecraft family, the
+published training pipeline (phase 2's decoder path for tennis and
+Minecraft, phase 1), phase 2's options and consistency passes, and the
+chain of the three phases and play through checkpoints.
 
     python3 chip_smoke.py
 
@@ -108,8 +109,28 @@ Phases, each fatal on failure:
    peak; (d) remat's peaks and steps on 13b's path at bs 2 x 4 off and
    on, the largest batch under 70 GB with it, phase 1 at bs 20 off and on;
    (e) a use_fine model's frames through the composer-based path
-   (FrameRenderer(use_fast=False)): 48x64 card vs CPU and 512x288 timed.
-`python3 chip_smoke.py --phase 12` (or `--phase 13`, `--phase 14`) builds
+   (FrameRenderer(use_fast=False)): 48x64 card vs CPU and 512x288 timed;
+15. phase 2's consistency passes and the published chain through
+   checkpoints: (a) 13b's tennis decoder path (bs 2 x 4, 288x512) with pose
+   consistency 1.0, keypoint consistency 1.0 and keypoint opacity 0.1 on a
+   hand-made optical flow and 17 COCO keypoints a player, against the same
+   path without them in one process: median steps, peak memory, B2/B3
+   launches a step (one B2 a field call of the passes, one B3 a keypoint
+   call) and the points the passes add, the metrics finite, then B2/B3
+   held against their plain versions on the inputs of each shape one more
+   step gives them, the passes' calls among them; (b) 13a's tiny
+   tennis step with the three weights on, card vs CPU on the CPU's draws
+   in full-precision convolutions, at TOLERANCES_15; (c) in a temporary
+   directory, phase 1 (2 steps, saved) -> phase 2 at bs 1 x 4 (the phase-1
+   autoencoder grafted bit for bit, 2 steps, keep=2 pruning) -> its
+   restore into a fresh trainer (bit for bit) -> phase 3 from
+   restore_params (2 fused steps, saved, restored bit for bit: both
+   optimizers, centroids, MI matrices) -> play from the restored models
+   (3 frames against the in-memory models'), and one resumed phase-2 step
+   with deterministic algorithms against the uninterrupted one and an
+   in-memory copy's (0 apart), B2/B3 held on the inputs of that step's
+   shapes; checkpoint bytes, save and restore ms.
+`python3 chip_smoke.py --phase 12` (or `--phase 13`, `--phase 14`, `--phase 15`) builds
 the kernels and runs that phase alone (no kernels line, no contract line).
 Details go to chiprun_out/chip_smoke.json. Prints one JSON line of kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX.
@@ -3289,6 +3310,594 @@ def phase14(repo):
     return results
 
 
+# ---- 15. the consistency passes, and checkpoints through the published chain ----
+
+# The consistency weights of 15a-15b and the samples an image of each pass.
+CONSISTENCY_WEIGHTS = dict(pose_consistency=1.0, keypoint_consistency=1.0, keypoint_opacity=0.1,
+                           consistency_samples=16)
+# The players' dataset boxes move this much a frame (normalized l, t, r,
+# b); the flow elsewhere than on a player is this small constant (d_row,
+# d_col).
+BOX_MOTION = (0.01, 0.005, 0.01, 0.005)
+BACKGROUND_FLOW = (0.002, 0.001)
+# COCO's 17 keypoints as (column, row) fractions of a player's box, and
+# their confidences: four under the 0.3 gate (two ears, an eye, a wrist).
+COCO_LAYOUT = ((0.5, 0.08), (0.45, 0.06), (0.55, 0.06), (0.4, 0.08), (0.6, 0.08), (0.3, 0.22), (0.7, 0.22),
+               (0.2, 0.38), (0.8, 0.38), (0.15, 0.52), (0.85, 0.52), (0.38, 0.55), (0.62, 0.55), (0.36, 0.75),
+               (0.64, 0.75), (0.35, 0.95), (0.65, 0.95))
+COCO_CONFIDENCE = (0.9, 0.9, 0.25, 0.2, 0.2, 0.9, 0.9, 0.9, 0.9, 0.9, 0.29, 0.9, 0.9, 0.9, 0.9, 0.9, 0.9)
+CONSISTENCY_STEPS = 5
+# 15b's card-vs-CPU bounds (the arguments of _card_cpu_checks), as
+# TOLERANCES_13's tennis step: both sides in f32 with full-precision
+# convolutions, the sums in other orders. Measured on an NVIDIA H100 80GB
+# HBM3 at 700.00 W: the worst gradient element 8.1e-5 of its model's
+# largest, tensor norms within 1.8e-4 relative, cosines above 0.99999, the
+# losses and metrics within 2.1e-7 (1.3e-6 relative but for the keypoint
+# consistency metrics of 8e-5 and 4.9e-6, 5.7e-5 and 2.5e-4 relative,
+# which the check's 1e-6 floor covers), the running statistics within
+# 1.5e-5 and every parameter element with a clear gradient sign within
+# 6e-8. The bounds sit 6-11 times above these.
+TOLERANCES_15 = dict(loss_rtol=1e-5, stats_tol=1e-4, grad_tol=5e-4, norm_tol=2e-3, cosine=0.9999)
+# 15c: the chain's batches (phase 1 images; phase 2 bs x observations at
+# DECODER_IMAGE; phase 3 bs at the YAML's observations) and steps.
+CHAIN_PHASE1 = (4, 64, 64)
+CHAIN_PHASE2 = (1, 4)
+CHAIN_PHASE3_BATCH = 4
+CHAIN_FRAMES = 3
+
+
+@contextlib.contextmanager
+def recorded_backbone_calls():
+    """Within the block, a copy of the inputs of B2's and B3's calls on the
+    card, the first call of each shape and direction: yields {"fwd": {key:
+    (cfg, packed, encoded)}, "bwd": {key: (cfg, packed, encoded, g_h,
+    g_alpha)}}, key (points, encoding width, cfg). The wrappers' launch
+    counts are not kept in the block: its launches are no part of a
+    counted run."""
+    from playableenvironments_tpu_torch.ops import fused_nerf
+
+    fwd, bwd = fused_nerf.fused_backbone_fwd, fused_nerf.fused_backbone_bwd
+    records = {"fwd": {}, "bwd": {}}
+
+    def keep(direction, cfg, packed, *tensors):
+        key = (tensors[0].shape[0], tensors[0].shape[1], cfg)
+        if tensors[0].is_cuda and key not in records[direction]:
+            records[direction][key] = (cfg, {k: v.detach().clone() for k, v in packed.items()},
+                                       *(t.detach().clone() for t in tensors))
+
+    def recording_fwd(cfg, packed, encoded, buffers=None):
+        keep("fwd", cfg, packed, encoded)
+        return fwd(cfg, packed, encoded, buffers)
+
+    def recording_bwd(cfg, packed, encoded, g_h, g_alpha, buffers=None):
+        keep("bwd", cfg, packed, encoded, g_h, g_alpha)
+        return bwd(cfg, packed, encoded, g_h, g_alpha, buffers)
+
+    recording_fwd.launches = recording_bwd.launches = 0
+    fused_nerf.fused_backbone_fwd, fused_nerf.fused_backbone_bwd = recording_fwd, recording_bwd
+    try:
+        yield records
+    finally:
+        fused_nerf.fused_backbone_fwd, fused_nerf.fused_backbone_bwd = fwd, bwd
+
+
+def hold_recorded_backbone_calls(label, records):
+    """B2 against plain_backbone_fwd and B3 against plain_backbone_bwd on
+    the inputs recorded_backbone_calls copied from a main path, at phase
+    5's bounds (KERNEL_ATOL and the rest for B2; D_ENCODED_REL_* and
+    GRAD_REL_* of each output's largest magnitude for B3). :return: one row
+    a call: direction, points, and the largest and mean error (B3's in
+    units of each output's largest magnitude, and its largest cotangent:
+    a launch whose cotangents are all 0 gives gradients of 0 on both
+    sides)."""
+    import torch
+
+    from playableenvironments_tpu_torch.ops import fused_nerf
+
+    rows = []
+    with torch.no_grad():
+        for cfg, packed, encoded in records["fwd"].values():
+            if cfg.compute_dtype != "bfloat16":
+                raise SmokeFailure(f"{label}: B2 called in {cfg.compute_dtype}, held here in bf16 only")
+            points = encoded.shape[0]
+            h, alpha = fused_nerf.fused_backbone_fwd(cfg, packed, encoded)
+            ref_h, ref_alpha = fused_nerf.plain_backbone_fwd(cfg, packed, encoded)
+            errs = [check_close(f"{label} B2 {points} points {name}", got, ref, KERNEL_ATOL, KERNEL_RTOL,
+                                KERNEL_MEAN_ATOL) for name, got, ref in (("h", h, ref_h), ("alpha", alpha, ref_alpha))]
+            rows.append({"direction": "B2", "points": points, "max_abs_err": max(e[0] for e in errs),
+                         "mean_abs_err": max(e[1] for e in errs)})
+            del h, alpha, ref_h, ref_alpha
+        for cfg, packed, encoded, g_h, g_alpha in records["bwd"].values():
+            points = encoded.shape[0]
+            grads, d_enc = fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+            ref_grads, ref_d_enc = fused_nerf.plain_backbone_bwd(cfg, packed, encoded.float(), g_h, g_alpha)
+            worst = worst_mean = 0.0
+            for key, got, ref in [("d_encoded", d_enc, ref_d_enc)] + [(k, grads[k], ref_grads[k]) for k in ref_grads]:
+                scale = ref.abs().max().item()
+                tol, mean_tol = ((D_ENCODED_REL_ATOL, D_ENCODED_REL_MEAN) if key == "d_encoded"
+                                 else (GRAD_REL_ATOL, GRAD_REL_MEAN))
+                err, mean = check_close(f"{label} B3 {points} points {key}", got, ref, tol * scale, 0.0,
+                                        mean_tol * scale)
+                if scale > 0:
+                    worst, worst_mean = max(worst, err / scale), max(worst_mean, mean / scale)
+            rows.append({"direction": "B3", "points": points, "max_abs_err": worst, "mean_abs_err": worst_mean,
+                         "largest_cotangent": max(g_h.abs().max().item(), g_alpha.abs().max().item())})
+            del grads, d_enc, ref_grads, ref_d_enc
+    torch.cuda.empty_cache()
+    print(f"{label}: B2/B3 held against their plain versions on the main path's own inputs, each shape once: "
+          + "; ".join(f"{r['direction']} {r['points']} points, max err {r['max_abs_err']:.3e}, mean "
+                      f"{r['mean_abs_err']:.3e}" + (f" (largest cotangent {r['largest_cotangent']:.3e})"
+                                                    if r["direction"] == "B3" else "") for r in rows))
+    return rows
+
+
+def consistency_batch(batch, model):
+    """`batch` with its players' dataset boxes moving BOX_MOTION a frame, an
+    optical flow and 17 COCO keypoints a player, made to follow the players
+    on the screen: their boxes as `model`'s eval-mode scene encoding
+    projects them. (In this batch a player's projection starts a fifth of
+    its height above the bottom of its dataset box and reaches below it,
+    so the pose pass, which draws its rays in the dataset boxes, hits a
+    player with few of them at frame t.) The flow at frame t: inside a
+    player's projected box, that box's displacement to frame t + 1 (0 at
+    the last frame); inside its dataset box, from the dataset box's centre
+    to the projected box's centre at t + 1, which carries the pose pass's
+    rays onto the player; BACKGROUND_FLOW elsewhere. The keypoints sit at
+    COCO_LAYOUT in the projected box with COCO_CONFIDENCE, valid where the
+    dataset box is."""
+    import torch
+
+    from playableenvironments_tpu_torch.config import ObjectIds
+
+    b, steps, cams, height, width = batch.observations.shape[:5]
+    device = batch.observations.device
+    frames = torch.arange(steps, device=device, dtype=torch.float32)
+    moved = dataclasses.replace(batch, bounding_boxes=(
+        batch.bounding_boxes + frames[:, None, None, None] * torch.tensor(BOX_MOTION, device=device)).contiguous())
+    with torch.no_grad():
+        _, aux = model.compute_scene_encoding(*moved.environment_model_args(), train=False)
+    screen = aux["reconstructed_bounding_boxes"][..., ObjectIds(model.scene).static_objects_count:, :]
+    centres = torch.stack([screen[..., 1] + screen[..., 3], screen[..., 0] + screen[..., 2]], dim=-1) / 2
+    motion = torch.cat([centres[:, 1:] - centres[:, :-1], torch.zeros_like(centres[:, :1])], dim=1)
+    rows = (torch.arange(height, device=device, dtype=torch.float32) / height)[:, None]
+    cols = (torch.arange(width, device=device, dtype=torch.float32) / width)[None, :]
+    flow = torch.empty(b, steps, cams, height, width, 2, device=device)
+    flow[...] = torch.tensor(BACKGROUND_FLOW, device=device)
+    layout = torch.tensor(COCO_LAYOUT, device=device)
+    confidence = torch.tensor(COCO_CONFIDENCE, device=device)
+    keypoints = []
+    dataset = moved.bounding_boxes
+    dataset_centres = torch.stack([dataset[..., 1] + dataset[..., 3], dataset[..., 0] + dataset[..., 2]], dim=-1) / 2
+    onto = torch.cat([centres[:, 1:] - dataset_centres[:, :-1], torch.zeros_like(centres[:, :1])], dim=1)
+
+    def inside(box):
+        box = box[..., None, None]
+        return (cols >= box[..., 0, :, :]) & (cols < box[..., 2, :, :]) & (rows >= box[..., 1, :, :]) & (
+            rows < box[..., 3, :, :])
+
+    for player in range(screen.shape[-2]):
+        flow = torch.where(inside(screen[..., player, :])[..., None], motion[..., player, None, None, :], flow)
+        flow = torch.where(inside(dataset[..., player, :])[..., None], onto[..., player, None, None, :], flow)
+        box = screen[..., player, None, :]
+        row = box[..., 1] + layout[:, 1] * (box[..., 3] - box[..., 1])
+        col = box[..., 0] + layout[:, 0] * (box[..., 2] - box[..., 0])
+        keypoints.append(torch.stack([row, col, confidence.expand(row.shape)], dim=-1))
+    return dataclasses.replace(moved, optical_flow=flow, keypoints=torch.stack(keypoints, dim=-1).contiguous(),
+                               keypoints_validity=batch.bounding_boxes_validity.clone())
+
+
+def with_consistency(train_cfg, on=True):
+    """`train_cfg` with CONSISTENCY_WEIGHTS, or with the three weights at 0."""
+    weights = CONSISTENCY_WEIGHTS if on else {k: 0.0 for k in CONSISTENCY_WEIGHTS if k != "consistency_samples"}
+    return dataclasses.replace(train_cfg, loss_weights=dataclasses.replace(train_cfg.loss_weights, **weights))
+
+
+def consistency_calls(scene, batch, samples):
+    """The passes' field calls a step as (pass, points): per player, two
+    pose calls of B x (T-1) x C x samples rays and one keypoint call of B x
+    T x C x samples, each ray at the player's coarse count."""
+    from playableenvironments_tpu_torch.config import ObjectIds
+
+    ids = ObjectIds(scene)
+    b, steps, cams = batch.observations.shape[:3]
+    calls = []
+    for dynamic in range(ids.dynamic_objects_count):
+        cfg = scene.object_models[ids.model_idx_by_object_idx(ids.static_objects_count + dynamic)]
+        rays = b * cams * samples * cfg.positions_count_coarse
+        calls += [("pose", (steps - 1) * rays)] * 2 + [("keypoint", steps * rays)]
+    return calls
+
+
+def phase15_consistency_main_path(repo, steps=CONSISTENCY_STEPS, device="cuda"):
+    """15a: configs/tennis.yaml's phase 2 at full width (13b's path: bench.py's
+    bf16 fused-backbone overrides, patch 64, bs 2 x 4 of 288x512 random
+    frames) with the consistency passes (CONSISTENCY_WEIGHTS; the batch's
+    flow and keypoints from consistency_batch) against the same path
+    without them, in one process: median steps, peak memory, B2/B3
+    launches a step (each pass's field call is one B2 launch; the keypoint
+    pass's opacity loss reaches the alphas, so its calls add one B3 each;
+    the pose pass reads its weights without gradient, so its calls add
+    none) and the points the passes add; every consistency metric
+    finite. Then one more step with the passes, its B2/B3 inputs recorded,
+    and B2/B3 held against their plain versions on each shape of that step
+    (the passes' calls among them)."""
+    import statistics as stats_lib
+
+    import torch
+
+    from playableenvironments_tpu_torch.cli.common import build_environment_model, synthesis_training_config
+    from playableenvironments_tpu_torch.config import ObjectIds
+    from playableenvironments_tpu_torch.ops import fused_nerf
+    from playableenvironments_tpu_torch.train.trainer_synthesis import SynthesisTrainer
+    from playableenvironments_tpu_torch.utils.random import RngStreams
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = published_phase2_config(repo, "tennis")
+    model = build_environment_model(cfg, device=device, seed=0)
+    bs, obs = DECODER_BATCH["tennis"], DECODER_OBSERVATIONS["tennis"]
+    batch = consistency_batch(decoder_batch(torch, "tennis", bs, obs, *DECODER_IMAGE, device), model)
+    base = synthesis_training_config(cfg)
+    per_step = fused_launches_a_step(model.scene)
+    players = ObjectIds(model.scene).dynamic_objects_count
+    results = {}
+    for label, on in (("without", False), ("with", True)):
+        trainer = SynthesisTrainer(model, with_consistency(base, on))
+        rng = RngStreams(0, device)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        fused_nerf.fused_backbone_fwd.launches = 0
+        fused_nerf.fused_backbone_bwd.launches = 0
+        step_ms, metrics = [], []
+        for _ in range(steps):
+            start = time.perf_counter()
+            out = trainer.train_step(batch, rng)
+            if cuda:
+                torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - start) * 1e3)
+            metrics.append({k: v.item() for k, v in out.items()})
+        launches = (fused_nerf.fused_backbone_fwd.launches, fused_nerf.fused_backbone_bwd.launches)
+        expected = (per_step + 3 * players, per_step + players) if on else (per_step, per_step)
+        if cuda and launches != (expected[0] * steps, expected[1] * steps):
+            raise SmokeFailure(f"15a {label} the passes: B2/B3 launches {launches} in {steps} steps, expected "
+                               f"{expected} a step")
+        names = sorted(k for k in metrics[0] if "consistency" in k or "keypoint_opacity" in k)
+        if on and len(names) != 3 * players:
+            raise SmokeFailure(f"15a: consistency metrics {names}")
+        if not all(math.isfinite(v) for m in metrics for v in m.values()):
+            raise SmokeFailure(f"15a {label} the passes: a metric is not finite: {metrics}")
+        results[label] = {"step_ms": step_ms, "median_step_ms": stats_lib.median(step_ms[2:]),
+                          "launches": launches, "launches_a_step": expected,
+                          "peak_memory_bytes": torch.cuda.max_memory_allocated() if cuda else 0,
+                          "consistency_metrics": [{k: m[k] for k in names} for m in metrics]}
+    with recorded_backbone_calls() as records:
+        trainer.train_step(batch, RngStreams(1, device))
+    held = hold_recorded_backbone_calls("15a", records) if cuda else []
+    calls = consistency_calls(model.scene, batch, CONSISTENCY_WEIGHTS["consistency_samples"])
+    wanted = {("B2", n) for _, n in calls} | {("B3", n) for kind, n in calls if kind == "keypoint"}
+    if cuda and not wanted <= {(r["direction"], r["points"]) for r in held}:
+        raise SmokeFailure(f"15a: the passes' launches {sorted(wanted)} were not all held: {held}")
+    points = sum(n for _, n in calls)
+    on, off = results["with"], results["without"]
+    results.update(points_added=points, batch=bs, observations=obs, held=held)
+    print(f"15a tennis decoder path with the consistency passes (bs {bs} x {obs} obs, {DECODER_IMAGE[0]}x"
+          f"{DECODER_IMAGE[1]}, {CONSISTENCY_WEIGHTS}): median step {on['median_step_ms']:.3f} ms with, "
+          f"{off['median_step_ms']:.3f} without, over steps 3-{steps}; peak {on['peak_memory_bytes'] / 2**30:.3f} "
+          f"GiB with, {off['peak_memory_bytes'] / 2**30:.3f} without; B2/B3 launches a step {on['launches_a_step']} "
+          f"with, {off['launches_a_step']} without; the passes add {points} points a step in "
+          f"{3 * players} field calls; last step's metrics {on['consistency_metrics'][-1]}; all steps ms with "
+          f"{[round(t, 3) for t in on['step_ms']]}, without {[round(t, 3) for t in off['step_ms']]}")
+    return results
+
+
+def phase15_consistency_card_vs_cpu(repo, devices=("cuda", "cpu")):
+    """15b: 13a's tiny tennis decoder-path step (48x64, patch 8, strides (4,
+    8), perturbation and the style shuffle off) with the consistency
+    weights on and consistency_batch's flow and keypoints, on the card and
+    on the CPU from the same seeded weights and the CPU's draws (the patch
+    centre, the pose pass's box draws, the keypoint fractions), inside
+    ieee_convolutions, at TOLERANCES_15."""
+    import torch
+
+    from playableenvironments_tpu_torch.cli.common import build_environment_model, synthesis_training_config
+    from playableenvironments_tpu_torch.train.trainer_synthesis import SynthesisTrainer
+
+    cfg = tiny_published_config(repo, "tennis")
+    train_cfg = with_consistency(dataclasses.replace(
+        synthesis_training_config(cfg), patch_size=TINY_PATCH, perturb=False, shuffle_style=False,
+        frozen_autoencoder_steps=0))
+    bs, obs = TINY_BATCH
+    outputs, recorded = [], RecordedStreams(15)
+    for i, device in enumerate(reversed(devices)):  # the CPU first: it draws
+        model = build_environment_model(cfg, device=device, seed=5)
+        batch = consistency_batch(decoder_batch(torch, "tennis", bs, obs, *TINY_IMAGE, device), model)
+        rng = recorded if i == 0 else ReplayedStreams(recorded.draws, device)
+        with ieee_convolutions(device):
+            outputs.append(_synthesis_step(torch, SynthesisTrainer(model, train_cfg), batch, rng))
+    host, card = outputs
+    names = sorted(k for k in host[1] if "consistency" in k or "keypoint_opacity" in k)
+    values = {k: host[1][k].item() for k in names}
+    if len(names) != 6 or not all(v > 0 for v in values.values()):
+        raise SmokeFailure(f"15b: the consistency metrics {values} (each player's three, each above 0)")
+    worst = _card_cpu_checks("15b tennis consistency step", card, host, train_cfg.learning_rate, **TOLERANCES_15)
+    worst["consistency_metrics"] = values
+    worst["card_consistency_metrics"] = {k: card[1][k].item() for k in names}
+    print(f"15b tennis decoder step with the consistency passes card vs CPU ({bs} x {obs} obs, {TINY_IMAGE[0]}x"
+          f"{TINY_IMAGE[1]}, patch {TINY_PATCH}): loss {worst['loss']:.6f} vs {worst['ref_loss']:.6f}; metrics "
+          f"CPU {values}, card {worst['card_consistency_metrics']}; {_describe_checks(worst)}")
+    return worst
+
+
+def _same_state(label, got, ref):
+    """Raises unless the two flat states (checkpointing.flat_state's form)
+    are equal entry for entry, tensors bit for bit. :return: the number of
+    tensors compared."""
+    import torch
+
+    from playableenvironments_tpu_torch.train.checkpointing import state_difference
+
+    difference = state_difference(got, ref)
+    if difference is not None:
+        raise SmokeFailure(f"{label}: {difference}")
+    return sum(torch.is_tensor(v) for v in ref.values())
+
+
+def copy_trainer_state(source, target):
+    """The phase-2 trainer `source`'s model and Adam state copied into
+    `target` in memory (not through a checkpoint)."""
+    import copy
+
+    target.model.load_state_dict(source.model.state_dict())
+    target.optimizer.optimizer.load_state_dict(copy.deepcopy(source.optimizer.optimizer.state_dict()))
+    target.optimizer.step_count = source.optimizer.step_count
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch.use_deterministic_algorithms and cuDNN's deterministic
+    algorithms inside the `with` (an operation without a deterministic
+    implementation raises), the previous settings after it. A phase-2
+    decoder-path step is then bit-reproducible on the card: two trainers in
+    one state take the same step to the bit."""
+    import torch
+
+    enabled, warn_only = torch.are_deterministic_algorithms_enabled(), \
+        torch.is_deterministic_algorithms_warn_only_enabled()
+    cudnn = torch.backends.cudnn
+    torch.use_deterministic_algorithms(True)
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
+                         allow_tf32=cudnn.allow_tf32):
+            yield
+    finally:
+        torch.use_deterministic_algorithms(enabled, warn_only=warn_only)
+
+
+def max_parameter_difference(a, b):
+    """The largest element-wise difference between two modules' parameters."""
+    return max((pa.detach() - pb.detach()).abs().max().item()
+               for (_, pa), (_, pb) in zip(a.named_parameters(), b.named_parameters()))
+
+
+def _timed(fn, device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - start) * 1e3
+
+
+def phase15_chain(repo, directory, device="cuda"):
+    """15c: the published chain phase 1 -> phase 2 -> phase 3 -> play through
+    the port's checkpoints, in `directory`, on tennis.yaml at full width:
+    phase 1 (its autoencoder, CHAIN_PHASE1 images, 2 steps, saved); phase 2
+    (13b's decoder path at CHAIN_PHASE2, the phase-1 autoencoder grafted and
+    held to the checkpoint bit for bit, 2 steps, saved after steps 0-2 with
+    keep=2 and the prune checked); its restore into a fresh trainer (every
+    parameter, buffer, Adam moment, rate group and step bit for bit); phase
+    3 (restore_params of the phase-2 checkpoint into a fresh environment
+    model, 2 fused G+D steps on its encodings, saved and restored:
+    centroids, MI matrices and both optimizers bit for bit); play (an
+    InteractiveSession of the restored phase-2 and phase-3 models renders
+    CHAIN_FRAMES frames, held against the in-memory models' at FRAME_ATOL);
+    then one resumed phase-2 step with deterministic algorithms against the
+    uninterrupted trainer's same step (largest parameter difference: 0
+    where the same step of an in-memory copy of that trainer is 0, else
+    within it; both printed), the copy's B2/B3 inputs recorded and held
+    against the plain versions. Save and restore times and bytes of each
+    phase, B1/B2/B3/B4/B5 launches of the chain."""
+    import numpy as np
+    import torch
+
+    from playableenvironments_tpu_torch.cli.common import (
+        autoencoder_training_config, build_environment_model, playable_training_config, synthesis_training_config,
+    )
+    from playableenvironments_tpu_torch.cli.play import InteractiveSession
+    from playableenvironments_tpu_torch.config import scene_from_dict
+    from playableenvironments_tpu_torch.ops import fused_nerf
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+    from playableenvironments_tpu_torch.render.playable_model import PlayableEnvironmentModel
+    from playableenvironments_tpu_torch.train import checkpointing as ckpt
+    from playableenvironments_tpu_torch.train.trainer_autoencoder import AutoencoderTrainer
+    from playableenvironments_tpu_torch.train.trainer_playable import PlayableLossWeights, PlayableTrainer
+    from playableenvironments_tpu_torch.train.trainer_synthesis import SynthesisTrainer
+    from playableenvironments_tpu_torch.utils.random import RngStreams
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = published_phase2_config(repo, "tennis")
+    results, io = {}, {}
+
+    def save(name, trainer, **kwargs):
+        path, ms = _timed(lambda: ckpt.save_checkpoint(os.path.join(directory, name), trainer, **kwargs), device)
+        io.setdefault(name, {}).update(save_ms=ms, bytes=os.path.getsize(os.path.join(path, ckpt.STATE_FILE)))
+        return path
+
+    def restore(name, fn, key="restore_ms"):
+        out, ms = _timed(fn, device)
+        io[name][key] = ms
+        return out
+
+    # Phase 1.
+    scene = scene_from_dict(cfg["model"], cfg.get("playable_model"))
+    phase1 = AutoencoderTrainer(scene.autoencoder, autoencoder_training_config(cfg), device=device, seed=11)
+    images = torch.from_numpy(np.random.default_rng(3).random(CHAIN_PHASE1 + (3,), np.float32)).to(device)
+    for _ in range(2):
+        phase1.train_step(images, RngStreams(1, device))
+    phase1_path = save("phase1", phase1)
+
+    # Phase 2: graft, two steps, saves after steps 0, 1 and 2 with keep=2.
+    bs, obs = CHAIN_PHASE2
+    batch = decoder_batch(torch, "tennis", bs, obs, *DECODER_IMAGE, device)
+    train_cfg = synthesis_training_config(cfg)
+
+    def phase2_trainer(seed):
+        trainer = SynthesisTrainer(build_environment_model(cfg, device=device, seed=seed), train_cfg)
+        restore("phase1", lambda: ckpt.graft_autoencoder(phase1_path, trainer.model), "graft_ms")
+        return trainer
+
+    uninterrupted = [phase2_trainer(0), phase2_trainer(0)]
+    grafted = _same_state("15c graft", {(k,): v for k, v in uninterrupted[0].model.autoencoder.state_dict().items()},
+                          {(k,): v for k, v in phase1.model.state_dict().items()})
+    fused_nerf.fused_backbone_fwd.launches = 0
+    fused_nerf.fused_backbone_bwd.launches = 0
+    phase2_dir = os.path.join(directory, "phase2")
+    save("phase2", uninterrupted[0], keep=2)
+    for step in range(2):
+        for trainer in uninterrupted:
+            trainer.train_step(batch, RngStreams(10 + step, device))
+        phase2_path = save("phase2", uninterrupted[0], keep=2)
+    kept = sorted(os.listdir(phase2_dir))
+    if kept != ["checkpoint_1", "checkpoint_2"] or ckpt.latest_checkpoint_any(directory, phase2_dir) != phase2_path:
+        raise SmokeFailure(f"15c: keep=2 left {kept} in {phase2_dir}")
+    phase2_launches = (fused_nerf.fused_backbone_fwd.launches, fused_nerf.fused_backbone_bwd.launches)
+    per_step = fused_launches_a_step(scene)
+    if cuda and phase2_launches != (4 * per_step, 4 * per_step):
+        raise SmokeFailure(f"15c phase 2: B2/B3 launches {phase2_launches} in 4 steps (2 trainers), expected "
+                           f"{per_step} each a step")
+    resumed = SynthesisTrainer(build_environment_model(cfg, device=device, seed=9), train_cfg)
+    restore("phase2", lambda: ckpt.restore_checkpoint(phase2_path, resumed))
+    tensors = _same_state("15c phase-2 restore", ckpt.flat_state(resumed), ckpt.flat_state(uninterrupted[0]))
+    results["phase2"] = {"grafted_tensors": grafted, "restored_tensors": tensors, "kept": kept,
+                         "launches": phase2_launches}
+    print(f"15c phase 1 -> phase 2: the phase-1 autoencoder ({grafted} tensors) grafted bit for bit; 2 steps at bs "
+          f"{bs} x {obs} obs (B2 {phase2_launches[0]}, B3 {phase2_launches[1]} launches over two trainers); keep=2 "
+          f"left {kept}; restored {tensors} tensors and values bit for bit")
+
+    # Phase 3 on the phase-2 checkpoint's model.
+    environment = ckpt.restore_params(phase2_path, build_environment_model(cfg, device=device, seed=8))
+    play_cfg = playable_training_config(cfg)
+    play_cfg = dataclasses.replace(play_cfg, ground_truth_observations_start=PHASE3_GT,
+                                   loss_weights=dataclasses.replace(play_cfg.loss_weights, gan=0.1, acmv=0.1))
+
+    def phase3_trainer_of(seed, env):
+        model = PlayableEnvironmentModel(scene, with_discriminators=True, device=device, seed=seed)
+        return PlayableTrainer(model, play_cfg, environment_model=env)
+
+    phase3 = phase3_trainer_of(2, environment)
+    phase3_batch = decoder_batch(torch, "tennis", CHAIN_PHASE3_BATCH, play_cfg.observations_count, *DECODER_IMAGE,
+                                 device)
+    encoding = phase3.encode_batch(phase3_batch)
+    phase3.init_state_from_encoding(encoding, seed=0)
+    fr.fused_rollout_fwd.launches = 0
+    fr.fused_rollout_bwd.launches = 0
+    for step in range(2):
+        metrics = phase3.fused_step(encoding, RngStreams(30 + step, device))
+        if not all(math.isfinite(v.item()) for v in metrics.values()):
+            raise SmokeFailure(f"15c phase 3: metrics {metrics}")
+    phase3_launches = (fr.fused_rollout_fwd.launches, fr.fused_rollout_bwd.launches)
+    if cuda and not (phase3_launches[0] >= 2 and phase3_launches[1] >= 2 and phase3_launches[0] % 2 == 0
+                     and phase3_launches[1] % 2 == 0):
+        raise SmokeFailure(f"15c phase 3: B4/B5 launches {phase3_launches} in 2 steps")
+    phase3_path = save("phase3", phase3)
+    restored3 = phase3_trainer_of(4, None)
+    restore("phase3", lambda: ckpt.restore_checkpoint(phase3_path, restored3))
+    saved3 = ckpt.flat_state(phase3)
+    tensors3 = _same_state("15c phase-3 restore", ckpt.flat_state(restored3), saved3)
+    if not any(p[0] == "discriminator_optimizer" for p in saved3) or not any(p[0] == "centroids" for p in saved3):
+        raise SmokeFailure("15c phase 3: the state lacks the discriminator's optimizer or the centroids")
+    results["phase3"] = {"launches": phase3_launches, "restored_tensors": tensors3}
+    print(f"15c phase 2 -> phase 3: restore_params of the phase-2 checkpoint, 2 fused G+D steps on its encoding "
+          f"of bs {CHAIN_PHASE3_BATCH} x {play_cfg.observations_count} (B4 {phase3_launches[0]}, B5 "
+          f"{phase3_launches[1]} launches); saved and restored {tensors3} tensors and values bit for bit (both "
+          "optimizers, centroids, MI matrices)")
+
+    # Play from the restored models against the in-memory ones.
+    played = build_environment_model(cfg, device=device, seed=6)
+    restore("phase2", lambda: ckpt.restore_params(phase2_path, played), "restore_params_ms")
+    playable = PlayableEnvironmentModel(scene, with_discriminators=True, device=device, seed=7)
+    ckpt.restore_params(phase3_path, playable)
+    sessions = []
+    for env, anim in ((played, playable), (uninterrupted[0].model, phase3.playable_model)):
+        sessions.append(InteractiveSession(scene, env.composer, env.autoencoder, anim.eval(), IMAGE_SIZE, STRIDES,
+                                           FOCAL_LENGTH_MULTIPLIER))
+    fused_nerf.fused_adain_nerf.launches = 0
+    frames = [[], []]
+    for i in range(CHAIN_FRAMES):
+        for session, out in zip(sessions, frames):
+            out.append(session.start(tennis_encoding(torch, device)) if i == 0
+                       else session.step(list(ACTIONS[i])))
+    play_launches = fused_nerf.fused_adain_nerf.launches
+    frame_err = max(float(np.abs(a - b).max()) for a, b in zip(*frames))
+    if not all(np.isfinite(f).all() and f.shape == (IMAGE_SIZE[0], IMAGE_SIZE[1], 3) for f in frames[0]):
+        raise SmokeFailure("15c play: a frame is not finite or misshapen")
+    if not frame_err <= FRAME_ATOL or (cuda and play_launches != 2 * CHAIN_FRAMES):
+        raise SmokeFailure(f"15c play: frames {frame_err:.3e} from the in-memory models' (tolerance {FRAME_ATOL}), "
+                           f"{play_launches} B1 launches for {2 * CHAIN_FRAMES} frames")
+    results["play"] = {"launches": play_launches, "frame_max_abs_err": frame_err}
+    results["io"] = io
+    print(f"15c play: {CHAIN_FRAMES} frames {IMAGE_SIZE[1]}x{IMAGE_SIZE[0]} from the restored phase-2 and phase-3 "
+          f"models within {frame_err:.3e} of the in-memory models' (tolerance {FRAME_ATOL}), {play_launches} B1 "
+          "launches; checkpoints " + "; ".join(
+              f"{name} {v['bytes'] / 2**20:.1f} MiB, " + ", ".join(f"{k[:-3]} {ms:.1f} ms" for k, ms in v.items()
+                                                                 if k.endswith("_ms"))
+              for name, v in io.items()))
+
+    # One step after the restore against the same step uninterrupted and
+    # the same step of an in-memory copy of the uninterrupted trainer (the
+    # spread of one step), with deterministic algorithms; the copy's step
+    # records its B2/B3 inputs, held below.
+    copy_trainer_state(uninterrupted[0], uninterrupted[1])
+    _same_state("15c in-memory copy", ckpt.flat_state(uninterrupted[1]), ckpt.flat_state(uninterrupted[0]))
+    with deterministic_algorithms():
+        uninterrupted[0].train_step(batch, RngStreams(20, device))
+        resumed.train_step(batch, RngStreams(20, device))
+        with recorded_backbone_calls() as records:
+            uninterrupted[1].train_step(batch, RngStreams(20, device))
+    spread = max_parameter_difference(uninterrupted[0].model, uninterrupted[1].model)
+    resumed_diff = max_parameter_difference(resumed.model, uninterrupted[0].model)
+    if not (resumed_diff == 0.0 if spread == 0.0 else resumed_diff <= spread):
+        raise SmokeFailure(f"15c: the resumed step is {resumed_diff:.3e} from the uninterrupted one, the same "
+                           f"step of an in-memory copy {spread:.3e}")
+    results["phase2"].update(resumed_max_parameter_difference=resumed_diff, one_step_spread=spread)
+    print(f"15c resumed phase-2 step (deterministic algorithms): largest parameter difference {resumed_diff:.3e} "
+          f"from the uninterrupted step; the same step of an in-memory copy of the uninterrupted trainer "
+          f"{spread:.3e} from it")
+    results["phase2"]["held"] = hold_recorded_backbone_calls("15c phase 2", records) if cuda else []
+    return results
+
+
+def phase15(repo):
+    """15a-15c (module docstring); 15c in a temporary directory it removes."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    results = {"consistency_card_vs_cpu": phase15_consistency_card_vs_cpu(repo),
+               "consistency": phase15_consistency_main_path(repo)}
+    torch.cuda.empty_cache()
+    directory = tempfile.mkdtemp(prefix="chip_smoke_chain_")
+    try:
+        results["chain"] = phase15_chain(repo, directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    return results
+
+
 def backbone_f32_entries(phase14_results):
     """The kernels line's entries of B2/B3 for f32 operands (phase 14): ms,
     plain, library and bound of one direct-ray step's four launches (two of
@@ -3502,7 +4111,7 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     done("1")
-    alone = {"12": phase12_minecraft, "13": phase13, "14": phase14}
+    alone = {"12": phase12_minecraft, "13": phase13, "14": phase14, "15": phase15}
     if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in alone:
         try:
             result = alone[sys.argv[2]](repo)
@@ -3618,6 +4227,8 @@ def main() -> int:
         done("13")
         phase14_results = phase14(repo)
         done("14")
+        phase15_results = phase15(repo)
+        done("15")
     except SmokeFailure as e:
         return fail(str(e))
 
@@ -3650,7 +4261,8 @@ def main() -> int:
                                 "reconstruction": phase11["creator"]["launches"],
                                 "minecraft_play": phase12["play"]["launches"],
                                 "minecraft_play_from_batch": phase12["data"]["play_launches"],
-                                "minecraft_reconstruction": phase12["data"]["creator_launches"][0]},
+                                "minecraft_reconstruction": phase12["data"]["creator_launches"][0],
+                                "chain_play": phase15_results["chain"]["play"]["launches"]},
               batch4_ms=phase11["creator"]["b1_ms"], batch4_bound_ms=phase11["creator"]["b1_bound_ms"],
               minecraft={k: mc["frame"][k] for k in ("points", "ms", "back_to_back_ms", "plain_ms", "library_ms",
                                                       "bound_ms", "bound_by", "max_abs_err")},
@@ -3691,6 +4303,8 @@ def main() -> int:
             "phase2": entry["launches"],
             "tennis_decoder": phase13_results["tennis"]["launches"][which == "bwd"],
             "minecraft_decoder": phase13_results["minecraft"]["launches"][which == "bwd"],
+            "tennis_decoder_consistency": phase15_results["consistency"]["with"]["launches"][which == "bwd"],
+            "chain_phase2": phase15_results["chain"]["phase2"]["launches"][which == "bwd"],
         }
         entry["decoder_path_launch"] = {k: row[k] for k in ("points", "ms", "plain_ms", "library_ms", "bound_ms",
                                                             "bound_by", "max_abs_err")}
@@ -3699,7 +4313,8 @@ def main() -> int:
     for entry, which in zip(kernels[3:5], (0, 1)):
         entry["launches_by_path"] = {"phase3": phase3["launches"][which], "phase3_cache": p11["cache_launches"][which],
                                      "phase3_batch": p11["batch_launches"][which],
-                                     "minecraft_phase3_cache": phase12["phase3"]["launches"][which]}
+                                     "minecraft_phase3_cache": phase12["phase3"]["launches"][which],
+                                     "chain_phase3": phase15_results["chain"]["phase3"]["launches"][which]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -3710,7 +4325,7 @@ def main() -> int:
                    "backbone_fwd_shapes": fwd_rows, "backbone_bwd_shapes": bwd_rows,
                    "train_card_vs_cpu": card_vs_cpu, "phase2": phase2, "rollout_shapes": rollout_rows,
                    "phase3_card_vs_cpu": phase3_card_vs_cpu, "phase3": phase3, "phase11": phase11, "phase12": phase12,
-                   "phase13": phase13_results, "phase14": phase14_results,
+                   "phase13": phase13_results, "phase14": phase14_results, "phase15": phase15_results,
                    "kernels": kernels,
                    "phase_seconds": phase_seconds, "ptxas": reports}, f, indent=1)
     print(f"phase seconds: {phase_seconds}")

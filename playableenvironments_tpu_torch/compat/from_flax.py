@@ -11,7 +11,9 @@ variables tree); nothing here imports JAX. Leaves map by name:
 - LSTM gates keep their flax names (ii/if/ig/io without bias, hi/hf/hg/ho
   with), as do plain parameters such as `initial_hidden_0`.
 Every parameter and buffer of the target must be covered, and every leaf
-must land on one of the same shape.
+must land on one of the same shape. `load_npz` reads the `.npz` that
+scripts/export_flax_checkpoint.py writes from a JAX checkpoint into the
+nested mapping these loaders take.
 """
 
 from __future__ import annotations
@@ -179,3 +181,30 @@ def load_vgg(net, variables: Mapping) -> None:
     """VGGFeatures variables (`conv{block}_{i}` kernels HWIO, biases) ->
     eval.perceptual.VGGFeatures (OIHW), strictly."""
     load_flax_tree(net, variables["params"])
+
+
+def _unescape_key(segment: str) -> str:
+    """One segment of an exported key: "%2F" stands for "/" inside a flax
+    name (the spectral norms' "layer/kernel/u"), "%25" for "%"."""
+    return segment.replace("%2F", "/").replace("%25", "%")
+
+
+def load_npz(path: str) -> Tuple[dict, int]:
+    """A JAX checkpoint exported by scripts/export_flax_checkpoint.py:
+    (variables {"params": ..., "batch_stats": ...} as nested dicts of numpy
+    arrays, the step). Keys are "/"-joined paths of escaped names."""
+    variables: dict = {"params": {}, "batch_stats": {}}
+    step = -1
+    with np.load(path) as data:
+        for key in data.files:
+            if key == "step":
+                step = int(data[key])
+                continue
+            *heads, leaf = [_unescape_key(segment) for segment in key.split("/")]
+            if heads[0] not in variables:
+                raise KeyError(f"{path}: entry {key!r} is neither params nor batch_stats")
+            node = variables
+            for head in heads:
+                node = node.setdefault(head, {})
+            node[leaf] = data[key]
+    return variables, step

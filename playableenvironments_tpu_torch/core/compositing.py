@@ -2,7 +2,8 @@
 
 Port of playableenvironments_tpu/core/compositing.py: `position_distances`,
 `alphas_from_raw`, `compositing_weights`, `integrate`,
-`compose_integrate_sortfree`, and the Minecraft overlap fix
+`compose_integrate_sortfree`, `expected_positions` (the anchor of the
+consistency losses) and the Minecraft overlap fix
 (`overlap_fix_mask`, `apply_overlap_fix`). Where the JAX functions draw noise from a key,
 these take the noise tensor itself (`noise`, a unit normal draw of the raw
 alphas' shape, or None without perturbation).
@@ -88,6 +89,22 @@ def integrate(
         ),
         "integrated_divergence": torch.mean(alphas.detach() * torch.abs(ray_divergences), dim=-1),
     }
+
+
+def expected_positions(
+    ray_positions: torch.Tensor, ray_displacements: torch.Tensor, weights: torch.Tensor, eps: float = 1e-8
+) -> torch.Tensor:
+    """Expected position of the first surface each ray hits: the bent
+    positions averaged with the compositing weights, which carry no
+    gradient.
+
+    :param ray_positions, ray_displacements: (..., positions, 3);
+        weights (..., positions).
+    :return: (..., 3).
+    """
+    weights = weights.detach()[..., None]
+    bent = ray_positions + ray_displacements
+    return torch.sum(bent * weights, dim=-2) / (torch.sum(weights, dim=-2) + eps)
 
 
 def overlap_fix_mask(static_t: torch.Tensor, dynamic_t: torch.Tensor) -> torch.Tensor:

@@ -98,20 +98,24 @@ class AdaInNerfMLP(nn.Module):
         :param mask: (...) validity for the AdaIN statistics.
         :return: ((..., output_features) f32 features, (...) f32 raw alpha).
         """
+        h, alpha = self.backbone_and_alpha(positions, box)
+        return _feature_head(self, h, style, mask, use_running_average, getattr(torch, self.cfg.compute_dtype)), alpha
+
+    def backbone_and_alpha(self, positions: torch.Tensor, box) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The backbone's output and the raw alpha, without the feature
+        head: ((..., W) h in the compute dtype, (...) f32 raw alpha)."""
         cfg = self.cfg
         pe_cfg = cfg.position_encoder
         encoded = positional_encoding(positions / aabb_size(_box(box, positions)), pe_cfg.octaves,
                                       pe_cfg.append_original)
-        dtype = getattr(torch, cfg.compute_dtype)
         if cfg.use_fused_backbone:
             flat = encoded.to(torch.float32).reshape(-1, encoded.shape[-1])
             h_flat, alpha_flat = fused_nerf.fused_backbone(cfg, self.backbone_params(), flat)
-            h = h_flat.reshape(encoded.shape[:-1] + (cfg.layers_width,))
-            alpha = alpha_flat.reshape(encoded.shape[:-1])
-        else:
-            h = _backbone(self, cfg, encoded.to(dtype), dtype)
-            alpha = dense(h, self.alpha_head, dtype)[..., 0].to(torch.float32)
-        return _feature_head(self, h, style, mask, use_running_average, dtype), alpha
+            return (h_flat.reshape(encoded.shape[:-1] + (cfg.layers_width,)),
+                    alpha_flat.reshape(encoded.shape[:-1]))
+        dtype = getattr(torch, cfg.compute_dtype)
+        h = _backbone(self, cfg, encoded.to(dtype), dtype)
+        return h, dense(h, self.alpha_head, dtype)[..., 0].to(torch.float32)
 
 
 class SkyboxNerfMLP(nn.Module):
@@ -327,6 +331,28 @@ class ObjectRadianceField(nn.Module):
         args = (ray_positions, displacements, style, ray_origins, ray_directions)
         features, alpha = remat_lib.checkpointed(radiance, *args) if remat else radiance(*args)
         return features, alpha, displacements, divergences
+
+    def alphas_and_displacements(self, ray_positions: torch.Tensor, deformation: torch.Tensor, step=0
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The raw alphas and displacements of `forward` (no divergence, no
+        canonical pose) without the feature head: all that the consistency
+        passes read. The AdaIN norms do not run, so no running statistic
+        moves. Not for the skybox, whose alpha is a constant.
+
+        :return: ((..., rays, positions) raw alphas, (..., rays, positions,
+            3) displacements).
+        """
+        cfg = self.cfg
+        if cfg.nerf.kind == "skybox":
+            raise ValueError("alphas_and_displacements: the skybox has no field of alphas")
+        mask = aabb_contains(_box(cfg.bounding_box, ray_positions), ray_positions)
+        if cfg.bender.kind == "positional":
+            displacements = self.ray_bender(ray_positions, cfg.bounding_box, deformation[..., None, None, :], step)
+            displacements = torch.where(mask[..., None], displacements, 0.0)
+        else:
+            displacements = torch.zeros_like(ray_positions)
+        _, alpha = self.nerf.backbone_and_alpha(ray_positions + displacements, cfg.bounding_box)
+        return torch.where(mask, alpha, cfg.empty_space_alpha), displacements
 
     def _bend_with_divergence(self, positions, deformation, step, probe):
         """The bender's displacements and e^T (d displacements / d positions) e

@@ -9,7 +9,9 @@ hierarchical fine pass for `use_fine` objects, per-object integration and
 sort-free composition across objects with optional alpha noise), with the
 Minecraft scenes' skybox (evaluated once per ray) and overlap fix (static
 samples inside a dynamic object's t interval suppressed before the
-composition). Eval frames read the same weights through
+composition), and `forward_expected_positions`, one object's coarse field
+along given rays, the anchor of the consistency losses. Eval frames read
+the same weights through
 render/fast.py::render_rays_fast, which raises for `use_fine` as the JAX
 fast path does; a `use_fine` model's frames go through
 EnvironmentModel.render_frame_from_scene_encoding.
@@ -173,6 +175,61 @@ class SceneComposer(nn.Module):
             fine = [f if f is not None else c for f, c in zip(per_object_fine, per_object_coarse)]
             results["fine"] = self._compose_and_integrate(fine, ray_origins, ray_directions, perturb, rng, remat)
         return results
+
+    def forward_expected_positions(
+        self,
+        object_idx: int,
+        ray_origins: torch.Tensor,
+        ray_directions: torch.Tensor,
+        focal_normals: torch.Tensor,
+        w2o_matrix: torch.Tensor,
+        deformation: torch.Tensor,
+        object_in_scene: torch.Tensor,
+        perturb: bool = False,
+        rng=None,
+        step=0,
+    ) -> Dict:
+        """Expected first-surface positions of ONE object along the given
+        rays: its coarse field evaluated once over all of them (no
+        divergence, no canonical pose), the bent object-frame positions
+        averaged with the compositing weights (no gradient through them),
+        and each ray's opacity. Only the alphas and displacements are
+        evaluated (ObjectRadianceField.alphas_and_displacements): the
+        feature head, whose output JAX discards here, does not run. So the
+        running statistics are left as they are (the JAX trainer discards
+        what its consistency passes mutate), and JAX's `style` and
+        `use_running_average`, read by that head only, are not taken.
+
+        :param ray_origins: (..., 3) world origins; ray_directions (...,
+            rays, 3); focal_normals (..., 3); w2o_matrix (..., 4, 4) this
+            object's world-to-object matrix; deformation (..., F);
+            object_in_scene (...).
+        :param perturb: stratified jitter and alpha noise, drawn from `rng`
+            in this order: "sampling" (the strata), then "alpha_noise".
+        :return: {"coarse": ((..., rays, 3) positions, (..., rays) opacity)}.
+        """
+        if perturb and rng is None:
+            raise ValueError("perturb=True needs the random streams `rng`")
+        model_idx = ObjectIds(self.scene).model_idx_by_object_idx(object_idx)
+        cfg = self.scene.object_models[model_idx]
+        o_origins, o_directions, _ = rays_lib.transform_rays(ray_origins, ray_directions, focal_normals, w2o_matrix)
+        box = torch.as_tensor(cfg.bounding_box, dtype=ray_origins.dtype, device=ray_origins.device)
+        z_near, z_far = bbox_lib.ray_aabb_bounds(o_origins, o_directions, box, object_in_scene)
+        z_near = torch.clamp(z_near, cfg.z_near_min, cfg.z_far_max)
+        z_far = torch.clamp(z_far, cfg.z_near_min, cfg.z_far_max)
+        samples = cfg.positions_count_coarse
+        uniform = rng.uniform("sampling", z_near.shape + (samples,)) if perturb else None
+        positions, positions_t = rays_lib.stratified_ray_positions(
+            o_origins, o_directions, z_near, z_far, samples, uniform)
+        field = self.object_model(model_idx)
+        raw_alphas, displacements = field.alphas_and_displacements(positions, deformation, step)
+        raw_alphas = torch.where(object_in_scene[..., None, None], raw_alphas, cfg.empty_space_alpha)
+        noise = rng.normal("alpha_noise", raw_alphas.shape) if perturb else None
+        alphas = compositing.alphas_from_raw(
+            raw_alphas, compositing.position_distances(positions_t, o_directions), noise)
+        weights = compositing.compositing_weights(alphas)
+        expected = compositing.expected_positions(positions, displacements, weights)
+        return {"coarse": (expected, weights.sum(dim=-1))}
 
     def _compose_and_integrate(self, per_object: List[Dict], ray_origins, ray_directions, perturb: bool,
                                rng, remat: bool = False) -> Dict:

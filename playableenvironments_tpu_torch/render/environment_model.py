@@ -12,7 +12,10 @@ the autoencoder's decode of each pass's rendered feature patches; the
 learnable per-frame camera offsets (`CameraParametersStorage`); the
 composer-based frame render (`render_frame_from_scene_encoding`, the eval
 path of a `use_fine` model, which render/fast.py does not take) and its
-decode (`decode_rendered_grids`). Random draws come from `rng`
+decode (`decode_rendered_grids`); the consistency passes
+(`forward_pose_consistency`, `forward_keypoint_consistency`), which
+resolve rays matched by optical flow or drawn along the keypoint skeleton
+to expected surface positions. Random draws come from `rng`
 (utils.random.RngStreams). `remat` rematerializes the composer's regions
 and the decoder's blocks (utils/remat.py).
 """
@@ -479,6 +482,128 @@ class EnvironmentModel(nn.Module):
             lead = grids[0].shape[:-3]
             decoded = self.autoencoder.decode([g.reshape((-1,) + g.shape[-3:]) for g in grids], train=train)
             global_results["reconstructed_observations"] = decoded.reshape(lead + decoded.shape[1:])
+        return results
+
+    # ---- consistency passes ------------------------------------------------
+
+    def _consistency_geometry(self, encoding: SceneEncoding, image_size: Tuple[int, int]):
+        """(ray directions (B, T, C, H, W, 3) in the camera frame, zero
+        origins and -z focal normals (B, T, C, 3), c2w (B, T, C, 4, 4), w2o
+        (B, T, O, 4, 4)) of an encoding."""
+        height, width = image_size
+        directions, _, _ = rays_lib.camera_rays(height, width, encoding.focals * self.focal_length_multiplier)
+        origins = torch.zeros_like(encoding.camera_rotations)
+        normals = torch.zeros_like(origins)
+        normals[..., 2] = -1.0
+        c2w = euler_translation_to_matrix(encoding.camera_rotations, encoding.camera_translations)
+        w2o = invert_rigid(euler_translation_to_matrix(encoding.object_rotations, encoding.object_translations))
+        return directions, origins, normals, c2w, w2o
+
+    def _object_codes(self, encoding: SceneEncoding, w2o, object_idx: int):
+        """One object's w2o and deformation with a camera axis of 1."""
+        return (w2o[..., object_idx, :, :][:, :, None],
+                encoding.object_deformation[..., object_idx, :][:, :, None])
+
+    def forward_pose_consistency(
+        self,
+        encoding: SceneEncoding,
+        optical_flow: torch.Tensor,
+        bounding_boxes: torch.Tensor,
+        bounding_boxes_validity: torch.Tensor,
+        samples_per_image: int,
+        perturb: bool = False,
+        rng=None,
+        step=0,
+    ) -> Dict:
+        """Expected-position pairs matched by optical flow for every dynamic
+        object: rays drawn inside the object's box in frame t, moved by the
+        flow into frame t + 1 (positions are pixel / side where the
+        align-corners sample maps p (side - 1): a skew of up to one pixel,
+        kept as the reference has it), both resolved by
+        SceneComposer.forward_expected_positions, one call each (alphas
+        and displacements only: no running statistic moves, and JAX's
+        `train` changes nothing the pass returns, so the port has none).
+
+        Draws, per dynamic object: "sampling" (the box draw), then for the
+        frame-t call and the frame-t+1 call in turn, with `perturb`,
+        "sampling" (the strata) and "alpha_noise".
+
+        :param optical_flow: (B, T, C, H, W, 2) normalized (d_row, d_col).
+        :param bounding_boxes: (B, T, C, dynamic_objects, 4) normalized ltrb.
+        :param bounding_boxes_validity: (B, T, C, dynamic_objects) bool.
+        :return: {"coarse": {"dynamic_object_i": (previous (B, T-1, C, n, 3),
+            next (B, T-1, C, n, 3), pair validity (B, T-1, C))}}.
+        """
+        height, width = optical_flow.shape[-3], optical_flow.shape[-2]
+        directions, origins, normals, c2w, w2o = self._consistency_geometry(encoding, (height, width))
+        static = self.object_ids.static_objects_count
+        results = {"coarse": {}}
+        for dynamic_idx in range(self.object_ids.dynamic_objects_count):
+            object_idx = static + dynamic_idx
+            box = bounding_boxes[..., dynamic_idx, :]
+            validity = bounding_boxes_validity[..., dynamic_idx]
+            w2o_obj, deformation = self._object_codes(encoding, w2o, object_idx)
+            uniform = rng.uniform("sampling", box[:, :-1].shape[:-1] + (samples_per_image,))
+            prev_dirs, prev_flow, prev_positions = sampling.sample_rays_at_object(
+                directions[:, :-1], optical_flow[:, :-1], box[:, :-1], uniform)
+            next_dirs = sampling.sample_at_positions(directions[:, 1:], prev_positions + prev_flow)
+            expected = []
+            for frames, dirs in ((slice(None, -1), prev_dirs), (slice(1, None), next_dirs)):
+                ray_o, ray_d, ray_n = rays_lib.transform_rays(origins[:, frames], dirs, normals[:, frames],
+                                                              c2w[:, frames])
+                expected.append(self.composer.forward_expected_positions(
+                    object_idx, ray_o, ray_d, ray_n, w2o_obj[:, frames], deformation[:, frames], validity[:, frames],
+                    perturb=perturb, rng=rng, step=step,
+                )["coarse"][0])
+            results["coarse"][f"dynamic_object_{dynamic_idx}"] = (
+                expected[0], expected[1], validity[:, :-1] & validity[:, 1:])
+        return results
+
+    def forward_keypoint_consistency(
+        self,
+        encoding: SceneEncoding,
+        keypoints: torch.Tensor,
+        keypoints_validity: torch.Tensor,
+        image_size: Tuple[int, int],
+        max_samples_per_image: int,
+        perturb: bool = False,
+        rng=None,
+        step=0,
+    ) -> Dict:
+        """Keypoint-anchored expected positions for every dynamic object:
+        rays through random points of the COCO skeleton, the same body point
+        in every observation and camera, resolved by one
+        SceneComposer.forward_expected_positions call (as in
+        forward_pose_consistency: no running statistic moves, no `train`).
+
+        Draws, per dynamic object: "sampling" (the fractions along the
+        segments, (B, 1, 1, n, 1)), then, with `perturb`, "sampling" (the
+        strata) and "alpha_noise".
+
+        :param keypoints: (B, T, C, K, 3, dynamic_objects) normalized (row,
+            col, confidence).
+        :param keypoints_validity: (B, T, C, dynamic_objects) bool.
+        :return: {"coarse": {"dynamic_object_i": (expected (B, T, C, n, 3),
+            confidence (B, T, C, n), opacity (B, T, C, n), positions
+            (B, T, C, n, 2))}}.
+        """
+        directions, origins, normals, c2w, w2o = self._consistency_geometry(encoding, image_size)
+        static = self.object_ids.static_objects_count
+        results = {"coarse": {}}
+        for dynamic_idx in range(self.object_ids.dynamic_objects_count):
+            object_idx = static + dynamic_idx
+            object_keypoints = keypoints[..., dynamic_idx]
+            validity = keypoints_validity[..., dynamic_idx]
+            w2o_obj, deformation = self._object_codes(encoding, w2o, object_idx)
+            uniform = rng.uniform("sampling", object_keypoints.shape[:-4] + (1, 1, max_samples_per_image, 1))
+            sampled_dirs, positions, confidence = sampling.sample_rays_at_keypoints(
+                directions, object_keypoints, uniform)
+            confidence = confidence * validity[..., None]
+            ray_o, ray_d, ray_n = rays_lib.transform_rays(origins, sampled_dirs, normals, c2w)
+            expected, opacity = self.composer.forward_expected_positions(
+                object_idx, ray_o, ray_d, ray_n, w2o_obj, deformation, validity, perturb=perturb, rng=rng, step=step,
+            )["coarse"]
+            results["coarse"][f"dynamic_object_{dynamic_idx}"] = (expected, confidence, opacity, positions)
         return results
 
     def _ray_object_distances(self, ray_origins, ray_directions, o2w) -> torch.Tensor:

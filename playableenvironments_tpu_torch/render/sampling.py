@@ -6,9 +6,12 @@ and the training samplers (`build_weight_image`,
 `sample_indices_from_weights`, `gather_pixels`, `indices_to_positions`,
 `sample_rays_uniform`, `sample_rays_weighted`) and the decoder path's
 strided patches (`sample_rays_strided_patch`, `split_strided_samples`,
-`samples_to_patch`, `crop_region_from_patch_positions`). Where the JAX
-samplers draw from a key, these take the draws: uniform values in [0, 1)
-for the weighted and patch samplers, integer indices for the uniform one. Pixel grids are
+`samples_to_patch`, `crop_region_from_patch_positions`), and the
+consistency passes' samplers (`sample_at_positions`, the bilinear grid
+sample; `sample_rays_at_object`; `sample_rays_at_keypoints` along
+`COCO_SEGMENTS`). Where the JAX samplers draw from a key, these take the
+draws: uniform values in [0, 1) for the weighted, patch, object-box and
+keypoint samplers, integer indices for the uniform one. Pixel grids are
 (..., H, W, F), samples (..., n, F), positions (..., n, 2) normalized
 (row, col).
 """
@@ -274,3 +277,83 @@ def crop_region_from_patch_positions(
     flat = (rows * w + cols).reshape(start_row.shape + (size * size,))
     crops = gather_pixels(images, flat)
     return crops.reshape(crops.shape[:-2] + (size, size, images.shape[-1]))
+
+
+# COCO skeleton edges along which the keypoint samples are drawn.
+COCO_SEGMENTS = (
+    (0, 11), (0, 12), (5, 6), (5, 7), (5, 11), (5, 12), (6, 8), (6, 11),
+    (6, 12), (7, 9), (8, 10), (11, 12), (11, 13), (12, 14), (13, 15),
+    (14, 16),
+)
+
+
+def sample_at_positions(grid: torch.Tensor, positions: torch.Tensor, align_corners: bool = True) -> torch.Tensor:
+    """Bilinear samples of a pixel grid at continuous normalized positions,
+    clamped to the grid's edge pixels.
+
+    :param grid: (..., H, W, F); positions (..., n, 2) normalized (row, col).
+    :param align_corners: True maps 0 to the first and 1 to the last pixel
+        centre (the convention of the ray-direction grids); False maps
+        pixel i to (i + 0.5) / side.
+    :return: (..., n, F).
+    """
+    h, w = grid.shape[-3], grid.shape[-2]
+    if align_corners:
+        r = positions[..., 0] * (h - 1)
+        c = positions[..., 1] * (w - 1)
+    else:
+        r = positions[..., 0] * h - 0.5
+        c = positions[..., 1] * w - 0.5
+    r = torch.clamp(r, 0.0, h - 1)
+    c = torch.clamp(c, 0.0, w - 1)
+    r0 = torch.clamp(torch.floor(r).to(torch.int64), 0, h - 1)
+    c0 = torch.clamp(torch.floor(c).to(torch.int64), 0, w - 1)
+    r1 = torch.clamp(r0 + 1, max=h - 1)
+    c1 = torch.clamp(c0 + 1, max=w - 1)
+    wr = (r - r0)[..., None]
+    wc = (c - c0)[..., None]
+    top = gather_pixels(grid, r0 * w + c0) * (1 - wc) + gather_pixels(grid, r0 * w + c1) * wc
+    bottom = gather_pixels(grid, r1 * w + c0) * (1 - wc) + gather_pixels(grid, r1 * w + c1) * wc
+    return top * (1 - wr) + bottom * wr
+
+
+def sample_rays_at_object(
+    ray_directions: torch.Tensor, feature_images: torch.Tensor, bounding_box: torch.Tensor, uniform: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Rays drawn uniformly inside an object's 2D box (a zero-area box draws
+    over the whole image), with the feature image's values at the drawn
+    pixels.
+
+    :param ray_directions: (..., H, W, 3); feature_images (..., H, W, F)
+        (e.g. optical flow); bounding_box (..., 4) normalized ltrb.
+    :param uniform: (..., n) draws in [0, 1).
+    :return: (directions (..., n, 3), features (..., n, F), positions
+        (..., n, 2) normalized (row, col)).
+    """
+    h, w = ray_directions.shape[-3], ray_directions.shape[-2]
+    idx = sample_indices_from_weights(build_weight_image(bounding_box[..., None, :], [1.0], h, w), uniform)
+    return gather_pixels(ray_directions, idx), gather_pixels(feature_images, idx), indices_to_positions(idx, h, w)
+
+
+def sample_rays_at_keypoints(
+    ray_directions: torch.Tensor, keypoints: torch.Tensor, uniform: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Rays at random points of the COCO skeleton drawn by the 2D keypoints:
+    sample i sits on segment i mod 16 at the fraction uniform[..., i, 0],
+    one fraction per sequence and sample, shared over the observation and
+    camera axes, so that a sample is the same body point in every frame.
+
+    :param ray_directions: (..., T, C, H, W, 3).
+    :param keypoints: (..., T, C, K, 3) normalized (row, col, confidence).
+    :param uniform: (..., 1, 1, n, 1) draws in [0, 1), n the samples an image.
+    :return: (directions (..., T, C, n, 3), positions (..., T, C, n, 2),
+        confidences (..., T, C, n)).
+    """
+    n = uniform.shape[-2]
+    segments = torch.tensor(COCO_SEGMENTS, device=keypoints.device)
+    reps = -(-n // len(COCO_SEGMENTS))
+    begins = keypoints[..., segments[:, 0], :].repeat((1,) * (keypoints.dim() - 2) + (reps, 1))[..., :n, :]
+    ends = keypoints[..., segments[:, 1], :].repeat((1,) * (keypoints.dim() - 2) + (reps, 1))[..., :n, :]
+    points = begins + (ends - begins) * uniform
+    positions = points[..., :2]
+    return sample_at_positions(ray_directions, positions), positions, points[..., 2]

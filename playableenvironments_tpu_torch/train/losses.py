@@ -4,7 +4,8 @@ Port of the phase-2 losses of playableenvironments_tpu/train/losses.py
 (masked means instead of boolean filtering; images in [0, 1]), the image
 losses of the decoder path and of phase 1 (`image_reconstruction_loss`,
 `spatial_kl_gaussian`) and its phase-3 losses: the Gaussian KL, the action
-entropy, the EMA-smoothed mutual information, the GAN objectives and ACMV.
+entropy, the EMA-smoothed mutual information, the GAN objectives and ACMV;
+and phase 2's consistency losses (pose, keypoint, keypoint opacity).
 """
 
 from __future__ import annotations
@@ -151,6 +152,31 @@ def mutual_information_loss(
     marginal_cols = torch.clamp(p.sum(dim=0, keepdim=True), min=EPS)
     mi = p * (torch.log(p) - lamb * torch.log(marginal_rows) - lamb * torch.log(marginal_cols))
     return -mi.sum(), new_matrix
+
+
+def pose_consistency_loss(previous_expected_positions: torch.Tensor, next_expected_positions: torch.Tensor,
+                          both_valid: torch.Tensor) -> torch.Tensor:
+    """MSE between the expected surface positions of consecutive frames
+    matched through the optical flow, over the pairs where the object is in
+    both. positions (..., T-1, C, n, 3); both_valid (..., T-1, C)."""
+    sq = (previous_expected_positions - next_expected_positions) ** 2
+    return masked_mean(sq, both_valid[..., None, None])
+
+
+def keypoint_consistency_loss(expected_positions: torch.Tensor, confidence: torch.Tensor,
+                              confidence_threshold: float) -> torch.Tensor:
+    """MSE over every pair of observations of the keypoint-anchored expected
+    positions, over the pairs whose confidences both reach the threshold
+    (>=). expected_positions (B, T, C, n, 3); confidence (B, T, C, n)."""
+    sq = (expected_positions[:, :, None] - expected_positions[:, None, :]) ** 2
+    valid = (confidence[:, :, None] >= confidence_threshold) & (confidence[:, None, :] >= confidence_threshold)
+    return masked_mean(sq, valid[..., None])
+
+
+def keypoint_opacity_loss(opacity: torch.Tensor, confidence: torch.Tensor, confidence_threshold: float) -> torch.Tensor:
+    """(1 - opacity)^2 where the keypoint's confidence exceeds the threshold
+    (>): rays through keypoints should hit the object."""
+    return masked_mean((1.0 - opacity) ** 2, confidence > confidence_threshold)
 
 
 def gan_loss(prediction: torch.Tensor, target_is_real: bool, mode: str = "lsgan") -> torch.Tensor:

@@ -9,13 +9,16 @@ patch's region; the autoencoder's own learning rate, held at 0 for
 `frozen_autoencoder_steps`): for the coarse pass and, with `use_fine`
 objects, the fine one, reconstruction, ray-object distance (direct path
 only), displacement magnitude, the annealed divergence, per-dynamic-object
-opacity and sharpness; attention and bounding-box losses, and the logged
-pose statistics. The per-frame camera offsets train in a rate group of
+opacity and sharpness; attention and bounding-box losses, the consistency
+losses (pose, where the batch carries optical flow; keypoint and keypoint
+opacity, where it carries keypoints), and the logged pose statistics. The
+consistency passes run on the main forward's scene encoding with batch
+statistics and leave the running statistics as they are, outside `remat`,
+as the JAX trainer runs them. The per-frame camera offsets train in a rate group of
 their own (`camera_parameters_learning_rate`, 0 = frozen) when the model
 has them. `remat` rematerializes the forward's regions (utils/remat.py).
 The perceptual weight is read and, as in the JAX trainer, applied
-nowhere. The consistency passes raise NotImplementedError when they are
-asked for.
+nowhere.
 """
 
 from __future__ import annotations
@@ -39,8 +42,9 @@ __all__ = ["LossWeights", "SynthesisTrainingConfig", "SynthesisTrainer", "RNG_ST
 @dataclass(frozen=True)
 class LossWeights:
     """Phase-2 loss weights (`training.loss_weights`). `perceptual` is
-    read and not applied, as in the JAX trainer; the consistency losses are
-    not ported: a non-zero weight raises."""
+    read and not applied, as in the JAX trainer. The consistency losses use
+    `consistency_samples` rays an image and a keypoint's confidence against
+    `keypoint_confidence_threshold`."""
 
     reconstruction: float = 1.0
     perceptual: float = 0.0
@@ -56,6 +60,8 @@ class LossWeights:
     pose_consistency: float = 0.0
     keypoint_consistency: float = 0.0
     keypoint_opacity: float = 0.0
+    keypoint_confidence_threshold: float = 0.3
+    consistency_samples: int = 16
 
 
 @dataclass(frozen=True)
@@ -88,14 +94,6 @@ class SynthesisTrainer:
     """Owns the optimizer of an EnvironmentModel and runs its phase-2 steps."""
 
     def __init__(self, model: EnvironmentModel, cfg: SynthesisTrainingConfig):
-        unported = {
-            "pose consistency loss": cfg.loss_weights.pose_consistency,
-            "keypoint consistency loss": cfg.loss_weights.keypoint_consistency,
-            "keypoint opacity loss": cfg.loss_weights.keypoint_opacity,
-        }
-        for name, value in unported.items():
-            if value:
-                raise NotImplementedError(f"{name} is not ported yet")
         if cfg.decode_patches and cfg.patch_size and not cfg.crop_to_patch:
             # The decoded output is a patch: it must be compared against the
             # matching crop, not the whole image.
@@ -123,8 +121,11 @@ class SynthesisTrainer:
         return self.optimizer.step_count
 
     def compute_losses(self, batch: Batch, rng, step) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict]:
-        """(loss, metrics, results) of one forward; updates the running
-        statistics in place (the JAX function returns them)."""
+        """(loss, metrics, results) of one forward and, where their weights
+        and the batch ask for them, the consistency passes; updates the
+        running statistics in place (the JAX function returns them). Draws
+        come from `rng`: the main forward's, then the pose pass's, then the
+        keypoint pass's."""
         w = self.cfg.loss_weights
         results = self.model.forward_from_observations(
             *batch.environment_model_args(),
@@ -209,6 +210,8 @@ class SynthesisTrainer:
             metrics["bounding_box_loss"] = bbox_loss
             total = total + w.bounding_box * bbox_loss
 
+        total = self._add_consistency_losses(total, batch, results["scene_encoding"], rng, step, metrics)
+
         for object_idx in range(static_objects, objects):
             dyn_idx = self.object_ids.dynamic_object_idx_by_object_idx(object_idx)
             translations = results["scene_encoding"].object_translations[..., object_idx, :]
@@ -217,6 +220,35 @@ class SynthesisTrainer:
             )
         metrics["loss"] = total
         return total, metrics, results
+
+    def _add_consistency_losses(self, total, batch: Batch, encoding, rng, step, metrics: Dict[str, torch.Tensor]):
+        """`total` plus the weighted consistency losses, each dynamic
+        object's in `metrics`, from passes over `encoding` (gradients reach
+        the encoders through it)."""
+        w = self.cfg.loss_weights
+        if w.pose_consistency > 0.0 and batch.optical_flow is not None:
+            out = self.model.forward_pose_consistency(
+                encoding, batch.optical_flow, batch.bounding_boxes, batch.bounding_boxes_validity,
+                w.consistency_samples, perturb=self.cfg.perturb, rng=rng, step=step,
+            )
+            for name, (previous, following, pair_valid) in out["coarse"].items():
+                loss = losses.pose_consistency_loss(previous, following, pair_valid)
+                metrics[f"{name}_pose_consistency_loss"] = loss
+                total = total + w.pose_consistency * loss
+        if (w.keypoint_consistency > 0.0 or w.keypoint_opacity > 0.0) and batch.keypoints is not None:
+            out = self.model.forward_keypoint_consistency(
+                encoding, batch.keypoints, batch.keypoints_validity, tuple(batch.observations.shape[-3:-1]),
+                w.consistency_samples, perturb=self.cfg.perturb, rng=rng, step=step,
+            )
+            threshold = w.keypoint_confidence_threshold
+            for name, (expected, confidence, opacity, _) in out["coarse"].items():
+                consistency = losses.keypoint_consistency_loss(expected, confidence, threshold)
+                opacity_loss = losses.keypoint_opacity_loss(opacity, confidence, threshold)
+                metrics[f"{name}_keypoint_consistency_loss"] = consistency
+                metrics[f"{name}_keypoint_opacity_loss"] = opacity_loss
+                total = total + w.keypoint_consistency * consistency
+                total = total + w.keypoint_opacity * opacity_loss
+        return total
 
     def train_step(self, batch: Batch, rng) -> Dict[str, torch.Tensor]:
         """One optimization step: forward (running statistics updated),

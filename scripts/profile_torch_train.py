@@ -4,8 +4,8 @@ card: the phase-1 VAE step, the phase-2 synthesis step (direct rays, the
 published decoder path, or that path with every option) or the phase-3
 action-module G+D step.
 
-    python3 scripts/profile_torch_train.py [--phase 1|2|3] [--decoder [--config tennis|minecraft]] [--options]
-        [--steps 4] [--repo DIR]
+    python3 scripts/profile_torch_train.py [--phase 1|2|3] [--decoder [--config tennis|minecraft]
+        [--consistency]] [--options] [--steps 4] [--repo DIR]
 
 Builds chip_smoke.py's main path of that phase, seeded random weights:
 phase 1, bench.py's step (chip_smoke.py 13e: the v8 autoencoder in bf16,
@@ -14,7 +14,9 @@ step (the tennis model at full width with the bf16 fused backbone, bs 8 x
 4 observations x 144 weighted rays at 288x512, Adam), or with `--decoder`
 the config's published decoder path at chip_smoke.py's per-card batch
 (13b / 13c: one strided patch an image decoded by the VAE, the
-autoencoder's frozen rate group), or with `--options` chip_smoke.py 14c's
+autoencoder's frozen rate group; with `--consistency`, 15a's step: the
+pose, keypoint and keypoint-opacity passes on chip_smoke.py's made-up
+flow and keypoints), or with `--options` chip_smoke.py 14c's
 step (tennis.yaml's decoder path at bs 1 x 4 with use_fine, separate fine
 fields, the fused backbone at the YAML's f32, divergence, camera offsets
 and remat; chip_smoke.py::options_config); phase 3, bench.py's fused G+D step (bs
@@ -32,7 +34,7 @@ GAN and ACMV). Warms up two steps, then:
 `--repo DIR` profiles the checkout at DIR (its package and chip_smoke.py)
 instead of this one, so that two commits can be read in one call.
 Writes the tables to chiprun_out/profile_torch_train[_phase1|_phase3|
-_decoder_<config>|_options][_<DIR name>].json.
+_decoder_<config>[_consistency]|_options][_<DIR name>].json.
 """
 
 from __future__ import annotations
@@ -105,9 +107,10 @@ def phase2_step():
                                                                 lambda: trainer.compute_losses(batch, rng, trainer.step))
 
 
-def decoder_step(config):
+def decoder_step(config, consistency=False):
     """(one train step, one step timed in parts) of chip_smoke.py's
-    decoder-path main path of `config` (13b / 13c)."""
+    decoder-path main path of `config` (13b / 13c), with `consistency`
+    15a's passes on."""
     import torch
 
     from chip_smoke import DECODER_BATCH, DECODER_IMAGE, DECODER_OBSERVATIONS, decoder_batch, published_phase2_config
@@ -117,8 +120,13 @@ def decoder_step(config):
 
     cfg = published_phase2_config(REPO, config)
     model = build_environment_model(cfg, device="cuda", seed=0)
-    trainer = SynthesisTrainer(model, synthesis_training_config(cfg))
+    train_cfg = synthesis_training_config(cfg)
     batch = decoder_batch(torch, config, DECODER_BATCH[config], DECODER_OBSERVATIONS[config], *DECODER_IMAGE, "cuda")
+    if consistency:
+        from chip_smoke import consistency_batch, with_consistency
+
+        batch, train_cfg = consistency_batch(batch, model), with_consistency(train_cfg)
+    trainer = SynthesisTrainer(model, train_cfg)
     rng = RngStreams(0, "cuda")
     return (lambda: trainer.train_step(batch, rng)), split_step(trainer, trainer.model,
                                                                 lambda: trainer.compute_losses(batch, rng, trainer.step))
@@ -215,6 +223,8 @@ def main() -> int:
     parser.add_argument("--phase", type=int, choices=(1, 2, 3), default=2)
     parser.add_argument("--decoder", action="store_true", help="phase 2 on the published decoder path")
     parser.add_argument("--config", choices=("tennis", "minecraft"), default="tennis")
+    parser.add_argument("--consistency", action="store_true",
+                        help="the decoder path with the consistency passes (chip_smoke.py 15a)")
     parser.add_argument("--options", action="store_true", help="phase 2 with every option (chip_smoke.py 14c)")
     parser.add_argument("--steps", type=int, default=4)
     parser.add_argument("--repo", default=None, help="profile the checkout at this directory")
@@ -223,6 +233,8 @@ def main() -> int:
         parser.error("--decoder and --options are phase-2 paths")
     if args.decoder and args.options:
         parser.error("--options is the decoder path with every option; give one of the two")
+    if args.consistency and not args.decoder:
+        parser.error("--consistency is an option of --decoder")
     global REPO
     if args.repo:
         REPO = os.path.abspath(args.repo)
@@ -236,7 +248,7 @@ def main() -> int:
     if args.phase == 1:
         step_fn, parts_fn = phase1_step()
     elif args.decoder:
-        step_fn, parts_fn = decoder_step(args.config)
+        step_fn, parts_fn = decoder_step(args.config, args.consistency)
     elif args.options:
         step_fn, parts_fn = options_step()
     else:
@@ -252,6 +264,7 @@ def main() -> int:
             parts.setdefault(name, []).append(ms * 1e3)
     medians = {k: statistics.median(v) for k, v in parts.items()}
     label = f"phase-{args.phase}" + (f" {args.config} decoder-path" if args.decoder else "") + (
+        " with the consistency passes" if args.consistency else "") + (
         " tennis with every option" if args.options else "") + (f" ({REPO})" if args.repo else "")
     print(f"{label} step parts, median ms (host clock, synchronized):",
           ", ".join(f"{k} {v:.3f}" for k, v in medians.items()))
@@ -295,6 +308,7 @@ def main() -> int:
         print(f"  {r['device_ms_per_step']:9.4f} ms {r['calls_per_step']:7.1f}x  {r['name'][:110]}")
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     suffix = f"_decoder_{args.config}" if args.decoder else ("" if args.phase == 2 else f"_phase{args.phase}")
+    suffix += "_consistency" if args.consistency else ""
     suffix += "_options" if args.options else ""
     suffix += f"_{os.path.basename(REPO)}" if args.repo else ""
     name = f"profile_torch_train{suffix}.json"

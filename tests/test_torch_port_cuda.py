@@ -634,3 +634,62 @@ def test_options_step_matches_the_cpu(card):
 
     result = chip_smoke.phase14_options_card_vs_cpu(str(REPO), devices=(card.type, "cpu"))
     assert result["card_vs_cpu"]["grads"] > 100 and result["remat_vs_plain"]["grads"] > 100
+
+
+@pytest.mark.cuda
+def test_consistency_step_matches_the_cpu(card):
+    """One decoder-path step of the tiny tennis scene with the pose,
+    keypoint and keypoint-opacity weights on (chip_smoke.py 15b: a
+    hand-made flow and COCO keypoints on the players) on the card against
+    the CPU on the CPU's draws, with full-precision convolutions, at
+    chip_smoke.py's TOLERANCES_15; every consistency metric above 0."""
+    sys_path_repo()
+    import chip_smoke
+
+    result = chip_smoke.phase15_consistency_card_vs_cpu(str(REPO), devices=(card.type, "cpu"))
+    assert result["grads"] > 100 and len(result["consistency_metrics"]) == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", ["synthesis", "playable"])
+def test_checkpoint_round_trip_on_the_card(card, phase, tmp_path):
+    """A trainer's state saved from the card and restored onto the card into
+    a trainer of another seed: every tensor on the card and bit for bit.
+    Then the next step of both with deterministic algorithms
+    (chip_smoke.deterministic_algorithms): the whole state again bit for
+    bit."""
+    sys_path_repo()
+    import chip_smoke
+
+    from playableenvironments_tpu_torch.cli.common import build_environment_model, synthesis_training_config
+    from playableenvironments_tpu_torch.train import checkpointing
+    from playableenvironments_tpu_torch.train.trainer_synthesis import SynthesisTrainer
+    from playableenvironments_tpu_torch.utils.random import RngStreams
+
+    if phase == "synthesis":
+        cfg = chip_smoke.tiny_published_config(str(REPO), "tennis")
+        train_cfg = chip_smoke.dataclasses.replace(synthesis_training_config(cfg), patch_size=chip_smoke.TINY_PATCH)
+        batch = chip_smoke.decoder_batch(torch, "tennis", 2, 2, *chip_smoke.TINY_IMAGE, card)
+
+        def make(seed):
+            trainer = SynthesisTrainer(build_environment_model(cfg, device=card, seed=seed), train_cfg)
+            return trainer, lambda rng_seed: trainer.train_step(batch, RngStreams(rng_seed, card))
+    else:
+        def make(seed):
+            trainer, encoding = chip_smoke.phase3_trainer(card, seed=seed)
+            return trainer, lambda rng_seed: trainer.fused_step(encoding, RngStreams(rng_seed, card))
+
+    trainer, step = make(0)
+    step(1)
+    path = checkpointing.save_checkpoint(str(tmp_path), trainer)
+    restored, restored_step = make(5)
+    checkpointing.restore_checkpoint(path, restored)
+    saved, got = checkpointing.flat_state(trainer), checkpointing.flat_state(restored)
+    assert checkpointing.state_difference(got, saved) is None
+    assert sum(torch.is_tensor(v) for v in saved.values()) > 100
+    assert all(v.device.type == "cuda" for v in got.values() if torch.is_tensor(v) and v.dim() > 0)
+    with chip_smoke.deterministic_algorithms():
+        step(2)
+        restored_step(2)
+    difference = checkpointing.state_difference(checkpointing.flat_state(restored), checkpointing.flat_state(trainer))
+    assert difference is None, difference

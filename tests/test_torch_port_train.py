@@ -214,14 +214,14 @@ def test_parameters_and_running_statistics_after_the_step_match_jax(port_run):
 
 def test_unported_options_raise():
     """Nothing falls back: each option of the phase-2 path that is not
-    ported raises where it is asked for; today the three consistency
-    weights, and the fast eval path for `use_fine` objects, as the JAX
-    fast path does. The decoder path (patch sampling and
-    `decode_patches`), the training composer's overlap fix, the phase-2
-    perceptual weight (read and applied nowhere, as in the JAX trainer),
-    `remat`, the divergence, per-frame camera offsets and the fine
-    hierarchy are ported: they build and run (held against JAX by
-    tests/test_torch_port_{decoder,minecraft_train,options}.py)."""
+    ported raises where it is asked for; today the fast eval path for
+    `use_fine` objects, as the JAX fast path does. The decoder path (patch
+    sampling and `decode_patches`), the training composer's overlap fix,
+    the phase-2 perceptual weight (read and applied nowhere, as in the JAX
+    trainer), `remat`, the divergence, per-frame camera offsets, the fine
+    hierarchy and the three consistency weights are ported: they build and
+    run (held against JAX by tests/test_torch_port_{decoder,
+    minecraft_train,options,consistency_step}.py)."""
     scene = to_port(fused_scene())
     # The learned pose encoder is ported (tests/test_torch_port_minecraft.py).
     learned = dataclasses.replace(scene, parameter_encoders=(
@@ -236,10 +236,8 @@ def test_unported_options_raise():
     model = EnvironmentModel(scene, device="cpu")
     for changes in (dict(loss_weights=trainer_synthesis.LossWeights(pose_consistency=0.1)),
                     dict(loss_weights=trainer_synthesis.LossWeights(keypoint_consistency=0.1)),
-                    dict(loss_weights=trainer_synthesis.LossWeights(keypoint_opacity=0.1))):
-        with pytest.raises(NotImplementedError):
-            trainer_synthesis.SynthesisTrainer(model, trainer_synthesis.SynthesisTrainingConfig(**changes))
-    for changes in (dict(decode_patches=True, patch_size=8, patch_strides=STRIDES), dict(patch_size=8),
+                    dict(loss_weights=trainer_synthesis.LossWeights(keypoint_opacity=0.1)),
+                    dict(decode_patches=True, patch_size=8, patch_strides=STRIDES), dict(patch_size=8),
                     dict(loss_weights=trainer_synthesis.LossWeights(perceptual=0.1)), dict(remat=True),
                     dict(loss_weights=trainer_synthesis.LossWeights(divergence=0.1))):
         trainer_synthesis.SynthesisTrainer(model, trainer_synthesis.SynthesisTrainingConfig(**changes))
