@@ -3,8 +3,9 @@
 tennis phase-2 train step, the tennis phase-3 (action module) G+D step, the
 data path from a dataset on disk to each of them, the Minecraft family, the
 published training pipeline (phase 2's decoder path for tennis and
-Minecraft, phase 1), phase 2's options and consistency passes, and the
-chain of the three phases and play through checkpoints.
+Minecraft, phase 1), phase 2's options and consistency passes, the chain of
+the three phases and play through checkpoints, and that chain through the
+CLIs with their evaluators and a reference checkpoint's import.
 
     python3 chip_smoke.py
 
@@ -30,8 +31,9 @@ Phases, each fatal on failure:
    step and a ragged one, B3 twice on the same inputs (bit-identical), and
    time kernel, plain version, library yardstick and bound, B3's three
    sub-kernels (CUDA events around each) and its scratch and peak memory;
-6. one train step of the phase-2 scene at 48x64 on the card and on the CPU
-   from the same seeded weights, randomness off: loss, metrics, gradients,
+6. one train step of the phase-2 scene at 288x512 on the card and on the
+   CPU from the same seeded weights, randomness off, with full-precision
+   convolutions on both (ieee_convolutions): loss, metrics, gradients,
    updated parameters and running statistics;
 7. drive the phase-2 main path: bench.py's step (tennis at full width, bf16
    fused backbone, bs 8 x 4 observations x 144 weighted rays at 288x512,
@@ -130,7 +132,26 @@ Phases, each fatal on failure:
    with deterministic algorithms against the uninterrupted one and an
    in-memory copy's (0 apart), B2/B3 held on the inputs of that step's
    shapes; checkpoint bytes, save and restore ms.
-`python3 chip_smoke.py --phase 12` (or `--phase 13`, `--phase 14`, `--phase 15`) builds
+16. the training, play and import CLIs, each main() called in this process
+   with sys.argv set, in a temporary directory, on phase 11's dataset and
+   configs/tennis.yaml at full width (PHASE16_*: the fused backbone on,
+   depths and cadences cut): (a) train_autoencoder at bs 20 images, 3
+   steps, its checkpoints, quick saves and AutoencoderEvaluator grid; (b)
+   train on the decoder path (B2-f32/B3-f32), 16a's checkpoint grafted
+   (bit for bit) and evaluated by the TrainingEvaluator; (c) the same run
+   resumed to 4 steps, its checkpoint equal bit for bit to an uninterrupted
+   4-step run's (deterministic algorithms); (d) train_playable at bs 16 in
+   blocks of 2 steps past max_steps 5 to 6, the PlayableModelEvaluator at
+   steps 2, 4 and 6, then a second run that reloads the encoding cache, and
+   B4 at the evaluator's rollout_single shape against its plain version;
+   (e) play --script from 16b's and 16d's checkpoints, its frames equal bit
+   for bit to an in-memory session of the restored models, its first B1
+   launch held against plain_adain_nerf; (f) the same models written in
+   the reference's torch.save layout (tests/torch_port_reference_layout.py),
+   imported with import_checkpoint --phase3 and played: the frames equal
+   16e's bit for bit. Each CLI's wall time (startup, steps, saves,
+   evaluation), peak memory and B1-B5 launches.
+`python3 chip_smoke.py --phase 12` (or `--phase 13` to `--phase 16`) builds
 the kernels and runs that phase alone (no kernels line, no contract line).
 Details go to chiprun_out/chip_smoke.json. Prints one JSON line of kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX.
@@ -299,6 +320,7 @@ PHASE2_LAUNCHES = (("background", 4608 * 4), ("backplate", 4608 * 4),
                    ("player_1", 4608 * 32), ("player_2", 4608 * 32))
 PHASE2_RAGGED = 1000  # not a multiple of the kernels' 128-point tile
 PHASE2_STEPS = 6
+PHASE6_GRAD_BOUND = 0.12  # of a model's largest gradient; phase6_card_vs_cpu says why
 
 
 def phase2_scene():
@@ -566,14 +588,17 @@ def _train_step_outputs(torch, trainer, batch, rng):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads, state
 
 
-def phase6_card_vs_cpu(devices=("cuda", "cpu")):
+def phase6_card_vs_cpu(devices=("cuda", "cpu"), ieee=False, fused=True, check=True):
     """One train step of the phase-2 scene at 1 x 2 observations of
     288x512, randomness off (the strided grid of strides 8 and 16, 2,880
     rays an image; no perturbation, no style shuffle), on the card and on
     the CPU from the same seeded weights. (Weighted sampling draws the same
     numbers on both devices, but its inverse CDF, a cumulative sum over
     147,456 pixels taken in another order on the card, moves a few draws to
-    a neighbouring pixel.)"""
+    a neighbouring pixel.) `ieee` runs both steps inside ieee_convolutions;
+    `fused=False` gives every NeRF the plain backbone (no B2/B3) on both
+    devices; `check=False` returns the readings without holding them to
+    the bounds (scripts/phase6_bound.py)."""
     import torch
 
     from playableenvironments_tpu_torch.render.environment_model import EnvironmentModel
@@ -586,24 +611,34 @@ def phase6_card_vs_cpu(devices=("cuda", "cpu")):
         samples_per_image=0, patch_strides=(8, 16), perturb=False, shuffle_style=False,
         loss_weights=LossWeights(reconstruction=1.0, opacity=0.01, attention=0.01, bounding_box=0.1),
     )
+    scene = phase2_scene()
+    if not fused:
+        scene = dataclasses.replace(scene, object_models=tuple(
+            dataclasses.replace(om, nerf=dataclasses.replace(om.nerf, use_fused_backbone=False))
+            for om in scene.object_models))
     outputs = []
     for device in devices:
-        model = EnvironmentModel(phase2_scene(), device=device, seed=3)
+        model = EnvironmentModel(scene, device=device, seed=3)
         batch = phase2_batch(torch, 1, 2, 288, 512, device)
-        outputs.append(_train_step_outputs(torch, SynthesisTrainer(model, cfg), batch, RngStreams(0, device)))
+        with ieee_convolutions(device) if ieee else contextlib.nullcontext():
+            outputs.append(_train_step_outputs(torch, SynthesisTrainer(model, cfg), batch, RngStreams(0, device)))
     (loss, metrics, grads, state), (ref_loss, ref_metrics, ref_grads, ref_state) = outputs
     # The card runs B2/B3 (bf16 roundings that flip against the CPU's; see
-    # GRAD_REL_ATOL) and the encoders' convolutions in TF32 (PyTorch's
-    # default for cuDNN, which the port leaves alone). Loss and metrics are
-    # held to 1e-3 relative. Gradients: the backplate's encoder normalizes,
-    # in its last blocks, 16 values a channel (1 x 8 maps of 2 crops), so
-    # TF32's ~1e-3 relative error in a convolution comes out amplified, and
-    # measured on the card reached 1.0e-1 of that encoder's largest gradient
-    # in single elements, with mean errors up to 4.8e-2 of a tensor's own
-    # largest magnitude. So each gradient tensor is held to 0.25 of the
-    # largest gradient magnitude of its model (object_model_i or
-    # object_encoder_i) element-wise, and to 0.1 of its own largest
-    # magnitude in the mean. The running statistics, batch means and
+    # GRAD_REL_ATOL). Loss and metrics are held to 1e-3 relative.
+    # Gradients: the backplate's encoder normalizes, in its last blocks, 16
+    # values a channel (1 x 8 maps of 2 crops), so a convolution's error
+    # comes out amplified. With cuDNN's TF32 convolutions (PyTorch's
+    # default, ~1e-3 relative) it reached 1.04e-1 of that encoder's largest
+    # gradient in single elements on the card; inside ieee_convolutions, as
+    # the main run takes this step, 3.5e-2, and the largest element error of
+    # any tensor is 5.97e-2 of its model's largest, in the ray bender's
+    # output head, 6.14e-2 with the plain backbone on both devices (no
+    # B2/B3), so neither TF32 nor B2/B3 sets it (scripts/phase6_bound.py,
+    # NVIDIA H100 80GB HBM3, 700.00 W). So each gradient tensor is held to
+    # 0.12 of the largest gradient magnitude of its model (object_model_i
+    # or object_encoder_i) element-wise, twice that reading, and to 0.1 of
+    # its own largest magnitude in the mean (mean errors up to 4.4e-2 of a
+    # tensor's own largest). The running statistics, batch means and
     # variances of bf16 products on both sides, to 2e-2 of each buffer's
     # largest magnitude (a mean near 0 is a difference of near-equal sums).
     # Parameters after the step: Adam's first update is lr g / (|g| + 1e-8),
@@ -612,9 +647,11 @@ def phase6_card_vs_cpu(devices=("cuda", "cpu")):
     # (a sign the noise cannot flip) is held to 1e-6 + 1e-4 relative, and
     # every element to 2 lr.
     worst = {}
+    metric_err = 0.0
     for name, got in list(metrics.items()) + [("loss", loss)]:
         ref = ref_metrics.get(name, ref_loss)
-        if not abs(got.item() - ref.item()) <= 1e-3 * abs(ref.item()) + 1e-6:
+        metric_err = max(metric_err, abs(got.item() - ref.item()) / (abs(ref.item()) + 1e-30))
+        if check and not abs(got.item() - ref.item()) <= 1e-3 * abs(ref.item()) + 1e-6:
             raise SmokeFailure(f"card vs CPU {name}: {got.item():.6e} vs {ref.item():.6e}")
     if set(grads) != set(ref_grads):
         raise SmokeFailure("card vs CPU: different parameters received gradients")
@@ -640,7 +677,7 @@ def phase6_card_vs_cpu(devices=("cuda", "cpu")):
     grad_err = rel[0][0]
     grad_mean_err = max(r[1] for r in rel)
     problems = [f"gradient {r[2]}: max err {r[0]:.3e} of its model's largest gradient, mean err {r[1]:.3e} "
-                "of its own" for r in rel if not (r[0] <= 0.25 and r[1] <= 0.1)]
+                "of its own" for r in rel if not (r[0] <= PHASE6_GRAD_BOUND and r[1] <= 0.1)]
     lr = cfg.learning_rate
     param_err = stats_err = 0.0
     clear_count = 0
@@ -659,11 +696,11 @@ def phase6_card_vs_cpu(devices=("cuda", "cpu")):
             if not diff.max().item() <= 2e-2 * scale:
                 problems.append(f"running statistic {name}: err {diff.max().item() / scale:.3e} of its largest")
             stats_err = max(stats_err, diff.max().item() / scale)
-    if problems:
+    if problems and check:
         for problem in problems[:12]:
             print(f"  card vs CPU: {problem}")
         raise SmokeFailure(f"card vs CPU train step: {len(problems)} checks failed, first: {problems[0]}")
-    worst.update(loss=loss.item(), ref_loss=ref_loss.item(), grad_rel_err=grad_err, grad_mean_rel_err=grad_mean_err,
+    worst.update(worst_gradient=rel[0][2], metric_rel_err=metric_err, loss=loss.item(), ref_loss=ref_loss.item(), grad_rel_err=grad_err, grad_mean_rel_err=grad_mean_err,
                  param_err=param_err, sign_clear_elements=clear_count, stats_err=stats_err, grads=len(grads))
     print(f"train step card vs CPU (phase-2 scene, 1 x 2 obs, 288x512, strides 8/16): loss {loss.item():.6f} "
           f"vs {ref_loss.item():.6f}; {len(grads)} gradient tensors within {grad_err:.3e} of their model's "
@@ -3412,16 +3449,17 @@ def hold_recorded_backbone_calls(label, records):
             grads, d_enc = fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
             ref_grads, ref_d_enc = fused_nerf.plain_backbone_bwd(cfg, packed, encoded.float(), g_h, g_alpha)
             worst = worst_mean = 0.0
+            cotangent = max(g_h.abs().max().item(), g_alpha.abs().max().item())
             for key, got, ref in [("d_encoded", d_enc, ref_d_enc)] + [(k, grads[k], ref_grads[k]) for k in ref_grads]:
                 scale = ref.abs().max().item()
                 tol, mean_tol = ((D_ENCODED_REL_ATOL, D_ENCODED_REL_MEAN) if key == "d_encoded"
                                  else (GRAD_REL_ATOL, GRAD_REL_MEAN))
-                err, mean = check_close(f"{label} B3 {points} points {key}", got, ref, tol * scale, 0.0,
-                                        mean_tol * scale)
+                err, mean = check_close(f"{label} B3 {points} points {key} (largest {scale:.3e}, largest cotangent "
+                                        f"{cotangent:.3e})", got, ref, tol * scale, 0.0, mean_tol * scale)
                 if scale > 0:
                     worst, worst_mean = max(worst, err / scale), max(worst_mean, mean / scale)
             rows.append({"direction": "B3", "points": points, "max_abs_err": worst, "mean_abs_err": worst_mean,
-                         "largest_cotangent": max(g_h.abs().max().item(), g_alpha.abs().max().item())})
+                         "largest_cotangent": cotangent})
             del grads, d_enc, ref_grads, ref_d_enc
     torch.cuda.empty_cache()
     print(f"{label}: B2/B3 held against their plain versions on the main path's own inputs, each shape once: "
@@ -3745,8 +3783,12 @@ def phase15_chain(repo, directory, device="cuda"):
     scene = scene_from_dict(cfg["model"], cfg.get("playable_model"))
     phase1 = AutoencoderTrainer(scene.autoencoder, autoencoder_training_config(cfg), device=device, seed=11)
     images = torch.from_numpy(np.random.default_rng(3).random(CHAIN_PHASE1 + (3,), np.float32)).to(device)
-    for _ in range(2):
-        phase1.train_step(images, RngStreams(1, device))
+    # Phases 1 and 2 take their steps with deterministic algorithms, so that
+    # the inputs B2/B3 are held on at the end of 15c are the same in every
+    # run (with PyTorch's defaults a step's result moves from run to run).
+    with deterministic_algorithms():
+        for _ in range(2):
+            phase1.train_step(images, RngStreams(1, device))
     phase1_path = save("phase1", phase1)
 
     # Phase 2: graft, two steps, saves after steps 0, 1 and 2 with keep=2.
@@ -3767,8 +3809,9 @@ def phase15_chain(repo, directory, device="cuda"):
     phase2_dir = os.path.join(directory, "phase2")
     save("phase2", uninterrupted[0], keep=2)
     for step in range(2):
-        for trainer in uninterrupted:
-            trainer.train_step(batch, RngStreams(10 + step, device))
+        with deterministic_algorithms():
+            for trainer in uninterrupted:
+                trainer.train_step(batch, RngStreams(10 + step, device))
         phase2_path = save("phase2", uninterrupted[0], keep=2)
     kept = sorted(os.listdir(phase2_dir))
     if kept != ["checkpoint_1", "checkpoint_2"] or ckpt.latest_checkpoint_any(directory, phase2_dir) != phase2_path:
@@ -3896,6 +3939,336 @@ def phase15(repo):
     finally:
         shutil.rmtree(directory, ignore_errors=True)
     return results
+
+
+# ---- phase 16: the training, play and import CLIs ------------------------------
+
+# configs/tennis.yaml as the CLIs read it, with these changes (PERF.md §4):
+# data_root at phase 11's dataset (288x512, 2 players; train 2 x 40 frames,
+# test 2 x 12), logging under the run's directory, the fused backbone on
+# (the YAML leaves it off, its default, and the training path reaches B2/B3
+# only through it; the YAML's f32 compute dtype then takes B2-f32/B3-f32),
+# and the depths and cadences cut below. Phase 1 reads single frames
+# (training.batching.observations_count 1), so that its batch of 20 windows
+# is 20 images, the published phase-1 batch (the JAX CLI flattens windows x
+# observations).
+PHASE16_AE = dict(max_steps=3, save_freq=2, quick_save_freq=1, eval_freq=2, log_interval_steps=1)
+PHASE16_PHASE2 = dict(max_steps=3, save_freq=2, quick_save_freq=1, eval_freq=2, log_interval_steps=1)
+PHASE16_PHASE2_BATCH = 2  # windows of 4 observations; the published 8 x 4 does not fit one card (PERF.md §5)
+PHASE16_PHASE3 = dict(max_steps=5, steps_per_call=2, save_freq=4, quick_save_freq=100, eval_freq=2,
+                      log_interval_steps=1)
+PHASE16_SCRIPT = "0,1,2,3"
+
+
+def phase16_base(repo):
+    """configs/tennis.yaml, read as the CLIs read it."""
+    from playableenvironments_tpu_torch.cli.common import load_yaml
+
+    return load_yaml(os.path.join(repo, "configs", "tennis.yaml"))
+
+
+def phase16_config(repo, directory, name, data_root, **sections):
+    """Write `<directory>/<name>.yaml`: configs/tennis.yaml with phase 16's
+    changes (above) and `sections`' keys over its sections. :return: the path."""
+    import yaml
+
+    cfg = phase16_base(repo)
+    cfg["data"]["data_root"] = data_root
+    cfg["logging"] = {"run_name": name, "output_root": os.path.join(directory, "results"),
+                      "checkpoints_root": os.path.join(directory, "checkpoints")}
+    for block in cfg["model"]["object_models"]:
+        block.setdefault("nerf_model", {})["use_fused_backbone"] = True
+    for section, values in sections.items():
+        target = cfg
+        for key in section.split("."):
+            target = target.setdefault(key, {})
+        target.update(values)
+    path = os.path.join(directory, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def run_cli(module, *args):
+    """A CLI's main() in this process with sys.argv set, as a user's command
+    line would: (its return value, its wall seconds, the card's peak bytes)."""
+    import importlib
+
+    import torch
+
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    argv, sys.argv = sys.argv, [module] + [str(a) for a in args]
+    start = time.perf_counter()
+    try:
+        out = importlib.import_module(module).main()
+    finally:
+        sys.argv = argv
+    if cuda:
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - start, torch.cuda.max_memory_allocated() if cuda else 0
+
+
+def phase16_cli(repo, directory, device="cuda"):
+    """16a-16f (module docstring) in `directory`. Each CLI's wall time split
+    into startup, steps, saves and evaluation (its timing JSON), its peak
+    memory and its B1-B5 launches."""
+    import numpy as np
+    import torch
+
+    from playableenvironments_tpu_torch.cli.common import (
+        build_dataset, build_environment_model, load_yaml, with_batching_overrides,
+    )
+    from playableenvironments_tpu_torch.cli.play import InteractiveSession
+    from playableenvironments_tpu_torch.config import scene_from_dict
+    from playableenvironments_tpu_torch.models.autoencoder import autoencoder_strides
+    from playableenvironments_tpu_torch.ops import fused_nerf
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+    from playableenvironments_tpu_torch.render.playable_model import PlayableEnvironmentModel
+    from playableenvironments_tpu_torch.train import checkpointing as ckpt
+
+    sys.path.insert(0, os.path.join(repo, "tests"))
+    import torch_port_reference_layout as layout
+
+    data_root = os.path.join(directory, "data")
+    write_tennis_dataset(data_root)
+    checkpoints = os.path.join(directory, "checkpoints")
+    results, clis = {}, {}
+
+    def record(label, name, seconds, peak, timing_dir):
+        with open(os.path.join(timing_dir, f"timing_{name}.json")) as f:
+            timing = json.load(f)
+        clis[label] = {"wall_s": seconds, "peak_bytes": peak, **timing}
+        split = ", ".join(f"{k} {v:.2f} s" for k, v in timing["seconds"].items())
+        launches = {k: v for k, v in timing["launches"].items() if v}
+        print(f"16 {label}: {seconds:.2f} s ({split}), peak {peak / 1e9:.2f} GB, launches {launches}")
+
+    # ---- 16a. phase 1 ---------------------------------------------------------
+    ae_config = phase16_config(repo, directory, "phase1", data_root, autoencoder_training=PHASE16_AE,
+                               **{"training.batching": {"observations_count": 1}})
+    _, seconds, peak = run_cli("playableenvironments_tpu_torch.cli.train_autoencoder", "--config", ae_config,
+                               "--device", device)
+    record("train_autoencoder", "train_autoencoder", seconds, peak, os.path.join(directory, "results", "phase1"))
+    ae_dir = os.path.join(checkpoints, "phase1")
+    kept = sorted(os.listdir(ae_dir))
+    quick = sorted(os.listdir(os.path.join(ae_dir, "quick")))
+    grid = os.path.join(directory, "results", "phase1", "images", "00000002_autoencoder_reconstruction.png")
+    if kept != ["checkpoint_2", "checkpoint_3", "quick"] or quick != ["checkpoint_1"] or not os.path.isfile(grid):
+        raise SmokeFailure(f"16a: checkpoints {kept}, quick {quick}, evaluator grid {os.path.isfile(grid)}")
+    ae_path = ckpt.latest_checkpoint(ae_dir)
+
+    # ---- 16b/16c. phase 2, resumed; the uninterrupted run ---------------------
+    phase2 = dict(PHASE16_PHASE2)
+    sections = {"training": phase2, "training.batching": {"batch_size": PHASE16_PHASE2_BATCH},
+                "model.autoencoder": {"weights_filename": ae_path}}
+    p2_config = phase16_config(repo, directory, "phase2", data_root, **sections)
+    with deterministic_algorithms():
+        _, seconds, peak = run_cli("playableenvironments_tpu_torch.cli.train", "--config", p2_config,
+                                   "--device", device)
+        record("train", "train", seconds, peak, os.path.join(directory, "results", "phase2"))
+        p2_dir = os.path.join(checkpoints, "phase2")
+        p2_path = ckpt.latest_checkpoint(p2_dir)
+        _, seconds, peak = run_cli("playableenvironments_tpu_torch.cli.train", "--config", p2_config,
+                                   "--max_steps", 4, "--device", device)
+        record("train_resumed", "train", seconds, peak, os.path.join(directory, "results", "phase2"))
+        whole_config = phase16_config(repo, directory, "phase2_whole", data_root, **{
+            **sections, "training": {**phase2, "max_steps": 4}})
+        _, seconds, peak = run_cli("playableenvironments_tpu_torch.cli.train", "--config", whole_config,
+                                   "--device", device)
+        record("train_uninterrupted", "train", seconds, peak, os.path.join(directory, "results", "phase2_whole"))
+    with open(os.path.join(directory, "results", "phase2", "log.txt")) as f:
+        log = f.read()
+    if f"resumed from {p2_path} at step 3" not in log or sorted(os.listdir(p2_dir)) != [
+            "checkpoint_2", "checkpoint_3", "checkpoint_4", "quick"]:
+        raise SmokeFailure(f"16c: the rerun did not resume from {p2_path} and save at step 4 "
+                           f"({sorted(os.listdir(p2_dir))})")
+    resumed = ckpt.saved_flat_state(os.path.join(p2_dir, "checkpoint_4"))
+    whole = ckpt.saved_flat_state(os.path.join(checkpoints, "phase2_whole", "checkpoint_4"))
+    difference = ckpt.state_difference(resumed, whole)
+    if difference is not None:
+        raise SmokeFailure(f"16c: the resumed run's checkpoint_4 differs from the uninterrupted run's: {difference}")
+    tensors = sum(torch.is_tensor(v) for v in whole.values())
+    # The graft: 16a's autoencoder in the phase-2 model, its parameters held
+    # at rate 0 (frozen_autoencoder_steps) and its encoder unused, so bit
+    # for bit 16a's after the steps; the decoder's running statistics move.
+    saved_ae = ckpt.saved_flat_state(ae_path)
+    grafted = {k[1:]: v for k, v in ckpt.saved_flat_state(p2_path).items() if k[0] == "model"}
+    same, moved = 0, 0
+    for key, value in saved_ae.items():
+        if key[0] != "model":
+            continue
+        name = ("autoencoder." + key[1],)
+        if "running" in key[1] and key[1].startswith("decoder."):
+            moved += int(not torch.equal(grafted[name], value))
+        elif not torch.equal(grafted[name], value):
+            raise SmokeFailure(f"16b: the phase-2 checkpoint's autoencoder {key[1]} is not 16a's")
+        else:
+            same += 1
+    evaluated = os.path.isfile(os.path.join(directory, "results", "phase2", "images", "00000002_eval_render.png"))
+    if not moved or not evaluated:
+        raise SmokeFailure(f"16b: {moved} decoder running statistics moved, evaluator grid {evaluated}")
+    results["phase2"] = {"resumed_tensors_equal": tensors, "autoencoder_tensors_equal": same,
+                         "decoder_statistics_moved": moved}
+    print(f"16b/16c phase 2: 16a's autoencoder grafted ({same} tensors bit for bit, {moved} decoder running "
+          f"statistics moved); resumed at step 3 from {os.path.basename(p2_path)}, one step; checkpoint_4 equal to "
+          f"the uninterrupted 4-step run's, {tensors} tensors bit for bit (deterministic algorithms)")
+
+    # ---- 16d. phase 3, twice (the second reloads the encoding cache) ----------
+    p3_config = phase16_config(repo, directory, "phase3", data_root, playable_model_training=PHASE16_PHASE3)
+    cfg = load_yaml(p3_config)
+    _, seconds, peak = run_cli("playableenvironments_tpu_torch.cli.train_playable", "--config", p3_config,
+                               "--environment_checkpoint", p2_path, "--device", device)
+    record("train_playable", "train_playable", seconds, peak, os.path.join(directory, "results", "phase3"))
+    p3_dir = os.path.join(checkpoints, "phase3", "playable")
+    p3_path = ckpt.latest_checkpoint(p3_dir)
+    steps = ckpt.checkpoint_step(p3_path)
+    cache = os.path.join(p3_dir, "encoding_cache.npz")
+    evals = sorted(os.listdir(os.path.join(directory, "results", "phase3", "playable_eval")))
+    if steps != 6 or not os.path.isfile(cache) or evals != ["step_2", "step_4", "step_6"]:
+        raise SmokeFailure(f"16d: final step {steps} (blocks of 2 carry 5 to 6), cache {os.path.isfile(cache)}, "
+                           f"evaluations {evals}")
+    _, seconds, peak = run_cli("playableenvironments_tpu_torch.cli.train_playable", "--config", p3_config,
+                               "--environment_checkpoint", p2_path, "--device", device)
+    record("train_playable_rerun", "train_playable", seconds, peak, os.path.join(directory, "results", "phase3"))
+    with open(os.path.join(directory, "results", "phase3", "log.txt")) as f:
+        log = f.read()
+    if f"loaded encoding cache from {cache}" not in log:
+        raise SmokeFailure("16d: the second run did not reload the encoding cache")
+    print(f"16d phase 3: blocks of {PHASE16_PHASE3['steps_per_call']} to step {steps} (max_steps "
+          f"{PHASE16_PHASE3['max_steps']}), evaluations {evals}; the encoding cache written, reloaded by a second run")
+
+    # B4 at the evaluator's rollout_single shape, against its plain version.
+    scene = scene_from_dict(cfg["model"], cfg.get("playable_model"))
+    playable = ckpt.restore_params(p3_path, PlayableEnvironmentModel(scene, device=device))
+    frames_t = int(cfg["playable_model_training"].get("eval_action_video_frames", 8))
+    animation = playable.animation_model_0
+    anim_cfg = scene.animation_models[0]
+    generator = torch.Generator().manual_seed(16)
+    state = [torch.randn(1, 1, w, generator=generator).repeat(1, frames_t, 1).to(device)
+             for w in (3, 3, anim_cfg.style_features, anim_cfg.deformation_features)]
+    actions = torch.nn.functional.one_hot(torch.full((1, frames_t - 1), 2), anim_cfg.actions_count).float().to(device)
+    variations = torch.zeros(1, frames_t - 1, anim_cfg.action_space_dimension, device=device)
+    packed = fr.pack_dynamics_params(animation.dynamics_network)
+    with torch.no_grad():
+        got = fr.fused_rollout_fwd(animation.rollout_cfg, packed, *state, actions, variations, 1, False)[0]
+        ref = fr.plain_rollout_fwd(animation.rollout_cfg, packed, *state, actions, variations, 1, False)[0]
+    b4_err = max(rel_close(f"16d B4 at rollout_single's shape {k}", g, r)[0]
+                 for k, g, r in zip(("rot", "trans", "style", "deform"), got, ref))
+    results["b4_rollout_single"] = {"batch": 1, "observations": frames_t, "max_rel_err": b4_err}
+
+    # ---- 16e. play from the CLI checkpoints -----------------------------------
+    grouped = fused_nerf.fused_adain_nerf_group
+    captured = []
+
+    def capture(cfg_nerf, items):
+        outs = grouped(cfg_nerf, items)
+        if not captured:
+            captured.append((cfg_nerf, items, outs))
+        return outs
+
+    fused_nerf.fused_adain_nerf_group = capture
+    try:
+        frames, seconds, peak = run_cli(
+            "playableenvironments_tpu_torch.cli.play", "--config", p3_config, "--environment_checkpoint", p2_path,
+            "--playable_checkpoint", p3_path, "--script", PHASE16_SCRIPT, "--output", os.path.join(directory, "play"),
+            "--device", device)
+    finally:
+        fused_nerf.fused_adain_nerf_group = grouped
+    record("play", "play", seconds, peak, os.path.join(directory, "play"))
+    written = sorted(os.listdir(os.path.join(directory, "play")))
+    pngs = sorted(os.listdir(os.path.join(directory, "play", "frames")))
+    expected = len(PHASE16_SCRIPT.split(",")) + 1
+    if len(frames) != expected or len(pngs) != expected or "sequence.gif" not in written:
+        raise SmokeFailure(f"16e: {len(frames)} frames, {len(pngs)} PNGs, {written}")
+    for frame in frames:
+        if frame.shape != (IMAGE_SIZE[0], IMAGE_SIZE[1], 3) or not np.isfinite(frame).all():
+            raise SmokeFailure(f"16e: a frame of shape {frame.shape} or not finite")
+    env = ckpt.restore_params(p2_path, build_environment_model(cfg, device=device, seed=5))
+    memory_playable = ckpt.restore_params(p3_path, PlayableEnvironmentModel(scene, device=device, seed=6))
+    eval_batching = cfg.get("evaluation", {}).get("batching", {})
+    test = build_dataset(with_batching_overrides(cfg, **{**eval_batching, "observations_count": 1}), "test")
+    session = InteractiveSession(scene, env.composer, env.autoencoder, memory_playable.eval(), IMAGE_SIZE,
+                                 autoencoder_strides(scene.autoencoder), env.focal_length_multiplier,
+                                 environment_model=env)
+    memory = [session.initialize(next(test.iterate_batches(1, shuffle=False)))]
+    memory += [session.step([int(a)] * session.object_ids.dynamic_objects_count) for a in PHASE16_SCRIPT.split(",")]
+    if not all(np.array_equal(a, b) for a, b in zip(frames, memory)):
+        raise SmokeFailure("16e: the play CLI's frames differ from an in-memory session of the same restored models "
+                           f"(max {max(float(np.abs(a - b).max()) for a, b in zip(frames, memory)):.3e})")
+    cfg_nerf, items, outs = captured[0]
+    b1_rows = []
+    with torch.no_grad():
+        for index, (item, (feats, alpha)) in enumerate(zip(items, outs)):
+            args = (item.encoded, item.scale0, item.bias0, item.scale1, item.bias1)
+            refs = fused_nerf.plain_adain_nerf(cfg_nerf, item.weights.packed, *args, item.samples_per_ray)
+            for name, got_out, ref_out in (("features", feats, refs[0]), ("alpha", alpha, refs[1])):
+                scale = max(1.0, ref_out.abs().mean().item())
+                err = check_close(f"16e B1 object {index} {name} (over {scale:.3f})", got_out / scale,
+                                  ref_out / scale, KERNEL_ATOL, KERNEL_RTOL, KERNEL_MEAN_ATOL)
+                b1_rows.append(err[0] * scale)
+    results["play"] = {"frames": len(frames), "mp4": "sequence.mp4" in written, "b1_objects_held": len(items),
+                       "b1_max_abs_err": max(b1_rows)}
+    print(f"16e play --script {PHASE16_SCRIPT}: {len(frames)} frames {IMAGE_SIZE[1]}x{IMAGE_SIZE[0]}, gif, "
+          f"{'an mp4' if 'sequence.mp4' in written else 'no mp4 (no cv2 codec)'}; equal bit for bit to an in-memory "
+          f"session of the restored models; its first B1 launch ({len(items)} objects) within "
+          f"{max(b1_rows):.3e} of plain_adain_nerf; B4 at rollout_single's 1 x {frames_t} within {b4_err:.3e} of plain")
+
+    # ---- 16f. a reference checkpoint of the same models, imported ------------
+    env_state = torch.load(os.path.join(p2_path, ckpt.STATE_FILE), weights_only=True, map_location="cpu")["model"]
+    play_state = torch.load(os.path.join(p3_path, ckpt.STATE_FILE), weights_only=True, map_location="cpu")
+    std_exact = {"inexact": 0}
+    original_running_std = layout.running_std
+
+    def counted_running_std(var, exact=True):
+        out = original_running_std(var, exact=False)
+        std_exact["inexact"] += int((layout.std_variance(out) != layout._f32(var)).sum())
+        return out
+
+    layout.running_std = counted_running_std
+    try:
+        state_dict = layout.playable_state_dict(
+            layout.flax_variables(play_state["model"]), [c.numpy() for c in play_state["centroids"]],
+            environment=layout.flax_variables(env_state), scene=scene, exact=False)
+    finally:
+        layout.running_std = original_running_std
+    reference = layout.torch_checkpoint(state_dict, os.path.join(directory, "reference.pth.tar"))
+    imported = os.path.join(directory, "imported")
+    _, seconds, _ = run_cli("playableenvironments_tpu_torch.cli.import_checkpoint", "--config", p3_config,
+                            "--torch_checkpoint", reference, "--output", imported, "--phase3", "--device", device)
+    frames_imported, seconds_play, _ = run_cli(
+        "playableenvironments_tpu_torch.cli.play", "--config", p3_config,
+        "--environment_checkpoint", ckpt.latest_checkpoint(os.path.join(imported, "environment")),
+        "--playable_checkpoint", ckpt.latest_checkpoint(os.path.join(imported, "playable")),
+        "--script", PHASE16_SCRIPT, "--output", os.path.join(directory, "play_imported"), "--device", device)
+    import_err = max(float(np.abs(a - b).max()) for a, b in zip(frames_imported, frames))
+    if import_err != 0.0:
+        raise SmokeFailure(f"16f: play from the imported reference checkpoint differs from 16e's by {import_err:.3e}")
+    results["import"] = {"state_dict_entries": len(state_dict), "import_s": seconds, "play_s": seconds_play,
+                         "frame_max_abs_err": import_err, "inexact_running_std": std_exact["inexact"]}
+    print(f"16f import: a reference torch.save of {len(state_dict)} entries (16b's environment under "
+          f"environment_model., 16d's animation models; {std_exact['inexact']} action-network variances without an "
+          f"exact float32 std) imported with --phase3 in {seconds:.2f} s; play from it equal to 16e's bit for bit")
+    results["clis"] = clis
+    return results
+
+
+def phase16(repo):
+    """16a-16f in a temporary directory it removes."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    # The CLIs' Logger mirrors to wandb where the package is installed; this
+    # run reaches no network.
+    os.environ["WANDB_MODE"] = "disabled"
+    torch.cuda.empty_cache()
+    directory = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        return phase16_cli(repo, directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
 
 
 def backbone_f32_entries(phase14_results):
@@ -4111,7 +4484,7 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     done("1")
-    alone = {"12": phase12_minecraft, "13": phase13, "14": phase14, "15": phase15}
+    alone = {"12": phase12_minecraft, "13": phase13, "14": phase14, "15": phase15, "16": phase16}
     if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in alone:
         try:
             result = alone[sys.argv[2]](repo)
@@ -4209,7 +4582,7 @@ def main() -> int:
     try:
         fwd_rows, bwd_rows = phase5_backbone_kernels()
         done("5")
-        card_vs_cpu = phase6_card_vs_cpu()
+        card_vs_cpu = phase6_card_vs_cpu(ieee=True)
         done("6")
         phase2 = phase7_main_path()
         done("7")
@@ -4229,6 +4602,8 @@ def main() -> int:
         done("14")
         phase15_results = phase15(repo)
         done("15")
+        phase16_results = phase16(repo)
+        done("16")
     except SmokeFailure as e:
         return fail(str(e))
 
@@ -4315,6 +4690,16 @@ def main() -> int:
                                      "phase3_batch": p11["batch_launches"][which],
                                      "minecraft_phase3_cache": phase12["phase3"]["launches"][which],
                                      "chain_phase3": phase15_results["chain"]["phase3"]["launches"][which]}
+    # Every kernel's launches in each CLI run of phase 16 (its timing file's
+    # counts: B1 in the evaluators' renders and play, B2-f32/B3-f32 in
+    # phase 2, B4/B5 in phase 3 and B4 alone in the evaluator's
+    # rollout_single); B1 and B4 held on that path too.
+    for entry in kernels:
+        entry.setdefault("launches_by_path", {}).update({
+            f"cli_{label}": cli["launches"][entry["name"]] for label, cli in phase16_results["clis"].items()
+            if cli["launches"].get(entry["name"])})
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], phase16_results["play"]["b1_max_abs_err"])
+    kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"], phase16_results["b4_rollout_single"]["max_rel_err"])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -4326,6 +4711,7 @@ def main() -> int:
                    "train_card_vs_cpu": card_vs_cpu, "phase2": phase2, "rollout_shapes": rollout_rows,
                    "phase3_card_vs_cpu": phase3_card_vs_cpu, "phase3": phase3, "phase11": phase11, "phase12": phase12,
                    "phase13": phase13_results, "phase14": phase14_results, "phase15": phase15_results,
+                   "phase16": phase16_results,
                    "kernels": kernels,
                    "phase_seconds": phase_seconds, "ptxas": reports}, f, indent=1)
     print(f"phase seconds: {phase_seconds}")

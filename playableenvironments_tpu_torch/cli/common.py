@@ -1,18 +1,27 @@
-"""Experiment assembly from a YAML config: the dataset and model builders.
+"""Experiment assembly from a YAML config: builders, and the training
+loop of phases 1 and 2.
 
-Port of the builders of playableenvironments_tpu/cli/common.py
-(`load_yaml`, `with_batching_overrides`, `build_dataset`,
-`build_environment_model`, `loss_weights_from_dict`,
-`synthesis_training_config`) and of the phase-1 and phase-3 CLIs' trainer
-configurations (`autoencoder_training_config`, `playable_training_config`). The YAML schema is the JAX package's: `data`,
-`model`, `playable_model`, `training`, `playable_model_training`,
-`evaluation`. The meshes and training runners come with the CLIs.
+Port of playableenvironments_tpu/cli/common.py (`load_yaml`,
+`with_batching_overrides`, `build_dataset`, `build_environment_model`,
+`loss_weights_from_dict`, `synthesis_training_config`, `apply_debug_flags`,
+`ProfileWindow`, `output_dirs`, `run_synthesis_training`) and of the
+phase-1 and phase-3 CLIs' trainer configurations
+(`autoencoder_training_config`, `playable_training_config`). The YAML
+schema is the JAX package's: `data`, `model`, `playable_model`, `training`,
+`playable_model_training`, `evaluation`. The port's CLIs run on one device:
+a mesh beyond one device or more than one process raises
+NotImplementedError (`require_one_device`; data parallelism is an item of
+ROADMAP's queue A).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import json
 import os
-from typing import Any, Dict
+import time
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 from playableenvironments_tpu_torch import config as config_lib
 from playableenvironments_tpu_torch.data.dataset import MulticameraVideoDataset
@@ -192,3 +201,322 @@ def autoencoder_training_config(cfg: Dict[str, Any]):
         vgg_weights_path=str(t.get("vgg_weights_path", "")),
         remat=bool(t.get("remat", False)),
     )
+
+
+def require_one_device(cfg: Dict[str, Any]) -> None:
+    """Raise NotImplementedError for what needs more than one device: a
+    `training.mesh` or `evaluation.mesh` beyond one device, or a run of
+    several processes (WORLD_SIZE above 1)."""
+    for section in ("training", "evaluation"):
+        mesh = cfg.get(section, {}).get("mesh") or {}
+        if int(mesh.get("data", 1)) > 1 or int(mesh.get("rays", 1)) > 1:
+            raise NotImplementedError(
+                f"{section}.mesh {mesh}: the port's CLIs run on one device; data and ray parallelism is not "
+                "ported (ROADMAP queue A, Data parallelism)")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            f"WORLD_SIZE={os.environ['WORLD_SIZE']}: the port's CLIs run in one process; several processes "
+            "are not ported (ROADMAP queue A, Data parallelism)")
+
+
+class _NanChecks:
+    """torch.autograd's anomaly detection (a backward that makes a NaN
+    raises at its operation) and a forward hook on every module that raises
+    FloatingPointError at the first module whose output holds a NaN; both
+    undone on exit."""
+
+    def __enter__(self):
+        import torch
+
+        def check(module, inputs, output):
+            stack = [output]
+            while stack:
+                value = stack.pop()
+                if isinstance(value, (tuple, list)):
+                    stack.extend(value)
+                elif isinstance(value, dict):
+                    stack.extend(value.values())
+                elif torch.is_tensor(value) and value.is_floating_point() and bool(torch.isnan(value).any()):
+                    raise FloatingPointError(f"NaN in the output of {type(module).__name__}")
+
+        self._anomaly = torch.is_anomaly_enabled()
+        torch.autograd.set_detect_anomaly(True)
+        self._hook = torch.nn.modules.module.register_module_forward_hook(check)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        self._hook.remove()
+        torch.autograd.set_detect_anomaly(self._anomaly)
+        return False
+
+
+def apply_debug_flags(cfg: Dict[str, Any]):
+    """A context manager for a CLI's run: with `debug_nans: true` in
+    `training`, `playable_model_training` or `autoencoder_training`, the
+    operation that makes a NaN raises, in the forward pass (forward hooks
+    on every module's outputs) or the backward (torch.autograd's anomaly
+    detection), the reference's own mechanism and the counterpart of the
+    JAX package's `jax_debug_nans`; otherwise it does nothing."""
+    debug = bool(
+        cfg.get("training", {}).get("debug_nans", False)
+        or cfg.get("playable_model_training", {}).get("debug_nans", False)
+        or cfg.get("autoencoder_training", {}).get("debug_nans", False)
+    )
+    return _NanChecks() if debug else contextlib.nullcontext()
+
+
+class ProfileWindow:
+    """One torch.profiler trace of the steps in
+    [profile_start_step, profile_start_step + profile_steps), shared by the
+    three training loops, written as a chrome trace under
+    `<results>/profile`. Fires at most once a process (a loop whose counter
+    keeps growing would otherwise start a trace again after every stop);
+    `close()`, called in a `finally` after the loop, stops a trace that the
+    loop's end left open."""
+
+    def __init__(self, training_cfg: Dict[str, Any], results_dir: str, log_fn=print):
+        self.enabled = bool(training_cfg.get("enable_profiling", False))
+        self.start = int(training_cfg.get("profile_start_step", 10))
+        self.steps = int(training_cfg.get("profile_steps", 5))
+        self.out_dir = os.path.join(results_dir, "profile")
+        self.log_fn = log_fn
+        self.active = False
+        self.done = False
+        self._profiler = None
+
+    def before_step(self, step: int):
+        """Call with the counter before the step (>=, so that loops that
+        advance several steps a call still enter the window)."""
+        if not self.enabled or self.done or self.active:
+            return
+        if step >= self.start + self.steps:
+            # A resume landed past the whole window.
+            self.done = True
+            return
+        if step >= self.start:
+            from playableenvironments_tpu_torch.utils.meters import start_profiler
+
+            self._profiler = start_profiler()
+            self.active = True
+
+    def _stop(self, note: str = ""):
+        from playableenvironments_tpu_torch.utils.meters import stop_profiler
+
+        path = stop_profiler(self._profiler, self.out_dir)
+        self._profiler, self.active, self.done = None, False, True
+        self.log_fn(f"profiler trace written to {path}{note}")
+
+    def after_step(self, step: int):
+        """Call with the counter after the step; the trace stops (after the
+        card finished the step's work) once the window is passed."""
+        if self.active and step >= self.start + self.steps:
+            self._stop()
+
+    def close(self):
+        if self.active:
+            self._stop(" (loop exit)")
+
+
+def output_dirs(cfg: Dict[str, Any]) -> Tuple[str, str]:
+    """(results_dir, checkpoints_dir) of the `logging` section, created."""
+    run_name = cfg.get("logging", {}).get("run_name", "run")
+    results = os.path.join(cfg.get("logging", {}).get("output_root", "results"), run_name)
+    checkpoints = os.path.join(cfg.get("logging", {}).get("checkpoints_root", "checkpoints"), run_name)
+    os.makedirs(results, exist_ok=True)
+    os.makedirs(checkpoints, exist_ok=True)
+    return results, checkpoints
+
+
+class RunTimes:
+    """A CLI run's wall time in four parts, seconds: `startup` (from the
+    CLI's start to its first step: build, dataset, model, restore, cache),
+    `steps` (each step until its metrics are on the host), `saves` and
+    `evaluation`. `write` puts them with the run's B1-B5 launches into
+    `<directory>/timing_<name>.json`."""
+
+    def __init__(self):
+        from playableenvironments_tpu_torch.utils.meters import TimeMeter
+
+        self.started = time.perf_counter()
+        self.startup = 0.0
+        self.meter = TimeMeter(mode="sum")
+        self.section = self.meter.section
+        self.launches = _kernel_launches()
+
+    def startup_done(self):
+        self.startup = time.perf_counter() - self.started
+
+    def write(self, directory: str, name: str) -> str:
+        launches = {k: v - self.launches[k] for k, v in _kernel_launches().items()}
+        seconds = {"startup": self.startup, "steps": 0.0, "saves": 0.0, "evaluation": 0.0, **self.meter.summary()}
+        path = os.path.join(directory, f"timing_{name}.json")
+        with open(path, "w") as f:
+            json.dump({"seconds": seconds, "total": time.perf_counter() - self.started, "launches": launches}, f,
+                      indent=1)
+        return path
+
+
+def _kernel_launches() -> Dict[str, int]:
+    """The launch counts of every kernel wrapper (B1-B5), by wrapper."""
+    from playableenvironments_tpu_torch.ops import fused_nerf
+    from playableenvironments_tpu_torch.ops import fused_rollout
+
+    return {
+        "fused_adain_nerf": fused_nerf.fused_adain_nerf.launches,
+        "fused_backbone_fwd": fused_nerf.fused_backbone_fwd.launches,
+        "fused_backbone_bwd": fused_nerf.fused_backbone_bwd.launches,
+        "backbone_f32_fwd": fused_nerf.backbone_f32_fwd.launches,
+        "backbone_f32_bwd": fused_nerf.backbone_f32_bwd.launches,
+        "fused_rollout_fwd": fused_rollout.fused_rollout_fwd.launches,
+        "fused_rollout_bwd": fused_rollout.fused_rollout_bwd.launches,
+    }
+
+
+def run_training_loop(
+    trainer,
+    step_fn: Callable,
+    epoch_batches: Callable[[int, int], Iterator],
+    batches_per_epoch: int,
+    section: Dict[str, Any],
+    max_steps: int,
+    checkpoints_dir: str,
+    results_dir: str,
+    logger,
+    times: RunTimes,
+    seed: int = 0,
+    device="cuda",
+    evaluate: Optional[Callable[[int], None]] = None,
+    log_steps_per_sec: bool = False,
+) -> None:
+    """The loop of the phase-1 and phase-2 CLIs: epochs of shuffled batches
+    until `max_steps`, each step drawing from `step_streams(seed, step)`;
+    metrics logged every `log_interval_steps`, a checkpoint every
+    `save_freq` steps and at `max_steps`, quick saves (keep 2) under
+    `<checkpoints>/quick` every `quick_save_freq` steps otherwise,
+    `evaluate(step)` every `eval_freq` steps, a final save.
+
+    :param step_fn: (batch, rng) -> metrics, one optimization step.
+    :param epoch_batches: (epoch_seed, start) -> the epoch's batches from
+        its batch `start` on. A run resumed at step s starts at epoch s //
+        batches_per_epoch, batch s % batches_per_epoch, where an
+        uninterrupted run would be (the JAX loops restart at the first
+        batch of epoch 0), so that both take the same steps on the same
+        data.
+    """
+    from playableenvironments_tpu_torch.train import checkpointing
+    from playableenvironments_tpu_torch.utils.meters import AverageMeter, TimeMeter
+    from playableenvironments_tpu_torch.utils.random import step_streams
+
+    log_interval = int(section.get("log_interval_steps", 10))
+    save_freq = int(section.get("save_freq", 30000))
+    quick_save_freq = int(section.get("quick_save_freq", 500))
+    eval_freq = int(section.get("eval_freq", 0))
+    quick_dir = os.path.join(checkpoints_dir, "quick")
+    meter, timer = AverageMeter(), TimeMeter()
+    profile = ProfileWindow(section, results_dir, logger.print)
+    if batches_per_epoch <= 0:
+        raise ValueError("the training split holds no whole batch")
+    epoch, start = divmod(trainer.step, batches_per_epoch)
+    times.startup_done()
+    try:
+        while trainer.step < max_steps:
+            for batch in epoch_batches(seed + epoch, start):
+                profile.before_step(trainer.step)
+                with times.section("steps"), timer.section("step"):
+                    metrics = step_fn(batch, step_streams(seed, trainer.step, device=device))
+                    meter.add({k: float(v) for k, v in metrics.items()})
+                step = trainer.step
+                profile.after_step(step)
+                if step % log_interval == 0:
+                    logged = meter.pop_all()
+                    if log_steps_per_sec:
+                        logged["steps_per_sec"] = 1.0 / max(timer.summary().get("step", 1), 1e-9)
+                    logger.log(logged, step)
+                with times.section("saves"):
+                    if step % save_freq == 0 or step >= max_steps:
+                        checkpointing.save_checkpoint(checkpoints_dir, trainer)
+                    elif step % quick_save_freq == 0:
+                        checkpointing.save_checkpoint(quick_dir, trainer, keep=2)
+                if evaluate is not None and eval_freq and step % eval_freq == 0:
+                    with times.section("evaluation"):
+                        evaluate(step)
+                if step >= max_steps:
+                    break
+            epoch, start = epoch + 1, 0
+    finally:
+        profile.close()
+    with times.section("saves"):
+        checkpointing.save_checkpoint(checkpoints_dir, trainer)
+
+
+def resume_or_graft(trainer, checkpoints_dir: str, logger, autoencoder_checkpoint: str = "") -> Optional[str]:
+    """Restore `trainer` from the newest of `<checkpoints>` and
+    `<checkpoints>/quick`; without one, graft the phase-1 checkpoint
+    `autoencoder_checkpoint` (a config's `model.autoencoder.weights_filename`,
+    unless empty or "untrained_model") into the phase-2 model.
+    :return: the checkpoint resumed from, or None."""
+    from playableenvironments_tpu_torch.train import checkpointing
+
+    resume_from = checkpointing.latest_checkpoint_any(checkpoints_dir, os.path.join(checkpoints_dir, "quick"))
+    if resume_from:
+        checkpointing.restore_checkpoint(resume_from, trainer)
+        logger.print(f"resumed from {resume_from} at step {trainer.step}")
+    elif autoencoder_checkpoint and autoencoder_checkpoint != "untrained_model":
+        checkpointing.graft_autoencoder(autoencoder_checkpoint, trainer.model)
+        logger.print(f"autoencoder warm-started from {autoencoder_checkpoint}")
+    return resume_from
+
+
+def run_synthesis_training(cfg: Dict[str, Any], max_steps_override: Optional[int] = None, seed: int = 0,
+                           device="cuda", times: Optional[RunTimes] = None) -> str:
+    """The phase-2 training loop (run_training_loop) on `device`: the
+    model seeded from `seed`, resumed from the latest checkpoint or warm
+    started from `model.autoencoder.weights_filename`; with
+    `training.eval_freq`, a TrainingEvaluator renders the first batch of
+    the `val` split (the training split where there is none).
+    :return: the checkpoints directory."""
+    from playableenvironments_tpu_torch.train.trainer_synthesis import SynthesisTrainer
+    from playableenvironments_tpu_torch.utils.logger import Logger
+
+    times = times or RunTimes()
+    require_one_device(cfg)
+    results_dir, checkpoints_dir = output_dirs(cfg)
+    logger = Logger(results_dir, cfg.get("logging", {}).get("run_name", "run"))
+    model = build_environment_model(cfg, device=device, seed=seed)
+    train_cfg = synthesis_training_config(cfg)
+    if max_steps_override:
+        train_cfg = dataclasses.replace(train_cfg, max_steps=max_steps_override)
+    trainer = SynthesisTrainer(model, train_cfg)
+    dataset = build_dataset(cfg, "train")
+    batch_size = int(cfg["training"]["batching"].get("batch_size", 8))
+    resume_or_graft(trainer, checkpoints_dir, logger,
+                    cfg.get("model", {}).get("autoencoder", {}).get("weights_filename", ""))
+
+    evaluate = None
+    if int(cfg["training"].get("eval_freq", 0)):
+        from playableenvironments_tpu_torch.eval.training_evaluator import TrainingEvaluator
+
+        try:
+            val_dataset = build_dataset(cfg, "val")
+        except FileNotFoundError:
+            val_dataset = dataset
+        eval_batch = next(val_dataset.iterate_batches(1, shuffle=False))
+        evaluator = TrainingEvaluator(
+            model, tuple(eval_batch.observations.shape[-3:-1]),
+            patch_strides=train_cfg.patch_strides if model.scene.autoencoder is not None else None,
+        )
+
+        def evaluate(step):
+            evaluator.evaluate(eval_batch, logger, step)
+
+    run_training_loop(
+        trainer, lambda batch, rng: trainer.train_step(batch.to(device), rng),
+        lambda epoch_seed, start: dataset.iterate_batches(batch_size, seed=epoch_seed, start=start),
+        len(dataset) // batch_size, cfg["training"], train_cfg.max_steps, checkpoints_dir, results_dir, logger,
+        times, seed=seed, device=device, evaluate=evaluate, log_steps_per_sec=True,
+    )
+    times.write(results_dir, "train")
+    logger.close()
+    return checkpoints_dir

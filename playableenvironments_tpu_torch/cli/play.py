@@ -1,16 +1,30 @@
-"""Interactive playable-environment session.
+"""Interactive playable-environment session and the play CLI.
 
-Port of playableenvironments_tpu/cli/play.py::InteractiveSession: scene
+Port of playableenvironments_tpu/cli/play.py. `InteractiveSession`: scene
 state and dynamics carries held between user actions, one dynamics step per
 dynamic object and a full re-render per step. The session starts from a
 dataset batch (`initialize`: frame 0 encoded in eval mode through
 eval.creators.FrameRenderer, as the JAX session does) or from a
-SceneEncoding (`start`). The CLI's `main()` needs checkpoint restore and is
-not ported yet.
+SceneEncoding (`start`).
+
+    python -m playableenvironments_tpu_torch.cli.play --config <yaml> \
+        --environment_checkpoint <phase-2 checkpoint> --playable_checkpoint <phase-3 checkpoint> \
+        [--script 0,0,1,2] [--output out_dir] [--device cuda|cpu]
+
+`main()` restores both checkpoints, starts from the first batch of the
+`test` split (evaluation batching as overrides of the training one, one
+observation), and plays the comma-separated `--script` headless (every
+dynamic object takes each action), or without one reads keys in a cv2
+window (digits choose the action, q quits). It writes the frames as PNGs,
+an mp4 (skipped with a message where cv2 or its codec is missing) and a
+gif under `--output`, with the run's timing, and returns the frames. Runs
+on the card by default; without one it raises unless `--device cpu`.
 """
 
 from __future__ import annotations
 
+import argparse
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -124,3 +138,95 @@ class InteractiveSession:
             one_hots, variations,
         )
         return self.render(self.encoding)[0, 0, 0].cpu().numpy()
+
+
+def main() -> List[np.ndarray]:
+    parser = argparse.ArgumentParser(description="Interactive play")
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--environment_checkpoint", required=True)
+    parser.add_argument("--playable_checkpoint", required=True)
+    parser.add_argument("--script", default=None, help="comma-separated action list for headless play")
+    parser.add_argument("--output", default="play_output")
+    parser.add_argument("--framerate", type=int, default=5)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args()
+
+    from playableenvironments_tpu_torch.cli.common import (
+        RunTimes, build_dataset, build_environment_model, load_yaml, require_one_device, with_batching_overrides,
+    )
+    from playableenvironments_tpu_torch.render.playable_model import PlayableEnvironmentModel
+    from playableenvironments_tpu_torch.train import checkpointing
+    from playableenvironments_tpu_torch.train.trainer_playable import PlayableTrainer, PlayableTrainingConfig
+    from playableenvironments_tpu_torch.utils.device import resolve_device
+    from playableenvironments_tpu_torch.utils.video_io import save_frames, save_gif, save_video
+
+    times = RunTimes()
+    device = resolve_device(args.device)
+    cfg = load_yaml(args.config)
+    require_one_device(cfg)
+    env_model = build_environment_model(cfg, device=device, seed=args.seed)
+    checkpointing.restore_params(args.environment_checkpoint, env_model)
+    playable = PlayableEnvironmentModel(
+        env_model.scene, with_discriminators=checkpointing.has_discriminators(args.playable_checkpoint),
+        device=device, seed=args.seed)
+    # The whole phase-3 state, as the JAX CLI restores it (the centroids are
+    # the trainer's).
+    checkpointing.restore_checkpoint(args.playable_checkpoint,
+                                     PlayableTrainer(playable, PlayableTrainingConfig(), environment_model=env_model))
+
+    # Evaluation batching as overrides of training.batching, so that keys it
+    # omits (allowed_cameras, observation_stacking) keep the training values.
+    eval_batching = cfg.get("evaluation", {}).get("batching", {})
+    dataset = build_dataset(with_batching_overrides(cfg, **{**eval_batching, "observations_count": 1}), "test")
+    batch = next(dataset.iterate_batches(1, shuffle=False))
+    strides = None
+    if env_model.scene.autoencoder is not None:
+        from playableenvironments_tpu_torch.models.autoencoder import autoencoder_strides
+
+        strides = autoencoder_strides(env_model.scene.autoencoder)
+    session = InteractiveSession(
+        env_model.scene, env_model.composer, getattr(env_model, "autoencoder", None), playable.eval(),
+        dataset.videos[0].image_size(), strides, env_model.focal_length_multiplier, environment_model=env_model,
+    )
+    times.startup_done()
+
+    actions_taken: List[int] = []
+    with times.section("steps"):
+        frames = [session.initialize(batch)]
+        if args.script:
+            for token in args.script.split(","):
+                action = int(token)
+                frames.append(session.step([action] * session.object_ids.dynamic_objects_count))
+                actions_taken.append(action)
+    if not args.script:
+        import cv2
+
+        print("keys: 0-9 action, q quit")
+        while True:
+            cv2.imshow("playable environment", cv2.cvtColor((frames[-1] * 255).astype(np.uint8), cv2.COLOR_RGB2BGR))
+            key = cv2.waitKey(0) & 0xFF
+            if key == ord("q"):
+                break
+            if ord("0") <= key <= ord("9"):
+                action = key - ord("0")
+                frames.append(session.step([action] * session.object_ids.dynamic_objects_count))
+                actions_taken.append(action)
+        cv2.destroyAllWindows()
+
+    with times.section("saves"):
+        os.makedirs(args.output, exist_ok=True)
+        save_frames(frames, os.path.join(args.output, "frames"))
+        try:
+            save_video(frames, os.path.join(args.output, "sequence.mp4"), args.framerate,
+                       actions=[None] + actions_taken)
+        except RuntimeError as error:  # no cv2 or no codec: frames and gif still land
+            print(f"mp4 export skipped: {error}")
+        save_gif(frames, os.path.join(args.output, "sequence.gif"), args.framerate)
+    times.write(args.output, "play")
+    print(f"saved {len(frames)} frames to {args.output}")
+    return frames
+
+
+if __name__ == "__main__":
+    main()

@@ -253,8 +253,10 @@ class MulticameraVideoDataset:
         prefetch: int = 2,
         process_index: int = 0,
         process_count: int = 1,
+        start: int = 0,
     ) -> Iterator[Batch]:
-        """One shuffled epoch of fixed-size batches with background prefetch.
+        """One shuffled epoch of fixed-size batches with background prefetch,
+        from its batch `start` on (the batches before it are not loaded).
 
         Multi-host: every process generates the SAME global order (same seed)
         and takes its interleaved slice, so per-host batches assemble into a
@@ -280,7 +282,7 @@ class MulticameraVideoDataset:
         stop = threading.Event()
 
         def producer(q):
-            for b in range(n_batches):
+            for b in range(start, n_batches):
                 if stop.is_set():
                     return
                 idxs = order[b * batch_size : (b + 1) * batch_size]

@@ -46,9 +46,11 @@ class ActionNetwork(nn.Module):
         self.log_variance_fc = nn.Linear(width, space, device=device)
         self.final_fc = nn.Linear(space, cfg.actions_count, device=device)
 
-    def forward(self, rotations, translations, object_in_scene, rng, update_stats: bool = True) -> Dict[str, torch.Tensor]:
+    def forward(self, rotations, translations, object_in_scene, rng, update_stats: bool = True,
+                use_running_average: bool = False) -> Dict[str, torch.Tensor]:
         """Train mode (batch statistics; `update_stats=False` keeps the
-        running statistics as they are).
+        running statistics as they are), or with `use_running_average` eval
+        mode (the running statistics normalize, none moves).
 
         :param rotations, translations: (bs, T, 3); object_in_scene (bs, T) bool.
         :return: action_logits (bs, T-1, A), action_directions_distribution
@@ -58,7 +60,7 @@ class ActionNetwork(nn.Module):
         x = torch.cat([encode_rotation(rotations), translations / self.box_size], dim=-1)
         for k in range(self.cfg.action_network.layers_count):
             x = getattr(self, f"mlp_{k}")(x)
-            x = torch.relu(getattr(self, f"bn_{k}")(x, object_in_scene, False, update_stats))
+            x = torch.relu(getattr(self, f"bn_{k}")(x, object_in_scene, use_running_average, update_stats))
         states_mean = self.mean_fc(x)
         states_log_variance = self.log_variance_fc(x)
         noise = rng.normal("action_sampling", states_mean.shape).to(states_mean.device)
@@ -130,9 +132,8 @@ def rollout_config(cfg: AnimationModelConfig, bounding_box) -> fr.RolloutConfig:
 
 class ObjectAnimationModel(nn.Module):
     """Action inference, centroid variations and the autoregressive dynamics
-    rollout for one dynamic object model, in train mode (the JAX module's
-    running-average mode and action modifiers serve its evaluators, which
-    are not ported yet)."""
+    rollout for one dynamic object model, in train mode or, with
+    `use_running_average`, in the evaluators' eval mode."""
 
     def __init__(self, cfg: AnimationModelConfig, bounding_box, device=None):
         super().__init__()
@@ -141,10 +142,10 @@ class ObjectAnimationModel(nn.Module):
         self.action_network = ActionNetwork(cfg, bounding_box, device=device)
         self.dynamics_network = DynamicsNetwork(cfg, bounding_box, device=device)
 
-    def compute_actions(self, rotations, translations, object_in_scene, rng,
-                        update_stats: bool = True) -> Dict[str, torch.Tensor]:
+    def compute_actions(self, rotations, translations, object_in_scene, rng, update_stats: bool = True,
+                        use_running_average: bool = False) -> Dict[str, torch.Tensor]:
         """Action posterior plus gumbel-softmax action sampling."""
-        out = self.action_network(rotations, translations, object_in_scene, rng, update_stats)
+        out = self.action_network(rotations, translations, object_in_scene, rng, update_stats, use_running_average)
         log_probs = torch.log_softmax(out["action_logits"], dim=-1)
         out["sampled_actions"] = gumbel_softmax(rng, log_probs, self.cfg.gumbel_temperature, self.cfg.hard_gumbel)
         return out
@@ -164,26 +165,35 @@ class ObjectAnimationModel(nn.Module):
         )
 
     def forward(self, rotations, translations, style, deformation, object_in_scene, ground_truth_observations: int,
-                centroids: torch.Tensor, rng, update_stats: bool = True) -> Dict[str, torch.Tensor]:
+                centroids: torch.Tensor, rng, update_stats: bool = True, action_modifier=None,
+                use_running_average: bool = False) -> Dict[str, torch.Tensor]:
         """The full forward. The centroids are updated (EMA, detached) before
-        the variations; `estimated_action_centroids` carries them back to the
-        caller. `update_stats=False` keeps the action network's running
-        statistics as they are."""
+        the variations, except with `use_running_average` (eval mode: the
+        action network normalizes with its running statistics, and no
+        centroid moves); `estimated_action_centroids` carries them back to
+        the caller. `update_stats=False` keeps the action network's running
+        statistics as they are. `action_modifier(sampled_actions,
+        variations)` -> (actions, variations) changes what drives the
+        rollout (eval.action_modifiers)."""
         sequence_validity = compute_sequence_validity(object_in_scene)
-        actions_out = self.compute_actions(rotations, translations, object_in_scene, rng, update_stats)
-        centroids = update_centroids(
-            centroids, actions_out["action_directions_distribution"],
-            torch.softmax(actions_out["action_logits"], dim=-1), sequence_validity[:, :-1],
-            self.cfg.centroid_alpha,
-        )
+        actions_out = self.compute_actions(rotations, translations, object_in_scene, rng, update_stats,
+                                           use_running_average)
+        if not use_running_average:
+            centroids = update_centroids(
+                centroids, actions_out["action_directions_distribution"],
+                torch.softmax(actions_out["action_logits"], dim=-1), sequence_validity[:, :-1],
+                self.cfg.centroid_alpha,
+            )
         sampled_actions = actions_out["sampled_actions"]
         action_variations = compute_variations(centroids, actions_out["sampled_action_directions"], sampled_actions)
+        if action_modifier is not None:
+            sampled_actions, action_variations = action_modifier(sampled_actions, action_variations)
         rec_rot, rec_trans, rec_style, rec_deform = self.rollout_dynamics(
             rotations, translations, style, deformation, sampled_actions, action_variations,
             ground_truth_observations,
         )
         # Actions re-inferred from the reconstruction (the MI loss's second view).
-        rec_out = self.compute_actions(rec_rot, rec_trans, object_in_scene, rng, update_stats)
+        rec_out = self.compute_actions(rec_rot, rec_trans, object_in_scene, rng, update_stats, use_running_average)
         return {
             "reconstructed_object_rotations": rec_rot,
             "reconstructed_object_translations": rec_trans,

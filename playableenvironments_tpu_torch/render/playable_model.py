@@ -2,7 +2,9 @@
 training, the sequence discriminators) over scene encodings.
 
 Port of playableenvironments_tpu/render/playable_model.py: `animate`
-(phase-3 forward), `discriminate` (GAN scoring), `dynamics_step` (the play
+(phase-3 forward, and the evaluators' eval mode), `discriminate` (GAN
+scoring), `infer_single_actions` and `rollout_single` (the evaluators'
+action inference and whole-trajectory rollout), `dynamics_step` (the play
 loop's step) and `_pad_time`.
 """
 
@@ -57,13 +59,16 @@ class PlayableEnvironmentModel(nn.Module):
         return getattr(self, f"animation_model_{self.animation_indexes[dynamic_idx]}")
 
     def animate(self, encoding, ground_truth_observations: int, centroids: Sequence[torch.Tensor], rng,
-                update_stats: bool = True) -> List[Dict]:
+                update_stats: bool = True, action_modifier=None, use_running_average: bool = False) -> List[Dict]:
         """Each dynamic object's animation model over its state sequence, in
-        train mode.
+        train mode or, with `use_running_average`, in eval mode (running
+        statistics, no centroid update).
 
         :param centroids: per dynamic object (A, S) EMA centroids.
         :param update_stats: False keeps the action networks' running
             statistics (the discriminator pass discards their update).
+        :param action_modifier: (sampled_actions, variations) -> (actions,
+            variations) for the rollout (eval.action_modifiers).
         :return: per dynamic object its result dict, with its updated
             `estimated_action_centroids`."""
         results = []
@@ -75,9 +80,44 @@ class PlayableEnvironmentModel(nn.Module):
                 encoding.object_style[..., object_idx, :],
                 encoding.object_deformation[..., object_idx, :],
                 encoding.object_in_scene[..., object_idx],
-                ground_truth_observations, centroids[dynamic_idx], rng, update_stats,
+                ground_truth_observations, centroids[dynamic_idx], rng, update_stats, action_modifier,
+                use_running_average,
             ))
         return results
+
+    def infer_single_actions(self, encoding, centroids: Sequence[torch.Tensor], rng) -> List[Dict]:
+        """Action inference alone (no rollout), in eval mode, for each
+        dynamic object: its compute_actions result with
+        `action_variations` None. (`centroids` is taken for the JAX
+        signature; inference reads none.)"""
+        results = []
+        for dynamic_idx in range(self.object_ids.dynamic_objects_count):
+            object_idx = self.object_ids.object_idx_by_dynamic_object_idx(dynamic_idx)
+            out = self._animation_model(dynamic_idx).compute_actions(
+                encoding.object_rotations[..., object_idx, :],
+                encoding.object_translations[..., object_idx, :],
+                encoding.object_in_scene[..., object_idx],
+                rng, update_stats=False, use_running_average=True,
+            )
+            out["action_variations"] = None
+            results.append(out)
+        return results
+
+    @torch.no_grad()
+    def rollout_single(self, dynamic_idx: int, rotations, translations, style, deformation, actions,
+                       action_variations, ground_truth_observations: int = 1):
+        """The whole-trajectory dynamics rollout of one dynamic object, one
+        fused rollout launch (B4 on the card, forward only): the evaluators'
+        per-action videos.
+
+        :param rotations, translations, style, deformation: (bs, T, F); with
+            ground_truth_observations 1 only frame 0 seeds the rollout.
+        :param actions: (bs, T-1, A) one-hots; action_variations (bs, T-1, S).
+        :return: reconstructed (rotations, translations, style, deformation),
+            each (bs, T, F), index 0 the ground-truth frame."""
+        return self._animation_model(dynamic_idx).rollout_dynamics(
+            rotations, translations, style, deformation, actions, action_variations, ground_truth_observations,
+        )
 
     def discriminate(self, results: List[Dict], encoding, use_reconstructed: bool,
                      update_sn_stats: bool = True) -> List[torch.Tensor]:

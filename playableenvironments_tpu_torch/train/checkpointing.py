@@ -110,8 +110,8 @@ def trainer_state(trainer) -> dict:
     return state
 
 
-def flat_state(trainer) -> Dict[Tuple[str, ...], object]:
-    """trainer_state flattened by path (a tuple of keys and list indexes):
+def _flatten(state: dict) -> Dict[Tuple[str, ...], object]:
+    """A nested state flattened by path (a tuple of keys and list indexes):
     a copy of every tensor, and the plain values."""
     out = {}
 
@@ -125,8 +125,19 @@ def flat_state(trainer) -> Dict[Tuple[str, ...], object]:
         else:
             out[path] = value.detach().clone() if torch.is_tensor(value) else value
 
-    walk(trainer_state(trainer), ())
+    walk(state, ())
     return out
+
+
+def flat_state(trainer) -> Dict[Tuple[str, ...], object]:
+    """trainer_state flattened by path (`_flatten`)."""
+    return _flatten(trainer_state(trainer))
+
+
+def saved_flat_state(path: str) -> Dict[Tuple[str, ...], object]:
+    """A saved checkpoint's state flattened as flat_state flattens a
+    trainer's, on the CPU, without a trainer to restore it into."""
+    return _flatten(_read(path, "cpu"))
 
 
 def state_difference(got: Dict[tuple, object], ref: Dict[tuple, object]) -> Optional[str]:
@@ -242,6 +253,15 @@ def restore_checkpoint(path: str, trainer):
     if trainer.step != state["step"]:
         raise ValueError(f"{path}: step {state['step']}, the optimizer's count {trainer.step}")
     return trainer
+
+
+def has_discriminators(path: str) -> bool:
+    """Whether a phase-3 checkpoint holds discriminators (a run with a GAN
+    weight), which the playable model that restores it must have too."""
+    state = torch.load(os.path.join(path, STATE_FILE), weights_only=True, map_location="cpu")
+    if state.get("kind") != "playable":
+        raise ValueError(f"{path} holds a {state.get('kind')} state, not phase 3's")
+    return "discriminator_optimizer" in state
 
 
 def restore_params(path: str, module: nn.Module) -> nn.Module:

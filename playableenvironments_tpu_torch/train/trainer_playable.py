@@ -145,6 +145,12 @@ class PlayableTrainer:
         device = next(self.playable_model.parameters()).device
         if encoding.object_rotations.device != device:
             raise ValueError(f"the encoding is on {encoding.object_rotations.device}, the model on {device}")
+        self.init_extra(seed)
+
+    def init_extra(self, seed: int = 0) -> None:
+        """Fresh centroids (standard normal from `seed`) and MI matrices
+        (uniform 1 / A^2) per animation model, on the model's device."""
+        device = next(self.playable_model.parameters()).device
         self.centroids, self.mi_matrices = [], []
         for i, cfg in enumerate(self.scene_animation_configs()):
             generator = torch.Generator().manual_seed(seed * 1000 + i)
@@ -170,19 +176,23 @@ class PlayableTrainer:
             )
         return encoding
 
-    def _per_object(self, per_model: List[torch.Tensor]) -> List[torch.Tensor]:
+    def _per_object_centroids(self, per_model: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Per-animation-model values (centroids) mapped onto the dynamic
+        objects, as the playable model maps its animation models
+        (`animation_indexes`: one per dynamic object where the scene has one
+        for each)."""
         return [per_model[k] for k in self.playable_model.animation_indexes]
 
-    def compute_losses(self, encoding: SceneEncoding, rng,
-                       step: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict, List[Dict]]:
+    def compute_losses(self, encoding: SceneEncoding, rng, step: int,
+                       update_stats: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict, List[Dict]]:
         """The generator pass: (loss, metrics, new extras {centroids,
         mi_matrices} per animation model, results). Updates the action
         networks' running statistics in place (the JAX function returns
-        them)."""
+        them) unless `update_stats` is False."""
         w = self.cfg.loss_weights
         model = self.playable_model
         results = model.animate(encoding, self.cfg.ground_truth_observations_at(step),
-                                self._per_object(self.centroids), rng)
+                                self._per_object_centroids(self.centroids), rng, update_stats)
         metrics: Dict[str, torch.Tensor] = {}
         total = encoding.object_rotations.new_zeros(())
         new_centroids, new_mi = list(self.centroids), list(self.mi_matrices)
@@ -262,7 +272,7 @@ class PlayableTrainer:
         model = self.playable_model
         with torch.no_grad():
             results = model.animate(encoding, self.cfg.ground_truth_observations_at(step),
-                                    self._per_object(self.centroids), rng, update_stats=False)
+                                    self._per_object_centroids(self.centroids), rng, update_stats=False)
         # Clears the generator pass's gradients on the discriminators.
         self.discriminator_optimizer.zero_grad()
         real = model.discriminate(results, encoding, False, True)

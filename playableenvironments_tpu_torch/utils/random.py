@@ -52,3 +52,14 @@ class RngStreams:
         """Standard Gumbel draws, -log(-log(u)) with u uniform in [tiny, 1)."""
         u = self.uniform(stream, shape).clamp_min(torch.finfo(torch.float32).tiny)
         return -torch.log(-torch.log(u))
+
+
+def step_streams(seed: int, *path: int, device="cuda") -> RngStreams:
+    """The streams of one training step: RngStreams seeded from `seed` and
+    the step (and, within a block of steps, the step's index), as the JAX
+    loops draw each step's key by `fold_in(PRNGKey(seed), step)`. A run
+    resumed at a step draws what an uninterrupted run draws there."""
+    import numpy as np
+
+    derived = int(np.random.SeedSequence([int(seed), *(int(p) for p in path)]).generate_state(1)[0])
+    return RngStreams(derived, device)

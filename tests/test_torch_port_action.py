@@ -32,6 +32,7 @@ from playableenvironments_tpu_torch.models.discriminator import SequenceDiscrimi
 from test_torch_port_composer import Replay, recorded_draws
 from test_torch_port_play import _perturbed
 from test_torch_port_train import to_port
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 BOX = ((-0.5, 0.5), (-0.5, 0.5), (0.0, 2.0))

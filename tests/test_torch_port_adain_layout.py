@@ -13,6 +13,7 @@ from playableenvironments_tpu_torch.config import NerfMLPConfig, PositionalEncod
 from playableenvironments_tpu_torch.models.layers import initialize_
 from playableenvironments_tpu_torch.models.nerf import AdaInNerfMLP
 from playableenvironments_tpu_torch.ops import fused_nerf
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 TILE = 128
 

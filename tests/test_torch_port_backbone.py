@@ -21,6 +21,7 @@ from playableenvironments_tpu import config as jax_config
 from playableenvironments_tpu.ops import fused_nerf as jax_fused
 from playableenvironments_tpu_torch import config as port_config
 from playableenvironments_tpu_torch.ops import fused_nerf
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 KW = dict(layers_width=32, backbone_layers_count=4, skip_layer_idx=2, output_features=3,
           position_encoder=dict(octaves=2))

@@ -33,6 +33,7 @@ from playableenvironments_tpu_torch.models.encoding import positional_encoding
 from playableenvironments_tpu_torch.models.layers import initialize_
 from playableenvironments_tpu_torch.models.nerf import AdaInNerfMLP
 from playableenvironments_tpu_torch.ops import fused_nerf
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 CONFIGS = {
     "tennis": NerfMLPConfig(layers_width=256, backbone_layers_count=8, skip_layer_idx=4, output_features=3,

@@ -5,7 +5,8 @@ CPU at tiny widths:
   from another seed: every parameter, buffer, Adam moment and count, rate
   group, step, centroid and MI matrix bit for bit;
 - a step taken after the restore bit-identical to the step the saved
-  trainer takes from the same state and draws;
+  trainer takes from the same state and draws (one trainer a phase serves
+  both checks: its checkpoint at step 1 is resumed, at step 2 restored);
 - a save cut short (killed while it writes) leaves the previous
   checkpoint the latest one;
 - the path rules against JAX's `latest_checkpoint`, `checkpoint_step`,
@@ -55,6 +56,7 @@ from test_torch_port_phase3 import encoding_arrays
 from test_torch_port_phase3 import scene as phase3_scene
 from test_torch_port_phase3 import training_config as phase3_training_config
 from test_torch_port_train import fused_scene, to_port
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 PHASES = ("autoencoder", "synthesis", "playable")
 CAMERA_MEMORY = 4
@@ -101,39 +103,54 @@ def assert_same_state(got, ref):
     assert difference is None, difference
 
 
-@pytest.mark.parametrize("phase", PHASES)
-def test_round_trip_is_bit_exact(phase, tmp_path):
+_RUNS = {}
+
+
+def phase_run(phase, tmp_path_factory):
+    """One trainer per phase, shared by the round-trip and resumed-step
+    tests: it takes step 1 and is saved; a trainer of another seed restores
+    that checkpoint and both take the same step 3 (the resumed step); the
+    first, now at step 2, is saved again and restored into a third trainer
+    (the round trip)."""
+    if phase in _RUNS:
+        return _RUNS[phase]
+    directory = tmp_path_factory.mktemp(f"checkpoint_{phase}")
     trainer, step = make_trainer(phase, seed=0)
     step(1)
-    step(2)
-    path = checkpointing.save_checkpoint(str(tmp_path), trainer)
-    assert path == os.path.join(str(tmp_path), "checkpoint_2") and os.listdir(path) == [checkpointing.STATE_FILE]
+    first = checkpointing.save_checkpoint(str(directory / "first"), trainer)
+    resumed, resumed_step = make_trainer(phase, seed=7)
+    checkpointing.restore_checkpoint(first, resumed)
+    metrics, resumed_metrics = step(3), resumed_step(3)
+    run = {"resumed": (flat_state(resumed), flat_state(trainer), metrics, resumed_metrics, resumed.step, trainer.step)}
+    path = checkpointing.save_checkpoint(str(directory / "second"), trainer)
     fresh, _ = make_trainer(phase, seed=5)
     before = flat_state(fresh)
     assert checkpointing.restore_checkpoint(path, fresh) is fresh
-    saved = flat_state(trainer)
-    assert_same_state(flat_state(fresh), saved)
+    run["round_trip"] = (str(directory / "second"), path, before, flat_state(fresh), flat_state(trainer),
+                         {g["name"] for g in fresh.optimizer.optimizer.param_groups})
+    _RUNS[phase] = run
+    return run
+
+
+@pytest.mark.parametrize("phase", PHASES)
+def test_round_trip_is_bit_exact(phase, tmp_path_factory):
+    directory, path, before, restored, saved, groups = phase_run(phase, tmp_path_factory)["round_trip"]
+    assert path == os.path.join(directory, "checkpoint_2") and os.listdir(path) == [checkpointing.STATE_FILE]
+    assert_same_state(restored, saved)
     moments = [p for p in saved if "exp_avg_sq" in p]
     assert moments and any(not torch.equal(before[p], saved[p]) for p in saved
                            if p in before and torch.is_tensor(saved[p]))
     if phase == "synthesis":
-        groups = {g["name"] for g in fresh.optimizer.optimizer.param_groups}
         assert groups == {"__main__", "autoencoder", "camera_offsets"}
 
 
 @pytest.mark.parametrize("phase", PHASES)
-def test_resumed_step_is_bit_identical(phase, tmp_path):
-    trainer, step = make_trainer(phase, seed=0)
-    step(1)
-    path = checkpointing.save_checkpoint(str(tmp_path), trainer)
-    resumed, resumed_step = make_trainer(phase, seed=7)
-    checkpointing.restore_checkpoint(path, resumed)
-    metrics = step(3)
-    resumed_metrics = resumed_step(3)
-    assert_same_state(flat_state(resumed), flat_state(trainer))
+def test_resumed_step_is_bit_identical(phase, tmp_path_factory):
+    resumed, trainer, metrics, resumed_metrics, resumed_step, step = phase_run(phase, tmp_path_factory)["resumed"]
+    assert_same_state(resumed, trainer)
     for name, value in metrics.items():
         assert torch.equal(resumed_metrics[name], value), name
-    assert resumed.step == trainer.step == 2
+    assert resumed_step == step == 2
 
 
 def test_restore_checks_the_trainer(tmp_path):

@@ -30,6 +30,7 @@ from playableenvironments_tpu_torch.render import sampling
 from playableenvironments_tpu_torch.render.environment_model import EnvironmentModel
 from test_torch_port_play import _perturbed
 from test_torch_port_train import batch_arrays, fused_scene, to_port
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 

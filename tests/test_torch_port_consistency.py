@@ -55,6 +55,7 @@ from test_torch_port_decoder import NO_OPT
 from test_torch_port_phase3 import scene as two_player_scene
 from test_torch_port_phase3 import seeded_tree
 from test_torch_port_train import to_port
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 B, T, C, H, W = 2, 3, 1, 16, 24
 STEP = 30

@@ -46,6 +46,7 @@ from test_torch_port_decoder import NO_OPT
 from test_torch_port_options import RecordingStreams, draws_into_jax
 from test_torch_port_phase3 import gradient_tolerances, seeded_tree
 from test_torch_port_train import batch_arrays, fused_scene, to_port
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 WEIGHTS = dict(reconstruction=1.0, ray_object_distance=0.1, bounding_box=0.1, displacements_magnitude=0.1,
                opacity=0.01, attention=0.01, sharpness=0.01, pose_consistency=1.0, keypoint_consistency=1.0,

@@ -23,6 +23,7 @@ from playableenvironments_tpu_torch import config as port_config
 from playableenvironments_tpu_torch.core import bbox, compositing, rays, transforms3d
 from playableenvironments_tpu_torch.models import encoding, layers
 from playableenvironments_tpu_torch.render import sampling
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -157,12 +158,13 @@ def test_strided_grid_sampling(rng):
 
 def _port_sources():
     root = REPO / "playableenvironments_tpu_torch"
-    return sorted(root.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(root.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tests" / "torch_port_reference_layout.py"]
 
 
 def test_port_imports_no_jax():
-    """No file of the port, nor chip_smoke.py, imports jax, flax or the JAX
-    package (importlib and __import__ by name included)."""
+    """No file of the port, nor chip_smoke.py or the reference-layout helper
+    it imports, imports jax, flax or the JAX package (importlib and
+    __import__ by name included)."""
     banned = ("jax", "flax", "playableenvironments_tpu")
     offenders = []
     for path in _port_sources():
@@ -187,7 +189,11 @@ def test_port_imports_no_jax():
                    "ops/fused_rollout.py", "models/action.py", "models/discriminator.py",
                    "render/playable_model.py", "train/trainer_playable.py", "data/video.py",
                    "data/native_loader.py", "data/synthetic.py", "data/dataset.py", "cli/common.py",
-                   "eval/creators.py", "train/encoding_cache.py", "utils/remat.py"):
+                   "eval/creators.py", "train/encoding_cache.py", "utils/remat.py", "utils/meters.py",
+                   "utils/logger.py", "utils/video_io.py", "eval/training_evaluator.py",
+                   "eval/autoencoder_evaluator.py", "eval/action_modifiers.py", "eval/playable_evaluator.py",
+                   "cli/train.py", "cli/train_autoencoder.py", "cli/train_playable.py", "cli/play.py",
+                   "cli/import_checkpoint.py", "compat/torch_import.py", "train/checkpointing.py"):
         assert f"playableenvironments_tpu_torch/{module}" in names, module
     assert len(names) > 30
     assert not offenders, offenders

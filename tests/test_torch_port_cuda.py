@@ -693,3 +693,71 @@ def test_checkpoint_round_trip_on_the_card(card, phase, tmp_path):
         restored_step(2)
     difference = checkpointing.state_difference(checkpointing.flat_state(restored), checkpointing.flat_state(trainer))
     assert difference is None, difference
+
+
+@pytest.mark.cuda
+def test_rollout_single_launches_b4_alone_on_the_card(card):
+    """The evaluators' whole-trajectory rollout (configs/tennis.yaml's
+    animation model, bs 1 x 8 from one frame, a fixed action): one B4
+    launch, no B5, no residuals; within 1e-4 of the plain rollout's largest
+    magnitude (chip_smoke.py phase 8's bound)."""
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+    from playableenvironments_tpu_torch.render.playable_model import PlayableEnvironmentModel
+
+    scene = scene_from_yaml(str(REPO / "configs" / "tennis.yaml"))
+    playable = PlayableEnvironmentModel(scene, device=card, seed=3)
+    anim = scene.animation_models[0]
+    g = torch.Generator().manual_seed(4)
+    state = [torch.randn(1, 1, w, generator=g).repeat(1, 8, 1).to(card)
+             for w in (3, 3, anim.style_features, anim.deformation_features)]
+    actions = torch.nn.functional.one_hot(torch.full((1, 7), 1), anim.actions_count).float().to(card)
+    variations = torch.zeros(1, 7, anim.action_space_dimension, device=card)
+    before = (fr.fused_rollout_fwd.launches, fr.fused_rollout_bwd.launches)
+    got = playable.rollout_single(1, *state, actions, variations)
+    torch.cuda.synchronize()
+    assert (fr.fused_rollout_fwd.launches, fr.fused_rollout_bwd.launches) == (before[0] + 1, before[1])
+    model = playable._animation_model(1)
+    with torch.no_grad():
+        ref = fr.plain_rollout_fwd(model.rollout_cfg, fr.pack_dynamics_params(model.dynamics_network), *state,
+                                   actions, variations, 1, False)[0]
+    for g_, r in zip(got, ref):
+        assert g_.shape == (1, 8, r.shape[-1]) and g_.device.type == "cuda"
+        assert (g_ - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_phase1_cli_on_the_card(card, tmp_path, monkeypatch):
+    """cli/train_autoencoder.py with --device cuda on
+    configs/synthetic_smoke.yaml with a tiny autoencoder: 2 steps, a
+    checkpoint whose tensors were saved from the card, its evaluator
+    grid. (The Logger's wandb mirror is disabled: the run reaches no
+    network.)"""
+    import importlib
+    import sys
+
+    import yaml
+
+    from playableenvironments_tpu_torch.data.synthetic import make_synthetic_dataset
+    from playableenvironments_tpu_torch.train import checkpointing
+
+    monkeypatch.setenv("WANDB_MODE", "disabled")
+    make_synthetic_dataset(str(tmp_path / "data"), videos=1, frames=4, height=16, width=24)
+    cfg = yaml.safe_load((REPO / "configs" / "synthetic_smoke.yaml").read_text())
+    cfg["data"]["data_root"] = str(tmp_path / "data")
+    cfg["logging"].update(output_root=str(tmp_path / "results"), checkpoints_root=str(tmp_path / "checkpoints"))
+    cfg["model"]["autoencoder"] = {"input_features": 3, "bottleneck_features": 8, "bottleneck_blocks": 1,
+                                   "downsampling_layers_count": [1, 1]}
+    cfg["autoencoder_training"] = {"max_steps": 2, "batch_size": 2, "save_freq": 2, "eval_freq": 2,
+                                   "log_interval_steps": 1}
+    config = tmp_path / "smoke.yaml"
+    config.write_text(yaml.safe_dump(cfg))
+    argv, sys.argv = sys.argv, ["train_autoencoder", "--config", str(config), "--device", "cuda"]
+    try:
+        importlib.import_module("playableenvironments_tpu_torch.cli.train_autoencoder").main()
+    finally:
+        sys.argv = argv
+    path = checkpointing.latest_checkpoint(str(tmp_path / "checkpoints" / "synthetic_smoke"))
+    assert path.endswith("checkpoint_2")
+    state = torch.load(pathlib.Path(path) / checkpointing.STATE_FILE, weights_only=True)
+    assert all(v.device.type == "cuda" for v in state["model"].values())
+    assert (tmp_path / "results" / "synthetic_smoke" / "images" / "00000002_autoencoder_reconstruction.png").exists()

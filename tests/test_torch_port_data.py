@@ -25,6 +25,7 @@ from playableenvironments_tpu.data import video as jvideo
 from playableenvironments_tpu.data.dataset import MulticameraVideoDataset as JaxDataset
 from playableenvironments_tpu_torch.data import batching, native_loader, synthetic, video
 from playableenvironments_tpu_torch.data.dataset import MulticameraVideoDataset
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 

@@ -62,6 +62,7 @@ from playableenvironments_tpu_torch.train import trainer_synthesis
 from test_torch_port_composer import Replay, recorded_draws
 from test_torch_port_phase3 import gradient_tolerances, seeded_tree
 from test_torch_port_train import fused_scene, to_port
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 # Gradients through the decoder path: against the same step in float64 (the
 # port with every dtype raised), the port's f32 gradients are off by up to

@@ -47,6 +47,7 @@ from playableenvironments_tpu_torch.render.environment_model import EnvironmentM
 from test_torch_port_play import ACTIONS, FOCAL_MULTIPLIER, IMAGE, STRIDES, _perturbed, jax_variables
 from test_torch_port_play import port_modules as play_modules
 from test_torch_port_play import tiny_tennis_dict
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 F32 = dict(rtol=1e-5, atol=1e-5)

@@ -27,6 +27,7 @@ from playableenvironments_tpu_torch.compat.from_flax import load_flax_tree
 from playableenvironments_tpu_torch.models import layers, object_encoders, parameter_encoders
 from playableenvironments_tpu_torch.ops import roi_crop
 from test_torch_port_play import _perturbed
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 DEEP = dict(rtol=1e-4, atol=1e-4)

@@ -15,6 +15,7 @@ from playableenvironments_tpu.train import losses as jlosses
 from playableenvironments_tpu.train.state import make_optimizer
 from playableenvironments_tpu_torch.train import losses
 from playableenvironments_tpu_torch.train.state import Optimizer
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 TOL = dict(rtol=1e-6, atol=1e-7)
 

@@ -94,6 +94,7 @@ from test_torch_port_composer import Replay, recorded_draws
 from test_torch_port_encode import init_with_composer, jax_batch
 from test_torch_port_phase3 import check_parameters, gradient_tolerances, seeded_tree
 from test_torch_port_play import _perturbed
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 IMAGE = (32, 48)

@@ -44,6 +44,7 @@ from playableenvironments_tpu_torch.render.environment_model import EnvironmentM
 from playableenvironments_tpu_torch.train import trainer_synthesis
 import test_torch_port_decoder as decoder_tests
 from test_torch_port_minecraft import FOCAL, IMAGE, MULTIPLIER, scenes
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 BS, T = 4, 2
 PATCH, STRIDES = 8, (4, 8)

@@ -18,6 +18,7 @@ from playableenvironments_tpu_torch.models.layers import initialize_
 from playableenvironments_tpu_torch.models.nerf import AdaInNerfMLP
 from playableenvironments_tpu_torch.ops import fused_nerf
 from test_torch_port_play import jax_variables, port_modules, scenes
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 BF16_TOL = dict(atol=5e-3, rtol=5e-3)
 F32_TOL = dict(atol=1e-5, rtol=1e-5)

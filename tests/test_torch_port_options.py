@@ -79,6 +79,7 @@ from test_torch_port_decoder import NO_OPT, decoder_scene
 from test_torch_port_decoder import batch_arrays as decoder_arrays
 from test_torch_port_phase3 import gradient_tolerances, seeded_tree
 from test_torch_port_train import batch_arrays, fused_scene, to_port
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 STRIDES = (4, 8)

@@ -29,6 +29,7 @@ from playableenvironments_tpu_torch.scene.encoding import SceneEncoding
 from test_torch_port_decoder import NO_OPT
 from test_torch_port_options import (STRIDES, check_options_step, check_remat_step, close, initial_variables,
                                      path_scene, t, to_port)
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 
 def test_decoder_options_step_matches_jax():

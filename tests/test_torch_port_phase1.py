@@ -50,6 +50,7 @@ from playableenvironments_tpu_torch.train import losses, trainer_autoencoder
 from test_torch_port_composer import Replay, recorded_draws
 from test_torch_port_decoder import NO_OPT
 from test_torch_port_phase3 import gradient_tolerances, seeded_tree
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 AE = dict(bottleneck_features=16, bottleneck_blocks=1, downsampling_layers_count=(2, 1))
 IMAGES = (4, 32, 32, 3)

@@ -46,6 +46,7 @@ from test_environment_model import tiny_scene
 from test_torch_port_action import anim_config
 from test_torch_port_composer import Replay, recorded_draws
 from test_torch_port_train import to_port
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 BS, T, N_OBJ = 4, 4, 3
 LEARNING_RATE = 5e-4

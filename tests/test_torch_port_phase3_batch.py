@@ -48,6 +48,7 @@ from test_torch_port_encode import init_with_composer, jax_batch
 from test_torch_port_phase3 import LEARNING_RATE, gradient_tolerances, port_model, scene, seeded_tree, training_config
 from test_torch_port_play import _perturbed
 from test_torch_port_train import to_port
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BS, T = 4, 4

@@ -32,6 +32,7 @@ from playableenvironments_tpu_torch.render import interactive
 from playableenvironments_tpu_torch.render.composer import SceneComposer
 from playableenvironments_tpu_torch.render.playable_model import PlayableEnvironmentModel
 from playableenvironments_tpu_torch.scene.encoding import SceneEncoding
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 IMAGE = (16, 24)

@@ -25,6 +25,7 @@ from playableenvironments_tpu_torch.render import fast
 from test_torch_port_play import (
     FOCAL_MULTIPLIER, IMAGE, STRIDES, encoding_arrays, jax_variables, port_encoding, port_modules, scenes,
 )
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 BF16_TOL = dict(atol=5e-3, rtol=5e-3)
 

@@ -30,6 +30,7 @@ from playableenvironments_tpu_torch.models.dynamics import DynamicsNetwork
 from playableenvironments_tpu_torch.ops import fused_rollout as fr
 from test_fused_rollout import BOX, BS, A, D, S, T, V, make_cfg
 from test_torch_port_train import to_port
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 # The JAX references are compiled once each; XLA's CPU backend optimization
 # only slows their compile down here.

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from playableenvironments_tpu_torch.ops import fused_rollout as fr
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 # (features, layers, S, D, A, V): the phase-3 dynamics, the play loop's,
 # a width that takes 8-CTA clusters, and a small one for the simulations.

@@ -41,6 +41,7 @@ from playableenvironments_tpu_torch.train import trainer_synthesis
 from playableenvironments_tpu_torch.utils.random import RngStreams
 from test_environment_model import tiny_scene
 from test_torch_port_play import _perturbed
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 B, T, C, H, W = 2, 2, 1, 16, 24
 STRIDES = (4, 8)
