@@ -131,16 +131,18 @@ Phases, each fatal on failure:
    (3 frames against the in-memory models'), and one resumed phase-2 step
    with deterministic algorithms against the uninterrupted one and an
    in-memory copy's (0 apart), B2/B3 held on the inputs of that step's
-   shapes; checkpoint bytes, save and restore ms.
+   shapes (B3's weight gradients against f64 in units of their rounding
+   scale); checkpoint bytes, save and restore ms.
 16. the training, play and import CLIs, each main() called in this process
    with sys.argv set, in a temporary directory, on phase 11's dataset and
    configs/tennis.yaml at full width (PHASE16_*: the fused backbone on,
    depths and cadences cut): (a) train_autoencoder at bs 20 images, 3
    steps, its checkpoints, quick saves and AutoencoderEvaluator grid; (b)
-   train on the decoder path (B2-f32/B3-f32), 16a's checkpoint grafted
-   (bit for bit) and evaluated by the TrainingEvaluator; (c) the same run
-   resumed to 4 steps, its checkpoint equal bit for bit to an uninterrupted
-   4-step run's (deterministic algorithms); (d) train_playable at bs 16 in
+   train on the decoder path (B2-f32/B3-f32) with PyTorch's default
+   algorithms, 16a's checkpoint grafted (bit for bit) and evaluated by the
+   TrainingEvaluator; (c) with deterministic algorithms, the same run
+   stopped at step 3 and resumed to 4, its checkpoint equal bit for bit to
+   an uninterrupted 4-step run's; (d) train_playable at bs 16 in
    blocks of 2 steps past max_steps 5 to 6, the PlayableModelEvaluator at
    steps 2, 4 and 6, then a second run that reloads the encoding cache, and
    B4 at the evaluator's rollout_single shape against its plain version;
@@ -314,6 +316,22 @@ class SmokeFailure(Exception):
 # 5e-2 element-wise and 1e-2 in the mean.
 D_ENCODED_REL_ATOL, D_ENCODED_REL_MEAN = 0.5, 1e-3
 GRAD_REL_ATOL, GRAD_REL_MEAN = 5e-2, 1e-2
+# B3 on a main path's own inputs (hold_recorded_backbone_calls): there the
+# cotangents are small and a weight gradient can cancel to far below its
+# terms (15c's layer-7 gradient: a largest magnitude under 1.94e-5 from
+# 655,360 points' products), and a unit may be active at a few points
+# only, so an output's largest magnitude says nothing of the rounding it
+# carries. Each output element is held against the f64 backward at the
+# kernels' own layer outputs (B2 over the first layers,
+# backbone_layer_outputs: B3's recompute, its ReLU pattern and bf16
+# layer inputs), in units of its rounding scale s = sum |x| |g|
+# (plain_backbone_bwd(magnitudes=True)): BF16_GRAD_BAND element-wise and
+# BF16_GRAD_BAND_MEAN in the mean. There the two differ only where a
+# cotangent, summed in f32 by the kernel and in f64 here, rounds to the
+# other bf16 neighbour: one ulp, at most 2^-7 of it, in a term's own
+# cotangent and in the one it was carried back from, so 2^-6 of s; and in
+# the mean, such a move in one term of 64.
+BF16_GRAD_BAND, BF16_GRAD_BAND_MEAN = 2.0 ** -6, 2.0 ** -12
 # Per-step launch shapes of the phase-2 step (bs 8 x 4 obs x 144 rays =
 # 4,608 rays): (object, points), one B2 and one B3 launch each.
 PHASE2_LAUNCHES = (("background", 4608 * 4), ("backplate", 4608 * 4),
@@ -588,17 +606,16 @@ def _train_step_outputs(torch, trainer, batch, rng):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads, state
 
 
-def phase6_card_vs_cpu(devices=("cuda", "cpu"), ieee=False, fused=True, check=True):
-    """One train step of the phase-2 scene at 1 x 2 observations of
-    288x512, randomness off (the strided grid of strides 8 and 16, 2,880
-    rays an image; no perturbation, no style shuffle), on the card and on
-    the CPU from the same seeded weights. (Weighted sampling draws the same
-    numbers on both devices, but its inverse CDF, a cumulative sum over
-    147,456 pixels taken in another order on the card, moves a few draws to
-    a neighbouring pixel.) `ieee` runs both steps inside ieee_convolutions;
-    `fused=False` gives every NeRF the plain backbone (no B2/B3) on both
-    devices; `check=False` returns the readings without holding them to
-    the bounds (scripts/phase6_bound.py)."""
+def phase6_readings(scene, convolutions, devices=("cuda", "cpu")):
+    """One train step of `scene` at 1 x 2 observations of 288x512,
+    randomness off (the strided grid of strides 8 and 16, 2,880 rays an
+    image; no perturbation, no style shuffle), on each device from the same
+    seeded weights, inside `convolutions(device)`. (Weighted sampling draws
+    the same numbers on both devices, but its inverse CDF, a cumulative sum
+    over 147,456 pixels taken in another order on the card, moves a few
+    draws to a neighbouring pixel.) :return: the readings of the first
+    device against the second, and "problems": those outside phase 6's
+    bounds (phase6_card_vs_cpu)."""
     import torch
 
     from playableenvironments_tpu_torch.render.environment_model import EnvironmentModel
@@ -611,48 +628,20 @@ def phase6_card_vs_cpu(devices=("cuda", "cpu"), ieee=False, fused=True, check=Tr
         samples_per_image=0, patch_strides=(8, 16), perturb=False, shuffle_style=False,
         loss_weights=LossWeights(reconstruction=1.0, opacity=0.01, attention=0.01, bounding_box=0.1),
     )
-    scene = phase2_scene()
-    if not fused:
-        scene = dataclasses.replace(scene, object_models=tuple(
-            dataclasses.replace(om, nerf=dataclasses.replace(om.nerf, use_fused_backbone=False))
-            for om in scene.object_models))
     outputs = []
     for device in devices:
         model = EnvironmentModel(scene, device=device, seed=3)
         batch = phase2_batch(torch, 1, 2, 288, 512, device)
-        with ieee_convolutions(device) if ieee else contextlib.nullcontext():
+        with convolutions(device):
             outputs.append(_train_step_outputs(torch, SynthesisTrainer(model, cfg), batch, RngStreams(0, device)))
     (loss, metrics, grads, state), (ref_loss, ref_metrics, ref_grads, ref_state) = outputs
-    # The card runs B2/B3 (bf16 roundings that flip against the CPU's; see
-    # GRAD_REL_ATOL). Loss and metrics are held to 1e-3 relative.
-    # Gradients: the backplate's encoder normalizes, in its last blocks, 16
-    # values a channel (1 x 8 maps of 2 crops), so a convolution's error
-    # comes out amplified. With cuDNN's TF32 convolutions (PyTorch's
-    # default, ~1e-3 relative) it reached 1.04e-1 of that encoder's largest
-    # gradient in single elements on the card; inside ieee_convolutions, as
-    # the main run takes this step, 3.5e-2, and the largest element error of
-    # any tensor is 5.97e-2 of its model's largest, in the ray bender's
-    # output head, 6.14e-2 with the plain backbone on both devices (no
-    # B2/B3), so neither TF32 nor B2/B3 sets it (scripts/phase6_bound.py,
-    # NVIDIA H100 80GB HBM3, 700.00 W). So each gradient tensor is held to
-    # 0.12 of the largest gradient magnitude of its model (object_model_i
-    # or object_encoder_i) element-wise, twice that reading, and to 0.1 of
-    # its own largest magnitude in the mean (mean errors up to 4.4e-2 of a
-    # tensor's own largest). The running statistics, batch means and
-    # variances of bf16 products on both sides, to 2e-2 of each buffer's
-    # largest magnitude (a mean near 0 is a difference of near-equal sums).
-    # Parameters after the step: Adam's first update is lr g / (|g| + 1e-8),
-    # about lr sign(g) where |g| >> 1e-8, so every element whose CPU gradient
-    # exceeds 1e-5 and twice its tensor's largest card-vs-CPU gradient error
-    # (a sign the noise cannot flip) is held to 1e-6 + 1e-4 relative, and
-    # every element to 2 lr.
-    worst = {}
+    problems = []
     metric_err = 0.0
     for name, got in list(metrics.items()) + [("loss", loss)]:
         ref = ref_metrics.get(name, ref_loss)
         metric_err = max(metric_err, abs(got.item() - ref.item()) / (abs(ref.item()) + 1e-30))
-        if check and not abs(got.item() - ref.item()) <= 1e-3 * abs(ref.item()) + 1e-6:
-            raise SmokeFailure(f"card vs CPU {name}: {got.item():.6e} vs {ref.item():.6e}")
+        if not abs(got.item() - ref.item()) <= 1e-3 * abs(ref.item()) + 1e-6:
+            problems.append(f"{name}: {got.item():.6e} vs {ref.item():.6e}")
     if set(grads) != set(ref_grads):
         raise SmokeFailure("card vs CPU: different parameters received gradients")
 
@@ -671,13 +660,8 @@ def phase6_card_vs_cpu(devices=("cuda", "cpu"), ieee=False, fused=True, check=Tr
         scale = max(ref.abs().max().item(), 1e-30)
         rel.append((diff.max().item() / max(group_scale[group(name)], 1e-30), diff.mean().item() / scale, name))
     rel.sort(reverse=True)
-    for r in rel[:4]:
-        print(f"  card vs CPU gradient {r[2]}: max err {r[0]:.3e} of its model's largest gradient, "
-              f"mean err {r[1]:.3e} of its own")
-    grad_err = rel[0][0]
-    grad_mean_err = max(r[1] for r in rel)
-    problems = [f"gradient {r[2]}: max err {r[0]:.3e} of its model's largest gradient, mean err {r[1]:.3e} "
-                "of its own" for r in rel if not (r[0] <= PHASE6_GRAD_BOUND and r[1] <= 0.1)]
+    problems += [f"gradient {r[2]}: max err {r[0]:.3e} of its model's largest gradient, mean err {r[1]:.3e} "
+                 "of its own" for r in rel if not (r[0] <= PHASE6_GRAD_BOUND and r[1] <= 0.1)]
     lr = cfg.learning_rate
     param_err = stats_err = 0.0
     clear_count = 0
@@ -696,17 +680,53 @@ def phase6_card_vs_cpu(devices=("cuda", "cpu"), ieee=False, fused=True, check=Tr
             if not diff.max().item() <= 2e-2 * scale:
                 problems.append(f"running statistic {name}: err {diff.max().item() / scale:.3e} of its largest")
             stats_err = max(stats_err, diff.max().item() / scale)
-    if problems and check:
+    return {"worst_gradients": rel[:4], "worst_gradient": rel[0][2], "metric_rel_err": metric_err,
+            "loss": loss.item(), "ref_loss": ref_loss.item(), "grad_rel_err": rel[0][0],
+            "grad_mean_rel_err": max(r[1] for r in rel), "param_err": param_err, "sign_clear_elements": clear_count,
+            "stats_err": stats_err, "grads": len(grads), "problems": problems}
+
+
+def phase6_card_vs_cpu(devices=("cuda", "cpu")):
+    """phase6_readings of the phase-2 scene with B2/B3 on the card, both
+    steps inside ieee_convolutions, held to phase 6's bounds."""
+    # The card runs B2/B3 (bf16 roundings that flip against the CPU's; see
+    # GRAD_REL_ATOL). Loss and metrics are held to 1e-3 relative.
+    # Gradients: the backplate's encoder normalizes, in its last blocks, 16
+    # values a channel (1 x 8 maps of 2 crops), so a convolution's error
+    # comes out amplified. With cuDNN's TF32 convolutions (PyTorch's
+    # default, ~1e-3 relative) it reached 1.04e-1 of that encoder's largest
+    # gradient in single elements on the card; inside ieee_convolutions, as
+    # this step is taken, 3.5e-2, and the largest element error of any
+    # tensor is 5.97e-2 of its model's largest, in the ray bender's output
+    # head, 6.14e-2 with the plain backbone on both devices (no B2/B3), so
+    # neither TF32 nor B2/B3 sets it (scripts/phase6_bound.py, NVIDIA H100
+    # 80GB HBM3, 700.00 W). So each gradient tensor is held to 0.12 of the
+    # largest gradient magnitude of its model (object_model_i or
+    # object_encoder_i) element-wise, twice that reading, and to 0.1 of its
+    # own largest magnitude in the mean (mean errors up to 4.4e-2 of a
+    # tensor's own largest). The running statistics, batch means and
+    # variances of bf16 products on both sides, to 2e-2 of each buffer's
+    # largest magnitude (a mean near 0 is a difference of near-equal sums).
+    # Parameters after the step: Adam's first update is lr g / (|g| + 1e-8),
+    # about lr sign(g) where |g| >> 1e-8, so every element whose CPU gradient
+    # exceeds 1e-5 and twice its tensor's largest card-vs-CPU gradient error
+    # (a sign the noise cannot flip) is held to 1e-6 + 1e-4 relative, and
+    # every element to 2 lr.
+    worst = phase6_readings(phase2_scene(), ieee_convolutions, devices)
+    problems = worst.pop("problems")
+    for r in worst.pop("worst_gradients"):
+        print(f"  card vs CPU gradient {r[2]}: max err {r[0]:.3e} of its model's largest gradient, "
+              f"mean err {r[1]:.3e} of its own")
+    if problems:
         for problem in problems[:12]:
             print(f"  card vs CPU: {problem}")
         raise SmokeFailure(f"card vs CPU train step: {len(problems)} checks failed, first: {problems[0]}")
-    worst.update(worst_gradient=rel[0][2], metric_rel_err=metric_err, loss=loss.item(), ref_loss=ref_loss.item(), grad_rel_err=grad_err, grad_mean_rel_err=grad_mean_err,
-                 param_err=param_err, sign_clear_elements=clear_count, stats_err=stats_err, grads=len(grads))
-    print(f"train step card vs CPU (phase-2 scene, 1 x 2 obs, 288x512, strides 8/16): loss {loss.item():.6f} "
-          f"vs {ref_loss.item():.6f}; {len(grads)} gradient tensors within {grad_err:.3e} of their model's "
-          f"largest gradient (mean error up to {grad_mean_err:.3e} of their own); {clear_count} parameter "
-          f"elements with a clear gradient sign within {param_err:.3e} after the step; running statistics "
-          f"within {stats_err:.3e} of their largest magnitude")
+    print(f"train step card vs CPU (phase-2 scene, 1 x 2 obs, 288x512, strides 8/16): loss {worst['loss']:.6f} "
+          f"vs {worst['ref_loss']:.6f}; {worst['grads']} gradient tensors within {worst['grad_rel_err']:.3e} of "
+          f"their model's largest gradient (mean error up to {worst['grad_mean_rel_err']:.3e} of their own); "
+          f"{worst['sign_clear_elements']} parameter elements with a clear gradient sign within "
+          f"{worst['param_err']:.3e} after the step; running statistics within {worst['stats_err']:.3e} of their "
+          "largest magnitude")
     return worst
 
 
@@ -2778,7 +2798,7 @@ def phase13(repo):
 # F32_KERNEL_REL of its largest magnitude and F32_KERNEL_MEAN of it in the
 # mean: B2-f32 against the plain version; B3-f32 against the plain backward
 # in f64 at the kernels' ReLU pattern (each layer's output > 0 from B2-f32,
-# `backbone_f32_layer_outputs`). That pattern is held on its own against
+# `backbone_layer_outputs`). That pattern is held on its own against
 # the f64 forward's (`relu_pattern_check`): each layer's pre-activations
 # within F32_RELU_BAND of their rounding scale s = sum |x w| + |b| of f64's,
 # every unit on the other side of f64's ReLU within that band of 0, and at
@@ -2933,7 +2953,7 @@ def phase14_backbone_f32_kernels(fine_points, device="cuda"):
                 plain_worst = max(plain_worst, ((got - ref).abs().max() / ref.abs().max()).item())
             plain_acts = fused_nerf._plain_backbone_acts(cfg, packed, encoded, lambda x: x)
             masks, pattern = fused_nerf.relu_pattern_check(
-                cfg, packed, encoded, fused_nerf.backbone_f32_layer_outputs(cfg, packed, encoded))
+                cfg, packed, encoded, fused_nerf.backbone_layer_outputs(cfg, packed, encoded))
             flips = [int((m != (a > 0)).sum()) for m, a in zip(masks, plain_acts)]
             del ref_grads, ref_d_enc, plain_acts
             torch.cuda.empty_cache()
@@ -3419,14 +3439,17 @@ def recorded_backbone_calls():
 
 
 def hold_recorded_backbone_calls(label, records):
-    """B2 against plain_backbone_fwd and B3 against plain_backbone_bwd on
-    the inputs recorded_backbone_calls copied from a main path, at phase
-    5's bounds (KERNEL_ATOL and the rest for B2; D_ENCODED_REL_* and
-    GRAD_REL_* of each output's largest magnitude for B3). :return: one row
-    a call: direction, points, and the largest and mean error (B3's in
-    units of each output's largest magnitude, and its largest cotangent:
-    a launch whose cotangents are all 0 gives gradients of 0 on both
-    sides)."""
+    """B2 against plain_backbone_fwd and B3 against the f64
+    plain_backbone_bwd at the kernels' own layer outputs on the inputs
+    recorded_backbone_calls copied from a main path: B2 at phase 5's bounds
+    (KERNEL_ATOL and the rest); every output of B3 within BF16_GRAD_BAND of
+    each element's rounding scale, d_encoded also within D_ENCODED_REL_* of
+    its largest magnitude. :return: one row a call: direction, points, and
+    the largest and mean error (B2's absolute; B3's in units of the
+    rounding scale, beside d_encoded's in units of its largest magnitude,
+    for reading the weight and bias gradients' in units of theirs, and its
+    largest cotangent: a launch whose cotangents are all 0 gives gradients
+    of 0 on both sides)."""
     import torch
 
     from playableenvironments_tpu_torch.ops import fused_nerf
@@ -3447,25 +3470,46 @@ def hold_recorded_backbone_calls(label, records):
         for cfg, packed, encoded, g_h, g_alpha in records["bwd"].values():
             points = encoded.shape[0]
             grads, d_enc = fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
-            ref_grads, ref_d_enc = fused_nerf.plain_backbone_bwd(cfg, packed, encoded.float(), g_h, g_alpha)
-            worst = worst_mean = 0.0
+            acts = [x.double() for x in fused_nerf.backbone_layer_outputs(cfg, packed, encoded.float())]
+            f64 = ({k: v.double() for k, v in packed.items()}, encoded.double(), g_h.double(), g_alpha.double())
+            ref_grads, ref_d_enc = fused_nerf.plain_backbone_bwd(cfg, *f64, acts=acts)
+            scales, d_enc_scale = fused_nerf.plain_backbone_bwd(cfg, *f64, acts=acts, magnitudes=True)
+            del f64, acts
             cotangent = max(g_h.abs().max().item(), g_alpha.abs().max().item())
-            for key, got, ref in [("d_encoded", d_enc, ref_d_enc)] + [(k, grads[k], ref_grads[k]) for k in ref_grads]:
-                scale = ref.abs().max().item()
-                tol, mean_tol = ((D_ENCODED_REL_ATOL, D_ENCODED_REL_MEAN) if key == "d_encoded"
-                                 else (GRAD_REL_ATOL, GRAD_REL_MEAN))
-                err, mean = check_close(f"{label} B3 {points} points {key} (largest {scale:.3e}, largest cotangent "
-                                        f"{cotangent:.3e})", got, ref, tol * scale, 0.0, mean_tol * scale)
-                if scale > 0:
-                    worst, worst_mean = max(worst, err / scale), max(worst_mean, mean / scale)
-            rows.append({"direction": "B3", "points": points, "max_abs_err": worst, "mean_abs_err": worst_mean,
-                         "largest_cotangent": cotangent})
-            del grads, d_enc, ref_grads, ref_d_enc
+            scale = ref_d_enc.abs().max().item()
+            err, mean = check_close(f"{label} B3 {points} points d_encoded (largest {scale:.3e}, largest cotangent "
+                                    f"{cotangent:.3e})", d_enc.double(), ref_d_enc, D_ENCODED_REL_ATOL * scale, 0.0,
+                                    D_ENCODED_REL_MEAN * scale)
+            row = {"direction": "B3", "points": points, "max_abs_err": 0.0, "mean_abs_err": 0.0,
+                   "d_encoded_max_rel_err": err / scale if scale > 0 else 0.0,
+                   "grad_max_rel_err_of_largest": 0.0, "largest_cotangent": cotangent}
+            outputs = [("d_encoded", d_enc, ref_d_enc, d_enc_scale)] + [
+                (key, grads[key], ref_grads[key], scales[key]) for key in ref_grads]
+            for key, got, ref, rounding in outputs:
+                worst, worst_mean = fused_nerf.rounding_error_ratio(got, ref, rounding)
+                largest = ref.abs().max().item()
+                if not (worst <= BF16_GRAD_BAND and worst_mean <= BF16_GRAD_BAND_MEAN):
+                    raise SmokeFailure(
+                        f"{label} B3 {points} points {key}: off the f64 backward by up to {worst:.3e} of an "
+                        f"element's rounding scale, {worst_mean:.3e} in the mean (bands {BF16_GRAD_BAND:.3e}, "
+                        f"{BF16_GRAD_BAND_MEAN:.3e}; largest {largest:.3e}, largest scale "
+                        f"{rounding.max().item():.3e}, largest cotangent {cotangent:.3e})")
+                if largest > 0 and key != "d_encoded":
+                    row["grad_max_rel_err_of_largest"] = max(
+                        row["grad_max_rel_err_of_largest"],
+                        (got.double() - ref.reshape(got.shape)).abs().max().item() / largest)
+                row["max_abs_err"] = max(row["max_abs_err"], worst)
+                row["mean_abs_err"] = max(row["mean_abs_err"], worst_mean)
+            rows.append(row)
+            del grads, d_enc, ref_grads, ref_d_enc, scales, d_enc_scale, outputs
     torch.cuda.empty_cache()
-    print(f"{label}: B2/B3 held against their plain versions on the main path's own inputs, each shape once: "
-          + "; ".join(f"{r['direction']} {r['points']} points, max err {r['max_abs_err']:.3e}, mean "
-                      f"{r['mean_abs_err']:.3e}" + (f" (largest cotangent {r['largest_cotangent']:.3e})"
-                                                    if r["direction"] == "B3" else "") for r in rows))
+    print(f"{label}: B2/B3 held on the main path's own inputs, each shape once: " + "; ".join(
+        f"B2 {r['points']} points, max err {r['max_abs_err']:.3e}, mean {r['mean_abs_err']:.3e}"
+        if r["direction"] == "B2" else
+        f"B3 {r['points']} points against f64 at its layer outputs within {r['max_abs_err']:.3e} of an "
+        f"element's rounding scale (mean {r['mean_abs_err']:.3e}; weight gradients "
+        f"{r['grad_max_rel_err_of_largest']:.3e} of their largest, d_encoded {r['d_encoded_max_rel_err']:.3e} of its; "
+        f"largest cotangent {r['largest_cotangent']:.3e})" for r in rows))
     return rows
 
 
@@ -3783,12 +3827,8 @@ def phase15_chain(repo, directory, device="cuda"):
     scene = scene_from_dict(cfg["model"], cfg.get("playable_model"))
     phase1 = AutoencoderTrainer(scene.autoencoder, autoencoder_training_config(cfg), device=device, seed=11)
     images = torch.from_numpy(np.random.default_rng(3).random(CHAIN_PHASE1 + (3,), np.float32)).to(device)
-    # Phases 1 and 2 take their steps with deterministic algorithms, so that
-    # the inputs B2/B3 are held on at the end of 15c are the same in every
-    # run (with PyTorch's defaults a step's result moves from run to run).
-    with deterministic_algorithms():
-        for _ in range(2):
-            phase1.train_step(images, RngStreams(1, device))
+    for _ in range(2):
+        phase1.train_step(images, RngStreams(1, device))
     phase1_path = save("phase1", phase1)
 
     # Phase 2: graft, two steps, saves after steps 0, 1 and 2 with keep=2.
@@ -3809,9 +3849,8 @@ def phase15_chain(repo, directory, device="cuda"):
     phase2_dir = os.path.join(directory, "phase2")
     save("phase2", uninterrupted[0], keep=2)
     for step in range(2):
-        with deterministic_algorithms():
-            for trainer in uninterrupted:
-                trainer.train_step(batch, RngStreams(10 + step, device))
+        for trainer in uninterrupted:
+            trainer.train_step(batch, RngStreams(10 + step, device))
         phase2_path = save("phase2", uninterrupted[0], keep=2)
     kept = sorted(os.listdir(phase2_dir))
     if kept != ["checkpoint_1", "checkpoint_2"] or ckpt.latest_checkpoint_any(directory, phase2_dir) != phase2_path:
@@ -4042,7 +4081,9 @@ def phase16_cli(repo, directory, device="cuda"):
         clis[label] = {"wall_s": seconds, "peak_bytes": peak, **timing}
         split = ", ".join(f"{k} {v:.2f} s" for k, v in timing["seconds"].items())
         launches = {k: v for k, v in timing["launches"].items() if v}
-        print(f"16 {label}: {seconds:.2f} s ({split}), peak {peak / 1e9:.2f} GB, launches {launches}")
+        each = ", ".join(f"{v:.3f}" for v in timing["step_seconds"])
+        print(f"16 {label}: {seconds:.2f} s ({split}; each steps section [{each}] s), peak {peak / 1e9:.2f} GB, "
+              f"launches {launches}")
 
     # ---- 16a. phase 1 ---------------------------------------------------------
     ae_config = phase16_config(repo, directory, "phase1", data_root, autoencoder_training=PHASE16_AE,
@@ -4058,30 +4099,40 @@ def phase16_cli(repo, directory, device="cuda"):
         raise SmokeFailure(f"16a: checkpoints {kept}, quick {quick}, evaluator grid {os.path.isfile(grid)}")
     ae_path = ckpt.latest_checkpoint(ae_dir)
 
-    # ---- 16b/16c. phase 2, resumed; the uninterrupted run ---------------------
+    # ---- 16b. phase 2 as a user runs it (PyTorch's default algorithms) -------
     phase2 = dict(PHASE16_PHASE2)
     sections = {"training": phase2, "training.batching": {"batch_size": PHASE16_PHASE2_BATCH},
                 "model.autoencoder": {"weights_filename": ae_path}}
     p2_config = phase16_config(repo, directory, "phase2", data_root, **sections)
+    _, seconds, peak = run_cli("playableenvironments_tpu_torch.cli.train", "--config", p2_config, "--device", device)
+    record("train", "train", seconds, peak, os.path.join(directory, "results", "phase2"))
+    p2_path = ckpt.latest_checkpoint(os.path.join(checkpoints, "phase2"))
+    if sorted(os.listdir(os.path.join(checkpoints, "phase2"))) != ["checkpoint_2", "checkpoint_3", "quick"]:
+        raise SmokeFailure(f"16b: checkpoints {sorted(os.listdir(os.path.join(checkpoints, 'phase2')))}")
+
+    # ---- 16c. a run stopped at step 3 and resumed to 4; the uninterrupted run
+    # Bit for bit needs deterministic algorithms (scripts/step_determinism.py),
+    # so all three take their steps with them, and 16b's timed run without.
+    p2_dir = os.path.join(checkpoints, "phase2_resumed")
+    resumed_config = phase16_config(repo, directory, "phase2_resumed", data_root, **sections)
+    whole_config = phase16_config(repo, directory, "phase2_whole", data_root, **{
+        **sections, "training": {**phase2, "max_steps": 4}})
     with deterministic_algorithms():
-        _, seconds, peak = run_cli("playableenvironments_tpu_torch.cli.train", "--config", p2_config,
+        _, seconds, peak = run_cli("playableenvironments_tpu_torch.cli.train", "--config", resumed_config,
                                    "--device", device)
-        record("train", "train", seconds, peak, os.path.join(directory, "results", "phase2"))
-        p2_dir = os.path.join(checkpoints, "phase2")
-        p2_path = ckpt.latest_checkpoint(p2_dir)
-        _, seconds, peak = run_cli("playableenvironments_tpu_torch.cli.train", "--config", p2_config,
+        record("train_deterministic", "train", seconds, peak, os.path.join(directory, "results", "phase2_resumed"))
+        stopped = ckpt.latest_checkpoint(p2_dir)
+        _, seconds, peak = run_cli("playableenvironments_tpu_torch.cli.train", "--config", resumed_config,
                                    "--max_steps", 4, "--device", device)
-        record("train_resumed", "train", seconds, peak, os.path.join(directory, "results", "phase2"))
-        whole_config = phase16_config(repo, directory, "phase2_whole", data_root, **{
-            **sections, "training": {**phase2, "max_steps": 4}})
+        record("train_resumed", "train", seconds, peak, os.path.join(directory, "results", "phase2_resumed"))
         _, seconds, peak = run_cli("playableenvironments_tpu_torch.cli.train", "--config", whole_config,
                                    "--device", device)
         record("train_uninterrupted", "train", seconds, peak, os.path.join(directory, "results", "phase2_whole"))
-    with open(os.path.join(directory, "results", "phase2", "log.txt")) as f:
+    with open(os.path.join(directory, "results", "phase2_resumed", "log.txt")) as f:
         log = f.read()
-    if f"resumed from {p2_path} at step 3" not in log or sorted(os.listdir(p2_dir)) != [
+    if f"resumed from {stopped} at step 3" not in log or sorted(os.listdir(p2_dir)) != [
             "checkpoint_2", "checkpoint_3", "checkpoint_4", "quick"]:
-        raise SmokeFailure(f"16c: the rerun did not resume from {p2_path} and save at step 4 "
+        raise SmokeFailure(f"16c: the rerun did not resume from {stopped} and save at step 4 "
                            f"({sorted(os.listdir(p2_dir))})")
     resumed = ckpt.saved_flat_state(os.path.join(p2_dir, "checkpoint_4"))
     whole = ckpt.saved_flat_state(os.path.join(checkpoints, "phase2_whole", "checkpoint_4"))
@@ -4111,8 +4162,9 @@ def phase16_cli(repo, directory, device="cuda"):
     results["phase2"] = {"resumed_tensors_equal": tensors, "autoencoder_tensors_equal": same,
                          "decoder_statistics_moved": moved}
     print(f"16b/16c phase 2: 16a's autoencoder grafted ({same} tensors bit for bit, {moved} decoder running "
-          f"statistics moved); resumed at step 3 from {os.path.basename(p2_path)}, one step; checkpoint_4 equal to "
-          f"the uninterrupted 4-step run's, {tensors} tensors bit for bit (deterministic algorithms)")
+          f"statistics moved); with deterministic algorithms a run stopped at step 3 resumed from "
+          f"{os.path.basename(stopped)}, one step; its checkpoint_4 equal to the uninterrupted 4-step run's, "
+          f"{tensors} tensors bit for bit")
 
     # ---- 16d. phase 3, twice (the second reloads the encoding cache) ----------
     p3_config = phase16_config(repo, directory, "phase3", data_root, playable_model_training=PHASE16_PHASE3)
@@ -4582,7 +4634,7 @@ def main() -> int:
     try:
         fwd_rows, bwd_rows = phase5_backbone_kernels()
         done("5")
-        card_vs_cpu = phase6_card_vs_cpu(ieee=True)
+        card_vs_cpu = phase6_card_vs_cpu()
         done("6")
         phase2 = phase7_main_path()
         done("7")

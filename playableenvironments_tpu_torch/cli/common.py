@@ -21,7 +21,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 from playableenvironments_tpu_torch import config as config_lib
 from playableenvironments_tpu_torch.data.dataset import MulticameraVideoDataset
@@ -333,8 +333,9 @@ class RunTimes:
     """A CLI run's wall time in four parts, seconds: `startup` (from the
     CLI's start to its first step: build, dataset, model, restore, cache),
     `steps` (each step until its metrics are on the host), `saves` and
-    `evaluation`. `write` puts them with the run's B1-B5 launches into
-    `<directory>/timing_<name>.json`."""
+    `evaluation`, and each `steps` section's own seconds (a step, a block of
+    steps or a play script). `write` puts them with the run's B1-B5
+    launches into `<directory>/timing_<name>.json`."""
 
     def __init__(self):
         from playableenvironments_tpu_torch.utils.meters import TimeMeter
@@ -342,8 +343,16 @@ class RunTimes:
         self.started = time.perf_counter()
         self.startup = 0.0
         self.meter = TimeMeter(mode="sum")
-        self.section = self.meter.section
+        self.step_seconds: List[float] = []
         self.launches = _kernel_launches()
+
+    @contextlib.contextmanager
+    def section(self, name: str):
+        start = time.perf_counter()
+        with self.meter.section(name):
+            yield
+        if name == "steps":
+            self.step_seconds.append(time.perf_counter() - start)
 
     def startup_done(self):
         self.startup = time.perf_counter() - self.started
@@ -353,8 +362,8 @@ class RunTimes:
         seconds = {"startup": self.startup, "steps": 0.0, "saves": 0.0, "evaluation": 0.0, **self.meter.summary()}
         path = os.path.join(directory, f"timing_{name}.json")
         with open(path, "w") as f:
-            json.dump({"seconds": seconds, "total": time.perf_counter() - self.started, "launches": launches}, f,
-                      indent=1)
+            json.dump({"seconds": seconds, "total": time.perf_counter() - self.started, "launches": launches,
+                       "step_seconds": self.step_seconds}, f, indent=1)
         return path
 
 

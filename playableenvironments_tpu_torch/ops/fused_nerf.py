@@ -615,6 +615,8 @@ def plain_backbone_bwd(
     g_h: torch.Tensor,
     g_alpha: torch.Tensor,
     masks: Optional[Sequence[torch.Tensor]] = None,
+    magnitudes: bool = False,
+    acts: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """The TPU backward kernel's explicit backward in plain PyTorch (not
     autograd): recompute the activations, back-propagate through the ReLU
@@ -623,11 +625,23 @@ def plain_backbone_bwd(
     :param g_h: (N, W) cotangent of h; :param g_alpha: (N,) of alpha.
     :param masks: each layer's (N, W) ReLU pattern to take the derivative
         at; by default the recomputed activations' own (> 0).
+    :param magnitudes: return each output's rounding scale instead: the
+        backward's products over the magnitudes of their rounded operands,
+        so that a weight gradient's element is sum_n |x_n| |g_n| with |g|
+        carried back through |W| from |g_h| and |g_alpha|. An
+        implementation's rounding error is a small part of this scale,
+        also where the gradient itself is a sum that cancels to far less.
+    :param acts: each layer's (N, W) post-ReLU output as some
+        implementation computed it (backbone_layer_outputs), to take the
+        layer inputs and the ReLU pattern from; by default recomputed here.
     :return: ({name: gradient in that weight's shape}, (N, E) d_encoded).
     """
     rnd = _operand_rounding(cfg)
     layers, width = cfg.backbone_layers_count, cfg.layers_width
-    acts = _plain_backbone_acts(cfg, packed, encoded, rnd)
+    acts = list(acts) if acts is not None else _plain_backbone_acts(cfg, packed, encoded, rnd)
+    if magnitudes:
+        rnd = (lambda round_: lambda x: round_(x).abs())(rnd)
+        g_h, g_alpha = g_h.abs(), g_alpha.abs()
     g_alpha = g_alpha[:, None]
     grads = {
         "w_alpha": rnd(acts[-1]).t() @ rnd(g_alpha),
@@ -654,6 +668,17 @@ def plain_backbone_bwd(
         else:
             g = g_in
     return grads, d_encoded
+
+
+def rounding_error_ratio(got: torch.Tensor, ref: torch.Tensor, scale: torch.Tensor) -> Tuple[float, float]:
+    """|got - ref| / scale element-wise in f64, as (max, mean), for a
+    rounding scale from plain_backbone_bwd(magnitudes=True). Where a scale
+    is 0 every term was 0; it stands there at 2^-24 of the largest scale
+    (at 1e-300 where all are 0, so that anything but 0 reads as huge)."""
+    err = (got.double() - ref.double().reshape(got.shape)).abs()
+    scale = scale.double().reshape(got.shape)
+    ratio = err / scale.clamp_min(max(scale.max().item() * 2.0 ** -24, 1e-300))
+    return ratio.max().item(), ratio.mean().item()
 
 
 def relu_pattern_check(
@@ -1217,14 +1242,15 @@ def backbone_f32_fwd(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encode
 backbone_f32_fwd.launches = 0
 
 
-def backbone_f32_layer_outputs(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encoded: torch.Tensor):
-    """Yields the (N, W) post-ReLU output of layers 0, 1, ... as the f32
-    kernels compute it: B2-f32 over the first i + 1 layers, whose slots,
-    tiles and sums are B3-f32's recompute's. One launch a layer."""
+def backbone_layer_outputs(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encoded: torch.Tensor):
+    """Yields the (N, W) post-ReLU output of layers 0, 1, ... as the kernels
+    of `compute_dtype` compute it: B2 (or B2-f32) over the first i + 1
+    layers, whose slots, tiles and sums are B3's (B3-f32's) recompute's. One
+    launch a layer, counted as a forward launch."""
     for i in range(cfg.backbone_layers_count):
         skip = cfg.skip_layer_idx if cfg.skip_layer_idx <= i else 0
         part = replace(cfg, backbone_layers_count=i + 1, skip_layer_idx=skip)
-        yield backbone_f32_fwd(part, {k: packed[k] for k in _backbone_names(part)}, encoded)[0]
+        yield fused_backbone_fwd(part, {k: packed[k] for k in _backbone_names(part)}, encoded)[0]
 
 
 def _backbone_f32_bwd(cfg, packed, encoded, g_h, g_alpha, buffers, ms):

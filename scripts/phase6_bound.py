@@ -4,7 +4,7 @@ step card vs CPU, three ways, on one CUDA card.
 
     python3 scripts/phase6_bound.py
 
-chip_smoke.phase6_card_vs_cpu's step (the phase-2 scene at full width, 1 x 2
+chip_smoke.phase6_readings's step (the phase-2 scene at full width, 1 x 2
 observations of 288x512, randomness off, seeded weights) on the card and on
 the CPU: (1) as PyTorch's defaults leave it (cuDNN convolutions in TF32) with
 B2/B3 on the card; (2) both steps inside chip_smoke.ieee_convolutions (TF32
@@ -18,6 +18,8 @@ phase6_bound.json.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -35,10 +37,17 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import chip_smoke
 
+    scene = chip_smoke.phase2_scene()
+    plain = dataclasses.replace(scene, object_models=tuple(
+        dataclasses.replace(om, nerf=dataclasses.replace(om.nerf, use_fused_backbone=False))
+        for om in scene.object_models))
     readings = {}
-    for label, kwargs in (("tf32, B2/B3", {}), ("ieee, B2/B3", {"ieee": True}),
-                          ("ieee, plain backbone", {"ieee": True, "fused": False})):
-        worst = chip_smoke.phase6_card_vs_cpu(check=False, **kwargs)
+    for label, variant, convolutions in (
+            ("tf32, B2/B3", scene, lambda device: contextlib.nullcontext()),
+            ("ieee, B2/B3", scene, chip_smoke.ieee_convolutions),
+            ("ieee, plain backbone", plain, chip_smoke.ieee_convolutions)):
+        worst = chip_smoke.phase6_readings(variant, convolutions)
+        worst.pop("worst_gradients")
         readings[label] = worst
         print(f"{label}: gradient max err {worst['grad_rel_err']:.3e} of its model's largest "
               f"({worst['worst_gradient']}), mean err up to {worst['grad_mean_rel_err']:.3e} of a tensor's own; "

@@ -92,6 +92,43 @@ def test_plain_backward_is_the_gradient_of_the_plain_forward():
         torch.testing.assert_close(grads[name].reshape(value.shape), value.grad, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_rounding_scales_bound_the_backward(compute_dtype):
+    """plain_backbone_bwd(magnitudes=True), the rounding scale that
+    chip_smoke.py holds B3's weight and bias gradients to on a main path's
+    own inputs, in f64 at 700 points with small cotangents (1e-5): each
+    gradient element's magnitude within its scale (1e-12 relative), and
+    equal to it where nothing cancels (non-negative encodings, weights and
+    cotangents); the f32 plain version within 2^-12 of each scale of the
+    f64 one (read by rounding_error_ratio; chip_smoke.BF16_GRAD_BAND is
+    2^-6), and gradients that miss the last 128-point tile off by more than
+    that; the backward at backbone_layer_outputs' activations is the
+    recomputed one."""
+    _, cfg = configs(compute_dtype)
+    packed, encoded, g_h, g_alpha = inputs(cfg, 700, seed=3)
+    f64 = ({k: torch.from_numpy(v).double() for k, v in packed.items()}, torch.from_numpy(encoded).double(),
+           torch.from_numpy(g_h).double() * 1e-5, torch.from_numpy(g_alpha).double() * 1e-5)
+    ref, _ = fused_nerf.plain_backbone_bwd(cfg, *f64)
+    scales, _ = fused_nerf.plain_backbone_bwd(cfg, *f64, magnitudes=True)
+    f32, _ = fused_nerf.plain_backbone_bwd(cfg, *({k: v.float() for k, v in f64[0].items()},
+                                                  *(x.float() for x in f64[1:])))
+    dropped, _ = fused_nerf.plain_backbone_bwd(cfg, f64[0], *(x[:-128] for x in f64[1:]))
+    for key in ref:
+        assert bool((ref[key].abs() <= scales[key] * (1 + 1e-12)).all()), key
+        assert fused_nerf.rounding_error_ratio(f32[key], ref[key], scales[key])[0] <= 2.0 ** -12, key
+        assert fused_nerf.rounding_error_ratio(dropped[key], ref[key], scales[key])[0] > 2.0 ** -12, key
+    # At the layer outputs that backbone_layer_outputs gives (on the CPU the
+    # plain forward over the first layers), the backward is the recomputed one.
+    acts = list(fused_nerf.backbone_layer_outputs(cfg, f64[0], f64[1]))
+    at_outputs, _ = fused_nerf.plain_backbone_bwd(cfg, *f64, acts=acts)
+    assert all(torch.equal(at_outputs[key], ref[key]) for key in ref)
+    positive = ({k: v.abs() for k, v in f64[0].items()}, f64[1].abs(), f64[2].abs(), f64[3].abs())
+    grads, _ = fused_nerf.plain_backbone_bwd(cfg, *positive)
+    scales, _ = fused_nerf.plain_backbone_bwd(cfg, *positive, magnitudes=True)
+    for key in grads:
+        assert torch.equal(grads[key], scales[key]), key
+
+
 def test_sizes_and_weight_list_match_jax():
     jcfg, cfg = configs("bfloat16")
     assert fused_nerf._backbone_sizes(cfg, 15) == jax_fused._backbone_sizes(jcfg, 15) == [15, 32, 47, 32]

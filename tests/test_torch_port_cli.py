@@ -14,11 +14,14 @@ frames at 16x24):
   step 4: the loop starts where the uninterrupted run would be, and a
   step's draws come from the seed and the step);
 - phase 3 (`train_playable`) with steps_per_call 3 over 4 batches an epoch
-  (a block, then the epoch's remainder as a single step), the schedule of
-  the JAX loop, cli/train_playable.py:306-349, read off by hand for this
-  config: logs at 3, 4 and 7; named saves at 4 and 7 (7 >= max_steps 6:
-  the last block carries the count past it); one quick save at 3; a second
-  run reloads the encoding cache, a run on other frozen weights rebuilds it;
+  (a block, then the epoch's remainder as a single step): its logs, named
+  saves, quick saves and final step equal those of the JAX package's own
+  loop (cli/train_playable.py:306-349) run on the same config and dataset,
+  with stubs for its trainer, frozen weights, encodings and checkpoint
+  writes (`jax_phase3_schedule`): logs at 3, 4 and 7; named saves at 4 and
+  7 (7 >= max_steps 6: the last block carries the count past it); one
+  quick save at 3; a second run reloads the encoding cache, a run on other
+  frozen weights rebuilds it;
 - `play --script 0,1,2`: 4 frames, a gif and an mp4;
 - options the port does not take raise NotImplementedError, and every CLI
   raises without a card unless `--device cpu` is given.
@@ -118,7 +121,10 @@ def test_phase2_cli_logs_saves_and_evaluates_on_schedule(workdir, phase2):
     assert [r["step"] for r in rows if "eval_psnr" in r] == [4]
     assert os.listdir(os.path.join(results_dir(workdir, "smoke"), "images")) == ["00000004_eval_render.png"]
     with open(os.path.join(results_dir(workdir, "smoke"), "timing_train.json")) as f:
-        assert set(json.load(f)["seconds"]) == {"startup", "steps", "saves", "evaluation"}
+        timing = json.load(f)
+    assert set(timing["seconds"]) == {"startup", "steps", "saves", "evaluation"}
+    assert len(timing["step_seconds"]) == 4
+    assert sum(timing["step_seconds"]) == pytest.approx(timing["seconds"]["steps"], rel=1e-3)
 
 
 def test_resumed_phase2_run_equals_the_uninterrupted_one(workdir, phase2):
@@ -146,15 +152,75 @@ def phase3(workdir, phase2):
     return config, environment, checkpoints_dir(workdir, "smoke_playable", "playable")
 
 
-def test_phase3_schedule_matches_the_jax_loop(workdir, phase3):
+def jax_phase3_schedule(workdir, monkeypatch):
+    """The JAX package's phase-3 CLI (cli/train_playable.py::main) on the
+    workdir's config and dataset, its loop as written (blocks of
+    steps_per_call through jax.lax.scan, the epoch's remainder, `crossed`
+    housekeeping, the final save) and its EncodingCache's windows and
+    batches, with stubs for what costs compiles: the trainers (a step adds 1
+    to the step), the frozen phase-2 weights, the encodings (zeros) and the
+    checkpoint writes (recorded). :return: (logged steps, named save steps,
+    quick save steps, final step)."""
+    import types
+    from typing import Any, NamedTuple
+
+    import jax.numpy as jnp
+    import numpy as np
+
+    from playableenvironments_tpu.cli import common, train_playable  # noqa: F401  (imported before the patches)
+    from playableenvironments_tpu.train import checkpointing as jax_checkpointing
+    from playableenvironments_tpu.train import encoding_cache, trainer_playable, trainer_synthesis
+
+    class State(NamedTuple):
+        step: Any
+
+    def fused_step(self, state, encoding, key):
+        return State(state.step + 1), {"loss": jnp.zeros(())}
+
+    # Methods of the real classes, so that a module that imports a class
+    # while they are patched keeps the class itself.
+    monkeypatch.setattr(trainer_playable.PlayableTrainer, "init_state",
+                        lambda self, *args, **kwargs: State(jnp.zeros((), jnp.int32)))
+    monkeypatch.setattr(trainer_playable.PlayableTrainer, "fused_step", fused_step)
+    monkeypatch.setattr(trainer_synthesis.SynthesisTrainer, "init_state",
+                        lambda self, key, example: types.SimpleNamespace(params={}, batch_stats={}))
+
+    def build(cls, encode_fn, dataset, key, batch_size=32, log_fn=None):
+        slices, start = [], 0
+        for video in dataset.videos:
+            slices.append((start, video.frames_count))
+            start += video.frames_count
+        return cls({"zeros": np.zeros((start, 1), np.float32)}, slices, dataset.skip_frames)
+
+    saves = []
+    monkeypatch.setattr(jax_checkpointing, "restore_params", lambda path, params, stats: (params, stats))
+    monkeypatch.setattr(jax_checkpointing, "save_checkpoint",
+                        lambda directory, state, step=None, keep=None: saves.append((directory, int(state.step))))
+    monkeypatch.setattr(encoding_cache, "params_fingerprint", lambda params: 0.0)
+    monkeypatch.setattr(encoding_cache.EncodingCache, "build", classmethod(build))
+    monkeypatch.setattr(encoding_cache.EncodingCache, "save", lambda self, path, fingerprint=0.0: None)
+    monkeypatch.setattr(sys, "argv", ["train_playable", "--config",
+                                      write_config(workdir, "smoke_playable_jax", workdir["cfg"]),
+                                      "--environment_checkpoint", "unused"])
+    train_playable.main()
+    directory = checkpoints_dir(workdir, "smoke_playable_jax", "playable")
+    named = sorted({step for d, step in saves if d == directory})
+    quick = sorted({step for d, step in saves if d == os.path.join(directory, "quick")})
+    logged = [r["step"] for r in metrics_rows(workdir, "smoke_playable_jax")]
+    return logged, named, quick, saves[-1][1]
+
+
+def test_phase3_schedule_matches_the_jax_loop(workdir, phase3, monkeypatch):
     _, _, directory = phase3
-    assert sorted(os.listdir(directory)) == ["checkpoint_4", "checkpoint_7", "encoding_cache.npz", "quick"]
-    assert os.listdir(os.path.join(directory, "quick")) == ["checkpoint_3"]
+    logged, named, quick, final = jax_phase3_schedule(workdir, monkeypatch)
+    assert (logged, named, quick, final) == ([3, 4, 7], [4, 7], [3], 7)  # not vacuous: blocks, remainder, carry
+    assert sorted(os.listdir(directory)) == [f"checkpoint_{s}" for s in named] + ["encoding_cache.npz", "quick"]
+    assert os.listdir(os.path.join(directory, "quick")) == [f"checkpoint_{s}" for s in quick]
     rows = metrics_rows(workdir, "smoke_playable")
-    assert [r["step"] for r in rows] == [3, 4, 7]
+    assert [r["step"] for r in rows] == logged
     assert all("object_1_translations_reconstruction_loss" in r and "loss" in r for r in rows)
-    state = checkpointing.saved_flat_state(os.path.join(directory, "checkpoint_7"))
-    assert state[("step",)] == 7 and ("discriminator_optimizer",) not in {k[:1] for k in state}
+    state = checkpointing.saved_flat_state(os.path.join(directory, f"checkpoint_{final}"))
+    assert state[("step",)] == final and ("discriminator_optimizer",) not in {k[:1] for k in state}
 
 
 def test_phase3_reloads_its_encoding_cache_and_rebuilds_a_stale_one(workdir, phase2, phase3):

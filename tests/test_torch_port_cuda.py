@@ -186,6 +186,33 @@ def test_backbone_kernels_match_plain_on_the_card(card, points, width):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("points,width", [(131072, 256), (1000, 128)])
+def test_backbone_backward_within_its_rounding_scale_on_the_card(card, points, width):
+    """B3 against the f64 backward at the kernels' own layer outputs
+    (backbone_layer_outputs: B2 over the first layers, one launch each),
+    with cotangents of 1e-8 and random signs, so that weight gradients
+    cancel: every output within 2^-6 of each element's rounding scale and
+    2^-12 of it in the mean (chip_smoke.py's BF16_GRAD_BAND, which says
+    why), while its largest-magnitude reading says nothing."""
+    cfg = BACKBONE if width == 256 else NARROW[width]
+    packed, encoded, g_h, g_alpha = backbone_inputs(card, points, seed=2, cfg=cfg)
+    g_h, g_alpha = g_h * 1e-5, g_alpha * 1e-5
+    before = fused_nerf.fused_backbone_fwd.launches
+    with torch.no_grad():
+        grads, d_encoded = fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+        acts = [x.double() for x in fused_nerf.backbone_layer_outputs(cfg, packed, encoded)]
+        f64 = ({k: v.double() for k, v in packed.items()}, encoded.double(), g_h.double(), g_alpha.double())
+        ref_grads, ref_d_encoded = fused_nerf.plain_backbone_bwd(cfg, *f64, acts=acts)
+        scales, d_encoded_scale = fused_nerf.plain_backbone_bwd(cfg, *f64, acts=acts, magnitudes=True)
+    assert fused_nerf.fused_backbone_fwd.launches == before + cfg.backbone_layers_count
+    outputs = [("d_encoded", d_encoded, ref_d_encoded, d_encoded_scale)] + [
+        (k, grads[k], ref_grads[k], scales[k]) for k in ref_grads]
+    for name, got, ref, scale in outputs:
+        worst, mean = fused_nerf.rounding_error_ratio(got, ref, scale)
+        assert worst <= 2.0 ** -6 and mean <= 2.0 ** -12, (name, worst, mean)
+
+
+@pytest.mark.cuda
 def test_backbone_kernels_refuse_float32_operands(card):
     """The f32 kernels take widths 64, 128 and 256 and raise for others;
     operand dtypes with no kernel (float16) raise."""
@@ -249,7 +276,7 @@ def test_backbone_f32_kernels_match_plain_on_the_card(card, points, width):
         launches = (fused_nerf.backbone_f32_fwd.launches, fused_nerf.backbone_f32_bwd.launches)
         ref = fused_nerf.plain_backbone_fwd(cfg, packed, encoded)
         masks, pattern = fused_nerf.relu_pattern_check(
-            cfg, packed, encoded, fused_nerf.backbone_f32_layer_outputs(cfg, packed, encoded))
+            cfg, packed, encoded, fused_nerf.backbone_layer_outputs(cfg, packed, encoded))
         ref_grads, ref_d_encoded = fused_nerf.plain_backbone_bwd(
             cfg, {k: v.double() for k, v in packed.items()}, encoded.double(), g_h.double(), g_alpha.double(), masks)
     assert launches == (before[0] + 1, before[1] + 2)
