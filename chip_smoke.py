@@ -4,8 +4,10 @@ tennis phase-2 train step, the tennis phase-3 (action module) G+D step, the
 data path from a dataset on disk to each of them, the Minecraft family, the
 published training pipeline (phase 2's decoder path for tennis and
 Minecraft, phase 1), phase 2's options and consistency passes, the chain of
-the three phases and play through checkpoints, and that chain through the
-CLIs with their evaluators and a reference checkpoint's import.
+the three phases and play through checkpoints, that chain through the
+CLIs with their evaluators and a reference checkpoint's import, and the
+paper's evaluation protocol (the creators, evaluators and fid) from the
+command line.
 
     python3 chip_smoke.py
 
@@ -153,8 +155,25 @@ Phases, each fatal on failure:
    imported with import_checkpoint --phase3 and played: the frames equal
    16e's bit for bit. Each CLI's wall time (startup, steps, saves,
    evaluation), peak memory and B1-B5 launches.
-`python3 chip_smoke.py --phase 12` (or `--phase 13` to `--phase 16`) builds
-the kernels and runs that phase alone (no kernels line, no contract line).
+17. the evaluation protocol from the command line, on 16's checkpoints and
+   phase 11's test split (2 videos x 12 frames, 288x512): (a)
+   generate_reconstructed_dataset, generate_reconstructed_camera_manipulation_dataset
+   and generate_reconstructed_playability_dataset (windows of 4) on the
+   card, then each creator's first window on the CPU from the same
+   checkpoints (the playability creator draws on the host on both): frames
+   card vs CPU before and after quantization, B1's first launch of each
+   creator (also: the kernel no further than PHASE17_B1_F64_RATIO times
+   the plain version from the f64 sums) and B4's first call held against
+   their plain versions on those inputs, B1 launched by every creator and B4 by the playability one
+   (counts zeroed before, read after); (b) the four evaluate_* CLIs
+   (masked-MSE windows and FVD clips of 4) and fid on the card's trees, on
+   the card and on the CPU, every result held card vs CPU
+   (PHASE17_METRIC_RTOL). Each CLI's wall time, its seconds split (the
+   creators' steps; the evaluators' decode, metrics and networks), frames
+   a second, peak memory and B1-B5 launches.
+`python3 chip_smoke.py --phase 12` (or `--phase 13` to `--phase 17`; 17 runs
+16's CLIs first for their checkpoints) builds the kernels and runs that
+phase alone (no kernels line, no contract line).
 Details go to chiprun_out/chip_smoke.json. Prints one JSON line of kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX.
 """
@@ -4302,11 +4321,13 @@ def phase16_cli(repo, directory, device="cuda"):
           f"environment_model., 16d's animation models; {std_exact['inexact']} action-network variances without an "
           f"exact float32 std) imported with --phase3 in {seconds:.2f} s; play from it equal to 16e's bit for bit")
     results["clis"] = clis
+    results["paths"] = {"data_root": data_root, "environment": p2_path, "playable": p3_path}
     return results
 
 
-def phase16(repo):
-    """16a-16f in a temporary directory it removes."""
+@contextlib.contextmanager
+def cli_directory():
+    """A temporary directory for the CLI phases, removed afterwards."""
     import shutil
     import tempfile
 
@@ -4318,9 +4339,328 @@ def phase16(repo):
     torch.cuda.empty_cache()
     directory = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
-        return phase16_cli(repo, directory)
+        yield directory
     finally:
         shutil.rmtree(directory, ignore_errors=True)
+
+
+def phase16(repo):
+    """16a-16f in a temporary directory it removes."""
+    with cli_directory() as directory:
+        return phase16_cli(repo, directory)
+
+
+# Phase 17: the evaluation protocol from the command line, on phase 16's
+# checkpoints and phase 11's test split (2 videos x 12 frames at 288x512).
+# Cuts: the creators' windows of 4 observations (the CLIs' defaults, 16 and
+# 8, exceed a 12-frame video), motion-masked MSE windows and FVD clips of 4
+# (default 16); the playability evaluator keeps its CLI's defaults (no
+# masked MSE in 12 frames, 8-frame FVD clips: one a video). Random data,
+# seeded weights, so the metrics' values say nothing of quality.
+PHASE17_OBSERVATIONS = 4
+# The creators window the test split with training.batching's skip, 4 in
+# tennis.yaml: a window of 4 observations would then span 16 frames, more
+# than a 12-frame video holds, so phase 17 reads consecutive frames.
+PHASE17_SKIP = 0
+PHASE17_WINDOW = 4
+PHASE17_CLIP = 4
+# The CPU renders one window of each creator for the card-vs-CPU hold: the
+# first PHASE17_OBSERVATIONS frames of video 0, cut into a dataset of their own.
+# Card vs CPU, relative to the CPU's value, on the same two trees: the image
+# metrics read the same PNGs in f32 (sums in another order); the VGG
+# features and FID/FVD embeddings run cuDNN's default TF32 convolutions on
+# the card, and FID/FVD then take an f64 sqrtm of few-sample covariances.
+# On an NVIDIA H100 80GB HBM3 at 700.00 W this phase read at most 1.26e-7
+# (MSE), 8.4e-8 (PSNR), 3.4e-8 (masked MSE), 1.35e-6 (SSIM), 1.14e-5
+# (VGG) and 9.5e-4 (FID, FVD); the bounds are 5-30x that.
+PHASE17_METRIC_RTOL = {"mse": 1e-6, "psnr": 1e-6, "ssim": 1e-5, "motion_masked_mse": 1e-6,
+                       "vgg_cosine_similarity_selfconsistent": 1e-4, "fid": 5e-3, "fvd": 5e-3}
+PHASE17_PNG_ATOL = 3 / 255  # tests/test_torch_port_encode.py's PNG bound
+# B1's first launch of each creator, the kernel's largest distance from the
+# same function summed in f64 over the plain version's on the same launch:
+# both round their products to bf16. On an NVIDIA H100 80GB HBM3 at
+# 700.00 W the kernel read 5.55e-2 to 6.00e-2 and the plain version 5.03e-2,
+# a ratio of 1.10 to 1.19.
+PHASE17_B1_F64_RATIO = 1.5
+
+
+class Phase17Recorder:
+    """Within the block: the first B1 group launch and the first B4 call on
+    the card (their inputs, to hold them against the plain versions) and
+    the first window each creator renders. The playability creator draws
+    its few random numbers on the host itself, so the card's and the CPU's
+    runs re-enact alike unpatched. The launch counters are the wrappers'
+    own: nothing here launches."""
+
+    def __enter__(self):
+        from playableenvironments_tpu_torch.eval import creators
+        from playableenvironments_tpu_torch.ops import fused_nerf
+        from playableenvironments_tpu_torch.ops import fused_rollout as fr
+
+        self.b1, self.b4, self.frames = None, None, None
+        self._saved = [(fused_nerf, "fused_adain_nerf_group"), (fr, "_rollout_fwd"), (creators.FrameRenderer, "render")]
+        self._saved = [(owner, name, getattr(owner, name)) for owner, name in self._saved]
+        group, rollout, render = (original for _, _, original in self._saved)
+        recorder = self
+
+        def group_(cfg, items):
+            outs = group(cfg, items)
+            if recorder.b1 is None and items and items[0].encoded.is_cuda:
+                recorder.b1 = (cfg, items, outs)
+            return outs
+
+        def rollout_(cfg, params, inputs, gt_count, collect_residuals, ms=None):
+            if recorder.b4 is None and inputs[0].is_cuda:
+                recorder.b4 = (cfg, params, [x.clone() for x in inputs], gt_count, collect_residuals)
+            return rollout(cfg, params, inputs, gt_count, collect_residuals, ms)
+
+        def render_(renderer, encoding):
+            frames = render(renderer, encoding)
+            if recorder.frames is None:
+                recorder.frames = frames.float().cpu()
+            return frames
+
+        fused_nerf.fused_adain_nerf_group, fr._rollout_fwd = group_, rollout_
+        creators.FrameRenderer.render = render_
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, original in self._saved:
+            setattr(owner, name, original)
+        return False
+
+
+def cut_test_split(source_root, target_root, frames):
+    """`target_root`/test: the first `frames` frames of video 0 of
+    `source_root`/test, written by the port's Video."""
+    from playableenvironments_tpu_torch.data.video import MulticameraVideo
+
+    video = MulticameraVideo().load(os.path.join(source_root, "test", "00000"))
+    cut = MulticameraVideo([camera.subsample_split_resize(0, frames)[0] for camera in video.videos])
+    cut.save(os.path.join(target_root, "test", "00000"))
+    return target_root
+
+
+def phase17_hold_b1(label, record, frames):
+    """A recorded grouped B1 launch of `frames` frames against
+    plain_adain_nerf: each object's output, frame by frame, in units of that
+    frame's mean output magnitude where it exceeds 1 (phase 11's and 16e's
+    unit, at phase 2's bounds). A frame's rows are its own render of the
+    object, and the bf16 roundings that part kernel and plain version err
+    in proportion to that render's activations. In the playability
+    creator's first launch player 1's ground-truth frame reads a mean an
+    order of magnitude above its re-enacted frames', so a unit taken over
+    the whole launch fails an element of that frame where both versions
+    sit ~5e-2 from the same function summed in f64 (scripts/
+    check_b1_batch.py's reference). So the hold also fails unless the
+    kernel's largest distance from the f64 sums is within
+    PHASE17_B1_F64_RATIO times the plain version's.
+    :return: (the largest error in output units, the launch's points, the
+    largest distance of the kernel and of the plain version from the f64
+    sums)."""
+    import torch
+
+    from playableenvironments_tpu_torch.ops import fused_nerf
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    from check_b1_batch import f64_reference
+
+    cfg, items, outs = record
+    worst, from_f64 = 0.0, {"kernel": 0.0, "plain": 0.0}
+    with torch.no_grad():
+        for index, (item, (feats, alpha)) in enumerate(zip(items, outs)):
+            args = (item.encoded, item.scale0, item.bias0, item.scale1, item.bias1, item.samples_per_ray)
+            refs = fused_nerf.plain_adain_nerf(cfg, item.weights.packed, *args)
+            exact = f64_reference(cfg, item.weights.packed, *args)
+            for got, ref, r64 in zip((feats, alpha), refs, exact):
+                from_f64["kernel"] = max(from_f64["kernel"], (got.double() - r64).abs().max().item())
+                from_f64["plain"] = max(from_f64["plain"], (ref.double() - r64).abs().max().item())
+            for name, got, ref in (("features", feats, refs[0]), ("alpha", alpha, refs[1])):
+                if ref.shape[0] % frames:
+                    raise SmokeFailure(f"17 {label} B1 object {index}: {ref.shape[0]} rows for {frames} frames")
+                for frame, (g, r) in enumerate(zip(got.chunk(frames), ref.chunk(frames))):
+                    scale = max(1.0, r.abs().mean().item())
+                    err = check_close(f"17 {label} B1 object {index} {name} frame {frame} (over {scale:.3f})",
+                                      g / scale, r / scale, KERNEL_ATOL, KERNEL_RTOL, KERNEL_MEAN_ATOL)
+                    worst = max(worst, err[0] * scale)
+    if not from_f64["kernel"] <= PHASE17_B1_F64_RATIO * from_f64["plain"]:
+        raise SmokeFailure(f"17 {label} B1: the kernel {from_f64['kernel']:.3e} from the f64 sums, over "
+                           f"{PHASE17_B1_F64_RATIO} times the plain version's {from_f64['plain']:.3e}")
+    return worst, sum(item.encoded.shape[0] for item in items), from_f64
+
+
+def phase17_hold_b4(record):
+    """The recorded B4 call against plain_rollout_fwd (phase 8's bounds,
+    relative to each output's largest magnitude)."""
+    import torch
+
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+
+    cfg, params, inputs, gt_count, collect = record
+    launches = fr.fused_rollout_fwd.launches  # the hold's own launch is no part of the path's count
+    with torch.no_grad():
+        got = fr.fused_rollout_fwd(cfg, params, *inputs, gt_count, collect)[0]
+        ref = fr.plain_rollout_fwd(cfg, params, *inputs, gt_count, collect)[0]
+    fr.fused_rollout_fwd.launches = launches
+    return max(rel_close(f"17 B4 {k}", g, r)[0] for k, g, r in zip(("rot", "trans", "style", "deform"), got, ref))
+
+
+def phase17_cli(repo, directory, paths, devices=("cuda", "cpu")):
+    """17a-17c (module docstring) in `directory`, from phase 16's
+    checkpoints and dataset (`paths`). Each CLI's wall seconds, its timing
+    file's split and launches, its peak memory; each creator's frames a
+    second; the evaluators' results on both devices."""
+    import pathlib
+
+    import numpy as np
+
+    from playableenvironments_tpu_torch.data.video import _load_image
+    from playableenvironments_tpu_torch.ops import fused_nerf
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+
+    card, host = devices
+    module = "playableenvironments_tpu_torch.cli."
+    data_root = paths["data_root"]
+    cut_root = cut_test_split(data_root, os.path.join(directory, "data_cut"), PHASE17_OBSERVATIONS)
+    configs = {label: phase16_config(repo, directory, f"phase17_{label}", root,
+                                     **{"training.batching": {"skip_frames": PHASE17_SKIP}})
+               for label, root in (("card", data_root), ("cpu", cut_root), ("cpu_eval", data_root))}
+    results_dirs = {label: os.path.join(directory, "results", f"phase17_{label}") for label in configs}
+    generate = {
+        "reconstructed": ("generate_reconstructed_dataset", ["--checkpoint", paths["environment"]]),
+        "camera": ("generate_reconstructed_camera_manipulation_dataset",
+                   ["--checkpoint", paths["environment"], "--observations_count", PHASE17_OBSERVATIONS]),
+        "playability": ("generate_reconstructed_playability_dataset",
+                        ["--environment_checkpoint", paths["environment"], "--playable_checkpoint", paths["playable"],
+                         "--observations_count", PHASE17_OBSERVATIONS]),
+    }
+    clis, trees, holds = {}, {}, {}
+
+    def timing(label, cli):
+        with open(os.path.join(results_dirs[label], f"timing_{cli}.json")) as f:
+            return json.load(f)
+
+    # ---- 17a. the three creators on the card, then one window of each on the CPU
+    fused_nerf.fused_adain_nerf.launches = fr.fused_rollout_fwd.launches = 0
+    for name, (cli, args) in generate.items():
+        output = os.path.join(directory, "trees", f"{name}_card")
+        with Phase17Recorder() as recorder:
+            _, seconds, peak = run_cli(module + cli, "--config", configs["card"], *args, "--output", output,
+                                       "--device", card)
+        t = timing("card", cli)
+        written = len(list(pathlib.Path(output).rglob("*.png")))
+        clis[cli] = {"wall_s": seconds, "peak_bytes": peak, "frames": written,
+                     "frames_per_s": written / t["seconds"]["steps"], **t}
+        trees[name] = output
+        cpu_output = os.path.join(directory, "trees", f"{name}_cpu")
+        with Phase17Recorder() as cpu_recorder:
+            _, cpu_seconds, _ = run_cli(module + cli, "--config", configs["cpu"], *args, "--output", cpu_output,
+                                        "--device", host)
+        # The first window's frames before quantization (1e-2, the frame
+        # bound of tests/test_torch_port_encode.py) and its PNGs after it.
+        got, ref = recorder.frames, cpu_recorder.frames
+        frames_err = float((got[:ref.shape[0], :ref.shape[1]] - ref).abs().max())
+        png_err = 0.0
+        for camera_dir in sorted(p for p in pathlib.Path(cpu_output, "00000").iterdir() if p.is_dir()):
+            for png in sorted(camera_dir.glob("*.png")):
+                card_png = os.path.join(output, "00000", camera_dir.name, png.name)
+                png_err = max(png_err, float(np.abs(_load_image(card_png) - _load_image(str(png))).max()))
+        if not (frames_err <= FRAME_ATOL and png_err <= PHASE17_PNG_ATOL + 1e-6):
+            raise SmokeFailure(f"17a {cli}: card vs CPU frames {frames_err:.3e} (bound {FRAME_ATOL}), "
+                               f"PNGs {png_err:.4f} (bound {PHASE17_PNG_ATOL:.4f})")
+        holds[name] = {"frames_max_abs_err": frames_err, "png_max_abs_err": png_err, "cpu_wall_s": cpu_seconds}
+        if card != "cpu":
+            # Each creator's first render is 4 frames: a batch of 4 single
+            # observations, or one window of 4.
+            (holds[name]["b1_max_abs_err"], holds[name]["b1_points"],
+             holds[name]["b1_from_f64"]) = phase17_hold_b1(
+                name, recorder.b1, recorder.frames.shape[0] * recorder.frames.shape[1] * recorder.frames.shape[2])
+            if name == "playability":
+                holds[name]["b4_max_rel_err"] = phase17_hold_b4(recorder.b4)
+        launches = {k: v for k, v in t["launches"].items() if v}
+        print(f"17a {cli}: {seconds:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in t['seconds'].items())}), "
+              f"{written} frames at {clis[cli]['frames_per_s']:.2f} frames/s, peak {peak / 1e9:.2f} GB, launches "
+              f"{launches}; the first window card vs CPU: frames {frames_err:.3e}, PNGs {png_err:.4f}"
+              + (f"; B1's first launch ({holds[name]['b1_points']} points) within "
+                 f"{holds[name]['b1_max_abs_err']:.3e} of plain (kernel and plain "
+                 f"{holds[name]['b1_from_f64']['kernel']:.3e} and {holds[name]['b1_from_f64']['plain']:.3e} "
+                 "from the f64 sums)" if "b1_max_abs_err" in holds[name] else "")
+              + (f"; B4's first call within {holds[name]['b4_max_rel_err']:.3e} of plain (relative)"
+                 if "b4_max_rel_err" in holds[name] else ""))
+    main_path = {"fused_adain_nerf": fused_nerf.fused_adain_nerf.launches,
+                 "fused_rollout_fwd": fr.fused_rollout_fwd.launches}
+    if card != "cpu" and not all(main_path.values()):
+        raise SmokeFailure(f"17a: a kernel of the path was not launched: {main_path}")
+    for name, (cli, _) in generate.items():
+        want = {"fused_adain_nerf": True, "fused_rollout_fwd": name == "playability"}
+        got = {k: bool(clis[cli]["launches"].get(k)) for k in want}
+        if card != "cpu" and got != want:
+            raise SmokeFailure(f"17a {cli}: launches {clis[cli]['launches']}, expected {want}")
+
+    # ---- 17b. the four evaluators and fid on the card's trees, card then CPU
+    reference = os.path.join(data_root, "test")
+    evaluate = {
+        "evaluate_reconstructed_dataset": (trees["reconstructed"], ["--window_size", PHASE17_WINDOW]),
+        "evaluate_reconstructed_camera_manipulation_dataset": (trees["camera"], ["--window_size", PHASE17_WINDOW]),
+        "evaluate_reconstructed_playability_dataset": (trees["playability"], []),
+        "evaluate_fvd_reconstructed_dataset": (trees["reconstructed"], ["--clip_length", PHASE17_CLIP]),
+    }
+    metrics = {}
+    for cli, (tree, args) in evaluate.items():
+        outs = {}
+        for label, device in (("card", card), ("cpu_eval", host)):
+            out, seconds, peak = run_cli(module + cli, "--config", configs[label], "--generated", tree, *args,
+                                         "--device", device)
+            outs[label] = out
+            if label == "card":
+                t = timing(label, cli)
+                clis[cli] = {"wall_s": seconds, "peak_bytes": peak, **t}
+            else:
+                clis[cli]["cpu_wall_s"] = seconds
+        if set(outs["card"]) != set(outs["cpu_eval"]):
+            raise SmokeFailure(f"17b {cli}: keys {sorted(outs['card'])} on the card, "
+                               f"{sorted(outs['cpu_eval'])} on the CPU")
+        rel = {}
+        for key, value in outs["cpu_eval"].items():
+            got = outs["card"][key]
+            if isinstance(value, str) or key not in PHASE17_METRIC_RTOL:
+                if not (got == value or (np.isnan(got) and np.isnan(value))):
+                    raise SmokeFailure(f"17b {cli} {key}: {got} on the card, {value} on the CPU")
+                continue
+            rel[key] = abs(got - value) / max(abs(value), 1e-30)
+            if not (np.isfinite(got) and rel[key] <= PHASE17_METRIC_RTOL[key]):
+                raise SmokeFailure(f"17b {cli} {key}: {got} on the card, {value} on the CPU ({rel[key]:.3e} relative, "
+                                   f"bound {PHASE17_METRIC_RTOL[key]})")
+        metrics[cli] = {"card": outs["card"], "cpu": outs["cpu_eval"], "relative_error": rel}
+        t = clis[cli]["seconds"]
+        print(f"17b {cli}: {clis[cli]['wall_s']:.2f} s on the card (decode {t.get('decode', 0):.2f} s, metrics "
+              f"{t.get('metrics', 0):.2f} s, networks {t.get('networks', 0):.2f} s), peak "
+              f"{clis[cli]['peak_bytes'] / 1e9:.2f} GB, {clis[cli]['cpu_wall_s']:.2f} s on the CPU; card vs CPU "
+              f"relative {', '.join(f'{k} {v:.2e}' for k, v in rel.items())}; "
+              + ", ".join(f"{k} {v!r}" if isinstance(v, str) else f"{k} {v:.6g}" for k, v in sorted(outs["card"].items())))
+    plots = sorted(os.listdir(os.path.join(results_dirs["card"], "plots")))
+    if not plots:
+        raise SmokeFailure("17b: the playability evaluator wrote no plots")
+    fids = {}
+    for label, device in (("card", card), ("cpu", host)):
+        fids[label], seconds, peak = run_cli(module + "fid", reference, trees["reconstructed"], "--device", device)
+        clis.setdefault("fid", {})[f"{label}_wall_s"] = seconds
+        if label == "card":
+            clis["fid"]["peak_bytes"] = peak
+    fid_rel = abs(fids["card"] - fids["cpu"]) / max(abs(fids["cpu"]), 1e-30)
+    if not fid_rel <= PHASE17_METRIC_RTOL["fid"]:
+        raise SmokeFailure(f"17b fid: {fids['card']} on the card, {fids['cpu']} on the CPU")
+    metrics["fid"] = {"card": fids["card"], "cpu": fids["cpu"], "relative_error": fid_rel}
+    print(f"17b fid {reference} vs the reconstructed tree: {fids['card']:.6g} on the card in "
+          f"{clis['fid']['card_wall_s']:.2f} s, {fids['cpu']:.6g} on the CPU ({fid_rel:.2e} relative); plots {plots}")
+    return {"clis": clis, "holds": holds, "metrics": metrics, "main_path_launches": main_path, "plots": plots}
+
+
+def phase17(repo):
+    """Phase 16's CLIs (for their checkpoints), then 17, in a temporary
+    directory it removes."""
+    with cli_directory() as directory:
+        return phase17_cli(repo, directory, phase16_cli(repo, directory)["paths"])
 
 
 def backbone_f32_entries(phase14_results):
@@ -4536,7 +4876,7 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     done("1")
-    alone = {"12": phase12_minecraft, "13": phase13, "14": phase14, "15": phase15, "16": phase16}
+    alone = {"12": phase12_minecraft, "13": phase13, "14": phase14, "15": phase15, "16": phase16, "17": phase17}
     if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in alone:
         try:
             result = alone[sys.argv[2]](repo)
@@ -4654,8 +4994,11 @@ def main() -> int:
         done("14")
         phase15_results = phase15(repo)
         done("15")
-        phase16_results = phase16(repo)
-        done("16")
+        with cli_directory() as directory:
+            phase16_results = phase16_cli(repo, directory)
+            done("16")
+            phase17_results = phase17_cli(repo, directory, phase16_results["paths"])
+            done("17")
     except SmokeFailure as e:
         return fail(str(e))
 
@@ -4752,6 +5095,15 @@ def main() -> int:
             if cli["launches"].get(entry["name"])})
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], phase16_results["play"]["b1_max_abs_err"])
     kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"], phase16_results["b4_rollout_single"]["max_rel_err"])
+    # Phase 17's creators: B1 in every render, B4 in the playability
+    # creator's re-enactment; each held on its first launch's inputs.
+    for entry in kernels:
+        entry["launches_by_path"].update({
+            f"cli_{cli}": run["launches"][entry["name"]] for cli, run in phase17_results["clis"].items()
+            if run.get("launches", {}).get(entry["name"])})
+    kernels[0]["max_abs_err"] = max([kernels[0]["max_abs_err"]] + [
+        hold["b1_max_abs_err"] for hold in phase17_results["holds"].values()])
+    kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"], phase17_results["holds"]["playability"]["b4_max_rel_err"])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -4763,7 +5115,7 @@ def main() -> int:
                    "train_card_vs_cpu": card_vs_cpu, "phase2": phase2, "rollout_shapes": rollout_rows,
                    "phase3_card_vs_cpu": phase3_card_vs_cpu, "phase3": phase3, "phase11": phase11, "phase12": phase12,
                    "phase13": phase13_results, "phase14": phase14_results, "phase15": phase15_results,
-                   "phase16": phase16_results,
+                   "phase16": phase16_results, "phase17": phase17_results,
                    "kernels": kernels,
                    "phase_seconds": phase_seconds, "ptxas": reports}, f, indent=1)
     print(f"phase seconds: {phase_seconds}")

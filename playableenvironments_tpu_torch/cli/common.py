@@ -348,11 +348,17 @@ class RunTimes:
 
     @contextlib.contextmanager
     def section(self, name: str):
+        """Time the region once: the same duration goes into the `name`
+        sum and, for `steps`, into `step_seconds`, so that those sum to
+        `seconds["steps"]`."""
         start = time.perf_counter()
-        with self.meter.section(name):
+        try:
             yield
-        if name == "steps":
-            self.step_seconds.append(time.perf_counter() - start)
+        finally:
+            elapsed = time.perf_counter() - start
+            self.meter.add(name, elapsed)
+            if name == "steps":
+                self.step_seconds.append(elapsed)
 
     def startup_done(self):
         self.startup = time.perf_counter() - self.started

@@ -183,6 +183,14 @@ def load_vgg(net, variables: Mapping) -> None:
     load_flax_tree(net, variables["params"])
 
 
+def load_inception(net, variables: Mapping) -> None:
+    """InceptionV3Features variables (`Mixed_5b/b1a/conv/kernel` HWIO,
+    `.../bn/scale|bias`, batch_stats `.../bn/mean|var`; e.g.
+    eval.inception_v3.load_inception_params_npz of an archive) ->
+    eval.inception_v3.InceptionV3Features, strictly."""
+    load_flax_tree(net, variables["params"], variables.get("batch_stats"))
+
+
 def _unescape_key(segment: str) -> str:
     """One segment of an exported key: "%2F" stands for "/" inside a flax
     name (the spectral norms' "layer/kernel/u"), "%25" for "%"."""

@@ -4,7 +4,8 @@ Port of the VGG19 part of playableenvironments_tpu/eval/perceptual.py:
 `VGGFeatures` (ImageNet normalization, SAME 3x3 convolutions with ReLU,
 2x2 max pools between blocks, features after relu1_1 ... relu5_1),
 `perceptual_loss` (L1 between the features of the ground truth, without
-gradient, and of the reconstruction) and `init_vgg19`. No trained weights
+gradient, and of the reconstruction), `vgg_cosine_similarity` (the
+evaluators' per-frame feature similarity) and `init_vgg19`. No trained weights
 ship with the repo and none are downloaded: the network runs on seeded
 random weights, as the JAX package's does, unless the user loads a
 torchvision VGG19 state dict (`features.N.weight` / `.bias`) with
@@ -86,6 +87,19 @@ def perceptual_loss(
     rec = net(reconstructed, dtype)
     level_losses = [torch.mean(torch.abs(g - r)) for g, r in zip(gt, rec)]
     return sum(level_losses), level_losses
+
+
+def vgg_cosine_similarity(features_a: List[torch.Tensor], features_b: List[torch.Tensor]) -> torch.Tensor:
+    """The mean over feature levels of each pair's cosine similarity, every
+    level flattened per image. :return: (N,)."""
+    sims = []
+    for fa, fb in zip(features_a, features_b):
+        fa = fa.reshape(fa.shape[0], -1)
+        fb = fb.reshape(fb.shape[0], -1)
+        num = torch.sum(fa * fb, dim=-1)
+        den = torch.linalg.norm(fa, dim=-1) * torch.linalg.norm(fb, dim=-1)
+        sims.append(num / torch.clamp(den, min=1e-10))
+    return torch.mean(torch.stack(sims), dim=0)
 
 
 def init_vgg19(cuts: int = 5, device="cuda", seed: int = 7) -> VGGFeatures:

@@ -54,7 +54,13 @@ class TimeMeter:
 
     def end(self, name: str):
         if self.enabled and name in self._starts:
-            self._totals[name] += time.perf_counter() - self._starts.pop(name)
+            self.add(name, time.perf_counter() - self._starts.pop(name))
+
+    def add(self, name: str, seconds: float):
+        """Count one section of `name` that took `seconds`, measured by the
+        caller."""
+        if self.enabled:
+            self._totals[name] += seconds
             self._counts[name] += 1
 
     @contextlib.contextmanager

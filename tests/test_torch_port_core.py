@@ -193,7 +193,14 @@ def test_port_imports_no_jax():
                    "utils/logger.py", "utils/video_io.py", "eval/training_evaluator.py",
                    "eval/autoencoder_evaluator.py", "eval/action_modifiers.py", "eval/playable_evaluator.py",
                    "cli/train.py", "cli/train_autoencoder.py", "cli/train_playable.py", "cli/play.py",
-                   "cli/import_checkpoint.py", "compat/torch_import.py", "train/checkpointing.py"):
+                   "cli/import_checkpoint.py", "compat/torch_import.py", "train/checkpointing.py",
+                   "eval/metrics.py", "eval/distribution_metrics.py", "eval/inception_v3.py", "eval/evaluators.py",
+                   "eval/plotting.py", "cli/generate_reconstructed_dataset.py",
+                   "cli/generate_reconstructed_camera_manipulation_dataset.py",
+                   "cli/generate_reconstructed_playability_dataset.py", "cli/evaluate_reconstructed_dataset.py",
+                   "cli/evaluate_reconstructed_camera_manipulation_dataset.py",
+                   "cli/evaluate_reconstructed_playability_dataset.py", "cli/evaluate_fvd_reconstructed_dataset.py",
+                   "cli/fid.py"):
         assert f"playableenvironments_tpu_torch/{module}" in names, module
     assert len(names) > 30
     assert not offenders, offenders

@@ -788,3 +788,74 @@ def test_phase1_cli_on_the_card(card, tmp_path, monkeypatch):
     state = torch.load(pathlib.Path(path) / checkpointing.STATE_FILE, weights_only=True)
     assert all(v.device.type == "cuda" for v in state["model"].values())
     assert (tmp_path / "results" / "synthetic_smoke" / "images" / "00000002_autoencoder_reconstruction.png").exists()
+
+
+@pytest.mark.cuda
+def test_camera_manipulation_creator_b1_launch_matches_plain_on_the_card(card, tmp_path, monkeypatch):
+    """The camera-manipulation creator on tennis at 48x64, one window of 3
+    observations: one grouped B1 launch of 4 objects for the window (3x a
+    frame's points), its objects against plain_adain_nerf on the launch's
+    own inputs in units of each output's mean magnitude where that exceeds
+    1 (chip_smoke.py's KERNEL_* bounds), and the window's frames all
+    frame 0's (the split's camera stands still)."""
+    from playableenvironments_tpu_torch.data.dataset import MulticameraVideoDataset
+    from playableenvironments_tpu_torch.eval.creators import (
+        FrameRenderer, ReconstructedCameraManipulationDatasetCreator,
+    )
+
+    sys_path_repo()
+    import chip_smoke
+
+    root = small_dataset(str(tmp_path / "data"), {"test": (1, 3)})
+    scene = scene_from_yaml(str(REPO / "configs" / "tennis.yaml"))
+    session = InteractiveSession.from_scene(scene, device=card, **SMALL)
+    renderer = FrameRenderer(session.renderer.model, session.autoencoder, SMALL["image_size"], SMALL["patch_strides"])
+    group, captured = fused_nerf.fused_adain_nerf_group, []
+
+    def capture(cfg, items):
+        outs = group(cfg, items)
+        captured.append((cfg, items, outs))
+        return outs
+
+    monkeypatch.setattr(fused_nerf, "fused_adain_nerf_group", capture)
+    before = (fused_nerf.fused_adain_nerf.launches, fused_nerf.fused_adain_nerf.objects)
+    ReconstructedCameraManipulationDatasetCreator(renderer).reconstruct_dataset(
+        MulticameraVideoDataset(f"{root}/test", observations_count=1), str(tmp_path / "mirror"), 3)
+    assert (fused_nerf.fused_adain_nerf.launches, fused_nerf.fused_adain_nerf.objects) == (before[0] + 1, before[1] + 4)
+    cfg, items, outs = captured[0]
+    with torch.no_grad():
+        for item, (feats, alpha) in zip(items, outs):
+            refs = fused_nerf.plain_adain_nerf(cfg, item.weights.packed, item.encoded, item.scale0, item.bias0,
+                                               item.scale1, item.bias1, item.samples_per_ray)
+            for got, ref in ((feats, refs[0]), (alpha, refs[1])):
+                scale = max(1.0, ref.abs().mean().item())
+                diff = (got - ref).abs() / scale
+                assert bool((diff <= chip_smoke.KERNEL_ATOL + chip_smoke.KERNEL_RTOL * ref.abs() / scale).all())
+                assert diff.mean().item() <= chip_smoke.KERNEL_MEAN_ATOL
+    mirror = MulticameraVideoDataset(str(tmp_path / "mirror"), observations_count=1)
+    assert len(mirror) == 3
+    for i in (1, 2):
+        np.testing.assert_array_equal(mirror[i]["observations"], mirror[0]["observations"])
+
+
+@pytest.mark.cuda
+def test_evaluator_metrics_on_the_card_match_the_cpu(card, tmp_path):
+    """ReconstructedDatasetEvaluator (masked-MSE windows of 2) on two
+    synthetic trees of 2 videos x 4 frames at 32x48, its metric networks
+    on the card against the same evaluator on the CPU: every result within
+    chip_smoke.py's PHASE17_METRIC_RTOL, relative."""
+    from playableenvironments_tpu_torch.data.synthetic import make_synthetic_dataset
+    from playableenvironments_tpu_torch.eval.evaluators import ReconstructedDatasetEvaluator
+
+    sys_path_repo()
+    import chip_smoke
+
+    roots = []
+    for seed in (0, 1):
+        roots.append(make_synthetic_dataset(str(tmp_path / f"tree{seed}"), videos=2, frames=4, seed=seed,
+                                            splits=("test",)))
+    results = [ReconstructedDatasetEvaluator(window_size=2, device=device).compute_metrics(
+        f"{roots[0]}/test", f"{roots[1]}/test") for device in (card, "cpu")]
+    assert set(results[0]) == set(results[1]) == set(chip_smoke.PHASE17_METRIC_RTOL) - {"fvd"}
+    for key, value in results[1].items():
+        assert abs(results[0][key] - value) <= chip_smoke.PHASE17_METRIC_RTOL[key] * abs(value), key

@@ -39,7 +39,7 @@ from playableenvironments_tpu_torch.train import trainer_autoencoder
 from playableenvironments_tpu_torch.utils.logger import Logger
 from test_torch_port_composer import Replay, recorded_draws
 from test_torch_port_decoder import AE, NO_OPT, autoencoder_variables
-from test_torch_port_encode import dataset_batch, jax_batch, tennis_setup, write_two_player_dataset
+from torch_port_scenes import dataset_batch, jax_batch, tennis_setup, write_two_player_dataset
 from test_torch_port_play import STRIDES
 from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 

@@ -91,7 +91,7 @@ from playableenvironments_tpu_torch.render.playable_model import PlayableEnviron
 from playableenvironments_tpu_torch.scene.encoding import SceneEncoding
 from playableenvironments_tpu_torch.train import trainer_playable
 from test_torch_port_composer import Replay, recorded_draws
-from test_torch_port_encode import init_with_composer, jax_batch
+from torch_port_scenes import init_with_composer, jax_batch
 from test_torch_port_phase3 import check_parameters, gradient_tolerances, seeded_tree
 from test_torch_port_play import _perturbed
 from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)

@@ -44,7 +44,7 @@ from playableenvironments_tpu_torch.scene.encoding import SceneEncoding
 from playableenvironments_tpu_torch.train import encoding_cache, trainer_playable
 from test_torch_port_composer import Replay, recorded_draws
 from playableenvironments_tpu_torch.data.synthetic import make_two_player_dataset
-from test_torch_port_encode import init_with_composer, jax_batch
+from torch_port_scenes import init_with_composer, jax_batch
 from test_torch_port_phase3 import LEARNING_RATE, gradient_tolerances, port_model, scene, seeded_tree, training_config
 from test_torch_port_play import _perturbed
 from test_torch_port_train import to_port

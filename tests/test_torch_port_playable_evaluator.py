@@ -40,7 +40,7 @@ from playableenvironments_tpu_torch.scene.encoding import SceneEncoding
 from playableenvironments_tpu_torch.train import trainer_playable
 from test_torch_port_composer import Replay, recorded_draws
 from test_torch_port_decoder import NO_OPT
-from test_torch_port_encode import jax_batch, tennis_dict, tennis_setup, write_two_player_dataset
+from torch_port_scenes import jax_batch, roots, tennis_dict, tennis_setup  # noqa: F401  (roots: a fixture)
 from test_torch_port_phase3 import seeded_tree
 from test_torch_port_play import IMAGE, STRIDES
 from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
@@ -66,10 +66,12 @@ def encoding_arrays(seed=0, bs=2, t=4):
 
 
 @pytest.fixture(scope="module")
-def setup(tmp_path_factory):
+def setup(roots):
     """The JAX trainer and state-like namespace, the port trainer holding
-    the same weights and centroids, both datasets."""
-    root = write_two_player_dataset(str(tmp_path_factory.mktemp("tennis")))
+    the same weights and centroids, both datasets (torch_port_scenes's
+    2-player test split; a module that takes this fixture imports `roots`
+    too)."""
+    root = roots["tennis"]
     jmodel, model, _, variables, _ = tennis_setup(root)
     d = tennis_dict()
     jscene = jax_config.scene_from_dict(d["model"], d["playable_model"])

@@ -15,6 +15,7 @@ from test_torch_port_playable_evaluator import (  # noqa: F401  (setup: a fixtur
     FRAMES, evaluators, jitted_encode_batch, setup,
 )
 from test_torch_port_play import IMAGE
+from torch_port_scenes import roots  # noqa: F401  (setup's fixture)
 from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyTorch thread)
 
 
