@@ -6,8 +6,9 @@ published training pipeline (phase 2's decoder path for tennis and
 Minecraft, phase 1), phase 2's options and consistency passes, the chain of
 the three phases and play through checkpoints, that chain through the
 CLIs with their evaluators and a reference checkpoint's import, and the
-paper's evaluation protocol (the creators, evaluators and fid) from the
-command line.
+paper's evaluation protocol (the creators, evaluators and fid, the player
+detector, LPIPS, I3D and the metric-weight validation) from the command
+line.
 
     python3 chip_smoke.py
 
@@ -171,9 +172,20 @@ Phases, each fatal on failure:
    (PHASE17_METRIC_RTOL). Each CLI's wall time, its seconds split (the
    creators' steps; the evaluators' decode, metrics and networks), frames
    a second, peak memory and B1-B5 launches.
-`python3 chip_smoke.py --phase 12` (or `--phase 13` to `--phase 17`; 17 runs
-16's CLIs first for their checkpoints) builds the kernels and runs that
-phase alone (no kernels line, no contract line).
+18. evaluation finished, on 16's dataset and 17's reconstructed tree: (a)
+   one detector step (base_features 32, bs 8 x 288x512) card vs CPU from
+   the same weights and batch in full-precision convolutions
+   (TOLERANCES_18), then train_detector on the card for PHASE18_STEPS
+   steps with one val evaluation: its loss falls, ms a step, peak; (b)
+   evaluate_reconstructed_dataset --detector_checkpoint on 17's tree, card
+   and CPU (MDR, ADD), and the evaluator built in code with LPIPS and a
+   VGG19 from synthesized published-layout states, card vs CPU
+   (PHASE18_METRIC_RTOL); (c) validate_metric_weights on the card (every
+   golden PASS, each one's largest relative gap printed), and I3D alone on
+   one 1 x 16 x 224 x 224 clip card vs CPU, timed, its peak.
+`python3 chip_smoke.py --phase 12` (or `--phase 13` to `--phase 18`; 17 runs
+16's CLIs first for their checkpoints, 18 both 16 and 17) builds the
+kernels and runs that phase alone (no kernels line, no contract line).
 Details go to chiprun_out/chip_smoke.json. Prints one JSON line of kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX.
 """
@@ -2463,7 +2475,7 @@ def _describe_checks(worst):
             f"{worst['sign_clear_elements']} clear parameter elements within {worst['param_err']:.3e}; running "
             f"statistics within {worst['stats_err']:.3e}")
     if worst["reference_err_ratio"] is not None:
-        text += f"; {worst['reference_err_ratio']:.3f} times the CPU's distance from the f32 step"
+        text += f"; {worst['reference_err_ratio']:.3f} times the CPU's distance from the reference step"
     return text
 
 
@@ -4653,7 +4665,8 @@ def phase17_cli(repo, directory, paths, devices=("cuda", "cpu")):
     metrics["fid"] = {"card": fids["card"], "cpu": fids["cpu"], "relative_error": fid_rel}
     print(f"17b fid {reference} vs the reconstructed tree: {fids['card']:.6g} on the card in "
           f"{clis['fid']['card_wall_s']:.2f} s, {fids['cpu']:.6g} on the CPU ({fid_rel:.2e} relative); plots {plots}")
-    return {"clis": clis, "holds": holds, "metrics": metrics, "main_path_launches": main_path, "plots": plots}
+    return {"clis": clis, "holds": holds, "metrics": metrics, "main_path_launches": main_path, "plots": plots,
+            "trees": trees}
 
 
 def phase17(repo):
@@ -4661,6 +4674,275 @@ def phase17(repo):
     directory it removes."""
     with cli_directory() as directory:
         return phase17_cli(repo, directory, phase16_cli(repo, directory)["paths"])
+
+
+# Phase 18: evaluation finished on the card, on phase 16's dataset (its train
+# split of 2 x 40 frames at 288x512) and phase 17's reconstructed tree (B1's
+# renders of the 2 x 12 test frames). Cuts: the detector trains
+# PHASE18_STEPS steps of the published default 1000 at the CLI's batch 8,
+# with one val evaluation over PHASE18_DETECTOR's eval_batches (the dataset
+# has no val split: the train split stands for it, as the CLI does). At 50
+# and 300 steps the eval-mode detector found nothing (its batch norms'
+# running statistics, momentum 0.99, still lag the moving weights: train
+# mode scored the players 0.95, eval mode under 0.12; 96x160 frames on
+# this sandbox's CPU), at 500 every player. The seeded models' renders
+# hold no players, so 17's tree reads MDR 1 whatever the detector; the
+# test split itself, as a generated tree, gives the detection metrics
+# something to find. The other metrics run on seeded or synthesized
+# weights, so their values say nothing of quality.
+PHASE18_STEPS = 500
+PHASE18_BATCH = 8
+PHASE18_DETECTOR = {"base_features": 32, "eval_freq": PHASE18_STEPS, "eval_batches": 2}
+# One detector step card vs CPU from the same weights and batch, both in
+# full-precision convolutions (ieee_convolutions), held as phase 15's steps
+# are (the biases before the batch norms, stem and down1, have noise
+# gradients, held to 2 lr), and the card's gradients against the same step
+# on the CPU in float64: the step is ill-conditioned in f32 (the batch
+# norms' E[x^2] - E[x]^2 over ~300,000 values a channel, the focal loss
+# summed over 73,728 cells), so the bounds come from f32's own distance
+# from f64. On an NVIDIA H100 80GB HBM3 at 700.00 W the first reading was
+# the loss 1.35e-5 relative and stem.weight's gradient 5.5e-4 of its
+# module's largest from the CPU's, where the CPU's f32 step itself sits
+# 7.1e-6 and 1.2e-3 from f64 (this sandbox's CPU); the bounds are ~4x the
+# card's reading, and the card's gradients may be no farther from f64 than
+# PHASE18_F64_FACTOR times the CPU's.
+TOLERANCES_18 = dict(loss_rtol=5e-5, stats_tol=1e-4, grad_tol=2e-3, norm_tol=2e-3, cosine=0.9999)
+PHASE18_F64_FACTOR = 2.0
+# The detection metrics of one detector checkpoint on one tree, card vs CPU,
+# the card on cuDNN's default TF32: a peak within rounding of detect_fn's
+# 0.3 or a match within rounding of the evaluator's 0.1 may flip, so MDR
+# may move by one reference in PHASE18_MDR_REFERENCES; ADD, where MDR is
+# equal, within 1e-3 relative.
+PHASE18_MDR_REFERENCES = 1
+PHASE18_ADD_RTOL = 1e-3
+# The evaluator with LPIPS and a pretrained-layout VGG19, card (default TF32
+# convolutions) vs CPU, relative; the image metrics at phase 17's bounds.
+# The converted VGG19's similarity read 1.28e-4 where 1e-4 was set (my chip
+# run 2, NVIDIA H100 80GB HBM3, 700.00 W): its He-scaled weights carry
+# larger activations through TF32 than the seeded VGG of phase 17 (1.1e-5).
+# Run 3 read LPIPS 2.05e-4 and the similarity 1.27e-4 on the whole tree.
+PHASE18_METRIC_RTOL = {**{k: v for k, v in PHASE17_METRIC_RTOL.items() if k in ("mse", "psnr", "ssim",
+                                                                                 "motion_masked_mse")},
+                       "lpips": 1e-3, "vgg_cosine_similarity": 5e-4}
+# I3D on one clip, card vs CPU, both IEEE f32 (the network's own context):
+# the largest logit difference over the largest logit.
+PHASE18_CLIP = (1, 16, 224, 224)
+PHASE18_I3D_RTOL = 1e-4
+
+
+def _detector_step(trainer, images, boxes, validity):
+    """One DetectorTrainer step as _card_cpu_checks reads it: (loss, the
+    other losses, the gradients, the model's state after the step)."""
+    losses = trainer.train_step(images, boxes, validity)
+    grads = {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()}
+    state = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    return losses["loss"], {k: v for k, v in losses.items() if k != "loss"}, grads, state
+
+
+def phase18_detector_card_vs_cpu(images, boxes, validity, base_features=32, devices=("cuda", "cpu")):
+    """One detector train step on the card and on the CPU from the same
+    seeded weights and batch, in full-precision convolutions, at
+    TOLERANCES_18, and the same step on the CPU in float64 as the
+    gradients' reference (PHASE18_F64_FACTOR). :return: the worst errors
+    (_card_cpu_checks) and each f32 step's loss distance from f64."""
+    from playableenvironments_tpu_torch.train.trainer_detector import DetectorTrainer, DetectorTrainingConfig
+
+    cfg = DetectorTrainingConfig(base_features=base_features)
+    readings = []
+    for device in devices:
+        trainer = DetectorTrainer(cfg, device=device, seed=0)
+        with ieee_convolutions(device):
+            readings.append(_detector_step(trainer, images, boxes, validity))
+    trainer = DetectorTrainer(cfg, device="cpu", seed=0)
+    trainer.model.double()
+    f64 = _detector_step(trainer, images.double(), boxes.double(), validity)
+    worst = _card_cpu_checks("18a detector step", readings[0], readings[1], cfg.learning_rate, reference=f64,
+                             reference_factor=PHASE18_F64_FACTOR, **TOLERANCES_18)
+    loss64 = f64[0].item()
+    worst.update(f64_loss=loss64, **{f"{label}_loss_from_f64": abs(reading[0].item() - loss64) / abs(loss64)
+                                     for label, reading in zip(("card", "cpu"), readings)})
+    return worst
+
+
+def metric_networks(directory, device):
+    """LPIPS on synthesized lpips/VGG16 published-layout states and a VGG19
+    to relu3_1 from a synthesized torchvision VGG19 file read by
+    load_torch_vgg_weights, on `device`: (lpips_fn, vgg)."""
+    import torch
+
+    from playableenvironments_tpu_torch.compat import metric_weights as mw
+    from playableenvironments_tpu_torch.compat import weight_validation as wv
+    from playableenvironments_tpu_torch.eval.perceptual import (LPIPS, VGG19_CUTS, VGG19_PLAN, VGGFeatures,
+                                                                load_torch_vgg_weights, lpips_distance_fn)
+
+    lpips = mw.load_converted(LPIPS(), mw.convert_lpips_state_dict(
+        wv.synthesize_state("lpips_vgg_keys.json", seed=2), wv.synthesize_state("vgg16_torch_keys.json", seed=3)))
+    path = os.path.join(directory, "vgg19.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in wv.synthesize_state("vgg19_torch_keys.json", seed=4).items()}, path)
+    vgg = load_torch_vgg_weights(path, VGGFeatures(VGG19_PLAN, VGG19_CUTS[:3]))
+    return lpips_distance_fn(lpips.to(device).eval()), vgg.to(device).eval()
+
+
+def phase18_cli(repo, directory, paths, tree, devices=("cuda", "cpu")):
+    """18a-18c (above) in `directory`, from phase 16's dataset (`paths`)
+    and phase 17's reconstructed tree (`tree`)."""
+    import numpy as np
+    import torch
+
+    from playableenvironments_tpu_torch.cli.common import RunTimes
+    from playableenvironments_tpu_torch.compat import metric_weights as mw
+    from playableenvironments_tpu_torch.compat import weight_validation as wv
+    from playableenvironments_tpu_torch.data.dataset import MulticameraVideoDataset
+    from playableenvironments_tpu_torch.eval.evaluators import ReconstructedDatasetEvaluator
+    from playableenvironments_tpu_torch.eval.i3d import I3D, i3d_video_embedder
+    from playableenvironments_tpu_torch.train.trainer_detector import dataset_detection_batches
+
+    card, host = devices
+    module = "playableenvironments_tpu_torch.cli."
+    data_root = paths["data_root"]
+    config = phase16_config(repo, directory, "phase18", data_root, detector_training=PHASE18_DETECTOR)
+    results_dir = os.path.join(directory, "results", "phase18")
+    results = {}
+
+    # ---- 18a. one step card vs CPU, then train_detector on the card ------------
+    dataset = MulticameraVideoDataset(os.path.join(data_root, "train"), observations_count=1)
+    batch = next(dataset_detection_batches(dataset, PHASE18_BATCH, shuffle=False))
+    start = time.perf_counter()
+    step = phase18_detector_card_vs_cpu(*batch, base_features=PHASE18_DETECTOR["base_features"], devices=devices)
+    results["step_card_vs_cpu"] = {**step, "seconds": time.perf_counter() - start}
+    print(f"18a one detector step at base_features {PHASE18_DETECTOR['base_features']} on "
+          f"{tuple(batch[0].shape)} card vs CPU in full-precision convolutions: loss {step['loss']:.6f} / "
+          f"{step['ref_loss']:.6f} (f64 {step['f64_loss']:.6f}: the card {step['card_loss_from_f64']:.3e}, the CPU "
+          f"{step['cpu_loss_from_f64']:.3e} relative from it); {_describe_checks(step)}")
+    out, seconds, peak = run_cli(module + "train_detector", "--config", config, "--max_steps", PHASE18_STEPS,
+                                 "--batch_size", PHASE18_BATCH, "--device", card)
+    with open(os.path.join(results_dir, "timing_train_detector.json")) as f:
+        timing = json.load(f)
+    losses = out["losses"]
+    step_ms = statistics.median(timing["step_seconds"][2:]) * 1e3
+    if not (len(losses) == PHASE18_STEPS and np.isfinite(losses).all() and losses[-1] < losses[0]
+            and out["validation"] is not None and out["validation"]["missed_detection_rate"] < 1):
+        raise SmokeFailure(f"18a train_detector: losses {losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} steps, "
+                           f"validation {out['validation']}")
+    results["train_detector"] = {"wall_s": seconds, "peak_bytes": peak, "step_ms": step_ms, "first_loss": losses[0],
+                                 "last_loss": losses[-1], "losses": losses, "validation": out["validation"], **timing}
+    split = ", ".join(f"{k} {v:.2f} s" for k, v in timing["seconds"].items())
+    print(f"18a train_detector: {PHASE18_STEPS} steps at bs {PHASE18_BATCH} x {tuple(batch[0].shape[1:3])} in "
+          f"{seconds:.2f} s ({split}), median step {step_ms:.3f} ms from step 3, peak {peak / 1e9:.2f} GB; loss "
+          f"{losses[0]:.4f} at step 1, {losses[-1]:.4f} at step {PHASE18_STEPS}; val "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out["validation"].items()))
+
+    # ---- 18b. the detection metrics from the CLI, and LPIPS and a VGG19 in code --
+    reference = os.path.join(data_root, "test")
+    references = sum(int(np.asarray(camera.bounding_boxes_validity, bool).sum())
+                     for video in MulticameraVideoDataset(reference, observations_count=1).videos
+                     for camera in video.videos)
+    results["detection"] = {"references": references}
+    for name, generated in (("reconstructed", tree), ("test_split", reference)):
+        outs = {}
+        for label, device in (("card", card), ("cpu", host)):
+            outs[label], seconds, peak = run_cli(
+                module + "evaluate_reconstructed_dataset", "--config", config, "--generated", generated,
+                "--window_size", PHASE17_WINDOW, "--no_fid", "--detector_checkpoint", out["checkpoint"], "--output",
+                os.path.join(directory, f"phase18_{name}_{label}.yaml"), "--device", device)
+            with open(os.path.join(results_dir, "timing_evaluate_reconstructed_dataset.json")) as f:
+                outs[f"{label}_timing"] = {"wall_s": seconds, "peak_bytes": peak, **json.load(f)}
+        mdr = {label: outs[label]["missed_detection_rate"] for label in ("card", "cpu")}
+        add = {label: outs[label]["average_detection_distance"] for label in ("card", "cpu")}
+        mdr_moved = round(abs(mdr["card"] - mdr["cpu"]) * references)
+        add_rel = abs(add["card"] - add["cpu"]) / max(abs(add["cpu"]), 1e-30)
+        if not (mdr_moved <= PHASE18_MDR_REFERENCES and (mdr_moved or add_rel <= PHASE18_ADD_RTOL)):
+            raise SmokeFailure(f"18b detection on {name} card vs CPU: MDR {mdr}, ADD {add} over {references} "
+                               "references")
+        if name == "test_split" and not mdr["cpu"] < 1:
+            raise SmokeFailure(f"18b the trained detector finds no player of the test split: MDR {mdr}")
+        results["detection"][name] = {"card": outs["card"], "cpu": outs["cpu"], "mdr_references_moved": mdr_moved,
+                                      "add_relative_error": add_rel, "card_timing": outs["card_timing"],
+                                      "cpu_wall_s": outs["cpu_timing"]["wall_s"]}
+        t = outs["card_timing"]["seconds"]
+        print(f"18b evaluate_reconstructed_dataset --detector_checkpoint on {name} ({generated}): MDR "
+              f"{mdr['card']:.6f} (CPU {mdr['cpu']:.6f}, {mdr_moved} of {references} references moved), ADD "
+              f"{add['card']:.6g} (CPU {add['cpu']:.6g}, {add_rel:.2e} relative); {outs['card_timing']['wall_s']:.2f} s "
+              f"on the card (decode {t.get('decode', 0):.2f} s, metrics {t.get('metrics', 0):.2f} s, networks "
+              f"{t.get('networks', 0):.2f} s), peak {outs['card_timing']['peak_bytes'] / 1e9:.2f} GB, "
+              f"{outs['cpu_timing']['wall_s']:.2f} s on the CPU")
+    # The first video of each tree (12 frames), linked into trees of its
+    # own: the CPU's LPIPS is the slowest half of phase 18.
+    first = {}
+    for name, source in (("reference", reference), ("generated", tree)):
+        first[name] = os.path.join(directory, f"phase18_first_{name}")
+        os.makedirs(first[name], exist_ok=True)
+        os.symlink(os.path.join(source, "00000"), os.path.join(first[name], "00000"))
+    built = {}
+    for label, device in (("card", card), ("cpu", host)):
+        lpips_fn, vgg = metric_networks(directory, device)
+        times = RunTimes()
+        on_card = torch.device(device).type == "cuda"
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        got = ReconstructedDatasetEvaluator(window_size=PHASE17_WINDOW, lpips_fn=lpips_fn, compute_fid=False,
+                                            vgg=vgg, device=device, times=times).compute_metrics(
+                                                first["reference"], first["generated"])
+        built[label] = {"results": got, "wall_s": time.perf_counter() - start, "seconds": times.meter.summary(),
+                        "peak_bytes": torch.cuda.max_memory_allocated() if on_card else 0}
+    rel = {key: abs(built["card"]["results"][key] - built["cpu"]["results"][key])
+           / max(abs(built["cpu"]["results"][key]), 1e-30) for key in PHASE18_METRIC_RTOL}
+    over = {key: value for key, value in rel.items()
+            if not (np.isfinite(built["card"]["results"][key]) and value <= PHASE18_METRIC_RTOL[key])}
+    if over:
+        raise SmokeFailure(f"18b the evaluator card vs CPU, relative: {rel}; over PHASE18_METRIC_RTOL: {over}")
+    if set(built["card"]["results"]) != set(built["cpu"]["results"]):
+        raise SmokeFailure(f"18b evaluator keys {sorted(built['card']['results'])} on the card, "
+                           f"{sorted(built['cpu']['results'])} on the CPU")
+    results["evaluator"] = {**built, "relative_error": rel}
+    t = built["card"]["seconds"]
+    print(f"18b the evaluator with LPIPS and a converted VGG19 on the first video: {built['card']['wall_s']:.2f} s on "
+          f"the card (networks "
+          f"{t.get('networks', 0):.2f} s), peak {built['card']['peak_bytes'] / 1e9:.2f} GB, "
+          f"{built['cpu']['wall_s']:.2f} s on the CPU; card vs CPU relative "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()) + "; "
+          + ", ".join(f"{k} {v:.6g}" for k, v in sorted(built["card"]["results"].items())))
+
+    # ---- 18c. validate_metric_weights on the card; I3D card vs CPU -------------
+    try:
+        report, seconds, peak = run_cli(module + "validate_metric_weights", "--device", card)
+    except SystemExit as e:
+        raise SmokeFailure(f"18c validate_metric_weights: {e}") from None
+    gaps = {name: wv.largest_relative_gap(verdict["computed"], verdict["golden"]) for name, verdict in report.items()}
+    if {name: verdict["status"] for name, verdict in report.items()} != dict.fromkeys(
+            ("inception_v3", "i3d", "lpips", "vgg19"), "PASS"):
+        raise SmokeFailure(f"18c validate_metric_weights: {report}")
+    results["validate_metric_weights"] = {"wall_s": seconds, "peak_bytes": peak, "largest_relative_gap": gaps}
+    print(f"18c validate_metric_weights on the card: all PASS in {seconds:.2f} s, peak {peak / 1e9:.2f} GB; largest "
+          "relative gap to the golden " + ", ".join(f"{k} {v:.3e}" for k, v in sorted(gaps.items())))
+    state = mw.convert_tfhub_i3d_variables(wv.synthesize_state("i3d_tfhub_keys.json", seed=1))
+    clip = np.random.default_rng(18).random(PHASE18_CLIP + (3,)).astype(np.float32)
+    logits, i3d_ms, i3d_peak = {}, None, None
+    for device in (card, host):
+        net = mw.load_converted(I3D(), state).to(device).eval()
+        logits[device] = i3d_video_embedder(net)(clip)
+        if torch.device(device).type == "cuda":
+            x = torch.from_numpy(clip).to(device)
+            torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                i3d_ms = cuda_ms(lambda: net(x), warmup=2, reps=10)
+            i3d_peak = torch.cuda.max_memory_allocated()
+    i3d_err = float(np.abs(logits[card] - logits[host]).max() / np.abs(logits[host]).max())
+    if not i3d_err <= PHASE18_I3D_RTOL:
+        raise SmokeFailure(f"18c I3D card vs CPU: {i3d_err:.3e} of the largest logit (bound {PHASE18_I3D_RTOL})")
+    results["i3d"] = {"clip": PHASE18_CLIP, "ms": i3d_ms, "peak_bytes": i3d_peak, "max_rel_err": i3d_err}
+    print(f"18c I3D on one {'x'.join(map(str, PHASE18_CLIP))} clip: {i3d_ms} ms on the card (IEEE f32), peak "
+          f"{i3d_peak} bytes; card vs CPU {i3d_err:.3e} of the largest logit")
+    return results
+
+
+def phase18(repo):
+    """Phase 16's CLIs (for the dataset and checkpoints), 17 (for its
+    reconstructed tree), then 18, in a temporary directory it removes."""
+    with cli_directory() as directory:
+        paths = phase16_cli(repo, directory)["paths"]
+        return phase18_cli(repo, directory, paths, phase17_cli(repo, directory, paths)["trees"]["reconstructed"])
 
 
 def backbone_f32_entries(phase14_results):
@@ -4855,6 +5137,8 @@ def main() -> int:
 
     device = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    print("card and power limit: " + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                                                    capture_output=True, text=True, check=True).stdout.strip())
 
     # Seconds of each phase, from the end of the one before.
     phase_seconds, clock = {}, [time.perf_counter()]
@@ -4876,7 +5160,8 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     done("1")
-    alone = {"12": phase12_minecraft, "13": phase13, "14": phase14, "15": phase15, "16": phase16, "17": phase17}
+    alone = {"12": phase12_minecraft, "13": phase13, "14": phase14, "15": phase15, "16": phase16, "17": phase17,
+             "18": phase18}
     if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in alone:
         try:
             result = alone[sys.argv[2]](repo)
@@ -4999,6 +5284,9 @@ def main() -> int:
             done("16")
             phase17_results = phase17_cli(repo, directory, phase16_results["paths"])
             done("17")
+            phase18_results = phase18_cli(repo, directory, phase16_results["paths"],
+                                          phase17_results["trees"]["reconstructed"])
+            done("18")
     except SmokeFailure as e:
         return fail(str(e))
 
@@ -5115,7 +5403,7 @@ def main() -> int:
                    "train_card_vs_cpu": card_vs_cpu, "phase2": phase2, "rollout_shapes": rollout_rows,
                    "phase3_card_vs_cpu": phase3_card_vs_cpu, "phase3": phase3, "phase11": phase11, "phase12": phase12,
                    "phase13": phase13_results, "phase14": phase14_results, "phase15": phase15_results,
-                   "phase16": phase16_results, "phase17": phase17_results,
+                   "phase16": phase16_results, "phase17": phase17_results, "phase18": phase18_results,
                    "kernels": kernels,
                    "phase_seconds": phase_seconds, "ptxas": reports}, f, indent=1)
     print(f"phase seconds: {phase_seconds}")

@@ -9,10 +9,13 @@ eval.evaluators.ReconstructedDatasetEvaluator over `<data_root>/test` and
 `--generated`; the results go to `--output` (default
 `<results>/reconstructed_dataset_evaluation.yaml`), the seconds split into
 decode, metrics and networks to `<results>/timing_evaluate_reconstructed_dataset.json`.
-`--detector_checkpoint` raises NotImplementedError: the detector is not
-ported yet (ROADMAP queue A, Evaluation: the detector). The metric
-networks run on the card by default; without one it raises unless
-`--device cpu`.
+`--detector_checkpoint` (a cli.train_detector checkpoint, `checkpoint_<step>`)
+adds the detection metrics, `missed_detection_rate` and
+`average_detection_distance`: a DetectorTrainer of the config's
+`detector_training.base_features` (default 32) restores it, and its
+`detect_fn` (the 8 best peaks scoring >= 0.3) runs on every generated frame.
+The metric networks and the detector run on the card by default; without
+one it raises unless `--device cpu`.
 """
 
 from __future__ import annotations
@@ -55,20 +58,26 @@ def main() -> Dict[str, float]:
     parser.add_argument("--window_size", type=int, default=16)
     parser.add_argument("--no_fid", action="store_true")
     parser.add_argument("--detector_checkpoint", default=None,
-                        help="trained detector checkpoint; enables the MDR/ADD detection metrics (not ported)")
+                        help="trained CenterNet detector checkpoint (cli.train_detector); enables the MDR/ADD "
+                             "detection metrics")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
-    if args.detector_checkpoint:
-        raise NotImplementedError(
-            "--detector_checkpoint: the detector (models/detector.py, train/trainer_detector.py) is not ported "
-            "(ROADMAP queue A, Evaluation: the detector)")
 
     from playableenvironments_tpu_torch.eval.evaluators import ReconstructedDatasetEvaluator
 
-    return run_evaluation(
-        args, lambda cfg, device, times, _: ReconstructedDatasetEvaluator(
-            window_size=args.window_size, compute_fid=not args.no_fid, device=device, times=times),
-        "reconstructed_dataset_evaluation.yaml", "evaluate_reconstructed_dataset")
+    def evaluator(cfg, device, times, _):
+        detector = None
+        if args.detector_checkpoint:
+            from playableenvironments_tpu_torch.train import checkpointing
+            from playableenvironments_tpu_torch.train.trainer_detector import DetectorTrainer, DetectorTrainingConfig
+
+            base_features = int(cfg.get("detector_training", {}).get("base_features", 32))
+            trainer = DetectorTrainer(DetectorTrainingConfig(base_features=base_features), device=device)
+            detector = checkpointing.restore_checkpoint(args.detector_checkpoint, trainer).detect_fn()
+        return ReconstructedDatasetEvaluator(window_size=args.window_size, detector=detector,
+                                             compute_fid=not args.no_fid, device=device, times=times)
+
+    return run_evaluation(args, evaluator, "reconstructed_dataset_evaluation.yaml", "evaluate_reconstructed_dataset")
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@
 The inputs are nested dicts of numpy arrays (e.g. `jax.device_get` of a
 variables tree); nothing here imports JAX. Leaves map by name:
 - Dense `kernel` (in, out) -> Linear `weight` (out, in);
-- Conv `kernel` HWIO -> Conv2d `weight` OIHW, and (k, in, out) -> Conv1d
-  `weight` (out, in, k);
+- Conv `kernel` HWIO -> Conv2d `weight` OIHW, (k, in, out) -> Conv1d
+  `weight` (out, in, k), and (t, h, w, in, out) -> Conv3d `weight`
+  (out, in, t, h, w);
 - BatchNorm `scale`/`bias` -> `weight`/`bias`, batch_stats `mean`/`var` ->
   `running_mean`/`running_var` (the AdaIN running statistics keep their
   names `norm.mean`/`norm.var`);
@@ -50,7 +51,8 @@ def load_flax_tree(module: nn.Module, params: Mapping, batch_stats: Optional[Map
             tensor = torch.from_numpy(np.array(value, dtype=np.float32))
             if leaf == "kernel":
                 tensor = {2: lambda x: x.t(), 3: lambda x: x.permute(2, 1, 0),
-                          4: lambda x: x.permute(3, 2, 0, 1)}[tensor.dim()](tensor)
+                          4: lambda x: x.permute(3, 2, 0, 1),
+                          5: lambda x: x.permute(4, 3, 0, 1, 2)}[tensor.dim()](tensor)
             if tuple(tensor.shape) != tuple(state[key].shape):
                 raise ValueError(
                     f"flax leaf {path!r} has shape {tuple(tensor.shape)}, "
@@ -188,6 +190,20 @@ def load_inception(net, variables: Mapping) -> None:
     `.../bn/scale|bias`, batch_stats `.../bn/mean|var`; e.g.
     eval.inception_v3.load_inception_params_npz of an archive) ->
     eval.inception_v3.InceptionV3Features, strictly."""
+    load_flax_tree(net, variables["params"], variables.get("batch_stats"))
+
+
+def load_detector(net, variables: Mapping) -> None:
+    """CenterNetDetector variables (a detector TrainState's params and
+    batch_stats: `stem`, `stem_bn`, `res1.conv1`, the heads, ...) ->
+    models.detector.CenterNetDetector, strictly."""
+    load_flax_tree(net, variables["params"], variables.get("batch_stats"))
+
+
+def load_i3d(net, variables: Mapping) -> None:
+    """I3D variables (`Mixed_3b/b1a/conv/kernel` (t, h, w, in, out),
+    `.../bn/bias`, batch_stats `.../bn/mean|var`, the `logits` Dense; e.g.
+    eval.i3d.load_i3d_params_npz of an archive) -> eval.i3d.I3D, strictly."""
     load_flax_tree(net, variables["params"], variables.get("batch_stats"))
 
 

@@ -1,10 +1,13 @@
 """Euler-angle rotations and rigid-body transforms as plain tensor functions.
 
 Port of playableenvironments_tpu/core/transforms3d.py (rotation conventions,
-z->x->y composition order). All functions broadcast over leading dimensions.
+z->x->y composition order). All functions broadcast over leading dimensions;
+`sphere_camera_poses` places cameras on a circle around the origin.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -56,3 +59,21 @@ def invert_rigid(matrix: torch.Tensor) -> torch.Tensor:
     rot_t = matrix[..., :3, :3].transpose(-1, -2)
     trans = -(rot_t @ matrix[..., :3, 3:4])
     return _homogeneous(torch.cat([rot_t, trans], dim=-1))
+
+
+def sphere_camera_poses(elevation: float, distance: float, num_cameras: int, offset: float = 0.0):
+    """Camera poses on a circle of the sphere of radius `distance` at
+    `elevation`, looking at the origin, `num_cameras` evenly spaced from
+    the angle `offset`.
+
+    :return: ((num_cameras, 3) Euler rotations, (num_cameras, 3)
+        translations), float32 on the CPU."""
+    angles = torch.arange(num_cameras, dtype=torch.float32) * (2.0 * math.pi / num_cameras) + offset
+    rotations = torch.stack([torch.full_like(angles, -elevation), angles + math.pi, torch.zeros_like(angles)], dim=-1)
+    cos_elevation = math.cos(elevation)
+    translations = torch.stack([
+        distance * cos_elevation * torch.cos(angles + math.pi / 2),
+        torch.full_like(angles, distance * math.sin(elevation)),
+        distance * cos_elevation * -torch.sin(angles + math.pi / 2),
+    ], dim=-1)
+    return rotations, translations

@@ -2,23 +2,25 @@
 and action-space diagnostics for playability datasets.
 
 Port of playableenvironments_tpu/eval/evaluators.py:
-`ReconstructedDatasetEvaluator` (per-frame MSE, PSNR, SSIM and VGG cosine
-similarity, motion-masked MSE over windows, FID),
-`ReconstructedPlayabilityDatasetEvaluator` (adds FVD over camera 0's
-clips, folded into the decode loop, and the action-space diagnostics from
-the annotations and the inferred actions, with their plots),
-`ReconstructedDatasetFVDEvaluator` and `save_results_yaml`. The results
-carry the JAX package's keys. LPIPS and the detection metrics wait for
-their networks (ROADMAP queue A).
+`ReconstructedDatasetEvaluator` (per-frame MSE, PSNR, SSIM, LPIPS and VGG
+cosine similarity, motion-masked MSE over windows, FID, and with a
+detector the missed detection rate and average detection distance of its
+detections in the generated frames against the reference's annotated box
+centers), `ReconstructedPlayabilityDatasetEvaluator` (adds FVD over
+camera 0's clips, folded into the decode loop, and the action-space
+diagnostics from the annotations and the inferred actions, with their
+plots), `ReconstructedDatasetFVDEvaluator` and `save_results_yaml`. The
+results carry the JAX package's keys.
 
-The metric networks (VGG19 features, the FID/FVD embedders) run on the
-evaluator's device, `EMBED_CHUNK` frames a forward pass, so that a whole
-camera of a real test video fits the card; so do the image metrics. The
-VGG features run on seeded random weights, and the key says so
-(`vgg_cosine_similarity_selfconsistent`). An evaluator given `times`
+The metric networks (VGG19 features, LPIPS, the FID/FVD embedders) run on
+the evaluator's device, `EMBED_CHUNK` frames a forward pass, so that a
+whole camera of a real test video fits the card; so do the image metrics.
+Without `vgg` the VGG features run on seeded random weights, and the key
+says so (`vgg_cosine_similarity_selfconsistent`; with a pretrained VGG19
+the key is `vgg_cosine_similarity`). An evaluator given `times`
 (cli.common.RunTimes) splits its seconds into `decode` (reading the PNGs),
-`metrics` (the image metrics and statistics) and `networks` (VGG and the
-embedders).
+`metrics` (the image metrics and statistics) and `networks` (VGG, LPIPS,
+the detector and the embedders).
 """
 
 from __future__ import annotations
@@ -37,8 +39,14 @@ from playableenvironments_tpu_torch.eval.distribution_metrics import (
     IncrementalFID,
     IncrementalFVD,
 )
-from playableenvironments_tpu_torch.eval.perceptual import VGGFeatures, init_vgg19, vgg_cosine_similarity
+from playableenvironments_tpu_torch.eval.perceptual import (VGG19_CUTS, VGG19_PLAN, VGGFeatures, init_vgg19,
+                                                            vgg_cosine_similarity)
 from playableenvironments_tpu_torch.utils.device import resolve_device
+
+# A detector maps an (H, W, 3) frame to an (N, 2) array of normalized (row,
+# col) detection centers: train/trainer_detector.py::DetectorTrainer.detect_fn.
+DetectorFn = Callable[[np.ndarray], np.ndarray]
+
 
 def box_centers_from_annotations(video, camera_idx: int, frame_idx: int) -> np.ndarray:
     """Normalized (row, col) centers of the annotated boxes of one frame."""
@@ -88,14 +96,32 @@ class ReconstructedDatasetEvaluator:
     """Paired evaluation of a generated dataset tree against its reference.
     Windows of `window_size` frames feed the motion-masked MSE."""
 
-    def __init__(self, window_size: int = 16, compute_fid: bool = True, device="cuda", times=None):
-        """:param device: where the metric networks and image metrics run.
+    def __init__(self, window_size: int = 16, detector: Optional[DetectorFn] = None, detection_threshold: float = 0.1,
+                 lpips_fn: Optional[Callable[[np.ndarray, np.ndarray], np.ndarray]] = None, compute_fid: bool = True,
+                 vgg: Optional[VGGFeatures] = None, device="cuda", times=None):
+        """:param detector: enables the detection metrics; matches farther
+            than `detection_threshold` count as missed.
+        :param lpips_fn: (N, H, W, 3) stacks -> (N,) distances
+            (eval.perceptual.lpips_distance_fn); enables `lpips`.
+        :param vgg: a pretrained VGG19 to relu3_1 for the per-frame
+            similarity (`VGGFeatures(VGG19_PLAN, VGG19_CUTS[:3])` loaded by
+            eval.perceptual.load_torch_vgg_weights); default seeded random
+            weights.
+        :param device: where the metric networks and image metrics run.
         :param times: cli.common.RunTimes, or None."""
         self.window_size = window_size
+        self.detector = detector
+        self.detection_threshold = detection_threshold
+        self.lpips_fn = lpips_fn
         self.compute_fid = compute_fid
         self.device = resolve_device(device)
         self.times = times
-        self._vgg_sim_fn = _make_vgg_sim_fn(init_vgg19(cuts=3, device=self.device, seed=0), self.device)
+        self._vgg_selfconsistent = vgg is None
+        if vgg is None:
+            vgg = init_vgg19(cuts=3, device=self.device, seed=0)
+        elif vgg.plan != VGG19_PLAN or vgg.cuts != VGG19_CUTS[:3]:
+            raise ValueError(f"vgg: a VGG19 to relu3_1 (cuts {VGG19_CUTS[:3]}), not plan {vgg.plan} cuts {vgg.cuts}")
+        self._vgg_sim_fn = _make_vgg_sim_fn(vgg.to(self.device), self.device)
 
     def _on_frames(self, video_idx: int, camera_idx: int, ref_frames: np.ndarray, gen_frames: np.ndarray) -> None:
         """Subclass hook over each already-decoded (T, H, W, 3) stack pair."""
@@ -121,7 +147,8 @@ class ReconstructedDatasetEvaluator:
         generated = MulticameraVideoDataset(generated_root, observations_count=1)
         _same_videos(reference, generated)
 
-        mses, psnrs, ssims, masked_mses, vgg_sims = [], [], [], [], []
+        mses, psnrs, ssims, masked_mses, lpips_values, vgg_sims = [], [], [], [], [], []
+        detection = metrics_lib.DetectionScore(self.detection_threshold)
         fid = IncrementalFID(device=self.device) if self.compute_fid else None
 
         for video_idx, (ref_video, gen_video) in enumerate(zip(reference.videos, generated.videos)):
@@ -141,7 +168,13 @@ class ReconstructedDatasetEvaluator:
                     masked_mses.extend(masked)
 
                 with _section(self.times, "networks"):
+                    if self.lpips_fn is not None:
+                        lpips_values.extend(np.asarray(self.lpips_fn(ref_frames, gen_frames)).tolist())
                     vgg_sims.extend(self._vgg_sim_fn(ref_frames, gen_frames).numpy().tolist())
+                    if self.detector is not None:
+                        for i in range(frames_count):
+                            detection.update(box_centers_from_annotations(ref_video, camera_idx, i),
+                                             self.detector(gen_frames[i]))
                     if fid is not None:
                         fid.update_reference(ref_frames)
                         fid.update_generated(gen_frames)
@@ -156,10 +189,15 @@ class ReconstructedDatasetEvaluator:
         }
         if masked_mses:
             results["motion_masked_mse"] = float(np.mean(masked_mses))
+        if lpips_values:
+            results["lpips"] = float(np.mean(lpips_values))
         if vgg_sims:
             # Random-weight features are self-consistent but not comparable
             # with a pretrained VGG's number: the key says so.
-            results["vgg_cosine_similarity_selfconsistent"] = float(np.mean(vgg_sims))
+            key = "vgg_cosine_similarity_selfconsistent" if self._vgg_selfconsistent else "vgg_cosine_similarity"
+            results[key] = float(np.mean(vgg_sims))
+        if self.detector is not None:
+            results.update(detection.results())
         if fid is not None:
             with _section(self.times, "metrics"):
                 results["fid"] = fid.compute()

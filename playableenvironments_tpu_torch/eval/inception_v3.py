@@ -172,7 +172,7 @@ class InceptionE(nn.Module):
         return torch.cat([b0, b1, b2, b3], dim=1)
 
 
-def _ieee_convolutions(device: torch.device):
+def ieee_convolutions(device: torch.device):
     """cuDNN without TF32 for the region (the JAX network's
     precision="highest"), its other switches as they are."""
     if device.type != "cuda":
@@ -209,7 +209,7 @@ class InceptionV3Features(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """:param images: (B, H, W, 3) in [0, 1]. :return: (B, 2048)."""
-        with _ieee_convolutions(images.device):
+        with ieee_convolutions(images.device):
             x = (images * 2.0 - 1.0).permute(0, 3, 1, 2)  # [0, 1] -> [-1, 1] (pytorch_fid's convention)
             x = self.Conv2d_2b_3x3(self.Conv2d_2a_3x3(self.Conv2d_1a_3x3(x)))
             x = _max_pool_valid(x)

@@ -1,15 +1,18 @@
-"""The VGG19 feature network of the perceptual loss.
+"""The VGG feature networks: VGG19 for the perceptual loss, LPIPS's VGG16.
 
-Port of the VGG19 part of playableenvironments_tpu/eval/perceptual.py:
-`VGGFeatures` (ImageNet normalization, SAME 3x3 convolutions with ReLU,
-2x2 max pools between blocks, features after relu1_1 ... relu5_1),
+Port of playableenvironments_tpu/eval/perceptual.py: `VGGFeatures`
+(ImageNet normalization, SAME 3x3 convolutions with ReLU, 2x2 max pools
+between blocks, features after relu1_1 ... relu5_1 for VGG19, after
+relu1_2, relu2_2, relu3_3, relu4_3 and relu5_3 for LPIPS's VGG16),
 `perceptual_loss` (L1 between the features of the ground truth, without
-gradient, and of the reconstruction), `vgg_cosine_similarity` (the
-evaluators' per-frame feature similarity) and `init_vgg19`. No trained weights
-ship with the repo and none are downloaded: the network runs on seeded
-random weights, as the JAX package's does, unless the user loads a
-torchvision VGG19 state dict (`features.N.weight` / `.bias`) with
-`load_torch_vgg_state_dict` or `load_torch_vgg_weights`.
+gradient, and of the reconstruction), `LPIPS` (unit-normalized VGG16
+feature differences through non-negative 1x1 heads, spatial means summed
+over levels), `vgg_cosine_similarity` (the evaluators' per-frame feature
+similarity) and `init_vgg19`. No trained weights ship with the repo and
+none are downloaded: the networks run on seeded random weights, as the JAX
+package's do, unless the user loads a torchvision VGG19 state dict
+(`features.N.weight` / `.bias`) with `load_torch_vgg_state_dict` or
+`load_torch_vgg_weights`, or LPIPS's with compat/metric_weights.py.
 
 The max pool is torch's: its backward routes each window's gradient to the
 first maximum in row-major order, the one-winner rule of the JAX package's
@@ -28,9 +31,12 @@ from playableenvironments_tpu_torch.models.layers import initialize_
 from playableenvironments_tpu_torch.utils.device import resolve_device
 
 VGG19_PLAN = ((64, 64), (128, 128), (256, 256, 256, 256), (512, 512, 512, 512), (512, 512, 512, 512))
+VGG16_PLAN = ((64, 64), (128, 128), (256, 256, 256), (512, 512, 512), (512, 512, 512))
 # (block, conv within the block) after whose ReLU a feature is emitted:
-# relu1_1, relu2_1, relu3_1, relu4_1, relu5_1.
+# relu1_1, relu2_1, relu3_1, relu4_1, relu5_1; for LPIPS relu1_2, relu2_2,
+# relu3_3, relu4_3, relu5_3.
 VGG19_CUTS = ((0, 0), (1, 0), (2, 0), (3, 0), (4, 0))
+VGG16_CUTS = ((0, 1), (1, 1), (2, 2), (3, 2), (4, 2))
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -87,6 +93,47 @@ def perceptual_loss(
     rec = net(reconstructed, dtype)
     level_losses = [torch.mean(torch.abs(g - r)) for g, r in zip(gt, rec)]
     return sum(level_losses), level_losses
+
+
+class LPIPS(nn.Module):
+    """Learned perceptual distance: `backbone` (VGG16 to relu5_3) features
+    unit-normalized over channels (the norm clipped at 1e-10), squared
+    differences weighted by the heads' magnitudes |lin_i| (one weight a
+    channel, initialized to 1), the spatial mean of their channel sum,
+    summed over the five levels."""
+
+    def __init__(self, device=None):
+        super().__init__()
+        self.backbone = VGGFeatures(VGG16_PLAN, VGG16_CUTS, device=device)
+        for idx, (block, conv) in enumerate(VGG16_CUTS):
+            self.register_parameter(f"lin_{idx}", nn.Parameter(torch.ones(VGG16_PLAN[block][conv], device=device)))
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """:param a, b: (N, H, W, 3) in [0, 1]. :return: (N,) distances."""
+        total = 0.0
+        for idx, (fa, fb) in enumerate(zip(self.backbone(a), self.backbone(b))):
+            fa = fa / torch.clamp(torch.linalg.norm(fa, dim=1, keepdim=True), min=1e-10)
+            fb = fb / torch.clamp(torch.linalg.norm(fb, dim=1, keepdim=True), min=1e-10)
+            weight = torch.abs(getattr(self, f"lin_{idx}"))[:, None, None]
+            total = total + torch.mean(torch.sum(torch.square(fa - fb) * weight, dim=1), dim=(-2, -1))
+        return total
+
+
+def lpips_distance_fn(net: LPIPS):
+    """The evaluators' `lpips_fn`: (N, H, W, 3) NumPy stacks in [0, 1] ->
+    (N,) NumPy distances, EMBED_CHUNK frames a pass on the network's
+    device, without autograd."""
+    from playableenvironments_tpu_torch.eval.distribution_metrics import EMBED_CHUNK
+
+    device = next(net.parameters()).device
+
+    @torch.no_grad()
+    def fn(a, b):
+        chunks = [(torch.from_numpy(a[i:i + EMBED_CHUNK]), torch.from_numpy(b[i:i + EMBED_CHUNK]))
+                  for i in range(0, len(a), EMBED_CHUNK)]
+        return torch.cat([net(x.to(device), y.to(device)) for x, y in chunks]).cpu().numpy()
+
+    return fn
 
 
 def vgg_cosine_similarity(features_a: List[torch.Tensor], features_b: List[torch.Tensor]) -> torch.Tensor:

@@ -150,7 +150,8 @@ class BatchNorm(nn.Module):
     """flax nn.BatchNorm over NCHW channels: E[x^2] - E[x]^2 variance
     (clipped at 0), epsilon 1e-5, momentum 0.99, scale and bias. As flax's
     `BatchNorm(dtype=...)`, the statistics and the normalization are taken
-    in f32 and only the output is rounded to `dtype`."""
+    in f32 (f64 for f64 inputs, the references of tests and chip_smoke.py)
+    and only the output is rounded to `dtype` (default that precision)."""
 
     def __init__(self, features: int, momentum: float = 0.99, epsilon: float = 1e-5, device=None):
         super().__init__()
@@ -161,8 +162,9 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features, device=device))
         self.register_buffer("running_var", torch.ones(features, device=device))
 
-    def forward(self, x: torch.Tensor, train: bool, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        x = x.to(torch.float32)
+    def forward(self, x: torch.Tensor, train: bool, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        dtype = dtype or x.dtype
         if train:
             dims = (0, 2, 3)
             mean = x.mean(dim=dims)

@@ -12,7 +12,8 @@ the autoencoder's decode of each pass's rendered feature patches; the
 learnable per-frame camera offsets (`CameraParametersStorage`); the
 composer-based frame render (`render_frame_from_scene_encoding`, the eval
 path of a `use_fine` model, which render/fast.py does not take) and its
-decode (`decode_rendered_grids`); the consistency passes
+decode (`decode_rendered_grids`, or with the encoder's features mixed in,
+`decode_mixed_grids`); the consistency passes
 (`forward_pose_consistency`, `forward_keypoint_consistency`), which
 resolve rays matched by optical flow or drawn along the keypoint skeleton
 to expected surface positions. Random draws come from `rng`
@@ -481,6 +482,43 @@ class EnvironmentModel(nn.Module):
                 begin += count
             lead = grids[0].shape[:-3]
             decoded = self.autoencoder.decode([g.reshape((-1,) + g.shape[-3:]) for g in grids], train=train)
+            global_results["reconstructed_observations"] = decoded.reshape(lead + decoded.shape[1:])
+        return results
+
+    def decode_mixed_grids(self, observations: torch.Tensor, results: Dict, image_size: Tuple[int, int],
+                           train: bool = False) -> Dict:
+        """Decode whole-image grids with encoder-feature mixing: each level's
+        VAE encoder mean of the ground-truth frames, with the rendered
+        samples of that level written in at their cells
+        (sampling.insert_samples_into_features), feeds the decoder (the
+        reference's backpropagated-autoencoder variant; the published model
+        decodes the rendered features alone, decode_rendered_grids). Adds
+        "reconstructed_observations" (B, T, C, H, W, 3) to each pass's
+        "global" results.
+
+        :param observations: (B, T, C, H, W, 3) ground-truth frames.
+        :param results: the renderer's output on `sample_all_rays_strided_grid`
+            with the autoencoder's strides."""
+        strides = autoencoder_strides(self.scene.autoencoder)
+        counts = features_count_by_layer(self.scene.autoencoder)
+        lead = observations.shape[:-3]
+        encoded_levels = self.autoencoder.encode(observations.reshape((-1,) + observations.shape[-3:]), train)
+        for pass_name in ("coarse", "fine"):
+            if pass_name not in results:
+                continue
+            global_results = results[pass_name]["global"]
+            features = global_results["integrated_features"]
+            level_positions = sampling.split_strided_grid_samples(results["positions"], strides, image_size)
+            mixed_levels, begin = [], 0
+            for level_idx, (count, level) in enumerate(zip(counts, encoded_levels)):
+                mean = level[..., : level.shape[-1] // 2]  # levels are mean ++ log variance
+                samples = sampling.split_strided_grid_samples(features[..., begin : begin + count], strides,
+                                                              image_size)[level_idx]
+                begin += count
+                mixed_levels.append(sampling.insert_samples_into_features(
+                    mean, samples.reshape(mean.shape[0], -1, samples.shape[-1]),
+                    level_positions[level_idx].reshape(mean.shape[0], -1, 2), image_size))
+            decoded = self.autoencoder.decode(mixed_levels, train=train)
             global_results["reconstructed_observations"] = decoded.reshape(lead + decoded.shape[1:])
         return results
 

@@ -11,8 +11,10 @@ consistency passes' samplers (`sample_at_positions`, the bilinear grid
 sample; `sample_rays_at_object`; `sample_rays_at_keypoints` along
 `COCO_SEGMENTS`). Where the JAX samplers draw from a key, these take the
 draws: uniform values in [0, 1) for the weighted, patch, object-box and
-keypoint samplers, integer indices for the uniform one. Pixel grids are
-(..., H, W, F), samples (..., n, F), positions (..., n, 2) normalized
+keypoint samplers, integer indices for the uniform one; and
+`insert_samples_into_features`, which writes rendered samples into an
+encoder's feature grid (EnvironmentModel.decode_mixed_grids). Pixel grids
+are (..., H, W, F), samples (..., n, F), positions (..., n, 2) normalized
 (row, col).
 """
 
@@ -357,3 +359,30 @@ def sample_rays_at_keypoints(
     points = begins + (ends - begins) * uniform
     positions = points[..., :2]
     return sample_at_positions(ray_directions, positions), positions, points[..., 2]
+
+
+def insert_samples_into_features(features: torch.Tensor, samples: torch.Tensor, sample_positions: torch.Tensor,
+                                 original_image_size: Tuple[int, int]) -> torch.Tensor:
+    """Write rendered samples into an encoder feature grid at their pixels'
+    cells (out of place, so that gradients reach both inputs).
+
+    :param features: (..., h, w, F), the grid of an image `k` times larger.
+    :param samples: (..., n, F).
+    :param sample_positions: (..., n, 2) normalized (row, col) in the
+        original image.
+    :param original_image_size: (H, W), an integer multiple of (h, w).
+    :return: (..., h, w, F), each sample's cell replaced by the sample. Where
+        two samples share a cell, which one lands is unspecified, as for the
+        JAX package's `.at[].set`."""
+    h, w, f = features.shape[-3:]
+    height, width = original_image_size
+    if height % h or width // (height // h) != w:
+        raise ValueError(f"feature grid {(h, w)} does not evenly divide image {tuple(original_image_size)}")
+    factor = height // h
+    flat_features = features.reshape(-1, h * w, f)
+    flat_samples = samples.reshape((-1,) + tuple(samples.shape[-2:]))
+    flat_positions = sample_positions.reshape((-1,) + tuple(sample_positions.shape[-2:]))
+    rows = torch.clamp(torch.floor(torch.round(flat_positions[..., 0] * height) / factor).long(), 0, h - 1)
+    cols = torch.clamp(torch.floor(torch.round(flat_positions[..., 1] * width) / factor).long(), 0, w - 1)
+    idx = (rows * w + cols)[..., None].expand(-1, -1, f)
+    return flat_features.scatter(1, idx, flat_samples.to(flat_features.dtype)).reshape(features.shape)

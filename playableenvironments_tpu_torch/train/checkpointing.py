@@ -14,7 +14,9 @@ device. A trainer's whole state:
 - phase 3 (PlayableTrainer): the generator's and discriminators'
   parameters and buffers, both Adam states and step counts, and the
   per-animation-model `centroids` and `mi_matrices` (the JAX TrainState's
-  `extra`).
+  `extra`);
+- the player detector (DetectorTrainer): the detector's parameters and
+  batch statistics, its AdamW state, the step.
 
 Every load is strict: each entry of the file is consumed and every shape
 checked, or it raises ValueError. The transfers between phases, as the
@@ -39,7 +41,8 @@ PREFIX = "checkpoint_"
 
 
 def _kind(trainer) -> str:
-    kinds = {"AutoencoderTrainer": "autoencoder", "SynthesisTrainer": "synthesis", "PlayableTrainer": "playable"}
+    kinds = {"AutoencoderTrainer": "autoencoder", "SynthesisTrainer": "synthesis", "PlayableTrainer": "playable",
+             "DetectorTrainer": "detector"}
     name = type(trainer).__name__
     if name not in kinds:
         raise TypeError(f"no checkpoint layout for {name}")

@@ -13,8 +13,8 @@ checkpoints carry its whole state.
     python3 scripts/export_flax_checkpoint.py CHECKPOINT_DIR OUT.npz
 
 In the port, `compat/from_flax.py::load_npz` reads the file back into the
-nested mapping that `load_environment_model`, `load_autoencoder` and
-`load_playable` take. Imports the JAX package, orbax and numpy only.
+nested mapping that `load_environment_model`, `load_autoencoder`,
+`load_playable` and `load_detector` take. Imports the JAX package, orbax and numpy only.
 """
 
 from __future__ import annotations

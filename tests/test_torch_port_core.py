@@ -67,6 +67,15 @@ def test_euler_matrix_and_rigid_inverse(rng):
     close(transforms3d.invert_rigid(port), jtransforms.invert_rigid(ref))
 
 
+@pytest.mark.parametrize("elevation,distance,count,offset", [(0.4, 12.0, 5, 0.0), (-0.2, 3.5, 8, 0.3)])
+def test_sphere_camera_poses(elevation, distance, count, offset):
+    got = transforms3d.sphere_camera_poses(elevation, distance, count, offset)
+    ref = jtransforms.sphere_camera_poses(elevation, distance, count, offset)
+    for port, jax_value in zip(got, ref):
+        assert port.shape == (count, 3)
+        close(port, jax_value)
+
+
 def test_camera_rays(rng):
     focals = rng.uniform(20, 60, (2, 1, 3)).astype(np.float32)
     for port, ref in zip(rays.camera_rays(6, 10, t(focals)), jrays.camera_rays(6, 10, jnp.asarray(focals))):
@@ -200,7 +209,9 @@ def test_port_imports_no_jax():
                    "cli/generate_reconstructed_playability_dataset.py", "cli/evaluate_reconstructed_dataset.py",
                    "cli/evaluate_reconstructed_camera_manipulation_dataset.py",
                    "cli/evaluate_reconstructed_playability_dataset.py", "cli/evaluate_fvd_reconstructed_dataset.py",
-                   "cli/fid.py"):
+                   "cli/fid.py", "models/detector.py", "train/trainer_detector.py", "cli/train_detector.py",
+                   "eval/i3d.py", "compat/metric_weights.py", "compat/weight_validation.py",
+                   "cli/validate_metric_weights.py"):
         assert f"playableenvironments_tpu_torch/{module}" in names, module
     assert len(names) > 30
     assert not offenders, offenders

@@ -859,3 +859,40 @@ def test_evaluator_metrics_on_the_card_match_the_cpu(card, tmp_path):
     assert set(results[0]) == set(results[1]) == set(chip_smoke.PHASE17_METRIC_RTOL) - {"fvd"}
     for key, value in results[1].items():
         assert abs(results[0][key] - value) <= chip_smoke.PHASE17_METRIC_RTOL[key] * abs(value), key
+
+
+@pytest.mark.cuda
+def test_detector_forward_and_step_match_the_cpu(card):
+    """The detector (base_features 8) on 2 x 64 x 96 images: the eval-mode
+    forward within 1e-5 of each output's largest, and one train step at
+    chip_smoke.py's TOLERANCES_18, on the card against the CPU from the same
+    seeded weights, in full-precision convolutions."""
+    from playableenvironments_tpu_torch.models.detector import CenterNetDetector
+
+    sys_path_repo()
+    import chip_smoke
+
+    images = torch.from_numpy(np.random.default_rng(0).random((2, 64, 96, 3)).astype(np.float32))
+    outputs = []
+    for device in (card, "cpu"):
+        with chip_smoke.ieee_convolutions(device), torch.no_grad():
+            outputs.append(CenterNetDetector(8, device=device, seed=3)(images.to(device), train=False))
+    for key, ref in outputs[1].items():
+        assert (outputs[0][key].cpu() - ref).abs().max() <= 1e-5 * ref.abs().max(), key
+    boxes = torch.tensor([[[0.1, 0.2, 0.3, 0.6], [0.6, 0.1, 0.8, 0.4]], [[0.5, 0.4, 0.7, 0.9], [0.0, 0.0, 0.1, 0.1]]])
+    validity = torch.tensor([[True, True], [True, False]])
+    chip_smoke.phase18_detector_card_vs_cpu(images, boxes, validity, base_features=8, devices=(card.type, "cpu"))
+
+
+@pytest.mark.cuda
+def test_i3d_and_lpips_signatures_pass_the_goldens_on_the_card(card):
+    """compat/weight_validation.py's I3D and LPIPS signatures of the
+    synthesized published-layout states, computed on the card, against the
+    shipped goldens at the unchanged rtol 2e-3 / atol 1e-4."""
+    from playableenvironments_tpu_torch.compat import weight_validation as wv
+
+    variables = wv.synthetic_variables()
+    golden = wv.load_goldens()
+    signatures = wv.compute_signatures({name: variables[name] for name in ("i3d", "lpips")}, card)
+    report = wv.compare_signatures(signatures, {name: golden[name] for name in signatures})
+    assert {name: verdict["status"] for name, verdict in report.items()} == {"i3d": "PASS", "lpips": "PASS"}

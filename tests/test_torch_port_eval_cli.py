@@ -16,8 +16,8 @@ checkpoints of the port (train/checkpointing.py):
   1e-3 relative (and 1e-9 absolute) for FID and FVD (an f64 sqrtm of f32
   embeddings), and equal for the action-space diagnostics (f64 from the
   same annotations and actions); the plots under the JAX module's names;
-- `--detector_checkpoint` raises NotImplementedError naming ROADMAP's
-  detector item, and every CLI raises without a card unless `--device cpu`.
+- a `--detector_checkpoint` that does not exist raises, and every CLI
+  raises without a card unless `--device cpu`.
 """
 
 import importlib
@@ -211,9 +211,12 @@ def test_fid_cli_matches_jax(workdir, trees, jax_weights):
 
 
 def test_detector_checkpoint_raises(workdir, trees):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, Evaluation: the detector"):
+    """A `--detector_checkpoint` that is not there raises before any frame
+    is read (tests/test_torch_port_detector_cli.py runs a real one)."""
+    with pytest.raises(FileNotFoundError, match="state.pt"):
         run_cli("evaluate_reconstructed_dataset", "--config", workdir["config"], "--generated",
-                trees["reconstructed"], "--detector_checkpoint", "x", "--device", "cpu")
+                trees["reconstructed"], "--detector_checkpoint", os.path.join(workdir["root"], "missing"),
+                "--device", "cpu")
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal where no card is present")
