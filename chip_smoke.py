@@ -8,7 +8,8 @@ the three phases and play through checkpoints, that chain through the
 CLIs with their evaluators and a reference checkpoint's import, and the
 paper's evaluation protocol (the creators, evaluators and fid, the player
 detector, LPIPS, I3D and the metric-weight validation) from the command
-line.
+line, then data and ray parallelism across ranks and the serving
+artifacts.
 
     python3 chip_smoke.py
 
@@ -183,8 +184,28 @@ Phases, each fatal on failure:
    (PHASE18_METRIC_RTOL); (c) validate_metric_weights on the card (every
    golden PASS, each one's largest relative gap printed), and I3D alone on
    one 1 x 16 x 224 x 224 clip card vs CPU, timed, its peak.
-`python3 chip_smoke.py --phase 12` (or `--phase 13` to `--phase 18`; 17 runs
-16's CLIs first for their checkpoints, 18 both 16 and 17) builds the
+19. data and ray parallelism across ranks, and serving, on 16's dataset and
+   checkpoints: (a) tennis.yaml's phase 2 through cli/train.py on two ranks
+   sharing the card over gloo (global batch 2 x 4, 1 x 4 a rank, 3 steps)
+   and in one process at the same global batch, both in full-precision
+   convolutions: the first step's loss and every all-reduced gradient
+   (TOLERANCES_19), each rank's step ms, peak, gradient all-reduce ms a
+   step and B2-f32/B3-f32 launches; (b) one NCCL rank (the default
+   backend): init_process_group, one phase-2 step's gradients all-reduced,
+   verify_replication; (c) phase 3 through cli/train_playable.py the same
+   way (2 steps, B4/B5 a rank); (d) the eval ray split, rays 2 over
+   [cuda:0, cuda:0]: one B1 launch a slice, each held against its plain
+   version, the split frame card vs CPU and against the whole frame within
+   FRAME_ATOL (each slice compacts its own rays, so the hits a budget cuts
+   differ; bit for bit with every ray_compaction 1.0); (e) cli/export_renderer on the
+   checkpoints (the renderer and the interactive bundle, on cuda), loaded
+   by a fresh process that imports only serve and the ops module, which
+   renders and plays 4 steps: held against the live InteractiveSession,
+   export and load seconds, ms a frame beside the live path's. Each rank or
+   process runs `chip_smoke.py --rank|--nccl|--serve <spec>`, joined with
+   a timeout that kills every one of them on a failure.
+`python3 chip_smoke.py --phase 12` (or `--phase 13` to `--phase 19`; 17 runs
+16's CLIs first for their checkpoints, 18 both 16 and 17, 19 16) builds the
 kernels and runs that phase alone (no kernels line, no contract line).
 Details go to chiprun_out/chip_smoke.json. Prints one JSON line of kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX.
@@ -4945,6 +4966,581 @@ def phase18(repo):
         return phase18_cli(repo, directory, paths, phase17_cli(repo, directory, paths)["trees"]["reconstructed"])
 
 
+# ---- phase 19: data and ray parallelism across ranks, and serving ----------------
+
+# 19a / 19c: tennis.yaml's phase 2 (global batch 2 x 4, 1 x 4 a rank) and
+# phase 3 (global 2, 1 a rank) through their CLIs on two ranks that share
+# the card over gloo (NCCL refuses two ranks on one device), against one
+# process of the same global batch; both inside ieee_convolutions.
+PHASE19_PHASE2 = dict(max_steps=3, save_freq=3, quick_save_freq=100, eval_freq=0, log_interval_steps=1)
+PHASE19_PHASE2_BATCH = 2
+PHASE19_PHASE3 = dict(max_steps=2, steps_per_call=1, save_freq=2, quick_save_freq=100, eval_freq=0,
+                      log_interval_steps=1)
+# Each rank takes its interleaved slice of every epoch's order (the JAX
+# package's dataset and encoding cache), so that a global batch of two
+# ranks equals one process's batch, draws included, only at one window a
+# rank: 19c runs phase 3 at global batch 2 (the YAML's 16 permutes them).
+PHASE19_PHASE3_BATCH = 2
+PHASE19_TIMEOUT = 900
+# The two-rank step against the one-process step of the same global batch:
+# the sums over the batch go per rank, then through gloo's all-reduce, in
+# another order than one process's (B2/B3-f32's point sums, the batch
+# norms' moments, the masked means), the only difference. Each gradient
+# tensor is held to `tensor` of its own largest magnitude plus `model` of
+# its model's largest (a bias before a batch norm has a noise-only
+# gradient, 1e-9 of its model's), each model's gradients together to a
+# cosine of `cosine` with the one process's, the loss to `loss_rtol`.
+# Measured (my chip run 2, PR 16; NVIDIA H100 80GB HBM3, 700.00 W): phase
+# 2's worst 1.25e-2 of a model's largest, in the object encoders (their
+# batch norms over 8 crops amplify the order's f32 noise, as on the CPU,
+# where the same decoder-path step reads 5.5e-3 of the model's and 2.5e-2
+# of a tensor's largest), the loss 1.0e-7 relative; phase 3's worst
+# 5.7e-7 of a model's largest, its loss equal. The bounds are about twice
+# the readings.
+TOLERANCES_19 = {
+    "a": dict(loss_rtol=1e-5, tensor=5e-2, model=2.5e-2, cosine=0.999),
+    "c": dict(loss_rtol=1e-5, tensor=1e-3, model=1e-5, cosine=0.999999),
+}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_processes(repo, mode, spec, ranks, directory, env=None, timeout=PHASE19_TIMEOUT):
+    """`ranks` processes of `python3 chip_smoke.py <mode> <spec file>` as
+    torchrun starts them (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, a free
+    MASTER_PORT; none of them for ranks=None, one process alone), each
+    joined with the timeout; on a failure or the timeout every process is
+    killed and SmokeFailure raised with the logs' ends. :return: the wall s."""
+    tag = spec["tag"]
+    path = os.path.join(directory, f"{tag}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    port = _free_port()
+    procs = []
+    start = time.perf_counter()
+    for rank in range(ranks or 1):
+        rank_env = dict(os.environ, WANDB_MODE="disabled", **(env or {}))
+        if ranks:
+            rank_env.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(ranks), MASTER_ADDR="127.0.0.1",
+                            MASTER_PORT=str(port))
+        log = open(os.path.join(directory, f"{tag}.rank{rank}.log"), "w")
+        procs.append((subprocess.Popen([sys.executable, os.path.join(repo, "chip_smoke.py"), mode, path],
+                                       env=rank_env, stdout=log, stderr=subprocess.STDOUT), log))
+    failed = None
+    try:
+        for rank, (proc, _) in enumerate(procs):
+            try:
+                code = proc.wait(timeout=max(start + timeout - time.perf_counter(), 1.0))
+            except subprocess.TimeoutExpired:
+                failed = f"rank {rank} did not finish within {timeout} s"
+                break
+            if code != 0:
+                failed = f"rank {rank} exited with {code}"
+                break
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    if failed:
+        logs = "\n".join(f"--- {tag} rank {r} ---\n" + open(os.path.join(directory, f"{tag}.rank{r}.log")).read()[-3000:]
+                         for r in range(len(procs)))
+        raise SmokeFailure(f"19 {tag}: {failed}\n{logs}")
+    return time.perf_counter() - start
+
+
+def rank_driver(spec_path):
+    """A rank of 19a/19c: a CLI's main() with the first `record_steps`
+    optimizer steps' gradients (after their all-reduce) recorded to
+    `<out>.rank<r>.pt`, inside ieee_convolutions."""
+    import torch
+
+    from playableenvironments_tpu_torch.train import state as state_lib
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    recorded = []
+    original = state_lib.Optimizer.step
+
+    def step(self):
+        original(self)
+        if len(recorded) < spec["record_steps"]:
+            recorded.append([p.grad.detach().to("cpu", torch.float32).clone() for p in self.parameters])
+
+    state_lib.Optimizer.step = step
+    with ieee_convolutions(spec["device"]):
+        run_cli(spec["module"], *spec["args"])
+    rank = int(os.environ.get("RANK", "0"))
+    torch.save({"grads": recorded, "jax_free": not any(m.split(".")[0] in ("jax", "flax") for m in sys.modules)},
+               f"{spec['out']}.rank{rank}.pt")
+
+
+def nccl_driver(spec_path):
+    """19b: one NCCL rank (PE_MULTIHOST): init, one phase-2 step's
+    gradients of tennis.yaml's model (phase 16's checkpoint, a 1 x 4 batch
+    of its data) through reduce_gradients' all-reduce, verify_replication."""
+    import torch
+    import torch.distributed as dist
+
+    from playableenvironments_tpu_torch.cli.common import (
+        build_dataset, build_environment_model, load_yaml, synthesis_training_config,
+    )
+    from playableenvironments_tpu_torch.parallel import mesh as mesh_lib
+    from playableenvironments_tpu_torch.train import checkpointing as ckpt
+    from playableenvironments_tpu_torch.train.trainer_synthesis import SynthesisTrainer
+    from playableenvironments_tpu_torch.utils.random import RngStreams
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = spec["device"]
+    start = time.perf_counter()
+    up = mesh_lib.maybe_initialize_distributed(device)
+    init_s = time.perf_counter() - start
+    mesh = mesh_lib.create_mesh(device=device)
+    cfg = load_yaml(spec["config"])
+    model = ckpt.restore_params(spec["environment"], build_environment_model(cfg, device=device))
+    trainer = SynthesisTrainer(model, synthesis_training_config(cfg))
+    batch = next(build_dataset(cfg, "train").iterate_batches(1, shuffle=False)).to(device)
+    model.train()
+    trainer.optimizer.zero_grad()
+    loss, _, _ = trainer.compute_losses(batch, RngStreams(0, device), 0)
+    loss.backward()
+    params = [p for p in trainer.optimizer.parameters if p.grad is not None]
+    before = [p.grad.clone() for p in params]
+    mesh_lib.reduce_gradients(params, mesh)
+    equal = all(torch.equal(p.grad, b) for p, b in zip(params, before))
+    # A second reduction of the same buckets: the first in a process pays
+    # for NCCL's buffers of that size.
+    mesh_lib.reduce_gradients(params, mesh)
+    mesh_lib.verify_replication(model, device=device)
+    version = torch.cuda.nccl.version() if device == "cuda" else None
+    nccl = ".".join(map(str, version)) if isinstance(version, tuple) else version
+    out = {"initialized": up, "backend": dist.get_backend(), "world": dist.get_world_size(), "init_s": init_s,
+           "nccl": nccl, "gradients": len(params),
+           "elements": sum(p.numel() for p in params), "reduce_ms": [t * 1e3 for t in mesh.reduce_seconds],
+           "sum_of_one_equal": equal, "loss": loss.item()}
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def serve_driver(spec_path):
+    """19e's fresh process: only serve.load_artifact (no model code) renders
+    the exported renderer and plays the bundle: reset, then steps; frames,
+    load seconds, ms a frame and B1 launches to `<out>`."""
+    import torch
+
+    from playableenvironments_tpu_torch import serve
+    from playableenvironments_tpu_torch.ops import fused_nerf
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    start = time.perf_counter()
+    renderer = serve.load_artifact(spec["renderer"])
+    render, step0, step = (serve.load_artifact(spec[k]) for k in ("render", "step0", "step"))
+    load_s = time.perf_counter() - start
+    device = spec["device"]
+    inputs = torch.load(spec["inputs"], weights_only=False)
+    encoding = inputs["encoding"].map(lambda x: x.to(device))
+    initial_style = encoding.object_style
+    fused_nerf.fused_adain_nerf.launches = 0
+    frames = [renderer(encoding)]
+    bundle_frames, encoding_steps, carries = [render(encoding)], [], None
+    for index, actions in enumerate(inputs["actions"]):
+        one_hots = [h.to(device) for h in inputs["one_hots"][index]]
+        variations = [v.to(device) for v in inputs["variations"][index]]
+        if carries is None:
+            encoding, carries = step0(encoding, initial_style, one_hots, variations)
+        else:
+            encoding, carries = step(encoding, initial_style, carries, one_hots, variations)
+        encoding_steps.append(encoding.map(lambda x: x.cpu()))
+        bundle_frames.append(render(encoding))
+    launches = fused_nerf.fused_adain_nerf.launches
+    frame_ms = frame_time_ms(lambda: render(encoding), device)
+    torch.save({"frames": [f.cpu() for f in frames], "bundle_frames": [f.cpu() for f in bundle_frames],
+                "encodings": encoding_steps, "load_s": load_s, "frame_ms": frame_ms, "launches": launches,
+                "modules": sorted(m for m in sys.modules if m.startswith("playableenvironments_tpu_torch."))},
+               spec["out"])
+
+
+def frame_time_ms(fn, device):
+    """Median ms of one call: CUDA events on the card, the host's clock on
+    the CPU (a rehearsal)."""
+    if device == "cuda":
+        return cuda_ms(fn, warmup=1, reps=5)
+    times = []
+    for _ in range(3):
+        start = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - start) * 1e3)
+    return statistics.median(times)
+
+
+def _held_gradients(label, got, ref, names, tolerances):
+    """Each gradient tensor of `got` against `ref` (lists in the optimizer's
+    parameter order), in units of its own largest magnitude and of its
+    model's, and each model's gradients together by their cosine; every
+    tensor is measured before the bounds apply, and the worst five by each
+    measure are printed. :return: (worst tensor-relative error, its name,
+    worst model-relative error, its name, the lowest cosine, its model)."""
+    import torch
+
+    scale, dots = {}, {}
+    for name, g, r in zip(names, got, ref):
+        group = _grad_group(name)
+        scale[group] = max(scale.get(group, 0.0), float(r.abs().max()))
+        d = dots.setdefault(group, [0.0, 0.0, 0.0])
+        d[0] += float((g.double() * r.double()).sum())
+        d[1] += float((g.double() ** 2).sum())
+        d[2] += float((r.double() ** 2).sum())
+    if len(got) != len(ref):
+        raise SmokeFailure(f"{label}: {len(got)} gradients against {len(ref)}")
+    rows = []
+    for name, g, r in zip(names, got, ref):
+        err, largest = float((g - r).abs().max()), float(r.abs().max())
+        model = scale[_grad_group(name)]
+        bound = tolerances["tensor"] * largest + tolerances["model"] * model
+        rows.append((err / largest if largest > 0 else 0.0, name, err / max(model, 1e-30), err <= bound))
+    cosines = {group: d[0] / max((d[1] * d[2]) ** 0.5, 1e-300) for group, d in dots.items() if d[2] > 0}
+    by_tensor = sorted(rows, reverse=True)
+    by_model = sorted(rows, key=lambda row: row[2], reverse=True)
+    low = min(cosines, key=cosines.get)
+    print(f"{label}: the worst gradients of a tensor's largest "
+          f"{[(f'{t:.2e}', n) for t, n, _, _ in by_tensor[:5]]}; of a model's largest "
+          f"{[(f'{m:.2e}', n) for _, n, m, _ in by_model[:5]]}; the lowest model cosine {cosines[low]:.9f} ({low})")
+    failed = [row for row in by_tensor if not row[3]]
+    if failed:
+        t, n, m, _ = failed[0]
+        raise SmokeFailure(f"{label}: {len(failed)} of {len(rows)} gradients outside tensor {tolerances['tensor']} + "
+                           f"model {tolerances['model']}; the first {n}: {t:.3e} of its largest, {m:.3e} of its "
+                           "model's")
+    if not cosines[low] >= tolerances["cosine"]:
+        raise SmokeFailure(f"{label}: the gradients of {low} at a cosine of {cosines[low]:.9f} with the one process's")
+    return by_tensor[0][0], by_tensor[0][1], by_model[0][2], by_model[0][1], cosines[low], low
+
+
+def _first_loss(results_dir):
+    with open(os.path.join(results_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return next(r["loss"] for r in rows if r["step"] == 1 and "loss" in r)
+
+
+def _timing(results_dir, name, rank):
+    suffix = f".rank{rank}" if rank else ""
+    with open(os.path.join(results_dir, f"timing_{name}{suffix}.json")) as f:
+        return json.load(f)
+
+
+def _two_ranks_against_one(repo, directory, label, module, name, config_one, config_two, extra_args, names,
+                           record_steps, device="cuda"):
+    """Run `module` on two gloo ranks sharing the card and in one process;
+    hold the first step's loss and recorded gradients; per rank the steps'
+    ms, peak GB, all-reduce ms a step and launches."""
+    import torch
+
+    results = {}
+    walls = {}
+    for tag, config, ranks, env in (("two", config_two, 2, {"PE_DIST_BACKEND": "gloo"}), ("one", config_one, None, {})):
+        out = os.path.join(directory, f"19{label}_{tag}")
+        spec = {"tag": f"19{label}_{tag}", "module": module, "args": ["--config", config, *extra_args, "--device",
+                                                                        device], "record_steps": record_steps,
+                "out": out, "device": device}
+        walls[tag] = launch_processes(repo, "--rank", spec, ranks, directory, env=env)
+    two = [torch.load(os.path.join(directory, f"19{label}_two.rank{r}.pt")) for r in (0, 1)]
+    one = torch.load(os.path.join(directory, f"19{label}_one.rank0.pt"))
+    if not all(r["jax_free"] for r in two + [one]):
+        raise SmokeFailure(f"19{label}: a rank imported JAX")
+    for a, b in zip(two[0]["grads"], two[1]["grads"]):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise SmokeFailure(f"19{label}: the two ranks' all-reduced gradients differ")
+    held = []
+    for index, (got, ref) in enumerate(zip(two[0]["grads"], one["grads"])):
+        held.append(_held_gradients(f"19{label} optimizer step {index}", got, ref, names[index],
+                                    TOLERANCES_19[label]))
+    results_two = os.path.join(directory, "results", f"19{label}_two")
+    results_one = os.path.join(directory, "results", f"19{label}_one")
+    loss_two, loss_one = _first_loss(results_two), _first_loss(results_one)
+    loss_err = abs(loss_two - loss_one) / abs(loss_one)
+    if not loss_err <= TOLERANCES_19[label]["loss_rtol"]:
+        raise SmokeFailure(f"19{label}: the first step's loss {loss_two:.7e} on two ranks, {loss_one:.7e} on one")
+    ranks = []
+    for rank in (0, 1):
+        timing = _timing(results_two, name, rank)
+        steps = timing["step_seconds"]
+        reduce = timing.get("gradient_reduce_seconds", [])
+        ranks.append({"rank": rank, "step_ms": [s * 1e3 for s in steps], "peak_gb": timing.get("peak_memory_bytes", 0) / 1e9,
+                      "reduce_ms": [r * 1e3 for r in reduce], "launches": {k: v for k, v in timing["launches"].items() if v}})
+    one_timing = _timing(results_one, name, 0)
+    results.update(loss_two=loss_two, loss_one=loss_one, loss_rel_err=loss_err, ranks=ranks, wall_s=walls,
+                   one_step_ms=[s * 1e3 for s in one_timing["step_seconds"]],
+                   one_peak_gb=one_timing.get("peak_memory_bytes", 0) / 1e9,
+                   one_launches={k: v for k, v in one_timing["launches"].items() if v},
+                   gradients=[dict(zip(("tensor_rel", "tensor", "model_rel", "model_tensor", "cosine", "cosine_model"),
+                                       row)) for row in held])
+    for entry in ranks:
+        print(f"19{label} rank {entry['rank']}: steps ms {[round(t, 1) for t in entry['step_ms']]}, peak "
+              f"{entry['peak_gb']:.2f} GB, gradient all-reduce ms a step {[round(t, 1) for t in entry['reduce_ms']]}, "
+              f"launches {entry['launches']}")
+    print(f"19{label} one process at the global batch: steps ms {[round(t, 1) for t in results['one_step_ms']]}, "
+          f"peak {results['one_peak_gb']:.2f} GB, launches {results['one_launches']}")
+    print(f"19{label} two ranks vs one: the first step's loss {loss_two:.7e} vs {loss_one:.7e} ({loss_err:.2e} "
+          f"relative); gradients " + "; ".join(
+              f"optimizer step {i}: worst {w:.2e} of a tensor's largest ({n}), {m:.2e} of a model's ({mn}), the lowest "
+              f"model cosine {c:.9f} ({cm})" for i, (w, n, m, mn, c, cm) in enumerate(held))
+          + f" (bounds {TOLERANCES_19[label]}); both ranks' gradients equal bit for bit; wall s {walls}")
+    return results
+
+
+def phase19_cli(repo, directory, paths, device="cuda"):
+    """19a-19e (module docstring) on phase 16's dataset and checkpoints, on
+    `device` (the CPU for a rehearsal: gloo for 19b, the host's clock)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from playableenvironments_tpu_torch.cli.common import build_environment_model, load_yaml
+    from playableenvironments_tpu_torch.cli.generate_reconstructed_dataset import build_renderer
+    from playableenvironments_tpu_torch.cli.play import InteractiveSession
+    from playableenvironments_tpu_torch.config import ObjectIds, scene_from_dict
+    from playableenvironments_tpu_torch.eval.creators import FrameRenderer
+    from playableenvironments_tpu_torch.models.autoencoder import autoencoder_strides
+    from playableenvironments_tpu_torch.ops import fused_nerf
+    from playableenvironments_tpu_torch.parallel.mesh import create_device_mesh
+    from playableenvironments_tpu_torch.render import fast
+    from playableenvironments_tpu_torch.render.interactive import action_inputs
+    from playableenvironments_tpu_torch.render.playable_model import PlayableEnvironmentModel
+    from playableenvironments_tpu_torch.train import checkpointing as ckpt
+    from playableenvironments_tpu_torch.train.trainer_playable import PlayableTrainer, PlayableTrainingConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    results, seconds, clock = {}, {}, [time.perf_counter()]
+    data_root = paths["data_root"]
+
+    def done(part):
+        clock.append(time.perf_counter())
+        seconds[part] = round(clock[-1] - clock[-2], 1)
+
+    # ---- 19a. phase 2 on two ranks against one process ---------------------
+    sections = {"training": PHASE19_PHASE2, "training.batching": {"batch_size": PHASE19_PHASE2_BATCH}}
+    configs = {tag: phase16_config(repo, directory, f"19a_{tag}", data_root, **sections) for tag in ("one", "two")}
+    cfg = load_yaml(configs["one"])
+    names = [n for n, _ in build_environment_model(cfg, device="cpu").named_parameters()]
+    results["phase2"] = _two_ranks_against_one(repo, directory, "a", "playableenvironments_tpu_torch.cli.train",
+                                               "train", configs["one"], configs["two"], [], [names], 1, device)
+    done("19a")
+
+    # ---- 19b. one NCCL rank ---------------------------------------------------
+    out = os.path.join(directory, "19b.json")
+    launch_processes(repo, "--nccl", {"tag": "19b", "config": configs["one"], "environment": paths["environment"],
+                                      "out": out, "device": device}, 1, directory, env={"PE_MULTIHOST": "1"})
+    with open(out) as f:
+        nccl = json.load(f)
+    backend = "nccl" if device == "cuda" else "gloo"
+    if not (nccl["initialized"] and nccl["backend"] == backend and nccl["sum_of_one_equal"]):
+        raise SmokeFailure(f"19b: {nccl}")
+    results["nccl"] = nccl
+    print(f"19b one NCCL rank (NCCL {nccl['nccl']}): init_process_group and the warm-up in {nccl['init_s']:.2f} s; "
+          f"one phase-2 step's {nccl['gradients']} gradients ({nccl['elements']} values) all-reduced in "
+          f"{nccl['reduce_ms'][0]:.2f} ms (again: {nccl['reduce_ms'][1]:.2f} ms), equal to themselves bit for bit; "
+          "verify_replication passed")
+    done("19b")
+
+    # ---- 19c. phase 3 on two ranks against one process ---------------------
+    configs3 = {tag: phase16_config(repo, directory, f"19c_{tag}", data_root, playable_model_training=PHASE19_PHASE3,
+                                   **{"playable_model_training.batching": {"batch_size": PHASE19_PHASE3_BATCH}})
+                for tag in ("one", "two")}
+    cfg3 = load_yaml(configs3["one"])
+    playable = PlayableEnvironmentModel(scene_from_dict(cfg3["model"], cfg3.get("playable_model")),
+                                        with_discriminators=True, device="cpu")
+    named = list(playable.named_parameters())
+    names3 = [[n for n, _ in named if not n.startswith("discriminator")], [n for n, _ in named
+                                                                           if n.startswith("discriminator")]]
+    if float(cfg3["playable_model_training"].get("loss_weights", {}).get("gan_lambda", 0.0)) <= 0.0:
+        names3 = names3[:1]
+    results["phase3"] = _two_ranks_against_one(
+        repo, directory, "c", "playableenvironments_tpu_torch.cli.train_playable", "train_playable", configs3["one"],
+        configs3["two"], ["--environment_checkpoint", paths["environment"]], names3, len(names3), device)
+    done("19c")
+
+    # ---- 19d. the eval ray split over [cuda:0, cuda:0] ----------------------
+    renderer, dataset, env_model = build_renderer(cfg, paths["environment"], device)
+    batch = next(dataset.iterate_batches(1, shuffle=False))
+    encoding = renderer.encode(batch)
+    mesh = create_device_mesh(["cuda:0", "cuda:0"] if device == "cuda" else [device, device], data=1)
+    split_renderer = FrameRenderer(env_model, renderer.autoencoder, renderer.image_size, renderer.patch_strides,
+                                   mesh=mesh)
+    grouped = fused_nerf.fused_adain_nerf_group
+    captured = []
+
+    def capture(cfg_nerf, items):
+        outs = grouped(cfg_nerf, items)
+        captured.append((cfg_nerf, items, outs))
+        return outs
+
+    fused_nerf.fused_adain_nerf.launches = 0
+    fused_nerf.fused_adain_nerf_group = capture
+    try:
+        split = split_renderer.render(encoding)
+    finally:
+        fused_nerf.fused_adain_nerf_group = grouped
+    # (The CPU, in a rehearsal, launches no kernel: its grouped calls count.)
+    split_launches = fused_nerf.fused_adain_nerf.launches if device == "cuda" else len(captured)
+    if split_launches != mesh.rays or len(captured) != mesh.rays:
+        raise SmokeFailure(f"19d: {split_launches} B1 launches for {mesh.rays} ray slices, one grouped launch a slice "
+                           "expected")
+    b1_rows = []
+    with torch.no_grad():
+        for cfg_nerf, items, outs in captured:
+            for index, (item, (feats, alpha)) in enumerate(zip(items, outs)):
+                args = (item.encoded, item.scale0, item.bias0, item.scale1, item.bias1)
+                refs = fused_nerf.plain_adain_nerf(cfg_nerf, item.weights.packed, *args, item.samples_per_ray)
+                for field, got_out, ref_out in (("features", feats, refs[0]), ("alpha", alpha, refs[1])):
+                    scale = max(1.0, ref_out.abs().mean().item())
+                    b1_rows.append(check_close(f"19d B1 slice object {index} {field}", got_out / scale,
+                                               ref_out / scale, KERNEL_ATOL, KERNEL_RTOL, KERNEL_MEAN_ATOL)[0] * scale)
+    unsplit = renderer.render(encoding)
+    # The CPU's split frame: the same slices and budgets, the plain MLP.
+    host_model = build_renderer(cfg, paths["environment"], "cpu")[2]
+    host = FrameRenderer(host_model, host_model.autoencoder, renderer.image_size, renderer.patch_strides,
+                         mesh=create_device_mesh(["cpu", "cpu"], data=1))
+    host_split = host.render(encoding.map(lambda x: x.cpu()))
+    host_err = float((split.cpu() - host_split).abs().max())
+    if not host_err <= FRAME_ATOL:
+        raise SmokeFailure(f"19d: the card's split frame differs from the CPU's by {host_err:.3e} (bound {FRAME_ATOL})")
+    # Each slice compacts its own rays to its budget (as the JAX package's
+    # shards do), so split and whole frames agree only where no object's
+    # hits exceed a budget: the hits a slice and object, against them.
+    o, d, n, w2o, _, _, ins = fast.frame_rays(encoding, renderer.image_size, renderer.patch_strides,
+                                              env_model.focal_length_multiplier)
+    ids = ObjectIds(env_model.scene)
+    rays = d.shape[-2]
+    budgets = []
+    for obj in range(ids.objects_count):
+        om = env_model.scene.object_models[ids.model_idx_by_object_idx(obj)]
+        _, _, hit, _ = fast.object_samples(om, o.reshape(-1, 3), d.reshape(-1, rays, 3), n.reshape(-1, 3),
+                                           w2o.reshape(-1, ids.objects_count, 4, 4)[:, obj],
+                                           ins.reshape(-1, ids.objects_count)[:, obj])
+        row = {"object": obj, "ray_compaction": om.ray_compaction}
+        for label, sl in (("whole", slice(0, rays)), ("slice_0", slice(0, rays // 2)), ("slice_1", slice(rays // 2, rays))):
+            size = sl.stop - sl.start
+            budget = max(int(size * om.ray_compaction), 1) if om.ray_compaction < 1.0 else size
+            row[label] = (int(hit[:, sl].sum(-1).max()), budget)
+        budgets.append(row)
+    truncated = any(r[k][0] > r[k][1] for r in budgets for k in ("whole", "slice_0", "slice_1"))
+    whole_diff = float((split - unsplit).abs().max())
+    if not whole_diff <= FRAME_ATOL:
+        raise SmokeFailure(f"19d: the split frame differs from the whole one by {whole_diff:.3e} (bound {FRAME_ATOL}; "
+                           f"budgets cut hits: {truncated})")
+    # Without compaction no budget cuts a hit: there the split is a pure
+    # layout change, equal to the whole frame.
+    import dataclasses
+
+    full = dataclasses.replace(env_model.scene, object_models=tuple(
+        dataclasses.replace(om, ray_compaction=1.0) for om in env_model.scene.object_models))
+    env_model.scene, saved_scene = full, env_model.scene
+    try:
+        full_split = split_renderer.render(encoding)
+        full_whole = renderer.render(encoding)
+    finally:
+        env_model.scene = saved_scene
+    full_diff = float((full_split - full_whole).abs().max())
+    if not full_diff <= FRAME_ATOL:
+        raise SmokeFailure(f"19d: without compaction the split frame differs from the whole one by {full_diff:.3e}")
+    results["ray_split"] = {"launches_a_frame": split_launches, "b1_max_abs_err": max(b1_rows),
+                            "card_vs_cpu_split": host_err, "split_vs_whole": whole_diff, "budgets": budgets,
+                            "truncated": truncated, "split_vs_whole_without_compaction": full_diff}
+    print(f"19d eval ray split rays 2 over [cuda:0, cuda:0] at {renderer.image_size[1]}x{renderer.image_size[0]}: "
+          f"{split_launches} grouped B1 launches a frame (one a slice), each object held against plain_adain_nerf "
+          f"within {max(b1_rows):.3e}; the card's split frame within {host_err:.3e} of the CPU's and {whole_diff:.3e} "
+          f"of the whole frame (bound {FRAME_ATOL} each; hits / budget a slice: "
+          + "; ".join(f"object {r['object']} {r['whole']} {r['slice_0']} {r['slice_1']}" for r in budgets)
+          + f"), and with every ray_compaction 1.0 {full_diff:.3e}")
+    del host_model, host, host_split
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("19d")
+
+    # ---- 19e. serving artifacts from the CLI, loaded in a fresh process ------
+    export = {}
+    for kind, extra in (("renderer", []), ("bundle", ["--playable_checkpoint", paths["playable"]])):
+        output = os.path.join(directory, f"19e_{kind}" + (".pexp" if kind == "renderer" else ""))
+        start = time.perf_counter()
+        exported, _, _ = run_cli("playableenvironments_tpu_torch.cli.export_renderer", "--config", configs3["one"],
+                                 "--checkpoint", paths["environment"], "--output", output, *extra,
+                                 "--platforms", device)
+        export[kind] = {"paths": exported, "export_s": time.perf_counter() - start}
+    scene = env_model.scene
+    playable = PlayableEnvironmentModel(scene, with_discriminators=ckpt.has_discriminators(paths["playable"]),
+                                        device=device)
+    ckpt.restore_checkpoint(paths["playable"], PlayableTrainer(playable, PlayableTrainingConfig(),
+                                                               environment_model=env_model))
+    playable.eval()
+    frame0 = encoding.map(lambda x: x[:, :1])
+    dynamic = ids.dynamic_objects_count
+    actions = [[int(a)] * dynamic for a in PHASE16_SCRIPT.split(",")]
+    steps_inputs = [action_inputs(playable, a, device="cpu") for a in actions]
+    inputs = os.path.join(directory, "19e_inputs.pt")
+    torch.save({"encoding": frame0.map(lambda x: x.cpu()), "actions": actions,
+                "one_hots": [list(h) for h, _ in steps_inputs], "variations": [list(v) for _, v in steps_inputs]},
+               inputs)
+    served_out = os.path.join(directory, "19e_served.pt")
+    bundle = export["bundle"]["paths"]
+    launch_processes(repo, "--serve", {"tag": "19e", "renderer": export["renderer"]["paths"]["render"],
+                                       "render": bundle["render"], "step0": bundle["step0"], "step": bundle["step"],
+                                       "inputs": inputs, "out": served_out, "device": device}, None, directory)
+    served = torch.load(served_out, weights_only=False)
+    if any(m.startswith(("playableenvironments_tpu_torch.render", "playableenvironments_tpu_torch.models.nerf",
+                         "playableenvironments_tpu_torch.train")) for m in served["modules"]):
+        raise SmokeFailure(f"19e: the serving process imported model code: {served['modules']}")
+    session = InteractiveSession(scene, env_model.composer, env_model.autoencoder, playable, renderer.image_size,
+                                 autoencoder_strides(scene.autoencoder), env_model.focal_length_multiplier)
+    live = [session.start(frame0)]
+    live_encodings = []
+    for a in actions:
+        live.append(session.step(a))
+        live_encodings.append(session.encoding.map(lambda x: x.cpu()))
+    live_ms = frame_time_ms(lambda: session.render(session.encoding), device)
+    served_frames = [f[0, 0, 0].numpy() for f in served["bundle_frames"]]
+    renderer_frame = served["frames"][0][0, 0, 0].numpy()
+    bit = all(np.array_equal(a, b) for a, b in zip(served_frames, live)) and np.array_equal(renderer_frame, live[0])
+    frame_err = max(max(float(np.abs(a - b).max()) for a, b in zip(served_frames, live)),
+                    float(np.abs(renderer_frame - live[0]).max()))
+    state_err = max(float((getattr(s, k) - getattr(l, k)).abs().max()) for s, l in zip(served["encodings"], live_encodings)
+                    for k in ("object_rotations", "object_translations", "object_style", "object_deformation"))
+    if not bit and not (frame_err <= FRAME_ATOL and state_err <= 1e-4):
+        raise SmokeFailure(f"19e: served frames {frame_err:.3e} and states {state_err:.3e} from the live session's")
+    results["serve"] = {"export_s": {k: v["export_s"] for k, v in export.items()}, "load_s": served["load_s"],
+                        "frame_ms": served["frame_ms"], "live_frame_ms": live_ms, "launches": served["launches"],
+                        "bit_for_bit": bit, "frame_max_abs_err": frame_err, "state_max_abs_err": state_err,
+                        "frames": len(served_frames)}
+    held = "bit for bit" if bit else f"within {frame_err:.3e} (frames) and {state_err:.3e} (states), B1's hold"
+    print(f"19e export_renderer on phase 16's checkpoints: the renderer in {export['renderer']['export_s']:.1f} s, the "
+          f"interactive bundle in {export['bundle']['export_s']:.1f} s; a fresh process (serve and the ops module "
+          f"only) loads the four artifacts in {served['load_s']:.2f} s and plays reset + {len(actions)} steps, "
+          f"{served['launches']} B1 launches, equal to the live InteractiveSession {held}; the artifact's render "
+          f"{served['frame_ms']:.3f} ms a frame, the live path's {live_ms:.3f} ms")
+    done("19e")
+    results["seconds"] = seconds
+    print(f"19 seconds: {seconds}")
+    return results
+
+
+def phase19(repo):
+    """Phase 16's CLIs (for the dataset and checkpoints), then 19, in a
+    temporary directory it removes."""
+    with cli_directory() as directory:
+        return phase19_cli(repo, directory, phase16_cli(repo, directory)["paths"])
+
+
 def backbone_f32_entries(phase14_results):
     """The kernels line's entries of B2/B3 for f32 operands (phase 14): ms,
     plain, library and bound of one direct-ray step's four launches (two of
@@ -5123,9 +5719,16 @@ def main() -> int:
     import numpy as np
     import torch
 
+    repo = os.path.dirname(os.path.abspath(__file__))
+    drivers = {"--rank": rank_driver, "--nccl": nccl_driver, "--serve": serve_driver}
+    if len(sys.argv) == 3 and sys.argv[1] in drivers and os.path.isdir(os.path.join(repo, "playableenvironments_tpu_torch")):
+        # A process that phase 19 starts (a rank, the NCCL rank, the server);
+        # on the CPU only in a rehearsal of phase 19.
+        sys.path.insert(0, repo)
+        drivers[sys.argv[1]](sys.argv[2])
+        return 0
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: this run needs a CUDA card")
-    repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "playableenvironments_tpu_torch")):
         return fail(f"the port's package is not beside {__file__}")
     sys.path.insert(0, repo)
@@ -5161,7 +5764,7 @@ def main() -> int:
 
     done("1")
     alone = {"12": phase12_minecraft, "13": phase13, "14": phase14, "15": phase15, "16": phase16, "17": phase17,
-             "18": phase18}
+             "18": phase18, "19": phase19}
     if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in alone:
         try:
             result = alone[sys.argv[2]](repo)
@@ -5287,6 +5890,8 @@ def main() -> int:
             phase18_results = phase18_cli(repo, directory, phase16_results["paths"],
                                           phase17_results["trees"]["reconstructed"])
             done("18")
+            phase19_results = phase19_cli(repo, directory, phase16_results["paths"])
+            done("19")
     except SmokeFailure as e:
         return fail(str(e))
 
@@ -5391,6 +5996,17 @@ def main() -> int:
             if run.get("launches", {}).get(entry["name"])})
     kernels[0]["max_abs_err"] = max([kernels[0]["max_abs_err"]] + [
         hold["b1_max_abs_err"] for hold in phase17_results["holds"].values()])
+    # Phase 19: B1 a slice of the eval ray split (19d) and in the served
+    # artifacts (19e, the fresh process's count); B2-f32/B3-f32 and B4/B5 a
+    # rank of the two-rank phase-2 and phase-3 CLI runs (their timing files).
+    kernels[0]["launches_by_path"].update(eval_ray_split=phase19_results["ray_split"]["launches_a_frame"],
+                                          served_artifacts=phase19_results["serve"]["launches"])
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], phase19_results["ray_split"]["b1_max_abs_err"])
+    for entry in kernels:
+        for label, run in (("rank_phase2", phase19_results["phase2"]), ("rank_phase3", phase19_results["phase3"])):
+            counts = [rank["launches"].get(entry["name"], 0) for rank in run["ranks"]]
+            if any(counts):
+                entry["launches_by_path"][label] = counts
     kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"], phase17_results["holds"]["playability"]["b4_max_rel_err"])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5404,6 +6020,7 @@ def main() -> int:
                    "phase3_card_vs_cpu": phase3_card_vs_cpu, "phase3": phase3, "phase11": phase11, "phase12": phase12,
                    "phase13": phase13_results, "phase14": phase14_results, "phase15": phase15_results,
                    "phase16": phase16_results, "phase17": phase17_results, "phase18": phase18_results,
+                   "phase19": phase19_results,
                    "kernels": kernels,
                    "phase_seconds": phase_seconds, "ptxas": reports}, f, indent=1)
     print(f"phase seconds: {phase_seconds}")

@@ -1,17 +1,21 @@
-"""Experiment assembly from a YAML config: builders, and the training
-loop of phases 1 and 2.
+"""Experiment assembly from a YAML config: builders, the training loop of
+phases 1 and 2, and the training and evaluation meshes.
 
 Port of playableenvironments_tpu/cli/common.py (`load_yaml`,
 `with_batching_overrides`, `build_dataset`, `build_environment_model`,
 `loss_weights_from_dict`, `synthesis_training_config`, `apply_debug_flags`,
-`ProfileWindow`, `output_dirs`, `run_synthesis_training`) and of the
-phase-1 and phase-3 CLIs' trainer configurations
-(`autoencoder_training_config`, `playable_training_config`). The YAML
-schema is the JAX package's: `data`, `model`, `playable_model`, `training`,
-`playable_model_training`, `evaluation`. The port's CLIs run on one device:
-a mesh beyond one device or more than one process raises
-NotImplementedError (`require_one_device`; data parallelism is an item of
-ROADMAP's queue A).
+`ProfileWindow`, `output_dirs`, `build_training_mesh`, `build_eval_mesh`,
+`run_synthesis_training`) and of the phase-1 and phase-3 CLIs' trainer
+configurations (`autoencoder_training_config`, `playable_training_config`).
+The YAML schema is the JAX package's: `data`, `model`, `playable_model`,
+`training`, `playable_model_training`, `evaluation`.
+
+Data and ray parallelism (`training.mesh: {data, rays}`) run one process a
+device under torchrun (parallel/mesh.py): each process takes its slice of
+the global batch, the steps run inside the mesh (batch statistics, batch-
+wide loss sums and gradients over the ranks), and rank 0 logs, saves and
+evaluates; every rank restores. `evaluation.mesh` splits a frame's rays
+over the devices of one process (`build_eval_mesh`).
 """
 
 from __future__ import annotations
@@ -204,19 +208,97 @@ def autoencoder_training_config(cfg: Dict[str, Any]):
 
 
 def require_one_device(cfg: Dict[str, Any]) -> None:
-    """Raise NotImplementedError for what needs more than one device: a
-    `training.mesh` or `evaluation.mesh` beyond one device, or a run of
-    several processes (WORLD_SIZE above 1)."""
+    """Raise NotImplementedError for what needs more than one device in the
+    CLIs whose JAX counterparts take no mesh (train_detector,
+    evaluate_reconstructed_dataset): a `training.mesh` or `evaluation.mesh`
+    beyond one device, or a run of several processes (WORLD_SIZE above 1)."""
     for section in ("training", "evaluation"):
         mesh = cfg.get(section, {}).get("mesh") or {}
         if int(mesh.get("data", 1)) > 1 or int(mesh.get("rays", 1)) > 1:
             raise NotImplementedError(
-                f"{section}.mesh {mesh}: the port's CLIs run on one device; data and ray parallelism is not "
-                "ported (ROADMAP queue A, Data parallelism)")
+                f"{section}.mesh {mesh}: this CLI runs on one device, as its JAX counterpart (which takes no mesh)")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError(
-            f"WORLD_SIZE={os.environ['WORLD_SIZE']}: the port's CLIs run in one process; several processes "
-            "are not ported (ROADMAP queue A, Data parallelism)")
+            f"WORLD_SIZE={os.environ['WORLD_SIZE']}: this CLI runs in one process, as its JAX counterpart")
+
+
+def build_training_mesh(cfg: Dict[str, Any], batch_size: int, device="cuda"):
+    """The process mesh of `training.mesh: {data: N, rays: M}`, one process a
+    device (parallel.mesh.create_2d_mesh / create_mesh), with the JAX
+    package's validation: the mesh must span every process, the batch must
+    divide over the data axis. rays > 1 splits each example's sampled rays
+    over the rays axis; without the key, a data axis over every process.
+
+    :return: (mesh, is_2d)."""
+    from playableenvironments_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh_cfg = cfg.get("training", {}).get("mesh") or {}
+    rays = int(mesh_cfg.get("rays", 1))
+    data = int(mesh_cfg.get("data", 0))
+    world = mesh_lib.world_size()
+    launch = f"(launch one process a device: torchrun --nproc_per_node N; this run has {world})"
+    if rays > 1:
+        if data <= 0:
+            data = max(world // rays, 1)
+        need = data * rays
+        if need > world:
+            raise ValueError(f"training.mesh data={data} x rays={rays} needs {need} devices, only {world} "
+                             f"available {launch}")
+        if need != world:
+            raise ValueError(f"the 2D mesh must span every device: data={data} x rays={rays} = {need} != {world} "
+                             f"devices across {world} processes {launch}")
+        if batch_size % data:
+            raise ValueError(f"batch_size {batch_size} must divide over the data axis ({data}) of the 2D mesh")
+        return mesh_lib.create_2d_mesh(data, device), True
+    if data > 0:
+        if data > world:
+            raise ValueError(f"training.mesh data={data} exceeds {world} devices {launch}")
+        if data < world:
+            raise ValueError(f"training.mesh data={data} must use all {world} devices in a multi-process run "
+                             "(or be omitted)")
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} must divide over {world} devices in a multi-process run")
+    return mesh_lib.create_mesh(world, device), False
+
+
+def build_eval_mesh(cfg: Dict[str, Any], device="cuda"):
+    """The device mesh of `evaluation.mesh: {data: N, rays: M}` for full-frame
+    eval renders (the creators, play): this process renders the frame's ray
+    slices on the first data x rays of its devices (every card; the CPU is
+    one). None where unconfigured or rays <= 1."""
+    from playableenvironments_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh_cfg = cfg.get("evaluation", {}).get("mesh") or {}
+    rays = int(mesh_cfg.get("rays", 1))
+    if rays <= 1:
+        return None
+    data = max(int(mesh_cfg.get("data", 1)), 1)
+    devices = mesh_lib.local_devices(device)
+    need = data * rays
+    if need > len(devices):
+        raise ValueError(f"evaluation.mesh data={data} x rays={rays} needs {need} devices, only {len(devices)} "
+                         "available")
+    return mesh_lib.create_device_mesh(devices[:need], data=data)
+
+
+class QuietLogger:
+    """The Logger of a rank other than 0: nothing is logged (rank 0 logs)."""
+
+    def log(self, metrics, step):
+        pass
+
+    def print(self, message):
+        pass
+
+    def close(self):
+        pass
+
+
+def rank_logger(mesh, results_dir: str, run_name: str):
+    """utils.logger.Logger on rank 0, a QuietLogger on the others."""
+    from playableenvironments_tpu_torch.utils.logger import Logger
+
+    return Logger(results_dir, run_name) if mesh is None or mesh.is_main else QuietLogger()
 
 
 class _NanChecks:
@@ -363,13 +445,26 @@ class RunTimes:
     def startup_done(self):
         self.startup = time.perf_counter() - self.started
 
-    def write(self, directory: str, name: str) -> str:
+    def write(self, directory: str, name: str, mesh=None) -> str:
+        """Under a mesh of several processes, rank r > 0 writes
+        `timing_<name>.rank<r>.json`, and each file adds the rank, the mesh
+        and each step's gradient all-reduce seconds; on the card, the peak
+        memory allocated (bytes)."""
+        import torch
+
         launches = {k: v - self.launches[k] for k, v in _kernel_launches().items()}
         seconds = {"startup": self.startup, "steps": 0.0, "saves": 0.0, "evaluation": 0.0, **self.meter.summary()}
-        path = os.path.join(directory, f"timing_{name}.json")
+        record = {"seconds": seconds, "total": time.perf_counter() - self.started, "launches": launches,
+                  "step_seconds": self.step_seconds}
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            record["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        suffix = ""
+        if mesh is not None and mesh.size > 1:
+            record.update(rank=mesh.rank, mesh=mesh.shape, gradient_reduce_seconds=mesh.reduce_seconds)
+            suffix = f".rank{mesh.rank}" if mesh.rank else ""
+        path = os.path.join(directory, f"timing_{name}{suffix}.json")
         with open(path, "w") as f:
-            json.dump({"seconds": seconds, "total": time.perf_counter() - self.started, "launches": launches,
-                       "step_seconds": self.step_seconds}, f, indent=1)
+            json.dump(record, f, indent=1)
         return path
 
 
@@ -404,6 +499,7 @@ def run_training_loop(
     device="cuda",
     evaluate: Optional[Callable[[int], None]] = None,
     log_steps_per_sec: bool = False,
+    mesh=None,
 ) -> None:
     """The loop of the phase-1 and phase-2 CLIs: epochs of shuffled batches
     until `max_steps`, each step drawing from `step_streams(seed, step)`;
@@ -411,6 +507,13 @@ def run_training_loop(
     `save_freq` steps and at `max_steps`, quick saves (keep 2) under
     `<checkpoints>/quick` every `quick_save_freq` steps otherwise,
     `evaluate(step)` every `eval_freq` steps, a final save.
+
+    Under a `mesh` of several processes each step runs inside it
+    (`Mesh.activate`: this rank's slice of the step's draws, the batch
+    statistics and batch-wide sums over the ranks, the gradients averaged)
+    on this rank's batches, its metrics averaged over the ranks; only rank 0
+    logs, saves and evaluates (outside the mesh, so that no collective
+    waits on it), as the JAX loop's `is_main`.
 
     :param step_fn: (batch, rng) -> metrics, one optimization step.
     :param epoch_batches: (epoch_seed, start) -> the epoch's batches from
@@ -434,13 +537,19 @@ def run_training_loop(
     if batches_per_epoch <= 0:
         raise ValueError("the training split holds no whole batch")
     epoch, start = divmod(trainer.step, batches_per_epoch)
+    is_main = mesh is None or mesh.is_main
     times.startup_done()
     try:
         while trainer.step < max_steps:
             for batch in epoch_batches(seed + epoch, start):
                 profile.before_step(trainer.step)
                 with times.section("steps"), timer.section("step"):
-                    metrics = step_fn(batch, step_streams(seed, trainer.step, device=device))
+                    rng = step_streams(seed, trainer.step, device=device)
+                    if mesh is None:
+                        metrics = step_fn(batch, rng)
+                    else:
+                        with mesh.activate():
+                            metrics = mesh.mean_metrics(step_fn(batch, mesh.streams(rng)))
                     meter.add({k: float(v) for k, v in metrics.items()})
                 step = trainer.step
                 profile.after_step(step)
@@ -450,11 +559,13 @@ def run_training_loop(
                         logged["steps_per_sec"] = 1.0 / max(timer.summary().get("step", 1), 1e-9)
                     logger.log(logged, step)
                 with times.section("saves"):
-                    if step % save_freq == 0 or step >= max_steps:
+                    if not is_main:
+                        pass
+                    elif step % save_freq == 0 or step >= max_steps:
                         checkpointing.save_checkpoint(checkpoints_dir, trainer)
                     elif step % quick_save_freq == 0:
                         checkpointing.save_checkpoint(quick_dir, trainer, keep=2)
-                if evaluate is not None and eval_freq and step % eval_freq == 0:
+                if evaluate is not None and eval_freq and step % eval_freq == 0 and is_main:
                     with times.section("evaluation"):
                         evaluate(step)
                 if step >= max_steps:
@@ -462,8 +573,9 @@ def run_training_loop(
             epoch, start = epoch + 1, 0
     finally:
         profile.close()
-    with times.section("saves"):
-        checkpointing.save_checkpoint(checkpoints_dir, trainer)
+    if is_main:
+        with times.section("saves"):
+            checkpointing.save_checkpoint(checkpoints_dir, trainer)
 
 
 def resume_or_graft(trainer, checkpoints_dir: str, logger, autoencoder_checkpoint: str = "") -> Optional[str]:
@@ -490,24 +602,38 @@ def run_synthesis_training(cfg: Dict[str, Any], max_steps_override: Optional[int
     model seeded from `seed`, resumed from the latest checkpoint or warm
     started from `model.autoencoder.weights_filename`; with
     `training.eval_freq`, a TrainingEvaluator renders the first batch of
-    the `val` split (the training split where there is none).
+    the `val` split (the training split where there is none). Over several
+    processes (`build_training_mesh`), each takes its interleaved slice of
+    every epoch's global order (dataset.iterate_batches' process_index),
+    the state is broadcast from rank 0 after the restore, and each step's
+    rays split over `training.mesh.rays`.
     :return: the checkpoints directory."""
+    from playableenvironments_tpu_torch.parallel import mesh as mesh_lib
     from playableenvironments_tpu_torch.train.trainer_synthesis import SynthesisTrainer
-    from playableenvironments_tpu_torch.utils.logger import Logger
 
     times = times or RunTimes()
-    require_one_device(cfg)
     results_dir, checkpoints_dir = output_dirs(cfg)
-    logger = Logger(results_dir, cfg.get("logging", {}).get("run_name", "run"))
+    batch_size = int(cfg["training"]["batching"].get("batch_size", 8))
+    mesh, mesh_is_2d = build_training_mesh(cfg, batch_size, device)
+    if mesh_is_2d:
+        # The default of synthesis_training_config's samples_per_image: an
+        # omitted key is validated against the rays axis too.
+        samples = int(cfg["training"].get("samples_per_image", 144))
+        if samples % mesh.rays:
+            raise ValueError(f"training.samples_per_image {samples} must divide over the rays axis ({mesh.rays}) "
+                             "of the 2D mesh")
+    logger = rank_logger(mesh, results_dir, cfg.get("logging", {}).get("run_name", "run"))
     model = build_environment_model(cfg, device=device, seed=seed)
     train_cfg = synthesis_training_config(cfg)
     if max_steps_override:
         train_cfg = dataclasses.replace(train_cfg, max_steps=max_steps_override)
     trainer = SynthesisTrainer(model, train_cfg)
     dataset = build_dataset(cfg, "train")
-    batch_size = int(cfg["training"]["batching"].get("batch_size", 8))
+    local_batch = batch_size // mesh.data
     resume_or_graft(trainer, checkpoints_dir, logger,
                     cfg.get("model", {}).get("autoencoder", {}).get("weights_filename", ""))
+    mesh_lib.replicate(model, mesh)
+    mesh_lib.compile_barrier(trainer.train_step)
 
     evaluate = None
     if int(cfg["training"].get("eval_freq", 0)):
@@ -526,12 +652,16 @@ def run_synthesis_training(cfg: Dict[str, Any], max_steps_override: Optional[int
         def evaluate(step):
             evaluator.evaluate(eval_batch, logger, step)
 
+    def epoch_batches(epoch_seed, start):
+        return dataset.iterate_batches(local_batch, seed=epoch_seed, start=start, process_index=mesh.data_index,
+                                       process_count=mesh.data)
+
     run_training_loop(
-        trainer, lambda batch, rng: trainer.train_step(batch.to(device), rng),
-        lambda epoch_seed, start: dataset.iterate_batches(batch_size, seed=epoch_seed, start=start),
-        len(dataset) // batch_size, cfg["training"], train_cfg.max_steps, checkpoints_dir, results_dir, logger,
-        times, seed=seed, device=device, evaluate=evaluate, log_steps_per_sec=True,
+        trainer, lambda batch, rng: trainer.train_step(batch.to(device), rng), epoch_batches,
+        (len(dataset) // mesh.data) // local_batch, cfg["training"], train_cfg.max_steps, checkpoints_dir,
+        results_dir, logger, times, seed=seed, device=device, evaluate=evaluate, log_steps_per_sec=True,
+        mesh=mesh if mesh.size > 1 else None,
     )
-    times.write(results_dir, "train")
+    times.write(results_dir, "train", mesh)
     logger.close()
     return checkpoints_dir

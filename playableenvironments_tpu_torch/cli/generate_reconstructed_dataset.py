@@ -23,14 +23,16 @@ import os
 
 def build_renderer(cfg, checkpoint: str, device="cuda", seed: int = 0):
     """(FrameRenderer of the restored environment model, the test split in
-    windows of one observation, the environment model), on `device`."""
+    windows of one observation, the environment model), on `device`; with
+    `evaluation.mesh`, the renderer splits each frame's rays over its
+    devices (cli.common.build_eval_mesh)."""
     from playableenvironments_tpu_torch.cli.common import (
-        build_dataset, build_environment_model, require_one_device, with_batching_overrides,
+        build_dataset, build_environment_model, build_eval_mesh, with_batching_overrides,
     )
     from playableenvironments_tpu_torch.eval.creators import FrameRenderer
     from playableenvironments_tpu_torch.train import checkpointing
 
-    require_one_device(cfg)
+    mesh = build_eval_mesh(cfg, device)
     env_model = build_environment_model(cfg, device=device, seed=seed)
     checkpointing.restore_params(checkpoint, env_model)
     dataset = build_dataset(with_batching_overrides(cfg, observations_count=1), "test")
@@ -40,7 +42,7 @@ def build_renderer(cfg, checkpoint: str, device="cuda", seed: int = 0):
 
         strides = autoencoder_strides(env_model.scene.autoencoder)
     renderer = FrameRenderer(env_model, getattr(env_model, "autoencoder", None), dataset.videos[0].image_size(),
-                             strides)
+                             strides, mesh=mesh)
     return renderer, dataset, env_model
 
 

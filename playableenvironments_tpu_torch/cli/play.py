@@ -19,6 +19,8 @@ window (digits choose the action, q quits). It writes the frames as PNGs,
 an mp4 (skipped with a message where cv2 or its codec is missing) and a
 gif under `--output`, with the run's timing, and returns the frames. Runs
 on the card by default; without one it raises unless `--device cpu`.
+`evaluation.mesh: {data, rays}` splits each frame's rays over the
+process's cards (cli.common.build_eval_mesh).
 """
 
 from __future__ import annotations
@@ -49,13 +51,15 @@ class InteractiveSession:
         patch_strides: Optional[Sequence[int]] = None,
         focal_length_multiplier: float = 1.0,
         environment_model=None,
+        mesh=None,
     ):
         """:param composer: render.composer.SceneComposer; :param autoencoder:
         models.autoencoder.MultiresAutoencoder or None; :param playable_model:
         render.playable_model.PlayableEnvironmentModel; :param
         environment_model: render.environment_model.EnvironmentModel holding
         `composer`, needed by `initialize` only. All on one device, which is
-        where the session runs."""
+        where the session runs. :param mesh: a parallel.mesh.DeviceMesh over
+        which each frame's rays split (cli.common.build_eval_mesh)."""
         self.scene = scene
         self.composer = composer
         self.autoencoder = autoencoder
@@ -63,6 +67,7 @@ class InteractiveSession:
         self.image_size = tuple(image_size)
         self.patch_strides = list(patch_strides) if patch_strides else None
         self.focal_length_multiplier = focal_length_multiplier
+        self.mesh = mesh
         self.device = next(composer.parameters()).device
         self.object_ids = ObjectIds(scene)
         self.encoding: Optional[SceneEncoding] = None
@@ -74,7 +79,7 @@ class InteractiveSession:
 
             if environment_model.composer is not composer:
                 raise ValueError("the environment model must hold the session's composer")
-            self.renderer = FrameRenderer(environment_model, autoencoder, image_size, patch_strides)
+            self.renderer = FrameRenderer(environment_model, autoencoder, image_size, patch_strides, mesh=mesh)
 
     @classmethod
     def from_scene(
@@ -107,7 +112,7 @@ class InteractiveSession:
         return render_frame_fast(
             self.scene, self.composer, self.autoencoder, encoding, self.image_size,
             patch_strides=self.patch_strides,
-            focal_length_multiplier=self.focal_length_multiplier,
+            focal_length_multiplier=self.focal_length_multiplier, mesh=self.mesh,
         )
 
     def initialize(self, batch) -> np.ndarray:
@@ -153,7 +158,7 @@ def main() -> List[np.ndarray]:
     args = parser.parse_args()
 
     from playableenvironments_tpu_torch.cli.common import (
-        RunTimes, build_dataset, build_environment_model, load_yaml, require_one_device, with_batching_overrides,
+        RunTimes, build_dataset, build_environment_model, build_eval_mesh, load_yaml, with_batching_overrides,
     )
     from playableenvironments_tpu_torch.render.playable_model import PlayableEnvironmentModel
     from playableenvironments_tpu_torch.train import checkpointing
@@ -164,7 +169,7 @@ def main() -> List[np.ndarray]:
     times = RunTimes()
     device = resolve_device(args.device)
     cfg = load_yaml(args.config)
-    require_one_device(cfg)
+    mesh = build_eval_mesh(cfg, device)
     env_model = build_environment_model(cfg, device=device, seed=args.seed)
     checkpointing.restore_params(args.environment_checkpoint, env_model)
     playable = PlayableEnvironmentModel(
@@ -188,6 +193,7 @@ def main() -> List[np.ndarray]:
     session = InteractiveSession(
         env_model.scene, env_model.composer, getattr(env_model, "autoencoder", None), playable.eval(),
         dataset.videos[0].image_size(), strides, env_model.focal_length_multiplier, environment_model=env_model,
+        mesh=mesh,
     )
     times.startup_done()
 

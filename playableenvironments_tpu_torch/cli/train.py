@@ -5,7 +5,12 @@ Port of playableenvironments_tpu/cli/train.py:
     python -m playableenvironments_tpu_torch.cli.train --config <yaml> [--device cuda|cpu]
 
 Runs on the card by default; without one it raises unless `--device cpu`
-asks for the CPU (the kernels' plain PyTorch versions).
+asks for the CPU (the kernels' plain PyTorch versions). Data and ray
+parallelism (`training.mesh`): one process a device under torchrun, e.g.
+
+    torchrun --nproc_per_node 4 -m playableenvironments_tpu_torch.cli.train --config <yaml>
+
+(NCCL on the cards; gloo on the CPU, or named with PE_DIST_BACKEND=gloo).
 """
 
 from __future__ import annotations
@@ -24,10 +29,13 @@ def main():
     from playableenvironments_tpu_torch.cli.common import (
         RunTimes, apply_debug_flags, load_yaml, run_synthesis_training,
     )
+    from playableenvironments_tpu_torch.parallel import maybe_initialize_distributed
     from playableenvironments_tpu_torch.utils.device import resolve_device
 
     times = RunTimes()
     device = resolve_device(args.device)
+    # Several processes (torchrun), when configured; before any model is built.
+    maybe_initialize_distributed(device)
     cfg = load_yaml(args.config)
     with apply_debug_flags(cfg):
         checkpoints = run_synthesis_training(cfg, args.max_steps, args.seed, device, times)

@@ -23,7 +23,12 @@ block's steps draw from step_streams(seed, step before the block, index),
 a single step from step_streams(seed, step). The last block can carry the
 step count past `max_steps`, as the JAX loop's does. `eval_freq` runs the
 PlayableModelEvaluator. Runs on the card by default; without one it raises
-unless `--device cpu`.
+unless `--device cpu`. Over several processes (torchrun, as cli/train.py)
+the batch splits over a data axis of every process: rank 0 builds the
+encoding cache while the others wait and then load it, each rank takes its
+interleaved slice of every epoch's windows, each step runs inside the mesh
+(its draws, batch statistics, batch-wide loss sums and gradients those of
+the global batch), and rank 0 logs, saves and evaluates.
 """
 
 from __future__ import annotations
@@ -49,21 +54,21 @@ def main():
 
     from playableenvironments_tpu_torch.cli.common import (
         ProfileWindow, RunTimes, apply_debug_flags, build_dataset, build_environment_model, load_yaml,
-        output_dirs, playable_training_config, require_one_device,
+        output_dirs, playable_training_config, rank_logger,
     )
+    from playableenvironments_tpu_torch.parallel import mesh as mesh_lib
     from playableenvironments_tpu_torch.render.playable_model import PlayableEnvironmentModel
     from playableenvironments_tpu_torch.train import checkpointing
     from playableenvironments_tpu_torch.train.encoding_cache import EncodingCache, params_fingerprint
     from playableenvironments_tpu_torch.train.trainer_playable import PlayableTrainer
     from playableenvironments_tpu_torch.utils.device import resolve_device
-    from playableenvironments_tpu_torch.utils.logger import Logger
     from playableenvironments_tpu_torch.utils.meters import AverageMeter
     from playableenvironments_tpu_torch.utils.random import step_streams
 
     times = RunTimes()
     device = resolve_device(args.device)
+    mesh_lib.maybe_initialize_distributed(device)
     cfg = load_yaml(args.config)
-    require_one_device(cfg)
     if args.environment_checkpoint is None:
         raise SystemExit("--environment_checkpoint is required")
     with apply_debug_flags(cfg):
@@ -72,7 +77,9 @@ def main():
         checkpoints_dir = os.path.join(checkpoints_dir, "playable")
         quick_dir = os.path.join(checkpoints_dir, "quick")
         os.makedirs(checkpoints_dir, exist_ok=True)
-        logger = Logger(results_dir, cfg.get("logging", {}).get("run_name", "playable"))
+        # A data axis over every process (the JAX CLI's create_mesh()).
+        mesh = mesh_lib.create_mesh(device=device)
+        logger = rank_logger(mesh, results_dir, cfg.get("logging", {}).get("run_name", "playable"))
 
         env_model = build_environment_model(cfg, device=device, seed=args.seed)
         checkpointing.restore_params(args.environment_checkpoint, env_model)
@@ -88,29 +95,38 @@ def main():
 
         dataset = build_dataset({**cfg, "training": {"batching": batching}}, "train")
         batch_size = int(batching.get("batch_size", 16))
+        if batch_size % mesh.data:
+            raise ValueError(f"batch_size {batch_size} must divide over {mesh.data} devices")
+        local_batch = batch_size // mesh.data
         dataset.set_observations_count(train_cfg.observations_count_at(0))
 
         resume_from = checkpointing.latest_checkpoint_any(checkpoints_dir, quick_dir)
         if resume_from:
             checkpointing.restore_checkpoint(resume_from, trainer)
             logger.print(f"resumed from {resume_from}")
+        mesh_lib.replicate([playable, trainer.centroids, trainer.mi_matrices], mesh)
 
         # The frozen encoding is deterministic (eval mode): every frame is
         # encoded once and phase 3 trains on the cached state vectors.
         cache_path = os.path.join(checkpoints_dir, "encoding_cache.npz")
         fingerprint = params_fingerprint(env_model)
         cache = None
-        if os.path.exists(cache_path):
+        if mesh.is_main and os.path.exists(cache_path):
             try:
                 cache = EncodingCache.load(cache_path, fingerprint=fingerprint)
                 logger.print(f"loaded encoding cache from {cache_path}")
             except ValueError as stale:
                 logger.print(f"{stale}; rebuilding")
-        if cache is None:
+        if mesh.is_main and cache is None:
             cache = EncodingCache.build(trainer.encode_batch, dataset,
                                         batch_size=int(t.get("encoding_batch_size", 32)), log_fn=logger.print)
             cache.save(cache_path, fingerprint=fingerprint)
             logger.print(f"built encoding cache {cache_path}")
+        # Rank 0 builds the cache (the dominant startup cost); the others
+        # wait for it and load what it saved.
+        mesh_lib.barrier(device)
+        if cache is None:
+            cache = EncodingCache.load(cache_path, fingerprint=fingerprint)
 
         steps_per_call = max(int(t.get("steps_per_call", 8)), 1)
         meter = AverageMeter()
@@ -131,11 +147,13 @@ def main():
             if crossed(before, step, log_interval):
                 logger.log(meter.pop_all(), step)
             with times.section("saves"):
-                if crossed(before, step, save_freq) or step >= train_cfg.max_steps:
+                if not mesh.is_main:
+                    pass
+                elif crossed(before, step, save_freq) or step >= train_cfg.max_steps:
                     checkpointing.save_checkpoint(checkpoints_dir, trainer)
                 elif crossed(before, step, quick_save_freq):
                     checkpointing.save_checkpoint(quick_dir, trainer, keep=2)
-            if evaluator is not None and crossed(before, step, eval_freq):
+            if evaluator is not None and crossed(before, step, eval_freq) and mesh.is_main:
                 with times.section("evaluation"):
                     evaluator.evaluate(logger, step)
             return step
@@ -148,7 +166,9 @@ def main():
                 for index, encoding in enumerate(encodings):
                     rng = (step_streams(args.seed, before, index, device=device) if block
                            else step_streams(args.seed, before, device=device))
-                    for name, value in trainer.fused_step(encoding, rng).items():
+                    with mesh.activate():
+                        metrics = mesh.mean_metrics(trainer.fused_step(encoding, mesh.streams(rng)))
+                    for name, value in metrics.items():
                         sums[name] = sums.get(name, 0.0) + float(value)
                 meter.add({name: value / len(encodings) for name, value in sums.items()})
 
@@ -169,8 +189,9 @@ def main():
                 current_length = train_cfg.observations_count_at(trainer.step)
                 pending = []
                 stop_epoch = False
-                for encoding in cache.iterate_encoding_batches(batch_size, current_length, seed=args.seed + epoch,
-                                                               device=device):
+                for encoding in cache.iterate_encoding_batches(local_batch, current_length, seed=args.seed + epoch,
+                                                               process_index=mesh.data_index,
+                                                               process_count=mesh.data, device=device):
                     pending.append(encoding)
                     if len(pending) < steps_per_call:
                         continue
@@ -192,9 +213,10 @@ def main():
                 epoch += 1
         finally:
             profile.close()
-        with times.section("saves"):
-            checkpointing.save_checkpoint(checkpoints_dir, trainer)
-        times.write(results_dir, "train_playable")
+        if mesh.is_main:
+            with times.section("saves"):
+                checkpointing.save_checkpoint(checkpoints_dir, trainer)
+        times.write(results_dir, "train_playable", mesh)
         logger.close()
     print(f"playable training complete; checkpoints in {checkpoints_dir}")
 

@@ -53,7 +53,7 @@ class FrameRenderer:
     -> decoder, on the device the environment model lies on."""
 
     def __init__(self, model, autoencoder, image_size, patch_strides: Optional[Sequence[int]] = None,
-                 ray_tile: int = 0, use_fast: bool = True):
+                 ray_tile: int = 0, use_fast: bool = True, mesh=None):
         """:param model: render.environment_model.EnvironmentModel (the
         composer and object encoders). :param autoencoder:
         models.autoencoder.MultiresAutoencoder or None. :param image_size:
@@ -63,13 +63,20 @@ class FrameRenderer:
             of `ray_tile` rays and decode_rendered_grids, which decode with
             the model's own autoencoder. As the JAX renderer, that path
             returns the coarse pass's frames even when the scene has a fine
-            one."""
+            one.
+        :param mesh: a parallel.mesh.DeviceMesh (cli.common.build_eval_mesh)
+            over which render.fast splits each frame's rays
+            (render_rays_fast_sharded); the composed path takes none."""
+        if mesh is not None and not use_fast:
+            raise NotImplementedError("the port splits a frame's rays over a device mesh on render.fast's path "
+                                      "only (use_fast=True)")
         self.model = model
         self.autoencoder = autoencoder
         self.image_size = tuple(image_size)
         self.patch_strides = list(patch_strides) if patch_strides else None
         self.ray_tile = ray_tile
         self.use_fast = use_fast
+        self.mesh = mesh
         self.device = next(model.parameters()).device
 
     @torch.no_grad()
@@ -88,6 +95,7 @@ class FrameRenderer:
             return render_frame_fast(
                 self.model.scene, self.model.composer, self.autoencoder, encoding, self.image_size,
                 patch_strides=self.patch_strides, focal_length_multiplier=self.model.focal_length_multiplier,
+                mesh=self.mesh,
             )
         return self._render_composed(encoding)
 

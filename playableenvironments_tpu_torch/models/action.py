@@ -21,6 +21,7 @@ from playableenvironments_tpu_torch.config import AnimationModelConfig
 from playableenvironments_tpu_torch.models.dynamics import DynamicsNetwork
 from playableenvironments_tpu_torch.models.layers import MaskedBatchNorm, encode_rotation, gumbel_softmax
 from playableenvironments_tpu_torch.ops import fused_rollout as fr
+from playableenvironments_tpu_torch.parallel.mesh import global_sum
 
 
 class ActionNetwork(nn.Module):
@@ -97,7 +98,10 @@ def update_centroids(centroids: torch.Tensor, directions_distribution: torch.Ten
     means = directions_distribution[..., 0, :].reshape(-1, centroids.shape[1])
     probs = action_probabilities.reshape(-1, centroids.shape[0])
     probs = probs * validity.reshape(-1, 1).to(means.dtype)
-    estimate = (probs.t() @ means) / (probs.sum(dim=0)[:, None] + 1e-8)
+    # The whole data group's sums inside an active parallel mesh, as the JAX
+    # update sees the global batch.
+    sums = global_sum(torch.cat([probs.t() @ means, probs.sum(dim=0)[:, None]], dim=1))
+    estimate = sums[:, :-1] / (sums[:, -1:] + 1e-8)
     return (centroids * (1.0 - alpha) + estimate * alpha).detach()
 
 

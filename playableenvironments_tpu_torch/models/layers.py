@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from playableenvironments_tpu_torch.parallel import mesh as mesh_lib
+
 
 def encode_rotation(angles: torch.Tensor) -> torch.Tensor:
     """(..., k) angles -> (..., 2k) interleaved (sin, cos) pairs."""
@@ -41,7 +43,12 @@ def masked_moments(
     x: torch.Tensor, mask: Optional[torch.Tensor], dims: Tuple[int, ...]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean and biased variance over `dims`, counting only elements where
-    `mask` (x's shape without the feature axis, broadcastable) is True."""
+    `mask` (x's shape without the feature axis, broadcastable) is True.
+    Inside an active parallel mesh the sums and counts are the whole
+    group's (parallel.mesh.global_sum), as flax takes them over the global
+    batch."""
+    if mesh_lib.reduction_group() is not None:
+        return _global_masked_moments(x, mask, dims)
     if mask is None:
         mean = x.mean(dim=dims)
         return mean, ((x - mean) ** 2).mean(dim=dims)
@@ -49,6 +56,17 @@ def masked_moments(
     count = torch.clamp(m.sum(dim=dims), min=1e-6)
     mean = (x * m).sum(dim=dims) / count
     var = ((x - mean) ** 2 * m).sum(dim=dims) / count
+    return mean, var
+
+
+def _global_masked_moments(x, mask, dims):
+    """masked_moments over every rank of the reduction group: the masked
+    sum and count in one all-reduce, then the squared deviations' sum."""
+    m = (torch.ones_like(x) if mask is None else mask[..., None].expand(x.shape).to(x.dtype))
+    sums = mesh_lib.global_sum(torch.stack([(x * m).sum(dim=dims), m.sum(dim=dims)]))
+    count = torch.clamp(sums[1], min=1e-6)
+    mean = sums[0] / count
+    var = mesh_lib.global_sum(((x - mean) ** 2 * m).sum(dim=dims)) / count
     return mean, var
 
 
@@ -167,8 +185,16 @@ class BatchNorm(nn.Module):
         dtype = dtype or x.dtype
         if train:
             dims = (0, 2, 3)
-            mean = x.mean(dim=dims)
-            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            if mesh_lib.reduction_group() is not None:
+                # The moments of the whole group's batch (flax's, over the
+                # global batch): sums of x and x^2 and the count, one all-reduce.
+                count = torch.full_like(x[0, :, 0, 0], x.numel() / x.shape[1])
+                sums = mesh_lib.global_sum(torch.stack([x.sum(dim=dims), (x * x).sum(dim=dims), count]))
+                mean = sums[0] / sums[2]
+                var = torch.clamp(sums[1] / sums[2] - mean * mean, min=0.0)
+            else:
+                mean = x.mean(dim=dims)
+                var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
             _update_running(self.running_mean, mean, self.momentum)
             _update_running(self.running_var, var, self.momentum)
         else:

@@ -65,7 +65,10 @@ class AdaInNerfMLP(nn.Module):
 
     def kernel_weights(self) -> fused_nerf.NerfKernelWeights:
         """The weights packed for the kernel, rebuilt only after a parameter
-        changes (its storage or its in-place version counter)."""
+        changes (its storage or its in-place version counter); built anew
+        from the parameters while torch.export traces (fused_nerf.tracing)."""
+        if fused_nerf.is_tracing():
+            return fused_nerf.kernel_weights(self.cfg, fused_nerf.pack_nerf_params(self.cfg, self))
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
         if self._kernel_cache is None or self._kernel_cache[0] != key:
             packed = fused_nerf.pack_nerf_params(self.cfg, self)

@@ -26,6 +26,7 @@ compare against the JAX package and what the card compares the kernels with.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -58,6 +59,27 @@ _MAX_PE = 64
 _MAX_OUT = 256
 _ADAIN_MAX_OBJECTS = 16
 _MAX_WIDTH = 256  # the backbone kernels' widest layer (csrc/fused_backbone.cu)
+
+
+_TRACING = 0
+
+
+@contextlib.contextmanager
+def tracing():
+    """Inside the `with` (serve.export_function's torch.export), each NeRF
+    builds its kernel weights from its parameters in the traced graph
+    instead of taking them from its cache, which is keyed by storage
+    pointers that a traced tensor has not."""
+    global _TRACING
+    _TRACING += 1
+    try:
+        yield
+    finally:
+        _TRACING -= 1
+
+
+def is_tracing() -> bool:
+    return _TRACING > 0
 
 
 def fold_adain_stats(adain, style: torch.Tensor, eps: float = 1e-5):
@@ -357,10 +379,114 @@ def _check_item(cfg: NerfMLPConfig, item: AdaInNerfItem) -> None:
         raise ValueError(f"encoding width {pe} != the weights' {item.weights.pe}")
 
 
+def _packed_names(layers: int) -> List[str]:
+    """The order of an object's `packed` weights in the operator's list."""
+    return [n for i in range(layers) for n in (f"w{i}", f"b{i}")] + ["w_alpha", "b_alpha", "w_f0", "w_f1", "w_out",
+                                                                     "b_out"]
+
+
+class _MLPShape(NamedTuple):
+    """What plain_adain_nerf reads of a NerfMLPConfig."""
+
+    backbone_layers_count: int
+    skip_layer_idx: int
+
+
+_OP = "playableenvironments_torch::fused_adain_nerf_group"
+
+
+@torch.library.custom_op(_OP, mutates_args=(), device_types="cuda")
+def _adain_group_op(encoded: List[torch.Tensor], scale0: List[torch.Tensor], bias0: List[torch.Tensor],
+                    scale1: List[torch.Tensor], bias1: List[torch.Tensor], images: List[torch.Tensor],
+                    biases: List[torch.Tensor], packed: List[torch.Tensor], samples_per_ray: List[int],
+                    width: int, layers: int, skip: int, out_features: int) -> List[torch.Tensor]:
+    """B1 as a registered operator, so that torch.export records one node
+    for it (the ctypes launch cannot be traced): per object its (N, pe)
+    encodings, per-ray modulation, weight image and biases, and its
+    `packed` weights (2 L + 6 tensors an object, `_packed_names` order);
+    the outputs are [features_0, alpha_0, features_1, ...]. This is the
+    CUDA implementation: one kernel launch for up to 16 objects (objects
+    without points take none), walking the pair table of
+    `adain_pair_table`; each launch adds 1 to `fused_adain_nerf.launches`
+    and its objects to `fused_adain_nerf.objects`."""
+    device = encoded[0].device
+    if width not in _ADAIN_WIDTHS or any(image.numel() == 0 for image in images):
+        raise ValueError(f"layers_width {width}: the AdaIN-NeRF kernel takes {_ADAIN_WIDTHS}")
+    for group in (encoded, scale0, bias0, scale1, bias1, images, biases):
+        for t in group:
+            if t.device != device:
+                raise ValueError(f"all inputs must be on {device}, got one on {t.device}")
+    for group in (scale0, bias0, scale1, bias1):
+        for t in group:
+            if t.dtype != torch.float32:
+                raise ValueError(f"modulation must be float32, got {t.dtype}")
+    pe = encoded[0].shape[1]
+    # An operator's outputs may not alias one another: one allocation each.
+    counts = [e.shape[0] for e in encoded]
+    features = [torch.empty((n, out_features), dtype=torch.float32, device=device) for n in counts]
+    alphas = [torch.empty((n,), dtype=torch.float32, device=device) for n in counts]
+    # Objects with points; the kernel reads modulation rows with their stride
+    # (fold_adain_stats' scale and bias are column halves of one array), in
+    # aligned pairs of floats.
+    launch = [i for i, n in enumerate(counts) if n]
+    lib = _library()
+    ctas = lib.fused_adain_nerf_cluster_size()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for first in range(0, len(launch), _ADAIN_MAX_OBJECTS):
+        chunk = launch[first : first + _ADAIN_MAX_OBJECTS]
+        ptrs, ints, keep = [], [], []  # keep: the temporaries stay alive until the launch is enqueued
+        for i in chunk:
+            e = encoded[i].to(torch.bfloat16).contiguous()
+            keep.append(e)
+            ptrs.append(e.data_ptr())
+            ints += [counts[i], samples_per_ray[i]]
+            for t in (scale0[i], bias0[i], scale1[i], bias1[i]):
+                stride, ptr = t.stride(), t.data_ptr()
+                if stride[1] != 1 or stride[0] % 2 or ptr % 8:
+                    t = t.contiguous()
+                    keep.append(t)
+                    stride, ptr = t.stride(), t.data_ptr()
+                ptrs.append(ptr)
+                ints.append(stride[0])
+            ptrs += [images[i].data_ptr(), biases[i].data_ptr(), features[i].data_ptr(), alphas[i].data_ptr()]
+        table = adain_pair_table([counts[i] for i in chunk], ctas)
+        err = lib.fused_adain_nerf_group_launch(
+            len(chunk), (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
+            (ctypes.c_int * len(table))(*table), pe, width, layers, skip, out_features, stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"fused_adain_nerf kernel launch failed with CUDA error {err}")
+        fused_adain_nerf.launches += 1
+        fused_adain_nerf.objects += len(chunk)
+    return [t for pair in zip(features, alphas) for t in pair]
+
+
+@_adain_group_op.register_kernel("cpu")
+def _adain_group_cpu(encoded, scale0, bias0, scale1, bias1, images, biases, packed, samples_per_ray, width, layers,
+                     skip, out_features):
+    """The CPU implementation: plain_adain_nerf object by object."""
+    names, shape, outputs = _packed_names(layers), _MLPShape(layers, skip), []
+    for i, e in enumerate(encoded):
+        weights = dict(zip(names, packed[i * len(names) : (i + 1) * len(names)]))
+        outputs += plain_adain_nerf(shape, weights, e, scale0[i], bias0[i], scale1[i], bias1[i], samples_per_ray[i])
+    return outputs
+
+
+@_adain_group_op.register_fake
+def _adain_group_fake(encoded, scale0, bias0, scale1, bias1, images, biases, packed, samples_per_ray, width, layers,
+                      skip, out_features):
+    """The outputs' shapes: (N, out_features) features and (N,) raw alpha,
+    f32, an object."""
+    return [t for e in encoded for t in (e.new_empty((e.shape[0], out_features), dtype=torch.float32),
+                                         e.new_empty((e.shape[0],), dtype=torch.float32))]
+
+
 def fused_adain_nerf_group(cfg: NerfMLPConfig, items: Sequence[AdaInNerfItem]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """The MLP over several objects of one configuration, each with its own
     weights, encodings and modulation: [((N, output_features) f32 features,
-    (N,) f32 raw alpha)] in the order of `items`.
+    (N,) f32 raw alpha)] in the order of `items`, through the registered
+    operator `playableenvironments_torch::fused_adain_nerf_group`
+    (`_adain_group_op`).
 
     CPU tensors take `plain_adain_nerf` object by object. CUDA tensors run
     one kernel launch for up to 16 objects (objects without points take
@@ -374,65 +500,21 @@ def fused_adain_nerf_group(cfg: NerfMLPConfig, items: Sequence[AdaInNerfItem]) -
     if not items:
         return []
     device = items[0].encoded.device
-    if device.type == "cpu":
-        return [plain_adain_nerf(cfg, it.weights.packed, it.encoded, it.scale0, it.bias0, it.scale1, it.bias1,
-                                 it.samples_per_ray) for it in items]
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_adain_nerf runs on cuda or cpu tensors, not {device}")
-    if cfg.layers_width not in _ADAIN_WIDTHS or any(it.weights.image is None for it in items):
-        raise ValueError(f"layers_width {cfg.layers_width}: the AdaIN-NeRF kernel takes {_ADAIN_WIDTHS}")
-
     out_features = items[0].weights.packed["w_out"].shape[1]
-    for it in items:
-        for t in (it.encoded, it.scale0, it.bias0, it.scale1, it.bias1, it.weights.image, it.weights.biases):
-            if t.device != device:
-                raise ValueError(f"all inputs must be on {device}, got one on {t.device}")
-        for t in (it.scale0, it.bias0, it.scale1, it.bias1):
-            if t.dtype != torch.float32:
-                raise ValueError(f"modulation must be float32, got {t.dtype}")
-        if it.weights.packed["w_out"].shape[1] != out_features:
-            raise ValueError("the objects of one group must have the same output_features")
-    # One allocation per output for the whole group, split into views.
-    counts = [it.encoded.shape[0] for it in items]
-    features = torch.empty((sum(counts), out_features), dtype=torch.float32, device=device).split(counts)
-    alphas = torch.empty((sum(counts),), dtype=torch.float32, device=device).split(counts)
-    # Objects with points; the kernel reads modulation rows with their stride
-    # (fold_adain_stats' scale and bias are column halves of one array), in
-    # aligned pairs of floats.
-    launch = [i for i, n in enumerate(counts) if n]
-    lib = _library()
-    ctas = lib.fused_adain_nerf_cluster_size()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    for first in range(0, len(launch), _ADAIN_MAX_OBJECTS):
-        chunk = launch[first : first + _ADAIN_MAX_OBJECTS]
-        ptrs, ints, keep = [], [], []  # keep: the temporaries stay alive until the launch is enqueued
-        for i in chunk:
-            it = items[i]
-            encoded = it.encoded.to(torch.bfloat16).contiguous()
-            keep.append(encoded)
-            ptrs.append(encoded.data_ptr())
-            ints += [counts[i], it.samples_per_ray]
-            for t in (it.scale0, it.bias0, it.scale1, it.bias1):
-                stride, ptr = t.stride(), t.data_ptr()
-                if stride[1] != 1 or stride[0] % 2 or ptr % 8:
-                    t = t.contiguous()
-                    keep.append(t)
-                    stride, ptr = t.stride(), t.data_ptr()
-                ptrs.append(ptr)
-                ints.append(stride[0])
-            ptrs += [it.weights.image.data_ptr(), it.weights.biases.data_ptr(), features[i].data_ptr(),
-                     alphas[i].data_ptr()]
-        table = adain_pair_table([counts[i] for i in chunk], ctas)
-        err = lib.fused_adain_nerf_group_launch(
-            len(chunk), (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
-            (ctypes.c_int * len(table))(*table), items[0].weights.pe, cfg.layers_width,
-            cfg.backbone_layers_count, cfg.skip_layer_idx, out_features, stream,
-        )
-        if err != 0:
-            raise RuntimeError(f"fused_adain_nerf kernel launch failed with CUDA error {err}")
-        fused_adain_nerf.launches += 1
-        fused_adain_nerf.objects += len(chunk)
-    return list(zip(features, alphas))
+    if any(it.weights.packed["w_out"].shape[1] != out_features for it in items):
+        raise ValueError("the objects of one group must have the same output_features")
+    names = _packed_names(cfg.backbone_layers_count)
+    outputs = _adain_group_op(
+        [it.encoded for it in items], [it.scale0 for it in items], [it.bias0 for it in items],
+        [it.scale1 for it in items], [it.bias1 for it in items],
+        [it.weights.image if it.weights.image is not None else it.weights.biases.new_empty((0,)) for it in items],
+        [it.weights.biases for it in items], [it.weights.packed[n] for it in items for n in names],
+        [it.samples_per_ray for it in items], cfg.layers_width, cfg.backbone_layers_count, cfg.skip_layer_idx,
+        out_features,
+    )
+    return list(zip(outputs[0::2], outputs[1::2]))
 
 
 def fused_adain_nerf(

@@ -18,7 +18,9 @@ decode (`decode_rendered_grids`, or with the encoder's features mixed in,
 resolve rays matched by optical flow or drawn along the keypoint skeleton
 to expected surface positions. Random draws come from `rng`
 (utils.random.RngStreams). `remat` rematerializes the composer's regions
-and the decoder's blocks (utils/remat.py).
+and the decoder's blocks (utils/remat.py). Under an active parallel mesh
+with a rays axis, the sampled rays split over it
+(`render_sampled_rays_split`).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from playableenvironments_tpu_torch.models.autoencoder import (
     features_count_by_layer,
 )
 from playableenvironments_tpu_torch.models.layers import initialize_
+from playableenvironments_tpu_torch.parallel import mesh as mesh_lib
 from playableenvironments_tpu_torch.models.object_encoders import object_encoder
 from playableenvironments_tpu_torch.models.parameter_encoders import (
     ObjectParametersEncoderV4,
@@ -312,6 +315,28 @@ class EnvironmentModel(nn.Module):
             use_running_average=not train, compute_divergence=compute_divergence, remat=remat,
         )
 
+    def render_sampled_rays_split(self, encoding: SceneEncoding, sampled_directions: torch.Tensor,
+                                  rng=None, **kwargs) -> Dict:
+        """render_sampled_rays, with the ray axis split over the rays axis
+        of an active parallel mesh (the JAX package's `constrain_ray_axis`
+        on the sampled directions, environment_model.py:607 and :759): this
+        rank renders its slice of the rays, drawing its slice of the whole
+        render's draws (parallel.mesh.RaySliceStreams), with the NeRFs'
+        statistics over every rank, and the per-ray outputs are gathered
+        back along the ray axis, differentiably. Without such a mesh it is
+        render_sampled_rays."""
+        total = sampled_directions.shape[-2]
+        split = mesh_lib.ray_split(total)
+        if split is None:
+            return self.render_sampled_rays(encoding, sampled_directions, rng=rng, **kwargs)
+        start, stop = split
+        axis = sampled_directions.dim() - 2
+        if rng is not None:
+            rng = mesh_lib.RaySliceStreams(rng, start, stop, total, axis)
+        with mesh_lib.ray_split_region():
+            results = self.render_sampled_rays(encoding, sampled_directions[..., start:stop, :], rng=rng, **kwargs)
+        return mesh_lib.gather_rays(results, axis, start, stop, total)
+
     def forward_from_observations(
         self,
         observations: torch.Tensor,
@@ -371,7 +396,7 @@ class EnvironmentModel(nn.Module):
             sampled = sampling.sample_rays_uniform(ray_directions, observations, indices)
         sampled_directions, sampled_observations, sampled_positions = sampled
 
-        results = self.render_sampled_rays(
+        results = self.render_sampled_rays_split(
             encoding, sampled_directions, perturb=perturb, rng=rng, step=step,
             canonical_pose=canonical_pose, train=train, compute_divergence=compute_divergence, remat=remat,
         )
@@ -447,8 +472,8 @@ class EnvironmentModel(nn.Module):
                 n, 2).expand(sampled_directions.shape[:-1] + (2,))
 
         def render(directions):
-            return self.render_sampled_rays(encoding, directions, perturb=perturb, rng=rng, step=step,
-                                            canonical_pose=canonical_pose, train=train)
+            return self.render_sampled_rays_split(encoding, directions, perturb=perturb, rng=rng, step=step,
+                                                  canonical_pose=canonical_pose, train=train)
 
         with torch.set_grad_enabled(train and torch.is_grad_enabled()):
             total = sampled_directions.shape[-2]

@@ -4,7 +4,8 @@ configuration), sort-free compositing across objects, and the
 multiresolution decode.
 
 Port of playableenvironments_tpu/render/fast.py (`_bender_displacements`,
-`render_rays_fast`, `render_frame_fast`), single device. Semantics match the
+`render_rays_fast`, `render_frame_fast`, and `_render_rays_fast_sharded`
+as `render_rays_fast_sharded`: the eval ray split over a device mesh). Semantics match the
 JAX function step by step, including the stable hits-first compaction and
 its truncation at the budget, the `big` / 1e10 sentinels and the log-space
 1 - alpha. The skybox runs its MLP once per ray, outside the kernel groups;
@@ -15,7 +16,9 @@ no longer sorted in t and their successors come from a masked minimum.
 
 from __future__ import annotations
 
+import copy
 import math
+import weakref
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -436,6 +439,104 @@ def _integrals(packed, features_count, lead, rays, disp_divisor=None) -> Dict:
     }
 
 
+_REPLICAS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _composer_on(composer, device: torch.device):
+    """`composer` where it lies on `device`, else a copy of it there, made
+    again after any of its parameters changes."""
+    if next(composer.parameters()).device == device:
+        return composer
+    key = tuple((p.data_ptr(), p._version) for p in composer.parameters())
+    replicas = _REPLICAS.setdefault(composer, {})
+    if device not in replicas or replicas[device][0] != key:
+        replicas[device] = (key, copy.deepcopy(composer).to(device))
+    return replicas[device][1]
+
+
+def _map_results(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_results(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _concat_results(trees, lead_ndim: int, axis_of_batch: bool):
+    """Leaf-wise concatenation of render_rays_fast results: along the batch
+    axis, or along the ray axis, which follows the `lead_ndim` leading axes
+    in every leaf ((..., rays, F) and (..., rays))."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _concat_results([t[k] for t in trees], lead_ndim, axis_of_batch) for k in first}
+    return torch.cat(trees, dim=0 if axis_of_batch else lead_ndim)
+
+
+@torch.no_grad()
+def render_rays_fast_sharded(
+    mesh,
+    scene: SceneConfig,
+    composer,
+    ray_origins: torch.Tensor,
+    ray_directions: torch.Tensor,
+    focal_normals: torch.Tensor,
+    w2o_matrices: torch.Tensor,
+    style: torch.Tensor,
+    deformation: torch.Tensor,
+    object_in_scene: torch.Tensor,
+    step=0,
+) -> Dict:
+    """render_rays_fast over a parallel.mesh.DeviceMesh (data, rays), in one
+    process: the port of the JAX package's `_render_rays_fast_sharded`
+    (render/fast.py:560-673), whose shard_map runs the fused kernel on each
+    device's ray slice. Here ray slice k of batch rows d renders on
+    `mesh.device(d, k)` (one grouped B1 launch a slice on the card; the
+    composer copied to a device it does not lie on), and the per-ray
+    outputs are concatenated on the rays' device. The ray axis is padded to
+    a multiple of `rays` with unit-z rays, which render ordinary values
+    that are cut off. A batch that does not divide the data axis is not
+    split over it, with the JAX package's warning (JAX computes it on every
+    data row; here the first row's devices render it once).
+
+    :param ray_origins...: as render_rays_fast, leading dims (B, ...).
+    """
+    rays_size = mesh.rays
+    batch = ray_directions.shape[0]
+    split_data = mesh.data > 1 and batch % mesh.data == 0
+    if mesh.data > 1 and not split_data:
+        import warnings
+
+        warnings.warn(
+            f"render_rays_fast_sharded: batch {batch} does not divide the mesh data axis ({mesh.data}); the batch "
+            "is replicated on every data row (wasted compute). Size the eval batch to the data axis or set "
+            "evaluation.mesh data: 1.",
+            stacklevel=2,
+        )
+    home = ray_directions.device
+    rays = ray_directions.shape[-2]
+    pad = (-rays) % rays_size
+    if pad:
+        filler = torch.zeros(ray_directions.shape[:-2] + (pad, 3), dtype=ray_directions.dtype, device=home)
+        filler[..., 2] = 1.0
+        ray_directions = torch.cat([ray_directions, filler], dim=-2)
+    per_slice = ray_directions.shape[-2] // rays_size
+    lead_ndim = ray_directions.dim() - 2
+    local = batch // mesh.data if split_data else batch
+    row_results = []
+    for d in range(mesh.data if split_data else 1):
+        rows = slice(d * local, (d + 1) * local)
+        slices = []
+        for k in range(rays_size):
+            device = mesh.device(d, k)
+            args = [x[rows].to(device) for x in (ray_origins, ray_directions[..., k * per_slice:(k + 1) * per_slice, :],
+                                                 focal_normals, w2o_matrices, style, deformation, object_in_scene)]
+            out = render_rays_fast(scene, _composer_on(composer, device), *args, step=step)
+            slices.append(_map_results(lambda x: x.to(home), out))
+        row_results.append(_concat_results(slices, lead_ndim, axis_of_batch=False))
+    results = _concat_results(row_results, lead_ndim, axis_of_batch=True)
+    if pad:
+        results = _map_results(lambda x: x[..., :rays, :] if x.dim() == lead_ndim + 2 else x[..., :rays], results)
+    return results
+
+
 def frame_rays(
     encoding,
     image_size: Tuple[int, int],
@@ -490,10 +591,13 @@ def render_frame_fast(
     patch_strides: Optional[Sequence[int]] = None,
     focal_length_multiplier: float = 1.0,
     step=0,
+    mesh=None,
 ) -> torch.Tensor:
     """Full-frame eval render: camera rays, strided grids, render_rays_fast,
     then the multiresolution decode (or bilinear resize / raw features
-    without an autoencoder).
+    without an autoencoder). With a parallel.mesh.DeviceMesh `mesh` (the
+    JAX function's ambient (data, rays) mesh), the rays render through
+    render_rays_fast_sharded.
 
     :param composer: render.composer.SceneComposer.
     :param autoencoder: models.autoencoder.MultiresAutoencoder, or None.
@@ -502,11 +606,11 @@ def render_frame_fast(
     :return: (B, T, C, H, W, 3-or-F) frames clipped to [0, 1].
     """
     height, width = image_size
-    results = render_rays_fast(
-        scene, composer,
-        *frame_rays(encoding, image_size, patch_strides, focal_length_multiplier),
-        step=step,
-    )
+    inputs = frame_rays(encoding, image_size, patch_strides, focal_length_multiplier)
+    if mesh is not None:
+        results = render_rays_fast_sharded(mesh, scene, composer, *inputs, step=step)
+    else:
+        results = render_rays_fast(scene, composer, *inputs, step=step)
     features = results["coarse"]["global"]["integrated_features"]
 
     if autoencoder is not None and patch_strides:

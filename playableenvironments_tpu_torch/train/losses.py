@@ -6,6 +6,13 @@ losses of the decoder path and of phase 1 (`image_reconstruction_loss`,
 `spatial_kl_gaussian`) and its phase-3 losses: the Gaussian KL, the action
 entropy, the EMA-smoothed mutual information, the GAN objectives and ACMV;
 and phase 2's consistency losses (pose, keypoint, keypoint opacity).
+
+Inside an active parallel mesh (parallel/mesh.py) every sum over the batch
+that is not a mean of equal-sized rank means (the masked means, the
+per-object box means, the joint action probabilities and ACMV's moments)
+is the whole data group's (`global_sum`), as the JAX losses take them over
+the global batch; plain means stay per rank and are averaged with the
+gradients.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from playableenvironments_tpu_torch.core.transforms3d import rotation_x, rotation_y, rotation_z
+from playableenvironments_tpu_torch.parallel.mesh import global_sum, reduction_group
 
 EPS = sys.float_info.epsilon
 
@@ -26,6 +34,9 @@ def masked_mean(values: torch.Tensor, mask: Optional[torch.Tensor], eps: float =
     if mask is None:
         return values.mean()
     mask = mask.expand(values.shape).to(values.dtype)
+    if reduction_group() is not None:
+        sums = global_sum(torch.stack([(values * mask).sum(), mask.sum()]))
+        return sums[0] / (sums[1] + eps)
     return (values * mask).sum() / (mask.sum() + eps)
 
 
@@ -78,6 +89,10 @@ def bounding_box_distance_loss(
     sq = torch.sum((bounding_boxes - reconstructed_boxes) ** 2, dim=-1)
     mask = validity.to(sq.dtype)
     dims = tuple(range(sq.dim() - 1))
+    if reduction_group() is not None:
+        sums = global_sum(torch.stack([(sq * mask).sum(dim=dims), mask.sum(dim=dims)]))
+        per_object = sums[0] / (sums[1] + 1e-8)
+        return per_object.mean(), per_object
     per_object = (sq * mask).sum(dim=dims) / (mask.sum(dim=dims) + 1e-8)
     return per_object.mean(), per_object
 
@@ -129,7 +144,7 @@ def joint_probability_matrix(distribution_1: torch.Tensor, distribution_2: torch
     """Symmetrized, normalized (dim, dim) joint probability of paired
     categorical samples."""
     dim = distribution_1.shape[-1]
-    p = distribution_1.reshape(-1, dim).t() @ distribution_2.reshape(-1, dim)
+    p = global_sum(distribution_1.reshape(-1, dim).t() @ distribution_2.reshape(-1, dim))
     p = (p + p.t()) / 2.0
     return p / p.sum()
 
@@ -209,10 +224,30 @@ def acmv_loss(movements: torch.Tensor, actions: torch.Tensor, eps: float = 1e-4)
     actions_count) probabilities."""
     m = movements.reshape(-1, movements.shape[-1])
     a = actions.reshape(-1, actions.shape[-1])
+    if reduction_group() is not None:
+        return _global_acmv(m, a, eps)
     n = m.shape[0]
     action_mass = a.sum(dim=0)[:, None]
     action_means = (a.t() @ m) / (action_mass + eps)
     sq = (m[:, None, :] - action_means[None]) ** 2
     numerator = torch.mean(torch.sum(sq * a[..., None], dim=(0, 1))) / n
     denominator = torch.mean(m.var(dim=0, unbiased=False))
+    return numerator / (denominator + eps)
+
+
+def _global_acmv(m: torch.Tensor, a: torch.Tensor, eps: float) -> torch.Tensor:
+    """acmv_loss over the whole data group's rows (m (n, dim), a (n, A)):
+    the counts, action masses, action-weighted and plain movement sums in
+    one all-reduce, the squared deviations' sums in a second."""
+    dim, actions = m.shape[1], a.shape[1]
+    first = global_sum(torch.cat([m.new_full((1,), m.shape[0]), a.sum(dim=0), (a.t() @ m).reshape(-1),
+                                  m.sum(dim=0)]))
+    n = first[0]
+    action_mass = first[1 : 1 + actions][:, None]
+    action_means = first[1 + actions : 1 + actions + actions * dim].reshape(actions, dim) / (action_mass + eps)
+    mean = first[1 + actions + actions * dim :] / n
+    sq = (m[:, None, :] - action_means[None]) ** 2
+    second = global_sum(torch.cat([torch.sum(sq * a[..., None], dim=(0, 1)), ((m - mean) ** 2).sum(dim=0)]))
+    numerator = torch.mean(second[:dim]) / n
+    denominator = torch.mean(second[dim:] / n)
     return numerator / (denominator + eps)

@@ -8,6 +8,8 @@ freeze steps that hold a group's rate at 0. The JAX TrainState's parameters
 and batch statistics are the modules' own; its step count is the
 optimizer's. An explicit parameter subset gives the masked optimizers of
 the phase-3 trainer (generator and discriminator, each with its own count).
+Inside an active parallel mesh, `step()` first averages the gradients over
+the ranks (parallel.mesh.reduce_gradients).
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 from torch import nn
+
+from playableenvironments_tpu_torch.parallel import mesh as mesh_lib
 
 
 class Optimizer:
@@ -78,6 +82,11 @@ class Optimizer:
         for param in self.parameters:
             if param.grad is None:
                 param.grad = torch.zeros_like(param)
+        mesh = mesh_lib.active_mesh()
+        if mesh is not None:
+            # Data parallelism: the gradients of the global batch, averaged
+            # over the ranks, as XLA's psum gives the JAX step.
+            mesh_lib.reduce_gradients(self.parameters, mesh)
         for group in self.optimizer.param_groups:
             group["lr"] = self.learning_rate(group)
         self.optimizer.step()

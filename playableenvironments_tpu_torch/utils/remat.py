@@ -15,7 +15,10 @@ Two rules keep a recompute equal to the forward it replays:
   restores the global generators, not the explicit ones of
   utils/random.py::RngStreams);
 - the running statistics of the norms are updated by the first run only
-  (models/layers.py::frozen_running_statistics).
+  (models/layers.py::frozen_running_statistics);
+- under a parallel mesh, the batch-wide sums reduce over the group of the
+  first run (parallel/mesh.py::restored_scope: the recompute runs in the
+  backward, outside the forward's ray-split region).
 A region whose forward takes a derivative itself (the bender's Hutchinson
 divergence) runs as a plain region: the selective policy cannot replay a
 backward taken inside it.
@@ -29,6 +32,7 @@ import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from playableenvironments_tpu_torch.models.layers import frozen_running_statistics
+from playableenvironments_tpu_torch.parallel import mesh as mesh_lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,12 +58,13 @@ def checkpointed(fn, *args, selective: bool = True):
     if not torch.is_grad_enabled():
         return fn(*args)
     runs = [0]
+    scope = mesh_lib.reduction_scope()
 
     def body(*inner):
         runs[0] += 1
         if runs[0] == 1:
             return fn(*inner)
-        with frozen_running_statistics():
+        with frozen_running_statistics(), mesh_lib.restored_scope(scope):
             return fn(*inner)
 
     if selective:

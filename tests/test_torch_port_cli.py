@@ -23,8 +23,8 @@ frames at 16x24):
   quick save at 3; a second run reloads the encoding cache, a run on other
   frozen weights rebuilds it;
 - `play --script 0,1,2`: 4 frames, a gif and an mp4;
-- options the port does not take raise NotImplementedError, and every CLI
-  raises without a card unless `--device cpu` is given.
+- meshes beyond the run's processes or devices raise ValueError, and every
+  CLI raises without a card unless `--device cpu` is given.
 Exact checks (file names, steps, bit-for-bit states); no tolerance.
 """
 
@@ -251,18 +251,25 @@ def test_play_cli_writes_frames_gif_and_mp4(workdir, phase2, phase3):
 
 @pytest.mark.parametrize("module", ["train", "train_autoencoder", "train_playable", "play"])
 def test_options_the_port_does_not_take_raise(workdir, module, monkeypatch):
-    """A training or evaluation mesh beyond one device, and a run of several
-    processes (steps_per_call's multi-process blocks among them), name the
-    ROADMAP item."""
+    """A mesh larger than what the run has raises ValueError, as the JAX
+    package's builders do: `training.mesh` beyond the processes (one a
+    device, named with torchrun) and `evaluation.mesh` beyond the devices
+    of one process (the CPU is one). A run of several processes
+    (WORLD_SIZE above 1) without torchrun's rendezvous variables raises
+    ValueError naming torchrun (the training CLIs; play runs in one
+    process, as the JAX CLI)."""
     args = ["--environment_checkpoint", "x", "--playable_checkpoint", "x"] if module == "play" else (
         ["--environment_checkpoint", "x"] if module == "train_playable" else [])
-    for section in ("training", "evaluation"):
+    section = "evaluation" if module == "play" else "training"
+    if module in ("train", "play"):
         cfg = {**workdir["cfg"], section: {**workdir["cfg"].get(section, {}), "mesh": {"data": 1, "rays": 2}}}
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A, Data parallelism"):
+        match = "torchrun" if module == "train" else "needs 2 devices, only 1 available"
+        with pytest.raises(ValueError, match=match):
             run_cli(module, "--config", write_config(workdir, "mesh", cfg), *args, "--device", "cpu")
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, Data parallelism"):
-        run_cli(module, "--config", write_config(workdir, "processes", workdir["cfg"]), *args, "--device", "cpu")
+    if module != "play":
+        monkeypatch.setenv("WORLD_SIZE", "2")
+        with pytest.raises(ValueError, match="torchrun"):
+            run_cli(module, "--config", write_config(workdir, "processes", workdir["cfg"]), *args, "--device", "cpu")
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal where no card is present")

@@ -167,13 +167,14 @@ def test_strided_grid_sampling(rng):
 
 def _port_sources():
     root = REPO / "playableenvironments_tpu_torch"
-    return sorted(root.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tests" / "torch_port_reference_layout.py"]
+    return sorted(root.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "tests" / "torch_port_reference_layout.py",
+                                         REPO / "tests" / "torch_port_ranks.py"]
 
 
 def test_port_imports_no_jax():
-    """No file of the port, nor chip_smoke.py or the reference-layout helper
-    it imports, imports jax, flax or the JAX package (importlib and
-    __import__ by name included)."""
+    """No file of the port, nor chip_smoke.py, the reference-layout helper
+    it imports or the multi-process tests' rank script, imports jax, flax or
+    the JAX package (importlib and __import__ by name included)."""
     banned = ("jax", "flax", "playableenvironments_tpu")
     offenders = []
     for path in _port_sources():
@@ -211,7 +212,8 @@ def test_port_imports_no_jax():
                    "cli/evaluate_reconstructed_playability_dataset.py", "cli/evaluate_fvd_reconstructed_dataset.py",
                    "cli/fid.py", "models/detector.py", "train/trainer_detector.py", "cli/train_detector.py",
                    "eval/i3d.py", "compat/metric_weights.py", "compat/weight_validation.py",
-                   "cli/validate_metric_weights.py"):
+                   "cli/validate_metric_weights.py", "parallel/mesh.py", "parallel/__init__.py", "serve.py",
+                   "cli/export_renderer.py"):
         assert f"playableenvironments_tpu_torch/{module}" in names, module
     assert len(names) > 30
     assert not offenders, offenders
