@@ -194,8 +194,9 @@ Phases, each fatal on failure:
    backend): init_process_group, one phase-2 step's gradients all-reduced,
    verify_replication; (c) phase 3 through cli/train_playable.py the same
    way (2 steps, B4/B5 a rank); (d) the eval ray split, rays 2 over
-   [cuda:0, cuda:0]: one B1 launch a slice, each held against its plain
-   version, the split frame card vs CPU and against the whole frame within
+   [cuda:0, cuda:0]: one B1 launch a slice, the frame's rows of each
+   object over both slices held against the plain version by phase 17's
+   per-frame hold (with the f64 ratio), the split frame card vs CPU and against the whole frame within
    FRAME_ATOL (each slice compacts its own rays, so the hits a budget cuts
    differ; bit for bit with every ray_compaction 1.0); (e) cli/export_renderer on the
    checkpoints (the renderer and the interactive bundle, on cuda), loaded
@@ -4510,14 +4511,14 @@ def phase17_hold_b1(label, record, frames):
                 from_f64["plain"] = max(from_f64["plain"], (ref.double() - r64).abs().max().item())
             for name, got, ref in (("features", feats, refs[0]), ("alpha", alpha, refs[1])):
                 if ref.shape[0] % frames:
-                    raise SmokeFailure(f"17 {label} B1 object {index}: {ref.shape[0]} rows for {frames} frames")
+                    raise SmokeFailure(f"{label} B1 object {index}: {ref.shape[0]} rows for {frames} frames")
                 for frame, (g, r) in enumerate(zip(got.chunk(frames), ref.chunk(frames))):
                     scale = max(1.0, r.abs().mean().item())
-                    err = check_close(f"17 {label} B1 object {index} {name} frame {frame} (over {scale:.3f})",
+                    err = check_close(f"{label} B1 object {index} {name} frame {frame} (over {scale:.3f})",
                                       g / scale, r / scale, KERNEL_ATOL, KERNEL_RTOL, KERNEL_MEAN_ATOL)
                     worst = max(worst, err[0] * scale)
     if not from_f64["kernel"] <= PHASE17_B1_F64_RATIO * from_f64["plain"]:
-        raise SmokeFailure(f"17 {label} B1: the kernel {from_f64['kernel']:.3e} from the f64 sums, over "
+        raise SmokeFailure(f"{label} B1: the kernel {from_f64['kernel']:.3e} from the f64 sums, over "
                            f"{PHASE17_B1_F64_RATIO} times the plain version's {from_f64['plain']:.3e}")
     return worst, sum(item.encoded.shape[0] for item in items), from_f64
 
@@ -4607,7 +4608,7 @@ def phase17_cli(repo, directory, paths, devices=("cuda", "cpu")):
             # observations, or one window of 4.
             (holds[name]["b1_max_abs_err"], holds[name]["b1_points"],
              holds[name]["b1_from_f64"]) = phase17_hold_b1(
-                name, recorder.b1, recorder.frames.shape[0] * recorder.frames.shape[1] * recorder.frames.shape[2])
+                f"17 {name}", recorder.b1, recorder.frames.shape[0] * recorder.frames.shape[1] * recorder.frames.shape[2])
             if name == "playability":
                 holds[name]["b4_max_rel_err"] = phase17_hold_b4(recorder.b4)
         launches = {k: v for k, v in t["launches"].items() if v}
@@ -4990,8 +4991,8 @@ PHASE19_TIMEOUT = 900
 # its model's largest (a bias before a batch norm has a noise-only
 # gradient, 1e-9 of its model's), each model's gradients together to a
 # cosine of `cosine` with the one process's, the loss to `loss_rtol`.
-# Measured (my chip run 2, PR 16; NVIDIA H100 80GB HBM3, 700.00 W): phase
-# 2's worst 1.25e-2 of a model's largest, in the object encoders (their
+# Measured on one H100 (NVIDIA H100 80GB HBM3, 700.00 W): phase 2's
+# worst 1.25e-2 of a model's largest, in the object encoders (their
 # batch norms over 8 crops amplify the order's f32 noise, as on the CPU,
 # where the same decoder-path step reads 5.5e-3 of the model's and 2.5e-2
 # of a tensor's largest), the loss 1.0e-7 relative; phase 3's worst
@@ -5397,16 +5398,25 @@ def phase19_cli(repo, directory, paths, device="cuda"):
     if split_launches != mesh.rays or len(captured) != mesh.rays:
         raise SmokeFailure(f"19d: {split_launches} B1 launches for {mesh.rays} ray slices, one grouped launch a slice "
                            "expected")
-    b1_rows = []
+    # B1's per-frame hold (phase17_hold_b1) on the frame's rows of each
+    # object, which the slices' launches share out: every element at the
+    # kernel bounds in the frame's unit, the mean over the frame's rows, and
+    # the kernel no further from the f64 sums than PHASE17_B1_F64_RATIO times
+    # the plain version. A slice's own mean is no unit: on phase 16's
+    # trained weights some 3% of an object's rows carry a flipped bf16
+    # rounding, and one slice can hold more of them than the other
+    # (scripts/check_b1_split.py: on an NVIDIA H100 80GB HBM3 at 700.00 W,
+    # a frame's mean read at most 8.0e-5 of the unit, a slice's up to
+    # 1.05e-4).
+    launched = [items for _, items, _ in captured]
+    if any(len(items) != len(launched[0]) or any(a.weights is not b.weights for a, b in zip(items, launched[0]))
+           for items in launched):
+        raise SmokeFailure("19d: the slices' B1 launches differ in their objects")
+    frame_items = [fused_nerf.AdaInNerfItem(parts[0].weights, *(torch.cat([getattr(p, k) for p in parts]) for k in (
+        "encoded", "scale0", "bias0", "scale1", "bias1")), parts[0].samples_per_ray) for parts in zip(*launched)]
+    frame_outs = [tuple(torch.cat(field) for field in zip(*parts)) for parts in zip(*(outs for _, _, outs in captured))]
     with torch.no_grad():
-        for cfg_nerf, items, outs in captured:
-            for index, (item, (feats, alpha)) in enumerate(zip(items, outs)):
-                args = (item.encoded, item.scale0, item.bias0, item.scale1, item.bias1)
-                refs = fused_nerf.plain_adain_nerf(cfg_nerf, item.weights.packed, *args, item.samples_per_ray)
-                for field, got_out, ref_out in (("features", feats, refs[0]), ("alpha", alpha, refs[1])):
-                    scale = max(1.0, ref_out.abs().mean().item())
-                    b1_rows.append(check_close(f"19d B1 slice object {index} {field}", got_out / scale,
-                                               ref_out / scale, KERNEL_ATOL, KERNEL_RTOL, KERNEL_MEAN_ATOL)[0] * scale)
+        b1_err, b1_points, b1_from_f64 = phase17_hold_b1("19d split frame", (captured[0][0], frame_items, frame_outs), 1)
     unsplit = renderer.render(encoding)
     # The CPU's split frame: the same slices and budgets, the plain MLP.
     host_model = build_renderer(cfg, paths["environment"], "cpu")[2]
@@ -5455,12 +5465,14 @@ def phase19_cli(repo, directory, paths, device="cuda"):
     full_diff = float((full_split - full_whole).abs().max())
     if not full_diff <= FRAME_ATOL:
         raise SmokeFailure(f"19d: without compaction the split frame differs from the whole one by {full_diff:.3e}")
-    results["ray_split"] = {"launches_a_frame": split_launches, "b1_max_abs_err": max(b1_rows),
+    results["ray_split"] = {"launches_a_frame": split_launches, "b1_max_abs_err": b1_err, "b1_points": b1_points,
+                            "b1_from_f64": b1_from_f64,
                             "card_vs_cpu_split": host_err, "split_vs_whole": whole_diff, "budgets": budgets,
                             "truncated": truncated, "split_vs_whole_without_compaction": full_diff}
     print(f"19d eval ray split rays 2 over [cuda:0, cuda:0] at {renderer.image_size[1]}x{renderer.image_size[0]}: "
-          f"{split_launches} grouped B1 launches a frame (one a slice), each object held against plain_adain_nerf "
-          f"within {max(b1_rows):.3e}; the card's split frame within {host_err:.3e} of the CPU's and {whole_diff:.3e} "
+          f"{split_launches} grouped B1 launches a frame (one a slice), the frame's {b1_points} B1 points held "
+          f"against plain_adain_nerf within {b1_err:.3e} (kernel and plain {b1_from_f64['kernel']:.3e} and "
+          f"{b1_from_f64['plain']:.3e} from the f64 sums); the card's split frame within {host_err:.3e} of the CPU's and {whole_diff:.3e} "
           f"of the whole frame (bound {FRAME_ATOL} each; hits / budget a slice: "
           + "; ".join(f"object {r['object']} {r['whole']} {r['slice_0']} {r['slice_1']}" for r in budgets)
           + f"), and with every ray_compaction 1.0 {full_diff:.3e}")
