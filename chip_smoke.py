@@ -9,7 +9,8 @@ CLIs with their evaluators and a reference checkpoint's import, and the
 paper's evaluation protocol (the creators, evaluators and fid, the player
 detector, LPIPS, I3D and the metric-weight validation) from the command
 line, then data and ray parallelism across ranks and the serving
-artifacts.
+artifacts, and last the narrow widths of configs/synthetic_smoke.yaml, the
+acquisition pipeline, drawing and the scene viewer.
 
     python3 chip_smoke.py
 
@@ -167,10 +168,12 @@ Phases, each fatal on failure:
    creator (also: the kernel no further than PHASE17_B1_F64_RATIO times
    the plain version from the f64 sums) and B4's first call held against
    their plain versions on those inputs, B1 launched by every creator and B4 by the playability one
-   (counts zeroed before, read after); (b) the four evaluate_* CLIs
-   (masked-MSE windows and FVD clips of 4) and fid on the card's trees, on
-   the card and on the CPU, every result held card vs CPU
-   (PHASE17_METRIC_RTOL). Each CLI's wall time, its seconds split (the
+   (counts zeroed before, read after); the first windows of the
+   reconstruction and playability creators also on the CPU
+   (PHASE17_CPU_CREATORS); (b) the four evaluate_* CLIs (masked-MSE windows
+   and FVD clips of 4) and fid on the card's trees, the camera-manipulation
+   and playability evaluators and fid also on the CPU, their results held
+   card vs CPU (PHASE17_METRIC_RTOL). Each CLI's wall time, its seconds split (the
    creators' steps; the evaluators' decode, metrics and networks), frames
    a second, peak memory and B1-B5 launches.
 18. evaluation finished, on 16's dataset and 17's reconstructed tree: (a)
@@ -205,7 +208,21 @@ Phases, each fatal on failure:
    export and load seconds, ms a frame beside the live path's. Each rank or
    process runs `chip_smoke.py --rank|--nccl|--serve <spec>`, joined with
    a timeout that kills every one of them on a failure.
-`python3 chip_smoke.py --phase 12` (or `--phase 13` to `--phase 19`; 17 runs
+20. the narrow widths, acquisition, drawing and the scene viewer: (a)
+   configs/synthetic_smoke.yaml (NeRFs 32 wide, a dynamics LSTM of 16
+   features) through train (at the YAML's f32 and with bf16 operands, the
+   fused backbone on), train_playable and play --script at their default
+   device: B1 at W 32, B2/B3 and B2-f32/B3-f32 at W 32 and B4/B5 at F 16,
+   each zero-padded to a width its kernel takes, each launched (the CLIs'
+   counts) and its first launch held against its plain version (phases 2,
+   5/15, 14a and 8's bounds), then timed there beside its plain version,
+   the library call and the bound of the network's own work; (b) a cv2
+   mp4 through `acquire tennis`, `calibrate`, `boxes` (a seeded detector,
+   card vs CPU), `split` and `fragment`, a ReplayMod recording through
+   `minecraft` and one phase-2 step of cli/train.py on it, the frame
+   extractor and cv2 printed; (c) boxes and axes drawn on an acquired frame,
+   the detector's maps through save_feature_maps, the scene viewer's PNG.
+`python3 chip_smoke.py --phase 12` (or `--phase 13` to `--phase 20`; 17 runs
 16's CLIs first for their checkpoints, 18 both 16 and 17, 19 16) builds the
 kernels and runs that phase alone (no kernels line, no contract line).
 Details go to chiprun_out/chip_smoke.json. Prints one JSON line of kernels, the card's name and power limit, and as the
@@ -2298,7 +2315,7 @@ def tiny_published_config(repo, name):
     NeRFs 3x32 with 24 outputs (the autoencoder's 8 + 16 latent channels),
     benders 2x16, style 8 and deformation 4, object encoders on 16x32 and
     16x16 crops, the autoencoder at bottleneck 16 with one block; f32, the
-    plain backbone (B2/B3 take widths 128 and 256 only)."""
+    plain backbone (the YAML's)."""
     from playableenvironments_tpu_torch.cli.common import load_yaml
 
     cfg = load_yaml(os.path.join(repo, "configs", f"{name}.yaml"))
@@ -4059,17 +4076,25 @@ def phase16_base(repo):
     return load_yaml(os.path.join(repo, "configs", "tennis.yaml"))
 
 
-def phase16_config(repo, directory, name, data_root, **sections):
-    """Write `<directory>/<name>.yaml`: configs/tennis.yaml with phase 16's
-    changes (above) and `sections`' keys over its sections. :return: the path."""
+def phase16_config(repo, directory, name, data_root, base=None, fused=True, compute_dtype=None, **sections):
+    """Write `<directory>/<name>.yaml`: `base` (configs/tennis.yaml by
+    default) with phase 16's changes (above; the fused backbone on unless
+    `fused` is False, the NeRFs' `compute_dtype` where given) and
+    `sections`' keys over its sections. :return: the path."""
+    import copy
+
     import yaml
 
-    cfg = phase16_base(repo)
+    cfg = copy.deepcopy(base) if base is not None else phase16_base(repo)
     cfg["data"]["data_root"] = data_root
     cfg["logging"] = {"run_name": name, "output_root": os.path.join(directory, "results"),
                       "checkpoints_root": os.path.join(directory, "checkpoints")}
     for block in cfg["model"]["object_models"]:
-        block.setdefault("nerf_model", {})["use_fused_backbone"] = True
+        nerf = block.setdefault("nerf_model", {})
+        if fused:
+            nerf["use_fused_backbone"] = True
+        if compute_dtype:
+            nerf["compute_dtype"] = compute_dtype
     for section, values in sections.items():
         target = cfg
         for key in section.split("."):
@@ -4301,23 +4326,14 @@ def phase16_cli(repo, directory, device="cuda"):
     if not all(np.array_equal(a, b) for a, b in zip(frames, memory)):
         raise SmokeFailure("16e: the play CLI's frames differ from an in-memory session of the same restored models "
                            f"(max {max(float(np.abs(a - b).max()) for a, b in zip(frames, memory)):.3e})")
-    cfg_nerf, items, outs = captured[0]
-    b1_rows = []
-    with torch.no_grad():
-        for index, (item, (feats, alpha)) in enumerate(zip(items, outs)):
-            args = (item.encoded, item.scale0, item.bias0, item.scale1, item.bias1)
-            refs = fused_nerf.plain_adain_nerf(cfg_nerf, item.weights.packed, *args, item.samples_per_ray)
-            for name, got_out, ref_out in (("features", feats, refs[0]), ("alpha", alpha, refs[1])):
-                scale = max(1.0, ref_out.abs().mean().item())
-                err = check_close(f"16e B1 object {index} {name} (over {scale:.3f})", got_out / scale,
-                                  ref_out / scale, KERNEL_ATOL, KERNEL_RTOL, KERNEL_MEAN_ATOL)
-                b1_rows.append(err[0] * scale)
+    items = captured[0][1]
+    b1_err = hold_b1_launch("16e", captured[0])
     results["play"] = {"frames": len(frames), "mp4": "sequence.mp4" in written, "b1_objects_held": len(items),
-                       "b1_max_abs_err": max(b1_rows)}
+                       "b1_max_abs_err": b1_err}
     print(f"16e play --script {PHASE16_SCRIPT}: {len(frames)} frames {IMAGE_SIZE[1]}x{IMAGE_SIZE[0]}, gif, "
           f"{'an mp4' if 'sequence.mp4' in written else 'no mp4 (no cv2 codec)'}; equal bit for bit to an in-memory "
           f"session of the restored models; its first B1 launch ({len(items)} objects) within "
-          f"{max(b1_rows):.3e} of plain_adain_nerf; B4 at rollout_single's 1 x {frames_t} within {b4_err:.3e} of plain")
+          f"{b1_err:.3e} of plain_adain_nerf; B4 at rollout_single's 1 x {frames_t} within {b4_err:.3e} of plain")
 
     # ---- 16f. a reference checkpoint of the same models, imported ------------
     env_state = torch.load(os.path.join(p2_path, ckpt.STATE_FILE), weights_only=True, map_location="cpu")["model"]
@@ -4410,6 +4426,15 @@ PHASE17_CLIP = 4
 PHASE17_METRIC_RTOL = {"mse": 1e-6, "psnr": 1e-6, "ssim": 1e-5, "motion_masked_mse": 1e-6,
                        "vgg_cosine_similarity_selfconsistent": 1e-4, "fid": 5e-3, "fvd": 5e-3}
 PHASE17_PNG_ATOL = 3 / 255  # tests/test_torch_port_encode.py's PNG bound
+# The holds that rerun on the CPU: the first window of two creators (the
+# camera-manipulation creator renders through the reconstruction's
+# FrameRenderer; the playability one adds the dynamics) and two evaluators
+# with fid (the camera-manipulation evaluator computes every metric of the
+# reconstruction's, motion-masked MSE included; the playability one the
+# same with FVD and the action metrics, the FVD evaluator's).
+PHASE17_CPU_CREATORS = ("reconstructed", "playability")
+PHASE17_CPU_EVALUATORS = ("evaluate_reconstructed_camera_manipulation_dataset",
+                          "evaluate_reconstructed_playability_dataset")
 # B1's first launch of each creator, the kernel's largest distance from the
 # same function summed in f64 over the plain version's on the same launch:
 # both round their products to bf16. On an NVIDIA H100 80GB HBM3 at
@@ -4523,7 +4548,30 @@ def phase17_hold_b1(label, record, frames):
     return worst, sum(item.encoded.shape[0] for item in items), from_f64
 
 
-def phase17_hold_b4(record):
+def hold_b1_launch(label, record):
+    """A recorded grouped B1 launch (cfg, items, outputs) against
+    plain_adain_nerf object by object at phase 2's bounds, in units of each
+    output's mean magnitude where it exceeds 1. :return: the largest error
+    in output units."""
+    import torch
+
+    from playableenvironments_tpu_torch.ops import fused_nerf
+
+    cfg, items, outs = record
+    worst = 0.0
+    with torch.no_grad():
+        for index, (item, (feats, alpha)) in enumerate(zip(items, outs)):
+            args = (item.encoded, item.scale0, item.bias0, item.scale1, item.bias1)
+            refs = fused_nerf.plain_adain_nerf(cfg, item.weights.packed, *args, item.samples_per_ray)
+            for name, got, ref in (("features", feats, refs[0]), ("alpha", alpha, refs[1])):
+                scale = max(1.0, ref.abs().mean().item())
+                err = check_close(f"{label} B1 object {index} {name} (over {scale:.3f})", got / scale, ref / scale,
+                                  KERNEL_ATOL, KERNEL_RTOL, KERNEL_MEAN_ATOL)
+                worst = max(worst, err[0] * scale)
+    return worst
+
+
+def phase17_hold_b4(record, label="17"):
     """The recorded B4 call against plain_rollout_fwd (phase 8's bounds,
     relative to each output's largest magnitude)."""
     import torch
@@ -4536,7 +4584,7 @@ def phase17_hold_b4(record):
         got = fr.fused_rollout_fwd(cfg, params, *inputs, gt_count, collect)[0]
         ref = fr.plain_rollout_fwd(cfg, params, *inputs, gt_count, collect)[0]
     fr.fused_rollout_fwd.launches = launches
-    return max(rel_close(f"17 B4 {k}", g, r)[0] for k, g, r in zip(("rot", "trans", "style", "deform"), got, ref))
+    return max(rel_close(f"{label} B4 {k}", g, r)[0] for k, g, r in zip(("rot", "trans", "style", "deform"), got, ref))
 
 
 def phase17_cli(repo, directory, paths, devices=("cuda", "cpu")):
@@ -4586,23 +4634,25 @@ def phase17_cli(repo, directory, paths, devices=("cuda", "cpu")):
         clis[cli] = {"wall_s": seconds, "peak_bytes": peak, "frames": written,
                      "frames_per_s": written / t["seconds"]["steps"], **t}
         trees[name] = output
-        cpu_output = os.path.join(directory, "trees", f"{name}_cpu")
-        with Phase17Recorder() as cpu_recorder:
-            _, cpu_seconds, _ = run_cli(module + cli, "--config", configs["cpu"], *args, "--output", cpu_output,
-                                        "--device", host)
-        # The first window's frames before quantization (1e-2, the frame
-        # bound of tests/test_torch_port_encode.py) and its PNGs after it.
-        got, ref = recorder.frames, cpu_recorder.frames
-        frames_err = float((got[:ref.shape[0], :ref.shape[1]] - ref).abs().max())
-        png_err = 0.0
-        for camera_dir in sorted(p for p in pathlib.Path(cpu_output, "00000").iterdir() if p.is_dir()):
-            for png in sorted(camera_dir.glob("*.png")):
-                card_png = os.path.join(output, "00000", camera_dir.name, png.name)
-                png_err = max(png_err, float(np.abs(_load_image(card_png) - _load_image(str(png))).max()))
-        if not (frames_err <= FRAME_ATOL and png_err <= PHASE17_PNG_ATOL + 1e-6):
-            raise SmokeFailure(f"17a {cli}: card vs CPU frames {frames_err:.3e} (bound {FRAME_ATOL}), "
-                               f"PNGs {png_err:.4f} (bound {PHASE17_PNG_ATOL:.4f})")
-        holds[name] = {"frames_max_abs_err": frames_err, "png_max_abs_err": png_err, "cpu_wall_s": cpu_seconds}
+        holds[name] = {}
+        if name in PHASE17_CPU_CREATORS:
+            cpu_output = os.path.join(directory, "trees", f"{name}_cpu")
+            with Phase17Recorder() as cpu_recorder:
+                _, cpu_seconds, _ = run_cli(module + cli, "--config", configs["cpu"], *args, "--output", cpu_output,
+                                            "--device", host)
+            # The first window's frames before quantization (1e-2, the frame
+            # bound of tests/test_torch_port_encode.py) and its PNGs after it.
+            got, ref = recorder.frames, cpu_recorder.frames
+            frames_err = float((got[:ref.shape[0], :ref.shape[1]] - ref).abs().max())
+            png_err = 0.0
+            for camera_dir in sorted(p for p in pathlib.Path(cpu_output, "00000").iterdir() if p.is_dir()):
+                for png in sorted(camera_dir.glob("*.png")):
+                    card_png = os.path.join(output, "00000", camera_dir.name, png.name)
+                    png_err = max(png_err, float(np.abs(_load_image(card_png) - _load_image(str(png))).max()))
+            if not (frames_err <= FRAME_ATOL and png_err <= PHASE17_PNG_ATOL + 1e-6):
+                raise SmokeFailure(f"17a {cli}: card vs CPU frames {frames_err:.3e} (bound {FRAME_ATOL}), "
+                                   f"PNGs {png_err:.4f} (bound {PHASE17_PNG_ATOL:.4f})")
+            holds[name] = {"frames_max_abs_err": frames_err, "png_max_abs_err": png_err, "cpu_wall_s": cpu_seconds}
         if card != "cpu":
             # Each creator's first render is 4 frames: a batch of 4 single
             # observations, or one window of 4.
@@ -4614,7 +4664,9 @@ def phase17_cli(repo, directory, paths, devices=("cuda", "cpu")):
         launches = {k: v for k, v in t["launches"].items() if v}
         print(f"17a {cli}: {seconds:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in t['seconds'].items())}), "
               f"{written} frames at {clis[cli]['frames_per_s']:.2f} frames/s, peak {peak / 1e9:.2f} GB, launches "
-              f"{launches}; the first window card vs CPU: frames {frames_err:.3e}, PNGs {png_err:.4f}"
+              f"{launches}"
+              + (f"; the first window card vs CPU: frames {holds[name]['frames_max_abs_err']:.3e}, PNGs "
+                 f"{holds[name]['png_max_abs_err']:.4f}" if "frames_max_abs_err" in holds[name] else "")
               + (f"; B1's first launch ({holds[name]['b1_points']} points) within "
                  f"{holds[name]['b1_max_abs_err']:.3e} of plain (kernel and plain "
                  f"{holds[name]['b1_from_f64']['kernel']:.3e} and {holds[name]['b1_from_f64']['plain']:.3e} "
@@ -4642,7 +4694,7 @@ def phase17_cli(repo, directory, paths, devices=("cuda", "cpu")):
     metrics = {}
     for cli, (tree, args) in evaluate.items():
         outs = {}
-        for label, device in (("card", card), ("cpu_eval", host)):
+        for label, device in (("card", card), ("cpu_eval", host))[:2 if cli in PHASE17_CPU_EVALUATORS else 1]:
             out, seconds, peak = run_cli(module + cli, "--config", configs[label], "--generated", tree, *args,
                                          "--device", device)
             outs[label] = out
@@ -4651,6 +4703,16 @@ def phase17_cli(repo, directory, paths, devices=("cuda", "cpu")):
                 clis[cli] = {"wall_s": seconds, "peak_bytes": peak, **t}
             else:
                 clis[cli]["cpu_wall_s"] = seconds
+        if cli not in PHASE17_CPU_EVALUATORS:
+            if not all(isinstance(v, str) or np.isfinite(v) for v in outs["card"].values()):
+                raise SmokeFailure(f"17b {cli}: a result is not finite: {outs['card']}")
+            metrics[cli] = {"card": outs["card"]}
+            t = clis[cli]["seconds"]
+            print(f"17b {cli}: {clis[cli]['wall_s']:.2f} s on the card (decode {t.get('decode', 0):.2f} s, metrics "
+                  f"{t.get('metrics', 0):.2f} s, networks {t.get('networks', 0):.2f} s), peak "
+                  f"{clis[cli]['peak_bytes'] / 1e9:.2f} GB; " + ", ".join(
+                      f"{k} {v!r}" if isinstance(v, str) else f"{k} {v:.6g}" for k, v in sorted(outs["card"].items())))
+            continue
         if set(outs["card"]) != set(outs["cpu_eval"]):
             raise SmokeFailure(f"17b {cli}: keys {sorted(outs['card'])} on the card, "
                                f"{sorted(outs['cpu_eval'])} on the CPU")
@@ -4982,6 +5044,9 @@ PHASE19_PHASE3 = dict(max_steps=2, steps_per_call=1, save_freq=2, quick_save_fre
 # ranks equals one process's batch, draws included, only at one window a
 # rank: 19c runs phase 3 at global batch 2 (the YAML's 16 permutes them).
 PHASE19_PHASE3_BATCH = 2
+# The one-process reference takes the one step the holds read (the first
+# step's loss and optimizer steps).
+PHASE19_ONE = dict(max_steps=1, save_freq=1)
 PHASE19_TIMEOUT = 900
 # The two-rank step against the one-process step of the same global batch:
 # the sums over the batch go per rank, then through gloo's all-reduce, in
@@ -5332,7 +5397,8 @@ def phase19_cli(repo, directory, paths, device="cuda"):
 
     # ---- 19a. phase 2 on two ranks against one process ---------------------
     sections = {"training": PHASE19_PHASE2, "training.batching": {"batch_size": PHASE19_PHASE2_BATCH}}
-    configs = {tag: phase16_config(repo, directory, f"19a_{tag}", data_root, **sections) for tag in ("one", "two")}
+    configs = {tag: phase16_config(repo, directory, f"19a_{tag}", data_root, **{
+        **sections, "training": {**PHASE19_PHASE2, **(PHASE19_ONE if tag == "one" else {})}}) for tag in ("one", "two")}
     cfg = load_yaml(configs["one"])
     names = [n for n, _ in build_environment_model(cfg, device="cpu").named_parameters()]
     results["phase2"] = _two_ranks_against_one(repo, directory, "a", "playableenvironments_tpu_torch.cli.train",
@@ -5356,7 +5422,8 @@ def phase19_cli(repo, directory, paths, device="cuda"):
     done("19b")
 
     # ---- 19c. phase 3 on two ranks against one process ---------------------
-    configs3 = {tag: phase16_config(repo, directory, f"19c_{tag}", data_root, playable_model_training=PHASE19_PHASE3,
+    configs3 = {tag: phase16_config(repo, directory, f"19c_{tag}", data_root,
+                                   playable_model_training={**PHASE19_PHASE3, **(PHASE19_ONE if tag == "one" else {})},
                                    **{"playable_model_training.batching": {"batch_size": PHASE19_PHASE3_BATCH}})
                 for tag in ("one", "two")}
     cfg3 = load_yaml(configs3["one"])
@@ -5551,6 +5618,639 @@ def phase19(repo):
     temporary directory it removes."""
     with cli_directory() as directory:
         return phase19_cli(repo, directory, phase16_cli(repo, directory)["paths"])
+
+
+# ---- phase 20: the narrow widths, acquisition, drawing and the scene viewer ---------
+
+# 20a: configs/synthetic_smoke.yaml (NeRFs 3 x 32, the player's bender 2 x 16,
+# a dynamics LSTM of 16 features) through the train, train_playable and play
+# CLIs at their default device, over make_synthetic_dataset's tree (2 videos
+# x 12 frames at 32x48: train, validation, test). Its NeRFs reach B1 at W 32
+# (run at 128) in play and, with the fused backbone on (the YAML leaves it
+# off), B2/B3 at W 32 (run at 64): phase 2 runs once at the YAML's f32
+# (B2-f32/B3-f32) and once with bf16 operands; its LSTM reaches B4/B5 at F 16
+# (run at 32). Cuts: 2 steps a phase, no evaluation, 3 scripted play steps.
+PHASE20_PHASE2 = dict(max_steps=2, save_freq=2, quick_save_freq=100, eval_freq=0, log_interval_steps=1)
+PHASE20_PHASE3 = dict(max_steps=2, steps_per_call=1, save_freq=2, quick_save_freq=100, eval_freq=0,
+                      log_interval_steps=1)
+PHASE20_SCRIPT = "0,1,2"
+# 20b: a 10 fps mp4 of 3 s at 96x64 (two coloured players crossing a green
+# court) through `acquire tennis` (tests/test_acquisition.py's split-relative
+# segments: two that merge, one apart), `calibrate` (the court keypoints of a
+# known camera at 2560x1440), `boxes` on the card and on the CPU, `split` and
+# `fragment`; a ReplayMod recording (1 player, 6 frames at 2 fps, 96x64)
+# through `minecraft`, then one phase-2 step of cli/train.py on it.
+PHASE20_VIDEO = (96, 64, 10, 30)  # width, height, frames a second, frames
+PHASE20_CAMERA = ((1.2, 0.05, -0.02), (1.5, -25.0, 8.0), 1400.0, (2560, 1440))
+# The seeded detector's boxes (base_features 8, every peak kept) on the card
+# against the CPU, both in full-precision convolutions, where 18a's detector
+# step reads 3.5e-6 of the loss apart: each box coordinate within this, the
+# validity equal.
+PHASE20_BOX_ATOL = 1e-4
+
+
+class Phase20Recorder:
+    """Within the block, the first call on `device` of each kernel's path,
+    its inputs copied: `b1` (cfg, items, outputs) of the grouped MLP; `b2`
+    and `b3` by compute dtype, (cfg, packed, encoded) and (cfg, packed,
+    encoded, g_h, g_alpha) at the backbone's own width; `b4` (cfg, params,
+    inputs, gt_count, collect_residuals) and `b5` (cfg, params, gt_count,
+    residuals, cotangents, actions_dim). It wraps what the counted wrappers
+    call (the group function, padded_backbone_fwd/_bwd, the rollout's
+    launchers), so that the launch counts stay the wrappers' own."""
+
+    def __init__(self, device="cuda"):
+        import torch
+
+        self.device_type = torch.device(device).type
+
+    def __enter__(self):
+        from playableenvironments_tpu_torch.ops import fused_nerf
+        from playableenvironments_tpu_torch.ops import fused_rollout as fr
+
+        self.b1, self.b2, self.b3, self.b4, self.b5 = None, {}, {}, None, None
+        self._saved = [(fused_nerf, "fused_adain_nerf_group"), (fused_nerf, "padded_backbone_fwd"),
+                       (fused_nerf, "padded_backbone_bwd"), (fr, "_rollout_fwd"), (fr, "_rollout_bwd")]
+        self._saved = [(owner, name, getattr(owner, name)) for owner, name in self._saved]
+        group, backbone_fwd, backbone_bwd, rollout_fwd, rollout_bwd = (original for _, _, original in self._saved)
+        recorder, on = self, lambda t: t.device.type == self.device_type
+
+        def copy(t):
+            return t.detach().clone()
+
+        def group_(cfg, items):
+            outs = group(cfg, items)
+            if recorder.b1 is None and items and on(items[0].encoded):
+                recorder.b1 = (cfg, items, outs)
+            return outs
+
+        def backbone_fwd_(cfg, packed, encoded, run, *args):
+            if cfg.compute_dtype not in recorder.b2 and on(encoded):
+                recorder.b2[cfg.compute_dtype] = (cfg, {k: copy(v) for k, v in packed.items()}, copy(encoded))
+            return backbone_fwd(cfg, packed, encoded, run, *args)
+
+        def backbone_bwd_(cfg, packed, encoded, g_h, g_alpha, run, *args):
+            if cfg.compute_dtype not in recorder.b3 and on(encoded):
+                recorder.b3[cfg.compute_dtype] = (cfg, {k: copy(v) for k, v in packed.items()}, copy(encoded),
+                                                  copy(g_h), copy(g_alpha))
+            return backbone_bwd(cfg, packed, encoded, g_h, g_alpha, run, *args)
+
+        def params_copy(params):
+            return fr.params_from_list([copy(p) for p in fr.param_list(params)], len(params.wx))
+
+        def rollout_fwd_(cfg, params, inputs, gt_count, collect_residuals, ms=None):
+            if recorder.b4 is None and on(inputs[0]):
+                recorder.b4 = (cfg, params_copy(params), [copy(x) for x in inputs], gt_count, collect_residuals)
+            return rollout_fwd(cfg, params, inputs, gt_count, collect_residuals, ms)
+
+        def rollout_bwd_(cfg, params, gt_count, residuals, cotangents, actions_dim, ms=None):
+            if recorder.b5 is None and on(cotangents[0]):
+                recorder.b5 = (cfg, params_copy(params), gt_count, {k: copy(v) for k, v in residuals.items()},
+                               [copy(c) for c in cotangents], actions_dim)
+            return rollout_bwd(cfg, params, gt_count, residuals, cotangents, actions_dim, ms)
+
+        (fused_nerf.fused_adain_nerf_group, fused_nerf.padded_backbone_fwd, fused_nerf.padded_backbone_bwd,
+         fr._rollout_fwd, fr._rollout_bwd) = group_, backbone_fwd_, backbone_bwd_, rollout_fwd_, rollout_bwd_
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, original in self._saved:
+            setattr(owner, name, original)
+        return False
+
+
+@contextlib.contextmanager
+def uncounted_launches():
+    """Launches inside the block (holds against the plain versions,
+    timings) are no part of a path's counts: every wrapper's count is put
+    back after it."""
+    from playableenvironments_tpu_torch.ops import fused_nerf
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+
+    wrappers = (fused_nerf.fused_adain_nerf, fused_nerf.fused_backbone_fwd, fused_nerf.fused_backbone_bwd,
+                fused_nerf.backbone_f32_fwd, fused_nerf.backbone_f32_bwd, fused_nerf.backbone_f32_buffers,
+                fr.fused_rollout_fwd, fr.fused_rollout_bwd)
+    saved = [(w, w.launches) for w in wrappers]
+    objects = fused_nerf.fused_adain_nerf.objects
+    try:
+        yield
+    finally:
+        for wrapper, launches in saved:
+            wrapper.launches = launches
+        fused_nerf.fused_adain_nerf.objects = objects
+
+
+def hold_f32_backbone_calls(label, fwd_record, bwd_record):
+    """B2-f32 and B3-f32 on a path's own inputs at 14a's bounds: B2-f32
+    against plain_backbone_fwd within F32_KERNEL_REL of each output's
+    largest magnitude (F32_KERNEL_MEAN in the mean); its ReLU pattern, layer
+    by layer, against the f64 forward's (F32_RELU_BAND, F32_RELU_FLIPS);
+    B3-f32 against the f64 backward at that pattern, each element within
+    F32_KERNEL_REL of its rounding scale (plain_backbone_bwd(magnitudes=
+    True): a path's small, cancelling cotangents leave an output's largest
+    magnitude no unit) and F32_KERNEL_MEAN in the mean. :return: (B2's
+    largest relative error, B3's largest in rounding scales)."""
+    import torch
+
+    from playableenvironments_tpu_torch.ops import fused_nerf
+
+    with torch.no_grad():
+        cfg, packed, encoded = fwd_record
+        got, ref = fused_nerf.fused_backbone_fwd(cfg, packed, encoded), fused_nerf.plain_backbone_fwd(cfg, packed,
+                                                                                                        encoded)
+        fwd_err = 0.0
+        for name, g, r in zip(("h", "alpha"), got, ref):
+            scale = max(r.abs().max().item(), 1e-30)
+            err, _ = check_close(f"{label} B2-f32 {name} (over {scale:.3e})", g, r, F32_KERNEL_REL * scale, 0.0,
+                                 F32_KERNEL_MEAN * scale)
+            fwd_err = max(fwd_err, err / scale)
+        cfg, packed, encoded, g_h, g_alpha = bwd_record
+        points = encoded.shape[0]
+        grads, d_encoded = fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+        masks, pattern = fused_nerf.relu_pattern_check(
+            cfg, packed, encoded, fused_nerf.backbone_layer_outputs(cfg, packed, encoded))
+        flip_limit = max(F32_RELU_FLIPS_FLOOR, F32_RELU_FLIPS * points * cfg.layers_width / 1e6)
+        for layer, r in enumerate(pattern):
+            if not (r["flips"] <= flip_limit and r["flip_ratio"] <= F32_RELU_BAND and r["error_ratio"] <= F32_RELU_BAND):
+                raise SmokeFailure(f"{label} B2-f32 layer {layer}: ReLU pattern against f64's {r} outside "
+                                   f"{flip_limit:.1f} units and {F32_RELU_BAND:.3e} of the rounding scale")
+        f64 = ({k: v.double() for k, v in packed.items()}, encoded.double(), g_h.double(), g_alpha.double())
+        ref_grads, ref_d_encoded = fused_nerf.plain_backbone_bwd(cfg, *f64, masks)
+        scales, d_encoded_scale = fused_nerf.plain_backbone_bwd(cfg, *f64, masks, magnitudes=True)
+        bwd_err = 0.0
+        for key, g, r, s in [("d_encoded", d_encoded, ref_d_encoded, d_encoded_scale)] + [
+                (k, grads[k], ref_grads[k], scales[k]) for k in ref_grads]:
+            worst, mean = fused_nerf.rounding_error_ratio(g, r, s)
+            if not (worst <= F32_KERNEL_REL and mean <= F32_KERNEL_MEAN):
+                raise SmokeFailure(f"{label} B3-f32 {points} points {key}: off the f64 backward by up to {worst:.3e} "
+                                   f"of an element's rounding scale, {mean:.3e} in the mean (bounds {F32_KERNEL_REL}, "
+                                   f"{F32_KERNEL_MEAN})")
+            bwd_err = max(bwd_err, worst)
+    return fwd_err, bwd_err
+
+
+def hold_b5(label, record):
+    """A recorded B5 call against plain_rollout_bwd (phase 8's bounds,
+    relative to each gradient's largest magnitude). :return: the largest."""
+    import torch
+
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+
+    cfg, params, gt_count, residuals, cotangents, actions_dim = record
+    with torch.no_grad():
+        got = fr.fused_rollout_bwd(cfg, params, gt_count, residuals, cotangents, actions_dim)
+        ref = fr.plain_rollout_bwd(cfg, params, gt_count, residuals, cotangents, actions_dim)
+    flat = lambda g: fr.param_list(g[0]) + list(g[1:])  # noqa: E731
+    return max(rel_close(f"{label} B5 gradient {k}", g, r)[0] for k, (g, r) in enumerate(zip(flat(got), flat(ref))))
+
+
+def phase20_narrow_times(recorder):
+    """Each kernel at its narrow launch of the path (the recorder's first
+    call): ms of the wrapper call (the padding included), of its plain
+    version and of the library call where there is one (library_mlp,
+    library_backbone and its autograd); the bound of the network's own,
+    unpadded work (bf16 peak for B1 and bf16 B2/B3, the lower of the FP32
+    and 3xTF32 ones for B2-f32/B3-f32, the f32 peak for B4/B5); and the
+    padded launch's products over the unpadded ones. By wrapper name."""
+    import torch
+
+    from playableenvironments_tpu_torch.ops import fused_nerf
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+
+    def row(shape, ms, plain_ms, library_ms, flops, bytes_, padded_flops, peak=PEAK_BF16_FLOPS, bound=None):
+        ops, mem = flops / peak, bytes_ / PEAK_BYTES_PER_S
+        bound_ms, bound_by = bound or (max(ops, mem) * 1e3, "operations" if ops > mem else "bytes")
+        return {**shape, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "products_padded_over_own": padded_flops / flops}
+
+    out = {}
+    with torch.no_grad():
+        cfg, items, _ = recorder.b1
+        flops = bytes_ = padded = 0.0
+        for item in items:
+            points = item.encoded.shape[0]
+            f, b = mlp_work(cfg, item.weights.packed, points, points // item.samples_per_ray)
+            kcfg, kpacked = fused_nerf.padded_weights(cfg, item.weights.packed, item.weights.width)
+            flops, bytes_, padded = flops + f, bytes_ + b, padded + mlp_work(kcfg, kpacked, points, 1)[0]
+        bf = [{k: v.to(torch.bfloat16) for k, v in item.weights.packed.items()} for item in items]
+        out["fused_adain_nerf"] = row(
+            {"width": cfg.layers_width, "kernel_width": items[0].weights.width, "objects": len(items),
+             "points": sum(item.encoded.shape[0] for item in items)},
+            cuda_ms(lambda: fused_nerf.fused_adain_nerf_group(cfg, items)),
+            cuda_ms(lambda: [fused_nerf.plain_adain_nerf(cfg, item.weights.packed, *item[1:6], item.samples_per_ray)
+                             for item in items]),
+            cuda_ms(lambda: [library_mlp(cfg, w, *item[1:6], item.samples_per_ray) for w, item in zip(bf, items)]),
+            flops, bytes_, padded)
+    for dtype, names in (("bfloat16", ("fused_backbone_fwd", "fused_backbone_bwd")),
+                         ("float32", ("backbone_f32_fwd", "backbone_f32_bwd"))):
+        cfg, packed, encoded = recorder.b2[dtype]
+        _, bwd_packed, saved, g_h, g_alpha = recorder.b3[dtype]  # the backward's first call: another object's
+        (points, pe), bwd_points = encoded.shape, saved.shape[0]
+        kcfg = fused_nerf.kernel_backbone(cfg, packed)[0]
+        fwd_flops, fwd_bytes = backbone_work(cfg, pe, points)[:2]
+        bwd_flops, bwd_bytes = backbone_work(cfg, pe, bwd_points)[2:]
+        torch_dtype = getattr(torch, dtype)
+        lib = {k: v.detach().to(torch_dtype).requires_grad_() for k, v in packed.items()}
+        bwd_lib = {k: v.detach().to(torch_dtype).requires_grad_() for k, v in bwd_packed.items()}
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: fused_nerf.fused_backbone_fwd(cfg, packed, encoded))
+            fwd_plain = cuda_ms(lambda: fused_nerf.plain_backbone_fwd(cfg, packed, encoded))
+            fwd_lib = cuda_ms(lambda: library_backbone(torch, cfg, lib, encoded, torch_dtype))
+            bwd_ms = cuda_ms(lambda: fused_nerf.fused_backbone_bwd(cfg, bwd_packed, saved, g_h, g_alpha))
+            bwd_plain = cuda_ms(lambda: fused_nerf.plain_backbone_bwd(cfg, bwd_packed, saved.float(), g_h, g_alpha))
+        lib_h, lib_alpha = library_backbone(torch, cfg, bwd_lib, saved.float(), torch_dtype)
+        bwd_lib_ms = cuda_ms(lambda: torch.autograd.backward([lib_h, lib_alpha], [g_h.to(torch_dtype),
+                                                                                  g_alpha.to(torch_dtype)],
+                                                             retain_graph=True))
+        del lib_h, lib_alpha
+        bounds = (min(f32_bounds(fwd_flops, fwd_bytes)), min(f32_bounds(bwd_flops, bwd_bytes))) \
+            if dtype == "float32" else (None, None)
+        width = {"width": cfg.layers_width, "kernel_width": kcfg.layers_width}
+        out[names[0]] = row({**width, "points": points}, fwd_ms, fwd_plain, fwd_lib, fwd_flops, fwd_bytes,
+                            backbone_work(kcfg, pe, points)[0], bound=bounds[0])
+        out[names[1]] = row({**width, "points": bwd_points}, bwd_ms, bwd_plain, bwd_lib_ms, bwd_flops, bwd_bytes,
+                            backbone_work(kcfg, pe, bwd_points)[2], bound=bounds[1])
+    cfg, params, inputs, gt_count, collect = recorder.b4
+    batch, T = inputs[0].shape[:2]
+    S, D, A, V = inputs[2].shape[-1], inputs[3].shape[-1], inputs[4].shape[-1], inputs[5].shape[-1]
+    features = params.wb.shape[0]
+    padded = fr.kernel_features(features)
+    ff, fb = rollout_work(batch, T, params, A, V, S, D, collect)[:2]
+    shape = {"features": features, "kernel_features": padded, "batch": batch, "observations": T,
+             "collect_residuals": collect}
+    b5_cfg, b5_params, gt5, residuals, cotangents, actions_dim = recorder.b5
+    b5_batch, b5_T = cotangents[0].shape[:2]
+    b5_work = rollout_work(b5_batch, b5_T, b5_params, actions_dim, V, S, D, True)
+    with torch.no_grad():
+        out["fused_rollout_fwd"] = row(
+            shape, cuda_ms(lambda: fr.fused_rollout_fwd(cfg, params, *inputs, gt_count, collect)),
+            cuda_ms(lambda: fr.plain_rollout_fwd(cfg, params, *inputs, gt_count, collect)), None, ff, fb,
+            rollout_work(batch, T, fr.padded_params(params, padded), A, V, S, D, collect)[0], bound=bound_ms(ff, fb))
+        out["fused_rollout_bwd"] = row(
+            {**shape, "batch": b5_batch, "observations": b5_T, "collect_residuals": True},
+            cuda_ms(lambda: fr.fused_rollout_bwd(b5_cfg, b5_params, gt5, residuals, cotangents, actions_dim)),
+            cuda_ms(lambda: fr.plain_rollout_bwd(b5_cfg, b5_params, gt5, residuals, cotangents, actions_dim)), None,
+            b5_work[2], b5_work[3],
+            rollout_work(b5_batch, b5_T, fr.padded_params(b5_params, padded), actions_dim, V, S, D, True)[2],
+            bound=bound_ms(b5_work[2], b5_work[3]))
+    for name, r in out.items():
+        print(f"20a {name} at its narrow launch ({', '.join(f'{k} {v}' for k, v in r.items() if k in ('width', 'kernel_width', 'features', 'kernel_features', 'points', 'batch', 'observations'))}): "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
+              + (f", library {r['library_ms']:.4f} ms" if r["library_ms"] is not None else "")
+              + f", bound {r['bound_ms']:.5f} ms ({r['bound_by']}); the padded launch does "
+              f"{r['products_padded_over_own']:.2f}x the network's own products")
+    return out
+
+
+def phase20_smoke_cli(repo, directory, device="cuda"):
+    """20a (above): the CLIs' wall times, peaks and launches (their timing
+    files), every kernel launched on its narrow path, each first launch held
+    against its plain version, and the kernels timed at those launches."""
+    import numpy as np
+
+    from playableenvironments_tpu_torch.cli.common import load_yaml
+    from playableenvironments_tpu_torch.data.synthetic import make_synthetic_dataset
+    from playableenvironments_tpu_torch.train import checkpointing as ckpt
+
+    module = "playableenvironments_tpu_torch.cli."
+    device_args = [] if device == "cuda" else ["--device", device]  # the card is every CLI's default
+    data_root = make_synthetic_dataset(os.path.join(directory, "smoke_data"))
+    base = load_yaml(os.path.join(repo, "configs", "synthetic_smoke.yaml"))
+    clis = {}
+
+    def run(label, cli, results_dir, *args):
+        out, seconds, peak = run_cli(module + cli, *args, *device_args)
+        with open(os.path.join(results_dir, f"timing_{cli}.json")) as f:
+            timing = json.load(f)
+        clis[label] = {"wall_s": seconds, "peak_bytes": peak, **timing}
+        launches = {k: v for k, v in timing["launches"].items() if v}
+        print(f"20a {label}: {seconds:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in timing['seconds'].items())}), "
+              f"peak {peak / 1e9:.3f} GB, launches {launches}")
+        return out
+
+    with Phase20Recorder(device) as recorder:
+        paths = {}
+        for dtype in ("float32", "bfloat16"):
+            name = f"smoke_phase2_{dtype}"
+            config = phase16_config(repo, directory, name, data_root, base=base, compute_dtype=dtype,
+                                    training=PHASE20_PHASE2)
+            run(f"train_{dtype}", "train", os.path.join(directory, "results", name), "--config", config)
+            paths[dtype] = ckpt.latest_checkpoint(os.path.join(directory, "checkpoints", name))
+            if ckpt.checkpoint_step(paths[dtype]) != PHASE20_PHASE2["max_steps"]:
+                raise SmokeFailure(f"20a train {dtype}: latest checkpoint {paths[dtype]}")
+        p3_config = phase16_config(repo, directory, "smoke_phase3", data_root, base=base,
+                                   playable_model_training=PHASE20_PHASE3)
+        run("train_playable", "train_playable", os.path.join(directory, "results", "smoke_phase3"), "--config",
+            p3_config, "--environment_checkpoint", paths["float32"])
+        p3_path = ckpt.latest_checkpoint(os.path.join(directory, "checkpoints", "smoke_phase3", "playable"))
+        frames = run("play", "play", os.path.join(directory, "smoke_play"), "--config", p3_config,
+                     "--environment_checkpoint", paths["float32"], "--playable_checkpoint", p3_path, "--script",
+                     PHASE20_SCRIPT, "--output", os.path.join(directory, "smoke_play"))
+    if len(frames) != len(PHASE20_SCRIPT.split(",")) + 1 or not all(np.isfinite(f).all() for f in frames):
+        raise SmokeFailure(f"20a play: {len(frames)} frames, or not finite")
+    want = {"train_float32": ("backbone_f32_fwd", "backbone_f32_bwd"),
+            "train_bfloat16": ("fused_backbone_fwd", "fused_backbone_bwd"),
+            "train_playable": ("fused_rollout_fwd", "fused_rollout_bwd"), "play": ("fused_adain_nerf",)}
+    for label, names in want.items():
+        launched = {name: clis[label]["launches"].get(name, 0) for name in names}
+        if device != "cpu" and not all(launched.values()):
+            raise SmokeFailure(f"20a {label}: a kernel of the narrow path was not launched: {launched}")
+    if device == "cpu":  # a rehearsal: the wrappers took their plain versions, nothing to hold or time
+        return {"clis": clis, "holds": {}, "narrow": {}}
+    holds = {}
+    with uncounted_launches():
+        holds["b1_max_abs_err"] = hold_b1_launch("20a play", recorder.b1)
+        holds["bf16"] = hold_recorded_backbone_calls("20a train bf16", {
+            "fwd": {"first": recorder.b2["bfloat16"]}, "bwd": {"first": recorder.b3["bfloat16"]}})
+        holds["b2_f32_max_rel_err"], holds["b3_f32_max_rounding_ratio"] = hold_f32_backbone_calls(
+            "20a train f32", recorder.b2["float32"], recorder.b3["float32"])
+        holds["b4_max_rel_err"] = phase17_hold_b4(recorder.b4, "20a")
+        holds["b5_max_rel_err"] = hold_b5("20a", recorder.b5)
+        narrow = phase20_narrow_times(recorder)
+    b1 = recorder.b1[1][0].weights
+    print(f"20a synthetic_smoke on the narrow widths: B1 at W {recorder.b1[0].layers_width} (run at {b1.width}) "
+          f"within {holds['b1_max_abs_err']:.3e} of plain; B2-f32 {holds['b2_f32_max_rel_err']:.3e} of its largest, "
+          f"B3-f32 {holds['b3_f32_max_rounding_ratio']:.3e} of its rounding scale; B4 {holds['b4_max_rel_err']:.3e}, "
+          f"B5 {holds['b5_max_rel_err']:.3e} at F {recorder.b4[1].wb.shape[0]} (relative)")
+    return {"clis": clis, "holds": holds, "narrow": narrow}
+
+
+def write_mp4(path, frames, size, fps, draw):
+    """An mp4v video of `frames` frames `draw(i)` (BGR uint8) through cv2."""
+    import cv2
+
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, size)
+    if not writer.isOpened():
+        raise SmokeFailure("20b: cv2's mp4v writer does not open")
+    for i in range(frames):
+        writer.write(draw(i))
+    writer.release()
+    return path
+
+
+def court_keypoint_file(path):
+    """The court keypoints of PHASE20_CAMERA as pixels, one 'x y' a line."""
+    import numpy as np
+
+    from playableenvironments_tpu_torch.acquisition import geometry
+    from playableenvironments_tpu_torch.acquisition.tennis_court import court_keypoints
+
+    rotation, translation, focal, (width, height) = PHASE20_CAMERA
+    w2c = geometry.invert_pose(geometry.pose_to_matrix(rotation, translation))
+    cam = court_keypoints().astype(np.float64) @ w2c[:3, :3].T + w2c[:3, 3]
+    pixels = -cam[:, :2] / cam[:, 2:3] * focal
+    pixels[:, 1] *= -1
+    pixels += np.asarray([width / 2, height / 2])
+    with open(path, "w") as f:
+        f.writelines(f"{x} {y}\n" for x, y in pixels)
+    return path
+
+
+def boxes_card_vs_cpu(root, checkpoint, directory, devices=("cuda", "cpu"), base_features=8):
+    """`acquire boxes` over copies of `root` with the detector checkpoint,
+    on the card (its default device) and on the CPU, each in full-precision
+    convolutions: every frame's boxes within PHASE20_BOX_ATOL, the validity
+    equal. :return: ({device: (frames, wall s)}, the largest box error)."""
+    import shutil
+
+    import numpy as np
+
+    from playableenvironments_tpu_torch.data.video import Video
+
+    runs, trees = {}, {}
+    for label, device in zip(("card", "cpu"), devices):
+        trees[label] = os.path.join(directory, f"boxes_{label}")
+        shutil.copytree(root, trees[label])
+        args = ["boxes", "--root", trees[label], "--detector_checkpoint", checkpoint, "--objects_count", 2,
+                "--threshold", 0.0, "--base_features", base_features]
+        if label == "cpu" or device != "cuda":
+            args += ["--device", device]
+        with ieee_convolutions(device):
+            frames, seconds, _ = run_cli("playableenvironments_tpu_torch.cli.acquire", *args)
+        runs[label] = (frames, seconds)
+    if runs["card"][0] != runs["cpu"][0] or not runs["card"][0]:
+        raise SmokeFailure(f"20b boxes: {runs['card'][0]} frames annotated on the card, {runs['cpu'][0]} on the CPU")
+    worst = 0.0
+    for video in sorted(os.listdir(trees["cpu"])):
+        for camera in sorted(os.listdir(os.path.join(trees["cpu"], video))):
+            got, ref = (Video().load(os.path.join(trees[k], video, camera)) for k in ("card", "cpu"))
+            for i, (g, r) in enumerate(zip(got.bounding_boxes, ref.bounding_boxes)):
+                worst = max(worst, float(np.abs(np.asarray(g) - np.asarray(r)).max()))
+                if not (np.array_equal(got.bounding_boxes_validity[i], ref.bounding_boxes_validity[i])
+                        and worst <= PHASE20_BOX_ATOL):
+                    raise SmokeFailure(f"20b boxes {video}/{camera} frame {i}: card {np.asarray(g).T.tolist()} "
+                                       f"{got.bounding_boxes_validity[i]}, CPU {np.asarray(r).T.tolist()} "
+                                       f"{ref.bounding_boxes_validity[i]}")
+    return runs, worst
+
+
+def phase20_acquisition(repo, directory, devices=("cuda", "cpu")):
+    """20b (above) on the card's machine: the trees each subcommand writes,
+    checked as tests/test_acquisition.py checks them; the detector's boxes
+    card vs CPU; the extractor and cv2 that ran. :return: its results."""
+    import shutil
+
+    import cv2
+    import numpy as np
+    import yaml
+
+    from playableenvironments_tpu_torch.acquisition.sequence_extraction import have_ffmpeg
+    from playableenvironments_tpu_torch.cli.common import load_yaml
+    from playableenvironments_tpu_torch.data.dataset import MulticameraVideoDataset
+    from playableenvironments_tpu_torch.data.video import Video
+    from playableenvironments_tpu_torch.train import checkpointing as ckpt
+    from playableenvironments_tpu_torch.train.trainer_detector import DetectorTrainer, DetectorTrainingConfig
+
+    card, host = devices
+    acquire = "playableenvironments_tpu_torch.cli.acquire"
+    extractor = "ffmpeg" if have_ffmpeg() else "cv2.VideoCapture"
+    results = {"extractor": extractor, "cv2": cv2.__version__, "seconds": {}}
+    clock = [time.perf_counter()]
+
+    def done(step):
+        clock.append(time.perf_counter())
+        results["seconds"][step] = round(clock[-1] - clock[-2], 2)
+
+    # tennis: the mp4, its sequences, the calibration
+    width, height, fps, count = PHASE20_VIDEO
+
+    def court(i):
+        frame = np.full((height, width, 3), (70, 140, 60), np.uint8)
+        for k, (colour, x0) in enumerate((((40, 40, 220), 10), ((220, 200, 40), 60))):
+            x = (x0 + 2 * i * (1 if k == 0 else -1)) % (width - 16)
+            frame[14 + 10 * k:40 + 10 * k, x:x + 14] = colour
+        return frame
+
+    video = write_mp4(os.path.join(directory, "match.mp4"), count, (width, height), fps, court)
+    annotations = os.path.join(directory, "annotations.yaml")
+    with open(annotations, "w") as f:
+        yaml.safe_dump({"match_split_00000.mp4": [{"start": 0.0, "end": 0.8}, {"start": 1.0, "end": 1.6},
+                                                  {"start": 2.2, "end": 2.9}]}, f)
+    raw = os.path.join(directory, "acquired")
+    written, _, _ = run_cli(acquire, "tennis", "--video", video, "--annotations", annotations, "--splits_duration", 600,
+                            "--output", raw)
+    camera_dir = os.path.join(raw, "00000", "00000")
+    first = Video().load(camera_dir)
+    if [os.path.basename(w) for w in written] != ["00000", "00001"] or first.frames_count < 10 or \
+            first.get_frame(0).shape != (height, width, 3):
+        raise SmokeFailure(f"20b tennis: sequences {written}, {first.frames_count} frames of "
+                           f"{first.get_frame(0).shape}")
+    done("tennis")
+    rotation, translation, focal, (cal_width, cal_height) = PHASE20_CAMERA
+    (got_rotation, got_translation, got_focal, error), _, _ = run_cli(
+        acquire, "calibrate", "--image_points", court_keypoint_file(os.path.join(directory, "points.txt")),
+        "--width", cal_width, "--height", cal_height, "--camera_dir", camera_dir)
+    calibrated = Video().load(camera_dir)
+    if not (np.abs(np.asarray(calibrated.cameras[0].rotation) - rotation).max() <= 1e-3
+            and abs(calibrated.focals[0] - focal) <= 2.0 and error <= 1.0):
+        raise SmokeFailure(f"20b calibrate: rotation {got_rotation}, focal {got_focal}, reprojection {error} px")
+    done("calibrate")
+
+    # boxes: a seeded detector's checkpoint, on the card and on the CPU
+    trainer = DetectorTrainer(DetectorTrainingConfig(base_features=8), device=host, seed=20)
+    checkpoint = ckpt.save_checkpoint(os.path.join(directory, "detector"), trainer)
+    runs, box_err = boxes_card_vs_cpu(raw, checkpoint, directory, devices)
+    results["boxes"] = {"frames": runs["card"][0], "card_s": runs["card"][1], "cpu_s": runs["cpu"][1],
+                        "max_abs_err": box_err}
+    done("boxes")
+
+    # split and fragment the card's annotated tree
+    dataset = os.path.join(directory, "acquired_dataset")
+    assignment, _, _ = run_cli(acquire, "split", "--root", os.path.join(directory, "boxes_card"), "--output", dataset,
+                               "--train", 0.5, "--val", 0.5)
+    fragments = os.path.join(directory, "fragments")
+    fragment_count, _, _ = run_cli(acquire, "fragment", "--root", os.path.join(dataset, "train"), "--output",
+                                   fragments, "--length", 4)
+    loaded = len(MulticameraVideoDataset(fragments, observations_count=2))
+    if [len(assignment[k]) for k in ("train", "val", "test")] != [1, 1, 0] or fragment_count < 1 or not loaded:
+        raise SmokeFailure(f"20b split/fragment: {assignment}, {fragment_count} fragments, {loaded} samples")
+    done("split_fragment")
+
+    # minecraft: a recording with its video, ingested, then one phase-2 step on it
+    replay = write_mp4(os.path.join(directory, "replay.mp4"), 6, (96, 64), 2,
+                       lambda i: np.pad(np.full((64, 12, 3), 200, np.uint8), ((0, 0), ((i * 12) % 96, 84 - (i * 12) % 96), (0, 0))))
+    recording, splits_file = write_replay(directory)
+    mc_raw = os.path.join(directory, "minecraft")
+    written_mc, _, _ = run_cli(acquire, "minecraft", "--annotations", recording, "--splits", splits_file, "--video",
+                               replay, "--output", mc_raw)
+    camera0 = Video().load(os.path.join(written_mc[0], "00000"))
+    if len(written_mc) != 2 or camera0.frames_count != 4 or camera0.get_frame(0).shape != (64, 96, 3):
+        raise SmokeFailure(f"20b minecraft: {written_mc}, {camera0.frames_count} frames")
+    mc_data = os.path.join(directory, "minecraft_data")
+    shutil.copytree(mc_raw, os.path.join(mc_data, "train"))
+    config = phase16_config(repo, directory, "minecraft_ingested", mc_data,
+                            base=load_yaml(os.path.join(repo, "configs", "synthetic_smoke.yaml")), fused=False,
+                            training=dict(max_steps=1, save_freq=1, log_interval_steps=1),
+                            **{"training.batching": {"batch_size": 2}})
+    _, seconds, _ = run_cli("playableenvironments_tpu_torch.cli.train", "--config", config,
+                            *([] if card == "cuda" else ["--device", card]))
+    if ckpt.latest_checkpoint(os.path.join(directory, "checkpoints", "minecraft_ingested")) is None:
+        raise SmokeFailure("20b minecraft: the phase-2 step on the ingested data saved no checkpoint")
+    results["minecraft"] = {"splits": len(written_mc), "train_s": seconds}
+    done("minecraft")
+    print(f"20b acquisition ({extractor} extracts the frames, cv2 {cv2.__version__}): tennis 2 sequences "
+          f"({first.frames_count} frames in the first), calibrated to {error:.3f} px; boxes of a seeded detector "
+          f"on {runs['card'][0]} frames, card vs CPU within {box_err:.3e} ({runs['card'][1]:.2f} / "
+          f"{runs['cpu'][1]:.2f} s); split {[len(assignment[k]) for k in ('train', 'val', 'test')]}, "
+          f"{fragment_count} fragments of 4; minecraft {len(written_mc)} splits, one phase-2 step on them in "
+          f"{seconds:.2f} s; seconds {results['seconds']}")
+    results["trees"] = {"annotated": os.path.join(directory, "boxes_card"), "detector": checkpoint}
+    return results
+
+
+def write_replay(directory, frames=6, fps=2):
+    """tests/test_acquisition.py's ReplayMod recording with one player:
+    (annotations JSON path, split file path)."""
+    timesteps = [{"camera": {"posX": 100.0, "posY": 68.0, "posZ": 110.0, "rotX": -20.0, "rotY": 0.0, "rotZ": 0.0},
+                  "entities": {"objects": [{"uuid": "player-0", "posX": 100.0 + 0.1 * t, "posY": 64.0, "posZ": 95.0,
+                                            "rotX": 0.0, "rotY": 0.0, "rotZ": 0.0}]}} for t in range(frames)]
+    annotations = {"camera_intrinsics": {"image_height": 64, "image_width": 96, "y_fov": 1.0, "z_near": 0.1,
+                                         "z_far": 100.0}, "framerate": fps, "timesteps": timesteps}
+    path = os.path.join(directory, "recording.json")
+    with open(path, "w") as f:
+        json.dump(annotations, f)
+    splits = os.path.join(directory, "splits.txt")
+    with open(splits, "w") as f:
+        f.write("# world center\n100 64 100\n0 2\n2 3\n")
+    return path, splits
+
+
+def phase20_drawing(repo, directory, acquired, device="cuda"):
+    """20c: the annotated tree's first frame with its boxes and a pose's
+    axes drawn, the seeded detector's heatmap and sizes as feature maps, and
+    the scene viewer's snapshot of configs/synthetic_smoke.yaml's boxes, the
+    calibrated camera and rays from it; every PNG written, readable and not
+    blank. :return: the PNGs' paths."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from playableenvironments_tpu_torch.acquisition import geometry
+    from playableenvironments_tpu_torch.config import scene_from_yaml
+    from playableenvironments_tpu_torch.data.video import Video
+    from playableenvironments_tpu_torch.train import checkpointing as ckpt
+    from playableenvironments_tpu_torch.train.trainer_detector import DetectorTrainer, DetectorTrainingConfig
+    from playableenvironments_tpu_torch.utils import drawing, scene_viewer
+
+    out = os.path.join(directory, "drawings")
+    os.makedirs(out, exist_ok=True)
+    camera = Video().load(os.path.join(acquired["annotated"], "00000", "00000"))
+    frame = camera.get_frame(0)
+    boxes, validity = np.asarray(camera.bounding_boxes[0]).T, np.asarray(camera.bounding_boxes_validity[0])
+    paths = {"boxes": os.path.join(out, "boxes.png"), "axes": os.path.join(out, "axes.png")}
+    Image.fromarray(drawing.draw_boxes(frame, boxes, validity, labels=["p1", "p2"])).save(paths["boxes"])
+    o2w = geometry.pose_to_matrix([0.0, 0.4, 0.0], [0.0, 0.0, -5.0])
+    Image.fromarray(drawing.draw_axes(frame, o2w, np.eye(4), focal=40.0)).save(paths["axes"])
+    trainer = ckpt.restore_checkpoint(acquired["detector"],
+                                      DetectorTrainer(DetectorTrainingConfig(base_features=8), device=device))
+    trainer.model.eval()
+    with torch.no_grad():
+        outputs = trainer.model(torch.from_numpy(frame)[None].to(trainer.device), train=False)
+    features = torch.cat([torch.sigmoid(outputs["heatmap"]), outputs["sizes"][0].permute(2, 0, 1)]).cpu().numpy()
+    drawing.save_feature_maps(features, os.path.join(out, "features"))
+    paths.update({f"feature_{i}": os.path.join(out, "features", f"{i:05d}.png") for i in range(features.shape[0])})
+    scene = scene_from_yaml(os.path.join(repo, "configs", "synthetic_smoke.yaml"))
+    pose = camera.cameras[0]
+    player = geometry.pose_to_matrix([0.0, 0.0, 0.5], [1.0, 2.0, 0.0])
+    directions = np.random.default_rng(20).normal(size=(256, 3)) - np.asarray(pose.translation) / 30.0
+    paths["scene"] = scene_viewer.view_scene(
+        [np.asarray(m.bounding_box) for m in scene.object_models], [np.eye(4), player],
+        camera_positions=np.asarray(pose.translation)[None], ray_origins=np.asarray(pose.translation)[None],
+        ray_directions=directions, ray_length=20.0, output_path=os.path.join(out, "scene.png"))
+    for name, path in paths.items():
+        with Image.open(path) as image:
+            pixels = np.asarray(image.convert("RGB"))
+        if pixels.size == 0 or pixels.min() == pixels.max():
+            raise SmokeFailure(f"20c {name}: {path} is blank")
+    if np.array_equal(np.asarray(Image.open(paths["boxes"])), drawing._as_uint8(frame)):
+        raise SmokeFailure("20c: draw_boxes drew nothing")
+    print(f"20c drawings: {len(paths)} PNGs ({', '.join(sorted(paths))}), none blank")
+    return paths
+
+
+def phase20_cli(repo, directory, device="cuda"):
+    """20a-20c in `directory` (a rehearsal on the CPU: `device="cpu"`)."""
+    seconds, clock = {}, [time.perf_counter()]
+
+    def done(part):
+        clock.append(time.perf_counter())
+        seconds[part] = round(clock[-1] - clock[-2], 1)
+
+    results = {"smoke": phase20_smoke_cli(repo, directory, device)}
+    done("20a")
+    results["acquisition"] = phase20_acquisition(repo, directory, (device, "cpu"))
+    done("20b")
+    results["drawings"] = phase20_drawing(repo, directory, results["acquisition"]["trees"], device)
+    done("20c")
+    results["seconds"] = seconds
+    print(f"20 seconds: {seconds}")
+    return results
+
+
+def phase20(repo):
+    """20a-20c in a temporary directory it removes."""
+    with cli_directory() as directory:
+        return phase20_cli(repo, directory)
 
 
 def backbone_f32_entries(phase14_results):
@@ -5776,7 +6476,7 @@ def main() -> int:
 
     done("1")
     alone = {"12": phase12_minecraft, "13": phase13, "14": phase14, "15": phase15, "16": phase16, "17": phase17,
-             "18": phase18, "19": phase19}
+             "18": phase18, "19": phase19, "20": phase20}
     if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in alone:
         try:
             result = alone[sys.argv[2]](repo)
@@ -5904,6 +6604,8 @@ def main() -> int:
             done("18")
             phase19_results = phase19_cli(repo, directory, phase16_results["paths"])
             done("19")
+            phase20_results = phase20_cli(repo, directory)
+            done("20")
     except SmokeFailure as e:
         return fail(str(e))
 
@@ -6020,6 +6722,21 @@ def main() -> int:
             if any(counts):
                 entry["launches_by_path"][label] = counts
     kernels[3]["max_abs_err"] = max(kernels[3]["max_abs_err"], phase17_results["holds"]["playability"]["b4_max_rel_err"])
+    # Phase 20: every kernel on configs/synthetic_smoke.yaml's narrow widths
+    # (its CLIs' timing files), each first launch held, each timed there.
+    smoke = phase20_results["smoke"]
+    for entry in kernels:
+        entry["launches_by_path"].update({
+            f"smoke_{label}": cli["launches"][entry["name"]] for label, cli in smoke["clis"].items()
+            if cli["launches"].get(entry["name"])})
+        entry["narrow"] = smoke["narrow"][entry["name"]]
+    holds20 = smoke["holds"]
+    by_name = {entry["name"]: entry for entry in kernels}
+    for name, err in (("fused_adain_nerf", holds20["b1_max_abs_err"]),
+                      ("fused_backbone_fwd", max(r["max_abs_err"] for r in holds20["bf16"] if r["direction"] == "B2")),
+                      ("backbone_f32_fwd", holds20["b2_f32_max_rel_err"]),
+                      ("fused_rollout_fwd", holds20["b4_max_rel_err"]), ("fused_rollout_bwd", holds20["b5_max_rel_err"])):
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -6032,7 +6749,7 @@ def main() -> int:
                    "phase3_card_vs_cpu": phase3_card_vs_cpu, "phase3": phase3, "phase11": phase11, "phase12": phase12,
                    "phase13": phase13_results, "phase14": phase14_results, "phase15": phase15_results,
                    "phase16": phase16_results, "phase17": phase17_results, "phase18": phase18_results,
-                   "phase19": phase19_results,
+                   "phase19": phase19_results, "phase20": phase20_results,
                    "kernels": kernels,
                    "phase_seconds": phase_seconds, "ptxas": reports}, f, indent=1)
     print(f"phase seconds: {phase_seconds}")
@@ -6054,7 +6771,9 @@ def main() -> int:
           "backbone_f32_fwd/bwd are fused_backbone_fwd/bwd's kernels for f32 operands (phase 14): their ms, "
           "plain, library (the f32 torch.matmul chain and its autograd) and bound sum one direct-ray step's four "
           "launches, `main_path_launch` is the fine pass's largest launch of 14c; "
-          "fused_rollout bounds use the f32 peak "
+          "`narrow` is each kernel at its first launch on configs/synthetic_smoke.yaml's widths (phase 20a: B1 "
+          "at W 32 run at 128, B2/B3 at W 32 run at 64, B4/B5 at F 16 run at 32), its bound that of the network's own "
+          "unpadded work; fused_rollout bounds use the f32 peak "
           f"({PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s), backbone_f32 the lower of that and the 3xTF32 one (three "
           f"TF32 operations at {PEAK_TF32_FLOPS / 1e12:.1f} TFLOP/s a multiply-add, both beside it), the others "
           f"the bf16 one ({PEAK_BF16_FLOPS / 1e12:.0f})")

@@ -22,6 +22,14 @@ the plain PyTorch version of the same function (`plain_adain_nerf`,
 `plain_backbone_fwd`, `plain_backbone_bwd`: matmul operands rounded to the
 compute dtype, products and sums in f32), which is what the CPU tests
 compare against the JAX package and what the card compares the kernels with.
+
+Like the Pallas kernels, the wrappers take every width up to the kernels'
+widest (256): on the card a narrower MLP runs zero-padded to the nearest
+width its kernel takes (`padded_weights`; B1 128 or 256, bf16 B2/B3 a
+multiple of 64, f32 B2/B3 64, 128 or 256). A padded hidden unit has zero
+incoming weights, bias and modulation, so its ReLU output is exactly 0 and
+its zero outgoing rows add nothing; the outputs and gradients are cut back
+to the MLP's own width.
 """
 
 from __future__ import annotations
@@ -157,13 +165,16 @@ def plain_adain_nerf(
 class NerfKernelWeights:
     """One object's MLP weights: `packed` in the JAX layout (what the plain
     version reads), the kernel's bf16 weight image (`adain_image`; None for
-    a width the kernel does not take, which then runs only on the CPU) and
-    its f32 biases b_0 .. b_{L-1}, b_alpha, b_out."""
+    a width above the kernel's, and on the CPU for a width it takes only
+    padded, which then run only the plain version), its f32 biases b_0 ..
+    b_{L-1}, b_alpha, b_out, and the width the image holds (`width`: the
+    MLP's own, or the padded one)."""
 
     packed: Dict[str, torch.Tensor]
     image: Optional[torch.Tensor]
     biases: torch.Tensor
     pe: int
+    width: int
 
 
 def _swizzled_blocks(w: torch.Tensor) -> torch.Tensor:
@@ -173,17 +184,58 @@ def _swizzled_blocks(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(rows // _BLOCK, _BLOCK, cols // _BLOCK, _BLOCK).permute(0, 2, 1, 3).reshape(-1, _BLOCK * _BLOCK)
 
 
+def padded_weights(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor],
+                   width: int) -> Tuple[NerfMLPConfig, Dict[str, torch.Tensor]]:
+    """`cfg` at `width` hidden units and `packed` zero-padded to it: every
+    backbone layer's columns and its rows from the layer before (at the skip
+    layer the zero rows go between h's rows and the encoding's), the biases,
+    w_alpha's rows and, where `packed` has the feature head, w_f0 (W', W'),
+    w_f1 (W', W' / 2) and w_out's rows (W' / 2). The padded MLP computes the
+    same outputs in the first W columns and zeros past them: a padded unit's
+    pre-activation is exactly 0. (cfg, packed) themselves at their own width."""
+    old = cfg.layers_width
+    if width == old:
+        return cfg, packed
+    pad, extra, extra_half = torch.nn.functional.pad, width - old, width // 2 - old // 2
+    out = dict(packed)
+    for i in range(cfg.backbone_layers_count):
+        w = packed[f"w{i}"]
+        if i == 0:
+            out[f"w{i}"] = pad(w, (0, extra))
+        elif i == cfg.skip_layer_idx:
+            out[f"w{i}"] = torch.cat([pad(w[:old], (0, extra, 0, extra)), pad(w[old:], (0, extra))])
+        else:
+            out[f"w{i}"] = pad(w, (0, extra, 0, extra))
+        out[f"b{i}"] = pad(packed[f"b{i}"], (0, extra))
+    out["w_alpha"] = pad(packed["w_alpha"], (0, 0, 0, extra))
+    if "w_f0" in packed:
+        out["w_f0"] = pad(packed["w_f0"], (0, extra, 0, extra))
+        out["w_f1"] = pad(packed["w_f1"], (0, extra_half, 0, extra))
+        out["w_out"] = pad(packed["w_out"], (0, 0, 0, extra_half))
+    return replace(cfg, layers_width=width), out
+
+
+def adain_kernel_width(width: int) -> Optional[int]:
+    """The width B1 runs a `width`-wide MLP at: the narrowest of its
+    widths (128, 256) that holds it; None above 256."""
+    return next((w for w in _ADAIN_WIDTHS if width <= w), None)
+
+
 def adain_image(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> torch.Tensor:
     """B1's bf16 weight image as csrc/fused_nerf.cu reads it: the backbone
     image of `backbone_buffers` (slots, then w_alpha), then the feature
     head's 64-row slots, each its 64 x 64 blocks in wgmma's 128-byte
     swizzle: W_f0's columns [0, W / 2), its columns [W / 2, W) (the kernel
     runs f0 in two passes), W_f1 (W, W / 2), W_out (W / 2, outputs rounded
-    up to 64, zero-padded), built on the weights' device by gathers.
-    Raises for a configuration the kernel does not take."""
+    up to 64, zero-padded), built on the weights' device by gathers. W is
+    `adain_kernel_width` of the MLP's width, to which a narrower MLP's
+    weights are zero-padded (`padded_weights`). Raises for a configuration
+    the kernel does not take."""
     width, pe, out = cfg.layers_width, packed["w0"].shape[0], packed["w_out"].shape[1]
-    if width not in _ADAIN_WIDTHS:
-        raise ValueError(f"layers_width {width}: the AdaIN-NeRF kernel takes {_ADAIN_WIDTHS}")
+    if adain_kernel_width(width) is None:
+        raise ValueError(f"layers_width {width}: the AdaIN-NeRF kernel takes widths up to {_ADAIN_WIDTHS[-1]}")
+    cfg, packed = padded_weights(cfg, packed, adain_kernel_width(width))
+    width = cfg.layers_width
     if pe > _MAX_PE:
         raise ValueError(f"encoding width {pe} exceeds the kernel's {_MAX_PE}")
     if out > _MAX_OUT:
@@ -209,15 +261,22 @@ def _padded(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 def kernel_weights(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> NerfKernelWeights:
     """Build the kernel's buffers from `packed` once (on the weights'
-    device): the image for the widths the kernel takes (raising for an
-    encoding, output count or skip it does not take), the biases always."""
+    device): the image for the widths the kernel takes, and on the card for
+    a narrower width zero-padded to one it takes (raising for an encoding,
+    output count or skip it does not take), the biases always (padded with
+    the image)."""
     pe = packed["w0"].shape[0]
+    width = adain_kernel_width(cfg.layers_width)
+    if width != cfg.layers_width and (width is None or packed["w0"].device.type != "cuda"):
+        width = None
     with torch.no_grad():
-        image = adain_image(cfg, packed) if cfg.layers_width in _ADAIN_WIDTHS else None
+        image = adain_image(cfg, packed) if width is not None else None
+        padded = padded_weights(cfg, packed, width)[1] if width is not None else packed
         biases = torch.cat(
-            [packed[f"b{i}"] for i in range(cfg.backbone_layers_count)] + [packed["b_alpha"], packed["b_out"]]
+            [padded[f"b{i}"] for i in range(cfg.backbone_layers_count)] + [padded["b_alpha"], padded["b_out"]]
         ).to(torch.float32).contiguous()
-    return NerfKernelWeights(packed={k: v.detach() for k, v in packed.items()}, image=image, biases=biases, pe=pe)
+    return NerfKernelWeights(packed={k: v.detach() for k, v in packed.items()}, image=image, biases=biases, pe=pe,
+                             width=width or cfg.layers_width)
 
 
 def adain_pair_table(n_points: Sequence[int], ctas: int = 2) -> List[int]:
@@ -411,7 +470,7 @@ def _adain_group_op(encoded: List[torch.Tensor], scale0: List[torch.Tensor], bia
     and its objects to `fused_adain_nerf.objects`."""
     device = encoded[0].device
     if width not in _ADAIN_WIDTHS or any(image.numel() == 0 for image in images):
-        raise ValueError(f"layers_width {width}: the AdaIN-NeRF kernel takes {_ADAIN_WIDTHS}")
+        raise ValueError(f"layers_width {width}: the AdaIN-NeRF kernel takes widths up to {_ADAIN_WIDTHS[-1]}")
     for group in (encoded, scale0, bias0, scale1, bias1, images, biases):
         for t in group:
             if t.device != device:
@@ -492,8 +551,10 @@ def fused_adain_nerf_group(cfg: NerfMLPConfig, items: Sequence[AdaInNerfItem]) -
     one kernel launch for up to 16 objects (objects without points take
     none), walking the pair table of `adain_pair_table`; each launch adds 1
     to `fused_adain_nerf.launches` and its objects to
-    `fused_adain_nerf.objects`. Any other device, a width the kernel does not
-    take, or a failed build or launch raises.
+    `fused_adain_nerf.objects`. On the card an MLP narrower than the kernel
+    takes runs at its weights' padded width (`NerfKernelWeights.width`), its
+    modulation zero-padded to it (`padded_modulation`). Any other device, a
+    width above the kernel's, or a failed build or launch raises.
     """
     for item in items:
         _check_item(cfg, item)
@@ -505,16 +566,35 @@ def fused_adain_nerf_group(cfg: NerfMLPConfig, items: Sequence[AdaInNerfItem]) -
     out_features = items[0].weights.packed["w_out"].shape[1]
     if any(it.weights.packed["w_out"].shape[1] != out_features for it in items):
         raise ValueError("the objects of one group must have the same output_features")
+    width = cfg.layers_width
+    if device.type == "cuda":
+        width = items[0].weights.width
+        if any(it.weights.width != width for it in items):
+            raise ValueError("the objects of one group must have weights of one width")
+        items = [padded_modulation(it, width) for it in items]
     names = _packed_names(cfg.backbone_layers_count)
     outputs = _adain_group_op(
         [it.encoded for it in items], [it.scale0 for it in items], [it.bias0 for it in items],
         [it.scale1 for it in items], [it.bias1 for it in items],
         [it.weights.image if it.weights.image is not None else it.weights.biases.new_empty((0,)) for it in items],
         [it.weights.biases for it in items], [it.weights.packed[n] for it in items for n in names],
-        [it.samples_per_ray for it in items], cfg.layers_width, cfg.backbone_layers_count, cfg.skip_layer_idx,
+        [it.samples_per_ray for it in items], width, cfg.backbone_layers_count, cfg.skip_layer_idx,
         out_features,
     )
     return list(zip(outputs[0::2], outputs[1::2]))
+
+
+def padded_modulation(item: AdaInNerfItem, width: int) -> AdaInNerfItem:
+    """`item` with scale0/bias0 zero-padded to `width` columns and
+    scale1/bias1 to `width` // 2 (a padded feature-head unit's product is 0
+    and so is its modulated output); the item itself at its own width."""
+    have = item.scale0.shape[1]
+    if have == width:
+        return item
+    pad = torch.nn.functional.pad
+    extra, extra_half = width - have, width // 2 - item.scale1.shape[1]
+    return item._replace(scale0=pad(item.scale0, (0, extra)), bias0=pad(item.bias0, (0, extra)),
+                         scale1=pad(item.scale1, (0, extra_half)), bias1=pad(item.bias1, (0, extra_half)))
 
 
 def fused_adain_nerf(
@@ -833,8 +913,11 @@ def backbone_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> Tup
     shares its backbone) reads them, whatever the configuration's
     `compute_dtype`: the bf16 weight image (every layer's 64-row slots,
     each W/64 swizzled 64 x 64 blocks, then w_alpha) and the f32 biases
-    b_0 .. b_{L-1}, b_alpha. A handful of small kernels a launch: the
-    slots' rows in one cat, one cast, one gather for the swizzle."""
+    b_0 .. b_{L-1}, b_alpha, W the width rounded up to a multiple of 64
+    (the weights zero-padded to it, `padded_weights`). A handful of small
+    kernels a launch: the slots' rows in one cat, one cast, one gather for
+    the swizzle."""
+    cfg, packed = padded_weights(cfg, packed, backbone_kernel_width(replace(cfg, compute_dtype="bfloat16")))
     width = cfg.layers_width
     with torch.no_grad():
         rows = []
@@ -871,23 +954,88 @@ def _kernel_skip(cfg: NerfMLPConfig) -> int:
     return cfg.skip_layer_idx or cfg.backbone_layers_count
 
 
+def backbone_kernel_width(cfg: NerfMLPConfig) -> int:
+    """The width the backbone kernels of cfg's `compute_dtype` run it at:
+    for float32 operands the narrowest of 64, 128 and 256 that holds it,
+    for bfloat16 the next multiple of 64; above 256, the width itself (the
+    kernels refuse it)."""
+    width = cfg.layers_width
+    if width > _MAX_WIDTH:
+        return width
+    if cfg.compute_dtype == "float32":
+        return next(w for w in _F32_WIDTHS if width <= w)
+    return -(-width // _BLOCK) * _BLOCK
+
+
+def kernel_backbone(cfg: NerfMLPConfig,
+                    packed: Dict[str, torch.Tensor]) -> Tuple[NerfMLPConfig, Dict[str, torch.Tensor]]:
+    """(cfg, packed) at `backbone_kernel_width`, zero-padded (`padded_weights`)."""
+    return padded_weights(cfg, packed, backbone_kernel_width(cfg))
+
+
+def unpadded_backbone_grads(cfg: NerfMLPConfig, grads: Dict[str, torch.Tensor],
+                            width: int) -> Dict[str, torch.Tensor]:
+    """The gradients of cfg's backbone padded to `width` (`padded_weights`)
+    cut back to its own weights' shapes: the padded rows and columns go (at
+    the skip layer the rows between h's and the encoding's)."""
+    old = cfg.layers_width
+    if width == old:
+        return grads
+    out = {}
+    for i in range(cfg.backbone_layers_count):
+        g = grads[f"w{i}"]
+        if i == 0:
+            out[f"w{i}"] = g[:, :old]
+        elif i == cfg.skip_layer_idx:
+            out[f"w{i}"] = torch.cat([g[:old, :old], g[width:, :old]])
+        else:
+            out[f"w{i}"] = g[:old, :old]
+        out[f"b{i}"] = grads[f"b{i}"][..., :old]
+    out["w_alpha"] = grads["w_alpha"][:old]
+    out["b_alpha"] = grads["b_alpha"]
+    return out
+
+
+def padded_backbone_fwd(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encoded: torch.Tensor, run,
+                        *args) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`run`(cfg', packed', encoded, *args), a forward of the backbone, at
+    the kernels' width (`kernel_backbone`), h cut back to cfg's width."""
+    kcfg, kpacked = kernel_backbone(cfg, packed)
+    h, alpha = run(kcfg, kpacked, encoded, *args)
+    return h[:, : cfg.layers_width], alpha
+
+
+def padded_backbone_bwd(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encoded: torch.Tensor,
+                        g_h: torch.Tensor, g_alpha: torch.Tensor, run, *args):
+    """`run`(cfg', packed', encoded, g_h', g_alpha, *args), a backward of the
+    backbone, at the kernels' width: g_h zero-padded to it, the weights'
+    gradients cut back to cfg's shapes (`unpadded_backbone_grads`)."""
+    kcfg, kpacked = kernel_backbone(cfg, packed)
+    g_h = torch.nn.functional.pad(g_h, (0, kcfg.layers_width - cfg.layers_width))
+    grads, d_encoded = run(kcfg, kpacked, encoded, g_h, g_alpha, *args)
+    return unpadded_backbone_grads(cfg, grads, kcfg.layers_width), d_encoded
+
+
 def _backbone_kernel_checks(cfg: NerfMLPConfig, encoded: torch.Tensor, tensors) -> None:
-    """Raises for what the kernels do not take: `tensors` must be f32 on
-    the card of `encoded`. The kernels follow `compute_dtype`: bfloat16
-    operands (csrc/fused_backbone.cu, widths multiple of 64 up to 256) or
-    float32 (csrc/fused_backbone_f32.cu, widths 64, 128 and 256)."""
+    """Raises for what the kernels do not take (`cfg` at its kernel width,
+    `kernel_backbone`): `tensors` must be f32 on the card of `encoded`. The
+    kernels follow `compute_dtype`: bfloat16 operands
+    (csrc/fused_backbone.cu, widths multiple of 64 up to 256) or float32
+    (csrc/fused_backbone_f32.cu, widths 64, 128 and 256)."""
     if encoded.device.type != "cuda":
         raise ValueError(f"the fused backbone runs on cuda or cpu tensors, not {encoded.device}")
     width = cfg.layers_width
     if cfg.compute_dtype == "float32":
         if width not in _F32_WIDTHS:
-            raise ValueError(f"layers_width {width}: the f32 backbone kernels take widths {_F32_WIDTHS}")
+            raise ValueError(f"layers_width {width}: the f32 backbone kernels take widths up to {_MAX_WIDTH} "
+                             f"(padded to {_F32_WIDTHS})")
     elif cfg.compute_dtype != "bfloat16":
         raise NotImplementedError(
             f"the backbone kernels take bfloat16 or float32 operands, not compute_dtype {cfg.compute_dtype!r}"
         )
     if width % 64 or width > _MAX_WIDTH:
-        raise ValueError(f"layers_width {width} must be a multiple of 64, at most {_MAX_WIDTH}")
+        raise ValueError(f"layers_width {width}: the backbone kernels take widths up to {_MAX_WIDTH} "
+                         "(padded to a multiple of 64)")
     if encoded.shape[1] > _BACKBONE_PE:
         raise ValueError(f"encoding width {encoded.shape[1]} exceeds the kernel's {_BACKBONE_PE}")
     if cfg.backbone_layers_count > _BACKBONE_MAX_LAYERS:
@@ -904,14 +1052,19 @@ def fused_backbone_fwd(
 
     CPU tensors take `plain_backbone_fwd`. CUDA tensors launch the forward
     kernel (counted in `fused_backbone_fwd.launches`) on `buffers`, the
-    (weights, biases) of `backbone_buffers`, built here when not given; any
-    other device, an unsupported configuration, or a failed build or launch
-    raises.
+    (weights, biases) of `backbone_buffers`, built here when not given, at
+    the kernel's width (`padded_backbone_fwd`); any other device, an
+    unsupported configuration, or a failed build or launch raises.
     """
     if encoded.device.type == "cpu":
         return plain_backbone_fwd(cfg, packed, encoded)
     if cfg.compute_dtype == "float32":
         return backbone_f32_fwd(cfg, packed, encoded, buffers)
+    return padded_backbone_fwd(cfg, packed, encoded, _backbone_fwd, buffers)
+
+
+def _backbone_fwd(cfg, packed, encoded, buffers):
+    """One launch of the bf16 forward kernel, `cfg` at a width it takes."""
     _backbone_kernel_checks(cfg, encoded, [encoded] + list(packed.values()))
     n, pe = encoded.shape
     width = cfg.layers_width
@@ -1022,8 +1175,13 @@ def _sm_count(device: torch.device) -> int:
 
 def _backbone_bwd(cfg, packed, encoded, g_h, g_alpha, buffers, ms):
     """Launches the backward kernels on the bf16 rounding of `encoded`, all
-    they read of it; `ms`, a ctypes array of 3 floats or None, receives the
-    three kernels' times (the call then waits for them)."""
+    they read of it, at their width (`padded_backbone_bwd`); `ms`, a ctypes
+    array of 3 floats or None, receives the three kernels' times (the call
+    then waits for them)."""
+    return padded_backbone_bwd(cfg, packed, encoded, g_h, g_alpha, _backbone_bwd_launch, buffers, ms)
+
+
+def _backbone_bwd_launch(cfg, packed, encoded, g_h, g_alpha, buffers, ms):
     _backbone_kernel_checks(cfg, encoded, [g_h, g_alpha] + list(packed.values()))
     n, pe = encoded.shape
     width, layers, skip = cfg.layers_width, cfg.backbone_layers_count, _kernel_skip(cfg)
@@ -1159,7 +1317,8 @@ def _logical_k(m):
 
 def plain_backbone_f32_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> F32Buffers:
     """The f32 kernels' weights built in plain PyTorch, the plain version of
-    csrc/fused_backbone_f32.cu::backbone_f32_pack_kernel, bit for bit. Layer
+    csrc/fused_backbone_f32.cu::backbone_f32_pack_kernel, bit for bit, at
+    the kernels' width (`kernel_backbone`). Layer
     i starts at float 2 W (padded rows before it) in both images:
     - fwd: its in_i / 8 slots (k-steps of its padded input rows, taken in
       `_logical_k`'s order), each big then small of (n = W output
@@ -1167,6 +1326,7 @@ def plain_backbone_f32_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tenso
     - bwd: W / 8 slots of its 64 encoding rows as n (layer 0, and first at
       the skip layer), then (layers > 0) W / 8 slots of its W activation
       rows, k over the output columns in the same order."""
+    cfg, packed = kernel_backbone(cfg, packed)
     width, skip = cfg.layers_width, _kernel_skip(cfg)
     device = packed["w0"].device
     fwd, bwd = [], []
@@ -1210,6 +1370,7 @@ def backbone_f32_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) ->
     device = packed["w0"].device
     if device.type == "cpu":
         return plain_backbone_f32_buffers(cfg, packed)
+    cfg, packed = kernel_backbone(cfg, packed)
     width, layers, pe = cfg.layers_width, cfg.backbone_layers_count, packed["w0"].shape[0]
     _backbone_kernel_checks(cfg, packed["w0"].new_empty((0, pe)), list(packed.values()))
     rows = _backbone_grad_rows(cfg)
@@ -1299,8 +1460,13 @@ def backbone_f32_fwd(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encode
                      buffers: Optional[F32Buffers] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The f32 forward kernel (B2 for f32 operands) on the card over (N, E)
     f32 encodings -> ((N, W) h, (N,) alpha), one launch counted in
-    `backbone_f32_fwd.launches`; `buffers` as backbone_f32_buffers gives
-    them, built here when not given. Raises for what it does not take."""
+    `backbone_f32_fwd.launches` at the kernel's width
+    (`padded_backbone_fwd`); `buffers` as backbone_f32_buffers gives them,
+    built here when not given. Raises for what it does not take."""
+    return padded_backbone_fwd(cfg, packed, encoded, _backbone_f32_fwd, buffers)
+
+
+def _backbone_f32_fwd(cfg, packed, encoded, buffers):
     _backbone_kernel_checks(cfg, encoded, [encoded] + list(packed.values()))
     n, pe = encoded.shape
     width = cfg.layers_width
@@ -1336,9 +1502,14 @@ def backbone_layer_outputs(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], 
 
 
 def _backbone_f32_bwd(cfg, packed, encoded, g_h, g_alpha, buffers, ms):
-    """Launches the f32 backward kernels; `ms`, a ctypes array of 3 floats
-    or None, receives the tile, weight-gradient and reduction kernels'
-    milliseconds (the call then waits for each launch)."""
+    """Launches the f32 backward kernels at their width
+    (`padded_backbone_bwd`); `ms`, a ctypes array of 3 floats or None,
+    receives the tile, weight-gradient and reduction kernels' milliseconds
+    (the call then waits for each launch)."""
+    return padded_backbone_bwd(cfg, packed, encoded, g_h, g_alpha, _backbone_f32_bwd_launch, buffers, ms)
+
+
+def _backbone_f32_bwd_launch(cfg, packed, encoded, g_h, g_alpha, buffers, ms):
     _backbone_kernel_checks(cfg, encoded, [encoded, g_h, g_alpha] + list(packed.values()))
     n, pe = encoded.shape
     width, layers, skip = cfg.layers_width, cfg.backbone_layers_count, _kernel_skip(cfg)

@@ -24,6 +24,14 @@ The kernels split each 16-row tile over a thread-block cluster
 launchers gather on the card at every call; `rollout_fwd_image` and
 `rollout_bwd_image` are that gather's plain versions, which the tests read
 through a copy of the kernels' index arithmetic.
+
+The kernels take features that are multiples of 32; like the Pallas
+kernels, the wrappers take any up to 256: on the card a narrower network
+runs zero-padded to the next multiple of 32 (`padded_params`, each gate
+block on its own). A padded unit has zero weights, bias and initial state,
+so its gates are (1/2, 1/2, 0, 1/2), its cell and hidden state stay exactly
+0 and so does its backbone output; the residuals and gradients are cut back
+to the network's own width.
 """
 
 from __future__ import annotations
@@ -557,6 +565,97 @@ def _stages(layout: RolloutLayout, fwd: bool) -> int:
     return stages
 
 
+def kernel_features(features: int) -> int:
+    """The features the kernels run a network of `features` at: the next
+    multiple of 32; above 256, the count itself (the kernels refuse it)."""
+    return features if features > _MAX_FEATURES else -(-features // 32) * 32
+
+
+def _pad_gates(x: torch.Tensor, features: int, padded: int, values=(0.0, 0.0, 0.0, 0.0)) -> torch.Tensor:
+    """(..., 4F) gate columns [i|f|g|o] -> (..., 4F'), each block padded on
+    its own with its entry of `values`."""
+    blocks = x.reshape(*x.shape[:-1], 4, features)
+    pad = [torch.nn.functional.pad(blocks[..., k, :], (0, padded - features), value=v) for k, v in enumerate(values)]
+    return torch.stack(pad, dim=-2).reshape(*x.shape[:-1], 4 * padded)
+
+
+def padded_params(params: PackedParams, padded: int) -> PackedParams:
+    """`params` zero-padded from F to `padded` features: each gate block of
+    wx, wh and bh, the rows that read the hidden state (wx above layer 0,
+    wh, wb, whead), wb's and bb's columns, h_init and c_init. The network
+    computes the same outputs, its padded units' states exactly 0. `params`
+    itself at its own width."""
+    features = params.wb.shape[0]
+    if padded == features:
+        return params
+    extra = padded - features
+    pad = torch.nn.functional.pad
+
+    def gates(w, rows):
+        return pad(_pad_gates(w, features, padded), (0, 0, 0, rows))
+
+    return PackedParams(
+        wx=tuple(gates(w, extra if layer else 0) for layer, w in enumerate(params.wx)),
+        wh=tuple(gates(w, extra) for w in params.wh), bh=tuple(gates(b, 0) for b in params.bh),
+        h_init=tuple(pad(h, (0, extra)) for h in params.h_init), c_init=tuple(pad(c, (0, extra)) for c in params.c_init),
+        wb=pad(params.wb, (0, extra, 0, extra)), bb=pad(params.bb, (0, extra)),
+        whead=pad(params.whead, (0, 0, 0, extra)), bhead=params.bhead,
+    )
+
+
+def unpadded_grads(params: PackedParams, grads: PackedParams) -> PackedParams:
+    """Gradients of `params` padded to more features (`padded_params`) cut
+    back to the shapes of `params`."""
+    features, padded = params.wb.shape[0], grads.wb.shape[0]
+    if padded == features:
+        return grads
+
+    def gates(g, rows):
+        return g[:rows].reshape(rows, 4, padded)[..., :features].reshape(rows, 4 * features)
+
+    return PackedParams(
+        wx=tuple(gates(g, w.shape[0]) for g, w in zip(grads.wx, params.wx)),
+        wh=tuple(gates(g, features) for g in grads.wh), bh=tuple(gates(g, 1) for g in grads.bh),
+        h_init=tuple(g[:, :features] for g in grads.h_init), c_init=tuple(g[:, :features] for g in grads.c_init),
+        wb=grads.wb[:features, :features], bb=grads.bb[:, :features], whead=grads.whead[:features],
+        bhead=grads.bhead,
+    )
+
+
+# A padded unit's gates: sigmoid(0), sigmoid(0), tanh(0), sigmoid(0).
+_PADDED_GATES = (0.5, 0.5, 0.0, 0.5)
+
+
+def padded_residuals(residuals: Dict[str, torch.Tensor], features: int, padded: int) -> Dict[str, torch.Tensor]:
+    """The forward's residuals of a network padded to `padded` features, from
+    those of its own width: a padded unit's gates are (1/2, 1/2, 0, 1/2), its
+    c, h and backbone output y 0."""
+    if padded == features:
+        return residuals
+    out = dict(residuals)
+    for key, value in residuals.items():
+        if key.startswith("gates_"):
+            out[key] = _pad_gates(value, features, padded, _PADDED_GATES)
+        elif key == "y" or key.startswith(("c_", "h_")):
+            out[key] = torch.nn.functional.pad(value, (0, padded - features))
+    return out
+
+
+def unpadded_residuals(residuals: Dict[str, torch.Tensor], features: int, padded: int) -> Dict[str, torch.Tensor]:
+    """The residuals of a network padded to `padded` features cut back to
+    its own `features`."""
+    if padded == features:
+        return residuals
+    out = dict(residuals)
+    for key, value in residuals.items():
+        if key.startswith("gates_"):
+            out[key] = value.reshape(*value.shape[:-1], 4, padded)[..., :features].reshape(
+                *value.shape[:-1], 4 * features)
+        elif key == "y" or key.startswith(("c_", "h_")):
+            out[key] = value[..., :features]
+    return out
+
+
 def _kernel_checks(cfg: RolloutConfig, params: PackedParams, tensors: Sequence[torch.Tensor], T: int) -> None:
     device = tensors[0].device
     if device.type != "cuda":
@@ -566,7 +665,8 @@ def _kernel_checks(cfg: RolloutConfig, params: PackedParams, tensors: Sequence[t
             raise ValueError(f"inputs must be float32 on {device}, got {t.dtype} on {t.device}")
     features, layers = params.wb.shape[0], len(params.wx)
     if features % 32 or not 32 <= features <= _MAX_FEATURES:
-        raise ValueError(f"features {features} must be a multiple of 32, at most {_MAX_FEATURES}")
+        raise ValueError(f"features {features} must be a multiple of 32, at most {_MAX_FEATURES} "
+                         "(narrower ones are padded to one)")
     if not 1 <= layers <= _MAX_LAYERS:
         raise ValueError(f"layers {layers} must be 1 to {_MAX_LAYERS}")
     if cfg.rotation_axis not in (0, 1, 2):
@@ -754,8 +854,25 @@ def max_active_clusters(params: PackedParams, fwd: bool) -> Tuple[int, int, int]
     return layout.cluster, smem, clusters
 
 
+def padded_rollout_fwd(cfg: RolloutConfig, params: PackedParams, inputs: Sequence[torch.Tensor], gt_count: int,
+                       collect_residuals: bool, run, *args):
+    """`run`(cfg, params', inputs, gt_count, collect_residuals, *args), a
+    rollout forward, at the kernels' features (`padded_params`), the
+    residuals cut back to the network's own."""
+    features = params.wb.shape[0]
+    padded = kernel_features(features)
+    out, residuals = run(cfg, padded_params(params, padded), inputs, gt_count, collect_residuals, *args)
+    return out, (unpadded_residuals(residuals, features, padded) if residuals is not None else None)
+
+
 def _rollout_fwd(cfg: RolloutConfig, params: PackedParams, inputs: Sequence[torch.Tensor], gt_count: int,
                  collect_residuals: bool, ms=None):
+    """B4 at the kernel's features (`padded_rollout_fwd`)."""
+    return padded_rollout_fwd(cfg, params, inputs, gt_count, collect_residuals, _rollout_fwd_launch, ms)
+
+
+def _rollout_fwd_launch(cfg: RolloutConfig, params: PackedParams, inputs: Sequence[torch.Tensor], gt_count: int,
+                        collect_residuals: bool, ms=None):
     rotations, style, deform, actions, variations = inputs[0], inputs[2], inputs[3], inputs[4], inputs[5]
     batch, T = rotations.shape[0], rotations.shape[1]
     S, D, A, V = style.shape[-1], deform.shape[-1], actions.shape[-1], variations.shape[-1]
@@ -787,8 +904,9 @@ def fused_rollout_fwd(cfg: RolloutConfig, params: PackedParams, rotations, trans
 
     CPU tensors take `plain_rollout_fwd`. CUDA tensors launch B4 on clusters
     of CTAs (counted in `fused_rollout_fwd.launches`) after the gather of
-    this call's weight image; any other device, an unsupported shape, a
-    cluster the card cannot place, or a failed build or launch raises.
+    this call's weight image, at the kernel's features (`kernel_features`);
+    any other device, an unsupported shape, a cluster the card cannot place,
+    or a failed build or launch raises.
     """
     gt_count = int(gt_count)
     inputs = [rotations, translations, style, deform, actions, variations]
@@ -812,8 +930,28 @@ def rollout_fwd_breakdown(cfg: RolloutConfig, params: PackedParams, inputs: Sequ
 fused_rollout_fwd.launches = 0
 
 
+def padded_rollout_bwd(cfg: RolloutConfig, params: PackedParams, gt_count: int, residuals: Dict[str, torch.Tensor],
+                       cotangents: Sequence[torch.Tensor], actions_dim: int, run, *args):
+    """`run`(cfg, params', gt_count, residuals', cotangents, actions_dim,
+    *args), a rollout backward, at the kernels' features: the parameters
+    and residuals padded (`padded_params`, `padded_residuals`), the
+    parameters' gradients cut back to their shapes."""
+    features = params.wb.shape[0]
+    padded = kernel_features(features)
+    grads = run(cfg, padded_params(params, padded), gt_count, padded_residuals(residuals, features, padded),
+                cotangents, actions_dim, *args)
+    return (unpadded_grads(params, grads[0]),) + tuple(grads[1:])
+
+
 def _rollout_bwd(cfg: RolloutConfig, params: PackedParams, gt_count: int, residuals: Dict[str, torch.Tensor],
                  cotangents: Sequence[torch.Tensor], actions_dim: int, ms=None):
+    """B5 at the kernel's features (`padded_rollout_bwd`)."""
+    return padded_rollout_bwd(cfg, params, gt_count, residuals, cotangents, actions_dim, _rollout_bwd_launch, ms)
+
+
+def _rollout_bwd_launch(cfg: RolloutConfig, params: PackedParams, gt_count: int,
+                        residuals: Dict[str, torch.Tensor], cotangents: Sequence[torch.Tensor], actions_dim: int,
+                        ms=None):
     batch, T = cotangents[0].shape[0], cotangents[0].shape[1]
     layers = len(params.wx)
     res_list = [residuals[k] for k in residual_keys(layers)]

@@ -213,7 +213,10 @@ def test_port_imports_no_jax():
                    "cli/fid.py", "models/detector.py", "train/trainer_detector.py", "cli/train_detector.py",
                    "eval/i3d.py", "compat/metric_weights.py", "compat/weight_validation.py",
                    "cli/validate_metric_weights.py", "parallel/mesh.py", "parallel/__init__.py", "serve.py",
-                   "cli/export_renderer.py"):
+                   "cli/export_renderer.py", "acquisition/__init__.py", "acquisition/geometry.py",
+                   "acquisition/tennis_court.py", "acquisition/field_calibration.py", "acquisition/replay_parser.py",
+                   "acquisition/sequence_extraction.py", "acquisition/tennis_ingest.py", "acquisition/splits.py",
+                   "acquisition/boxes.py", "cli/acquire.py", "utils/drawing.py", "utils/scene_viewer.py"):
         assert f"playableenvironments_tpu_torch/{module}" in names, module
     assert len(names) > 30
     assert not offenders, offenders

@@ -88,11 +88,42 @@ def test_grouped_kernel_matches_plain_on_the_card(card, width):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width,kernel_width", [(32, 128), (192, 256)])
+def test_kernel_at_a_narrow_width_matches_plain_on_the_card(card, width, kernel_width):
+    """configs/synthetic_smoke.yaml's NeRF (3 x 32, encoding 27, 3
+    outputs), and a 192-wide one: the weights and modulation zero-padded to
+    a width the kernel takes, the kernel against the unpadded plain version
+    at the tennis bounds, one launch."""
+    cfg = NerfMLPConfig(layers_width=width, backbone_layers_count=3, skip_layer_idx=1, output_features=3,
+                        position_encoder=PositionalEncoderConfig(octaves=4))
+    nerf = initialize_(AdaInNerfMLP(cfg, 8, device=card), torch.Generator().manual_seed(0))
+    weights = nerf.kernel_weights()
+    assert weights.width == kernel_width and weights.image is not None
+    g = torch.Generator().manual_seed(1)
+    rays, samples = 1536, 8
+    encoded = positional_encoding(torch.rand(rays * samples, 3, generator=g) * 2 - 1, 4, True).to(card)
+    style = torch.randn(rays, 8, generator=g).to(card)
+    with torch.no_grad():
+        mods = [*fused_nerf.fold_adain_stats(nerf.adain_0, style), *fused_nerf.fold_adain_stats(nerf.adain_1, style)]
+        before = fused_nerf.fused_adain_nerf.launches
+        got = fused_nerf.fused_adain_nerf(cfg, weights, encoded, *mods, samples_per_ray=samples)
+        torch.cuda.synchronize()
+        assert fused_nerf.fused_adain_nerf.launches == before + 1
+        ref = fused_nerf.plain_adain_nerf(cfg, weights.packed, encoded, *mods, samples)
+    for g_, r in zip(got, ref):
+        assert g_.shape == r.shape
+        diff = (g_ - r).abs()
+        assert bool((diff <= 3e-2 + 1e-2 * r.abs()).all()) and diff.mean().item() <= 1e-4
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_its_layout_does_not_take(card):
-    cfg = NerfMLPConfig(layers_width=192)
+    """Widths above the kernel's widest (256) have no image: the launch
+    raises."""
+    cfg = NerfMLPConfig(layers_width=320)
     nerf = AdaInNerfMLP(cfg, 64, device=card)
-    mods = [torch.zeros(2, 192, device=card), torch.zeros(2, 192, device=card),
-            torch.zeros(2, 96, device=card), torch.zeros(2, 96, device=card)]
+    mods = [torch.zeros(2, 320, device=card), torch.zeros(2, 320, device=card),
+            torch.zeros(2, 160, device=card), torch.zeros(2, 160, device=card)]
     with pytest.raises(ValueError, match="takes"):
         fused_nerf.fused_adain_nerf(cfg, nerf.kernel_weights(), torch.zeros(8, 63, device=card), *mods,
                                     samples_per_ray=4)
@@ -142,6 +173,10 @@ NARROW = {
     64: NerfMLPConfig(layers_width=64, backbone_layers_count=4, skip_layer_idx=2, output_features=3,
                       compute_dtype="bfloat16", use_fused_backbone=True,
                       position_encoder=PositionalEncoderConfig(octaves=4)),
+    # configs/synthetic_smoke.yaml's NeRF, which the kernels run zero-padded to 64.
+    32: NerfMLPConfig(layers_width=32, backbone_layers_count=3, skip_layer_idx=1, output_features=3,
+                      compute_dtype="bfloat16", use_fused_backbone=True,
+                      position_encoder=PositionalEncoderConfig(octaves=4)),
 }
 
 
@@ -157,12 +192,13 @@ def backbone_inputs(card, points, seed=1, cfg=BACKBONE):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("points,width", [(18432, 256), (1000, 256), (37, 256), (1000, 128), (37, 128), (1000, 64)])
+@pytest.mark.parametrize("points,width", [(18432, 256), (1000, 256), (37, 256), (1000, 128), (37, 128), (1000, 64),
+                                         (12288, 32), (37, 32)])
 def test_backbone_kernels_match_plain_on_the_card(card, points, width):
     """B2 and B3 against their plain versions on the same card, at the
-    tennis widths (8x256, encoding 63) and narrower ones, a ragged last tile
-    and a launch of less than one 128-point tile included, B3 bit-identical
-    across launches, each launch counted once."""
+    tennis widths (8x256, encoding 63) and narrower ones (32 run padded to
+    64), a ragged last tile and a launch of less than one 128-point tile
+    included, B3 bit-identical across launches, each launch counted once."""
     cfg = BACKBONE if width == 256 else NARROW[width]
     packed, encoded, g_h, g_alpha = backbone_inputs(card, points, cfg=cfg)
     before = (fused_nerf.fused_backbone_fwd.launches, fused_nerf.fused_backbone_bwd.launches)
@@ -214,10 +250,11 @@ def test_backbone_backward_within_its_rounding_scale_on_the_card(card, points, w
 
 @pytest.mark.cuda
 def test_backbone_kernels_refuse_float32_operands(card):
-    """The f32 kernels take widths 64, 128 and 256 and raise for others;
-    operand dtypes with no kernel (float16) raise."""
+    """The f32 kernels take widths 64, 128 and 256, narrower ones padded to
+    them, and raise above 256; operand dtypes with no kernel (float16)
+    raise."""
     cfg = F32_BACKBONE[256]
-    odd = NerfMLPConfig(layers_width=192, output_features=3, compute_dtype="float32", use_fused_backbone=True,
+    odd = NerfMLPConfig(layers_width=320, output_features=3, compute_dtype="float32", use_fused_backbone=True,
                         position_encoder=PositionalEncoderConfig(octaves=10))
     packed, encoded, g_h, g_alpha = backbone_inputs(card, 64, cfg=odd)
     with pytest.raises(ValueError, match="f32 backbone kernels take widths"):
@@ -241,6 +278,9 @@ F32_BACKBONE = {
     64: NerfMLPConfig(layers_width=64, backbone_layers_count=4, skip_layer_idx=0, output_features=3,
                       compute_dtype="float32", use_fused_backbone=True,
                       position_encoder=PositionalEncoderConfig(octaves=4)),
+    32: NerfMLPConfig(layers_width=32, backbone_layers_count=3, skip_layer_idx=1, output_features=3,
+                      compute_dtype="float32", use_fused_backbone=True,
+                      position_encoder=PositionalEncoderConfig(octaves=4)),
 }
 
 
@@ -253,12 +293,13 @@ F32_RELU_FLIPS, F32_RELU_FLIPS_FLOOR = 1.0, 4
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("points,width", [(18432, 256), (70001, 256), (37, 256), (1000, 128), (1000, 64)])
+@pytest.mark.parametrize("points,width", [(18432, 256), (70001, 256), (37, 256), (1000, 128), (1000, 64),
+                                         (12288, 32)])
 def test_backbone_f32_kernels_match_plain_on_the_card(card, points, width):
     """B2 and B3 for f32 operands (csrc/fused_backbone_f32.cu) on the same
     card: the tennis widths, a launch of two backward chunks with a ragged
     last tile, less than one tile, narrower widths (64 without a skip
-    layer). B2 against the plain f32 version, and each layer's ReLU pattern
+    layer, 32 run padded to 64). B2 against the plain f32 version, and each layer's ReLU pattern
     against the f64 forward's (relu_pattern_check); B3 against the plain
     backward in f64 at that pattern (chip_smoke.py phase 14a says why: the
     plain f32 version takes a few ReLUs whose input lies within f32 rounding
@@ -421,9 +462,46 @@ def test_rollout_kernels_refuse_unsupported_shapes(card):
         fr.fused_rollout_fwd(cfg, packed, inputs[0].double(), *inputs[1:], 3, False)
     with pytest.raises(ValueError, match="at least 2 observations"):
         fr.fused_rollout_fwd(cfg, packed, *(x[:, :1] for x in inputs[:4]), *(x[:, :0] for x in inputs[4:]), 0, False)
-    wide = packed._replace(wb=torch.zeros(48, 48, device=card))
+    wide = packed._replace(wb=torch.zeros(288, 288, device=card))  # narrower ones are padded; above 256 raises
     with pytest.raises(ValueError, match="multiple of 32"):
         fr.fused_rollout_fwd(cfg, wide, *inputs, 3, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("features,batch,T", [(16, 16, 9), (16, 5, 6), (48, 5, 6)])
+def test_rollout_kernels_at_narrow_features_match_plain_on_the_card(card, features, batch, T):
+    """configs/synthetic_smoke.yaml's dynamics LSTM (16 features, run padded
+    to 32) and 48 (to 64) at phase 8's bounds: B4 with its residuals and B5
+    against their plain versions on the unpadded network, 1e-4 of each
+    output's largest magnitude and 1e-5 of it in the mean, one launch
+    each."""
+    import dataclasses
+
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+
+    sys_path_repo()
+    import chip_smoke
+
+    anim = chip_smoke.phase3_animation_config()
+    anim = dataclasses.replace(anim, dynamics=dataclasses.replace(anim.dynamics, output_features=features))
+    cfg = fr.RolloutConfig(2, True, 0.0, (1.5, 1.0, 2.15))
+    packed, inputs, cots = chip_smoke.rollout_case(anim, ((-0.75, 0.75), (-0.5, 0.5), (0.0, 2.15)), batch, T,
+                                                   seed=features + batch, device=card)
+    before = (fr.fused_rollout_fwd.launches, fr.fused_rollout_bwd.launches)
+    with torch.no_grad():
+        out, res = fr.fused_rollout_fwd(cfg, packed, *inputs, 3, True)
+        grads = fr.fused_rollout_bwd(cfg, packed, 3, res, cots, anim.actions_count)
+        torch.cuda.synchronize()
+        ref_out, ref_res = fr.plain_rollout_fwd(cfg, packed, *inputs, 3, True)
+        ref_grads = fr.plain_rollout_bwd(cfg, packed, 3, ref_res, cots, anim.actions_count)
+    assert (fr.fused_rollout_fwd.launches, fr.fused_rollout_bwd.launches) == (before[0] + 1, before[1] + 1)
+    flat = lambda g: fr.param_list(g[0]) + list(g[1:])  # noqa: E731
+    pairs = list(zip(out, ref_out)) + [(res[k], ref_res[k]) for k in ref_res] + list(zip(flat(grads), flat(ref_grads)))
+    for got, ref in pairs:
+        assert got.shape == ref.shape
+        scale = ref.abs().max().item()
+        diff = (got - ref).abs()
+        assert diff.max().item() <= 1e-4 * scale and diff.mean().item() <= 1e-5 * scale
 
 
 def sys_path_repo():
@@ -896,3 +974,24 @@ def test_i3d_and_lpips_signatures_pass_the_goldens_on_the_card(card):
     signatures = wv.compute_signatures({name: variables[name] for name in ("i3d", "lpips")}, card)
     report = wv.compare_signatures(signatures, {name: golden[name] for name in signatures})
     assert {name: verdict["status"] for name, verdict in report.items()} == {"i3d": "PASS", "lpips": "PASS"}
+
+
+@pytest.mark.cuda
+def test_acquire_boxes_on_the_card_match_the_cpu(card, tmp_path):
+    """`acquire boxes` with a seeded detector checkpoint (base_features 8,
+    every peak kept) on a synthetic tree, on the card (the CLI's default
+    device) and on the CPU, both in full-precision convolutions:
+    chip_smoke.py's boxes_card_vs_cpu, each box within PHASE20_BOX_ATOL and
+    the validity equal."""
+    from playableenvironments_tpu_torch.data.synthetic import make_synthetic_dataset
+    from playableenvironments_tpu_torch.train import checkpointing
+    from playableenvironments_tpu_torch.train.trainer_detector import DetectorTrainer, DetectorTrainingConfig
+
+    sys_path_repo()
+    import chip_smoke
+
+    make_synthetic_dataset(str(tmp_path / "data"), videos=2, frames=3, height=64, width=96, splits=("train",))
+    checkpoint = checkpointing.save_checkpoint(
+        str(tmp_path / "detector"), DetectorTrainer(DetectorTrainingConfig(base_features=8), device="cpu", seed=5))
+    runs, worst = chip_smoke.boxes_card_vs_cpu(str(tmp_path / "data" / "train"), checkpoint, str(tmp_path))
+    assert runs["card"][0] == runs["cpu"][0] == 6 and worst <= chip_smoke.PHASE20_BOX_ATOL

@@ -225,12 +225,19 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(setup):
                                           skip_layer_idx=1), **bad})
         with pytest.raises(ValueError):
             AdaInNerfMLP(bad_cfg, 4, device="cpu").kernel_weights()
-    # The image's feature-head slots take W 128 or 256; other widths run only
-    # the plain version (on the CPU) and have no image.
+    # The image's feature-head slots take W 128 or 256; on the CPU other widths
+    # run only the plain version and have no image. The image of a narrower
+    # width is that of its weights zero-padded to 128 or 256 (what the card's
+    # kernel_weights builds); above 256 there is none.
     assert weights.image is None and cfg.layers_width not in (128, 256)
     for width in (48, 64, 192, 512):
         narrow = NerfMLPConfig(layers_width=width, backbone_layers_count=3, output_features=8, skip_layer_idx=1)
         nerf = AdaInNerfMLP(narrow, 4, device="cpu")
         assert nerf.kernel_weights().image is None
-        with pytest.raises(ValueError, match="takes"):
-            fused_nerf.adain_image(narrow, fused_nerf.pack_nerf_params(narrow, nerf))
+        packed = fused_nerf.pack_nerf_params(narrow, nerf)
+        if width > 256:
+            with pytest.raises(ValueError, match="takes"):
+                fused_nerf.adain_image(narrow, packed)
+        else:
+            padded = fused_nerf.padded_weights(narrow, packed, 128 if width <= 128 else 256)
+            assert torch.equal(fused_nerf.adain_image(narrow, packed), fused_nerf.adain_image(*padded))
