@@ -9,8 +9,9 @@ CLIs with their evaluators and a reference checkpoint's import, and the
 paper's evaluation protocol (the creators, evaluators and fid, the player
 detector, LPIPS, I3D and the metric-weight validation) from the command
 line, then data and ray parallelism across ranks and the serving
-artifacts, and last the narrow widths of configs/synthetic_smoke.yaml, the
-acquisition pipeline, drawing and the scene viewer.
+artifacts, the narrow widths of configs/synthetic_smoke.yaml, the
+acquisition pipeline, drawing and the scene viewer, and last the wide
+envelope of the NeRF kernels.
 
     python3 chip_smoke.py
 
@@ -222,7 +223,17 @@ Phases, each fatal on failure:
    `minecraft` and one phase-2 step of cli/train.py on it, the frame
    extractor and cv2 printed; (c) boxes and axes drawn on an acquired frame,
    the detector's maps through save_feature_maps, the scene viewer's PNG.
-`python3 chip_smoke.py --phase 12` (or `--phase 13` to `--phase 20`; 17 runs
+21. the wide envelope: configs/synthetic_smoke.yaml with its NeRFs 512 wide
+   x 12 layers (encoding 123) and 320 wide x 16 layers (encoding 75),
+   written to the run's temporary directory, through train
+   (f32 and bf16), train_playable and play: B1, B2/B3 and B2-f32/B3-f32
+   launched by the wide kernels at 512 (the CLIs' counts), the first launch
+   of each at each width held against its plain version (20a's holds; the
+   means also within SPREAD_FACTOR times the plain version's own distance
+   from its f64 sums), B3 and B3-f32 twice bit-identical, B1 with 320
+   outputs and with 512 at skip 0 held on seeded weights, and each kernel
+   timed at its first launch.
+`python3 chip_smoke.py --phase 12` (or `--phase 13` to `--phase 21`; 17 runs
 16's CLIs first for their checkpoints, 18 both 16 and 17, 19 16) builds the
 kernels and runs that phase alone (no kernels line, no contract line).
 Details go to chiprun_out/chip_smoke.json. Prints one JSON line of kernels, the card's name and power limit, and as the
@@ -254,6 +265,16 @@ PEAK_BYTES_PER_S = 3.35e12
 # element is held to 3e-2 + 1e-2 |ref|, and the mean error, which such rare
 # flips leave near 1e-6, to 1e-4.
 KERNEL_ATOL, KERNEL_RTOL, KERNEL_MEAN_ATOL = 3e-2, 1e-2, 1e-4
+# Phase 21's wide MLPs (12-16 layers of 512): the plain version's own mean
+# distance from its f64 sums reaches that bound (on an H100, B2 at 16 x
+# 512 with N(0, 2 / fan_in) weights: 1.4e-4 for h, where the kernel read
+# 3.3e-4 from the plain version), so there the mean may reach this many
+# times the plain version's own distance where that is the larger: the
+# distance of two versions each as far from the f64 sums as the plain one
+# is at most twice it, and the tensor cores' f32 sums, which truncate,
+# leave the kernel up to twice as far (tests/test_torch_port_cuda.py::
+# spread_bound).
+SPREAD_FACTOR = 3.0
 # The card's frame vs the CPU's (same weights): the kernel vs the plain MLP
 # as above, plus TF32 convolutions in the decoder.
 FRAME_ATOL = 1e-2
@@ -3508,13 +3529,13 @@ def recorded_backbone_calls():
         fused_nerf.fused_backbone_fwd, fused_nerf.fused_backbone_bwd = fwd, bwd
 
 
-def hold_recorded_backbone_calls(label, records):
+def hold_recorded_backbone_calls(label, records, spread=False):
     """B2 against plain_backbone_fwd and B3 against the f64
     plain_backbone_bwd at the kernels' own layer outputs on the inputs
     recorded_backbone_calls copied from a main path: B2 at phase 5's bounds
-    (KERNEL_ATOL and the rest); every output of B3 within BF16_GRAD_BAND of
-    each element's rounding scale, d_encoded also within D_ENCODED_REL_* of
-    its largest magnitude. :return: one row a call: direction, points, and
+    (KERNEL_ATOL and the rest; with `spread`, B2's mean as hold_b1_launch's);
+    every output of B3 within BF16_GRAD_BAND of each element's rounding
+    scale, d_encoded also within D_ENCODED_REL_* of its largest magnitude. :return: one row a call: direction, points, and
     the largest and mean error (B2's absolute; B3's in units of the
     rounding scale, beside d_encoded's in units of its largest magnitude,
     for reading the weight and bias gradients' in units of theirs, and its
@@ -3532,8 +3553,11 @@ def hold_recorded_backbone_calls(label, records):
             points = encoded.shape[0]
             h, alpha = fused_nerf.fused_backbone_fwd(cfg, packed, encoded)
             ref_h, ref_alpha = fused_nerf.plain_backbone_fwd(cfg, packed, encoded)
+            refs64 = (fused_nerf.plain_backbone_fwd(cfg, {k: v.double() for k, v in packed.items()}, encoded.double())
+                      if spread else (ref_h, ref_alpha))
             errs = [check_close(f"{label} B2 {points} points {name}", got, ref, KERNEL_ATOL, KERNEL_RTOL,
-                                KERNEL_MEAN_ATOL) for name, got, ref in (("h", h, ref_h), ("alpha", alpha, ref_alpha))]
+                                spread_mean(KERNEL_MEAN_ATOL, ref, ref64) if spread else KERNEL_MEAN_ATOL)
+                    for name, got, ref, ref64 in (("h", h, ref_h, refs64[0]), ("alpha", alpha, ref_alpha, refs64[1]))]
             rows.append({"direction": "B2", "points": points, "max_abs_err": max(e[0] for e in errs),
                          "mean_abs_err": max(e[1] for e in errs)})
             del h, alpha, ref_h, ref_alpha
@@ -4548,11 +4572,13 @@ def phase17_hold_b1(label, record, frames):
     return worst, sum(item.encoded.shape[0] for item in items), from_f64
 
 
-def hold_b1_launch(label, record):
+def hold_b1_launch(label, record, spread=False):
     """A recorded grouped B1 launch (cfg, items, outputs) against
     plain_adain_nerf object by object at phase 2's bounds, in units of each
-    output's mean magnitude where it exceeds 1. :return: the largest error
-    in output units."""
+    output's mean magnitude where it exceeds 1. With `spread` (phase 21's
+    wide MLPs) the mean error may reach SPREAD_FACTOR times the plain
+    version's own mean distance from its f64 sums where that exceeds
+    KERNEL_MEAN_ATOL. :return: the largest error in output units."""
     import torch
 
     from playableenvironments_tpu_torch.ops import fused_nerf
@@ -4563,12 +4589,21 @@ def hold_b1_launch(label, record):
         for index, (item, (feats, alpha)) in enumerate(zip(items, outs)):
             args = (item.encoded, item.scale0, item.bias0, item.scale1, item.bias1)
             refs = fused_nerf.plain_adain_nerf(cfg, item.weights.packed, *args, item.samples_per_ray)
-            for name, got, ref in (("features", feats, refs[0]), ("alpha", alpha, refs[1])):
+            refs64 = fused_nerf.plain_adain_nerf(cfg, {k: v.double() for k, v in item.weights.packed.items()},
+                                                 *(a.double() for a in args), item.samples_per_ray) if spread else refs
+            for name, got, ref, ref64 in (("features", feats, refs[0], refs64[0]), ("alpha", alpha, refs[1], refs64[1])):
                 scale = max(1.0, ref.abs().mean().item())
+                mean = spread_mean(KERNEL_MEAN_ATOL, ref / scale, ref64 / scale) if spread else KERNEL_MEAN_ATOL
                 err = check_close(f"{label} B1 object {index} {name} (over {scale:.3f})", got / scale, ref / scale,
-                                  KERNEL_ATOL, KERNEL_RTOL, KERNEL_MEAN_ATOL)
+                                  KERNEL_ATOL, KERNEL_RTOL, mean)
                 worst = max(worst, err[0] * scale)
     return worst
+
+
+def spread_mean(bound, ref, ref64):
+    """`bound`, or SPREAD_FACTOR times the plain version's own mean distance
+    from its f64 sums (|ref - ref64|) where that is larger."""
+    return max(bound, SPREAD_FACTOR * (ref.double() - ref64.double()).abs().mean().item())
 
 
 def phase17_hold_b4(record, label="17"):
@@ -5659,16 +5694,19 @@ class Phase20Recorder:
     call (the group function, padded_backbone_fwd/_bwd, the rollout's
     launchers), so that the launch counts stay the wrappers' own."""
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", by_width=False):
         import torch
 
         self.device_type = torch.device(device).type
+        # Phase 21: b2/b3 keyed by (compute dtype, width), every NeRF
+        # width's first B1 group in b1s.
+        self.key = (lambda cfg: (cfg.compute_dtype, cfg.layers_width)) if by_width else (lambda cfg: cfg.compute_dtype)
 
     def __enter__(self):
         from playableenvironments_tpu_torch.ops import fused_nerf
         from playableenvironments_tpu_torch.ops import fused_rollout as fr
 
-        self.b1, self.b2, self.b3, self.b4, self.b5 = None, {}, {}, None, None
+        self.b1, self.b2, self.b3, self.b4, self.b5, self.b1s = None, {}, {}, None, None, {}
         self._saved = [(fused_nerf, "fused_adain_nerf_group"), (fused_nerf, "padded_backbone_fwd"),
                        (fused_nerf, "padded_backbone_bwd"), (fr, "_rollout_fwd"), (fr, "_rollout_bwd")]
         self._saved = [(owner, name, getattr(owner, name)) for owner, name in self._saved]
@@ -5680,18 +5718,19 @@ class Phase20Recorder:
 
         def group_(cfg, items):
             outs = group(cfg, items)
-            if recorder.b1 is None and items and on(items[0].encoded):
-                recorder.b1 = (cfg, items, outs)
+            if items and on(items[0].encoded):
+                recorder.b1 = recorder.b1 or (cfg, items, outs)
+                recorder.b1s.setdefault(cfg.layers_width, (cfg, items, outs))
             return outs
 
         def backbone_fwd_(cfg, packed, encoded, run, *args):
-            if cfg.compute_dtype not in recorder.b2 and on(encoded):
-                recorder.b2[cfg.compute_dtype] = (cfg, {k: copy(v) for k, v in packed.items()}, copy(encoded))
+            if recorder.key(cfg) not in recorder.b2 and on(encoded):
+                recorder.b2[recorder.key(cfg)] = (cfg, {k: copy(v) for k, v in packed.items()}, copy(encoded))
             return backbone_fwd(cfg, packed, encoded, run, *args)
 
         def backbone_bwd_(cfg, packed, encoded, g_h, g_alpha, run, *args):
-            if cfg.compute_dtype not in recorder.b3 and on(encoded):
-                recorder.b3[cfg.compute_dtype] = (cfg, {k: copy(v) for k, v in packed.items()}, copy(encoded),
+            if recorder.key(cfg) not in recorder.b3 and on(encoded):
+                recorder.b3[recorder.key(cfg)] = (cfg, {k: copy(v) for k, v in packed.items()}, copy(encoded),
                                                   copy(g_h), copy(g_alpha))
             return backbone_bwd(cfg, packed, encoded, g_h, g_alpha, run, *args)
 
@@ -5740,7 +5779,7 @@ def uncounted_launches():
         fused_nerf.fused_adain_nerf.objects = objects
 
 
-def hold_f32_backbone_calls(label, fwd_record, bwd_record):
+def hold_f32_backbone_calls(label, fwd_record, bwd_record, own_acts=False):
     """B2-f32 and B3-f32 on a path's own inputs at 14a's bounds: B2-f32
     against plain_backbone_fwd within F32_KERNEL_REL of each output's
     largest magnitude (F32_KERNEL_MEAN in the mean); its ReLU pattern, layer
@@ -5775,8 +5814,14 @@ def hold_f32_backbone_calls(label, fwd_record, bwd_record):
                 raise SmokeFailure(f"{label} B2-f32 layer {layer}: ReLU pattern against f64's {r} outside "
                                    f"{flip_limit:.1f} units and {F32_RELU_BAND:.3e} of the rounding scale")
         f64 = ({k: v.double() for k, v in packed.items()}, encoded.double(), g_h.double(), g_alpha.double())
-        ref_grads, ref_d_encoded = fused_nerf.plain_backbone_bwd(cfg, *f64, masks)
-        scales, d_encoded_scale = fused_nerf.plain_backbone_bwd(cfg, *f64, masks, magnitudes=True)
+        # Phase 21 (`own_acts`): at 12-16 layers the f32 forward carries its
+        # own rounding into the last layers' inputs (the plain f32 version's
+        # w_alpha gradient sits 3.6e-5 of its rounding scale from the f64
+        # backward at 12 x 512), so B3-f32 is held at the kernels' own layer
+        # outputs, as hold_recorded_backbone_calls holds bf16 B3.
+        acts = ([x.double() for x in fused_nerf.backbone_layer_outputs(cfg, packed, encoded)] if own_acts else None)
+        ref_grads, ref_d_encoded = fused_nerf.plain_backbone_bwd(cfg, *f64, masks, acts=acts)
+        scales, d_encoded_scale = fused_nerf.plain_backbone_bwd(cfg, *f64, masks, magnitudes=True, acts=acts)
         bwd_err = 0.0
         for key, g, r, s in [("d_encoded", d_encoded, ref_d_encoded, d_encoded_scale)] + [
                 (k, grads[k], ref_grads[k], scales[k]) for k in ref_grads]:
@@ -5804,7 +5849,7 @@ def hold_b5(label, record):
     return max(rel_close(f"{label} B5 gradient {k}", g, r)[0] for k, (g, r) in enumerate(zip(flat(got), flat(ref))))
 
 
-def phase20_narrow_times(recorder):
+def phase20_narrow_times(recorder, label="20a", rollout=True):
     """Each kernel at its narrow launch of the path (the recorder's first
     call): ms of the wrapper call (the padding included), of its plain
     version and of the library call where there is one (library_mlp,
@@ -5870,6 +5915,8 @@ def phase20_narrow_times(recorder):
                             backbone_work(kcfg, pe, points)[0], bound=bounds[0])
         out[names[1]] = row({**width, "points": bwd_points}, bwd_ms, bwd_plain, bwd_lib_ms, bwd_flops, bwd_bytes,
                             backbone_work(kcfg, pe, bwd_points)[2], bound=bounds[1])
+    if not rollout:  # phase 21: the NeRF kernels alone
+        return print_kernel_times(out, label)
     cfg, params, inputs, gt_count, collect = recorder.b4
     batch, T = inputs[0].shape[:2]
     S, D, A, V = inputs[2].shape[-1], inputs[3].shape[-1], inputs[4].shape[-1], inputs[5].shape[-1]
@@ -5893,8 +5940,13 @@ def phase20_narrow_times(recorder):
             b5_work[2], b5_work[3],
             rollout_work(b5_batch, b5_T, fr.padded_params(b5_params, padded), actions_dim, V, S, D, True)[2],
             bound=bound_ms(b5_work[2], b5_work[3]))
+    return print_kernel_times(out, label)
+
+
+def print_kernel_times(out, label):
+    """Prints phase20_narrow_times' rows; returns them."""
     for name, r in out.items():
-        print(f"20a {name} at its narrow launch ({', '.join(f'{k} {v}' for k, v in r.items() if k in ('width', 'kernel_width', 'features', 'kernel_features', 'points', 'batch', 'observations'))}): "
+        print(f"{label} {name} at its first launch of the path ({', '.join(f'{k} {v}' for k, v in r.items() if k in ('width', 'kernel_width', 'features', 'kernel_features', 'points', 'batch', 'observations'))}): "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
               + (f", library {r['library_ms']:.4f} ms" if r["library_ms"] is not None else "")
               + f", bound {r['bound_ms']:.5f} ms ({r['bound_by']}); the padded launch does "
@@ -5902,59 +5954,71 @@ def phase20_narrow_times(recorder):
     return out
 
 
-def phase20_smoke_cli(repo, directory, device="cuda"):
-    """20a (above): the CLIs' wall times, peaks and launches (their timing
-    files), every kernel launched on its narrow path, each first launch held
-    against its plain version, and the kernels timed at those launches."""
+def smoke_clis(repo, directory, base, label, prefix, device="cuda", by_width=False):
+    """synthetic_smoke's data and `base` (a config dict) through train (at
+    f32 and bf16, the fused backbone on), train_playable and play, 2 steps
+    each, run files under `prefix`: the CLIs' wall times, peaks and launches
+    (their timing files), every kernel launched on the path (on the card),
+    the frames checked. :return: ({cli label: timing}, the Phase20Recorder
+    of the kernels' first calls)."""
     import numpy as np
 
-    from playableenvironments_tpu_torch.cli.common import load_yaml
     from playableenvironments_tpu_torch.data.synthetic import make_synthetic_dataset
     from playableenvironments_tpu_torch.train import checkpointing as ckpt
 
     module = "playableenvironments_tpu_torch.cli."
     device_args = [] if device == "cuda" else ["--device", device]  # the card is every CLI's default
-    data_root = make_synthetic_dataset(os.path.join(directory, "smoke_data"))
-    base = load_yaml(os.path.join(repo, "configs", "synthetic_smoke.yaml"))
+    data_root = make_synthetic_dataset(os.path.join(directory, f"{prefix}_data"))
     clis = {}
 
-    def run(label, cli, results_dir, *args):
+    def run(cli_label, cli, results_dir, *args):
         out, seconds, peak = run_cli(module + cli, *args, *device_args)
         with open(os.path.join(results_dir, f"timing_{cli}.json")) as f:
             timing = json.load(f)
-        clis[label] = {"wall_s": seconds, "peak_bytes": peak, **timing}
+        clis[cli_label] = {"wall_s": seconds, "peak_bytes": peak, **timing}
         launches = {k: v for k, v in timing["launches"].items() if v}
-        print(f"20a {label}: {seconds:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in timing['seconds'].items())}), "
+        print(f"{label} {cli_label}: {seconds:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in timing['seconds'].items())}), "
               f"peak {peak / 1e9:.3f} GB, launches {launches}")
         return out
 
-    with Phase20Recorder(device) as recorder:
+    with Phase20Recorder(device, by_width) as recorder:
         paths = {}
         for dtype in ("float32", "bfloat16"):
-            name = f"smoke_phase2_{dtype}"
+            name = f"{prefix}_phase2_{dtype}"
             config = phase16_config(repo, directory, name, data_root, base=base, compute_dtype=dtype,
                                     training=PHASE20_PHASE2)
             run(f"train_{dtype}", "train", os.path.join(directory, "results", name), "--config", config)
             paths[dtype] = ckpt.latest_checkpoint(os.path.join(directory, "checkpoints", name))
             if ckpt.checkpoint_step(paths[dtype]) != PHASE20_PHASE2["max_steps"]:
-                raise SmokeFailure(f"20a train {dtype}: latest checkpoint {paths[dtype]}")
-        p3_config = phase16_config(repo, directory, "smoke_phase3", data_root, base=base,
+                raise SmokeFailure(f"{label} train {dtype}: latest checkpoint {paths[dtype]}")
+        p3_config = phase16_config(repo, directory, f"{prefix}_phase3", data_root, base=base,
                                    playable_model_training=PHASE20_PHASE3)
-        run("train_playable", "train_playable", os.path.join(directory, "results", "smoke_phase3"), "--config",
+        run("train_playable", "train_playable", os.path.join(directory, "results", f"{prefix}_phase3"), "--config",
             p3_config, "--environment_checkpoint", paths["float32"])
-        p3_path = ckpt.latest_checkpoint(os.path.join(directory, "checkpoints", "smoke_phase3", "playable"))
-        frames = run("play", "play", os.path.join(directory, "smoke_play"), "--config", p3_config,
-                     "--environment_checkpoint", paths["float32"], "--playable_checkpoint", p3_path, "--script",
-                     PHASE20_SCRIPT, "--output", os.path.join(directory, "smoke_play"))
+        p3_path = ckpt.latest_checkpoint(os.path.join(directory, "checkpoints", f"{prefix}_phase3", "playable"))
+        play_dir = os.path.join(directory, f"{prefix}_play")
+        frames = run("play", "play", play_dir, "--config", p3_config, "--environment_checkpoint", paths["float32"],
+                     "--playable_checkpoint", p3_path, "--script", PHASE20_SCRIPT, "--output", play_dir)
     if len(frames) != len(PHASE20_SCRIPT.split(",")) + 1 or not all(np.isfinite(f).all() for f in frames):
-        raise SmokeFailure(f"20a play: {len(frames)} frames, or not finite")
+        raise SmokeFailure(f"{label} play: {len(frames)} frames, or not finite")
     want = {"train_float32": ("backbone_f32_fwd", "backbone_f32_bwd"),
             "train_bfloat16": ("fused_backbone_fwd", "fused_backbone_bwd"),
             "train_playable": ("fused_rollout_fwd", "fused_rollout_bwd"), "play": ("fused_adain_nerf",)}
-    for label, names in want.items():
-        launched = {name: clis[label]["launches"].get(name, 0) for name in names}
+    for cli_label, names in want.items():
+        launched = {name: clis[cli_label]["launches"].get(name, 0) for name in names}
         if device != "cpu" and not all(launched.values()):
-            raise SmokeFailure(f"20a {label}: a kernel of the narrow path was not launched: {launched}")
+            raise SmokeFailure(f"{label} {cli_label}: a kernel of the path was not launched: {launched}")
+    return clis, recorder
+
+
+def phase20_smoke_cli(repo, directory, device="cuda"):
+    """20a (above): the CLIs' wall times, peaks and launches (their timing
+    files), every kernel launched on its narrow path, each first launch held
+    against its plain version, and the kernels timed at those launches."""
+    from playableenvironments_tpu_torch.cli.common import load_yaml
+
+    base = load_yaml(os.path.join(repo, "configs", "synthetic_smoke.yaml"))
+    clis, recorder = smoke_clis(repo, directory, base, "20a", "smoke", device)
     if device == "cpu":  # a rehearsal: the wrappers took their plain versions, nothing to hold or time
         return {"clis": clis, "holds": {}, "narrow": {}}
     holds = {}
@@ -6253,6 +6317,147 @@ def phase20(repo):
         return phase20_cli(repo, directory)
 
 
+# ---- phase 21: the wide envelope ----------------------------------------------
+# 21: configs/synthetic_smoke.yaml with its two NeRFs at the envelope the
+# Pallas kernels take, built here and written to the run's temporary
+# directory (no file under configs/): the background 512 wide x 12 layers
+# (skip 6, octaves 20: a 123-column encoding), the player 320 wide x 16
+# layers (skip 8, octaves 12: 75 columns), both run by the wide kernels at
+# 512. Their outputs stay the YAML's 3: the smoke configuration has no
+# autoencoder, so its reconstruction loss compares the NeRFs' features
+# with the 3-channel frames. Through train (f32 and bf16, the fused
+# backbone on), train_playable and play, 2 steps each, as 20a; every wide
+# launch counted by the CLIs, the first launch of each kernel at each width
+# held by 20a's hold functions (the means with SPREAD_FACTOR), B3 and
+# B3-f32 run twice on their recorded inputs, bit-identical; B1 with 320 and
+# 512 outputs, the latter at skip 0, held at kernel level on seeded weights;
+# each kernel timed at its first launch of the path (the 512-wide NeRF's).
+PHASE21_NERFS = (
+    dict(layers_width=512, backbone_layers_count=12, skip_layer_idx=6,
+         position_encoder={"octaves": 20, "append_original": True}),
+    dict(layers_width=320, backbone_layers_count=16, skip_layer_idx=8,
+         position_encoder={"octaves": 12, "append_original": True}),
+)
+# B1 at kernel level on seeded weights, 2,048 rays of 4 samples: the
+# background's MLP with 320 outputs, and a skip into layer 0 (layer 0 reads
+# [encoding, encoding]) with 512.
+PHASE21_B1 = (dict(width=512, layers=12, skip=6, octaves=20, out=320, rays=2048, samples=4),
+              dict(width=512, layers=4, skip=0, octaves=20, out=512, rays=2048, samples=4))
+
+
+def phase21_base(repo):
+    """configs/synthetic_smoke.yaml with PHASE21_NERFS as its NeRFs."""
+    import copy
+
+    from playableenvironments_tpu_torch.cli.common import load_yaml
+
+    base = load_yaml(os.path.join(repo, "configs", "synthetic_smoke.yaml"))
+    for block, nerf in zip(base["model"]["object_models"], PHASE21_NERFS):
+        block["nerf_model"].update(copy.deepcopy(nerf))
+    return base
+
+
+def phase21_kernel_b1(device="cuda"):
+    """B1 in its wide kernel at PHASE21_B1's shapes against the plain
+    version (the spread-aware hold), one grouped launch of one object
+    each, uncounted. :return: the largest error."""
+    import torch
+
+    from playableenvironments_tpu_torch.config import NerfMLPConfig, PositionalEncoderConfig
+    from playableenvironments_tpu_torch.models.encoding import positional_encoding
+    from playableenvironments_tpu_torch.models.layers import initialize_
+    from playableenvironments_tpu_torch.models.nerf import AdaInNerfMLP
+    from playableenvironments_tpu_torch.ops import fused_nerf
+
+    worst = 0.0
+    for seed, c in enumerate(PHASE21_B1):
+        cfg = NerfMLPConfig(layers_width=c["width"], backbone_layers_count=c["layers"], skip_layer_idx=c["skip"],
+                            output_features=c["out"], position_encoder=PositionalEncoderConfig(octaves=c["octaves"]))
+        nerf = initialize_(AdaInNerfMLP(cfg, 8, device=device), torch.Generator().manual_seed(21 + seed))
+        g = torch.Generator().manual_seed(31 + seed)
+        encoded = positional_encoding(torch.rand(c["rays"] * c["samples"], 3, generator=g) * 2 - 1, c["octaves"],
+                                      True).to(device)
+        style = torch.randn(c["rays"], 8, generator=g).to(device)
+        with torch.no_grad():
+            mods = [*fused_nerf.fold_adain_stats(nerf.adain_0, style),
+                    *fused_nerf.fold_adain_stats(nerf.adain_1, style)]
+            weights = nerf.kernel_weights()
+            if weights.packed["w0"].shape[0] != encoded.shape[1] * (2 if c["skip"] == 0 else 1):
+                raise SmokeFailure(f"21 B1 {c}: w0 has {weights.packed['w0'].shape[0]} rows")
+            items = [fused_nerf.AdaInNerfItem(weights, encoded, *mods, c["samples"])]
+            outs = fused_nerf.fused_adain_nerf_group(cfg, items)
+            err = hold_b1_launch(f"21 B1 skip {c['skip']}", (cfg, items, outs), spread=True)
+        worst = max(worst, err)
+        print(f"21 B1 at kernel level (W {c['width']} x {c['layers']}, skip {c['skip']}, encoding {encoded.shape[1]}"
+              f"{' read twice by layer 0' if c['skip'] == 0 else ''}, {c['out']} outputs, {encoded.shape[0]} "
+              f"points): within {err:.3e} of plain")
+    return worst
+
+
+def phase21_cli(repo, directory, device="cuda"):
+    """21 (above) in `directory` (a rehearsal on the CPU: `device="cpu"`)."""
+    import torch
+
+    from playableenvironments_tpu_torch.ops import fused_nerf
+
+    clis, recorder = smoke_clis(repo, directory, phase21_base(repo), "21", "wide", device, by_width=True)
+    widths = sorted(n["layers_width"] for n in PHASE21_NERFS)
+    recorded = {"b1": sorted(recorder.b1s), **{f"{d}_{k}": sorted(w for dt, w in getattr(recorder, k) if dt == d)
+                                                for d in ("bfloat16", "float32") for k in ("b2", "b3")}}
+    if device != "cpu" and any(v != widths for v in recorded.values()):
+        raise SmokeFailure(f"21: not every kernel ran at widths {widths}: {recorded}")
+    if device == "cpu":  # a rehearsal: the wrappers took their plain versions, nothing to hold or time
+        return {"clis": clis, "holds": {}, "wide": {}}
+    holds = {"b1_max_abs_err": 0.0, "b3_bit_identical": True}
+    with uncounted_launches():
+        for width, record in sorted(recorder.b1s.items()):
+            if record[1][0].weights.width != 512 or record[1][0].weights.image is None:
+                raise SmokeFailure(f"21 play W {width}: B1's weights are at {record[1][0].weights.width}, not 512")
+            holds["b1_max_abs_err"] = max(holds["b1_max_abs_err"], hold_b1_launch(f"21 play W {width}", record,
+                                                                                    spread=True))
+        holds["bf16"] = hold_recorded_backbone_calls("21 train bf16", {
+            "fwd": {w: recorder.b2[("bfloat16", w)] for w in widths},
+            "bwd": {w: recorder.b3[("bfloat16", w)] for w in widths}}, spread=True)
+        holds["f32"] = {}
+        for w in widths:
+            holds["f32"][w] = hold_f32_backbone_calls(f"21 train f32 W {w}", recorder.b2[("float32", w)],
+                                                      recorder.b3[("float32", w)], own_acts=True)
+        with torch.no_grad():
+            for (dtype, w), (cfg, packed, encoded, g_h, g_alpha) in sorted(recorder.b3.items()):
+                runs = [fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha) for _ in range(2)]
+                same = torch.equal(runs[0][1], runs[1][1]) and all(torch.equal(runs[0][0][k], runs[1][0][k])
+                                                                   for k in runs[0][0])
+                if not same:
+                    raise SmokeFailure(f"21 B3 {dtype} W {w}: two launches on the same inputs differ")
+        holds["b1_kernel_level"] = phase21_kernel_b1(device)
+        first = SimpleRecorder(b1=recorder.b1s[512], b2={d: recorder.b2[(d, 512)] for d in ("bfloat16", "float32")},
+                               b3={d: recorder.b3[(d, 512)] for d in ("bfloat16", "float32")}, b4=recorder.b4,
+                               b5=recorder.b5)
+        wide = phase20_narrow_times(first, label="21", rollout=False)
+    f32 = max(v[0] for v in holds["f32"].values()), max(v[1] for v in holds["f32"].values())
+    print(f"21 synthetic_smoke at the wide envelope (NeRFs {' and '.join(f'{n['layers_width']} x {n['backbone_layers_count']}' for n in PHASE21_NERFS)}, "
+          f"run at 512): B1 within {holds['b1_max_abs_err']:.3e} of plain; B2-f32 {f32[0]:.3e} of its largest, "
+          f"B3-f32 {f32[1]:.3e} of its rounding scale; B3 and B3-f32 bit-identical across launches")
+    return {"clis": clis, "holds": holds, "wide": wide}
+
+
+@dataclasses.dataclass
+class SimpleRecorder:
+    """The records phase20_narrow_times reads, taken from another recorder."""
+
+    b1: object
+    b2: dict
+    b3: dict
+    b4: object
+    b5: object
+
+
+def phase21(repo):
+    """21 in a temporary directory it removes."""
+    with cli_directory() as directory:
+        return phase21_cli(repo, directory)
+
+
 def backbone_f32_entries(phase14_results):
     """The kernels line's entries of B2/B3 for f32 operands (phase 14): ms,
     plain, library and bound of one direct-ray step's four launches (two of
@@ -6476,7 +6681,7 @@ def main() -> int:
 
     done("1")
     alone = {"12": phase12_minecraft, "13": phase13, "14": phase14, "15": phase15, "16": phase16, "17": phase17,
-             "18": phase18, "19": phase19, "20": phase20}
+             "18": phase18, "19": phase19, "20": phase20, "21": phase21}
     if len(sys.argv) == 3 and sys.argv[1] == "--phase" and sys.argv[2] in alone:
         try:
             result = alone[sys.argv[2]](repo)
@@ -6606,6 +6811,8 @@ def main() -> int:
             done("19")
             phase20_results = phase20_cli(repo, directory)
             done("20")
+            phase21_results = phase21_cli(repo, directory)
+            done("21")
     except SmokeFailure as e:
         return fail(str(e))
 
@@ -6737,6 +6944,25 @@ def main() -> int:
                       ("backbone_f32_fwd", holds20["b2_f32_max_rel_err"]),
                       ("fused_rollout_fwd", holds20["b4_max_rel_err"]), ("fused_rollout_bwd", holds20["b5_max_rel_err"])):
         by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
+    # Phase 21: the NeRF kernels at the wide envelope (its CLIs' timing
+    # files), each timed at its first launch of the path (the 512-wide
+    # NeRF's) and held at every width.
+    wide, holds21 = phase21_results["wide"], phase21_results["holds"]
+    bf16_rows = holds21["bf16"]
+    hold21 = {"fused_adain_nerf": max(holds21["b1_max_abs_err"], holds21["b1_kernel_level"]),
+              "fused_backbone_fwd": max(r["max_abs_err"] for r in bf16_rows if r["direction"] == "B2"),
+              "fused_backbone_bwd": max(r["max_abs_err"] for r in bf16_rows if r["direction"] == "B3"),
+              "backbone_f32_fwd": max(v[0] for v in holds21["f32"].values()),
+              "backbone_f32_bwd": max(v[1] for v in holds21["f32"].values())}
+    for entry in kernels:
+        name = entry["name"]
+        launches = {f"wide_{label}": cli["launches"][name] for label, cli in phase21_results["clis"].items()
+                    if cli["launches"].get(name)}
+        entry["launches_by_path"].update(launches)
+        if name in wide:
+            entry["wide"] = {**wide[name], "launches": sum(launches.values()), "hold": hold21[name]}
+    for name in ("fused_adain_nerf", "fused_backbone_fwd", "backbone_f32_fwd"):
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], hold21[name])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -6749,7 +6975,7 @@ def main() -> int:
                    "phase3_card_vs_cpu": phase3_card_vs_cpu, "phase3": phase3, "phase11": phase11, "phase12": phase12,
                    "phase13": phase13_results, "phase14": phase14_results, "phase15": phase15_results,
                    "phase16": phase16_results, "phase17": phase17_results, "phase18": phase18_results,
-                   "phase19": phase19_results, "phase20": phase20_results,
+                   "phase19": phase19_results, "phase20": phase20_results, "phase21": phase21_results,
                    "kernels": kernels,
                    "phase_seconds": phase_seconds, "ptxas": reports}, f, indent=1)
     print(f"phase seconds: {phase_seconds}")
@@ -6773,7 +6999,10 @@ def main() -> int:
           "launches, `main_path_launch` is the fine pass's largest launch of 14c; "
           "`narrow` is each kernel at its first launch on configs/synthetic_smoke.yaml's widths (phase 20a: B1 "
           "at W 32 run at 128, B2/B3 at W 32 run at 64, B4/B5 at F 16 run at 32), its bound that of the network's own "
-          "unpadded work; fused_rollout bounds use the f32 peak "
+          "unpadded work; `wide` is each NeRF kernel at its first launch on phase 21's wide configuration (the "
+          "512-wide NeRF of 12 layers, encoding 123; launches: every wide launch of phase 21's CLIs; "
+          "hold: the largest error of its holds there, B1's at kernel level with 320 and 512 outputs (skip 0) "
+          "included, in the units of the kernel's max_abs_err); fused_rollout bounds use the f32 peak "
           f"({PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s), backbone_f32 the lower of that and the 3xTF32 one (three "
           f"TF32 operations at {PEAK_TF32_FLOPS / 1e12:.1f} TFLOP/s a multiply-add, both beside it), the others "
           f"the bf16 one ({PEAK_BF16_FLOPS / 1e12:.0f})")

@@ -29,15 +29,14 @@ def main():
     from playableenvironments_tpu_torch.cli.common import (
         RunTimes, apply_debug_flags, load_yaml, run_synthesis_training,
     )
-    from playableenvironments_tpu_torch.parallel import maybe_initialize_distributed
+    from playableenvironments_tpu_torch.parallel import process_group
     from playableenvironments_tpu_torch.utils.device import resolve_device
 
     times = RunTimes()
     device = resolve_device(args.device)
-    # Several processes (torchrun), when configured; before any model is built.
-    maybe_initialize_distributed(device)
     cfg = load_yaml(args.config)
-    with apply_debug_flags(cfg):
+    # Several processes (torchrun), when configured; before any model is built.
+    with process_group(device), apply_debug_flags(cfg):
         checkpoints = run_synthesis_training(cfg, args.max_steps, args.seed, device, times)
     print(f"training complete; checkpoints in {checkpoints}")
 

@@ -40,9 +40,8 @@ def main():
 
     times = RunTimes()
     device = resolve_device(args.device)
-    mesh_lib.maybe_initialize_distributed(device)
     cfg = load_yaml(args.config)
-    with apply_debug_flags(cfg):
+    with mesh_lib.process_group(device), apply_debug_flags(cfg):
         results_dir, checkpoints_dir = output_dirs(cfg)
         # A data axis over every process (the JAX CLI's create_mesh()).
         mesh = mesh_lib.create_mesh(device=device)

@@ -67,11 +67,10 @@ def main():
 
     times = RunTimes()
     device = resolve_device(args.device)
-    mesh_lib.maybe_initialize_distributed(device)
     cfg = load_yaml(args.config)
     if args.environment_checkpoint is None:
         raise SystemExit("--environment_checkpoint is required")
-    with apply_debug_flags(cfg):
+    with mesh_lib.process_group(device), apply_debug_flags(cfg):
         results_dir, checkpoints_dir = output_dirs(cfg)
         # Phase 3 keeps its checkpoints apart from phase 2's of the same run.
         checkpoints_dir = os.path.join(checkpoints_dir, "playable")

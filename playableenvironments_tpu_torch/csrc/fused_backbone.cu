@@ -342,26 +342,32 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // dW for output tile blockIdx.x (two 64-row blocks of the padded weight-
 // gradient rows, one per consumer warpgroup; the last tile of a layer may
-// have one) over the point blocks of chunk blockIdx.y: partial[chunk, rows]
-// = X_in^T G over those points. A = X^T and B = G, both MN-major.
-template <int W>
+// have one) and output columns [N blockIdx.z, N (blockIdx.z + 1)) of the
+// `width` (N = width for the 128-point kernels, width / 2 for the wide ones)
+// over the point blocks of chunk blockIdx.y: partial[chunk, rows, columns] =
+// X_in^T G over those points. A = X^T and B = G, both MN-major. The encoding
+// takes `ps` X blocks (column blocks 0 .. ps - 1) and as many row blocks of
+// layer 0 and of the skip layer.
+template <int N>
 __global__ void __launch_bounds__(kThreads, 1)
     backbone_dw_kernel(const bf16* __restrict__ x_scr, const bf16* __restrict__ g_scr, float* __restrict__ partial,
-                       int point_blocks, int chunks, int rows_pad, int layers, int skip) {
-  constexpr int nb = W / 64;
+                       int point_blocks, int chunks, int rows_pad, int layers, int skip, int ps, int width) {
+  constexpr int W = N;  // the accumulator's columns
+  const int nb = width / 64;
   // Which layer, and which of its row blocks, this tile covers.
   int layer = 0, pair = blockIdx.x, row_start = 0;
   for (;;) {
-    const int blocks = layer == 0 ? 1 : nb + (layer == skip);
+    const int blocks = layer == 0 ? ps : nb + (layer == skip ? ps : 0);
     if (pair < (blocks + 1) / 2) break;
     pair -= (blocks + 1) / 2;
     row_start += 64 * blocks;
     ++layer;
   }
-  const int blocks = layer == 0 ? 1 : nb + (layer == skip);
+  const int blocks = layer == 0 ? ps : nb + (layer == skip ? ps : 0);
   const int n_blk = min(2, blocks - 2 * pair);
-  auto x_column = [&](int b) { return (layer == 0 || b == nb) ? 0 : 1 + (layer - 1) * nb + b; };
-  const int x_cols = 1 + (layers - 1) * nb, g_cols = layers * nb;
+  auto x_column = [&](int b) { return layer == 0 ? b : (b >= nb ? b - nb : ps + (layer - 1) * nb + b); };
+  const int x_cols = ps + (layers - 1) * nb, g_cols = layers * nb;
+  const int col0 = N * blockIdx.z;
   const int p0 = (int)((long long)blockIdx.y * point_blocks / chunks);
   const int p1 = (int)((long long)(blockIdx.y + 1) * point_blocks / chunks);
 
@@ -382,7 +388,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     reg_dealloc<40>();
     if (threadIdx.x == kConsumers) {
       int stage = 0, phase = 0;
-      const uint32_t bytes = 8192 * (n_blk + nb);
+      const uint32_t bytes = 8192 * (n_blk + N / 64);
       for (int p = p0; p < p1; ++p) {
         const uint32_t s = sm.addr + stage * kDwStageBytes;
         mbar_wait(empty + 8 * stage, phase ^ 1);
@@ -390,7 +396,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int b = 0; b < n_blk; ++b)
           bulk_load(s + 8192 * b, x_scr + ((size_t)p * x_cols + x_column(2 * pair + b)) * kBlock, 8192,
                     full + 8 * stage);
-        bulk_load(s + 16384, g_scr + ((size_t)p * g_cols + layer * nb) * kBlock, 8192 * nb, full + 8 * stage);
+        bulk_load(s + 16384, g_scr + ((size_t)p * g_cols + layer * nb + col0 / 64) * kBlock, 128 * N,
+                  full + 8 * stage);
         if (++stage == kDwStages) {
           stage = 0;
           phase ^= 1;
@@ -422,12 +429,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_wait<0>();
       fence_regs<W / 2>(acc);
       const int r = row_start + 128 * pair + 64 * wg + 16 * (t >> 5) + (lane >> 2);
-      float* out = partial + ((size_t)blockIdx.y * rows_pad + r) * W;
+      float* out = partial + ((size_t)blockIdx.y * rows_pad + r) * width + col0;
 #pragma unroll
       for (int j = 0; j < W / 8; ++j) {
         const int col = 8 * j + 2 * q;
         *reinterpret_cast<float2*>(out + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
-        *reinterpret_cast<float2*>(out + 8 * W + col) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+        *reinterpret_cast<float2*>(out + 8 * width + col) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
       }
     }
   }
@@ -451,18 +458,290 @@ __global__ void backbone_grad_reduce_kernel(const float* __restrict__ partial, i
   }
 }
 
+// ---- B2/B3 beyond the published shapes: the wide kernels --------------------------
+//
+// Widths 256 < W <= 512 (W 512; a narrower one zero-padded to it), encodings
+// of 65-128 columns and 9-16 layers (at W <= 256 run at W 256): the column
+// split of nerf_wgmma.cuh (64-point tiles; warpgroup w computes output
+// columns [w W/2, (w + 1) W/2) of every layer). Shared memory at W 512: a
+// 128 KB ring of two 64 x 512 slots, the 64 KB activation tile, the 16 KB
+// encoding tile, 8 KB of column-sum staging (backward): 217 KB of 227.
+// The backward keeps each layer's ReLU bits in a global scratch (masks,
+// (grid, L, W/128, 256) u32, read back by the thread that wrote them): 16
+// layers of them do not fit in shared memory beside the tile. X and G go to
+// the scratch of the 128-point kernels, the encoding's ps blocks first in X;
+// tile_part has one row a CTA, each warpgroup summing its own columns.
+
+constexpr int kWideRing = 128 * 1024;
+
+template <int W>
+__host__ __device__ constexpr int wide_stages() {
+  return kWideRing / (128 * W);
+}
+
+template <int W>
+__host__ __device__ constexpr size_t wide_smem() {
+  return 1024 + (size_t)kWideRing + 128 * W + kWideEncBytes + kStagingBytes + 256;
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads, 1)
+    backbone_wide_fwd_kernel(const float* __restrict__ encoded, const bf16* __restrict__ weights,
+                             const float* __restrict__ biases, float* __restrict__ h_out,
+                             float* __restrict__ alpha_out, int n_points, int pe, int layers, int skip) {
+  constexpr int nb = W / 64, N = W / 2, kStages = wide_stages<W>(), kSlot = 128 * W;
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm = aligned_smem(smem_raw);
+  const uint32_t act = sm.addr + kWideRing, enc = act + 128 * W;
+  Ring ring;
+  init_ring(ring, sm.addr, enc + kWideEncBytes + kStagingBytes, kStages, 8);
+  const int ps = (pe + 63) / 64;
+  const int tiles = (n_points + kWideTile - 1) / kWideTile;
+  const int total_slots = wide_first_slot(layers, nb, ps, skip);
+
+  if (threadIdx.x >= kConsumers) {
+    reg_dealloc<40>();
+    if (threadIdx.x == kConsumers) {
+      const unsigned char* image = reinterpret_cast<const unsigned char*>(weights);
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+        produce_slots<kStages, kSlot>(ring, image, kSlot, 0, total_slots);
+    }
+  } else {
+    reg_alloc<232>();
+    const int ct = threadIdx.x, wg = ct / 128, t = ct % 128, lane = t & 31, q = lane & 3;
+    unsigned char* act_p = sm.base + kWideRing;
+    unsigned char* enc_p = act_p + 128 * W;
+    float* part = reinterpret_cast<float*>(enc_p + kWideEncBytes);
+    const bf16* w_alpha = weights + (size_t)total_slots * 64 * W;
+    const float b_alpha = __ldg(biases + layers * W);
+    float acc[N / 2];
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int row0 = tile * kWideTile;
+      wide_sync();  // the previous tile's products and alpha sums are done
+      load_wide_encoding(encoded, enc_p, row0, n_points, pe, ps, ct);
+      fence_async_smem();
+      wide_sync();
+      for (int i = 0; i < layers; ++i) {
+        wide_forward_layer<W, kStages, kSlot>(acc, ring, i, skip, ps, act, enc, wg, lane);
+        bias_relu<N>(acc, biases + i * W + wg * N, t);
+        if (i + 1 < layers) {
+          wide_sync();  // both warpgroups' products have read the whole tile
+          store_wide_tile<N>(act_p, acc, t, wg * N);
+          fence_async_smem();
+          wide_sync();
+        }
+      }
+      const int r0 = row0 + 16 * (t >> 5) + (lane >> 2);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const int col = wg * N + 8 * j + 2 * q;
+        if (r0 < n_points)
+          *reinterpret_cast<float2*>(h_out + (size_t)r0 * W + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+        if (r0 + 8 < n_points)
+          *reinterpret_cast<float2*>(h_out + (size_t)(r0 + 8) * W + col) =
+              make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+      wide_alpha<N>(acc, w_alpha, b_alpha, part, wg, t, row0, n_points, alpha_out);
+    }
+  }
+}
+
+// One backward slot for the wide tile: out (64 columns) = g @ slot^T, g the
+// 64-point tile (K-major over W columns), the slot K-major; issued by the
+// warpgroup that owns the slot (`own`), waited for and released by both.
+template <int W, int kStages, int kSlot>
+__device__ __forceinline__ void wide_backward_slot(float* out, Ring& r, int& prev, uint32_t act, int lane, bool own) {
+  consume_slot<kStages, 1, kSlot>(r, prev, lane, [&](uint32_t slot) {
+    if (!own) return;
+    const uint64_t da = sw128_base(act, 16, 1024), db = sw128_base(slot, 16, 1024);
+#pragma unroll
+    for (int k = 0; k < W / 16; ++k)
+      wgmma<64, 0, 0>(out, da + (k >> 2) * 512 + (k & 3) * 2, db + (k >> 2) * 512 + (k & 3) * 2, k > 0 ? 1 : 0);
+  });
+}
+
+// Row blockIdx.x of `tile_part` (ld = L W + W + 1) sums, over the CTA's
+// tiles, the [L W] db_i column sums, [W] alpha-head weight partials and [1]
+// alpha-head bias partial. The backward slots of a layer come in the order
+// the producer streams them: the encoding's (slot e to warpgroup e % 2), then
+// the h slots interleaved, h slot (m % 2) W/128 + m / 2 the m-th, to
+// warpgroup m % 2, so that each warpgroup forms its own W/2 columns of the
+// next g while the other forms its.
+template <int W>
+__global__ void __launch_bounds__(kThreads, 1)
+    backbone_wide_bwd_tile_kernel(const bf16* __restrict__ encoded, const float* __restrict__ g_h,
+                                  const float* __restrict__ g_alpha, const bf16* __restrict__ weights,
+                                  const float* __restrict__ biases, float* __restrict__ d_encoded,
+                                  bf16* __restrict__ x_scr, bf16* __restrict__ g_scr, float* __restrict__ tile_part,
+                                  uint32_t* __restrict__ masks, int n_points, int pe, int layers, int skip) {
+  constexpr int nb = W / 64, N = W / 2, kStages = wide_stages<W>(), kSlot = 128 * W, kWords = N / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm = aligned_smem(smem_raw);
+  const uint32_t act = sm.addr + kWideRing, enc = act + 128 * W;
+  Ring ring;
+  init_ring(ring, sm.addr, enc + kWideEncBytes + kStagingBytes, kStages, 8);
+  const int ps = (pe + 63) / 64;
+  const int tiles = (n_points + kWideTile - 1) / kWideTile;
+  const int total_slots = wide_first_slot(layers, nb, ps, skip);
+
+  if (threadIdx.x >= kConsumers) {
+    reg_dealloc<40>();
+    if (threadIdx.x == kConsumers) {
+      const unsigned char* image = reinterpret_cast<const unsigned char*>(weights);
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        produce_slots<kStages, kSlot>(ring, image, kSlot, 0, total_slots);
+        for (int i = layers - 1; i >= 0; --i) {
+          const int first = wide_first_slot(i, nb, ps, skip);
+          if (i == 0 || i == skip) produce_slots<kStages, kSlot>(ring, image, kSlot, i == 0 ? first : first + nb, ps);
+          if (i > 0)
+            for (int m = 0; m < nb; ++m) produce_slots<kStages, kSlot>(ring, image, kSlot, first + (m & 1) * (nb / 2) + (m >> 1), 1);
+        }
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int ct = threadIdx.x, wg = ct / 128, t = ct % 128, lane = t & 31, q = lane & 3;
+    const bool elected = t == 0;
+    unsigned char* act_p = sm.base + kWideRing;
+    unsigned char* enc_p = act_p + 128 * W;
+    float* staging = reinterpret_cast<float*>(enc_p + kWideEncBytes) + wg * 4 * 256;
+    const bf16* w_alpha = weights + (size_t)total_slots * 64 * W;
+    const int x_cols = ps + (layers - 1) * nb, g_cols = layers * nb;
+    const int tp_ld = layers * W + W + 1;
+    float* tp = tile_part + (size_t)blockIdx.x * tp_ld;
+    uint32_t* mask = masks + (size_t)blockIdx.x * layers * kWords * kConsumers + ct;
+    float acc[N / 2];
+
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int row0 = tile * kWideTile;
+      const bool first = tile == (int)blockIdx.x;
+
+      // Recompute the forward; X <- the encodings and every layer's input.
+      if (elected) bulk_wait_read();
+      wide_sync();
+      load_wide_encoding(encoded, enc_p, row0, n_points, pe, ps, ct);
+      fence_async_smem();
+      wide_sync();
+      if (ct == 0) {
+        for (int e = 0; e < ps; ++e) bulk_store(x_scr + ((size_t)tile * x_cols + e) * kBlock, enc + e * 8192, 8192);
+        bulk_commit();
+      }
+      for (int i = 0; i < layers; ++i) {
+        wide_forward_layer<W, kStages, kSlot>(acc, ring, i, skip, ps, act, enc, wg, lane);
+        bias_relu<N>(acc, biases + i * W + wg * N, t);
+#pragma unroll
+        for (int w = 0; w < kWords; ++w) {
+          uint32_t m = 0;
+#pragma unroll
+          for (int b = 0; b < 32; ++b) m |= (acc[32 * w + b] > 0.0f ? 1u : 0u) << b;
+          mask[(i * kWords + w) * kConsumers] = m;
+        }
+        if (i + 1 < layers) {
+          if (elected) bulk_wait_read();
+          wide_sync();
+          store_wide_tile<N>(act_p, acc, t, wg * N);
+          fence_async_smem();
+          wide_sync();
+          if (elected) {
+            for (int j = wg * nb / 2; j < (wg + 1) * nb / 2; ++j)
+              bulk_store(x_scr + ((size_t)tile * x_cols + ps + i * nb + j) * kBlock, act + j * 8192, 8192);
+            bulk_commit();
+          }
+        }
+      }
+
+      // Alpha head: dW_alpha partial = bf16(h)^T bf16(g_alpha), db_alpha = sum g_alpha.
+      const int r0 = row0 + 16 * (t >> 5) + (lane >> 2);
+      const float ga0 = r0 < n_points ? g_alpha[r0] : 0.0f;
+      const float ga1 = r0 + 8 < n_points ? g_alpha[r0 + 8] : 0.0f;
+      const float gb0 = __bfloat162float(__float2bfloat16(ga0)), gb1 = __bfloat162float(__float2bfloat16(ga1));
+#pragma unroll
+      for (int v = 0; v < N / 2; ++v) acc[v] = __bfloat162float(__float2bfloat16(acc[v])) * ((v & 2) ? gb1 : gb0);
+      column_sums<N>(acc, staging, tp + layers * W + wg * N, wg, t, first);
+      if (ct == 0) {
+        float s = 0.0f;
+        for (int r = row0; r < row0 + kWideTile; ++r) s += r < n_points ? g_alpha[r] : 0.0f;
+        tp[layers * W + W] = first ? s : tp[layers * W + W] + s;
+      }
+      // g = g_h + bf16(g_alpha) bf16(w_alpha)^T, the warpgroup's columns.
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const int col = wg * N + 8 * j + 2 * q;
+        const float wa0 = __bfloat162float(w_alpha[col]), wa1 = __bfloat162float(w_alpha[col + 1]);
+        const float2 h0 = r0 < n_points ? *reinterpret_cast<const float2*>(g_h + (size_t)r0 * W + col)
+                                        : make_float2(0.0f, 0.0f);
+        const float2 h1 = r0 + 8 < n_points ? *reinterpret_cast<const float2*>(g_h + (size_t)(r0 + 8) * W + col)
+                                            : make_float2(0.0f, 0.0f);
+        acc[4 * j] = h0.x + gb0 * wa0;
+        acc[4 * j + 1] = h0.y + gb0 * wa1;
+        acc[4 * j + 2] = h1.x + gb1 * wa0;
+        acc[4 * j + 3] = h1.y + gb1 * wa1;
+      }
+      for (int i = layers - 1; i >= 0; --i) {
+#pragma unroll
+        for (int w = 0; w < kWords; ++w) {
+          const uint32_t m = mask[(i * kWords + w) * kConsumers];
+#pragma unroll
+          for (int b = 0; b < 32; ++b) acc[32 * w + b] = ((m >> b) & 1u) ? acc[32 * w + b] : 0.0f;
+        }
+        column_sums<N>(acc, staging, tp + i * W + wg * N, wg, t, first);
+        if (elected) bulk_wait_read();
+        wide_sync();  // both warpgroups' products have read the tile
+        store_wide_tile<N>(act_p, acc, t, wg * N);
+        fence_async_smem();
+        wide_sync();
+        if (elected) {
+          for (int j = wg * nb / 2; j < (wg + 1) * nb / 2; ++j)
+            bulk_store(g_scr + ((size_t)tile * g_cols + i * nb + j) * kBlock, act + j * 8192, 8192);
+          bulk_commit();
+        }
+        // g_in = bf16(g) @ bf16(W_i)^T: the encoding slots first (slot e, 64
+        // columns of d_encoded, by warpgroup e % 2 into acc's first 32
+        // registers; layer 0's added to the skip layer's in place), then the
+        // h slots, warpgroup w's W/128 of them its columns of the next g.
+        int prev = -1;
+        if (i == 0 || i == skip) {
+          for (int e = 0; e < ps; ++e) wide_backward_slot<W, kStages, kSlot>(acc, ring, prev, act, lane, e % 2 == wg);
+          release_last(ring, prev, lane);
+          fence_regs<32>(acc);
+          prev = -1;
+          if (wg < ps) {
+            const bool add = i == 0 && skip < layers;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int point = r0 + 8 * (e >> 1), col = 64 * wg + 8 * j + 2 * q + (e & 1);
+                float* d = d_encoded + (size_t)point * pe + col;
+                if (point < n_points && col < pe) *d = add ? *d + acc[4 * j + e] : acc[4 * j + e];
+              }
+          }
+        }
+        if (i > 0) {
+#pragma unroll
+          for (int m = 0; m < nb; ++m)
+            wide_backward_slot<W, kStages, kSlot>(acc + 32 * (m >> 1), ring, prev, act, lane, (m & 1) == wg);
+          release_last(ring, prev, lane);
+          fence_regs<N / 2>(acc);
+        }
+      }
+    }
+    if (elected) bulk_wait();
+  }
+}
+
 // ---- host side -------------------------------------------------------------------
 
-int dw_tiles(int width, int layers, int skip) {
+int dw_tiles(int width, int layers, int skip, int ps = 1) {
   const int nb = width / 64;
   int tiles = 0;
-  for (int i = 0; i < layers; ++i) tiles += ((i == 0 ? 1 : nb + (i == skip)) + 1) / 2;
+  for (int i = 0; i < layers; ++i) tiles += ((i == 0 ? ps : nb + (i == skip ? ps : 0)) + 1) / 2;
   return tiles;
 }
 
-int rows_padded(int width, int layers, int skip) {
+int rows_padded(int width, int layers, int skip, int ps = 1) {
   int rows = 0;
-  for (int i = 0; i < layers; ++i) rows += i == 0 ? kPe : (i == skip ? width + kPe : width);
+  for (int i = 0; i < layers; ++i) rows += i == 0 ? 64 * ps : (i == skip ? width + 64 * ps : width);
   return rows;
 }
 
@@ -524,7 +803,7 @@ int bwd_launch(const void* encoded, const void* g_h, const void* g_alpha, const 
   if (ms != nullptr) cudaEventRecord(events[1], stream);
 
   backbone_dw_kernel<W><<<dim3(dw_tiles(W, layers, skip), chunks), kThreads, kDwSmem, stream>>>(
-      (const bf16*)x_scr, (const bf16*)g_scr, (float*)partial, 2 * tiles, chunks, rows_pad, layers, skip);
+      (const bf16*)x_scr, (const bf16*)g_scr, (float*)partial, 2 * tiles, chunks, rows_pad, layers, skip, 1, W);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (ms != nullptr) cudaEventRecord(events[2], stream);
@@ -533,6 +812,78 @@ int bwd_launch(const void* encoded, const void* g_h, const void* g_alpha, const 
   const size_t total = dw_elems + tp_ld;
   backbone_grad_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
       (const float*)partial, chunks, dw_elems, (const float*)tile_part, 2 * grid, tp_ld, (float*)grads_out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || ms == nullptr) return (int)err;
+  cudaEventRecord(events[3], stream);
+  err = cudaEventSynchronize(events[3]);
+  for (int i = 0; i < 3; ++i) cudaEventElapsedTime(&ms[i], events[i], events[i + 1]);
+  for (int i = 0; i < 4; ++i) cudaEventDestroy(events[i]);
+  return (int)err;
+}
+
+template <int W>
+cudaError_t prepare_wide() {
+  constexpr int kMaxDevices = 64;
+  static bool done[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[device]) return cudaSuccess;
+  e = cudaFuncSetAttribute(backbone_wide_fwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)wide_smem<W>());
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(backbone_wide_bwd_tile_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)wide_smem<W>());
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(backbone_dw_kernel<W / 2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem);
+  done[device] = e == cudaSuccess;
+  return e;
+}
+
+template <int W>
+int wide_fwd_launch(const void* encoded, const void* weights, const void* biases, void* h_out, void* alpha_out,
+                    int n_points, int pe, int layers, int skip, int grid, cudaStream_t stream) {
+  cudaError_t err = prepare_wide<W>();
+  if (err != cudaSuccess) return (int)err;
+  backbone_wide_fwd_kernel<W><<<grid, kThreads, wide_smem<W>(), stream>>>(
+      (const float*)encoded, (const bf16*)weights, (const float*)biases, (float*)h_out, (float*)alpha_out,
+      n_points, pe, layers, skip);
+  return (int)cudaGetLastError();
+}
+
+template <int W>
+int wide_bwd_launch(const void* encoded, const void* g_h, const void* g_alpha, const void* weights,
+                    const void* biases, void* d_encoded, void* x_scr, void* g_scr, void* tile_part, void* partial,
+                    void* masks, void* grads_out, int n_points, int pe, int layers, int skip, int grid, int chunks,
+                    cudaStream_t stream, float* ms) {
+  cudaError_t err = prepare_wide<W>();
+  if (err != cudaSuccess) return (int)err;
+  const int ps = (pe + 63) / 64;
+  const int tiles = (n_points + kWideTile - 1) / kWideTile;
+  const int rows_pad = rows_padded(W, layers, skip, ps);
+  const int tp_ld = layers * W + W + 1;
+  cudaEvent_t events[4];
+  if (ms != nullptr) {
+    for (int i = 0; i < 4; ++i) cudaEventCreate(&events[i]);
+    cudaEventRecord(events[0], stream);
+  }
+  backbone_wide_bwd_tile_kernel<W><<<grid, kThreads, wide_smem<W>(), stream>>>(
+      (const bf16*)encoded, (const float*)g_h, (const float*)g_alpha, (const bf16*)weights, (const float*)biases,
+      (float*)d_encoded, (bf16*)x_scr, (bf16*)g_scr, (float*)tile_part, (uint32_t*)masks, n_points, pe, layers,
+      skip);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (ms != nullptr) cudaEventRecord(events[1], stream);
+  backbone_dw_kernel<W / 2><<<dim3(dw_tiles(W, layers, skip, ps), chunks, 2), kThreads, kDwSmem, stream>>>(
+      (const bf16*)x_scr, (const bf16*)g_scr, (float*)partial, tiles, chunks, rows_pad, layers, skip, ps, W);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (ms != nullptr) cudaEventRecord(events[2], stream);
+  const size_t dw_elems = (size_t)rows_pad * W;
+  const size_t total = dw_elems + tp_ld;
+  backbone_grad_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+      (const float*)partial, chunks, dw_elems, (const float*)tile_part, grid, tp_ld, (float*)grads_out);
   err = cudaGetLastError();
   if (err != cudaSuccess || ms == nullptr) return (int)err;
   cudaEventRecord(events[3], stream);
@@ -584,6 +935,42 @@ extern "C" int fused_backbone_bwd_launch(const void* encoded, const void* g_h, c
     case 128: return BWD(128);
     case 192: return BWD(192);
     case 256: return BWD(256);
+  }
+#undef BWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// The wide kernels (widths 256 and 512, encodings up to 128 columns, up to
+// 16 layers; grid min(tiles, SMs), tiles = ceil(N / 64)). Scratch as
+// fused_backbone_bwd_launch's with 64-point tiles and ps = ceil(pe / 64)
+// encoding blocks in x_scr (ps + (L-1) W/64 column blocks a point block);
+// tile_part f32 (grid, L W + W + 1); masks u32 (grid, L, W/128, 256);
+// partial f32 (chunks, rows_pad, W), rows_pad with 64 ps encoding rows.
+extern "C" int fused_backbone_wide_fwd_launch(const void* encoded, const void* weights, const void* biases,
+                                              void* h_out, void* alpha_out, int n_points, int pe, int width,
+                                              int layers, int skip, int grid, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (pe > 128) return (int)cudaErrorInvalidValue;
+  switch (width) {
+    case 256: return wide_fwd_launch<256>(encoded, weights, biases, h_out, alpha_out, n_points, pe, layers, skip, grid, s);
+    case 512: return wide_fwd_launch<512>(encoded, weights, biases, h_out, alpha_out, n_points, pe, layers, skip, grid, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int fused_backbone_wide_bwd_launch(const void* encoded, const void* g_h, const void* g_alpha,
+                                              const void* weights, const void* biases, void* d_encoded, void* x_scr,
+                                              void* g_scr, void* tile_part, void* partial, void* masks,
+                                              void* grads_out, int n_points, int pe, int width, int layers, int skip,
+                                              int grid, int chunks, void* stream, float* ms) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (pe > 128) return (int)cudaErrorInvalidValue;
+#define BWD(W)                                                                                                    \
+  wide_bwd_launch<W>(encoded, g_h, g_alpha, weights, biases, d_encoded, x_scr, g_scr, tile_part, partial, masks, \
+                     grads_out, n_points, pe, layers, skip, grid, chunks, s, ms)
+  switch (width) {
+    case 256: return BWD(256);
+    case 512: return BWD(512);
   }
 #undef BWD
   return (int)cudaErrorInvalidValue;

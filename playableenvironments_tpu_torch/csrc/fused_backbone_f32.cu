@@ -104,7 +104,7 @@
 
 namespace {
 
-constexpr int kMaxLayers = 8;
+constexpr int kMaxLayers = 16;  // the weight pointers of one pack launch
 constexpr int kPoints = 64;                 // points a tile: one m64 block, both warpgroups' rows
 constexpr int kStages = 4;
 constexpr int kStageBytes = 64 * 256;       // a slot of N = 256: 2 x 256 x 8 floats
@@ -125,6 +125,18 @@ __host__ __device__ constexpr int in_pad(int i, int W, int skip) {
 __host__ __device__ inline int rows_before(int layer, int W, int skip) {
   int rows = 0;
   for (int i = 0; i < layer; ++i) rows += in_pad(i, W, skip);
+  return rows;
+}
+
+// The same with the encoding's rows padded to pe_pad (64 or 128): the pack
+// kernel's and the wide kernels'.
+__host__ __device__ constexpr int in_pad_pe(int i, int W, int skip, int pe_pad) {
+  return i == 0 ? pe_pad : (i == skip ? W + pe_pad : W);
+}
+
+__host__ __device__ inline int rows_before_pe(int layer, int W, int skip, int pe_pad) {
+  int rows = 0;
+  for (int i = 0; i < layer; ++i) rows += in_pad_pe(i, W, skip, pe_pad);
   return rows;
 }
 
@@ -752,6 +764,324 @@ __global__ void backbone_f32_grad_reduce_kernel(const float* __restrict__ partia
   }
 }
 
+// ---- beyond the published shapes: the wide kernels -----------------------------
+//
+// Width 512 (a width in (256, 512) zero-padded to it), encodings of 65-128
+// columns, 9-16 layers (at W <= 256 run at W 256). Both warpgroups' columns
+// of a product are one slot of N = 256 (a pass): at W 512 each layer is two
+// passes, warpgroup w computing columns [256 c + 128 w, 256 c + 128 (w + 1))
+// of pass c, H = 128 of them, so that a thread keeps the sums and the
+// tensor-core accumulator of the 256-wide kernel (168 registers). The layer's
+// input stays in one staging buffer in shared memory until both passes have
+// read it, so each pass's output fragments wait in a global scratch of the
+// CTA's (`stash`, (grid, W / 8, 128) float4, L2-resident, read back by the
+// thread that wrote them) and go into the staging after a barrier. Shared
+// memory at W 512: the ring (64 KB), the 128 KB staging of a layer's input,
+// the encoding's 16 k-steps (32 KB): 225 KB of 227. Weight images as the
+// 256-wide kernels' with each layer's slots in passes (fwd: pass c's k-steps
+// of columns [256 c, 256 c + 256); bwd: the encoding's 64-row groups, then
+// the activation rows in groups of 256, each W / 8 k-steps), and the
+// encoding's rows padded to 64 ps (ps = 1 or 2; pe_pad = 64 ps).
+
+template <int W>
+__host__ __device__ constexpr size_t wide_smem() {
+  return 1024 + (size_t)kStages * kStageBytes + (size_t)(W / 8 + 16) * kStepBytes + 4 * kPoints + 16 * kStages;
+}
+
+struct WideSmem {
+  float4* act;    // the layer's input: [W / 8 k-steps][128 threads]
+  float4* enc;    // the encoding's: [16 k-steps][128 threads]
+  float* alpha;   // the second warpgroup's alpha partials, 64
+  uint32_t ring, bars;
+};
+
+template <int W>
+__device__ __forceinline__ WideSmem wide_smem_layout(unsigned char* raw) {
+  const Smem sm = aligned_smem(raw);
+  WideSmem s;
+  s.ring = sm.addr;
+  s.act = reinterpret_cast<float4*>(sm.base + kStages * kStageBytes);
+  s.enc = s.act + (W / 8) * 128;
+  s.alpha = reinterpret_cast<float*>(s.enc + 16 * 128);
+  s.bars = sm.addr + kStages * kStageBytes + (W / 8 + 16) * kStepBytes + 4 * kPoints;
+  return s;
+}
+
+// The tile's encoding k-steps (ps groups of 8, 4 a warpgroup) into the
+// staging, between two barriers; into X too where given.
+__device__ __forceinline__ void stage_wide_encoding(const WideSmem& sm, const float* __restrict__ encoded, int point,
+                                                    int n, int pe, int ps, int wg, int t, int q,
+                                                    float* x_scr = nullptr, int x_feats = 0, int row = 0) {
+  consumer_sync();
+  for (int e = 0; e < ps; ++e) {
+    float v[16];
+    load_encoding_f32<4>(v, encoded, point, n, pe, q, 8 * e + 4 * wg);
+    stage_fragments<32>(sm.enc + (8 * e + 4 * wg) * 128 + t, v);
+    if (x_scr != nullptr) store_transposed<32>(x_scr, x_feats, 64 * e + 32 * wg, v, row, q);
+  }
+  consumer_sync();
+}
+
+// Pass c of forward layer i for the warpgroup's 128 columns: sum = A_i @
+// W_i, the layer's slots of the pass in image order.
+__device__ __forceinline__ void wide_forward_pass(float* sum, Ring& r, int i, int skip, int ps, int width,
+                                                  const float4* act, const float4* enc, int wg, int lane) {
+  zero<64>(sum);
+  if (i == 0) {
+    product<128>(sum, r, enc, 8 * ps, wg * 128 * 32, 256, lane);
+  } else {
+    product<128>(sum, r, act, width / 8, wg * 128 * 32, 256, lane);
+    if (i == skip) product<128>(sum, r, enc, 8 * ps, wg * 128 * 32, 256, lane);
+  }
+}
+
+// The inverse of stage_fragments.
+__device__ __forceinline__ void unstage_fragments(float* v, const float4* src) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float4 f = src[128 * j];
+    v[4 * j] = f.x;
+    v[4 * j + 2] = f.y;
+    v[4 * j + 1] = f.z;
+    v[4 * j + 3] = f.w;
+  }
+}
+
+// After a layer's passes: once every product has read the staging, the
+// thread's stashed fragments (its 128 columns of each pass) go into it.
+template <int W>
+__device__ __forceinline__ void unstash(const WideSmem& sm, const float4* stash, int wg, int t) {
+  consumer_sync();
+#pragma unroll
+  for (int c = 0; c < W / 256; ++c)
+#pragma unroll 4
+    for (int j = 0; j < 16; ++j) {
+      const int k = (256 * c + 128 * wg) / 8 + j;
+      sm.act[k * 128 + t] = stash[k * 128 + t];
+    }
+  consumer_sync();
+}
+
+template <int W>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    backbone_f32_wide_fwd_kernel(const float* __restrict__ encoded, const float* __restrict__ image,
+                                 const float* __restrict__ biases, const float* __restrict__ w_alpha,
+                                 float* __restrict__ h_out, float* __restrict__ alpha_out, float4* __restrict__ stash,
+                                 int n, int pe, int layers, int skip) {
+  constexpr int P = W / 256;
+  extern __shared__ unsigned char smem_raw[];
+  const WideSmem sm = wide_smem_layout<W>(smem_raw);
+  Ring ring;
+  init_ring(ring, sm.ring, sm.bars, kStages, 8);
+  const int ps = (pe + 63) / 64;
+  const int tiles = (n + kPoints - 1) / kPoints;
+  const int slots = rows_before_pe(layers, W, skip, 64 * ps) * (W / 256) / 8;
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers)
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+        for (int s = 0; s < slots; ++s) produce(ring, image + (size_t)s * 16 * 256, 64 * 256);
+  } else {
+    const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t & 31, q = lane & 3, g = lane >> 2;
+    const float b_alpha = __ldg(biases + layers * W);
+    float4* mine = stash + (size_t)blockIdx.x * (W / 8) * 128 + t;
+    float sum[64];
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int r0 = tile * kPoints + 16 * (t >> 5) + g;
+      stage_wide_encoding(sm, encoded, r0, n, pe, ps, wg, t, q);
+      float s0 = 0.0f, s1 = 0.0f;
+      for (int i = 0; i < layers; ++i) {
+        for (int c = 0; c < P; ++c) {
+          wide_forward_pass(sum, ring, i, skip, ps, W, sm.act + t, sm.enc + t, wg, lane);
+          const int col0 = 256 * c + 128 * wg;
+          bias_relu<128>(sum, biases + i * W + col0, t);
+          if (i + 1 < layers) {
+            stage_fragments<128>(mine + (col0 / 8) * 128, sum);
+            continue;
+          }
+          // h, and this pass's part of alpha = h . w_alpha.
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int col = col0 + 8 * j + 2 * q;
+            const float2 wa = __ldg(reinterpret_cast<const float2*>(w_alpha + col));
+            s0 = fmaf(sum[4 * j + 1], wa.y, fmaf(sum[4 * j], wa.x, s0));
+            s1 = fmaf(sum[4 * j + 3], wa.y, fmaf(sum[4 * j + 2], wa.x, s1));
+            if (r0 < n) *reinterpret_cast<float2*>(h_out + (size_t)r0 * W + col) = make_float2(sum[4 * j], sum[4 * j + 1]);
+            if (r0 + 8 < n)
+              *reinterpret_cast<float2*>(h_out + (size_t)(r0 + 8) * W + col) = make_float2(sum[4 * j + 2], sum[4 * j + 3]);
+          }
+        }
+        if (i + 1 < layers) unstash<W>(sm, mine - t, wg, t);
+      }
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+      const int row = 16 * (t >> 5) + g;
+      if (wg == 1 && q == 0) {
+        sm.alpha[row] = s0;
+        sm.alpha[row + 8] = s1;
+      }
+      consumer_sync();
+      if (wg == 0 && q == 0) {
+        if (r0 < n) alpha_out[r0] = (s0 + sm.alpha[row]) + b_alpha;
+        if (r0 + 8 < n) alpha_out[r0 + 8] = (s1 + sm.alpha[row + 8]) + b_alpha;
+      }
+    }
+  }
+}
+
+// The wide backward's tile kernel: the recompute keeps each pass's ReLU bits
+// (masks (grid, L, 2 W/256, 256)) and X, and stashes the last layer's h for
+// the alpha head; then back-propagates pass by pass: g_in's pass (the
+// encoding's 64-row groups first, into d_encoded), masked by the layer
+// below's bits, into G, its column sums and the stash.
+// The wide tile kernel's parameters: the 256-wide kernel's, its stash and
+// the encoding's blocks.
+struct WideBwdTileParams : BwdTileParams {
+  float4* stash;  // (grid, W / 8, 128) a layer's outputs, each thread's own
+  int ps;         // 64-column blocks of the encoding
+};
+
+template <int W>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    backbone_f32_wide_bwd_tile_kernel(const __grid_constant__ WideBwdTileParams p) {
+  constexpr int P = W / 256, kWords = 2 * P;
+  extern __shared__ unsigned char smem_raw[];
+  const WideSmem sm = wide_smem_layout<W>(smem_raw);
+  Ring ring;
+  init_ring(ring, sm.ring, sm.bars, kStages, 8);
+  const int L = p.layers, skip = p.skip, ps = p.ps, pe_pad = 64 * ps;
+  const int slots = rows_before_pe(L, W, skip, pe_pad) * (W / 256) / 8;
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+        for (int s = 0; s < slots; ++s) produce(ring, p.fwd_image + (size_t)s * 16 * 256, 64 * 256);
+        for (int i = L - 1; i >= 0; --i) {
+          const float* src = p.bwd_image + 2 * (size_t)W * rows_before_pe(i, W, skip, pe_pad);
+          if (i == 0 || i == skip)
+            for (int k = 0; k < ps * W / 8; ++k, src += 16 * 64) produce(ring, src, 64 * 64);
+          if (i > 0)
+            for (int k = 0; k < P * W / 8; ++k, src += 16 * 256) produce(ring, src, 64 * 256);
+        }
+      }
+    }
+  } else {
+    const int ct = threadIdx.x, wg = ct / 128, t = ct % 128, lane = t & 31, q = lane & 3, g = lane >> 2;
+    // The column sums' staging: 4 KB of the encoding's for each warpgroup,
+    // free once the recompute is done.
+    float* staging = reinterpret_cast<float*>(sm.enc) + wg * 1024;
+    const int tp_ld = L * W + W + 1;
+    float* tp = p.tile_part + ((size_t)blockIdx.x * 2 + wg) * tp_ld;
+    uint32_t* masks = p.masks + (size_t)blockIdx.x * L * kWords * kConsumers + ct;
+    float4* mine = p.stash + (size_t)blockIdx.x * (W / 8) * 128 + t;
+    float sum[64];
+
+    for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+      const int row = tile * kPoints + 16 * (t >> 5) + g;  // of the chunk
+      const int r0 = p.first_tile * kPoints + row;         // the point
+      stage_wide_encoding(sm, p.encoded, r0, p.n, p.pe, ps, wg, t, q, p.x_scr, p.x_feats, row);
+      // Recompute; X <- every layer's input, masks <- each pass's ReLU.
+      for (int i = 0; i < L; ++i) {
+        for (int c = 0; c < P; ++c) {
+          wide_forward_pass(sum, ring, i, skip, ps, W, sm.act + t, sm.enc + t, wg, lane);
+          const int col0 = 256 * c + 128 * wg;
+          bias_relu<128>(sum, p.biases + i * W + col0, t);
+#pragma unroll
+          for (int w = 0; w < 2; ++w) {
+            uint32_t m = 0;
+#pragma unroll
+            for (int b = 0; b < 32; ++b) m |= (sum[32 * w + b] > 0.0f ? 1u : 0u) << b;
+            masks[(i * kWords + 2 * c + w) * kConsumers] = m;
+          }
+          if (i + 1 < L) store_transposed<128>(p.x_scr, p.x_feats, pe_pad + i * W + col0, sum, row, q);
+          stage_fragments<128>(mine + (col0 / 8) * 128, sum);
+        }
+        if (i + 1 < L) unstash<W>(sm, mine - t, wg, t);
+      }
+      consumer_sync();  // the last layer's products are done with the encoding's staging
+
+      // The alpha head: dW_alpha += h^T g_alpha, db_alpha += sum g_alpha.
+      const float ga0 = r0 < p.n ? p.g_alpha[r0] : 0.0f;
+      const float ga1 = r0 + 8 < p.n ? p.g_alpha[r0 + 8] : 0.0f;
+      for (int c = 0; c < P; ++c) {
+        const int col0 = 256 * c + 128 * wg;
+        unstage_fragments(sum, mine + (col0 / 8) * 128);
+#pragma unroll
+        for (int v = 0; v < 64; ++v) sum[v] *= (v & 2) ? ga1 : ga0;
+        column_sums<128>(sum, staging, tp + L * W + col0, wg, t, false);
+      }
+      if (ct == 0) {
+        const int first = (p.first_tile + tile) * kPoints;
+        double s = 0.0;
+        for (int r = first; r < first + kPoints; ++r) s += r < p.n ? p.g_alpha[r] : 0.0f;
+        tp[L * W + W] += (float)s;
+      }
+      // A pass of g for layer `l`, in sum: masked, into G, its column sums, stashed.
+      auto g_pass = [&](int l, int c) {
+        const int col0 = 256 * c + 128 * wg;
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          const uint32_t m = masks[(l * kWords + 2 * c + w) * kConsumers];
+#pragma unroll
+          for (int k = 0; k < 32; ++k) sum[32 * w + k] = ((m >> k) & 1u) ? sum[32 * w + k] : 0.0f;
+        }
+        store_transposed<128>(p.g_scr, p.g_feats, l * W + col0, sum, row, q);
+        column_sums<128>(sum, staging, tp + l * W + col0, wg, t, false);
+        stage_fragments<128>(mine + (col0 / 8) * 128, sum);
+      };
+      // g = g_h + g_alpha w_alpha^T.
+      for (int c = 0; c < P; ++c) {
+        const int col0 = 256 * c + 128 * wg;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = col0 + 8 * j + 2 * q;
+          const float2 wa = __ldg(reinterpret_cast<const float2*>(p.w_alpha + col));
+          const float2 h0 = r0 < p.n ? *reinterpret_cast<const float2*>(p.g_h + (size_t)r0 * W + col)
+                                     : make_float2(0.0f, 0.0f);
+          const float2 h1 = r0 + 8 < p.n ? *reinterpret_cast<const float2*>(p.g_h + (size_t)(r0 + 8) * W + col)
+                                         : make_float2(0.0f, 0.0f);
+          sum[4 * j] = fmaf(ga0, wa.x, h0.x);
+          sum[4 * j + 1] = fmaf(ga0, wa.y, h0.y);
+          sum[4 * j + 2] = fmaf(ga1, wa.x, h1.x);
+          sum[4 * j + 3] = fmaf(ga1, wa.y, h1.y);
+        }
+        g_pass(L - 1, c);
+      }
+      unstash<W>(sm, mine - t, wg, t);
+      for (int i = L - 1; i >= 0; --i) {
+        // g_in = g @ W_i^T: the encoding's rows first (32 of each 64-row
+        // group a warpgroup, a term of d_encoded, layer 0's added to the skip
+        // layer's), then the activation rows pass by pass, the next g.
+        if (i == 0 || i == skip) {
+          const bool add = i == 0 && skip < L;
+          for (int e = 0; e < ps; ++e) {
+            zero<16>(sum);
+            product<32>(sum, ring, sm.act + t, W / 8, wg * 32 * 32, 64, lane);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                const int point = r0 + 8 * (k >> 1), col = 64 * e + wg * 32 + 8 * j + 2 * q + (k & 1);
+                float* d = p.d_encoded + (size_t)point * p.pe + col;
+                if (point < p.n && col < p.pe) *d = add ? *d + sum[4 * j + k] : sum[4 * j + k];
+              }
+          }
+        }
+        if (i > 0) {
+          for (int c = 0; c < P; ++c) {
+            zero<64>(sum);
+            product<128>(sum, ring, sm.act + t, W / 8, wg * 128 * 32, 256, lane);
+            g_pass(i - 1, c);
+          }
+          unstash<W>(sm, mine - t, wg, t);
+        }
+      }
+    }
+  }
+}
+
 // ---- the weight images ------------------------------------------------------------
 
 struct PackParams {
@@ -767,6 +1097,7 @@ struct PackParams {
   float* biases;                   // b_0 .. b_{L-1}, b_alpha
   float* w_alpha_out;              // W
   int width, layers, skip, pe, rows_pad;
+  int np, pe_pad;                  // pass width min(W, 256); the encoding's rows, padded to 64 or 128
 };
 
 // Float offset of (n, k) in a slot part of wgmma's layout without swizzle.
@@ -781,34 +1112,37 @@ __host__ __device__ constexpr int logical_k(int m) { return (m >> 1) + 4 * (m & 
 // column c): its big and small halves into both images; then one a bias and
 // one a w_alpha element.
 __global__ void backbone_f32_pack_kernel(const __grid_constant__ PackParams p) {
-  const int W = p.width;
+  const int W = p.width, np = p.np, pe_pad = p.pe_pad;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long weights = (long long)p.rows_pad * W;
   if (idx < weights) {
     const int r = (int)(idx / W), c = (int)(idx % W);
     int i = 0, before = 0;
-    while (r - before >= in_pad(i, W, p.skip)) before += in_pad(i++, W, p.skip);
+    while (r - before >= in_pad_pe(i, W, p.skip, pe_pad)) before += in_pad_pe(i++, W, p.skip, pe_pad);
     const int rr = r - before;
     bool real = rr < W;                                   // an activation row
-    if (i == 0) real = rr < p.pe;                          // the encoding's, padded to 64
+    if (i == 0) real = rr < p.pe;                          // the encoding's, padded to pe_pad
     else if (i == p.skip && rr >= W) real = rr - W < p.pe;
     const float w = real ? p.w[i][rr * p.ws[i][0] + c * p.ws[i][1]] : 0.0f;
     const uint32_t big = tf32_rna(w), small = tf32_rna(w - __uint_as_float(big));
     const size_t base = 2 * (size_t)W * before;
-    const size_t f = base + (size_t)(rr >> 3) * 16 * W + frag_offset(c, logical_k(rr & 7));
+    const int k_steps = in_pad_pe(i, W, p.skip, pe_pad) / 8;
+    const size_t f = base + ((size_t)(c / np) * k_steps + (rr >> 3)) * 16 * np + frag_offset(c % np, logical_k(rr & 7));
     p.fwd[f] = __uint_as_float(big);
-    p.fwd[f + 8 * W] = __uint_as_float(small);
-    int rows = W, nn = rr;
+    p.fwd[f + 8 * np] = __uint_as_float(small);
+    // bwd: groups of N rows, each W / 8 slots: the encoding's 64-row groups
+    // first (layer 0 and the skip layer), then the activation rows in
+    // groups of np.
+    int rows = np, nn = rr % np;
     size_t b = base;
-    if (i == 0) {
-      rows = kPe;
-    } else if (i == p.skip) {
-      if (rr >= W) {
-        rows = kPe;
-        nn = rr - W;
-      } else {
-        b += (size_t)(W / 8) * 16 * kPe;
-      }
+    if (i == 0 || (i == p.skip && rr >= W)) {
+      const int e = i == 0 ? rr : rr - W;
+      rows = 64;
+      nn = e % 64;
+      b += (size_t)(e / 64) * (W / 8) * 16 * 64;
+    } else {
+      if (i == p.skip) b += (size_t)(pe_pad / 64) * (W / 8) * 16 * 64;
+      b += (size_t)(rr / np) * (W / 8) * 16 * np;
     }
     b += (size_t)(c >> 3) * 16 * rows + frag_offset(nn, logical_k(c & 7));
     p.bwd[b] = __uint_as_float(big);
@@ -882,13 +1216,42 @@ struct Timer {
 };
 
 template <int W>
-int bwd_launch(BwdTileParams tp, const int* table, int row_blocks, float* partial, float* grads_out, int grid,
+cudaError_t prepare_wide() {
+  constexpr int kMaxDevices = 64;
+  static bool done[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[device]) return cudaSuccess;
+  e = cudaFuncSetAttribute(backbone_f32_wide_fwd_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)wide_smem<W>());
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(backbone_f32_wide_bwd_tile_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)wide_smem<W>());
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(backbone_f32_dw_kernel<dw_cols<W>()>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dw_smem<dw_cols<W>()>());
+  done[device] = e == cudaSuccess;
+  return e;
+}
+
+// The backward's launches; `kWide` the wide tile kernel (WideBwdTileParams).
+template <int W, bool kWide = false, typename Params>
+int bwd_launch(Params tp, const int* table, int row_blocks, float* partial, float* grads_out, int grid,
                int chunk_tiles, int splits, cudaStream_t stream, float* ms) {
   constexpr int NB = dw_cols<W>();
-  cudaError_t err = prepare<W>();
+  cudaError_t err;
+  int pe_pad = kPe;
+  if constexpr (kWide) {
+    err = prepare_wide<W>();
+    pe_pad = 64 * tp.ps;
+  } else {
+    err = prepare<W>();
+  }
   if (err != cudaSuccess) return (int)err;
   const int L = tp.layers;
-  const int rows_pad = rows_before(L, W, tp.skip);
+  const int rows_pad = rows_before_pe(L, W, tp.skip, pe_pad);
   const int tp_ld = L * W + W + 1;
   const size_t dw_elems = (size_t)rows_pad * W;
   err = cudaMemsetAsync(tp.tile_part, 0, sizeof(float) * (size_t)2 * grid * tp_ld, stream);
@@ -905,7 +1268,10 @@ int bwd_launch(BwdTileParams tp, const int* table, int row_blocks, float* partia
     tp.first_tile = first;
     tp.tiles = min(chunk_tiles, tiles - first);
     timer.begin();
-    backbone_f32_bwd_tile_kernel<W><<<grid, kF32Threads, tile_smem<W>(), stream>>>(tp);
+    if constexpr (kWide)
+      backbone_f32_wide_bwd_tile_kernel<W><<<grid, kF32Threads, wide_smem<W>(), stream>>>(tp);
+    else
+      backbone_f32_bwd_tile_kernel<W><<<grid, kF32Threads, tile_smem<W>(), stream>>>(tp);
     err = cudaGetLastError();
     timer.end(0);
     if (err != cudaSuccess) break;
@@ -946,8 +1312,8 @@ int bwd_launch(BwdTileParams tp, const int* table, int row_blocks, float* partia
 extern "C" int backbone_f32_pack_launch(const void* const* w, const long long* w_strides, const void* const* b,
                                         const long long* b_strides, const void* w_alpha, long long w_alpha_stride,
                                         const void* b_alpha, void* fwd, void* bwd, void* biases, void* w_alpha_out,
-                                        int width, int layers, int skip, int pe, void* stream) {
-  if (layers < 1 || layers > kMaxLayers || (width != 64 && width != 128 && width != 256) || pe > kPe)
+                                        int width, int layers, int skip, int pe, int pe_pad, void* stream) {
+  if (layers < 1 || layers > kMaxLayers || (width != 64 && width != 128 && width != 256 && width != 512) || pe > 128)
     return (int)cudaErrorInvalidValue;
   PackParams p{};
   for (int i = 0; i < layers; ++i) {
@@ -968,7 +1334,9 @@ extern "C" int backbone_f32_pack_launch(const void* const* w, const long long* w
   p.layers = layers;
   p.skip = skip;
   p.pe = pe;
-  p.rows_pad = rows_before(layers, width, skip);
+  p.np = width < 256 ? width : 256;
+  p.pe_pad = pe_pad;
+  p.rows_pad = rows_before_pe(layers, width, skip, pe_pad);
   const long long total = (long long)p.rows_pad * width + (long long)layers * width + 1 + width;
   backbone_f32_pack_kernel<<<(unsigned)((total + 255) / 256), 256, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
@@ -1015,6 +1383,61 @@ extern "C" int backbone_f32_bwd_launch(const void* encoded, const void* g_h, con
     case 64: return BWD(64);
     case 128: return BWD(128);
     case 256: return BWD(256);
+  }
+#undef BWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// The wide kernels (width 256 or 512, pe <= 128, layers <= 16; grid
+// min(tiles, SMs), tiles = ceil(N / 64)): as backbone_f32_fwd_launch and
+// backbone_f32_bwd_launch with the images of backbone_f32_pack_launch at
+// pe_pad = 64 ceil(pe / 64) and stash f32 (grid, W / 8, 128, 4); the
+// backward's masks u32 (grid, L, 2 W / 256, 256), its scratch with pe_pad
+// encoding features in X.
+extern "C" int backbone_f32_wide_fwd_launch(const void* encoded, const void* image, const void* biases,
+                                            const void* w_alpha, void* h, void* alpha, void* stash, int n, int pe,
+                                            int width, int layers, int skip, int grid, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (pe > 128) return (int)cudaErrorInvalidValue;
+#define FWD(W)                                                                                                   \
+  do {                                                                                                           \
+    cudaError_t err = prepare_wide<W>();                                                                         \
+    if (err != cudaSuccess) return (int)err;                                                                     \
+    backbone_f32_wide_fwd_kernel<W><<<grid, kF32Threads, wide_smem<W>(), s>>>(                                   \
+        (const float*)encoded, (const float*)image, (const float*)biases, (const float*)w_alpha, (float*)h,      \
+        (float*)alpha, (float4*)stash, n, pe, layers, skip);                                                     \
+    return (int)cudaGetLastError();                                                                              \
+  } while (0)
+  switch (width) {
+    case 256: FWD(256);
+    case 512: FWD(512);
+  }
+#undef FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int backbone_f32_wide_bwd_launch(const void* encoded, const void* g_h, const void* g_alpha,
+                                            const void* fwd_image, const void* bwd_image, const void* biases,
+                                            const void* w_alpha, void* d_encoded, void* x_scr, void* g_scr,
+                                            void* tile_part, void* partial, void* masks, void* stash,
+                                            const void* table, void* grads_out, int row_blocks, int n, int pe,
+                                            int width, int layers, int skip, int grid, int chunk_tiles, int splits,
+                                            void* stream, float* ms) {
+  if (pe > 128) return (int)cudaErrorInvalidValue;
+  const int ps = (pe + 63) / 64;
+  const int x_feats = 64 * ps + (layers - 1) * width, g_feats = layers * width;
+  WideBwdTileParams tp{{(const float*)encoded, (const float*)g_h, (const float*)g_alpha, (const float*)fwd_image,
+                        (const float*)bwd_image, (const float*)biases, (const float*)w_alpha, (float*)d_encoded,
+                        (float*)x_scr, (float*)g_scr, (float*)tile_part, (uint32_t*)masks, n, pe, layers, skip, 0, 0,
+                        x_feats, g_feats},
+                       (float4*)stash, ps};
+  cudaStream_t s = (cudaStream_t)stream;
+#define BWD(W)                                                                                                  \
+  bwd_launch<W, true>(tp, (const int*)table, row_blocks, (float*)partial, (float*)grads_out, grid, chunk_tiles, \
+                      splits, s, ms)
+  switch (width) {
+    case 256: return BWD(256);
+    case 512: return BWD(512);
   }
 #undef BWD
   return (int)cudaErrorInvalidValue;

@@ -289,6 +289,157 @@ __global__ void __launch_bounds__(kThreads, 1) adain_nerf_kernel(const __grid_co
   if constexpr (kCtas > 1) cluster_sync_all();  // no CTA leaves while its partner can still reach its ring
 }
 
+// ---- beyond the published shapes: the wide kernel ---------------------------------
+//
+// Widths 256 < W <= 512 (W 512; narrower ones zero-padded to it), encodings
+// of 65-128 columns, 257-512 outputs or a skip into layer 0 (at W <= 256 run
+// at W 256): nerf_wgmma.cuh's column split on 64-point tiles, one CTA a tile
+// (no clusters), a unit of the pair table one tile. Warpgroup w computes
+// columns [w W/2, (w + 1) W/2) of every backbone layer and of f0, [w W/4, (w
+// + 1) W/4) of f1, and the 64-column blocks 2 m + w of the outputs (one
+// m64n64 accumulator each, at most four); each layer's output goes back into
+// the tile in place after a barrier of both warpgroups. Weight image
+// (adain_image): the backbone image of backbone_buffers (at skip 0 layer 0's
+// 2 ps slots, its rows [0, pe) then [pe, 2 pe) each zero-padded to 64 ps),
+// then W_f0 (W/64 slots of 64 rows x W), W_f1 (W/64 slots of 64 x W/2) and
+// W_out (W/128 slots of 64 x NO, NO the outputs rounded up to 64), each slot
+// its 64 x 64 blocks in the 128-byte swizzle. Shared memory at W 512: a ring
+// of two 64 KB slots (W_out's at 512 outputs is 64 KB), the 64 KB tile, the
+// 16 KB encoding tile: 210 KB.
+
+constexpr int kWideSlot = 64 * 1024;
+constexpr int kWideStages = 2;
+
+template <int W>
+constexpr size_t wide_smem() {
+  return 1024 + (size_t)kWideStages * kWideSlot + 128 * W + kWideEncBytes + 256 + 256;
+}
+
+// acc (N columns) = tile[:, :64 slots] @ the slots' columns from byte
+// `b_off` on, over `slots` slots, A = the tile's 64-column block j.
+template <int N>
+__device__ __forceinline__ void wide_head_layer(float* acc, Ring& r, int slots, uint32_t act, uint32_t b_off,
+                                                int lane) {
+  int prev = -1;
+#pragma unroll 1
+  for (int j = 0; j < slots; ++j) {
+    consume_slot<kWideStages, 1, kWideSlot>(r, prev, lane, [&](uint32_t slot) {
+      const uint64_t da = sw128_base(act + j * 8192, 16, 1024), db = sw128_base(slot + b_off, 8192, 1024);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wgmma<N, 0, 1>(acc, da + 2 * k, db + 128 * k, (j > 0 || k > 0) ? 1 : 0);
+    });
+  }
+  release_last(r, prev, lane);
+  fence_regs<N / 2>(acc);
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads, 1) adain_wide_kernel(const __grid_constant__ AdaGroup g) {
+  constexpr int nb = W / 64, N = W / 2, N1 = W / 4;
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm = aligned_smem(smem_raw);
+  const uint32_t act = sm.addr + kWideStages * kWideSlot, enc = act + 128 * W;
+  Ring ring;
+  init_ring(ring, sm.addr, enc + kWideEncBytes + 256, kWideStages, 8);
+  const int ps = (g.pe + 63) / 64, no = (g.out + 63) / 64 * 64, chunks = no / 64;
+  const int backbone_slots = wide_first_slot(g.layers, nb, ps, g.skip);
+  const size_t head = (size_t)backbone_slots * 128 * W + 2 * W;  // bytes before W_f0's slots
+
+  if (threadIdx.x >= kConsumers) {
+    reg_dealloc<40>();
+    if (threadIdx.x == kConsumers) {
+      for (int p = blockIdx.x; p < g.pairs; p += gridDim.x) {
+        const unsigned char* image = g.obj[object_of(g, p)].image;
+        for (int s = 0; s < backbone_slots; ++s)
+          produce_slot<kWideStages, 1, kWideSlot>(ring, image + (size_t)s * 128 * W, 128 * W);
+        const unsigned char* f0 = image + head;
+        for (int s = 0; s < nb; ++s) produce_slot<kWideStages, 1, kWideSlot>(ring, f0 + (size_t)s * 128 * W, 128 * W);
+        const unsigned char* f1 = f0 + (size_t)nb * 128 * W;
+        for (int s = 0; s < nb; ++s) produce_slot<kWideStages, 1, kWideSlot>(ring, f1 + (size_t)s * 64 * W, 64 * W);
+        const unsigned char* out = f1 + (size_t)nb * 64 * W;
+        for (int s = 0; s < nb / 2; ++s)
+          produce_slot<kWideStages, 1, kWideSlot>(ring, out + (size_t)s * 128 * no, 128 * no);
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int ct = threadIdx.x, wg = ct / 128, t = ct % 128, lane = t & 31, q = lane & 3;
+    unsigned char* act_p = sm.base + kWideStages * kWideSlot;
+    unsigned char* enc_p = act_p + 128 * W;
+    float* part = reinterpret_cast<float*>(enc_p + kWideEncBytes);
+    float acc[128];
+    for (int p = blockIdx.x; p < g.pairs; p += gridDim.x) {
+      const int oi = object_of(g, p);
+      const AdaObject& o = g.obj[oi];
+      const int n = o.n_points;
+      const int row0 = (p - g.pair_start[oi]) * kWideTile;
+      const int r0 = row0 + 16 * (t >> 5) + (lane >> 2);  // the thread's rows: r0, r0 + 8
+      wide_sync();  // the previous tile's products and alpha sums are done
+      load_wide_encoding(o.encoded, enc_p, row0, n, g.pe, ps, ct);
+      fence_async_smem();
+      wide_sync();
+      for (int i = 0; i < g.layers; ++i) {
+        wide_forward_layer<W, kWideStages, kWideSlot>(acc, ring, i, g.skip, ps, act, enc, wg, lane);
+        bias_relu<N>(acc, o.biases + i * W + wg * N, t);
+        if (i + 1 == g.layers)
+          wide_alpha<N>(acc, reinterpret_cast<const bf16*>(o.image + (size_t)backbone_slots * 128 * W),
+                        __ldg(o.biases + g.layers * W), part, wg, t, row0, n, o.alpha);
+        wide_sync();  // both warpgroups' products have read the whole tile
+        store_wide_tile<N>(act_p, acc, t, wg * N);
+        fence_async_smem();
+        wide_sync();
+      }
+
+      // The feature head; rows past the object's end read the last ray's
+      // modulation and are not stored.
+      const int ray0 = min(r0, n - 1) / o.samples, ray1 = min(r0 + 8, n - 1) / o.samples;
+      wide_head_layer<N>(acc, ring, nb, act, wg * (nb / 2) * 8192, lane);
+      modulate_relu<N>(acc, o.mod[0] + wg * N, o.ld[0], o.mod[1] + wg * N, o.ld[1], ray0, ray1, t);
+      wide_sync();
+      store_wide_tile<N>(act_p, acc, t, wg * N);
+      fence_async_smem();
+      wide_sync();
+      wide_head_layer<N1>(acc, ring, nb, act, wg * (nb / 4) * 8192, lane);
+      modulate_relu<N1>(acc, o.mod[2] + wg * N1, o.ld[2], o.mod[3] + wg * N1, o.ld[3], ray0, ray1, t);
+      wide_sync();
+      store_wide_tile<N1>(act_p, acc, t, wg * N1);  // f1 into the tile's first W/2 columns
+      fence_async_smem();
+      wide_sync();
+      int prev = -1;
+#pragma unroll 1
+      for (int j = 0; j < nb / 2; ++j) {
+        consume_slot<kWideStages, 1, kWideSlot>(ring, prev, lane, [&](uint32_t slot) {
+          const uint64_t da = sw128_base(act + j * 8192, 16, 1024);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            if (2 * m + wg < chunks) {
+              const uint64_t db = sw128_base(slot + (2 * m + wg) * 8192, 8192, 1024);
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+                wgmma<64, 0, 1>(acc + 32 * m, da + 2 * k, db + 128 * k, (j > 0 || k > 0) ? 1 : 0);
+            }
+          }
+        });
+      }
+      release_last(ring, prev, lane);
+      fence_regs<128>(acc);
+      const float* b_out = o.biases + g.layers * W + 1;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int col0 = 64 * (2 * m + wg);
+        if (col0 >= g.out) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = r0 + 8 * (e >> 1), col = col0 + 8 * j + 2 * q + (e & 1);
+            if (row < n && col < g.out) o.features[(size_t)row * g.out + col] = acc[32 * m + 4 * j + e] + __ldg(b_out + col);
+          }
+      }
+    }
+  }
+}
+
 // ---- host side -------------------------------------------------------------------
 
 // Raises the kernel's dynamic shared-memory limit once per process and
@@ -356,6 +507,39 @@ int launch(const AdaGroup& g, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// Raises the wide kernel's dynamic shared-memory limit once per process and
+// device and returns how many of its CTAs the card places at once.
+template <int W>
+cudaError_t prepare_wide(int* ctas) {
+  constexpr int kMaxDevices = 64;
+  static int max_ctas[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (max_ctas[device] == 0) {
+    e = cudaFuncSetAttribute(adain_wide_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wide_smem<W>());
+    int sms = 0, per_sm = 0;
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, adain_wide_kernel<W>, kThreads, wide_smem<W>());
+    if (e != cudaSuccess) return e;
+    if (sms * per_sm <= 0) return cudaErrorInvalidConfiguration;
+    max_ctas[device] = sms * per_sm;
+  }
+  *ctas = max_ctas[device];
+  return cudaSuccess;
+}
+
+template <int W>
+int launch_wide(const AdaGroup& g, cudaStream_t stream) {
+  int ctas = 0;
+  cudaError_t e = prepare_wide<W>(&ctas);
+  if (e != cudaSuccess) return (int)e;
+  adain_wide_kernel<W><<<min(ctas, g.pairs), kThreads, wide_smem<W>(), stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
 // The instantiated (width, outputs rounded up to 64): F(W, NO) for each.
 #define ADAIN_SHAPES(F) \
   F(128, 64) F(128, 128) F(128, 192) F(128, 256) F(256, 64) F(256, 128) F(256, 192) F(256, 256)
@@ -387,10 +571,8 @@ extern "C" int fused_adain_nerf_max_clusters(int width, int out) {
 // objects] is the pair prefix table (ops/fused_nerf.py::adain_pair_table).
 // Shapes and limits (width 128 or 256, pe <= 64, out <= 256, 0 < skip) are
 // checked by the Python wrapper, which allocates every buffer.
-extern "C" int fused_adain_nerf_group_launch(int objects, const void* const* ptrs, const int* ints,
-                                             const int* pair_start, int pe, int width, int layers, int skip, int out,
-                                             void* stream) {
-  if (objects < 1 || objects > kMaxObjects) return (int)cudaErrorInvalidValue;
+static AdaGroup make_group(int objects, const void* const* ptrs, const int* ints, const int* pair_start, int pe,
+                           int layers, int skip, int out) {
   AdaGroup g = {};
   g.objects = objects;
   g.pairs = pair_start[objects];
@@ -412,11 +594,33 @@ extern "C" int fused_adain_nerf_group_launch(int objects, const void* const* ptr
     a.samples = ints[6 * o + 1];
     for (int m = 0; m < 4; ++m) a.ld[m] = ints[6 * o + 2 + m];
   }
+  return g;
+}
+
+extern "C" int fused_adain_nerf_group_launch(int objects, const void* const* ptrs, const int* ints,
+                                             const int* pair_start, int pe, int width, int layers, int skip, int out,
+                                             void* stream) {
+  if (objects < 1 || objects > kMaxObjects) return (int)cudaErrorInvalidValue;
+  const AdaGroup g = make_group(objects, ptrs, ints, pair_start, pe, layers, skip, out);
   if (g.pairs == 0) return 0;
   const int no = (out + 63) / 64 * 64;
 #define LAUNCH(W, NO) \
   if (width == W && no == NO) return launch<W, NO>(g, (cudaStream_t)stream);
   ADAIN_SHAPES(LAUNCH)
 #undef LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// The wide kernel (width 256 or 512, pe <= 128, out <= 512, any skip
+// including 0): the same arguments, pair_start the prefix table of 64-point
+// tiles (adain_pair_table(..., ctas=1, tile=64)).
+extern "C" int fused_adain_wide_group_launch(int objects, const void* const* ptrs, const int* ints,
+                                             const int* pair_start, int pe, int width, int layers, int skip, int out,
+                                             void* stream) {
+  if (objects < 1 || objects > kMaxObjects || pe > 128 || out > 512) return (int)cudaErrorInvalidValue;
+  const AdaGroup g = make_group(objects, ptrs, ints, pair_start, pe, layers, skip, out);
+  if (g.pairs == 0) return 0;
+  if (width == 256) return launch_wide<256>(g, (cudaStream_t)stream);
+  if (width == 512) return launch_wide<512>(g, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -19,6 +19,11 @@
 // of every slot into both CTAs' rings with one multicast bulk copy, and a
 // slot is free again only when the consumer warps of both CTAs have
 // released it.
+//
+// The wide kernels (widths above 256, encodings above 64 columns, more than
+// 8 layers; B1 also at more than 256 outputs or a skip into layer 0) split
+// each layer's columns between the warpgroups instead of its rows: see "the
+// wide kernels" below.
 
 #pragma once
 
@@ -336,11 +341,11 @@ __device__ __forceinline__ void ring_advance(Ring& r) {
 // every consumer has released it. On a 2-CTA cluster (kCtas 2) both CTAs'
 // producers run this for the same slot: each copies half of it into both
 // CTAs, and each CTA's `full` expects the whole slot.
-template <int kStages, int kCtas = 1>
+template <int kStages, int kCtas = 1, int kSlot = kSlotBytes>
 __device__ __forceinline__ void produce_slot(Ring& r, const unsigned char* src, uint32_t bytes) {
   mbar_wait(r.empty + 8 * r.stage, r.phase ^ 1);
   mbar_expect_tx(r.full + 8 * r.stage, bytes);
-  const uint32_t dst = r.slots + r.stage * kSlotBytes;
+  const uint32_t dst = r.slots + r.stage * kSlot;
   if constexpr (kCtas == 1) {
     bulk_load(dst, src, bytes, r.full + 8 * r.stage);
   } else {
@@ -351,9 +356,10 @@ __device__ __forceinline__ void produce_slot(Ring& r, const unsigned char* src, 
 }
 
 // Producer: streams slots [first, first + count) of the weight image.
-template <int kStages>
+template <int kStages, int kSlot = kSlotBytes>
 __device__ void produce_slots(Ring& r, const unsigned char* image, uint32_t slot_bytes, int first, int count) {
-  for (int s = first; s < first + count; ++s) produce_slot<kStages>(r, image + (size_t)s * slot_bytes, slot_bytes);
+  for (int s = first; s < first + count; ++s)
+    produce_slot<kStages, 1, kSlot>(r, image + (size_t)s * slot_bytes, slot_bytes);
 }
 
 // A consumer warp's release of slot `stage`: in its own CTA, and on a 2-CTA
@@ -367,11 +373,11 @@ __device__ __forceinline__ void release_slot(const Ring& r, int stage) {
 // Consumer side of one slot: wait for it, issue its products (`issue` takes
 // the slot's shared address), keep one group in flight, release the slot
 // before (prev) once its products are done.
-template <int kStages, int kCtas = 1, typename Issue>
+template <int kStages, int kCtas = 1, int kSlot = kSlotBytes, typename Issue>
 __device__ __forceinline__ void consume_slot(Ring& r, int& prev, int lane, Issue issue) {
   mbar_wait(r.full + 8 * r.stage, r.phase);
   wgmma_fence();
-  issue(r.slots + r.stage * kSlotBytes);
+  issue(r.slots + r.stage * kSlot);
   wgmma_commit();
   wgmma_wait<1>();
   if (prev >= 0 && lane == 0) release_slot<kCtas>(r, prev);
@@ -472,6 +478,119 @@ __device__ __forceinline__ void init_ring(Ring& r, uint32_t slots, uint32_t bars
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+}
+
+// ---- the wide kernels: 64-point tiles, the columns split between the warpgroups
+//
+// Beyond the published shapes (width 256, encoding 64 columns, 8 layers) the
+// bf16 backbone kernels and B1 take 64-point tiles that both consumer
+// warpgroups read whole: warpgroup w computes output columns [w W/2, (w + 1)
+// W/2) of every layer, one m64n(W/2)k16 accumulator over the whole K (W/2 <=
+// 256 up to W 512, 128 registers a thread as the 128-point kernels' at W 256).
+// The two meet at a barrier of the 256 consumer threads before either writes
+// its columns back into the tile in place. A weight slot is 64 K rows by all
+// W columns (the image of backbone_buffers, unchanged); warpgroup w reads its
+// W/128 blocks of it. The encoding takes ps = ceil(pe / 64) 64-column blocks
+// (1 or 2), and layer 0 and the skip layer's encoding rows as many slots; at
+// skip 0 (B1 only) layer 0 reads [encoding, encoding], 2 ps slots. A width
+// of 768 needs more than one 256-column accumulator a warpgroup: a loop over
+// column passes whose outputs wait outside the tile, not a constant.
+
+constexpr int kWideTile = 64;                // points per tile, both warpgroups' rows
+constexpr int kWideEncBytes = 2 * 64 * 128;  // bf16 encodings: 2 blocks of 64 rows x 64 columns
+
+__device__ __forceinline__ int wide_layer_slots(int i, int nb, int ps, int skip) {
+  return i == 0 ? ps * (skip == 0 ? 2 : 1) : nb + (i == skip ? ps : 0);
+}
+
+__device__ __forceinline__ int wide_first_slot(int i, int nb, int ps, int skip) {
+  int s = 0;
+  for (int j = 0; j < i; ++j) s += wide_layer_slots(j, nb, ps, skip);
+  return s;
+}
+
+// Both consumer warpgroups (the producer never joins).
+__device__ __forceinline__ void wide_sync() { named_sync(3, kConsumers); }
+
+// The tile's 64 rows of encodings (f32 or bf16), rounded to bf16 and
+// zero-padded to 64 ps columns, by all 256 consumer threads (ct).
+template <typename T>
+__device__ __forceinline__ void load_wide_encoding(const T* __restrict__ encoded, unsigned char* enc, int row0,
+                                                   int n_points, int pe, int ps, int ct) {
+  const int cols = 64 * ps;
+  for (int idx = ct; idx < kWideTile * cols; idx += kConsumers) {
+    const int r = idx / cols, col = idx % cols;
+    const int point = row0 + r;
+    bf16 v = __float2bfloat16(0.0f);
+    if (point < n_points && col < pe) v = __float2bfloat16(static_cast<float>(encoded[(size_t)point * pe + col]));
+    *reinterpret_cast<bf16*>(enc + tile_offset(kWideTile, r, col)) = v;
+  }
+}
+
+// The thread's rows of the 64-point tile, columns [col0, col0 + N), <- bf16(v).
+template <int N>
+__device__ __forceinline__ void store_wide_tile(unsigned char* act, const float* v, int t, int col0) {
+  const int q = t & 3, r0 = 16 * (t >> 5) + ((t & 31) >> 2);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<__nv_bfloat162*>(act + tile_offset(kWideTile, r0 + 8 * h, col0 + 8 * j + 2 * q)) =
+          __floats2bfloat162_rn(v[4 * j + 2 * h], v[4 * j + 2 * h + 1]);
+}
+
+// One forward layer, the warpgroup's W/2 columns of the tile's 64 rows: acc
+// = A_i @ W_i over the layer's slots (ring slots kSlot bytes apart), A the
+// activation tile's block j or the encoding's block, K-major; the slot's
+// blocks [w W/128, (w + 1) W/128) MN-major.
+template <int W, int kStages, int kSlot>
+__device__ __forceinline__ void wide_forward_layer(float* acc, Ring& r, int i, int skip, int ps, uint32_t act,
+                                                   uint32_t enc, int wg, int lane) {
+  constexpr int nb = W / 64;
+  const int slots = wide_layer_slots(i, nb, ps, skip);
+  int prev = -1;
+  for (int j = 0; j < slots; ++j) {
+    const uint32_t a = i == 0 ? enc + (j % ps) * 8192 : (j < nb ? act + j * 8192 : enc + (j - nb) * 8192);
+    consume_slot<kStages, 1, kSlot>(r, prev, lane, [&](uint32_t slot) {
+      const uint64_t da = sw128_base(a, 16, 1024), db = sw128_base(slot + wg * (nb / 2) * 8192, 8192, 1024);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wgmma<W / 2, 0, 1>(acc, da + 2 * k, db + 128 * k, (j > 0 || k > 0) ? 1 : 0);
+    });
+  }
+  release_last(r, prev, lane);
+  fence_regs<W / 4>(acc);
+}
+
+// alpha = bf16(h) . bf16(w_alpha) + b_alpha for the tile's rows from the
+// warpgroups' column halves of h (acc, N columns each): quad shuffles, the
+// second warpgroup's sums added to the first's through `part` (64 floats).
+template <int N>
+__device__ __forceinline__ void wide_alpha(const float* acc, const bf16* __restrict__ w_alpha, float b_alpha,
+                                           float* part, int wg, int t, int row0, int n_points,
+                                           float* __restrict__ alpha_out) {
+  const int lane = t & 31, q = lane & 3, row = 16 * (t >> 5) + (lane >> 2);
+  float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = wg * N + 8 * j + 2 * q;
+    const float wa0 = __bfloat162float(w_alpha[col]), wa1 = __bfloat162float(w_alpha[col + 1]);
+    s0 += __bfloat162float(__float2bfloat16(acc[4 * j])) * wa0 + __bfloat162float(__float2bfloat16(acc[4 * j + 1])) * wa1;
+    s1 += __bfloat162float(__float2bfloat16(acc[4 * j + 2])) * wa0 +
+          __bfloat162float(__float2bfloat16(acc[4 * j + 3])) * wa1;
+  }
+  s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+  s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+  s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+  s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+  if (wg == 1 && q == 0) {
+    part[row] = s0;
+    part[row + 8] = s1;
+  }
+  wide_sync();
+  if (wg == 0 && q == 0) {
+    if (row0 + row < n_points) alpha_out[row0 + row] = (s0 + part[row]) + b_alpha;
+    if (row0 + row + 8 < n_points) alpha_out[row0 + row + 8] = (s1 + part[row + 8]) + b_alpha;
+  }
 }
 
 // ---- the backward kernels' column sums ------------------------------------------

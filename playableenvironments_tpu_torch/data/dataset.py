@@ -316,3 +316,13 @@ class MulticameraVideoDataset:
                 yield batch
         finally:
             stop.set()
+            # Joined, not left to run: a daemon thread still inside native
+            # code when the interpreter finalizes is ended by pthread_exit,
+            # which aborts the process when it unwinds through C++. Taking
+            # what it queued unblocks a put at once.
+            while thread.is_alive():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    pass
+                thread.join(timeout=0.05)

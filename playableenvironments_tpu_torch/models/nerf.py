@@ -164,10 +164,14 @@ class SkyboxNerfMLP(nn.Module):
 
 def _add_backbone(module: nn.Module, cfg: NerfMLPConfig, pe: int, device) -> None:
     """`backbone_i`: L layers of width W over a `pe`-wide encoding, which is
-    concatenated again at `skip_layer_idx`."""
+    concatenated again at `skip_layer_idx`; at skip_layer_idx 0 layer 0
+    reads [encoding, encoding], as flax's Dense infers it, except on the
+    fused backbone's path, which declares the JAX kernel's sizes
+    (fused_nerf._backbone_sizes: no skip at 0)."""
     w = cfg.layers_width
+    doubled = cfg.skip_layer_idx == 0 and not cfg.use_fused_backbone
     for i in range(cfg.backbone_layers_count):
-        fan_in = pe if i == 0 else (w + pe if i == cfg.skip_layer_idx else w)
+        fan_in = (2 * pe if doubled else pe) if i == 0 else (w + pe if i == cfg.skip_layer_idx else w)
         module.add_module(f"backbone_{i}", nn.Linear(fan_in, w, device=device))
 
 

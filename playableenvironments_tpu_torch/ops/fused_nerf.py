@@ -24,12 +24,17 @@ compute dtype, products and sums in f32), which is what the CPU tests
 compare against the JAX package and what the card compares the kernels with.
 
 Like the Pallas kernels, the wrappers take every width up to the kernels'
-widest (256): on the card a narrower MLP runs zero-padded to the nearest
-width its kernel takes (`padded_weights`; B1 128 or 256, bf16 B2/B3 a
-multiple of 64, f32 B2/B3 64, 128 or 256). A padded hidden unit has zero
-incoming weights, bias and modulation, so its ReLU output is exactly 0 and
-its zero outgoing rows add nothing; the outputs and gradients are cut back
-to the MLP's own width.
+widest (512), encodings up to 128 columns and up to 16 backbone layers (B1
+up to 512 outputs, and a skip into layer 0). Within the published shapes
+(width 256, encoding 64, 8 layers; B1 256 outputs and skip > 0) the
+128-point kernels run; beyond them the wide kernels (nerf_wgmma.cuh's column
+split, 64-point tiles) at width 256 or 512. On the card a narrower MLP runs
+zero-padded to the nearest width its kernel takes (`padded_weights`; B1 128
+or 256, bf16 B2/B3 a multiple of 64, f32 B2/B3 64, 128 or 256; the wide
+kernels 256 or 512). A padded hidden unit has zero incoming weights, bias
+and modulation, so its ReLU output is exactly 0 and its zero outgoing rows
+add nothing; the outputs and gradients are cut back to the MLP's own width.
+Beyond the wide kernels' limits every wrapper raises ValueError.
 """
 
 from __future__ import annotations
@@ -67,6 +72,14 @@ _MAX_PE = 64
 _MAX_OUT = 256
 _ADAIN_MAX_OBJECTS = 16
 _MAX_WIDTH = 256  # the backbone kernels' widest layer (csrc/fused_backbone.cu)
+# The wide kernels (nerf_wgmma.cuh's column split; B1, bf16 and f32 B2/B3):
+# their widths, the encoding columns, outputs (B1) and layers they take, and
+# the points of a tile.
+_WIDE_WIDTHS = (256, 512)
+_WIDE_MAX_PE = 128
+_WIDE_MAX_OUT = 512
+_WIDE_MAX_LAYERS = 16
+_WIDE_TILE = 64
 
 
 _TRACING = 0
@@ -123,7 +136,9 @@ def pack_nerf_params(cfg: NerfMLPConfig, nerf) -> Dict[str, torch.Tensor]:
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.bfloat16).to(torch.float32)
+    """x rounded to bf16, in f32 (in f64 for an f64 x: a reference with f64
+    sums)."""
+    return x.to(torch.bfloat16).to(torch.float64 if x.dtype == torch.float64 else torch.float32)
 
 
 def plain_adain_nerf(
@@ -137,8 +152,9 @@ def plain_adain_nerf(
     samples_per_ray: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch: every matmul operand rounded
-    to bf16, products and sums in f32, modulation per ray (rows of
-    scale*/bias* broadcast over `samples_per_ray` consecutive points).
+    to bf16, products and sums in f32 (in f64 where every input is f64),
+    modulation per ray (rows of scale*/bias* broadcast over
+    `samples_per_ray` consecutive points).
 
     :return: ((N, output_features) features, (N,) raw alpha).
     """
@@ -149,7 +165,7 @@ def plain_adain_nerf(
     def per_point(mod):
         return mod.repeat_interleave(samples_per_ray, dim=0)
 
-    encoded = _bf16(encoded.float())
+    encoded = _bf16(encoded if encoded.dtype == torch.float64 else encoded.float())
     h = encoded
     for i in range(cfg.backbone_layers_count):
         if i == cfg.skip_layer_idx:
@@ -215,38 +231,76 @@ def padded_weights(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor],
     return replace(cfg, layers_width=width), out
 
 
-def adain_kernel_width(width: int) -> Optional[int]:
+def adain_is_wide(width: int, pe: int, out: int, skip: int) -> bool:
+    """Whether B1 runs an MLP of these shapes in its wide kernel (width above
+    256, encoding above 64 columns, more than 256 outputs, or a skip into
+    layer 0) rather than the 128-point one."""
+    return width > _ADAIN_WIDTHS[-1] or pe > _MAX_PE or out > _MAX_OUT or skip == 0
+
+
+def adain_kernel_width(width: int, wide: bool = False) -> Optional[int]:
     """The width B1 runs a `width`-wide MLP at: the narrowest of its
-    widths (128, 256) that holds it; None above 256."""
-    return next((w for w in _ADAIN_WIDTHS if width <= w), None)
+    widths (128, 256; the wide kernel's 256, 512) that holds it; None above
+    the widest."""
+    return next((w for w in (_WIDE_WIDTHS if wide else _ADAIN_WIDTHS) if width <= w), None)
+
+
+def adain_encoding_width(cfg, packed: Dict[str, torch.Tensor]) -> int:
+    """The encoding columns of an AdaIN-NeRF MLP: w0's rows, or at
+    skip_layer_idx 0, where layer 0 reads [encoding, encoding] (JAX's
+    _fused_kernel), the configuration's encoding of 3 coordinates, whose
+    double w0 must have. Raises for a w0 of other rows there (a model of the
+    fused backbone's path, which declares no skip at 0: JAX's B1 takes no
+    such weights either)."""
+    rows = packed["w0"].shape[0]
+    if cfg.skip_layer_idx != 0:
+        return rows
+    pe_cfg = cfg.position_encoder
+    pe = 6 * pe_cfg.octaves + (3 if pe_cfg.append_original else 0)
+    if rows != 2 * pe:
+        raise ValueError(f"skip_layer_idx 0: layer 0 reads [encoding, encoding], 2 x {pe} rows, but w0 has {rows}")
+    return pe
+
+
+def adain_kernel(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> Tuple[int, bool]:
+    """(width, wide): the width B1 runs cfg's MLP at and whether in its wide
+    kernel. Raises ValueError, naming the shape and the limit, for what
+    neither kernel takes."""
+    width, pe, out = cfg.layers_width, adain_encoding_width(cfg, packed), packed["w_out"].shape[1]
+    wide = adain_is_wide(width, pe, out, cfg.skip_layer_idx)
+    kernel = adain_kernel_width(width, wide)
+    if kernel is None:
+        raise ValueError(f"layers_width {width}: the AdaIN-NeRF kernel takes widths up to {_WIDE_WIDTHS[-1]}")
+    if pe > _WIDE_MAX_PE:
+        raise ValueError(f"encoding width {pe} exceeds the AdaIN-NeRF kernel's {_WIDE_MAX_PE}")
+    if out > _WIDE_MAX_OUT:
+        raise ValueError(f"output_features {out} exceeds the AdaIN-NeRF kernel's {_WIDE_MAX_OUT}")
+    if cfg.backbone_layers_count > _WIDE_MAX_LAYERS:
+        raise ValueError(f"{cfg.backbone_layers_count} backbone layers exceed the AdaIN-NeRF kernel's "
+                         f"{_WIDE_MAX_LAYERS}")
+    return kernel, wide
 
 
 def adain_image(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> torch.Tensor:
     """B1's bf16 weight image as csrc/fused_nerf.cu reads it: the backbone
-    image of `backbone_buffers` (slots, then w_alpha), then the feature
-    head's 64-row slots, each its 64 x 64 blocks in wgmma's 128-byte
-    swizzle: W_f0's columns [0, W / 2), its columns [W / 2, W) (the kernel
-    runs f0 in two passes), W_f1 (W, W / 2), W_out (W / 2, outputs rounded
-    up to 64, zero-padded), built on the weights' device by gathers. W is
-    `adain_kernel_width` of the MLP's width, to which a narrower MLP's
-    weights are zero-padded (`padded_weights`). Raises for a configuration
-    the kernel does not take."""
-    width, pe, out = cfg.layers_width, packed["w0"].shape[0], packed["w_out"].shape[1]
-    if adain_kernel_width(width) is None:
-        raise ValueError(f"layers_width {width}: the AdaIN-NeRF kernel takes widths up to {_ADAIN_WIDTHS[-1]}")
-    cfg, packed = padded_weights(cfg, packed, adain_kernel_width(width))
-    width = cfg.layers_width
-    if pe > _MAX_PE:
-        raise ValueError(f"encoding width {pe} exceeds the kernel's {_MAX_PE}")
-    if out > _MAX_OUT:
-        raise ValueError(f"output_features {out} exceeds the kernel's {_MAX_OUT}")
-    if cfg.skip_layer_idx == 0:
-        raise ValueError("skip_layer_idx 0 (skip into the first layer) is not supported")
-    half = width // 2
+    image of `backbone_buffers` (slots, then w_alpha; at skip 0 layer 0's
+    two encoding segments), then the feature head's 64-row slots, each its
+    64 x 64 blocks in wgmma's 128-byte swizzle: for the 128-point kernel
+    W_f0's columns [0, W / 2), its columns [W / 2, W) (the kernel runs f0 in
+    two passes), W_f1 (W, W / 2), W_out (W / 2, outputs rounded up to 64,
+    zero-padded); for the wide kernel W_f0 (W, W), W_f1 and W_out. Built on
+    the weights' device by gathers. W is `adain_kernel`'s, to which a
+    narrower MLP's weights are zero-padded (`padded_weights`). Raises for a
+    configuration the kernels do not take."""
+    pe, out = adain_encoding_width(cfg, packed), packed["w_out"].shape[1]
+    kernel, wide = adain_kernel(cfg, packed)
+    cfg, packed = padded_weights(cfg, packed, kernel)
+    half = kernel // 2
     with torch.no_grad():
-        backbone, _ = backbone_buffers(cfg, packed)
-        mats = [packed["w_f0"][:, :half], packed["w_f0"][:, half:], packed["w_f1"],
-                _padded(packed["w_out"], half, -(-out // _BLOCK) * _BLOCK)]
+        backbone, _ = backbone_buffers(cfg, packed, pe=pe, pad=False)
+        w_out = _padded(packed["w_out"], half, -(-out // _BLOCK) * _BLOCK)
+        mats = ([packed["w_f0"], packed["w_f1"], w_out] if wide else
+                [packed["w_f0"][:, :half], packed["w_f0"][:, half:], packed["w_f1"], w_out])
         blocks = torch.cat([_swizzled_blocks(m.to(torch.bfloat16)) for m in mats])
         head = blocks[:, _unswizzle(blocks.device)]
         return torch.cat([backbone, head.reshape(-1)])
@@ -261,14 +315,17 @@ def _padded(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 def kernel_weights(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> NerfKernelWeights:
     """Build the kernel's buffers from `packed` once (on the weights'
-    device): the image for the widths the kernel takes, and on the card for
-    a narrower width zero-padded to one it takes (raising for an encoding,
-    output count or skip it does not take), the biases always (padded with
-    the image)."""
-    pe = packed["w0"].shape[0]
-    width = adain_kernel_width(cfg.layers_width)
-    if width != cfg.layers_width and (width is None or packed["w0"].device.type != "cuda"):
-        width = None
+    device): the image for the widths the kernels take, and on the card for
+    a narrower width zero-padded to one they take (raising for a width,
+    encoding, output count or depth beyond the wide kernel's), the biases
+    always (padded with the image)."""
+    pe = adain_encoding_width(cfg, packed)
+    if packed["w0"].device.type == "cuda":
+        width = adain_kernel(cfg, packed)[0]
+    else:
+        width = adain_kernel_width(cfg.layers_width,
+                                   adain_is_wide(cfg.layers_width, pe, packed["w_out"].shape[1], cfg.skip_layer_idx))
+        width = width if width == cfg.layers_width else None
     with torch.no_grad():
         image = adain_image(cfg, packed) if width is not None else None
         padded = padded_weights(cfg, packed, width)[1] if width is not None else packed
@@ -279,13 +336,14 @@ def kernel_weights(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> NerfK
                              width=width or cfg.layers_width)
 
 
-def adain_pair_table(n_points: Sequence[int], ctas: int = 2) -> List[int]:
+def adain_pair_table(n_points: Sequence[int], ctas: int = 2, tile: int = 128) -> List[int]:
     """The pair prefix table of one grouped launch: object o's pairs (units
-    of `ctas` 128-point tiles, one tile per CTA of a cluster) are
-    [table[o], table[o + 1]); a pair never holds two objects' points."""
+    of `ctas` tiles of `tile` points, one tile per CTA of a cluster; the
+    wide kernel's are single 64-point tiles) are [table[o], table[o + 1]); a
+    pair never holds two objects' points."""
     table = [0]
     for n in n_points:
-        tiles = -(-n // _BACKBONE_TILE)
+        tiles = -(-n // tile)
         table.append(table[-1] + -(-tiles // ctas))
     return table
 
@@ -373,6 +431,8 @@ def adain_library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.fused_adain_nerf_max_clusters.restype = ctypes.c_int
     lib.fused_adain_nerf_cluster_size.argtypes = []
     lib.fused_adain_nerf_cluster_size.restype = ctypes.c_int
+    lib.fused_adain_wide_group_launch.argtypes = lib.fused_adain_nerf_group_launch.argtypes
+    lib.fused_adain_wide_group_launch.restype = ctypes.c_int
     return lib
 
 
@@ -390,8 +450,12 @@ def _backbone_library() -> ctypes.CDLL:
     lib.fused_backbone_fwd_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.fused_backbone_bwd_launch.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                                               + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)])
-    lib.fused_backbone_fwd_launch.restype = ctypes.c_int
-    lib.fused_backbone_bwd_launch.restype = ctypes.c_int
+    lib.fused_backbone_wide_fwd_launch.argtypes = lib.fused_backbone_fwd_launch.argtypes
+    lib.fused_backbone_wide_bwd_launch.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+                                                   + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)])
+    for fn in (lib.fused_backbone_fwd_launch, lib.fused_backbone_bwd_launch, lib.fused_backbone_wide_fwd_launch,
+               lib.fused_backbone_wide_bwd_launch):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -400,11 +464,15 @@ def _backbone_f32_library() -> ctypes.CDLL:
     """csrc/fused_backbone_f32.cu, built and loaded once per process."""
     lib = _load(_BACKBONE_F32_SOURCE)
     lib.backbone_f32_pack_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_void_p] * 5
-                                             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                                             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.backbone_f32_fwd_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.backbone_f32_bwd_launch.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
                                             + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)])
-    for fn in (lib.backbone_f32_pack_launch, lib.backbone_f32_fwd_launch, lib.backbone_f32_bwd_launch):
+    lib.backbone_f32_wide_fwd_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.backbone_f32_wide_bwd_launch.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 9
+                                                 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)])
+    for fn in (lib.backbone_f32_pack_launch, lib.backbone_f32_fwd_launch, lib.backbone_f32_bwd_launch,
+               lib.backbone_f32_wide_fwd_launch, lib.backbone_f32_wide_bwd_launch):
         fn.restype = ctypes.c_int
     return lib
 
@@ -469,8 +537,10 @@ def _adain_group_op(encoded: List[torch.Tensor], scale0: List[torch.Tensor], bia
     `adain_pair_table`; each launch adds 1 to `fused_adain_nerf.launches`
     and its objects to `fused_adain_nerf.objects`."""
     device = encoded[0].device
-    if width not in _ADAIN_WIDTHS or any(image.numel() == 0 for image in images):
-        raise ValueError(f"layers_width {width}: the AdaIN-NeRF kernel takes widths up to {_ADAIN_WIDTHS[-1]}")
+    pe = encoded[0].shape[1]
+    wide = adain_is_wide(width, pe, out_features, skip)
+    if width not in (_WIDE_WIDTHS if wide else _ADAIN_WIDTHS) or any(image.numel() == 0 for image in images):
+        raise ValueError(f"layers_width {width}: the AdaIN-NeRF kernel takes widths up to {_WIDE_WIDTHS[-1]}")
     for group in (encoded, scale0, bias0, scale1, bias1, images, biases):
         for t in group:
             if t.device != device:
@@ -479,7 +549,6 @@ def _adain_group_op(encoded: List[torch.Tensor], scale0: List[torch.Tensor], bia
         for t in group:
             if t.dtype != torch.float32:
                 raise ValueError(f"modulation must be float32, got {t.dtype}")
-    pe = encoded[0].shape[1]
     # An operator's outputs may not alias one another: one allocation each.
     counts = [e.shape[0] for e in encoded]
     features = [torch.empty((n, out_features), dtype=torch.float32, device=device) for n in counts]
@@ -489,7 +558,8 @@ def _adain_group_op(encoded: List[torch.Tensor], scale0: List[torch.Tensor], bia
     # aligned pairs of floats.
     launch = [i for i, n in enumerate(counts) if n]
     lib = _library()
-    ctas = lib.fused_adain_nerf_cluster_size()
+    ctas, tile = (1, _WIDE_TILE) if wide else (lib.fused_adain_nerf_cluster_size(), _BACKBONE_TILE)
+    launch_group = lib.fused_adain_wide_group_launch if wide else lib.fused_adain_nerf_group_launch
     stream = torch.cuda.current_stream(device).cuda_stream
     for first in range(0, len(launch), _ADAIN_MAX_OBJECTS):
         chunk = launch[first : first + _ADAIN_MAX_OBJECTS]
@@ -508,8 +578,8 @@ def _adain_group_op(encoded: List[torch.Tensor], scale0: List[torch.Tensor], bia
                 ptrs.append(ptr)
                 ints.append(stride[0])
             ptrs += [images[i].data_ptr(), biases[i].data_ptr(), features[i].data_ptr(), alphas[i].data_ptr()]
-        table = adain_pair_table([counts[i] for i in chunk], ctas)
-        err = lib.fused_adain_nerf_group_launch(
+        table = adain_pair_table([counts[i] for i in chunk], ctas, tile)
+        err = launch_group(
             len(chunk), (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
             (ctypes.c_int * len(table))(*table), pe, width, layers, skip, out_features, stream,
         )
@@ -697,10 +767,12 @@ def fused_object_field_eval(
 # Trainable fused backbone (the JAX package's custom-VJP `fused_backbone`)
 # ---------------------------------------------------------------------------
 
-# The backbone kernels pad the encoding to this many columns, work on tiles
-# of this many points, and keep the ReLU masks of at most this many layers in
-# shared memory (csrc/fused_backbone.cu: kPe, kTile, kMaxLayers). Weights and
-# scratch are arrays of 64 x 64 bf16 blocks in wgmma's 128-byte swizzle.
+# The 128-point backbone kernels pad the encoding to this many columns, work
+# on tiles of this many points, and keep the ReLU masks of at most this many
+# layers in shared memory (csrc/fused_backbone.cu: kPe, kTile, kMaxLayers);
+# the wide ones (_WIDE_*) pad it to 64 or 128 and keep the masks in a global
+# scratch. Weights and scratch are arrays of 64 x 64 bf16 blocks in wgmma's
+# 128-byte swizzle.
 _BACKBONE_PE = 64
 _BACKBONE_TILE = 128
 _BACKBONE_MAX_LAYERS = 8
@@ -884,19 +956,31 @@ def relu_pattern_check(
     return masks, rows
 
 
-def _layer_slots(cfg: NerfMLPConfig) -> List[List[Tuple[int, int]]]:
+def _encoding_blocks(pe: int) -> int:
+    """The 64-column blocks the kernels pad a `pe`-column encoding to: 1
+    (the 128-point kernels' 64 columns) or 2."""
+    return max(1, -(-pe // _BLOCK))
+
+
+def _layer_slots(cfg: NerfMLPConfig, pe: int = _BACKBONE_PE, concat: bool = False) -> List[List[Tuple[int, int]]]:
     """For each layer, its slots of the weight image in order, each as
     (first weight row, rows): 64 input rows of the layer's (in, W) matrix,
-    the encoding's rows zero-padded to 64 (csrc/fused_backbone.cu)."""
+    the encoding's `pe` rows zero-padded to 64 `_encoding_blocks(pe)`
+    (csrc/fused_backbone.cu), twice in layer 0 with `concat` (B1's skip 0:
+    layer 0 reads [encoding, encoding])."""
     width, skip = cfg.layers_width, cfg.skip_layer_idx
+
+    def encoding(first):
+        return [(first + r, min(_BLOCK, pe - r)) for r in range(0, _BLOCK * _encoding_blocks(pe), _BLOCK)]
+
     layers = []
     for i in range(cfg.backbone_layers_count):
         if i == 0:
-            layers.append([(0, _BACKBONE_PE)])
+            layers.append(encoding(0) + (encoding(pe) if concat else []))
         else:
             slots = [(r, _BLOCK) for r in range(0, width, _BLOCK)]
             if i == skip:
-                slots.append((width, _BACKBONE_PE))
+                slots += encoding(width)
             layers.append(slots)
     return layers
 
@@ -908,20 +992,25 @@ def swizzled(row, col):
     return row * _BLOCK + ((col // 8) ^ (row % 8)) * 8 + col % 8
 
 
-def backbone_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+def backbone_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], pe: Optional[int] = None,
+                     pad: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backbone's weights as csrc/fused_backbone.cu (and B1, which
     shares its backbone) reads them, whatever the configuration's
     `compute_dtype`: the bf16 weight image (every layer's 64-row slots,
     each W/64 swizzled 64 x 64 blocks, then w_alpha) and the f32 biases
-    b_0 .. b_{L-1}, b_alpha, W the width rounded up to a multiple of 64
-    (the weights zero-padded to it, `padded_weights`). A handful of small
-    kernels a launch: the slots' rows in one cat, one cast, one gather for
-    the swizzle."""
-    cfg, packed = padded_weights(cfg, packed, backbone_kernel_width(replace(cfg, compute_dtype="bfloat16")))
+    b_0 .. b_{L-1}, b_alpha, W the width the bf16 kernels run it at (the
+    weights zero-padded to it, `padded_weights`; B1 pads them itself and
+    passes `pad=False`). `pe`: the encoding's columns, w0's rows by default;
+    fewer than w0's rows for B1 at skip 0, whose layer 0 then takes both
+    halves of its rows. A handful of small kernels a launch: the slots' rows
+    in one cat, one cast, one gather for the swizzle."""
+    pe = packed["w0"].shape[0] if pe is None else pe
+    if pad:
+        cfg, packed = padded_weights(cfg, packed, backbone_kernel_width(replace(cfg, compute_dtype="bfloat16"), pe))
     width = cfg.layers_width
     with torch.no_grad():
         rows = []
-        for i, layer in enumerate(_layer_slots(cfg)):
+        for i, layer in enumerate(_layer_slots(cfg, pe, concat=packed["w0"].shape[0] > pe)):
             w = packed[f"w{i}"]
             for first, count in layer:
                 block = w[first : first + count]  # fewer than 64 rows only for the encoding's
@@ -954,14 +1043,22 @@ def _kernel_skip(cfg: NerfMLPConfig) -> int:
     return cfg.skip_layer_idx or cfg.backbone_layers_count
 
 
-def backbone_kernel_width(cfg: NerfMLPConfig) -> int:
-    """The width the backbone kernels of cfg's `compute_dtype` run it at:
-    for float32 operands the narrowest of 64, 128 and 256 that holds it,
-    for bfloat16 the next multiple of 64; above 256, the width itself (the
-    kernels refuse it)."""
+def backbone_is_wide(cfg: NerfMLPConfig, pe: int) -> bool:
+    """Whether the backbone kernels run cfg over a `pe`-column encoding in
+    their wide versions (width above 256, encoding above 64 columns, more
+    than 8 layers) rather than the 128-point (bf16) or 256-wide (f32) ones."""
+    return cfg.layers_width > _MAX_WIDTH or pe > _BACKBONE_PE or cfg.backbone_layers_count > _BACKBONE_MAX_LAYERS
+
+
+def backbone_kernel_width(cfg: NerfMLPConfig, pe: int = _BACKBONE_PE) -> int:
+    """The width the backbone kernels of cfg's `compute_dtype` run it at
+    over a `pe`-column encoding: in the wide kernels (`backbone_is_wide`)
+    256 or 512; otherwise for float32 operands the narrowest of 64, 128 and
+    256 that holds it, for bfloat16 the next multiple of 64; above 512, the
+    width itself (the kernels refuse it)."""
     width = cfg.layers_width
-    if width > _MAX_WIDTH:
-        return width
+    if backbone_is_wide(cfg, pe):
+        return next((w for w in _WIDE_WIDTHS if width <= w), width)
     if cfg.compute_dtype == "float32":
         return next(w for w in _F32_WIDTHS if width <= w)
     return -(-width // _BLOCK) * _BLOCK
@@ -970,7 +1067,7 @@ def backbone_kernel_width(cfg: NerfMLPConfig) -> int:
 def kernel_backbone(cfg: NerfMLPConfig,
                     packed: Dict[str, torch.Tensor]) -> Tuple[NerfMLPConfig, Dict[str, torch.Tensor]]:
     """(cfg, packed) at `backbone_kernel_width`, zero-padded (`padded_weights`)."""
-    return padded_weights(cfg, packed, backbone_kernel_width(cfg))
+    return padded_weights(cfg, packed, backbone_kernel_width(cfg, packed["w0"].shape[0]))
 
 
 def unpadded_backbone_grads(cfg: NerfMLPConfig, grads: Dict[str, torch.Tensor],
@@ -1021,25 +1118,26 @@ def _backbone_kernel_checks(cfg: NerfMLPConfig, encoded: torch.Tensor, tensors) 
     `kernel_backbone`): `tensors` must be f32 on the card of `encoded`. The
     kernels follow `compute_dtype`: bfloat16 operands
     (csrc/fused_backbone.cu, widths multiple of 64 up to 256) or float32
-    (csrc/fused_backbone_f32.cu, widths 64, 128 and 256)."""
-    if encoded.device.type != "cuda":
-        raise ValueError(f"the fused backbone runs on cuda or cpu tensors, not {encoded.device}")
-    width = cfg.layers_width
-    if cfg.compute_dtype == "float32":
-        if width not in _F32_WIDTHS:
-            raise ValueError(f"layers_width {width}: the f32 backbone kernels take widths up to {_MAX_WIDTH} "
-                             f"(padded to {_F32_WIDTHS})")
-    elif cfg.compute_dtype != "bfloat16":
+    (csrc/fused_backbone_f32.cu, widths 64, 128 and 256), both with wide
+    versions at widths 256 and 512, encodings up to 128 columns and up to
+    16 layers."""
+    width, pe, layers = cfg.layers_width, encoded.shape[1], cfg.backbone_layers_count
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
             f"the backbone kernels take bfloat16 or float32 operands, not compute_dtype {cfg.compute_dtype!r}"
         )
-    if width % 64 or width > _MAX_WIDTH:
-        raise ValueError(f"layers_width {width}: the backbone kernels take widths up to {_MAX_WIDTH} "
-                         "(padded to a multiple of 64)")
-    if encoded.shape[1] > _BACKBONE_PE:
-        raise ValueError(f"encoding width {encoded.shape[1]} exceeds the kernel's {_BACKBONE_PE}")
-    if cfg.backbone_layers_count > _BACKBONE_MAX_LAYERS:
-        raise ValueError(f"{cfg.backbone_layers_count} backbone layers exceed the kernel's {_BACKBONE_MAX_LAYERS}")
+    if width > _WIDE_WIDTHS[-1]:
+        raise ValueError(f"layers_width {width}: the backbone kernels take widths up to {_WIDE_WIDTHS[-1]}")
+    if pe > _WIDE_MAX_PE:
+        raise ValueError(f"encoding width {pe} exceeds the backbone kernels' {_WIDE_MAX_PE}")
+    if layers > _WIDE_MAX_LAYERS:
+        raise ValueError(f"{layers} backbone layers exceed the backbone kernels' {_WIDE_MAX_LAYERS}")
+    widths = (_F32_WIDTHS if cfg.compute_dtype == "float32" else range(64, _MAX_WIDTH + 1, 64))
+    if width not in (_WIDE_WIDTHS if backbone_is_wide(cfg, pe) else widths):
+        raise ValueError(f"layers_width {width}: the backbone kernels take it padded "
+                         f"(`kernel_backbone`, to {backbone_kernel_width(cfg, pe)})")
+    if encoded.device.type != "cuda":
+        raise ValueError(f"the fused backbone runs on cuda or cpu tensors, not {encoded.device}")
     for t in tensors:
         if t.device != encoded.device or t.dtype != torch.float32:
             raise ValueError(f"inputs must be float32 on {encoded.device}, got {t.dtype} on {t.device}")
@@ -1075,9 +1173,12 @@ def _backbone_fwd(cfg, packed, encoded, buffers):
     if n == 0:
         return h, alpha
     lib = _backbone_library()
-    err = lib.fused_backbone_fwd_launch(
+    wide = backbone_is_wide(cfg, pe)
+    launch = lib.fused_backbone_wide_fwd_launch if wide else lib.fused_backbone_fwd_launch
+    err = launch(
         encoded.data_ptr(), weights.data_ptr(), biases.data_ptr(), h.data_ptr(), alpha.data_ptr(),
-        n, pe, width, cfg.backbone_layers_count, _kernel_skip(cfg), backbone_grid(n, _sm_count(encoded.device)),
+        n, pe, width, cfg.backbone_layers_count, _kernel_skip(cfg),
+        backbone_grid(n, _sm_count(encoded.device), _WIDE_TILE if wide else _BACKBONE_TILE),
         torch.cuda.current_stream(encoded.device).cuda_stream,
     )
     if err != 0:
@@ -1089,12 +1190,13 @@ def _backbone_fwd(cfg, packed, encoded, buffers):
 fused_backbone_fwd.launches = 0
 
 
-def _backbone_grad_rows(cfg: NerfMLPConfig) -> int:
-    """Rows of the kernel's padded weight-gradient matrix."""
-    width, skip = cfg.layers_width, cfg.skip_layer_idx
+def _backbone_grad_rows(cfg: NerfMLPConfig, pe: int = _BACKBONE_PE) -> int:
+    """Rows of the kernel's padded weight-gradient matrix (the encoding's
+    `pe` rows padded to 64 `_encoding_blocks(pe)`)."""
+    width, skip, pe_pad = cfg.layers_width, cfg.skip_layer_idx, _BLOCK * _encoding_blocks(pe)
     rows = 0
     for i in range(cfg.backbone_layers_count):
-        rows += _BACKBONE_PE if i == 0 else (width + _BACKBONE_PE if i == skip else width)
+        rows += pe_pad if i == 0 else (width + pe_pad if i == skip else width)
     return rows
 
 
@@ -1103,17 +1205,17 @@ def _unpack_backbone_grads(cfg: NerfMLPConfig, grads_out: torch.Tensor, pe: int)
     gradients as (rows, W) in the padded row order of backbone_buffers, then
     db_0 .. db_{L-1}, dW_alpha (W), db_alpha (1)."""
     width, layers, skip = cfg.layers_width, cfg.backbone_layers_count, cfg.skip_layer_idx
-    rows_pad = _backbone_grad_rows(cfg)
+    rows_pad, pe_pad = _backbone_grad_rows(cfg, pe), _BLOCK * _encoding_blocks(pe)
     dw = grads_out[: rows_pad * width].view(rows_pad, width)
     small = grads_out[rows_pad * width :]
     grads, start = {}, 0
     for i in range(layers):
         if i == 0:
             grads["w0"] = dw[:pe]
-            start = _BACKBONE_PE
+            start = pe_pad
         elif i == skip:
             grads[f"w{i}"] = torch.cat([dw[start : start + width], dw[start + width : start + width + pe]])
-            start += width + _BACKBONE_PE
+            start += width + pe_pad
         else:
             grads[f"w{i}"] = dw[start : start + width]
             start += width
@@ -1123,28 +1225,29 @@ def _unpack_backbone_grads(cfg: NerfMLPConfig, grads_out: torch.Tensor, pe: int)
     return grads
 
 
-def backbone_x_columns(cfg: NerfMLPConfig) -> List[List[int]]:
+def backbone_x_columns(cfg: NerfMLPConfig, ps: int = 1) -> List[List[int]]:
     """For each layer, the X column blocks (`backbone_scratch_shapes`) that
     feed its rows of the padded weight gradient, 64 rows each, in order: the
-    encoding (block 0) for layer 0; layer i's input, layer i - 1's
-    activation (blocks 1 + (i - 1) W/64 + j), then at the skip layer the
-    encoding again. The weight-gradient kernel pairs them into 128-row
-    output tiles within each layer."""
+    encoding (blocks 0 .. ps - 1, `ps` its 64-column blocks) for layer 0;
+    layer i's input, layer i - 1's activation (blocks ps + (i - 1) W/64 +
+    j), then at the skip layer the encoding again. The weight-gradient
+    kernel pairs them into 128-row output tiles within each layer."""
     nb = cfg.layers_width // _BLOCK
     columns = []
     for i in range(cfg.backbone_layers_count):
         if i == 0:
-            columns.append([0])
+            columns.append(list(range(ps)))
         else:
-            columns.append([1 + (i - 1) * nb + j for j in range(nb)] + ([0] if i == cfg.skip_layer_idx else []))
+            columns.append([ps + (i - 1) * nb + j for j in range(nb)]
+                           + (list(range(ps)) if i == cfg.skip_layer_idx else []))
     return columns
 
 
-def backbone_grid(n: int, sm_count: int) -> int:
+def backbone_grid(n: int, sm_count: int, tile: int = _BACKBONE_TILE) -> int:
     """CTAs of the persistent kernels (the forward and the backward's
     per-tile kernel) for n points on a card of `sm_count` SMs: one per SM,
-    at most one per 128-point tile."""
-    return min(-(-n // _BACKBONE_TILE), sm_count)
+    at most one per tile (128 points; the wide kernels' 64)."""
+    return min(-(-n // tile), sm_count)
 
 
 def backbone_scratch_shapes(cfg: NerfMLPConfig, n: int, sm_count: int) -> Dict[str, Tuple[int, ...]]:
@@ -1165,6 +1268,28 @@ def backbone_scratch_shapes(cfg: NerfMLPConfig, n: int, sm_count: int) -> Dict[s
         "g": (point_blocks, layers * nb, _BLOCK, _BLOCK),
         "tile_part": (2 * backbone_grid(n, sm_count), layers * width + width + 1),
         "partial": (chunks, _backbone_grad_rows(cfg), width),
+    }
+
+
+def backbone_wide_scratch_shapes(cfg: NerfMLPConfig, n: int, sm_count: int, pe: int) -> Dict[str, Tuple[int, ...]]:
+    """Shapes of the wide backward's scratch for n points over a `pe`-column
+    encoding: as `backbone_scratch_shapes` with 64-point tiles (one X and G
+    point block a tile), the encoding's ps = `_encoding_blocks(pe)` column
+    blocks first in X, one tile_part row per CTA (each warpgroup sums its
+    own columns), the dW product's chunks over its two column halves, and
+    masks (int32 for u32): each tile-kernel thread's ReLU bits, W / 128
+    words a layer, per CTA."""
+    width, layers, ps = cfg.layers_width, cfg.backbone_layers_count, _encoding_blocks(pe)
+    tiles = -(-n // _WIDE_TILE)
+    grid = backbone_grid(n, sm_count, _WIDE_TILE)
+    dw_tiles = sum(-(-len(c) // 2) for c in backbone_x_columns(cfg, ps))
+    nb = width // _BLOCK
+    return {
+        "x": (tiles, ps + (layers - 1) * nb, _BLOCK, _BLOCK),
+        "g": (tiles, layers * nb, _BLOCK, _BLOCK),
+        "tile_part": (grid, layers * width + width + 1),
+        "partial": (max(1, min(tiles, sm_count // (2 * dw_tiles))), _backbone_grad_rows(cfg, pe), width),
+        "masks": (grid, layers, width // 128, 256),
     }
 
 
@@ -1190,19 +1315,30 @@ def _backbone_bwd_launch(cfg, packed, encoded, g_h, g_alpha, buffers, ms):
     encoded = encoded.to(torch.bfloat16).contiguous()
     g_h, g_alpha = g_h.contiguous(), g_alpha.contiguous()
     d_encoded = torch.empty((n, pe), dtype=torch.float32, device=device)
-    grads_out = torch.empty((_backbone_grad_rows(cfg) * width + layers * width + width + 1,),
+    grads_out = torch.empty((_backbone_grad_rows(cfg, pe) * width + layers * width + width + 1,),
                             dtype=torch.float32, device=device)
     if n == 0:
         return _unpack_backbone_grads(cfg, grads_out.zero_(), pe), d_encoded
-    shapes = backbone_scratch_shapes(cfg, n, _sm_count(device))
-    scratch = {k: torch.empty(v, dtype=torch.bfloat16 if k in ("x", "g") else torch.float32, device=device)
-               for k, v in shapes.items()}
-    err = _backbone_library().fused_backbone_bwd_launch(
-        encoded.data_ptr(), g_h.data_ptr(), g_alpha.data_ptr(), weights.data_ptr(), biases.data_ptr(),
-        d_encoded.data_ptr(), *(scratch[k].data_ptr() for k in ("x", "g", "tile_part", "partial")),
-        grads_out.data_ptr(), n, pe, width, layers, skip, shapes["tile_part"][0] // 2, shapes["partial"][0],
-        torch.cuda.current_stream(device).cuda_stream, ms,
-    )
+    stream, lib = torch.cuda.current_stream(device).cuda_stream, _backbone_library()
+    dtypes = {"x": torch.bfloat16, "g": torch.bfloat16, "masks": torch.int32}
+    if backbone_is_wide(cfg, pe):
+        shapes = backbone_wide_scratch_shapes(cfg, n, _sm_count(device), pe)
+        scratch = {k: torch.empty(v, dtype=dtypes.get(k, torch.float32), device=device) for k, v in shapes.items()}
+        err = lib.fused_backbone_wide_bwd_launch(
+            encoded.data_ptr(), g_h.data_ptr(), g_alpha.data_ptr(), weights.data_ptr(), biases.data_ptr(),
+            d_encoded.data_ptr(), *(scratch[k].data_ptr() for k in ("x", "g", "tile_part", "partial", "masks")),
+            grads_out.data_ptr(), n, pe, width, layers, skip, shapes["tile_part"][0], shapes["partial"][0],
+            stream, ms,
+        )
+    else:
+        shapes = backbone_scratch_shapes(cfg, n, _sm_count(device))
+        scratch = {k: torch.empty(v, dtype=dtypes.get(k, torch.float32), device=device) for k, v in shapes.items()}
+        err = lib.fused_backbone_bwd_launch(
+            encoded.data_ptr(), g_h.data_ptr(), g_alpha.data_ptr(), weights.data_ptr(), biases.data_ptr(),
+            d_encoded.data_ptr(), *(scratch[k].data_ptr() for k in ("x", "g", "tile_part", "partial")),
+            grads_out.data_ptr(), n, pe, width, layers, skip, shapes["tile_part"][0] // 2, shapes["partial"][0],
+            stream, ms,
+        )
     if err != 0:
         raise RuntimeError(f"fused_backbone_bwd kernel launch failed with CUDA error {err}")
     return _unpack_backbone_grads(cfg, grads_out, pe), d_encoded
@@ -1271,17 +1407,19 @@ class F32Buffers(NamedTuple):
 
 def backbone_f32_weights(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
     """Each layer's weight as the f32 kernels pad it, (rows_i, W): the
-    encoding's rows zero-padded to 64 (layer 0, and after the activation
-    rows at the skip layer), the rows of `_backbone_grad_rows`' order."""
+    encoding's rows zero-padded to 64 `_encoding_blocks` (layer 0, and after
+    the activation rows at the skip layer), the rows of
+    `_backbone_grad_rows`' order."""
     width, skip = cfg.layers_width, cfg.skip_layer_idx
+    pe_pad = _BLOCK * _encoding_blocks(packed["w0"].shape[0])
     out = []
     for i in range(cfg.backbone_layers_count):
         w = packed[f"w{i}"].to(torch.float32)
         if i == 0:
-            out.append(torch.nn.functional.pad(w, (0, 0, 0, _BACKBONE_PE - w.shape[0])))
+            out.append(torch.nn.functional.pad(w, (0, 0, 0, pe_pad - w.shape[0])))
         elif i == skip:
             enc = w[width:]
-            out.append(torch.cat([w[:width], torch.nn.functional.pad(enc, (0, 0, 0, _BACKBONE_PE - enc.shape[0]))]))
+            out.append(torch.cat([w[:width], torch.nn.functional.pad(enc, (0, 0, 0, pe_pad - enc.shape[0]))]))
         else:
             out.append(w)
     return out
@@ -1318,16 +1456,19 @@ def _logical_k(m):
 def plain_backbone_f32_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> F32Buffers:
     """The f32 kernels' weights built in plain PyTorch, the plain version of
     csrc/fused_backbone_f32.cu::backbone_f32_pack_kernel, bit for bit, at
-    the kernels' width (`kernel_backbone`). Layer
-    i starts at float 2 W (padded rows before it) in both images:
-    - fwd: its in_i / 8 slots (k-steps of its padded input rows, taken in
-      `_logical_k`'s order), each big then small of (n = W output
-      columns) x 8 at `f32_fragment_offset`;
-    - bwd: W / 8 slots of its 64 encoding rows as n (layer 0, and first at
-      the skip layer), then (layers > 0) W / 8 slots of its W activation
-      rows, k over the output columns in the same order."""
+    the kernels' width (`kernel_backbone`), in slots of np = min(W, 256)
+    columns or rows (one pass; two at W 512, the wide kernels'). Layer i
+    starts at float 2 W (padded rows before it) in both images:
+    - fwd: for each pass c, its in_i / 8 slots (k-steps of its padded input
+      rows, taken in `_logical_k`'s order), each big then small of (n = the
+      output columns [np c, np (c + 1))) x 8 at `f32_fragment_offset`;
+    - bwd: W / 8 slots for each 64-row group of its encoding rows as n
+      (layer 0, and first at the skip layer), then (layers > 0) W / 8 slots
+      for each np-row group of its W activation rows, k over the output
+      columns in the same order."""
     cfg, packed = kernel_backbone(cfg, packed)
     width, skip = cfg.layers_width, _kernel_skip(cfg)
+    np_, pe_pad = min(width, 256), _BLOCK * _encoding_blocks(packed["w0"].shape[0])
     device = packed["w0"].device
     fwd, bwd = [], []
     with torch.no_grad():
@@ -1336,19 +1477,19 @@ def plain_backbone_f32_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tenso
             big, small = tf32_split(w)
             rr, c = torch.meshgrid(torch.arange(rows, device=device), torch.arange(width, device=device), indexing="ij")
             f = torch.empty(2 * rows * width, dtype=torch.float32, device=device)
-            dst = (rr // 8) * 16 * width + f32_fragment_offset(c, _logical_k(rr % 8))
+            dst = ((c // np_) * (rows // 8) + rr // 8) * 16 * np_ + f32_fragment_offset(c % np_, _logical_k(rr % 8))
             f[dst] = big
-            f[dst + 8 * width] = small
+            f[dst + 8 * np_] = small
             b = torch.empty_like(f)
-            n_rows = torch.full_like(rr, width)
-            nn, base = rr.clone(), torch.zeros_like(rr)
-            if i == 0:
-                n_rows[:] = _BACKBONE_PE
-            elif i == skip:
-                enc = rr >= width
-                n_rows[enc] = _BACKBONE_PE
-                nn[enc] -= width
-                base[~enc] = (width // 8) * 16 * _BACKBONE_PE
+            n_rows = torch.full_like(rr, np_)
+            nn, base = rr % np_, (rr // np_) * (width // 8) * 16 * np_
+            if i == 0 or i == skip:
+                enc = rr >= width if i else torch.ones_like(rr, dtype=torch.bool)
+                e = rr - width if i else rr
+                n_rows[enc] = _BLOCK
+                nn[enc] = e[enc] % _BLOCK
+                base[enc] = (e[enc] // _BLOCK) * (width // 8) * 16 * _BLOCK
+                base[~enc] += (pe_pad // _BLOCK) * (width // 8) * 16 * _BLOCK
             dst = base + (c // 8) * 16 * n_rows + f32_fragment_offset(nn, _logical_k(c % 8))
             b[dst] = big
             b[dst + 8 * n_rows] = small
@@ -1373,7 +1514,7 @@ def backbone_f32_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) ->
     cfg, packed = kernel_backbone(cfg, packed)
     width, layers, pe = cfg.layers_width, cfg.backbone_layers_count, packed["w0"].shape[0]
     _backbone_kernel_checks(cfg, packed["w0"].new_empty((0, pe)), list(packed.values()))
-    rows = _backbone_grad_rows(cfg)
+    rows = _backbone_grad_rows(cfg, pe)
     fwd = torch.empty(2 * rows * width, dtype=torch.float32, device=device)
     bwd = torch.empty_like(fwd)
     biases = torch.empty(layers * width + 1, dtype=torch.float32, device=device)
@@ -1387,7 +1528,7 @@ def backbone_f32_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) ->
         (ctypes.c_longlong * layers)(*(b.stride()[-1] for b in bs)),
         packed["w_alpha"].data_ptr(), packed["w_alpha"].stride()[0], packed["b_alpha"].data_ptr(),
         fwd.data_ptr(), bwd.data_ptr(), biases.data_ptr(), w_alpha.data_ptr(), width, layers, _kernel_skip(cfg), pe,
-        torch.cuda.current_stream(device).cuda_stream,
+        _BLOCK * _encoding_blocks(pe), torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"backbone_f32_pack kernel launch failed with CUDA error {err}")
@@ -1398,21 +1539,23 @@ def backbone_f32_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) ->
 backbone_f32_buffers.launches = 0
 
 
-def backbone_f32_row_blocks(cfg: NerfMLPConfig) -> List[Tuple[int, int, int, int]]:
+def backbone_f32_row_blocks(cfg: NerfMLPConfig, pe: int = _BACKBONE_PE) -> List[Tuple[int, int, int, int]]:
     """The f32 weight-gradient kernel's row blocks: (first padded row, X
     feature of its first 64 rows, of its second 64 rows or -1, layer). X
-    holds the encoding (features 0-63), then the activations of layers 0 ..
-    L-2 (W each); layer i reads its input's 64-feature halves in its padded
-    row order (the encoding for layer 0; layer i - 1's activation, then the
-    encoding at the skip layer), two a block."""
+    holds the encoding (features 0 .. pe_pad - 1, `pe` columns padded to 64
+    `_encoding_blocks`), then the activations of layers 0 .. L-2 (W each);
+    layer i reads its input's 64-feature halves in its padded row order (the
+    encoding for layer 0; layer i - 1's activation, then the encoding at the
+    skip layer), two a block."""
     width, layers, skip = cfg.layers_width, cfg.backbone_layers_count, _kernel_skip(cfg)
+    encoding = [_BLOCK * e for e in range(_encoding_blocks(pe))]
     table, out_row = [], 0
     for i in range(layers):
         if i == 0:
-            halves = [0]
+            halves = encoding
         else:
-            halves = [_BACKBONE_PE + (i - 1) * width + _BLOCK * j for j in range(width // _BLOCK)]
-            halves += [0] if i == skip else []
+            halves = [len(encoding) * _BLOCK + (i - 1) * width + _BLOCK * j for j in range(width // _BLOCK)]
+            halves += encoding if i == skip else []
         for k in range(0, len(halves), 2):
             table.append((out_row + _BLOCK * k, halves[k], halves[k + 1] if k + 1 < len(halves) else -1, i))
         out_row += _BLOCK * len(halves)
@@ -1424,7 +1567,8 @@ def backbone_f32_dw_columns(cfg: NerfMLPConfig) -> int:
     return min(cfg.layers_width, 128)
 
 
-def backbone_f32_scratch_shapes(cfg: NerfMLPConfig, n: int, sm_count: int) -> Dict[str, Tuple[int, ...]]:
+def backbone_f32_scratch_shapes(cfg: NerfMLPConfig, n: int, sm_count: int,
+                                pe: int = _BACKBONE_PE) -> Dict[str, Tuple[int, ...]]:
     """Shapes of the f32 backward's buffers for n points on a card of
     `sm_count` SMs. x and g: the X and G scratch of one chunk of points
     (`_F32_CHUNK_TILES` tiles of 64), feature-major in blocks of 32 points,
@@ -1435,25 +1579,32 @@ def backbone_f32_scratch_shapes(cfg: NerfMLPConfig, n: int, sm_count: int) -> Di
     of its CTAs (as many as SMs, at most one per tile). partial: one
     weight-gradient slab per split of a chunk's points, as many splits as
     fill the SMs once. masks: each tile-kernel thread's ReLU mask bits
-    (W / 4 of them in two words; int32 for u32), per CTA and layer."""
+    (W / 4 of them in two words; int32 for u32), per CTA and layer. The wide
+    kernels (`backbone_is_wide`; `pe` the encoding's columns, padded to
+    pe_pad = 64 `_encoding_blocks(pe)` in X) keep two words a 256-column
+    pass and add `stash`: each tile-kernel thread's share of a layer's
+    output, (grid, W / 8, 128, 4) f32."""
     width, layers = cfg.layers_width, cfg.backbone_layers_count
     chunk_tiles = min(-(-n // _F32_TILE), _F32_CHUNK_TILES)
     grid = min(chunk_tiles, sm_count)
     blocks = chunk_tiles * _F32_TILE // _F32_BLOCK_POINTS
-    dw_ctas = len(backbone_f32_row_blocks(cfg)) * (width // backbone_f32_dw_columns(cfg))
-    return {
-        "x": (blocks, _BACKBONE_PE + (layers - 1) * width, _F32_BLOCK_POINTS),
+    dw_ctas = len(backbone_f32_row_blocks(cfg, pe)) * (width // backbone_f32_dw_columns(cfg))
+    shapes = {
+        "x": (blocks, _BLOCK * _encoding_blocks(pe) + (layers - 1) * width, _F32_BLOCK_POINTS),
         "g": (blocks, layers * width, _F32_BLOCK_POINTS),
         "tile_part": (2 * grid, layers * width + width + 1),
-        "partial": (max(1, min(blocks, sm_count // dw_ctas)), _backbone_grad_rows(cfg), width),
+        "partial": (max(1, min(blocks, sm_count // dw_ctas)), _backbone_grad_rows(cfg, pe), width),
         "masks": (grid, layers, 2, 256),
     }
+    if backbone_is_wide(cfg, pe):
+        shapes.update(masks=(grid, layers, 2 * (width // 256), 256), stash=(grid, width // 8, 128, 4))
+    return shapes
 
 
 @functools.lru_cache(maxsize=None)
-def _row_block_table(layers: int, width: int, skip: int, device: torch.device) -> torch.Tensor:
+def _row_block_table(layers: int, width: int, skip: int, pe: int, device: torch.device) -> torch.Tensor:
     cfg = NerfMLPConfig(layers_width=width, backbone_layers_count=layers, skip_layer_idx=skip)
-    return torch.tensor(backbone_f32_row_blocks(cfg), dtype=torch.int32).reshape(-1).to(device)
+    return torch.tensor(backbone_f32_row_blocks(cfg, pe), dtype=torch.int32).reshape(-1).to(device)
 
 
 def backbone_f32_fwd(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor], encoded: torch.Tensor,
@@ -1476,11 +1627,16 @@ def _backbone_f32_fwd(cfg, packed, encoded, buffers):
     alpha = torch.empty((n,), dtype=torch.float32, device=encoded.device)
     if n == 0:
         return h, alpha
-    err = _backbone_f32_library().backbone_f32_fwd_launch(
-        encoded.data_ptr(), buffers.fwd.data_ptr(), buffers.biases.data_ptr(), buffers.w_alpha.data_ptr(),
-        h.data_ptr(), alpha.data_ptr(), n, pe, width, cfg.backbone_layers_count, _kernel_skip(cfg),
-        min(-(-n // _F32_TILE), _sm_count(encoded.device)), torch.cuda.current_stream(encoded.device).cuda_stream,
-    )
+    lib, grid = _backbone_f32_library(), min(-(-n // _F32_TILE), _sm_count(encoded.device))
+    head = (encoded.data_ptr(), buffers.fwd.data_ptr(), buffers.biases.data_ptr(), buffers.w_alpha.data_ptr(),
+            h.data_ptr(), alpha.data_ptr())
+    tail = (n, pe, width, cfg.backbone_layers_count, _kernel_skip(cfg), grid,
+            torch.cuda.current_stream(encoded.device).cuda_stream)
+    if backbone_is_wide(cfg, pe):
+        stash = torch.empty((grid, width // 8, 128, 4), dtype=torch.float32, device=encoded.device)
+        err = lib.backbone_f32_wide_fwd_launch(*head, stash.data_ptr(), *tail)
+    else:
+        err = lib.backbone_f32_fwd_launch(*head, *tail)
     if err != 0:
         raise RuntimeError(f"backbone_f32_fwd kernel launch failed with CUDA error {err}")
     backbone_f32_fwd.launches += 1
@@ -1517,18 +1673,21 @@ def _backbone_f32_bwd_launch(cfg, packed, encoded, g_h, g_alpha, buffers, ms):
     buffers = buffers if buffers is not None else backbone_f32_buffers(cfg, packed)
     encoded, g_h, g_alpha = encoded.contiguous(), g_h.contiguous(), g_alpha.contiguous()
     d_encoded = torch.empty((n, pe), dtype=torch.float32, device=device)
-    grads_out = torch.empty((_backbone_grad_rows(cfg) * width + layers * width + width + 1,),
+    grads_out = torch.empty((_backbone_grad_rows(cfg, pe) * width + layers * width + width + 1,),
                             dtype=torch.float32, device=device)
     if n == 0:
         return _unpack_backbone_grads(cfg, grads_out.zero_(), pe), d_encoded
-    shapes = backbone_f32_scratch_shapes(cfg, n, _sm_count(device))
+    shapes = backbone_f32_scratch_shapes(cfg, n, _sm_count(device), pe)
     scratch = {k: torch.empty(v, dtype=torch.int32 if k == "masks" else torch.float32, device=device)
                for k, v in shapes.items()}
-    table = _row_block_table(layers, width, cfg.skip_layer_idx, device)
-    err = _backbone_f32_library().backbone_f32_bwd_launch(
+    table = _row_block_table(layers, width, cfg.skip_layer_idx, pe, device)
+    wide = backbone_is_wide(cfg, pe)
+    names = ("x", "g", "tile_part", "partial", "masks") + (("stash",) if wide else ())
+    lib = _backbone_f32_library()
+    err = (lib.backbone_f32_wide_bwd_launch if wide else lib.backbone_f32_bwd_launch)(
         encoded.data_ptr(), g_h.data_ptr(), g_alpha.data_ptr(), buffers.fwd.data_ptr(), buffers.bwd.data_ptr(),
         buffers.biases.data_ptr(), buffers.w_alpha.data_ptr(), d_encoded.data_ptr(),
-        *(scratch[k].data_ptr() for k in ("x", "g", "tile_part", "partial", "masks")), table.data_ptr(),
+        *(scratch[k].data_ptr() for k in names), table.data_ptr(),
         grads_out.data_ptr(), table.numel() // 4, n, pe, width, layers, skip, shapes["masks"][0],
         shapes["x"][0] * _F32_BLOCK_POINTS // _F32_TILE, shapes["partial"][0],
         torch.cuda.current_stream(device).cuda_stream, ms,

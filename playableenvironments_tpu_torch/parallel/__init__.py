@@ -10,6 +10,7 @@ from playableenvironments_tpu_torch.parallel.mesh import (
     create_device_mesh,
     create_mesh,
     maybe_initialize_distributed,
+    process_group,
     replicate,
     shard_batch,
     verify_replication,

@@ -142,6 +142,24 @@ def maybe_initialize_distributed(device="cuda", backend: Optional[str] = None,
     return True
 
 
+@contextlib.contextmanager
+def process_group(device="cuda"):
+    """A CLI's run inside `maybe_initialize_distributed`'s process group.
+    Where this call brought the group up, a run that ends without an error
+    takes it down again: a barrier, so that no rank leaves while another is
+    still in a collective, then `destroy_process_group`, which joins the
+    backend's threads before the interpreter exits (a thread still running
+    native code while the interpreter finalizes aborts the process). A
+    group that was up before, or a run that raised, is left as it is."""
+    import torch.distributed as dist
+
+    created = not _initialized() and maybe_initialize_distributed(device)
+    yield
+    if created:
+        barrier()
+        dist.destroy_process_group()
+
+
 def barrier(device=None) -> None:
     """Every process waits for the others: one all-reduce of a one-element
     tensor on `device` (the backend's own barrier needs to be told the card

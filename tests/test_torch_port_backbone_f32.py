@@ -40,8 +40,12 @@ CONFIGS = {
                             compute_dtype="float32", position_encoder=PositionalEncoderConfig(octaves=10)),
     "narrow": NerfMLPConfig(layers_width=128, backbone_layers_count=6, skip_layer_idx=3, output_features=3,
                             compute_dtype="float32", position_encoder=PositionalEncoderConfig(octaves=10)),
+    # skip_layer_idx 0 is no skip on the fused backbone's path, whose module
+    # declares w0 (pe, W) (fused_nerf._backbone_sizes); without it the
+    # module's layer 0 reads [encoding, encoding].
     "no_skip": NerfMLPConfig(layers_width=64, backbone_layers_count=4, skip_layer_idx=0, output_features=3,
-                             compute_dtype="float32", position_encoder=PositionalEncoderConfig(octaves=4)),
+                             compute_dtype="float32", use_fused_backbone=True,
+                             position_encoder=PositionalEncoderConfig(octaves=4)),
 }
 PE = 64  # the kernels' padded encoding (kPe)
 # chip_smoke.py's bounds for B2/B3-f32 against the plain versions: of each

@@ -118,13 +118,13 @@ def test_kernel_at_a_narrow_width_matches_plain_on_the_card(card, width, kernel_
 
 @pytest.mark.cuda
 def test_kernel_rejects_what_its_layout_does_not_take(card):
-    """Widths above the kernel's widest (256) have no image: the launch
-    raises."""
-    cfg = NerfMLPConfig(layers_width=320)
+    """Widths above the wide kernel's widest (512) have no image: building
+    the kernel's weights raises, naming the limit."""
+    cfg = NerfMLPConfig(layers_width=576)
     nerf = AdaInNerfMLP(cfg, 64, device=card)
-    mods = [torch.zeros(2, 320, device=card), torch.zeros(2, 320, device=card),
-            torch.zeros(2, 160, device=card), torch.zeros(2, 160, device=card)]
-    with pytest.raises(ValueError, match="takes"):
+    mods = [torch.zeros(2, 576, device=card), torch.zeros(2, 576, device=card),
+            torch.zeros(2, 288, device=card), torch.zeros(2, 288, device=card)]
+    with pytest.raises(ValueError, match="takes widths up to 512"):
         fused_nerf.fused_adain_nerf(cfg, nerf.kernel_weights(), torch.zeros(8, 63, device=card), *mods,
                                     samples_per_ray=4)
 
@@ -250,16 +250,16 @@ def test_backbone_backward_within_its_rounding_scale_on_the_card(card, points, w
 
 @pytest.mark.cuda
 def test_backbone_kernels_refuse_float32_operands(card):
-    """The f32 kernels take widths 64, 128 and 256, narrower ones padded to
-    them, and raise above 256; operand dtypes with no kernel (float16)
-    raise."""
+    """The f32 kernels take widths 64, 128 and 256 (the wide ones 256 and
+    512), narrower ones padded to them, and raise above 512; operand dtypes
+    with no kernel (float16) raise."""
     cfg = F32_BACKBONE[256]
-    odd = NerfMLPConfig(layers_width=320, output_features=3, compute_dtype="float32", use_fused_backbone=True,
+    odd = NerfMLPConfig(layers_width=576, output_features=3, compute_dtype="float32", use_fused_backbone=True,
                         position_encoder=PositionalEncoderConfig(octaves=10))
     packed, encoded, g_h, g_alpha = backbone_inputs(card, 64, cfg=odd)
-    with pytest.raises(ValueError, match="f32 backbone kernels take widths"):
+    with pytest.raises(ValueError, match="backbone kernels take widths up to 512"):
         fused_nerf.fused_backbone_fwd(odd, packed, encoded)
-    with pytest.raises(ValueError, match="f32 backbone kernels take widths"):
+    with pytest.raises(ValueError, match="backbone kernels take widths up to 512"):
         fused_nerf.fused_backbone_bwd(odd, packed, encoded, g_h, g_alpha)
     half = NerfMLPConfig(output_features=3, compute_dtype="float16", use_fused_backbone=True)
     packed, encoded, g_h, g_alpha = backbone_inputs(card, 64, cfg=cfg)
@@ -387,6 +387,172 @@ def test_fused_backbone_autograd_launches_both_kernels(card):
     assert torch.equal(encoded.grad, d_encoded)
     for name, p in params.items():
         assert torch.equal(p.grad, grads[name].reshape(p.shape)), name
+
+
+# ---- the wide kernels: widths to 512, encodings to 128 columns, 16 layers ----
+
+# (width, layers, skip, pe, points): the envelope's corner at 3,001 points
+# (one tile a CTA) and at 70,001 (several tiles a CTA, two chunks of the
+# f32 backward), a width run padded to 512 with a 2-slot encoding, a
+# 256-wide MLP that is wide only by its encoding, the published width at 12
+# layers.
+WIDE_BACKBONES = [(512, 16, 8, 128, 3001), (512, 16, 8, 128, 70001), (320, 16, 8, 75, 3001),
+                  (256, 4, 2, 123, 3001), (256, 12, 6, 63, 3001)]
+
+
+def wide_backbone_inputs(card, width, layers, skip, pe, points, compute_dtype, seed=0):
+    """Seeded backbone weights (kernels N(0, 1 / fan_in), the modules'
+    initial scale), encodings in [-1, 1] of any width and cotangents."""
+    cfg = NerfMLPConfig(layers_width=width, backbone_layers_count=layers, skip_layer_idx=skip, output_features=3,
+                        compute_dtype=compute_dtype, use_fused_backbone=True)
+    g = torch.Generator().manual_seed(seed)
+    packed = {}
+    for i, w_in in enumerate(fused_nerf._backbone_sizes(cfg, pe)):
+        packed[f"w{i}"] = (torch.randn(w_in, width, generator=g) * w_in ** -0.5).to(card)
+        packed[f"b{i}"] = (torch.randn(width, generator=g) * 0.1).to(card)
+    packed["w_alpha"] = (torch.randn(width, 1, generator=g) * width ** -0.5).to(card)
+    packed["b_alpha"] = torch.tensor([0.1], device=card)
+    encoded = (torch.rand(points, pe, generator=g) * 2 - 1).to(card)
+    g_h = (torch.randn(points, width, generator=g) * 1e-3).to(card)
+    g_alpha = (torch.randn(points, generator=g) * 1e-3).to(card)
+    return cfg, packed, encoded, g_h, g_alpha
+
+
+def spread_bound(bound, ref, ref64, reduce):
+    """`bound`, or three times the plain version's own distance from its f64
+    sums (`reduce`: max or mean of |ref - ref64|) where that is larger: at
+    12-16 layers of 512 the bf16 roundings of two f32 summation orders part
+    further than the published shapes' bounds allow (chip_smoke.py's
+    SPREAD_FACTOR says why three)."""
+    return max(bound, 3.0 * reduce((ref.double() - ref64.double()).abs()).item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,layers,skip,pe,points", WIDE_BACKBONES)
+def test_wide_backbone_kernels_match_plain_on_the_card(card, width, layers, skip, pe, points):
+    """bf16 B2/B3 in the wide kernels (64-point tiles, columns split between
+    the warpgroups) against their plain versions at the 128-point kernels'
+    bounds (test_backbone_kernels_match_plain_on_the_card), or within three
+    times the plain version's own distance from its f64 sums where that is
+    larger (`spread_bound`), a ragged last tile included; B3
+    bit-identical across launches."""
+    cfg, packed, encoded, g_h, g_alpha = wide_backbone_inputs(card, width, layers, skip, pe, points, "bfloat16")
+    before = (fused_nerf.fused_backbone_fwd.launches, fused_nerf.fused_backbone_bwd.launches)
+    with torch.no_grad():
+        got = fused_nerf.fused_backbone_fwd(cfg, packed, encoded)
+        grads, d_encoded = fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+        again, d_encoded_again = fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+        torch.cuda.synchronize()
+        ref = fused_nerf.plain_backbone_fwd(cfg, packed, encoded)
+        ref_grads, ref_d_encoded = fused_nerf.plain_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+        f64 = ({k: v.double() for k, v in packed.items()}, encoded.double(), g_h.double(), g_alpha.double())
+        ref64 = fused_nerf.plain_backbone_fwd(cfg, *f64[:2])
+        ref64_grads, ref64_d_encoded = fused_nerf.plain_backbone_bwd(cfg, *f64)
+    assert (fused_nerf.fused_backbone_fwd.launches, fused_nerf.fused_backbone_bwd.launches) == (before[0] + 1, before[1] + 2)
+    assert torch.equal(d_encoded, d_encoded_again) and all(torch.equal(grads[k], again[k]) for k in grads)
+    for name, g_, r, r64 in zip(("h", "alpha"), got, ref, ref64):
+        diff = (g_ - r).abs()
+        mean = spread_bound(1e-4, r, r64, torch.mean)
+        assert bool((diff <= 3e-2 + 1e-2 * r.abs()).all()) and diff.mean().item() <= mean, (name, diff.mean().item(), mean)
+    for name, g_, r, r64, tol, mean_tol in [("d_encoded", d_encoded, ref_d_encoded, ref64_d_encoded, 0.5, 1e-3)] + [
+            (k, grads[k], ref_grads[k], ref64_grads[k], 5e-2, 1e-2) for k in ref_grads]:
+        scale = r.abs().max().item()
+        diff = (g_ - r).abs()
+        bounds = spread_bound(tol * scale, r, r64, torch.max), spread_bound(mean_tol * scale, r, r64, torch.mean)
+        assert diff.max().item() <= bounds[0] and diff.mean().item() <= bounds[1], (name, diff.max().item(), bounds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,layers,skip,pe,points", WIDE_BACKBONES)
+def test_wide_backbone_f32_kernels_match_plain_on_the_card(card, width, layers, skip, pe, points):
+    """B2-f32/B3-f32 in the wide kernels (two 256-column passes a layer at
+    W 512, the passes' outputs through the stash) at
+    test_backbone_f32_kernels_match_plain_on_the_card's bounds: B2 against
+    the plain f32 version and its ReLU pattern against the f64 forward's,
+    B3 against the f64 backward at that pattern; the card's pack kernel bit
+    for bit against plain_backbone_f32_buffers; B3 bit-identical across
+    launches."""
+    cfg, packed, encoded, g_h, g_alpha = wide_backbone_inputs(card, width, layers, skip, pe, points, "float32")
+    images = fused_nerf.backbone_f32_buffers(cfg, packed)
+    for name, a, b in zip(images._fields, images,
+                          fused_nerf.plain_backbone_f32_buffers(cfg, {k: v.cpu() for k, v in packed.items()})):
+        assert torch.equal(a.cpu(), b), name
+    before = (fused_nerf.backbone_f32_fwd.launches, fused_nerf.backbone_f32_bwd.launches)
+    with torch.no_grad():
+        got = fused_nerf.fused_backbone_fwd(cfg, packed, encoded)
+        grads, d_encoded = fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+        again, d_encoded_again = fused_nerf.fused_backbone_bwd(cfg, packed, encoded, g_h, g_alpha)
+        torch.cuda.synchronize()
+        launches = (fused_nerf.backbone_f32_fwd.launches, fused_nerf.backbone_f32_bwd.launches)
+        ref = fused_nerf.plain_backbone_fwd(cfg, packed, encoded)
+        masks, pattern = fused_nerf.relu_pattern_check(
+            cfg, packed, encoded, fused_nerf.backbone_layer_outputs(cfg, packed, encoded))
+        ref_grads, ref_d_encoded = fused_nerf.plain_backbone_bwd(
+            cfg, {k: v.double() for k, v in packed.items()}, encoded.double(), g_h.double(), g_alpha.double(), masks)
+    assert launches == (before[0] + 1, before[1] + 2)
+    flip_limit = max(F32_RELU_FLIPS_FLOOR, F32_RELU_FLIPS * points * width / 1e6)
+    for layer, r in enumerate(pattern):
+        assert r["flips"] <= flip_limit, (layer, r)
+        assert r["flip_ratio"] <= F32_RELU_BAND and r["error_ratio"] <= F32_RELU_BAND, (layer, r)
+    assert torch.equal(d_encoded, d_encoded_again) and all(torch.equal(grads[k], again[k]) for k in grads)
+    outputs = [("h", got[0], ref[0]), ("alpha", got[1], ref[1]), ("d_encoded", d_encoded, ref_d_encoded)]
+    for name, g_, r in outputs + [(k, grads[k], ref_grads[k]) for k in ref_grads]:
+        r = r.reshape(g_.shape).to(g_.dtype)
+        scale = r.abs().max().item()
+        diff = (g_ - r).abs()
+        assert diff.max().item() <= 1e-3 * scale and diff.mean().item() <= 1e-5 * scale, name
+
+
+# (width, layers, skip, octaves, outputs): the phase-21 NeRFs (512 x 12 with
+# 320 outputs; 320 x 16 run at 512), a skip into layer 0 with 512 outputs,
+# and a 256-wide one wide only by its encoding.
+WIDE_ADAIN = [(512, 12, 6, 20, 320), (320, 16, 8, 12, 320), (512, 4, 0, 20, 512), (256, 4, 2, 20, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,layers,skip,octaves,out", WIDE_ADAIN)
+def test_wide_adain_kernel_matches_plain_on_the_card(card, width, layers, skip, octaves, out):
+    """B1 in its wide kernel against the unpadded plain version at the
+    bounds chip_smoke.py's hold_b1_launch holds every path's B1 launch to
+    (phase 2's, in units of each output's mean magnitude where it exceeds
+    1), the mean over the launch's rows within three times the plain
+    version's own distance from its f64 sums where that is larger
+    (`spread_bound`; over one object of 111 points the mean reads whether
+    one bf16 rounding flipped), two objects in one grouped launch (313 tiles
+    and a ragged 2: several tiles a CTA)."""
+    cfg = NerfMLPConfig(layers_width=width, backbone_layers_count=layers, skip_layer_idx=skip, output_features=out,
+                        position_encoder=PositionalEncoderConfig(octaves=octaves))
+    g = torch.Generator().manual_seed(1)
+    items = []
+    for seed, (rays, samples) in enumerate([(5000, 4), (37, 3)]):
+        nerf = initialize_(AdaInNerfMLP(cfg, 8, device=card), torch.Generator().manual_seed(seed))
+        weights = nerf.kernel_weights()
+        assert weights.width == (256 if width <= 256 else 512) and weights.image is not None
+        encoded = positional_encoding(torch.rand(rays * samples, 3, generator=g) * 2 - 1, octaves, True).to(card)
+        style = torch.randn(rays, 8, generator=g).to(card)
+        with torch.no_grad():
+            mods = [*fused_nerf.fold_adain_stats(nerf.adain_0, style), *fused_nerf.fold_adain_stats(nerf.adain_1, style)]
+        items.append(fused_nerf.AdaInNerfItem(weights, encoded, *mods, samples))
+    with torch.no_grad():
+        before = fused_nerf.fused_adain_nerf.launches
+        got = fused_nerf.fused_adain_nerf_group(cfg, items)
+        torch.cuda.synchronize()
+        assert fused_nerf.fused_adain_nerf.launches == before + 1
+        rows = {"features": [], "alpha": []}  # (kernel, plain, f64) in units, object by object
+        for item, outs in zip(items, got):
+            ref = fused_nerf.plain_adain_nerf(cfg, item.weights.packed, *item[1:6], item.samples_per_ray)
+            ref64 = fused_nerf.plain_adain_nerf(cfg, {k: v.double() for k, v in item.weights.packed.items()},
+                                                *(t.double() for t in item[1:6]), item.samples_per_ray)
+            for name, g_, r, r64 in zip(rows, outs, ref, ref64):
+                assert g_.shape == r.shape
+                unit = max(1.0, r.abs().mean().item())
+                g_, r, r64 = g_ / unit, r / unit, r64 / unit
+                assert bool(((g_ - r).abs() <= 3e-2 + 1e-2 * r.abs()).all()), name
+                rows[name].append((g_.reshape(-1), r.reshape(-1), r64.reshape(-1)))
+    for name, parts in rows.items():
+        g_, r, r64 = (torch.cat(part) for part in zip(*parts))
+        mean = spread_bound(1e-4, r, r64, torch.mean)
+        assert (g_ - r).abs().mean().item() <= mean, (name, (g_ - r).abs().mean().item(), mean)
 
 
 def rollout_setup(card, batch, T, cfg, seed):

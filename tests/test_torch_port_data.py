@@ -252,6 +252,22 @@ def test_an_abandoned_iterator_leaves_no_thread(datasets):
     assert threading.active_count() == before
 
 
+@pytest.mark.parametrize("wait_s", [0.0, 0.2])
+def test_a_closed_iterator_has_joined_its_producer(datasets, wait_s):
+    """Closing the generator (a loop's `break`, `next` on a temporary)
+    joins the prefetching thread before it returns, whether the thread is
+    still collating (closed at once) or blocked on its full queue (closed
+    after `wait_s`): none is left for the interpreter's exit to stop."""
+    _, pds = dataset_pair(datasets["port"], observations_count=1)
+    before = threading.active_count()
+    batches = pds.iterate_batches(1, prefetch=1)
+    next(batches)
+    time.sleep(wait_s)
+    assert threading.active_count() == before + 1
+    batches.close()
+    assert threading.active_count() == before
+
+
 def test_native_codec_matches_jax_bit_for_bit(datasets, tmp_path):
     """The port's binding and the JAX package's over the same library:
     batch decode with and without a resize, and encode, byte for byte."""

@@ -297,3 +297,35 @@ def test_distributed_switches_and_backends(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mesh_lib.rank_device("cuda", "nccl", 0)
+
+
+def test_process_group_takes_down_only_the_group_it_brought_up(monkeypatch):
+    """`mesh.process_group`, around each training CLI's run: a group it
+    brought up (one gloo process, PE_MULTIHOST on) is destroyed when the run
+    ends, so that no backend thread outlives the run into the interpreter's
+    exit; a run that raises keeps it; a group that was up before is left
+    up."""
+    import torch.distributed as dist
+
+    from playableenvironments_tpu_torch.parallel import mesh as mesh_lib
+
+    assert not dist.is_initialized()
+    monkeypatch.delenv("PE_DIST_BACKEND", raising=False)
+    for name, value in (("PE_MULTIHOST", "1"), ("WORLD_SIZE", "1"), ("RANK", "0"), ("MASTER_ADDR", "127.0.0.1")):
+        monkeypatch.setenv(name, value)
+    try:
+        monkeypatch.setenv("MASTER_PORT", str(torch_port_ranks.free_port()))
+        with mesh_lib.process_group("cpu"):
+            assert dist.is_initialized() and dist.get_backend() == "gloo"
+        assert not dist.is_initialized()
+        monkeypatch.setenv("MASTER_PORT", str(torch_port_ranks.free_port()))
+        with pytest.raises(RuntimeError, match="the run failed"):
+            with mesh_lib.process_group("cpu"):
+                raise RuntimeError("the run failed")
+        assert dist.is_initialized()
+        with mesh_lib.process_group("cpu"):
+            mesh_lib.barrier()
+        assert dist.is_initialized()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
