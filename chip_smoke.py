@@ -11,7 +11,7 @@ detector, LPIPS, I3D and the metric-weight validation) from the command
 line, then data and ray parallelism across ranks and the serving
 artifacts, the narrow widths of configs/synthetic_smoke.yaml, the
 acquisition pipeline, drawing and the scene viewer, and last the wide
-envelope of the NeRF kernels.
+envelope of the NeRF and rollout kernels.
 
     python3 chip_smoke.py
 
@@ -232,7 +232,11 @@ Phases, each fatal on failure:
    means also within SPREAD_FACTOR times the plain version's own distance
    from its f64 sums), B3 and B3-f32 twice bit-identical, B1 with 320
    outputs and with 512 at skip 0 held on seeded weights, and each kernel
-   timed at its first launch.
+   timed at its first launch; the player's dynamics LSTM at 512 x 2:
+   train_playable (evaluating at step 2) runs B4/B5 and rollout_single in
+   the wide kernels, each first launch held the same way (B5 twice
+   bit-identical), then B4/B5 at kernel level at 768 x 1, 512 x 2, 256 x 8,
+   128 x 16 and 300 x 2 (run at 320), each held and timed.
 `python3 chip_smoke.py --phase 12` (or `--phase 13` to `--phase 21`; 17 runs
 16's CLIs first for their checkpoints, 18 both 16 and 17, 19 16) builds the
 kernels and runs that phase alone (no kernels line, no contract line).
@@ -5689,7 +5693,9 @@ class Phase20Recorder:
     its inputs copied: `b1` (cfg, items, outputs) of the grouped MLP; `b2`
     and `b3` by compute dtype, (cfg, packed, encoded) and (cfg, packed,
     encoded, g_h, g_alpha) at the backbone's own width; `b4` (cfg, params,
-    inputs, gt_count, collect_residuals) and `b5` (cfg, params, gt_count,
+    inputs, gt_count, collect_residuals), `b4_single` the same of the first
+    forward-only call at batch 1 from the ground-truth frame 0 (the
+    evaluators' rollout_single), and `b5` (cfg, params, gt_count,
     residuals, cotangents, actions_dim). It wraps what the counted wrappers
     call (the group function, padded_backbone_fwd/_bwd, the rollout's
     launchers), so that the launch counts stay the wrappers' own."""
@@ -5707,6 +5713,7 @@ class Phase20Recorder:
         from playableenvironments_tpu_torch.ops import fused_rollout as fr
 
         self.b1, self.b2, self.b3, self.b4, self.b5, self.b1s = None, {}, {}, None, None, {}
+        self.b4_single = None
         self._saved = [(fused_nerf, "fused_adain_nerf_group"), (fused_nerf, "padded_backbone_fwd"),
                        (fused_nerf, "padded_backbone_bwd"), (fr, "_rollout_fwd"), (fr, "_rollout_bwd")]
         self._saved = [(owner, name, getattr(owner, name)) for owner, name in self._saved]
@@ -5740,6 +5747,9 @@ class Phase20Recorder:
         def rollout_fwd_(cfg, params, inputs, gt_count, collect_residuals, ms=None):
             if recorder.b4 is None and on(inputs[0]):
                 recorder.b4 = (cfg, params_copy(params), [copy(x) for x in inputs], gt_count, collect_residuals)
+            if (recorder.b4_single is None and on(inputs[0]) and inputs[0].shape[0] == 1 and gt_count == 1
+                    and not collect_residuals):
+                recorder.b4_single = (cfg, params_copy(params), [copy(x) for x in inputs], gt_count, False)
             return rollout_fwd(cfg, params, inputs, gt_count, collect_residuals, ms)
 
         def rollout_bwd_(cfg, params, gt_count, residuals, cotangents, actions_dim, ms=None):
@@ -5954,10 +5964,10 @@ def print_kernel_times(out, label):
     return out
 
 
-def smoke_clis(repo, directory, base, label, prefix, device="cuda", by_width=False):
+def smoke_clis(repo, directory, base, label, prefix, device="cuda", by_width=False, phase3=PHASE20_PHASE3):
     """synthetic_smoke's data and `base` (a config dict) through train (at
-    f32 and bf16, the fused backbone on), train_playable and play, 2 steps
-    each, run files under `prefix`: the CLIs' wall times, peaks and launches
+    f32 and bf16, the fused backbone on), train_playable (its training
+    settings `phase3`) and play, 2 steps each, run files under `prefix`: the CLIs' wall times, peaks and launches
     (their timing files), every kernel launched on the path (on the card),
     the frames checked. :return: ({cli label: timing}, the Phase20Recorder
     of the kernels' first calls)."""
@@ -5992,7 +6002,7 @@ def smoke_clis(repo, directory, base, label, prefix, device="cuda", by_width=Fal
             if ckpt.checkpoint_step(paths[dtype]) != PHASE20_PHASE2["max_steps"]:
                 raise SmokeFailure(f"{label} train {dtype}: latest checkpoint {paths[dtype]}")
         p3_config = phase16_config(repo, directory, f"{prefix}_phase3", data_root, base=base,
-                                   playable_model_training=PHASE20_PHASE3)
+                                   playable_model_training=phase3)
         run("train_playable", "train_playable", os.path.join(directory, "results", f"{prefix}_phase3"), "--config",
             p3_config, "--environment_checkpoint", paths["float32"])
         p3_path = ckpt.latest_checkpoint(os.path.join(directory, "checkpoints", f"{prefix}_phase3", "playable"))
@@ -6332,6 +6342,12 @@ def phase20(repo):
 # B3-f32 run twice on their recorded inputs, bit-identical; B1 with 320 and
 # 512 outputs, the latter at skip 0, held at kernel level on seeded weights;
 # each kernel timed at its first launch of the path (the 512-wide NeRF's).
+# The player's dynamics LSTM at 512 x 2 (PHASE21_DYNAMICS): train_playable
+# runs B4 and B5 in their wide kernels, and its evaluation at step 2 the
+# evaluator's rollout_single (B4 forward-only, batch 1); each first launch
+# held against the plain versions by the spread-aware holds
+# (hold_rollout_fwd / _bwd), B5 twice bit-identical; then B4/B5 at kernel
+# level at PHASE21_ROLLOUTS, each timed.
 PHASE21_NERFS = (
     dict(layers_width=512, backbone_layers_count=12, skip_layer_idx=6,
          position_encoder={"octaves": 20, "append_original": True}),
@@ -6343,10 +6359,17 @@ PHASE21_NERFS = (
 # [encoding, encoding]) with 512.
 PHASE21_B1 = (dict(width=512, layers=12, skip=6, octaves=20, out=320, rays=2048, samples=4),
               dict(width=512, layers=4, skip=0, octaves=20, out=512, rays=2048, samples=4))
+PHASE21_DYNAMICS = dict(output_features=512, layers_count=2)
+PHASE21_PHASE3 = dict(PHASE20_PHASE3, eval_freq=2)
+# (features, layers) of B4/B5 at kernel level, on seeded phase-3 dynamics at
+# phase 8's shape (16 x 9, the tennis branch): the envelope's widest and
+# deepest corners, and 300, which runs zero-padded at 320.
+PHASE21_ROLLOUTS = ((768, 1), (512, 2), (256, 8), (128, 16), (300, 2))
 
 
 def phase21_base(repo):
-    """configs/synthetic_smoke.yaml with PHASE21_NERFS as its NeRFs."""
+    """configs/synthetic_smoke.yaml with PHASE21_NERFS as its NeRFs and
+    PHASE21_DYNAMICS as its player's dynamics LSTM."""
     import copy
 
     from playableenvironments_tpu_torch.cli.common import load_yaml
@@ -6354,7 +6377,144 @@ def phase21_base(repo):
     base = load_yaml(os.path.join(repo, "configs", "synthetic_smoke.yaml"))
     for block, nerf in zip(base["model"]["object_models"], PHASE21_NERFS):
         block["nerf_model"].update(copy.deepcopy(nerf))
+    base["playable_model"]["object_animation_models"][0]["dynamics_network"].update(PHASE21_DYNAMICS)
     return base
+
+
+def spread_hold(label, got, ref, ref64):
+    """`got` against `ref` relative to ref's largest magnitude: within
+    ROLLOUT_REL_ATOL element-wise and ROLLOUT_REL_MEAN in the mean, or
+    SPREAD_FACTOR times the plain version's own distance from its f64 sums
+    (|ref - ref64|, its largest and its mean) where that is larger: at 16
+    layers or 768 features the f32 plain version's own rounding, carried
+    through T-1 recurrent steps, can exceed phase 8's bounds. :return:
+    (max, mean) errors and their bounds, relative to the scale."""
+    scale = max(ref.abs().max().item(), 1e-30)
+    atol = max(ROLLOUT_REL_ATOL * scale, SPREAD_FACTOR * (ref.double() - ref64.double()).abs().max().item())
+    mean = spread_mean(ROLLOUT_REL_MEAN * scale, ref, ref64)
+    err, mean_err = check_close(label, got, ref, atol, 0.0, mean)
+    return {"max": err / scale, "mean": mean_err / scale, "max_bound": atol / scale, "mean_bound": mean / scale}
+
+
+def _f64(fr, params, tensors):
+    return (fr.params_from_list([p.double() for p in fr.param_list(params)], len(params.wx)),
+            [t.double() for t in tensors])
+
+
+def _worst(holds):
+    return {k: max(h[k] for h in holds) for k in ("max", "mean", "max_bound", "mean_bound")}
+
+
+def hold_rollout_fwd(label, record):
+    """A B4 call (cfg, params, inputs, gt_count, collect_residuals) against
+    plain_rollout_fwd, every output and residual by spread_hold against the
+    plain version in f64. :return: the worst of spread_hold's readings."""
+    import torch
+
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+
+    cfg, params, inputs, gt_count, collect = record
+    with torch.no_grad():
+        got, got_res = fr.fused_rollout_fwd(cfg, params, *inputs, gt_count, collect)
+        ref, ref_res = fr.plain_rollout_fwd(cfg, params, *inputs, gt_count, collect)
+        p64, i64 = _f64(fr, params, inputs)
+        ref64, ref64_res = fr.plain_rollout_fwd(cfg, p64, *i64, gt_count, collect)
+    holds = [spread_hold(f"{label} B4 {k}", g, r, r64)
+             for k, g, r, r64 in zip(("rot", "trans", "style", "deform"), got, ref, ref64)]
+    holds += [spread_hold(f"{label} B4 residual {k}", got_res[k], ref_res[k], ref64_res[k])
+              for k in (ref_res or {})]
+    return _worst(holds)
+
+
+def hold_rollout_bwd(label, record):
+    """A B5 call (cfg, params, gt_count, residuals, cotangents, actions_dim)
+    against plain_rollout_bwd on the same residuals, every gradient by
+    spread_hold against the plain version in f64; B5 launched twice,
+    bit-identical. :return: the worst of spread_hold's readings."""
+    import torch
+
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+
+    cfg, params, gt_count, residuals, cotangents, actions_dim = record
+    flat = lambda g: fr.param_list(g[0]) + list(g[1:])  # noqa: E731
+    with torch.no_grad():
+        runs = [flat(fr.fused_rollout_bwd(cfg, params, gt_count, residuals, cotangents, actions_dim))
+                for _ in range(2)]
+        ref = flat(fr.plain_rollout_bwd(cfg, params, gt_count, residuals, cotangents, actions_dim))
+        p64, c64 = _f64(fr, params, cotangents)
+        ref64 = flat(fr.plain_rollout_bwd(cfg, p64, gt_count, {k: v.double() for k, v in residuals.items()}, c64,
+                                          actions_dim))
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise SmokeFailure(f"{label} B5: two launches on the same inputs differ")
+    return _worst([spread_hold(f"{label} B5 gradient {k}", g, r, r64)
+                   for k, (g, r, r64) in enumerate(zip(runs[0], ref, ref64))])
+
+
+def rollout_anim(features, layers):
+    """phase3_animation_config with its dynamics LSTM at features x layers."""
+    anim = phase3_animation_config()
+    return dataclasses.replace(anim, dynamics=dataclasses.replace(anim.dynamics, output_features=features,
+                                                                  layers_count=layers))
+
+
+def phase21_kernel_rollout(device="cuda"):
+    """B4 and B5 at PHASE21_ROLLOUTS, all in their wide kernels, against
+    the plain versions (hold_rollout_fwd / _bwd: B4 with residuals, B5 on
+    them), uncounted; each timed (wrapper calls, CUDA events) beside its
+    plain version and the bound of its own, unpadded work, with the
+    cluster it runs on. :return: one row a shape."""
+    import torch
+
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+
+    box = ((-0.75, 0.75), (-0.5, 0.5), (0.0, 2.15))
+    cfg = fr.RolloutConfig(2, True, 0.0, tuple(hi - lo for lo, hi in box))
+    batch, T, gt = PHASE3_BATCH, PHASE3_OBSERVATIONS, PHASE3_GT
+    rows = []
+    for seed, (features, layers) in enumerate(PHASE21_ROLLOUTS):
+        anim = rollout_anim(features, layers)
+        packed, inputs, cots = rollout_case(anim, box, batch, T, 40 + seed, device)
+        S, D, A, V = anim.style_features, anim.deformation_features, anim.actions_count, anim.action_space_dimension
+        kernel = fr.kernel_features(features)
+        layout = fr.rollout_layout(kernel, layers, 9 + S + D + A + V, 9 + S + D)
+        if not (fr.rollout_is_wide(layout, True) and fr.rollout_is_wide(layout, False)):
+            raise SmokeFailure(f"21 B4/B5 {features} x {layers}: not the wide kernels' shape")
+        label = f"21 {features} x {layers}"
+        fwd = hold_rollout_fwd(label, (cfg, packed, inputs, gt, True))
+        with torch.no_grad():
+            res = fr.fused_rollout_fwd(cfg, packed, *inputs, gt, True)[1]
+        bwd = hold_rollout_bwd(label, (cfg, packed, gt, res, cots, A))
+        row = {"features": features, "kernel_features": kernel, "layers": layers, "batch": batch,
+               "observations": T, "fwd_hold": fwd, "bwd_hold": bwd}
+        if device == "cuda":
+            ff, fb, bf, bb = rollout_work(batch, T, packed, A, V, S, D, collect=True)
+            with torch.no_grad():
+                row.update(
+                    fwd_ms=cuda_ms(lambda: fr.fused_rollout_fwd(cfg, packed, *inputs, gt, True), reps=10),
+                    fwd_plain_ms=cuda_ms(lambda: fr.plain_rollout_fwd(cfg, packed, *inputs, gt, True), reps=10),
+                    bwd_ms=cuda_ms(lambda: fr.fused_rollout_bwd(cfg, packed, gt, res, cots, A), reps=10),
+                    bwd_plain_ms=cuda_ms(lambda: fr.plain_rollout_bwd(cfg, packed, gt, res, cots, A), reps=10))
+            (row["fwd_bound_ms"], row["fwd_bound_by"]), (row["bwd_bound_ms"], row["bwd_bound_by"]) = (
+                bound_ms(ff, fb), bound_ms(bf, bb))
+            kpacked = fr.padded_params(packed, kernel)
+            for kind, direction in (("fwd", True), ("bwd", False)):
+                n, smem, clusters = fr.max_active_clusters(kpacked, direction)
+                if clusters < 1:
+                    raise SmokeFailure(f"{label}: no {kind} cluster of {n} CTAs with {smem} B places on the card")
+                row.update({f"{kind}_cluster": n, f"{kind}_smem_bytes": smem, f"{kind}_max_active_clusters": clusters})
+        rows.append(row)
+        print(f"21 B4/B5 wide at kernel level, {features} x {layers}"
+              f"{f' (run at {kernel})' if kernel != features else ''}, {batch} x {T}: B4 within {fwd['max']:.3e} "
+              f"(mean {fwd['mean']:.3e}; bounds {fwd['max_bound']:.1e} / {fwd['mean_bound']:.1e}), B5 within "
+              f"{bwd['max']:.3e} (mean {bwd['mean']:.3e}; bounds {bwd['max_bound']:.1e} / {bwd['mean_bound']:.1e}), "
+              f"bit-identical, of each output's largest magnitude"
+              + (f"; B4 {row['fwd_ms']:.4f} ms (plain {row['fwd_plain_ms']:.4f}, bound {row['fwd_bound_ms']:.5f}, "
+                 f"{row['fwd_bound_by']}), B5 {row['bwd_ms']:.4f} ms (plain {row['bwd_plain_ms']:.4f}, bound "
+                 f"{row['bwd_bound_ms']:.5f}, {row['bwd_bound_by']}); clusters of {row['fwd_cluster']}, "
+                 f"{row['fwd_smem_bytes']} / {row['bwd_smem_bytes']} B shared memory (B4 / B5), "
+                 f"{row['fwd_max_active_clusters']} / {row['bwd_max_active_clusters']} place at once"
+                 if device == "cuda" else ""))
+    return rows
 
 
 def phase21_kernel_b1(device="cuda"):
@@ -6399,8 +6559,10 @@ def phase21_cli(repo, directory, device="cuda"):
     import torch
 
     from playableenvironments_tpu_torch.ops import fused_nerf
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
 
-    clis, recorder = smoke_clis(repo, directory, phase21_base(repo), "21", "wide", device, by_width=True)
+    clis, recorder = smoke_clis(repo, directory, phase21_base(repo), "21", "wide", device, by_width=True,
+                                phase3=PHASE21_PHASE3)
     widths = sorted(n["layers_width"] for n in PHASE21_NERFS)
     recorded = {"b1": sorted(recorder.b1s), **{f"{d}_{k}": sorted(w for dt, w in getattr(recorder, k) if dt == d)
                                                 for d in ("bfloat16", "float32") for k in ("b2", "b3")}}
@@ -6408,6 +6570,18 @@ def phase21_cli(repo, directory, device="cuda"):
         raise SmokeFailure(f"21: not every kernel ran at widths {widths}: {recorded}")
     if device == "cpu":  # a rehearsal: the wrappers took their plain versions, nothing to hold or time
         return {"clis": clis, "holds": {}, "wide": {}}
+    # B4 and B5 of train_playable and the evaluator's rollout_single, each
+    # at the dynamics' 512 x 2 in the wide kernels.
+    rollouts = {"b4": recorder.b4, "b4_single": recorder.b4_single, "b5": recorder.b5}
+    for key, record in rollouts.items():
+        if record is None:
+            raise SmokeFailure(f"21: no {key} call recorded on {device}")
+        params = record[1]
+        shape = (params.wb.shape[0], len(params.wx))
+        layout = fr.rollout_layout(shape[0], shape[1], params.wx[0].shape[0], params.whead.shape[1])
+        if shape != (PHASE21_DYNAMICS["output_features"], PHASE21_DYNAMICS["layers_count"]) or not (
+                fr.rollout_is_wide(layout, key != "b5")):
+            raise SmokeFailure(f"21 {key}: the dynamics ran at {shape}, not in the wide kernels at 512 x 2")
     holds = {"b1_max_abs_err": 0.0, "b3_bit_identical": True}
     with uncounted_launches():
         for width, record in sorted(recorder.b1s.items()):
@@ -6430,14 +6604,21 @@ def phase21_cli(repo, directory, device="cuda"):
                 if not same:
                     raise SmokeFailure(f"21 B3 {dtype} W {w}: two launches on the same inputs differ")
         holds["b1_kernel_level"] = phase21_kernel_b1(device)
+        holds["b4"] = hold_rollout_fwd("21 train_playable", recorder.b4)
+        holds["b4_single"] = hold_rollout_fwd("21 rollout_single", recorder.b4_single)
+        holds["b5"] = hold_rollout_bwd("21 train_playable", recorder.b5)
+        holds["rollout_kernel_level"] = phase21_kernel_rollout(device)
         first = SimpleRecorder(b1=recorder.b1s[512], b2={d: recorder.b2[(d, 512)] for d in ("bfloat16", "float32")},
                                b3={d: recorder.b3[(d, 512)] for d in ("bfloat16", "float32")}, b4=recorder.b4,
                                b5=recorder.b5)
-        wide = phase20_narrow_times(first, label="21", rollout=False)
+        wide = phase20_narrow_times(first, label="21")
     f32 = max(v[0] for v in holds["f32"].values()), max(v[1] for v in holds["f32"].values())
     print(f"21 synthetic_smoke at the wide envelope (NeRFs {' and '.join(f'{n['layers_width']} x {n['backbone_layers_count']}' for n in PHASE21_NERFS)}, "
-          f"run at 512): B1 within {holds['b1_max_abs_err']:.3e} of plain; B2-f32 {f32[0]:.3e} of its largest, "
-          f"B3-f32 {f32[1]:.3e} of its rounding scale; B3 and B3-f32 bit-identical across launches")
+          f"run at 512; dynamics {PHASE21_DYNAMICS['output_features']} x {PHASE21_DYNAMICS['layers_count']}): B1 "
+          f"within {holds['b1_max_abs_err']:.3e} of plain; B2-f32 {f32[0]:.3e} of its largest, B3-f32 {f32[1]:.3e} "
+          f"of its rounding scale; B3 and B3-f32 bit-identical across launches; B4 within {holds['b4']['max']:.3e} "
+          f"(train_playable) and {holds['b4_single']['max']:.3e} (rollout_single), B5 {holds['b5']['max']:.3e} of "
+          f"each output's largest, bit-identical")
     return {"clis": clis, "holds": holds, "wide": wide}
 
 
@@ -6954,6 +7135,14 @@ def main() -> int:
               "fused_backbone_bwd": max(r["max_abs_err"] for r in bf16_rows if r["direction"] == "B3"),
               "backbone_f32_fwd": max(v[0] for v in holds21["f32"].values()),
               "backbone_f32_bwd": max(v[1] for v in holds21["f32"].values())}
+    # B4/B5: the 512 x 2 dynamics' first launches on the path (B4's
+    # rollout_single too) and every kernel-level shape, each timed there.
+    levels = {"fused_rollout_fwd": "fwd", "fused_rollout_bwd": "bwd"}
+    kernel_level = holds21["rollout_kernel_level"]
+    hold21.update(
+        fused_rollout_fwd=max([holds21["b4"]["max"], holds21["b4_single"]["max"]]
+                              + [r["fwd_hold"]["max"] for r in kernel_level]),
+        fused_rollout_bwd=max([holds21["b5"]["max"]] + [r["bwd_hold"]["max"] for r in kernel_level]))
     for entry in kernels:
         name = entry["name"]
         launches = {f"wide_{label}": cli["launches"][name] for label, cli in phase21_results["clis"].items()
@@ -6961,7 +7150,15 @@ def main() -> int:
         entry["launches_by_path"].update(launches)
         if name in wide:
             entry["wide"] = {**wide[name], "launches": sum(launches.values()), "hold": hold21[name]}
-    for name in ("fused_adain_nerf", "fused_backbone_fwd", "backbone_f32_fwd"):
+        if name in levels:
+            kind = levels[name]
+            entry["wide"]["kernel_level"] = [
+                {**{k: r[k] for k in ("features", "kernel_features", "layers", "batch", "observations")},
+                 "ms": r[f"{kind}_ms"], "plain_ms": r[f"{kind}_plain_ms"], "bound_ms": r[f"{kind}_bound_ms"],
+                 "bound_by": r[f"{kind}_bound_by"], "library_ms": None, "hold": r[f"{kind}_hold"]["max"]}
+                for r in kernel_level]
+    for name in ("fused_adain_nerf", "fused_backbone_fwd", "backbone_f32_fwd", "fused_rollout_fwd",
+                 "fused_rollout_bwd"):
         by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], hold21[name])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6999,10 +7196,12 @@ def main() -> int:
           "launches, `main_path_launch` is the fine pass's largest launch of 14c; "
           "`narrow` is each kernel at its first launch on configs/synthetic_smoke.yaml's widths (phase 20a: B1 "
           "at W 32 run at 128, B2/B3 at W 32 run at 64, B4/B5 at F 16 run at 32), its bound that of the network's own "
-          "unpadded work; `wide` is each NeRF kernel at its first launch on phase 21's wide configuration (the "
-          "512-wide NeRF of 12 layers, encoding 123; launches: every wide launch of phase 21's CLIs; "
-          "hold: the largest error of its holds there, B1's at kernel level with 320 and 512 outputs (skip 0) "
-          "included, in the units of the kernel's max_abs_err); fused_rollout bounds use the f32 peak "
+          "unpadded work; `wide` is each kernel at its first launch on phase 21's wide configuration (the "
+          "512-wide NeRF of 12 layers, encoding 123; the dynamics LSTM 512 x 2; launches: every wide launch of "
+          "phase 21's CLIs; hold: the largest error of its holds there, B1's at kernel level with 320 and 512 "
+          "outputs (skip 0) and B4/B5's at kernel level included, in the units of the kernel's max_abs_err); "
+          "fused_rollout_fwd/bwd's `wide.kernel_level` is each at 16 x 9 at 768 x 1, 512 x 2, 256 x 8, 128 x 16 "
+          "and 300 x 2 (run at 320), wrapper calls, B4 with residuals; fused_rollout bounds use the f32 peak "
           f"({PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s), backbone_f32 the lower of that and the 3xTF32 one (three "
           f"TF32 operations at {PEAK_TF32_FLOPS / 1e12:.1f} TFLOP/s a multiply-add, both beside it), the others "
           f"the bf16 one ({PEAK_BF16_FLOPS / 1e12:.0f})")

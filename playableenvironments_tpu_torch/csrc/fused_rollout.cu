@@ -90,6 +90,28 @@
 //     order: no atomics, so the gradients are bit-identical run to run. The
 //     TPU kernel instead +=s ~4 MB of gradients into its outputs at every
 //     step of a sequential grid.
+//
+// Wide networks (rollout_fwd_wide_kernel, rollout_bwd_wide_recurrence_kernel;
+// the Python wrapper's rollout_is_wide): above 256 features or 4 layers, or
+// where the kernels above leave no room for two ring slots. Those keep
+// full-width copies in every CTA (the forward 2 L F x 16 floats of h
+// carries, the backward 4F x 16 of dz), which outgrow 227 KB. The wide
+// kernels keep the split, the ring, the products and the exchange barrier,
+// but exchange through a per-tile scratch in global memory (48 KB a layer
+// at F 768, held in L2): a CTA writes its own rows of a k-major [rows][16]
+// block, fences at cluster scope and arrives; after the wait, each CTA
+// copies the block it is about to read into one operand buffer in shared
+// memory, through L2 (ld.global.cg: no L1 line of an earlier step). What a
+// CTA keeps of its own across steps (c forward; the carries d_h and d_c
+// backward) lies in that scratch too, the forward reads its biases from
+// the bias image, and the backward reads the step's gates and cells from
+// the residuals as it needs them. The backward's dz product streams each
+// layer's image segment as four F-row gate blocks, one operand buffer
+// each. h alternates between two blocks by step parity, dz by layer
+// parity, so no guard exchange is needed: L + 2 exchanges a step in each
+// direction. Shared memory is then the ring, the partials and one operand
+// of at most F rows, whatever L: at F 768, 88 KB forward and 127 KB
+// backward beside the ring.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,16 +121,16 @@ namespace {
 constexpr int kTile = 16;           // batch rows per cluster
 constexpr int kConsumers = 256;     // compute threads per CTA
 constexpr int kThreads = kConsumers + 32;  // + one producer warp
-constexpr int kMaxLayers = 4;
+constexpr int kMaxLayers = 16;
 constexpr int kSlotFloats = 4096;   // one ring slot: 16 KB
 constexpr int kMaxStages = 8;
 constexpr int kPartFloats = kConsumers * kTile;  // k-group partials
 static_assert(kConsumers == 16 * kTile, "the prefetches give each tile row sixteen threads");
 constexpr int kBarBytes = (2 * kMaxStages + 1) * 8;
-constexpr int kMaxSegs = 2 * kMaxLayers + 2;
+constexpr int kMaxSegs = 4 * kMaxLayers + 2;  // the wide backward's: four gate blocks a layer
 constexpr int kGradTile = 32;  // weight-gradient output tile edge
 constexpr int kGradThreads = 256;
-constexpr int kMaxJobs = 5 * kMaxLayers + 4;
+constexpr int kMaxJobs = 5 * 4 + 4;  // weight-gradient jobs a launch (4 layers); deeper networks launch in turn
 
 struct Dims {
   int batch, T, F, L, S, D, A, V, in0, H, SW, gt_count, axis, force_rot, force_axis;
@@ -147,6 +169,17 @@ inline Segments backward_segments(const Dims& d) {
   s.add(d.H, d.U);
   s.add(d.F, d.U);
   for (int l = d.L - 1; l >= 0; --l) s.add(4 * d.F, d.U + (l > 0 ? d.U : d.XU));
+  return s;
+}
+
+// The wide backward streams the same image with each layer's (4F, W)
+// segment as four (F, W) gate blocks.
+inline Segments backward_segments_wide(const Dims& d) {
+  Segments s = {};
+  s.add(d.H, d.U);
+  s.add(d.F, d.U);
+  for (int l = d.L - 1; l >= 0; --l)
+    for (int gate = 0; gate < 4; ++gate) s.add(d.F, d.U + (l > 0 ? d.U : d.XU));
   return s;
 }
 
@@ -198,6 +231,81 @@ __host__ __device__ inline BwdSmem bwd_smem(const Dims& d) {
   m.pre = m.dc + d.L * d.U * kTile;            // [2][16][bwd_prefetch_width]
   m.out = m.pre + 2 * kTile * bwd_prefetch_width(d);  // [16][W]
   m.stage = m.out + kTile * (d.U + imax(d.U, d.XU));
+  m.bars = m.stage + kTile * imax(4 * d.U, d.XU);
+  m.bytes = 4 * m.bars + kBarBytes;
+  return m;
+}
+
+// The wide kernels' per-tile global scratch, in floats from the tile's
+// base, each block k-major [rows][16]. Forward: h [2 (step parity)][L][F],
+// c [L][F] (each CTA its own units), y [F], head [n HU]. Backward: d_y [F],
+// dz [2 (layer parity)][4F], d_x0 [n XU], the carries d_h and d_c [2][L][F]
+// (each CTA its own units). ops/fused_rollout.py::wide_scratch mirrors it.
+struct WideScratch {
+  int h, c, y, head, dy, dz, dx0, carry, per_tile;
+};
+
+__host__ __device__ inline WideScratch wide_scratch(const Dims& d, bool fwd) {
+  WideScratch s = {};
+  const int block = d.F * kTile;
+  if (fwd) {
+    s.c = s.h + 2 * d.L * block;
+    s.y = s.c + d.L * block;
+    s.head = s.y + block;
+    s.per_tile = s.head + d.n * d.HU * kTile;
+  } else {
+    s.dz = s.dy + block;
+    s.dx0 = s.dz + 8 * block;
+    s.carry = s.dx0 + d.n * d.XU * kTile;
+    s.per_tile = s.carry + 2 * d.L * block;
+  }
+  return s;
+}
+
+// Rows of the wide kernels' operand buffer: the widest block a product or
+// the step's small math reads from the scratch.
+__host__ __device__ inline int wide_operand_rows(const Dims& d, bool fwd) {
+  return imax(d.F, d.n * (fwd ? d.HU : d.XU));
+}
+
+// Width of one row of the wide backward's prefetched residuals: cur_rot
+// (3), head's first 9 columns, y (U) of this CTA's units and the
+// cotangents entering the step's outputs (SW).
+__host__ __device__ inline int wide_prefetch_width(const Dims& d) { return round4(12 + d.U + d.SW); }
+
+// Shared memory of the wide kernels, as FwdSmem / BwdSmem;
+// ops/fused_rollout.py::_wide_smem_bytes mirrors the totals.
+struct WideFwdSmem {
+  int part, a, x0, state, in, stage, bars, bytes;
+};
+
+__host__ __device__ inline WideFwdSmem wide_fwd_smem(const Dims& d) {
+  WideFwdSmem m;
+  m.part = d.stages * kSlotFloats;                          // k-group partials
+  m.a = m.part + kPartFloats;                               // [operand rows][16]
+  m.x0 = m.a + wide_operand_rows(d, true) * kTile;          // [in0][16]
+  m.state = m.x0 + d.in0 * kTile;                           // [16][SW]
+  m.in = m.state + round4(kTile * d.SW);                    // [16][SW + A + V]: the next step's inputs
+  m.stage = m.in + round4(kTile * (d.SW + d.A + d.V));      // [U or HU][16]
+  m.bars = m.stage + kTile * imax(d.U, d.HU);
+  m.bytes = 4 * m.bars + kBarBytes;
+  return m;
+}
+
+struct WideBwdSmem {
+  int part, a, dhead, dstate, dcur, pre, out, stage, bars, bytes;
+};
+
+__host__ __device__ inline WideBwdSmem wide_bwd_smem(const Dims& d) {
+  WideBwdSmem m;
+  m.part = d.stages * kSlotFloats;                          // k-group partials
+  m.a = m.part + kPartFloats;                               // [operand rows][16]
+  m.dhead = m.a + wide_operand_rows(d, false) * kTile;      // [H][16]
+  m.dstate = m.dhead + d.H * kTile;                         // [16][SW]
+  m.dcur = m.dstate + round4(kTile * d.SW);                 // [16][6]
+  m.pre = m.dcur + kTile * 6;                               // [2][16][wide_prefetch_width]
+  m.out = m.pre + 2 * kTile * wide_prefetch_width(d);       // [16][W]
+  m.stage = m.out + kTile * (d.U + imax(d.U, d.XU));        // [4U or XU][16]
   m.bars = m.stage + kTile * imax(4 * d.U, d.XU);
   m.bytes = 4 * m.bars + kBarBytes;
   return m;
@@ -1103,6 +1211,504 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster_sync_all();
 }
 
+// ---- the wide kernels ---------------------------------------------------------
+
+// Copies `floats` (a multiple of 4) of this CTA's shared memory into the
+// scratch, then fences at cluster scope: the next exchange releases the
+// writes to every CTA of the cluster.
+__device__ __forceinline__ void publish(const float* src, float* dst, int floats) {
+  for (int i = threadIdx.x; i < floats / 4; i += kConsumers)
+    reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(src)[i];
+  asm volatile("fence.acq_rel.cluster;" ::: "memory");
+}
+
+// Copies `floats` (a multiple of 4) of the scratch, published before the
+// last exchange, into shared memory, through L2.
+__device__ __forceinline__ void gather(float* dst, const float* src, int floats) {
+  for (int i = threadIdx.x; i < floats / 4; i += kConsumers)
+    reinterpret_cast<float4*>(dst)[i] = __ldcg(reinterpret_cast<const float4*>(src) + i);
+}
+
+// The state (the ground truth while the step takes it) and the step's
+// input block x0 (k-major), as rollout_fwd_kernel forms them.
+__device__ __forceinline__ void step_input(float* state, float* x0, const float* in, int t, const Dims& d) {
+  const int SW = d.SW, in_w = SW + d.A + d.V;
+  const bool take_gt = t == 0 || t < d.gt_count;
+  const float* src = take_gt ? in : state;
+  const int src_w = take_gt ? in_w : SW;
+  if (take_gt)
+    for (int idx = threadIdx.x; idx < kTile * SW; idx += kConsumers) state[idx] = in[(idx / SW) * in_w + idx % SW];
+  for (int idx = threadIdx.x; idx < kTile * d.in0; idx += kConsumers) {
+    const int col = idx / kTile, r = idx % kTile;
+    const float* s = src + r * src_w;
+    float v;
+    if (col < 6)
+      v = (col & 1) ? cosf(s[col >> 1]) : sinf(s[col >> 1]);
+    else if (col < 9)
+      v = s[col - 3] * d.inv_box[col - 6];
+    else if (col < 9 + d.S + d.D)
+      v = s[col - 3];
+    else
+      v = in[r * in_w + SW + col - 9 - d.S - d.D];
+    x0[idx] = v;
+  }
+}
+
+// The next state, in every CTA, from the head block ([n HU][16]) and the
+// step's input block, as rollout_fwd_kernel forms it.
+__device__ __forceinline__ void next_state(float* state, const float* head, const float* x0, const Dims& d) {
+  const int SW = d.SW;
+  if (threadIdx.x < kTile) {
+    const int r = threadIdx.x, ax = d.axis;
+    float* s = state + r * SW;
+    float delta[3], world[3];
+    for (int k = 0; k < 3; ++k) delta[k] = head[(6 + k) * kTile + r];
+    rotate(ax, x0[(2 * ax + 1) * kTile + r], x0[2 * ax * kTile + r], delta, world);
+    if (!d.force_rot) s[ax] = s[ax] + atan2_ref(head[2 * ax * kTile + r], head[(2 * ax + 1) * kTile + r]);
+    for (int k = 0; k < 3; ++k) s[3 + k] = s[3 + k] + world[k];
+    if (d.force_axis) s[3 + ax] = d.axis_value;
+  }
+  for (int idx = threadIdx.x; idx < kTile * (d.S + d.D); idx += kConsumers) {
+    const int r = idx / (d.S + d.D), j = idx % (d.S + d.D);
+    state[r * SW + 6 + j] = head[(9 + j) * kTile + r];
+  }
+}
+
+// The forward for wide networks: rollout_fwd_kernel's steps, products and
+// exchanges, with h, y and the head exchanged through the scratch (above).
+__global__ void __launch_bounds__(kThreads, 1)
+    rollout_fwd_wide_kernel(const float* __restrict__ image, const float* __restrict__ bias_image,
+                            float* __restrict__ scratch, const __grid_constant__ Params w,
+                            const __grid_constant__ Residuals res, const __grid_constant__ Dims d,
+                            const __grid_constant__ Segments seg, int collect,
+                            const __grid_constant__ State4<const float*> gt, const float* __restrict__ actions,
+                            const float* __restrict__ variations, const __grid_constant__ State4<float*> outs) {
+  extern __shared__ __align__(128) float smem[];
+  const int F = d.F, L = d.L, SW = d.SW, in0 = d.in0, H = d.H, B = d.batch, n = d.n, U = d.U, HU = d.HU;
+  const int q = (int)cluster_rank();
+  const int tile = blockIdx.x / n, b0 = tile * kTile;
+  const int rows = min(kTile, B - b0);
+  const WideFwdSmem m = wide_fwd_smem(d);
+  const WideScratch x = wide_scratch(d, true);
+  float* part = smem + m.part;
+  float* a = smem + m.a;
+  float* x0 = smem + m.x0;
+  float* state = smem + m.state;
+  float* in = smem + m.in;
+  float* stage = smem + m.stage;
+  float* xs = scratch + (size_t)tile * x.per_tile;
+  float* xh = xs + x.h;
+  float* xc = xs + x.c;
+  const int nbias = L * 4 * U + U + HU;
+  const float* bias = bias_image + (size_t)q * nbias;
+  Ring ring = make_ring(smem, m.bars, d.stages);
+
+  for (int idx = threadIdx.x; idx < L * U * kTile; idx += kThreads) {  // c_init on this CTA's units
+    const int l = idx / (U * kTile), i = idx % (U * kTile);
+    xc[(size_t)(l * F + q * U) * kTile + i] = at(w, 5 * l + 4, 0, q * U + i / kTile);
+  }
+  init_barriers(ring, n);
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      produce(ring, image + (size_t)q * seg.per_cta, seg, d.T - 1);
+    }
+    __syncwarp();
+    cluster_sync_all();
+    return;
+  }
+
+  const uint32_t xbar = exchange_bar(ring);
+  int phase = 0;
+  prefetch_inputs(in, gt, actions, variations, b0, rows, 0, d);
+  const Tile gates_tile = tile_of(4 * U);
+  float acc[16];
+  for (int t = 0; t < d.T - 1; ++t) {
+    cp_async_wait();
+    consumer_sync();
+    step_input(state, x0, in, t, d);
+    consumer_sync();
+    if (t == 0) store_state(state, outs, b0, rows, 0, q, d);
+    if (t + 1 < d.T - 1) prefetch_inputs(in, gt, actions, variations, b0, rows, t + 1, d);
+    if (collect) {
+      // This CTA's rows of the current state and of the input block.
+      const State4<float*> cur4 = {res.cur[0], res.cur[1], res.cur[2], res.cur[3]};
+      for (int idx = threadIdx.x; idx < my_rows(q, n, rows) * (SW + in0); idx += kConsumers) {
+        const int r = q + (idx / (SW + in0)) * n, col = idx % (SW + in0);
+        const size_t row = (size_t)t * B + b0 + r;
+        if (col < SW)
+          *state_elem(cur4, col, d, row) = state[r * SW + col];
+        else
+          res.x0[row * in0 + col - SW] = x0[(col - SW) * kTile + r];
+      }
+    }
+
+    // Layer l's gates: h_prev wh (h_init at step 0, else the previous
+    // step's h; formed while the cluster exchanges layer l-1's new h), then
+    // x_in wx.
+    const int cur = t & 1, nxt = cur ^ 1;
+    for (int l = 0; l < L; ++l) {
+      if (t == 0)
+        for (int idx = threadIdx.x; idx < F * kTile; idx += kConsumers) a[idx] = at(w, 5 * l + 3, 0, idx / kTile);
+      else
+        gather(a, xh + (size_t)(cur * L + l) * F * kTile, F * kTile);
+      consumer_sync();
+      zero16(acc);
+      stream_product(ring, a, F, 4 * U, gates_tile, acc);
+      if (l == 0) {
+        stream_product(ring, x0, in0, 4 * U, gates_tile, acc);
+      } else {
+        exchange_wait(xbar, phase);
+        consumer_sync();  // every consumer is done reading h_prev
+        gather(a, xh + (size_t)(nxt * L + l - 1) * F * kTile, F * kTile);
+        consumer_sync();
+        stream_product(ring, a, F, 4 * U, gates_tile, acc);
+      }
+      // The cell on this CTA's units, from the gate columns u * 4 + gate.
+      reduce_tile<4>(acc, gates_tile, 4 * U, part, [&](int r, int c, const float* z) {
+        const int u = c / 4, j = q * U + u;
+        const float* b = bias + l * 4 * U + c;
+        const float i = sigmoidf(z[0] + b[0]);
+        const float f = sigmoidf(z[1] + b[1]);
+        const float g = tanhf(z[2] + b[2]);
+        const float o = sigmoidf(z[3] + b[3]);
+        float* cell = xc + (size_t)(l * F + j) * kTile + r;
+        const float c_new = f * *cell + i * g;
+        const float h_new = o * tanhf(c_new);
+        *cell = c_new;
+        stage[u * kTile + r] = h_new;
+        if (collect && r < rows) {
+          const size_t row = (size_t)t * B + b0 + r;
+          float* gates = res.gates[l] + row * 4 * F;
+          gates[j] = i;
+          gates[F + j] = f;
+          gates[2 * F + j] = g;
+          gates[3 * F + j] = o;
+          res.c[l][row * F + j] = c_new;
+          res.h[l][row * F + j] = h_new;
+        }
+      });
+      consumer_sync();
+      publish(stage, xh + ((size_t)(nxt * L + l) * F + q * U) * kTile, U * kTile);
+      exchange_arrive(xbar, n);
+    }
+    exchange_wait(xbar, phase);
+
+    // Backbone, this CTA's columns of y.
+    {
+      gather(a, xh + (size_t)(nxt * L + L - 1) * F * kTile, F * kTile);
+      consumer_sync();
+      const Tile tl = tile_of(U);
+      zero16(acc);
+      stream_product(ring, a, F, U, tl, acc);
+      reduce_tile<1>(acc, tl, U, part, [&](int r, int u, const float* v) {
+        const float y_ru = fmaxf(v[0] + bias[L * 4 * U + u], 0.0f);
+        stage[u * kTile + r] = y_ru;
+        if (collect && r < rows) res.y[((size_t)t * B + b0 + r) * F + q * U + u] = y_ru;
+      });
+      consumer_sync();
+      publish(stage, xs + x.y + q * U * kTile, U * kTile);
+      exchange(xbar, phase, n);
+    }
+    // Head, this CTA's HU columns (those past H are zero weights).
+    {
+      gather(a, xs + x.y, F * kTile);
+      consumer_sync();
+      const Tile tl = tile_of(HU);
+      zero16(acc);
+      stream_product(ring, a, F, HU, tl, acc);
+      reduce_tile<1>(acc, tl, HU, part, [&](int r, int c, const float* v) {
+        const int col = q * HU + c;
+        const float value = v[0] + bias[L * 4 * U + U + c];
+        stage[c * kTile + r] = value;
+        if (collect && r < rows && col < H) res.head[((size_t)t * B + b0 + r) * H + col] = value;
+      });
+      consumer_sync();
+      publish(stage, xs + x.head + q * HU * kTile, HU * kTile);
+      exchange(xbar, phase, n);
+      gather(a, xs + x.head, n * HU * kTile);
+      consumer_sync();
+    }
+    next_state(state, a, x0, d);
+    consumer_sync();
+    store_state(state, outs, b0, rows, t + 1, q, d);
+  }
+  cluster_sync_all();
+}
+
+// Issues the copies of what the wide backward's step t prefetches into
+// `pre` ([16][wide_prefetch_width]): cur_rot, head[0:9], y on this CTA's
+// units, the cotangents at t + 1; rows past the batch are zeros. Sixteen
+// threads share a row.
+__device__ __forceinline__ void prefetch_wide_residuals(float* pre, const Residuals& res,
+                                                        const State4<const float*>& cot, int b0, int rows, int t,
+                                                        int q, const Dims& d) {
+  const int U = d.U, r = threadIdx.x / 16, j16 = threadIdx.x % 16;
+  const size_t row = (size_t)t * d.batch + b0 + r;
+  float* dst_row = pre + r * wide_prefetch_width(d);
+  for (int p = j16; p < U / 4; p += 16) {
+    float* dst = dst_row + 12 + 4 * p;
+    if (r >= rows)
+      *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    else
+      cp_async16(dst, res.y + row * d.F + q * U + 4 * p);
+  }
+  for (int i = j16; i < 12 + d.SW; i += 16) {
+    float* dst = dst_row + (i < 12 ? i : 12 + U + i - 12);
+    if (r >= rows)
+      *dst = 0.0f;
+    else if (i < 3)
+      cp_async4(dst, res.cur[0] + row * 3 + i);
+    else if (i < 12)
+      cp_async4(dst, res.head + row * d.H + i - 3);
+    else
+      cp_async4(dst, state_elem(cot, i - 12, d, (size_t)(b0 + r) * d.T + t + 1));
+  }
+  cp_async_commit();
+}
+
+// The backward recurrence for wide networks: rollout_bwd_recurrence_kernel's
+// chain, with d_y, dz and d_x0 exchanged through the scratch and the
+// carries kept there (above).
+__global__ void __launch_bounds__(kThreads, 1)
+    rollout_bwd_wide_recurrence_kernel(const float* __restrict__ image, float* __restrict__ scratch,
+                                       const __grid_constant__ Params w, const __grid_constant__ Residuals res,
+                                       const __grid_constant__ Dims d, const __grid_constant__ Segments seg,
+                                       const __grid_constant__ State4<const float*> cot,
+                                       const __grid_constant__ State4<float*> g_state, float* __restrict__ g_actions,
+                                       float* __restrict__ g_variations, float* __restrict__ dz_out,
+                                       float* __restrict__ dy_out, float* __restrict__ dhead_out,
+                                       float* __restrict__ d_final) {
+  extern __shared__ __align__(128) float smem[];
+  const int F = d.F, L = d.L, SW = d.SW, H = d.H, B = d.batch, T = d.T, n = d.n, U = d.U, XU = d.XU;
+  const int q = (int)cluster_rank();
+  const int tile = blockIdx.x / n, b0 = tile * kTile;
+  const int rows = min(kTile, B - b0);
+  const WideBwdSmem m = wide_bwd_smem(d);
+  const WideScratch x = wide_scratch(d, false);
+  const int PW = wide_prefetch_width(d);
+  float* part = smem + m.part;
+  float* a = smem + m.a;
+  float* dhead = smem + m.dhead;
+  float* dstate = smem + m.dstate;
+  float* dcur = smem + m.dcur;
+  float* out = smem + m.out;
+  float* stage = smem + m.stage;
+  float* xs = scratch + (size_t)tile * x.per_tile;
+  float* dh = xs + x.carry;                 // [L][F][16], this CTA's units
+  float* dc = dh + (size_t)L * F * kTile;   // the same
+  Ring ring = make_ring(smem, m.bars, d.stages);
+
+  for (int idx = threadIdx.x; idx < 2 * L * U * kTile; idx += kThreads)  // d_h and d_c
+    dh[(size_t)((idx / (U * kTile)) * F + q * U) * kTile + idx % (U * kTile)] = 0.0f;
+  for (int idx = threadIdx.x; idx < kTile * SW; idx += kThreads) dstate[idx] = 0.0f;
+  init_barriers(ring, n);
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      produce(ring, image + (size_t)q * seg.per_cta, seg, T - 1);
+    }
+    __syncwarp();
+    cluster_sync_all();
+    return;
+  }
+
+  const uint32_t xbar = exchange_bar(ring);
+  int phase = 0;
+  float acc[16];
+  prefetch_wide_residuals(smem + m.pre + ((T - 2) & 1) * kTile * PW, res, cot, b0, rows, T - 2, q, d);
+  for (int t = T - 2; t >= 0; --t) {
+    const float* pre = smem + m.pre + (t & 1) * kTile * PW;  // this step's prefetch, row r at r PW
+    cp_async_wait();
+    consumer_sync();
+    if (t > 0) prefetch_wide_residuals(smem + m.pre + ((t - 1) & 1) * kTile * PW, res, cot, b0, rows, t - 1, q, d);
+    // The gradient entering the step's outputs: the chain plus the loss's.
+    for (int idx = threadIdx.x; idx < kTile * SW; idx += kConsumers)
+      dstate[idx] = dstate[idx] + pre[(idx / SW) * PW + 12 + U + idx % SW];
+    consumer_sync();
+
+    // d_head (k-major), in every CTA.
+    const size_t row0 = (size_t)t * B + b0;
+    if (threadIdx.x < kTile) {
+      const int r = threadIdx.x, ax = d.axis;
+      const float* ds = dstate + r * SW;
+      const float* pr = pre + r * PW;  // cur_rot 0..2, head 3..11
+      float* dcr = dcur + r * 6;
+      float d_sum[3], delta[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        d_sum[k] = (d.force_axis && k == ax) ? 0.0f : ds[3 + k];
+        delta[k] = pr[3 + 6 + k];
+      }
+#pragma unroll
+      for (int k = 0; k < 6; ++k) dhead[k * kTile + r] = 0.0f;
+      if (!d.force_rot) {
+        const float s_a = pr[3 + 2 * ax], c_a = pr[3 + 2 * ax + 1];
+        const float denom = s_a * s_a + c_a * c_a + 1e-20f;
+        dhead[2 * ax * kTile + r] = ds[ax] * c_a / denom;
+        dhead[(2 * ax + 1) * kTile + r] = -ds[ax] * s_a / denom;
+      }
+      const float ct = cosf(pr[ax]), st = sinf(pr[ax]);
+      float d_delta[3];
+      rotate(ax, ct, -st, d_sum, d_delta);  // R^T = R(-theta)
+      const float d_theta = rotate_dtheta(ax, ct, st, delta, d_sum);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        dcr[k] = k == ax ? ds[k] + d_theta : ds[k] + 0.0f;
+        dcr[3 + k] = d_sum[k];
+        dhead[(6 + k) * kTile + r] = d_delta[k];
+      }
+    }
+    for (int idx = threadIdx.x; idx < kTile * (d.S + d.D); idx += kConsumers) {
+      const int r = idx / (d.S + d.D), j = idx % (d.S + d.D);
+      dhead[(9 + j) * kTile + r] = dstate[r * SW + 6 + j];
+    }
+    consumer_sync();
+    store_rows(dhead_out, dhead, H, t, b0, rows, q, d);
+
+    // d_y on this CTA's backbone columns: d_head whead^T masked by y > 0.
+    {
+      const Tile tl = tile_of(U);
+      zero16(acc);
+      stream_product(ring, dhead, H, U, tl, acc);
+      reduce_tile<1>(acc, tl, U, part, [&](int r, int u, const float* v) {
+        const float dy_ru = v[0] * (pre[r * PW + 12 + u] > 0.0f ? 1.0f : 0.0f);
+        stage[u * kTile + r] = dy_ru;
+        if (r < rows) dy_out[(row0 + r) * F + q * U + u] = dy_ru;
+      });
+      consumer_sync();
+      publish(stage, xs + x.dy + q * U * kTile, U * kTile);
+      exchange(xbar, phase, n);
+    }
+    // d_h of the top layer on this CTA's units: d_y wb^T.
+    {
+      gather(a, xs + x.dy, F * kTile);
+      consumer_sync();
+      const Tile tl = tile_of(U);
+      zero16(acc);
+      stream_product(ring, a, F, U, tl, acc);
+      reduce_tile<1>(acc, tl, U, part, [&](int r, int u, const float* v) { out[r * U + u] = v[0]; });
+    }
+    const float* dx_in = out;  // [16][dx_ld]: the gradient reaching this layer's h
+    int dx_ld = U;
+
+    // LSTM layers, top down.
+    for (int l = L - 1; l >= 0; --l) {
+      consumer_sync();
+      for (int idx = threadIdx.x; idx < U * kTile; idx += kConsumers) {
+        const int r = idx / U, u = idx % U, j = q * U + u;
+        float i = 0.0f, f = 0.0f, g = 0.0f, o = 0.0f, c_new = 0.0f, c_prev = 0.0f;  // rows past the batch
+        if (r < rows) {
+          const size_t row = row0 + r;
+          const float* gl = res.gates[l] + row * 4 * F + j;
+          i = gl[0];
+          f = gl[F];
+          g = gl[2 * F];
+          o = gl[3 * F];
+          c_new = res.c[l][row * F + j];
+          c_prev = t > 0 ? res.c[l][(row - B) * F + j] : at(w, 5 * l + 4, 0, j);
+        }
+        const float tanh_c = tanhf(c_new);
+        float* dh_l = dh + (size_t)(l * F + j) * kTile + r;
+        float* dc_l = dc + (size_t)(l * F + j) * kTile + r;
+        const float d_h = dx_in[r * dx_ld + u] + *dh_l;
+        const float d_o = d_h * tanh_c;
+        const float d_c = *dc_l + d_h * o * (1.0f - tanh_c * tanh_c);
+        const float d_f = d_c * c_prev;
+        const float d_i = d_c * g;
+        const float d_g = d_c * i;
+        *dc_l = d_c * f;
+        const float dz[4] = {d_i * i * (1.0f - i), d_f * f * (1.0f - f), d_g * (1.0f - g * g), d_o * o * (1.0f - o)};
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) {
+          stage[(gate * U + u) * kTile + r] = dz[gate];
+          if (r < rows) dz_out[((size_t)l * (T - 1) * B + row0 + r) * 4 * F + gate * F + j] = dz[gate];
+        }
+      }
+      consumer_sync();
+      float* xdz = xs + x.dz + (size_t)(l & 1) * 4 * F * kTile;
+      for (int gate = 0; gate < 4; ++gate)
+        publish(stage + gate * U * kTile, xdz + (size_t)(gate * F + q * U) * kTile, U * kTile);
+      exchange(xbar, phase, n);
+
+      // One product over dz, a gate block at a time: [d_h_prev of this
+      // CTA's units | d_x of its units, or of its XU input columns on
+      // layer 0].
+      const int W = U + (l > 0 ? U : XU);
+      const Tile tl = tile_of(W);
+      zero16(acc);
+      for (int gate = 0; gate < 4; ++gate) {
+        if (gate > 0) consumer_sync();  // every consumer is done reading the last block
+        gather(a, xdz + (size_t)gate * F * kTile, F * kTile);
+        consumer_sync();
+        stream_product(ring, a, F, W, tl, acc);
+      }
+      reduce_tile<1>(acc, tl, W, part, [&](int r, int c, const float* v) {
+        if (c < U)
+          dh[(size_t)(l * F + q * U + c) * kTile + r] = v[0];
+        else if (l > 0)
+          out[r * W + c] = v[0];
+        else
+          stage[(c - U) * kTile + r] = v[0];
+      });
+      dx_in = out + U;
+      dx_ld = W;
+    }
+    consumer_sync();
+    publish(stage, xs + x.dx0 + q * XU * kTile, XU * kTile);
+    exchange(xbar, phase, n);
+    gather(a, xs + x.dx0, n * XU * kTile);
+    consumer_sync();
+    const float* dx0_all = a;
+
+    // The input assembly: sin/cos and box scaling back to the state.
+    if (threadIdx.x < kTile) {
+      const int r = threadIdx.x;
+      float* dcr = dcur + r * 6;
+      for (int k = 0; k < 3; ++k) {
+        const float angle = pre[r * PW + k];
+        dcr[k] = dcr[k] + (dx0_all[2 * k * kTile + r] * cosf(angle) - dx0_all[(2 * k + 1) * kTile + r] * sinf(angle));
+        dcr[3 + k] = dcr[3 + k] + dx0_all[(6 + k) * kTile + r] * d.inv_box[k];
+      }
+    }
+    const int av = d.A + d.V;
+    for (int idx = threadIdx.x; idx < my_rows(q, n, rows) * av; idx += kConsumers) {
+      const int r = q + (idx / av) * n, j = idx % av;
+      const float v = dx0_all[(9 + d.S + d.D + j) * kTile + r];
+      const size_t bt = (size_t)(b0 + r) * (T - 1) + t;
+      if (j < d.A)
+        g_actions[bt * d.A + j] = v;
+      else
+        g_variations[bt * d.V + j - d.A] = v;
+    }
+    consumer_sync();
+
+    // The teacher-forcing pick, as rollout_bwd_recurrence_kernel's.
+    const float use_gt = t < d.gt_count ? 1.0f : 0.0f;
+    for (int idx = threadIdx.x; idx < kTile * SW; idx += kConsumers) {
+      const int r = idx / SW, col = idx % SW;
+      const float v = col < 6 ? dcur[r * 6 + col] : dx0_all[(3 + col) * kTile + r];
+      if (r < rows && r % n == q) {
+        const size_t bt = (size_t)(b0 + r) * T + t;
+        *state_elem(g_state, col, d, bt) = t == 0 ? v + *state_elem(cot, col, d, bt) : use_gt * v;
+      }
+      dstate[idx] = (1.0f - use_gt) * v;
+    }
+  }
+
+  for (int idx = threadIdx.x; idx < my_rows(q, n, rows) * SW; idx += kConsumers) {
+    const int r = q + (idx / SW) * n;
+    *state_elem(g_state, idx % SW, d, (size_t)(b0 + r) * T + T - 1) = 0.0f;
+  }
+  consumer_sync();
+  for (int idx = threadIdx.x; idx < 2 * L * U * kTile; idx += kConsumers) {
+    const int part_l = idx / (U * kTile), u = (idx / kTile) % U, r = idx % kTile;  // part_l = part * L + l
+    if (r < rows)
+      d_final[((size_t)part_l * B + b0 + r) * F + q * U + u] = dh[(size_t)(part_l * F + q * U + u) * kTile + r];
+  }
+  cluster_sync_all();
+}
+
 // out (M, N) = A^T B summed over K rows: A (K, M) row-major with leading
 // dimension lda, its first `shift` rows replaced by a_init (M); a null A is
 // a column of ones (M = 1). B (K, N) with leading dimension ldb.
@@ -1354,21 +1960,25 @@ cudaError_t cluster_config(Kernel kernel, int tiles, int n, int smem, cudaStream
 // residuals: null, or 7 + 3 L pointers in the order of struct Residuals.
 // With `ms`, records CUDA events around the launches, waits for them and
 // writes their times there (forward: gather, rollout; backward: gather,
-// recurrence, weight gradients).
+// recurrence, weight gradients). wide: null for the kernels that keep
+// whole activations in shared memory, else room for the wide kernels'
+// scratch (wide_scratch's per_tile floats for each 16-row tile), which
+// then run.
 extern "C" int fused_rollout_fwd_launch(const int* ints, const float* floats, const void* const* params,
                                         const int* strides, void* image, void* bias, const void* rot, const void* trans,
                                         const void* style, const void* deform, const void* actions,
                                         const void* variations, void* out_rot, void* out_trans, void* out_style,
                                         void* out_deform, void* const* residuals, int collect, float* ms,
-                                        void* stream) {
+                                        void* stream, void* wide) {
   const cudaStream_t s = (cudaStream_t)stream;
   const Dims d = make_dims(ints, floats);
   const Params p = make_params(params, strides, d.L);
   const Residuals res = make_residuals(collect ? residuals : nullptr, d.L);
+  const int tiles = (d.batch + kTile - 1) / kTile;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config(rollout_fwd_kernel, (d.batch + kTile - 1) / kTile, d.n, fwd_smem(d).bytes, s,
-                                   &cfg, &attr);
+  cudaError_t err = wide ? cluster_config(rollout_fwd_wide_kernel, tiles, d.n, wide_fwd_smem(d).bytes, s, &cfg, &attr)
+                         : cluster_config(rollout_fwd_kernel, tiles, d.n, fwd_smem(d).bytes, s, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
   Timer timer(ms, s);
   timer.mark();
@@ -1377,9 +1987,14 @@ extern "C" int fused_rollout_fwd_launch(const int* ints, const float* floats, co
   timer.mark();
   const State4<const float*> gt = {(const float*)rot, (const float*)trans, (const float*)style, (const float*)deform};
   const State4<float*> outs = {(float*)out_rot, (float*)out_trans, (float*)out_style, (float*)out_deform};
-  err = cudaLaunchKernelEx(&cfg, rollout_fwd_kernel, (const float*)image, (const float*)bias, p,
-                           res, d, forward_segments(d), collect, gt, (const float*)actions, (const float*)variations,
-                           outs);
+  if (wide)
+    err = cudaLaunchKernelEx(&cfg, rollout_fwd_wide_kernel, (const float*)image, (const float*)bias, (float*)wide, p,
+                             res, d, forward_segments(d), collect, gt, (const float*)actions,
+                             (const float*)variations, outs);
+  else
+    err = cudaLaunchKernelEx(&cfg, rollout_fwd_kernel, (const float*)image, (const float*)bias, p,
+                             res, d, forward_segments(d), collect, gt, (const float*)actions, (const float*)variations,
+                             outs);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   timer.mark();
@@ -1395,16 +2010,17 @@ extern "C" int fused_rollout_bwd_launch(const int* ints, const float* floats, co
                                         const void* cot_trans, const void* cot_style, const void* cot_deform,
                                         void* const* grads, void* g_rot, void* g_trans, void* g_style,
                                         void* g_deform, void* g_actions, void* g_variations, void* dz, void* dy,
-                                        void* dhead, void* d_final, float* ms, void* stream) {
+                                        void* dhead, void* d_final, float* ms, void* stream, void* wide) {
   const cudaStream_t s = (cudaStream_t)stream;
   const Dims d = make_dims(ints, floats);
   const Params p = make_params(params, strides, d.L);
   const Residuals res = make_residuals(residuals, d.L);
-  const int batch = d.batch, F = d.F, L = d.L;
+  const int batch = d.batch, F = d.F, L = d.L, tiles = (batch + kTile - 1) / kTile;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config(rollout_bwd_recurrence_kernel, (batch + kTile - 1) / kTile, d.n,
-                                   bwd_smem(d).bytes, s, &cfg, &attr);
+  cudaError_t err =
+      wide ? cluster_config(rollout_bwd_wide_recurrence_kernel, tiles, d.n, wide_bwd_smem(d).bytes, s, &cfg, &attr)
+           : cluster_config(rollout_bwd_recurrence_kernel, tiles, d.n, bwd_smem(d).bytes, s, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
   Timer timer(ms, s);
   timer.mark();
@@ -1414,20 +2030,26 @@ extern "C" int fused_rollout_bwd_launch(const int* ints, const float* floats, co
   const State4<const float*> cot = {(const float*)cot_rot, (const float*)cot_trans, (const float*)cot_style,
                                     (const float*)cot_deform};
   const State4<float*> g_state = {(float*)g_rot, (float*)g_trans, (float*)g_style, (float*)g_deform};
-  err = cudaLaunchKernelEx(&cfg, rollout_bwd_recurrence_kernel, (const float*)image, p, res, d, backward_segments(d),
-                           cot, g_state,
-                           (float*)g_actions, (float*)g_variations, (float*)dz, (float*)dy, (float*)dhead,
-                           (float*)d_final);
+  if (wide)
+    err = cudaLaunchKernelEx(&cfg, rollout_bwd_wide_recurrence_kernel, (const float*)image, (float*)wide, p, res, d,
+                             backward_segments_wide(d), cot, g_state, (float*)g_actions, (float*)g_variations,
+                             (float*)dz, (float*)dy, (float*)dhead, (float*)d_final);
+  else
+    err = cudaLaunchKernelEx(&cfg, rollout_bwd_recurrence_kernel, (const float*)image, p, res, d,
+                             backward_segments(d), cot, g_state,
+                             (float*)g_actions, (float*)g_variations, (float*)dz, (float*)dy, (float*)dhead,
+                             (float*)d_final);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   timer.mark();
 
   const int rows = (d.T - 1) * batch;
   const size_t dz_layer = (size_t)rows * 4 * F;
-  GradJobs jobs = {};
+  GradJob all[5 * kMaxLayers + 4];
+  int count = 0;
   auto add = [&](const float* a, const float* a_init, int shift, int lda, const float* b, int ldb, int K, int M,
                  int N, void* out) {
-    GradJob& g = jobs.job[jobs.count++];
+    GradJob& g = all[count++];
     g.a = a;
     g.a_init = a_init;
     g.shift = shift;
@@ -1453,15 +2075,20 @@ extern "C" int fused_rollout_bwd_launch(const int* ints, const float* floats, co
   add(nullptr, nullptr, 0, 0, (const float*)dy, F, rows, 1, F, grads[5 * L + 1]);
   add(res.y, nullptr, 0, F, (const float*)dhead, d.H, rows, F, d.H, grads[5 * L + 2]);
   add(nullptr, nullptr, 0, 0, (const float*)dhead, d.H, rows, 1, d.H, grads[5 * L + 3]);
-  int total = 0;
-  for (int j = 0; j < jobs.count; ++j) {
-    GradJob& g = jobs.job[j];
-    g.tile_start = total;
-    total += ((g.M + kGradTile - 1) / kGradTile) * ((g.N + kGradTile - 1) / kGradTile);
+  // kMaxJobs a launch: one launch up to 4 layers, deeper networks in turn.
+  for (int first = 0; first < count; first += kMaxJobs) {
+    GradJobs jobs = {};
+    int total = 0;
+    for (int j = first; j < count && jobs.count < kMaxJobs; ++j) {
+      GradJob& g = jobs.job[jobs.count++];
+      g = all[j];
+      g.tile_start = total;
+      total += ((g.M + kGradTile - 1) / kGradTile) * ((g.N + kGradTile - 1) / kGradTile);
+    }
+    rollout_wgrad_kernel<<<total, kGradThreads, 0, s>>>(jobs);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
-  rollout_wgrad_kernel<<<total, kGradThreads, 0, s>>>(jobs);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
   timer.mark();
   return (int)timer.finish();
 }
@@ -1478,13 +2105,20 @@ extern "C" int fused_rollout_image_launch(const int* ints, const float* floats, 
 
 // How many clusters of n CTAs with `smem` bytes each the card can hold at
 // once (cudaOccupancyMaxActiveClusters) for the forward (fwd 1) or the
-// backward recurrence; a negative CUDA error code on failure.
-extern "C" int fused_rollout_max_clusters(int fwd, int n, int smem) {
+// backward recurrence, the wide kernel's (wide 1) or the other; a negative
+// CUDA error code on failure.
+extern "C" int fused_rollout_max_clusters(int fwd, int n, int smem, int wide) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   int clusters = 0;
   cudaError_t err;
-  if (fwd) {
+  if (wide && fwd) {
+    err = cluster_config(rollout_fwd_wide_kernel, 1, n, smem, 0, &cfg, &attr);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, rollout_fwd_wide_kernel, &cfg);
+  } else if (wide) {
+    err = cluster_config(rollout_bwd_wide_recurrence_kernel, 1, n, smem, 0, &cfg, &attr);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, rollout_bwd_wide_recurrence_kernel, &cfg);
+  } else if (fwd) {
     err = cluster_config(rollout_fwd_kernel, 1, n, smem, 0, &cfg, &attr);
     if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, rollout_fwd_kernel, &cfg);
   } else {

@@ -25,13 +25,17 @@ launchers gather on the card at every call; `rollout_fwd_image` and
 `rollout_bwd_image` are that gather's plain versions, which the tests read
 through a copy of the kernels' index arithmetic.
 
-The kernels take features that are multiples of 32; like the Pallas
-kernels, the wrappers take any up to 256: on the card a narrower network
-runs zero-padded to the next multiple of 32 (`padded_params`, each gate
+The kernels take features that are multiples of 32 (above 512, of 64);
+like the Pallas kernels, whose only limit is their VMEM, the wrappers take
+any up to 768 and up to 16 layers: on the card a network runs zero-padded to
+the kernels' next width (`kernel_features`, `padded_params`, each gate
 block on its own). A padded unit has zero weights, bias and initial state,
 so its gates are (1/2, 1/2, 0, 1/2), its cell and hidden state stay exactly
 0 and so does its backbone output; the residuals and gradients are cut back
-to the network's own width.
+to the network's own width. Up to 256 features and 4 layers, where their
+shared memory holds them, kernels that keep whole activations in each CTA
+run; beyond, wide kernels that exchange them through a global scratch
+(`rollout_is_wide`).
 """
 
 from __future__ import annotations
@@ -50,17 +54,19 @@ GATES = ("i", "f", "g", "o")
 _SOURCE = fused_nerf._ROLLOUT_SOURCE
 # Limits of csrc/fused_rollout.cu: batch rows per cluster, CTAs per cluster
 # (non-portable size; 8 where F is not a multiple of 64), consumer threads
-# per CTA, floats per ring slot, ring slots, layers, features, and the
-# shared memory one CTA may take on an H100 (the exchange and ring barriers
-# take _BAR_BYTES of it).
+# per CTA, floats per ring slot, ring slots, layers, features, the features
+# and layers above which the wide kernels run, and the shared memory one CTA
+# may take on an H100 (the exchange and ring barriers take _BAR_BYTES of it).
 _TILE = 16
 _CLUSTER = 16
 _CONSUMERS = 256
 _SLOT_FLOATS = 4096
 _MAX_STAGES = 8
 _BAR_BYTES = (2 * _MAX_STAGES + 1) * 8
-_MAX_LAYERS = 4
-_MAX_FEATURES = 256
+_MAX_LAYERS = 16
+_MAX_FEATURES = 768
+_NARROW_LAYERS = 4
+_NARROW_FEATURES = 256
 _MAX_SMEM = 232448
 
 
@@ -425,10 +431,10 @@ def plain_rollout_bwd(cfg: RolloutConfig, params: PackedParams, gt_count: int, r
 def _library() -> ctypes.CDLL:
     """csrc/fused_rollout.cu, built and loaded once per process."""
     lib = fused_nerf._load(_SOURCE)
-    lib.fused_rollout_fwd_launch.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-    lib.fused_rollout_bwd_launch.argtypes = [ctypes.c_void_p] * 23
+    lib.fused_rollout_fwd_launch.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+    lib.fused_rollout_bwd_launch.argtypes = [ctypes.c_void_p] * 24
     lib.fused_rollout_image_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-    lib.fused_rollout_max_clusters.argtypes = [ctypes.c_int] * 3
+    lib.fused_rollout_max_clusters.argtypes = [ctypes.c_int] * 4
     for fn in (lib.fused_rollout_fwd_launch, lib.fused_rollout_bwd_launch, lib.fused_rollout_image_launch,
                lib.fused_rollout_max_clusters):
         fn.restype = ctypes.c_int
@@ -475,7 +481,8 @@ def rollout_layout(features: int, layers: int, in0: int, head: int) -> RolloutLa
 def rollout_segments(layout: RolloutLayout, fwd: bool) -> List[Tuple[int, int]]:
     """The (K rows, W floats per row) segments of one CTA's weight image, in
     the order the kernel streams them each step (forward_segments /
-    backward_segments in the source)."""
+    backward_segments in the source; the wide backward streams each layer's
+    (4F, W) segment as four (F, W) gate blocks, backward_segments_wide)."""
     F, U = layout.features, layout.units
     if fwd:
         segments = []
@@ -536,8 +543,9 @@ def rollout_bwd_image(params: PackedParams, layout: RolloutLayout) -> torch.Tens
     return image
 
 
-def _smem_bytes(layout: RolloutLayout, stages: int, fwd: bool) -> int:
-    """Dynamic shared memory of one CTA (fwd_smem / bwd_smem in the source)."""
+def _narrow_smem_bytes(layout: RolloutLayout, stages: int, fwd: bool) -> int:
+    """Dynamic shared memory of one CTA of the kernels that keep whole
+    activations in it (fwd_smem / bwd_smem in the source)."""
     n, U, HU, XU, F, L = (layout.cluster, layout.units, layout.head_cols, layout.in_cols, layout.features,
                           layout.layers)
     t, SW = _TILE, layout.head - 3
@@ -550,6 +558,61 @@ def _smem_bytes(layout: RolloutLayout, stages: int, fwd: bool) -> int:
         floats += (4 * F * t + F * t + n * XU * t + layout.head * t + 6 * t + 2 * L * U * t + 2 * t * prefetch
                    + t * (U + max(U, XU)) + t * max(4 * U, XU))
     return 4 * floats + _BAR_BYTES
+
+
+def rollout_is_wide(layout: RolloutLayout, fwd: bool) -> bool:
+    """Whether the wide kernel runs this direction at these sizes: above 256
+    features or 4 layers, or where the kernel that keeps every layer's h
+    (forward) or the full dz (backward) in each CTA leaves no room for two
+    ring slots. Every shape that kernel takes, it runs."""
+    return (layout.features > _NARROW_FEATURES or layout.layers > _NARROW_LAYERS
+            or _narrow_smem_bytes(layout, 2, fwd) > _MAX_SMEM)
+
+
+def wide_operand_rows(layout: RolloutLayout, fwd: bool) -> int:
+    """Rows of the wide kernels' operand buffer (wide_operand_rows in the
+    source): the widest block a product or the step's small math reads."""
+    return max(layout.features, layout.cluster * (layout.head_cols if fwd else layout.in_cols))
+
+
+def wide_scratch(layout: RolloutLayout, fwd: bool) -> Dict[str, int]:
+    """Offsets in floats of the wide kernels' per-tile global scratch and its
+    size, `per_tile` (wide_scratch in the source); each block k-major
+    [rows][16]. Forward: h [2 (step parity)][L][F], c [L][F], y [F], head
+    [n HU]; backward: d_y [F], dz [2 (layer parity)][4F], d_x0 [n XU], the
+    carries d_h and d_c [2][L][F]."""
+    block, t = layout.features * _TILE, _TILE
+    if fwd:
+        out = {"h": 0, "c": 2 * layout.layers * block}
+        out["y"] = out["c"] + layout.layers * block
+        out["head"] = out["y"] + block
+        out["per_tile"] = out["head"] + layout.cluster * layout.head_cols * t
+    else:
+        out = {"dy": 0, "dz": block}
+        out["dx0"] = out["dz"] + 8 * block
+        out["carry"] = out["dx0"] + layout.cluster * layout.in_cols * t
+        out["per_tile"] = out["carry"] + 2 * layout.layers * block
+    return out
+
+
+def _wide_smem_bytes(layout: RolloutLayout, stages: int, fwd: bool) -> int:
+    """Dynamic shared memory of one CTA of the wide kernels (wide_fwd_smem /
+    wide_bwd_smem in the source): no term grows with the layers."""
+    U, HU, XU = layout.units, layout.head_cols, layout.in_cols
+    t, SW = _TILE, layout.head - 3
+    floats = stages * _SLOT_FLOATS + _CONSUMERS * t + wide_operand_rows(layout, fwd) * t  # ring, partials, operand
+    if fwd:
+        floats += layout.in0 * t + _round4(t * SW) + _round4(t * (layout.in0 - 3)) + t * max(U, HU)
+    else:
+        floats += (layout.head * t + _round4(t * SW) + 6 * t + 2 * t * _round4(12 + U + SW)
+                   + t * (U + max(U, XU)) + t * max(4 * U, XU))
+    return 4 * floats + _BAR_BYTES
+
+
+def _smem_bytes(layout: RolloutLayout, stages: int, fwd: bool) -> int:
+    """Dynamic shared memory of one CTA of the kernel that runs this
+    direction (`rollout_is_wide`)."""
+    return (_wide_smem_bytes if rollout_is_wide(layout, fwd) else _narrow_smem_bytes)(layout, stages, fwd)
 
 
 @functools.lru_cache(maxsize=None)
@@ -567,8 +630,13 @@ def _stages(layout: RolloutLayout, fwd: bool) -> int:
 
 def kernel_features(features: int) -> int:
     """The features the kernels run a network of `features` at: the next
-    multiple of 32; above 256, the count itself (the kernels refuse it)."""
-    return features if features > _MAX_FEATURES else -(-features // 32) * 32
+    multiple of 32, above 512 of 64 (16-CTA clusters, so that a CTA's 4U
+    gate columns fit its consumer threads); above 768, the count itself (the
+    kernels refuse it)."""
+    if features > _MAX_FEATURES:
+        return features
+    step = 64 if features > 512 else 32
+    return -(-features // step) * step
 
 
 def _pad_gates(x: torch.Tensor, features: int, padded: int, values=(0.0, 0.0, 0.0, 0.0)) -> torch.Tensor:
@@ -657,18 +725,18 @@ def unpadded_residuals(residuals: Dict[str, torch.Tensor], features: int, padded
 
 
 def _kernel_checks(cfg: RolloutConfig, params: PackedParams, tensors: Sequence[torch.Tensor], T: int) -> None:
+    features, layers = params.wb.shape[0], len(params.wx)
+    if features % 32 or not 32 <= features <= _MAX_FEATURES or (features > 512 and features % 64):
+        raise ValueError(f"features {features} must be a multiple of 32 (above 512, of 64), at most {_MAX_FEATURES} "
+                         "(narrower ones are padded to one)")
+    if not 1 <= layers <= _MAX_LAYERS:
+        raise ValueError(f"layers {layers} must be 1 to {_MAX_LAYERS}")
     device = tensors[0].device
     if device.type != "cuda":
         raise ValueError(f"the fused rollout runs on cuda or cpu tensors, not {device}")
     for t in list(tensors) + param_list(params):
         if t.device != device or t.dtype != torch.float32:
             raise ValueError(f"inputs must be float32 on {device}, got {t.dtype} on {t.device}")
-    features, layers = params.wb.shape[0], len(params.wx)
-    if features % 32 or not 32 <= features <= _MAX_FEATURES:
-        raise ValueError(f"features {features} must be a multiple of 32, at most {_MAX_FEATURES} "
-                         "(narrower ones are padded to one)")
-    if not 1 <= layers <= _MAX_LAYERS:
-        raise ValueError(f"layers {layers} must be 1 to {_MAX_LAYERS}")
     if cfg.rotation_axis not in (0, 1, 2):
         raise ValueError(f"rotation_axis {cfg.rotation_axis} must be 0, 1 or 2")
     if T < 2:
@@ -799,7 +867,7 @@ class _Plan(NamedTuple):
     floats: ctypes.Array
     outputs: Optional[_Block]  # forward: the four states
     extra: Optional[_Block]  # forward: the residuals; backward: state, action and variation gradients
-    scratch: _Block  # the weight image (and biases), the backward's dz, dy, dhead and d_final
+    scratch: _Block  # the weight image (and biases), the backward's dz, dy, dhead and d_final; for a wide kernel its scratch
 
 
 @functools.lru_cache(maxsize=64)
@@ -809,18 +877,19 @@ def _plan(cfg: RolloutConfig, fwd: bool, collect: bool, batch: int, T: int, S: i
     layout = rollout_layout(features, layers, in0, head)
     ints, floats = _launch_args(cfg, layout, batch, T, S, D, A, V, gt_count, _stages(layout, fwd))
     steps, F = T - 1, features
+    exchange = [(-(-batch // _TILE), wide_scratch(layout, fwd)["per_tile"])] if rollout_is_wide(layout, fwd) else []
     if fwd:
         outputs = _block([(batch, T, w) for w in (3, 3, S, D)])
         widths = {"cur_rot": 3, "cur_trans": 3, "cur_style": S, "cur_deform": D, "x0": in0, "y": F, "head": head}
         for layer in range(layers):
             widths.update({f"gates_{layer}": 4 * F, f"c_{layer}": F, f"h_{layer}": F})
         extra = _block([(steps, batch, widths[k]) for k in residual_keys(layers)]) if collect else None
-        scratch = _block(_image_shapes(layout, True))
+        scratch = _block(_image_shapes(layout, True) + exchange)
     else:
         outputs = None
         extra = _block([(batch, T, w) for w in (3, 3, S, D)] + [(batch, steps, A), (batch, steps, V)])
         scratch = _block(_image_shapes(layout, False) + [(layers, steps, batch, 4 * F), (steps, batch, F),
-                                                         (steps, batch, head), (2, layers, batch, F)])
+                                                         (steps, batch, head), (2, layers, batch, F)] + exchange)
     return _Plan(layout, ints, floats, outputs, extra, scratch)
 
 
@@ -848,7 +917,7 @@ def max_active_clusters(params: PackedParams, fwd: bool) -> Tuple[int, int, int]
     these sizes; a measurement entry for the smoke run."""
     layout = rollout_layout(params.wb.shape[0], len(params.wx), params.wx[0].shape[0], params.whead.shape[1])
     smem = _smem_bytes(layout, _stages(layout, fwd), fwd)
-    clusters = _library().fused_rollout_max_clusters(int(fwd), layout.cluster, smem)
+    clusters = _library().fused_rollout_max_clusters(int(fwd), layout.cluster, smem, int(rollout_is_wide(layout, fwd)))
     if clusters < 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA error {-clusters}")
     return layout.cluster, smem, clusters
@@ -884,14 +953,14 @@ def _rollout_fwd_launch(cfg: RolloutConfig, params: PackedParams, inputs: Sequen
     device = rotations.device
     out = _carve(plan.outputs, device)
     residuals = dict(zip(residual_keys(layers), _carve(plan.extra, device))) if collect_residuals else None
-    scratch, (image, bias) = _scratch(plan.scratch, device)  # scratch alive until the launch is enqueued
+    scratch, (image, bias, *wide) = _scratch(plan.scratch, device)  # scratch alive until the launch is enqueued
     weights, strides = _weights(params)
     res_array = _pointers(list(residuals.values())) if residuals else None
     err = _library().fused_rollout_fwd_launch(
         ctypes.addressof(plan.ints), ctypes.addressof(plan.floats), _pointers(weights), ctypes.addressof(strides),
         image, bias, *(t.data_ptr() for t in inputs), *(t.data_ptr() for t in out), res_array,
         int(collect_residuals), None if ms is None else ctypes.addressof(ms),
-        torch.cuda.current_stream(device).cuda_stream,
+        torch.cuda.current_stream(device).cuda_stream, wide[0] if wide else None,
     )
     if err != 0:
         raise RuntimeError(f"fused_rollout_fwd kernel launch failed with CUDA error {err}")
@@ -904,9 +973,10 @@ def fused_rollout_fwd(cfg: RolloutConfig, params: PackedParams, rotations, trans
 
     CPU tensors take `plain_rollout_fwd`. CUDA tensors launch B4 on clusters
     of CTAs (counted in `fused_rollout_fwd.launches`) after the gather of
-    this call's weight image, at the kernel's features (`kernel_features`);
-    any other device, an unsupported shape, a cluster the card cannot place,
-    or a failed build or launch raises.
+    this call's weight image, at the kernel's features (`kernel_features`),
+    the wide kernel where `rollout_is_wide`; any other device, a shape
+    beyond 768 features or 16 layers, a cluster the card cannot place, or a
+    failed build or launch raises.
     """
     gt_count = int(gt_count)
     inputs = [rotations, translations, style, deform, actions, variations]
@@ -970,13 +1040,14 @@ def _rollout_bwd_launch(cfg: RolloutConfig, params: PackedParams, gt_count: int,
     # transposed view): the kernel writes each gradient row-major.
     grads = [torch.empty(p.shape, device=device) for p in param_list(params)]
     *g_states, g_actions, g_variations = _carve(plan.extra, device)
-    scratch, (image, dz, dy, dhead, d_final) = _scratch(plan.scratch, device)  # alive until enqueued
+    scratch, (image, dz, dy, dhead, d_final, *wide) = _scratch(plan.scratch, device)  # alive until enqueued
     weights, strides = _weights(params)
     err = _library().fused_rollout_bwd_launch(
         ctypes.addressof(plan.ints), ctypes.addressof(plan.floats), _pointers(weights), ctypes.addressof(strides),
         image, _pointers(res_list), *(c.data_ptr() for c in cotangents), _pointers(grads),
         *(g.data_ptr() for g in g_states), g_actions.data_ptr(), g_variations.data_ptr(), dz, dy, dhead, d_final,
         None if ms is None else ctypes.addressof(ms), torch.cuda.current_stream(device).cuda_stream,
+        wide[0] if wide else None,
     )
     if err != 0:
         raise RuntimeError(f"fused_rollout_bwd kernel launch failed with CUDA error {err}")
@@ -989,7 +1060,8 @@ def fused_rollout_bwd(cfg: RolloutConfig, params: PackedParams, gt_count: int, r
 
     CPU tensors take `plain_rollout_bwd`. CUDA tensors launch B5 (the
     gather of this call's weight image, the reverse recurrence on the
-    forward's clusters, then the weight-gradient kernel; one call counted in
+    forward's clusters, the wide one where `rollout_is_wide`, then the
+    weight-gradient kernel; one call counted in
     `fused_rollout_bwd.launches`); the gradients are bit-identical from run
     to run.
     """

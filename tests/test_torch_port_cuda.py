@@ -628,8 +628,8 @@ def test_rollout_kernels_refuse_unsupported_shapes(card):
         fr.fused_rollout_fwd(cfg, packed, inputs[0].double(), *inputs[1:], 3, False)
     with pytest.raises(ValueError, match="at least 2 observations"):
         fr.fused_rollout_fwd(cfg, packed, *(x[:, :1] for x in inputs[:4]), *(x[:, :0] for x in inputs[4:]), 0, False)
-    wide = packed._replace(wb=torch.zeros(288, 288, device=card))  # narrower ones are padded; above 256 raises
-    with pytest.raises(ValueError, match="multiple of 32"):
+    wide = packed._replace(wb=torch.zeros(800, 800, device=card))  # narrower ones are padded; above 768 raises
+    with pytest.raises(ValueError, match="at most 768"):
         fr.fused_rollout_fwd(cfg, wide, *inputs, 3, False)
 
 
@@ -668,6 +668,80 @@ def test_rollout_kernels_at_narrow_features_match_plain_on_the_card(card, featur
         scale = ref.abs().max().item()
         diff = (got - ref).abs()
         assert diff.max().item() <= 1e-4 * scale and diff.mean().item() <= 1e-5 * scale
+
+
+# The wide envelope's corners, (features, layers, batch, T): B4/B5 in their
+# wide kernels; 32 x 16 on 8-CTA clusters, 544 run at 576, 512 x 2 at a
+# batch of 33 (three clusters, the last ragged).
+WIDE_ROLLOUTS = [(768, 1, 5, 4), (768, 16, 5, 3), (32, 16, 5, 4), (544, 3, 5, 4), (512, 2, 33, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("features,layers,batch,T", WIDE_ROLLOUTS)
+def test_wide_rollout_kernels_match_plain_on_the_card(card, features, layers, batch, T):
+    """B4 (with its residuals) and B5 on them in the wide kernels against
+    their plain versions, held as chip_smoke.py phase 21 holds them
+    (hold_rollout_fwd / _bwd: 1e-4 of each output's largest magnitude and
+    1e-5 in the mean, or SPREAD_FACTOR times the plain version's own
+    distance from its f64 sums where larger), B5 bit-identical across
+    launches, every launch counted; at 544, run at 576, the padded units'
+    residuals as padded_residuals fills them."""
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+
+    sys_path_repo()
+    import chip_smoke
+
+    anim = chip_smoke.rollout_anim(features, layers)
+    S, D, A, V = anim.style_features, anim.deformation_features, anim.actions_count, anim.action_space_dimension
+    layout = fr.rollout_layout(fr.kernel_features(features), layers, 9 + S + D + A + V, 9 + S + D)
+    assert fr.rollout_is_wide(layout, True) and fr.rollout_is_wide(layout, False)
+    cfg = fr.RolloutConfig(1, False, None, (1.5, 1.0, 2.15))
+    packed, inputs, cots = chip_smoke.rollout_case(anim, ((-0.75, 0.75), (-0.5, 0.5), (0.0, 2.15)), batch, T,
+                                                   seed=features + layers, device=card)
+    before = (fr.fused_rollout_fwd.launches, fr.fused_rollout_bwd.launches)
+    chip_smoke.hold_rollout_fwd(f"{features} x {layers}", (cfg, packed, inputs, 2, True))
+    with torch.no_grad():
+        res = fr.fused_rollout_fwd(cfg, packed, *inputs, 2, True)[1]
+    chip_smoke.hold_rollout_bwd(f"{features} x {layers}", (cfg, packed, 2, res, cots, A))
+    torch.cuda.synchronize()
+    assert (fr.fused_rollout_fwd.launches, fr.fused_rollout_bwd.launches) == (before[0] + 2, before[1] + 2)
+    kernel = fr.kernel_features(features)
+    if kernel != features:  # the padded units' c, h and y exactly 0, their gates (1/2, 1/2, 0, 1/2)
+        with torch.no_grad():
+            full = fr._rollout_fwd_launch(cfg, fr.padded_params(packed, kernel), inputs, 2, True)[1]
+        assert not full["y"][..., features:].any()
+        for layer in range(layers):
+            assert not full[f"c_{layer}"][..., features:].any() and not full[f"h_{layer}"][..., features:].any()
+            gates = full[f"gates_{layer}"].reshape(T - 1, batch, 4, kernel)[..., features:]
+            for k, value in enumerate((0.5, 0.5, 0.0, 0.5)):
+                assert bool((gates[..., k, :] == value).all())
+
+
+@pytest.mark.cuda
+def test_wide_rollout_autograd_launches_both_kernels(card):
+    """fused_rollout at 512 x 2 through autograd: one B4 launch with
+    residuals and one B5, whose gradients are the wrappers' own."""
+    from playableenvironments_tpu_torch.ops import fused_rollout as fr
+
+    sys_path_repo()
+    import chip_smoke
+
+    cfg = fr.RolloutConfig(2, True, 0.0, (1.5, 1.0, 2.15))
+    packed, inputs, cots = chip_smoke.rollout_case(chip_smoke.rollout_anim(512, 2), ((-0.75, 0.75), (-0.5, 0.5),
+                                                                                     (0.0, 2.15)), 16, 9, 1, card)
+    leaves = [p.clone().requires_grad_() for p in fr.param_list(packed)]
+    actions = inputs[4].clone().requires_grad_()
+    before = (fr.fused_rollout_fwd.launches, fr.fused_rollout_bwd.launches)
+    out = fr.fused_rollout(cfg, fr.params_from_list(leaves, 2), *inputs[:4], actions, inputs[5], 5)
+    torch.autograd.backward(list(out), cots)
+    torch.cuda.synchronize()
+    assert (fr.fused_rollout_fwd.launches, fr.fused_rollout_bwd.launches) == (before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        _, res = fr.fused_rollout_fwd(cfg, packed, *inputs, 5, True)
+        grads = fr.fused_rollout_bwd(cfg, packed, 5, res, cots, 7)
+    for leaf, g in zip(leaves, fr.param_list(grads[0])):
+        assert torch.equal(leaf.grad, g)
+    assert torch.equal(actions.grad, grads[5])
 
 
 def sys_path_repo():

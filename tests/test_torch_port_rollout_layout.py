@@ -25,6 +25,11 @@ from torch_port_threads import one_torch_thread  # noqa: F401  (autouse: one PyT
 # (features, layers, S, D, A, V): the phase-3 dynamics, the play loop's,
 # a width that takes 8-CTA clusters, and a small one for the simulations.
 LAYOUT_CASES = [(256, 2, 64, 32, 7, 5), (128, 1, 64, 32, 7, 5), (96, 2, 8, 4, 4, 3), (64, 2, 8, 4, 4, 3)]
+# Shapes the wide kernels run (rollout_is_wide): the widest and deepest
+# corners, 300 as it runs (at 320), and 256 x 4, which the kernels above
+# leave no room for two ring slots at the tennis dims.
+WIDE_LAYOUT_CASES = [(768, 1, 64, 32, 7, 5), (512, 2, 64, 32, 7, 5), (320, 2, 8, 4, 4, 3), (128, 16, 8, 4, 4, 3),
+                     (256, 4, 64, 32, 7, 5)]
 
 
 def random_params(features, layers, S, D, A, V, seed=0):
@@ -210,7 +215,7 @@ def test_forward_split_over_the_cluster_matches_plain(features, layers, cfg):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("features,layers", [(64, 2), (128, 1), (96, 2)])
+@pytest.mark.parametrize("features,layers", [(64, 2), (128, 1), (96, 2), (768, 1), (128, 16)])
 def test_backward_products_from_the_image_match_plain(features, layers):
     """Each CTA's products over its backward segments: d_y on its backbone
     columns (d_head whead^T), the top layer's d_h on its units (d_y wb^T),
@@ -240,14 +245,18 @@ def test_backward_products_from_the_image_match_plain(features, layers):
                 torch.testing.assert_close(out[:, U:], ref, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("features,layers,S,D,A,V", LAYOUT_CASES)
+@pytest.mark.parametrize("features,layers,S,D,A,V", LAYOUT_CASES + WIDE_LAYOUT_CASES)
 def test_shared_memory_fits_and_mirrors_the_kernels(features, layers, S, D, A, V):
     """The ring takes 2 to 8 slots beside the rest, within the card's
     227 KB; each segment's rows fit a slot, and every width is a multiple
-    of 4 that leaves each 4 x 4 output tile at least one consumer thread."""
+    of 4 that leaves each 4 x 4 output tile at least one consumer thread.
+    The published shapes take the kernels that keep whole activations in
+    each CTA, the wide shapes the wide kernels."""
     in0, head = 9 + S + D + A + V, 9 + S + D
     layout = fr.rollout_layout(features, layers, in0, head)
+    wide = (features, layers, S, D, A, V) in WIDE_LAYOUT_CASES
     for fwd in (True, False):
+        assert fr.rollout_is_wide(layout, fwd) == wide
         stages = fr._stages(layout, fwd)
         assert 2 <= stages <= 8 and fr._smem_bytes(layout, stages, fwd) <= fr._MAX_SMEM
         for K, W in fr.rollout_segments(layout, fwd):
