@@ -460,28 +460,30 @@ __global__ void backbone_grad_reduce_kernel(const float* __restrict__ partial, i
 
 // ---- B2/B3 beyond the published shapes: the wide kernels --------------------------
 //
-// Widths 256 < W <= 512 (W 512; a narrower one zero-padded to it), encodings
-// of 65-128 columns and 9-16 layers (at W <= 256 run at W 256): the column
-// split of nerf_wgmma.cuh (64-point tiles; warpgroup w computes output
-// columns [w W/2, (w + 1) W/2) of every layer). Shared memory at W 512: a
-// 128 KB ring of two 64 x 512 slots, the 64 KB activation tile, the 16 KB
-// encoding tile, 8 KB of column-sum staging (backward): 217 KB of 227.
+// Widths 256, 512 and 640 (a width above 256 zero-padded to the next of
+// them), encodings of 65-256 columns and more than 8 layers (at W <= 256 run
+// at W 256): the column split of nerf_wgmma.cuh (64-point tiles; warpgroup w
+// computes output columns [w W/2, (w + 1) W/2) of every layer; the ring's
+// slots half weight slots, gathered from the image of backbone_buffers).
+// Shared memory: the ring and the activation tile (160 KB: 8 stages of 16 KB
+// at W 256, 3 of 32 KB at W 512, 2 of 40 KB at W 640), the 32 KB encoding
+// tile, 8 KB of column-sum staging (backward): 201 KB of 227 at every width.
 // The backward keeps each layer's ReLU bits in a global scratch (masks,
-// (grid, L, W/128, 256) u32, read back by the thread that wrote them): 16
-// layers of them do not fit in shared memory beside the tile. X and G go to
-// the scratch of the 128-point kernels, the encoding's ps blocks first in X;
-// tile_part has one row a CTA, each warpgroup summing its own columns.
-
-constexpr int kWideRing = 128 * 1024;
-
-template <int W>
-__host__ __device__ constexpr int wide_stages() {
-  return kWideRing / (128 * W);
-}
+// (grid, L, W/128, 256) u32, read back by the thread that wrote them), sized
+// by the wrapper for any depth. X and G go to the scratch of the 128-point
+// kernels, the encoding's ps blocks first in X; tile_part has one row a CTA,
+// each warpgroup summing its own columns. The weight gradient runs
+// backbone_dw_kernel over `wide_dw_columns` output columns a CTA (W/2, or
+// 128 at W 640, whose half is more than one wgmma product's 256).
 
 template <int W>
 __host__ __device__ constexpr size_t wide_smem() {
-  return 1024 + (size_t)kWideRing + 128 * W + kWideEncBytes + kStagingBytes + 256;
+  return 1024 + (size_t)wide_stages<W>() * wide_slot_bytes<W>() + 128 * W + kWideEncBytes + kStagingBytes + 256;
+}
+
+template <int W>
+__host__ __device__ constexpr int wide_dw_columns() {
+  return W % 256 == 0 ? W / 2 : 128;
 }
 
 template <int W>
@@ -489,10 +491,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     backbone_wide_fwd_kernel(const float* __restrict__ encoded, const bf16* __restrict__ weights,
                              const float* __restrict__ biases, float* __restrict__ h_out,
                              float* __restrict__ alpha_out, int n_points, int pe, int layers, int skip) {
-  constexpr int nb = W / 64, N = W / 2, kStages = wide_stages<W>(), kSlot = 128 * W;
+  constexpr int nb = W / 64, N = W / 2, kStages = wide_stages<W>(), kRing = kStages * wide_slot_bytes<W>();
   extern __shared__ unsigned char smem_raw[];
   const Smem sm = aligned_smem(smem_raw);
-  const uint32_t act = sm.addr + kWideRing, enc = act + 128 * W;
+  const uint32_t act = sm.addr + kRing, enc = act + 128 * W;
   Ring ring;
   init_ring(ring, sm.addr, enc + kWideEncBytes + kStagingBytes, kStages, 8);
   const int ps = (pe + 63) / 64;
@@ -503,13 +505,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     reg_dealloc<40>();
     if (threadIdx.x == kConsumers) {
       const unsigned char* image = reinterpret_cast<const unsigned char*>(weights);
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
-        produce_slots<kStages, kSlot>(ring, image, kSlot, 0, total_slots);
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) produce_wide_layer<W, kStages>(ring, image, 0, total_slots);
     }
   } else {
     reg_alloc<232>();
     const int ct = threadIdx.x, wg = ct / 128, t = ct % 128, lane = t & 31, q = lane & 3;
-    unsigned char* act_p = sm.base + kWideRing;
+    unsigned char* act_p = sm.base + kRing;
     unsigned char* enc_p = act_p + 128 * W;
     float* part = reinterpret_cast<float*>(enc_p + kWideEncBytes);
     const bf16* w_alpha = weights + (size_t)total_slots * 64 * W;
@@ -522,7 +523,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_async_smem();
       wide_sync();
       for (int i = 0; i < layers; ++i) {
-        wide_forward_layer<W, kStages, kSlot>(acc, ring, i, skip, ps, act, enc, wg, lane);
+        wide_forward_layer<W, kStages>(acc, ring, i, skip, ps, act, enc, wg, lane);
         bias_relu<N>(acc, biases + i * W + wg * N, t);
         if (i + 1 < layers) {
           wide_sync();  // both warpgroups' products have read the whole tile
@@ -546,27 +547,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// One backward slot for the wide tile: out (64 columns) = g @ slot^T, g the
-// 64-point tile (K-major over W columns), the slot K-major; issued by the
-// warpgroup that owns the slot (`own`), waited for and released by both.
-template <int W, int kStages, int kSlot>
-__device__ __forceinline__ void wide_backward_slot(float* out, Ring& r, int& prev, uint32_t act, int lane, bool own) {
-  consume_slot<kStages, 1, kSlot>(r, prev, lane, [&](uint32_t slot) {
-    if (!own) return;
-    const uint64_t da = sw128_base(act, 16, 1024), db = sw128_base(slot, 16, 1024);
-#pragma unroll
-    for (int k = 0; k < W / 16; ++k)
-      wgmma<64, 0, 0>(out, da + (k >> 2) * 512 + (k & 3) * 2, db + (k >> 2) * 512 + (k & 3) * 2, k > 0 ? 1 : 0);
-  });
-}
-
 // Row blockIdx.x of `tile_part` (ld = L W + W + 1) sums, over the CTA's
 // tiles, the [L W] db_i column sums, [W] alpha-head weight partials and [1]
-// alpha-head bias partial. The backward slots of a layer come in the order
-// the producer streams them: the encoding's (slot e to warpgroup e % 2), then
-// the h slots interleaved, h slot (m % 2) W/128 + m / 2 the m-th, to
-// warpgroup m % 2, so that each warpgroup forms its own W/2 columns of the
-// next g while the other forms its.
+// alpha-head bias partial. The backward's half-slots of a layer come in the
+// order the producer streams them: the encoding's weight slots e, each as
+// its halves 0 and 1 (owner e % 2, into acc + 32 (e / 2)), then the h slots
+// m (weight slot (m % 2) W/128 + m / 2, owner m % 2) in half_order, so that
+// the two warpgroups take turns; warpgroup w's half h of h slot m forms
+// columns [32 h, 32 h + 32) of its (m / 2)-th 64-column block of the next g.
 template <int W>
 __global__ void __launch_bounds__(kThreads, 1)
     backbone_wide_bwd_tile_kernel(const bf16* __restrict__ encoded, const float* __restrict__ g_h,
@@ -574,10 +562,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                                   const float* __restrict__ biases, float* __restrict__ d_encoded,
                                   bf16* __restrict__ x_scr, bf16* __restrict__ g_scr, float* __restrict__ tile_part,
                                   uint32_t* __restrict__ masks, int n_points, int pe, int layers, int skip) {
-  constexpr int nb = W / 64, N = W / 2, kStages = wide_stages<W>(), kSlot = 128 * W, kWords = N / 64;
+  constexpr int nb = W / 64, N = W / 2, kStages = wide_stages<W>(), kRing = kStages * wide_slot_bytes<W>();
+  constexpr int kWords = N / 64;
   extern __shared__ unsigned char smem_raw[];
   const Smem sm = aligned_smem(smem_raw);
-  const uint32_t act = sm.addr + kWideRing, enc = act + 128 * W;
+  const uint32_t act = sm.addr + kRing, enc = act + 128 * W;
   Ring ring;
   init_ring(ring, sm.addr, enc + kWideEncBytes + kStagingBytes, kStages, 8);
   const int ps = (pe + 63) / 64;
@@ -589,12 +578,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == kConsumers) {
       const unsigned char* image = reinterpret_cast<const unsigned char*>(weights);
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        produce_slots<kStages, kSlot>(ring, image, kSlot, 0, total_slots);
+        produce_wide_layer<W, kStages>(ring, image, 0, total_slots);
         for (int i = layers - 1; i >= 0; --i) {
           const int first = wide_first_slot(i, nb, ps, skip);
-          if (i == 0 || i == skip) produce_slots<kStages, kSlot>(ring, image, kSlot, i == 0 ? first : first + nb, ps);
+          if (i == 0 || i == skip) {
+            const unsigned char* e0 = image + (size_t)(i == 0 ? first : first + nb) * 128 * W;
+            for (int e = 0; e < 2 * ps; ++e)
+              produce_half<kStages, wide_slot_bytes<W>()>(ring, e0 + (size_t)(e >> 1) * 128 * W, nb, e & 1);
+          }
           if (i > 0)
-            for (int m = 0; m < nb; ++m) produce_slots<kStages, kSlot>(ring, image, kSlot, first + (m & 1) * (nb / 2) + (m >> 1), 1);
+            for (int s = 0; s < 2 * nb; ++s) {
+              int slot, half;
+              half_order(s, slot, half);
+              const int j = first + (slot & 1) * (nb / 2) + (slot >> 1);
+              produce_half<kStages, wide_slot_bytes<W>()>(ring, image + (size_t)j * 128 * W, nb, half);
+            }
         }
       }
     }
@@ -602,7 +600,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     reg_alloc<232>();
     const int ct = threadIdx.x, wg = ct / 128, t = ct % 128, lane = t & 31, q = lane & 3;
     const bool elected = t == 0;
-    unsigned char* act_p = sm.base + kWideRing;
+    unsigned char* act_p = sm.base + kRing;
     unsigned char* enc_p = act_p + 128 * W;
     float* staging = reinterpret_cast<float*>(enc_p + kWideEncBytes) + wg * 4 * 256;
     const bf16* w_alpha = weights + (size_t)total_slots * 64 * W;
@@ -627,14 +625,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         bulk_commit();
       }
       for (int i = 0; i < layers; ++i) {
-        wide_forward_layer<W, kStages, kSlot>(acc, ring, i, skip, ps, act, enc, wg, lane);
+        wide_forward_layer<W, kStages>(acc, ring, i, skip, ps, act, enc, wg, lane);
         bias_relu<N>(acc, biases + i * W + wg * N, t);
 #pragma unroll
         for (int w = 0; w < kWords; ++w) {
           uint32_t m = 0;
 #pragma unroll
           for (int b = 0; b < 32; ++b) m |= (acc[32 * w + b] > 0.0f ? 1u : 0u) << b;
-          mask[(i * kWords + w) * kConsumers] = m;
+          mask[((size_t)i * kWords + w) * kConsumers] = m;
         }
         if (i + 1 < layers) {
           if (elected) bulk_wait_read();
@@ -657,7 +655,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float gb0 = __bfloat162float(__float2bfloat16(ga0)), gb1 = __bfloat162float(__float2bfloat16(ga1));
 #pragma unroll
       for (int v = 0; v < N / 2; ++v) acc[v] = __bfloat162float(__float2bfloat16(acc[v])) * ((v & 2) ? gb1 : gb0);
-      column_sums<N>(acc, staging, tp + layers * W + wg * N, wg, t, first);
+      wide_column_sums<N>(acc, staging, tp + layers * W + wg * N, wg, t, first);
       if (ct == 0) {
         float s = 0.0f;
         for (int r = row0; r < row0 + kWideTile; ++r) s += r < n_points ? g_alpha[r] : 0.0f;
@@ -680,11 +678,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = layers - 1; i >= 0; --i) {
 #pragma unroll
         for (int w = 0; w < kWords; ++w) {
-          const uint32_t m = mask[(i * kWords + w) * kConsumers];
+          const uint32_t m = mask[((size_t)i * kWords + w) * kConsumers];
 #pragma unroll
           for (int b = 0; b < 32; ++b) acc[32 * w + b] = ((m >> b) & 1u) ? acc[32 * w + b] : 0.0f;
         }
-        column_sums<N>(acc, staging, tp + i * W + wg * N, wg, t, first);
+        wide_column_sums<N>(acc, staging, tp + i * W + wg * N, wg, t, first);
         if (elected) bulk_wait_read();
         wide_sync();  // both warpgroups' products have read the tile
         store_wide_tile<N>(act_p, acc, t, wg * N);
@@ -695,32 +693,42 @@ __global__ void __launch_bounds__(kThreads, 1)
             bulk_store(g_scr + ((size_t)tile * g_cols + i * nb + j) * kBlock, act + j * 8192, 8192);
           bulk_commit();
         }
-        // g_in = bf16(g) @ bf16(W_i)^T: the encoding slots first (slot e, 64
-        // columns of d_encoded, by warpgroup e % 2 into acc's first 32
-        // registers; layer 0's added to the skip layer's in place), then the
-        // h slots, warpgroup w's W/128 of them its columns of the next g.
+        // g_in = bf16(g) @ bf16(W_i)^T: the encoding's weight slots first
+        // (slot e, 64 columns of d_encoded, by warpgroup e % 2 into acc +
+        // 32 (e / 2); layer 0's added to the skip layer's in place), then
+        // the h slots, warpgroup w's W/128 of them its columns of the next g.
         int prev = -1;
         if (i == 0 || i == skip) {
-          for (int e = 0; e < ps; ++e) wide_backward_slot<W, kStages, kSlot>(acc, ring, prev, act, lane, e % 2 == wg);
+#pragma unroll
+          for (int e = 0; e < kWideEncBlocks; ++e)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              if (e < ps) wide_backward_half<W, kStages>(acc + 32 * (e >> 1) + 16 * h, ring, prev, act, lane, e % 2 == wg);
           release_last(ring, prev, lane);
-          fence_regs<32>(acc);
+          fence_regs<64>(acc);
           prev = -1;
-          if (wg < ps) {
-            const bool add = i == 0 && skip < layers;
+          const bool add = i == 0 && skip < layers;
+#pragma unroll
+          for (int u = 0; u < kWideEncBlocks / 2; ++u) {
+            const int e = 2 * u + wg;
+            if (e >= ps) continue;
 #pragma unroll
             for (int j = 0; j < 8; ++j)
 #pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                const int point = r0 + 8 * (e >> 1), col = 64 * wg + 8 * j + 2 * q + (e & 1);
+              for (int k = 0; k < 4; ++k) {
+                const int point = r0 + 8 * (k >> 1), col = 64 * e + 8 * j + 2 * q + (k & 1);
                 float* d = d_encoded + (size_t)point * pe + col;
-                if (point < n_points && col < pe) *d = add ? *d + acc[4 * j + e] : acc[4 * j + e];
+                if (point < n_points && col < pe) *d = add ? *d + acc[32 * u + 4 * j + k] : acc[32 * u + 4 * j + k];
               }
           }
         }
         if (i > 0) {
 #pragma unroll
-          for (int m = 0; m < nb; ++m)
-            wide_backward_slot<W, kStages, kSlot>(acc + 32 * (m >> 1), ring, prev, act, lane, (m & 1) == wg);
+          for (int s = 0; s < 2 * nb; ++s) {
+            int slot, half;
+            half_order(s, slot, half);
+            wide_backward_half<W, kStages>(acc + 32 * (slot >> 1) + 16 * half, ring, prev, act, lane, (slot & 1) == wg);
+          }
           release_last(ring, prev, lane);
           fence_regs<N / 2>(acc);
         }
@@ -836,7 +844,8 @@ cudaError_t prepare_wide() {
     e = cudaFuncSetAttribute(backbone_wide_bwd_tile_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)wide_smem<W>());
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(backbone_dw_kernel<W / 2>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem);
+    e = cudaFuncSetAttribute(backbone_dw_kernel<wide_dw_columns<W>()>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kDwSmem);
   done[device] = e == cudaSuccess;
   return e;
 }
@@ -875,7 +884,8 @@ int wide_bwd_launch(const void* encoded, const void* g_h, const void* g_alpha, c
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (ms != nullptr) cudaEventRecord(events[1], stream);
-  backbone_dw_kernel<W / 2><<<dim3(dw_tiles(W, layers, skip, ps), chunks, 2), kThreads, kDwSmem, stream>>>(
+  constexpr int kCols = wide_dw_columns<W>();
+  backbone_dw_kernel<kCols><<<dim3(dw_tiles(W, layers, skip, ps), chunks, W / kCols), kThreads, kDwSmem, stream>>>(
       (const bf16*)x_scr, (const bf16*)g_scr, (float*)partial, tiles, chunks, rows_pad, layers, skip, ps, W);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -940,21 +950,25 @@ extern "C" int fused_backbone_bwd_launch(const void* encoded, const void* g_h, c
   return (int)cudaErrorInvalidValue;
 }
 
-// The wide kernels (widths 256 and 512, encodings up to 128 columns, up to
-// 16 layers; grid min(tiles, SMs), tiles = ceil(N / 64)). Scratch as
+// The wide kernels (widths 256, 512 and 640, encodings up to 256 columns,
+// any depth; grid min(tiles, SMs), tiles = ceil(N / 64)). Scratch as
 // fused_backbone_bwd_launch's with 64-point tiles and ps = ceil(pe / 64)
 // encoding blocks in x_scr (ps + (L-1) W/64 column blocks a point block);
 // tile_part f32 (grid, L W + W + 1); masks u32 (grid, L, W/128, 256);
-// partial f32 (chunks, rows_pad, W), rows_pad with 64 ps encoding rows.
+// partial f32 (chunks, rows_pad, W), rows_pad with 64 ps encoding rows;
+// the weight gradient runs chunks x W / wide_dw_columns CTAs a row tile.
 extern "C" int fused_backbone_wide_fwd_launch(const void* encoded, const void* weights, const void* biases,
                                               void* h_out, void* alpha_out, int n_points, int pe, int width,
                                               int layers, int skip, int grid, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (pe > 128) return (int)cudaErrorInvalidValue;
+  if (pe > 64 * kWideEncBlocks) return (int)cudaErrorInvalidValue;
+#define FWD(W) wide_fwd_launch<W>(encoded, weights, biases, h_out, alpha_out, n_points, pe, layers, skip, grid, s)
   switch (width) {
-    case 256: return wide_fwd_launch<256>(encoded, weights, biases, h_out, alpha_out, n_points, pe, layers, skip, grid, s);
-    case 512: return wide_fwd_launch<512>(encoded, weights, biases, h_out, alpha_out, n_points, pe, layers, skip, grid, s);
+    case 256: return FWD(256);
+    case 512: return FWD(512);
+    case 640: return FWD(640);
   }
+#undef FWD
   return (int)cudaErrorInvalidValue;
 }
 
@@ -964,13 +978,14 @@ extern "C" int fused_backbone_wide_bwd_launch(const void* encoded, const void* g
                                               void* grads_out, int n_points, int pe, int width, int layers, int skip,
                                               int grid, int chunks, void* stream, float* ms) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (pe > 128) return (int)cudaErrorInvalidValue;
+  if (pe > 64 * kWideEncBlocks) return (int)cudaErrorInvalidValue;
 #define BWD(W)                                                                                                    \
   wide_bwd_launch<W>(encoded, g_h, g_alpha, weights, biases, d_encoded, x_scr, g_scr, tile_part, partial, masks, \
                      grads_out, n_points, pe, layers, skip, grid, chunks, s, ms)
   switch (width) {
     case 256: return BWD(256);
     case 512: return BWD(512);
+    case 640: return BWD(640);
   }
 #undef BWD
   return (int)cudaErrorInvalidValue;

@@ -91,7 +91,8 @@
 //    block's products are added into RN sums. Added into the split's f32
 //    slab.
 // 3. backbone_f32_grad_reduce_kernel: sums the slabs over splits and the
-//    tile kernel's rows, each in index order.
+//    tile kernel's rows, each in index order (the wide kernels leave db_alpha
+//    at 0 there; backbone_f32_alpha_bias_kernel writes it from g_alpha).
 // The launcher walks the points in chunks of `chunk_tiles` tiles (1,024,
 // ops/fused_nerf.py::_F32_CHUNK_TILES) so that the X and G scratch stay
 // bounded, ~1 GB at the tennis widths (backbone_f32_scratch_shapes); the
@@ -104,7 +105,7 @@
 
 namespace {
 
-constexpr int kMaxLayers = 16;  // the weight pointers of one pack launch
+constexpr int kMaxLayers = 16;  // the weight pointers of one pack launch (a deeper network takes several)
 constexpr int kPoints = 64;                 // points a tile: one m64 block, both warpgroups' rows
 constexpr int kStages = 4;
 constexpr int kStageBytes = 64 * 256;       // a slot of N = 256: 2 x 256 x 8 floats
@@ -264,24 +265,25 @@ __device__ __forceinline__ void consumer_sync() { named_sync(3, kConsumers); }
 
 // ---- the weight ring ------------------------------------------------------------
 
-// Producer: `bytes` (at most kStageBytes) from `src` into the next slot once
-// every consumer warp has released it.
+// Producer: `bytes` (at most kStage, the ring's stride) from `src` into the
+// next slot once every consumer warp has released it.
+template <int kStage = kStageBytes>
 __device__ __forceinline__ void produce(Ring& r, const float* src, uint32_t bytes) {
   mbar_wait(r.empty + 8 * r.stage, r.phase ^ 1);
   mbar_expect_tx(r.full + 8 * r.stage, bytes);
-  bulk_load(r.slots + r.stage * kStageBytes, src, bytes, r.full + 8 * r.stage);
+  bulk_load(r.slots + r.stage * kStage, src, bytes, r.full + 8 * r.stage);
   ring_advance<kStages>(r);
 }
 
 // Consumer: waits for the next slot and issues its three products for the
 // warpgroup's H columns (rows n_off / 32 .. of the slot's n_all) into acc,
 // fresh or added to.
-template <int H>
+template <int H, int kStage = kStageBytes>
 __device__ __forceinline__ void issue(float* acc, Ring& r, const uint32_t* big, const uint32_t* small,
                                       uint32_t n_off, int n_all, int scale_d) {
   mbar_wait(r.full + 8 * r.stage, r.phase);
   wgmma_fence();
-  const uint32_t slot = r.slots + r.stage * kStageBytes + n_off;
+  const uint32_t slot = r.slots + r.stage * kStage + n_off;
   mma3<H>(acc, big, small, plain_desc(slot), plain_desc(slot + n_all * 32), scale_d);
   ring_advance<kStages>(r);
 }
@@ -291,7 +293,7 @@ __device__ __forceinline__ void issue(float* acc, Ring& r, const uint32_t* big, 
 // into a fresh accumulator and then into `sum`: the tensor cores truncate
 // every sum they accumulate, which over a layer's 120 products drifts
 // enough to flip ReLUs, while `sum` rounds to nearest.
-template <int H>
+template <int H, int kStage = kStageBytes>
 __device__ __forceinline__ void product(float* sum, Ring& r, const float4* a, int steps, uint32_t n_off, int n_all,
                                         int lane) {
   float acc[H / 2];
@@ -302,8 +304,8 @@ __device__ __forceinline__ void product(float* sum, Ring& r, const float4* a, in
     split4(a[128 * (s + 1)], big1, small1);
     if (s + 2 < steps) next = a[128 * (s + 2)];
     const int first = r.stage;
-    issue<H>(acc, r, big0, small0, n_off, n_all, 0);
-    issue<H>(acc, r, big1, small1, n_off, n_all, 1);
+    issue<H, kStage>(acc, r, big0, small0, n_off, n_all, 0);
+    issue<H, kStage>(acc, r, big1, small1, n_off, n_all, 1);
     wgmma_commit();
     wgmma_wait<0>();
     if (lane == 0) {
@@ -766,32 +768,42 @@ __global__ void backbone_f32_grad_reduce_kernel(const float* __restrict__ partia
 
 // ---- beyond the published shapes: the wide kernels -----------------------------
 //
-// Width 512 (a width in (256, 512) zero-padded to it), encodings of 65-128
-// columns, 9-16 layers (at W <= 256 run at W 256). Both warpgroups' columns
-// of a product are one slot of N = 256 (a pass): at W 512 each layer is two
-// passes, warpgroup w computing columns [256 c + 128 w, 256 c + 128 (w + 1))
-// of pass c, H = 128 of them, so that a thread keeps the sums and the
-// tensor-core accumulator of the 256-wide kernel (168 registers). The layer's
-// input stays in one staging buffer in shared memory until both passes have
-// read it, so each pass's output fragments wait in a global scratch of the
-// CTA's (`stash`, (grid, W / 8, 128) float4, L2-resident, read back by the
-// thread that wrote them) and go into the staging after a barrier. Shared
-// memory at W 512: the ring (64 KB), the 128 KB staging of a layer's input,
-// the encoding's 16 k-steps (32 KB): 225 KB of 227. Weight images as the
-// 256-wide kernels' with each layer's slots in passes (fwd: pass c's k-steps
-// of columns [256 c, 256 c + 256); bwd: the encoding's 64-row groups, then
-// the activation rows in groups of 256, each W / 8 k-steps), and the
-// encoding's rows padded to 64 ps (ps = 1 or 2; pe_pad = 64 ps).
+// Widths 256, 512 and 640 (a width above 256 zero-padded to the next of
+// them), encodings of 65-256 columns, more than 8 layers (at W <= 256 run at
+// W 256); depth is a runtime loop bound. Each layer runs in passes of NP
+// columns (f32_pass: 256 at W 256 and 512, 128 at W 640, whose 640 columns
+// are five such passes), warpgroup w computing columns [NP c + H w, NP c +
+// H (w + 1)) of pass c, H = NP / 2, so that a thread keeps at most the sums
+// and the tensor-core accumulator of the 256-wide kernel (168 registers).
+// The layer's input stays in one staging buffer in shared memory until
+// every pass has read it, so each pass's output fragments wait in a global
+// scratch of the CTA's (`stash`, L2-resident, read back by the thread that
+// wrote them) and go into the staging after a barrier. The encoding's
+// fragments (8 ps k-steps) are staged in the same scratch past the layer's
+// W / 8 k-steps and read from there by layer 0 and the skip layer: in shared
+// memory they would not fit beside a 640-wide layer's 160 KB. Shared memory
+// at W 640: the ring (4 stages of 64 NP bytes, 32 KB), the 160 KB staging of
+// a layer's input, 8 KB of column-sum staging, the alpha partials: 201 KB of
+// 227 (W 512: 201 KB too; W 256: 137 KB). Weight images as the 256-wide
+// kernels' with each layer's slots in passes (fwd: pass c's k-steps of
+// columns [NP c, NP c + NP); bwd: the encoding's 64-row groups, then the
+// activation rows in groups of NP, each W / 8 k-steps), and the encoding's
+// rows padded to 64 ps (ps = 1 to 4; pe_pad = 64 ps).
+
+// The columns of one pass of a width-W layer: W up to 256, then 256, or
+// 128 where 256 does not divide W.
+__host__ __device__ constexpr int f32_pass(int W) { return W <= 256 ? W : (W % 256 == 0 ? 256 : 128); }
 
 template <int W>
 __host__ __device__ constexpr size_t wide_smem() {
-  return 1024 + (size_t)kStages * kStageBytes + (size_t)(W / 8 + 16) * kStepBytes + 4 * kPoints + 16 * kStages;
+  return 1024 + (size_t)kStages * 64 * f32_pass(W) + (size_t)(W / 8) * kStepBytes + 4 * kPoints +
+         2 * 4 * 256 * 4 + 16 * kStages;
 }
 
 struct WideSmem {
-  float4* act;    // the layer's input: [W / 8 k-steps][128 threads]
-  float4* enc;    // the encoding's: [16 k-steps][128 threads]
-  float* alpha;   // the second warpgroup's alpha partials, 64
+  float4* act;     // the layer's input: [W / 8 k-steps][128 threads]
+  float* alpha;    // the second warpgroup's alpha partials, 64
+  float* staging;  // column sums: 4 warps x 256 floats a warpgroup
   uint32_t ring, bars;
 };
 
@@ -800,45 +812,49 @@ __device__ __forceinline__ WideSmem wide_smem_layout(unsigned char* raw) {
   const Smem sm = aligned_smem(raw);
   WideSmem s;
   s.ring = sm.addr;
-  s.act = reinterpret_cast<float4*>(sm.base + kStages * kStageBytes);
-  s.enc = s.act + (W / 8) * 128;
-  s.alpha = reinterpret_cast<float*>(s.enc + 16 * 128);
-  s.bars = sm.addr + kStages * kStageBytes + (W / 8 + 16) * kStepBytes + 4 * kPoints;
+  s.act = reinterpret_cast<float4*>(sm.base + kStages * 64 * f32_pass(W));
+  s.alpha = reinterpret_cast<float*>(s.act + (W / 8) * 128);
+  s.staging = s.alpha + kPoints;
+  s.bars = sm.addr + kStages * 64 * f32_pass(W) + (W / 8) * kStepBytes + 4 * kPoints + 2 * 4 * 256 * 4;
   return s;
 }
 
-// The tile's encoding k-steps (ps groups of 8, 4 a warpgroup) into the
-// staging, between two barriers; into X too where given.
-__device__ __forceinline__ void stage_wide_encoding(const WideSmem& sm, const float* __restrict__ encoded, int point,
-                                                    int n, int pe, int ps, int wg, int t, int q,
-                                                    float* x_scr = nullptr, int x_feats = 0, int row = 0) {
+// The tile's encoding k-steps (ps groups of 8, 4 a warpgroup) into `enc`
+// (the CTA's stash past the layer's k-steps), between two barriers; into X
+// too where given.
+__device__ __forceinline__ void stage_wide_encoding(float4* enc, const float* __restrict__ encoded, int point, int n,
+                                                    int pe, int ps, int wg, int t, int q, float* x_scr = nullptr,
+                                                    int x_feats = 0, int row = 0) {
   consumer_sync();
   for (int e = 0; e < ps; ++e) {
     float v[16];
     load_encoding_f32<4>(v, encoded, point, n, pe, q, 8 * e + 4 * wg);
-    stage_fragments<32>(sm.enc + (8 * e + 4 * wg) * 128 + t, v);
+    stage_fragments<32>(enc + (8 * e + 4 * wg) * 128 + t, v);
     if (x_scr != nullptr) store_transposed<32>(x_scr, x_feats, 64 * e + 32 * wg, v, row, q);
   }
   consumer_sync();
 }
 
-// Pass c of forward layer i for the warpgroup's 128 columns: sum = A_i @
-// W_i, the layer's slots of the pass in image order.
-__device__ __forceinline__ void wide_forward_pass(float* sum, Ring& r, int i, int skip, int ps, int width,
-                                                  const float4* act, const float4* enc, int wg, int lane) {
-  zero<64>(sum);
+// Pass c of forward layer i for the warpgroup's H = NP / 2 columns: sum =
+// A_i @ W_i, the layer's slots of the pass in image order.
+template <int W>
+__device__ __forceinline__ void wide_forward_pass(float* sum, Ring& r, int i, int skip, int ps, const float4* act,
+                                                  const float4* enc, int wg, int lane) {
+  constexpr int NP = f32_pass(W), H = NP / 2, kStage = 64 * NP;
+  zero<H / 2>(sum);
   if (i == 0) {
-    product<128>(sum, r, enc, 8 * ps, wg * 128 * 32, 256, lane);
+    product<H, kStage>(sum, r, enc, 8 * ps, wg * H * 32, NP, lane);
   } else {
-    product<128>(sum, r, act, width / 8, wg * 128 * 32, 256, lane);
-    if (i == skip) product<128>(sum, r, enc, 8 * ps, wg * 128 * 32, 256, lane);
+    product<H, kStage>(sum, r, act, W / 8, wg * H * 32, NP, lane);
+    if (i == skip) product<H, kStage>(sum, r, enc, 8 * ps, wg * H * 32, NP, lane);
   }
 }
 
 // The inverse of stage_fragments.
+template <int N>
 __device__ __forceinline__ void unstage_fragments(float* v, const float4* src) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 8; ++j) {
     const float4 f = src[128 * j];
     v[4 * j] = f.x;
     v[4 * j + 2] = f.y;
@@ -848,60 +864,68 @@ __device__ __forceinline__ void unstage_fragments(float* v, const float4* src) {
 }
 
 // After a layer's passes: once every product has read the staging, the
-// thread's stashed fragments (its 128 columns of each pass) go into it.
+// thread's stashed fragments (its H columns of each pass) go into it.
 template <int W>
 __device__ __forceinline__ void unstash(const WideSmem& sm, const float4* stash, int wg, int t) {
+  constexpr int NP = f32_pass(W), H = NP / 2;
   consumer_sync();
 #pragma unroll
-  for (int c = 0; c < W / 256; ++c)
+  for (int c = 0; c < W / NP; ++c)
 #pragma unroll 4
-    for (int j = 0; j < 16; ++j) {
-      const int k = (256 * c + 128 * wg) / 8 + j;
+    for (int j = 0; j < H / 8; ++j) {
+      const int k = (NP * c + H * wg) / 8 + j;
       sm.act[k * 128 + t] = stash[k * 128 + t];
     }
   consumer_sync();
+}
+
+// A CTA's stash: the layer's W / 8 k-steps, then the encoding's 8 ps.
+template <int W>
+__device__ __forceinline__ float4* cta_stash(float4* stash, int ps) {
+  return stash + (size_t)blockIdx.x * (W / 8 + 8 * ps) * 128;
 }
 
 template <int W>
 __global__ void __launch_bounds__(kF32Threads, 1)
     backbone_f32_wide_fwd_kernel(const float* __restrict__ encoded, const float* __restrict__ image,
                                  const float* __restrict__ biases, const float* __restrict__ w_alpha,
-                                 float* __restrict__ h_out, float* __restrict__ alpha_out, float4* __restrict__ stash,
-                                 int n, int pe, int layers, int skip) {
-  constexpr int P = W / 256;
+                                 float* __restrict__ h_out, float* __restrict__ alpha_out, float4* stash, int n, int pe,
+                                 int layers, int skip) {
+  constexpr int NP = f32_pass(W), P = W / NP, H = NP / 2, kStage = 64 * NP;
   extern __shared__ unsigned char smem_raw[];
   const WideSmem sm = wide_smem_layout<W>(smem_raw);
   Ring ring;
   init_ring(ring, sm.ring, sm.bars, kStages, 8);
   const int ps = (pe + 63) / 64;
   const int tiles = (n + kPoints - 1) / kPoints;
-  const int slots = rows_before_pe(layers, W, skip, 64 * ps) * (W / 256) / 8;
+  const int slots = rows_before_pe(layers, W, skip, 64 * ps) * P / 8;
 
   if (threadIdx.x >= kConsumers) {
     if (threadIdx.x == kConsumers)
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
-        for (int s = 0; s < slots; ++s) produce(ring, image + (size_t)s * 16 * 256, 64 * 256);
+        for (int s = 0; s < slots; ++s) produce<kStage>(ring, image + (size_t)s * 16 * NP, 64 * NP);
   } else {
     const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t & 31, q = lane & 3, g = lane >> 2;
     const float b_alpha = __ldg(biases + layers * W);
-    float4* mine = stash + (size_t)blockIdx.x * (W / 8) * 128 + t;
-    float sum[64];
+    float4* mine = cta_stash<W>(stash, ps) + t;
+    float4* enc = mine + (W / 8) * 128;
+    float sum[H / 2];
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int r0 = tile * kPoints + 16 * (t >> 5) + g;
-      stage_wide_encoding(sm, encoded, r0, n, pe, ps, wg, t, q);
+      stage_wide_encoding(enc - t, encoded, r0, n, pe, ps, wg, t, q);
       float s0 = 0.0f, s1 = 0.0f;
       for (int i = 0; i < layers; ++i) {
         for (int c = 0; c < P; ++c) {
-          wide_forward_pass(sum, ring, i, skip, ps, W, sm.act + t, sm.enc + t, wg, lane);
-          const int col0 = 256 * c + 128 * wg;
-          bias_relu<128>(sum, biases + i * W + col0, t);
+          wide_forward_pass<W>(sum, ring, i, skip, ps, sm.act + t, enc, wg, lane);
+          const int col0 = NP * c + H * wg;
+          bias_relu<H>(sum, biases + i * W + col0, t);
           if (i + 1 < layers) {
-            stage_fragments<128>(mine + (col0 / 8) * 128, sum);
+            stage_fragments<H>(mine + (col0 / 8) * 128, sum);
             continue;
           }
           // h, and this pass's part of alpha = h . w_alpha.
 #pragma unroll
-          for (int j = 0; j < 16; ++j) {
+          for (int j = 0; j < H / 8; ++j) {
             const int col = col0 + 8 * j + 2 * q;
             const float2 wa = __ldg(reinterpret_cast<const float2*>(w_alpha + col));
             s0 = fmaf(sum[4 * j + 1], wa.y, fmaf(sum[4 * j], wa.x, s0));
@@ -932,110 +956,104 @@ __global__ void __launch_bounds__(kF32Threads, 1)
 }
 
 // The wide backward's tile kernel: the recompute keeps each pass's ReLU bits
-// (masks (grid, L, 2 W/256, 256)) and X, and stashes the last layer's h for
-// the alpha head; then back-propagates pass by pass: g_in's pass (the
-// encoding's 64-row groups first, into d_encoded), masked by the layer
-// below's bits, into G, its column sums and the stash.
+// (masks (grid, L, W / 128, 256): NP / 128 words a pass) and X, and stashes
+// the last layer's h for the alpha head; then back-propagates pass by pass:
+// g_in's pass (the encoding's 64-row groups first, into d_encoded), masked
+// by the layer below's bits, into G, its column sums and the stash.
 // The wide tile kernel's parameters: the 256-wide kernel's, its stash and
 // the encoding's blocks.
 struct WideBwdTileParams : BwdTileParams {
-  float4* stash;  // (grid, W / 8, 128) a layer's outputs, each thread's own
+  float4* stash;  // (grid, W / 8 + 8 ps, 128): a layer's outputs, each thread's own, then the encoding's fragments
   int ps;         // 64-column blocks of the encoding
 };
 
 template <int W>
 __global__ void __launch_bounds__(kF32Threads, 1)
     backbone_f32_wide_bwd_tile_kernel(const __grid_constant__ WideBwdTileParams p) {
-  constexpr int P = W / 256, kWords = 2 * P;
+  constexpr int NP = f32_pass(W), P = W / NP, H = NP / 2, kStage = 64 * NP;
+  constexpr int kPassWords = H / 64, kWords = P * kPassWords;
   extern __shared__ unsigned char smem_raw[];
   const WideSmem sm = wide_smem_layout<W>(smem_raw);
   Ring ring;
   init_ring(ring, sm.ring, sm.bars, kStages, 8);
   const int L = p.layers, skip = p.skip, ps = p.ps, pe_pad = 64 * ps;
-  const int slots = rows_before_pe(L, W, skip, pe_pad) * (W / 256) / 8;
+  const int slots = rows_before_pe(L, W, skip, pe_pad) * P / 8;
 
   if (threadIdx.x >= kConsumers) {
     if (threadIdx.x == kConsumers) {
       for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
-        for (int s = 0; s < slots; ++s) produce(ring, p.fwd_image + (size_t)s * 16 * 256, 64 * 256);
+        for (int s = 0; s < slots; ++s) produce<kStage>(ring, p.fwd_image + (size_t)s * 16 * NP, 64 * NP);
         for (int i = L - 1; i >= 0; --i) {
           const float* src = p.bwd_image + 2 * (size_t)W * rows_before_pe(i, W, skip, pe_pad);
           if (i == 0 || i == skip)
-            for (int k = 0; k < ps * W / 8; ++k, src += 16 * 64) produce(ring, src, 64 * 64);
+            for (int k = 0; k < ps * W / 8; ++k, src += 16 * 64) produce<kStage>(ring, src, 64 * 64);
           if (i > 0)
-            for (int k = 0; k < P * W / 8; ++k, src += 16 * 256) produce(ring, src, 64 * 256);
+            for (int k = 0; k < P * W / 8; ++k, src += 16 * NP) produce<kStage>(ring, src, 64 * NP);
         }
       }
     }
   } else {
     const int ct = threadIdx.x, wg = ct / 128, t = ct % 128, lane = t & 31, q = lane & 3, g = lane >> 2;
-    // The column sums' staging: 4 KB of the encoding's for each warpgroup,
-    // free once the recompute is done.
-    float* staging = reinterpret_cast<float*>(sm.enc) + wg * 1024;
+    float* staging = sm.staging + wg * 1024;
     const int tp_ld = L * W + W + 1;
     float* tp = p.tile_part + ((size_t)blockIdx.x * 2 + wg) * tp_ld;
     uint32_t* masks = p.masks + (size_t)blockIdx.x * L * kWords * kConsumers + ct;
-    float4* mine = p.stash + (size_t)blockIdx.x * (W / 8) * 128 + t;
-    float sum[64];
+    float4* mine = cta_stash<W>(p.stash, ps) + t;
+    float4* enc = mine + (W / 8) * 128;
+    float sum[H / 2];
 
     for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
       const int row = tile * kPoints + 16 * (t >> 5) + g;  // of the chunk
       const int r0 = p.first_tile * kPoints + row;         // the point
-      stage_wide_encoding(sm, p.encoded, r0, p.n, p.pe, ps, wg, t, q, p.x_scr, p.x_feats, row);
+      stage_wide_encoding(enc - t, p.encoded, r0, p.n, p.pe, ps, wg, t, q, p.x_scr, p.x_feats, row);
       // Recompute; X <- every layer's input, masks <- each pass's ReLU.
       for (int i = 0; i < L; ++i) {
         for (int c = 0; c < P; ++c) {
-          wide_forward_pass(sum, ring, i, skip, ps, W, sm.act + t, sm.enc + t, wg, lane);
-          const int col0 = 256 * c + 128 * wg;
-          bias_relu<128>(sum, p.biases + i * W + col0, t);
+          wide_forward_pass<W>(sum, ring, i, skip, ps, sm.act + t, enc, wg, lane);
+          const int col0 = NP * c + H * wg;
+          bias_relu<H>(sum, p.biases + i * W + col0, t);
 #pragma unroll
-          for (int w = 0; w < 2; ++w) {
+          for (int w = 0; w < kPassWords; ++w) {
             uint32_t m = 0;
 #pragma unroll
             for (int b = 0; b < 32; ++b) m |= (sum[32 * w + b] > 0.0f ? 1u : 0u) << b;
-            masks[(i * kWords + 2 * c + w) * kConsumers] = m;
+            masks[((size_t)i * kWords + kPassWords * c + w) * kConsumers] = m;
           }
-          if (i + 1 < L) store_transposed<128>(p.x_scr, p.x_feats, pe_pad + i * W + col0, sum, row, q);
-          stage_fragments<128>(mine + (col0 / 8) * 128, sum);
+          if (i + 1 < L) store_transposed<H>(p.x_scr, p.x_feats, pe_pad + i * W + col0, sum, row, q);
+          stage_fragments<H>(mine + (col0 / 8) * 128, sum);
         }
         if (i + 1 < L) unstash<W>(sm, mine - t, wg, t);
       }
-      consumer_sync();  // the last layer's products are done with the encoding's staging
+      consumer_sync();  // the last layer's products are done with the encoding's fragments
 
-      // The alpha head: dW_alpha += h^T g_alpha, db_alpha += sum g_alpha.
+      // The alpha head: dW_alpha += h^T g_alpha (db_alpha: backbone_f32_alpha_bias_kernel).
       const float ga0 = r0 < p.n ? p.g_alpha[r0] : 0.0f;
       const float ga1 = r0 + 8 < p.n ? p.g_alpha[r0 + 8] : 0.0f;
       for (int c = 0; c < P; ++c) {
-        const int col0 = 256 * c + 128 * wg;
-        unstage_fragments(sum, mine + (col0 / 8) * 128);
+        const int col0 = NP * c + H * wg;
+        unstage_fragments<H>(sum, mine + (col0 / 8) * 128);
 #pragma unroll
-        for (int v = 0; v < 64; ++v) sum[v] *= (v & 2) ? ga1 : ga0;
-        column_sums<128>(sum, staging, tp + L * W + col0, wg, t, false);
-      }
-      if (ct == 0) {
-        const int first = (p.first_tile + tile) * kPoints;
-        double s = 0.0;
-        for (int r = first; r < first + kPoints; ++r) s += r < p.n ? p.g_alpha[r] : 0.0f;
-        tp[L * W + W] += (float)s;
+        for (int v = 0; v < H / 2; ++v) sum[v] *= (v & 2) ? ga1 : ga0;
+        column_sums<H>(sum, staging, tp + L * W + col0, wg, t, false);
       }
       // A pass of g for layer `l`, in sum: masked, into G, its column sums, stashed.
       auto g_pass = [&](int l, int c) {
-        const int col0 = 256 * c + 128 * wg;
+        const int col0 = NP * c + H * wg;
 #pragma unroll
-        for (int w = 0; w < 2; ++w) {
-          const uint32_t m = masks[(l * kWords + 2 * c + w) * kConsumers];
+        for (int w = 0; w < kPassWords; ++w) {
+          const uint32_t m = masks[((size_t)l * kWords + kPassWords * c + w) * kConsumers];
 #pragma unroll
           for (int k = 0; k < 32; ++k) sum[32 * w + k] = ((m >> k) & 1u) ? sum[32 * w + k] : 0.0f;
         }
-        store_transposed<128>(p.g_scr, p.g_feats, l * W + col0, sum, row, q);
-        column_sums<128>(sum, staging, tp + l * W + col0, wg, t, false);
-        stage_fragments<128>(mine + (col0 / 8) * 128, sum);
+        store_transposed<H>(p.g_scr, p.g_feats, l * W + col0, sum, row, q);
+        column_sums<H>(sum, staging, tp + l * W + col0, wg, t, false);
+        stage_fragments<H>(mine + (col0 / 8) * 128, sum);
       };
       // g = g_h + g_alpha w_alpha^T.
       for (int c = 0; c < P; ++c) {
-        const int col0 = 256 * c + 128 * wg;
+        const int col0 = NP * c + H * wg;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < H / 8; ++j) {
           const int col = col0 + 8 * j + 2 * q;
           const float2 wa = __ldg(reinterpret_cast<const float2*>(p.w_alpha + col));
           const float2 h0 = r0 < p.n ? *reinterpret_cast<const float2*>(p.g_h + (size_t)r0 * W + col)
@@ -1058,7 +1076,7 @@ __global__ void __launch_bounds__(kF32Threads, 1)
           const bool add = i == 0 && skip < L;
           for (int e = 0; e < ps; ++e) {
             zero<16>(sum);
-            product<32>(sum, ring, sm.act + t, W / 8, wg * 32 * 32, 64, lane);
+            product<32, kStage>(sum, ring, sm.act + t, W / 8, wg * 32 * 32, 64, lane);
 #pragma unroll
             for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -1071,8 +1089,8 @@ __global__ void __launch_bounds__(kF32Threads, 1)
         }
         if (i > 0) {
           for (int c = 0; c < P; ++c) {
-            zero<64>(sum);
-            product<128>(sum, ring, sm.act + t, W / 8, wg * 128 * 32, 256, lane);
+            zero<H / 2>(sum);
+            product<H, kStage>(sum, ring, sm.act + t, W / 8, wg * H * 32, NP, lane);
             g_pass(i - 1, c);
           }
           unstash<W>(sm, mine - t, wg, t);
@@ -1082,12 +1100,30 @@ __global__ void __launch_bounds__(kF32Threads, 1)
   }
 }
 
+// db_alpha of the wide backward: the sum of g_alpha over every point in f64
+// in a fixed order (one block: thread k sums points k, k + 256, ..., then
+// the 256 partials in a tree of fixed shape). The wide tile kernel sums no
+// per-tile partials for it: each rounded to f32 in tile_part, they lose the
+// low bits a sum that cancels to far less than its terms keeps.
+__global__ void backbone_f32_alpha_bias_kernel(const float* __restrict__ g_alpha, int n, float* __restrict__ out) {
+  __shared__ double part[256];
+  double s = 0.0;
+  for (int i = threadIdx.x; i < n; i += 256) s += g_alpha[i];
+  part[threadIdx.x] = s;
+  __syncthreads();
+  for (int w = 128; w > 0; w >>= 1) {
+    if (threadIdx.x < w) part[threadIdx.x] += part[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *out = (float)part[0];
+}
+
 // ---- the weight images ------------------------------------------------------------
 
 struct PackParams {
-  const float* w[kMaxLayers];      // layer i's weight (in_i, W): element (r, c) at r * ws[i][0] + c * ws[i][1]
+  const float* w[kMaxLayers];      // layer first + i's weight (in, W): element (r, c) at r * ws[i][0] + c * ws[i][1]
   long long ws[kMaxLayers][2];
-  const float* b[kMaxLayers];      // b_i: element c at c * bs[i]
+  const float* b[kMaxLayers];      // b_{first + i}: element c at c * bs[i]
   long long bs[kMaxLayers];
   const float* w_alpha;            // (W, 1): element c at c * was
   long long was;
@@ -1096,8 +1132,11 @@ struct PackParams {
   float* bwd;
   float* biases;                   // b_0 .. b_{L-1}, b_alpha
   float* w_alpha_out;              // W
-  int width, layers, skip, pe, rows_pad;
-  int np, pe_pad;                  // pass width min(W, 256); the encoding's rows, padded to 64 or 128
+  int width, skip, pe;
+  int np, pe_pad;                  // pass width (f32_pass); the encoding's rows, padded to 64 ps
+  int first, count;                // this launch's layers [first, first + count)
+  int row0, rows;                  // their padded rows [row0, row0 + rows)
+  int last;                        // whether they end the network: b_alpha and w_alpha too
 };
 
 // Float offset of (n, k) in a slot part of wgmma's layout without swizzle.
@@ -1108,22 +1147,26 @@ __host__ __device__ constexpr int frag_offset(int n, int k) {
 // The logical k of physical column m of an 8-column step (pi's inverse).
 __host__ __device__ constexpr int logical_k(int m) { return (m >> 1) + 4 * (m & 1); }
 
-// One thread a padded weight element (layer i, padded input row rr, output
-// column c): its big and small halves into both images; then one a bias and
-// one a w_alpha element.
+// One thread a padded weight element of the launch's layers (layer i,
+// padded input row rr, output column c): its big and small halves into both
+// images; then one a bias of those layers, and on the last launch one for
+// b_alpha and one a w_alpha element. A network deeper than kMaxLayers is
+// packed by consecutive launches of kMaxLayers layers (their pointers are
+// the kernel parameter).
 __global__ void backbone_f32_pack_kernel(const __grid_constant__ PackParams p) {
   const int W = p.width, np = p.np, pe_pad = p.pe_pad;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long weights = (long long)p.rows_pad * W;
+  const long long weights = (long long)p.rows * W;
   if (idx < weights) {
-    const int r = (int)(idx / W), c = (int)(idx % W);
-    int i = 0, before = 0;
+    const int r = p.row0 + (int)(idx / W), c = (int)(idx % W);
+    int i = p.first, before = p.row0;
     while (r - before >= in_pad_pe(i, W, p.skip, pe_pad)) before += in_pad_pe(i++, W, p.skip, pe_pad);
     const int rr = r - before;
     bool real = rr < W;                                   // an activation row
     if (i == 0) real = rr < p.pe;                          // the encoding's, padded to pe_pad
     else if (i == p.skip && rr >= W) real = rr - W < p.pe;
-    const float w = real ? p.w[i][rr * p.ws[i][0] + c * p.ws[i][1]] : 0.0f;
+    const int li = i - p.first;
+    const float w = real ? p.w[li][rr * p.ws[li][0] + c * p.ws[li][1]] : 0.0f;
     const uint32_t big = tf32_rna(w), small = tf32_rna(w - __uint_as_float(big));
     const size_t base = 2 * (size_t)W * before;
     const int k_steps = in_pad_pe(i, W, p.skip, pe_pad) / 8;
@@ -1147,11 +1190,12 @@ __global__ void backbone_f32_pack_kernel(const __grid_constant__ PackParams p) {
     b += (size_t)(c >> 3) * 16 * rows + frag_offset(nn, logical_k(c & 7));
     p.bwd[b] = __uint_as_float(big);
     p.bwd[b + 8 * rows] = __uint_as_float(small);
-  } else if (idx < weights + (long long)p.layers * W + 1) {
-    const int j = (int)(idx - weights), i = j / W;
-    p.biases[j] = i < p.layers ? p.b[i][(j % W) * p.bs[i]] : p.b_alpha[0];
-  } else if (idx < weights + (long long)p.layers * W + 1 + W) {
-    const int c = (int)(idx - weights - (long long)p.layers * W - 1);
+  } else if (idx < weights + (long long)p.count * W + p.last) {
+    const int j = (int)(idx - weights), li = j / W;
+    if (li < p.count) p.biases[(p.first + li) * W + j % W] = p.b[li][(j % W) * p.bs[li]];
+    else p.biases[(p.first + p.count) * W] = p.b_alpha[0];
+  } else if (p.last && idx < weights + (long long)p.count * W + 1 + W) {
+    const int c = (int)(idx - weights - (long long)p.count * W - 1);
     p.w_alpha_out[c] = p.w_alpha[c * p.was];
   }
 }
@@ -1289,6 +1333,12 @@ int bwd_launch(Params tp, const int* table, int row_blocks, float* partial, floa
     backbone_f32_grad_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
         partial, splits, dw_elems, tp.tile_part, 2 * grid, tp_ld, grads_out);
     err = cudaGetLastError();
+    if constexpr (kWide) {
+      if (err == cudaSuccess) {
+        backbone_f32_alpha_bias_kernel<<<1, 256, 0, stream>>>(tp.g_alpha, tp.n, grads_out + dw_elems + tp_ld - 1);
+        err = cudaGetLastError();
+      }
+    }
     timer.end(2);
   }
   if (ms) {
@@ -1313,16 +1363,10 @@ extern "C" int backbone_f32_pack_launch(const void* const* w, const long long* w
                                         const long long* b_strides, const void* w_alpha, long long w_alpha_stride,
                                         const void* b_alpha, void* fwd, void* bwd, void* biases, void* w_alpha_out,
                                         int width, int layers, int skip, int pe, int pe_pad, void* stream) {
-  if (layers < 1 || layers > kMaxLayers || (width != 64 && width != 128 && width != 256 && width != 512) || pe > 128)
+  if (layers < 1 || (width != 64 && width != 128 && width != 256 && width != 512 && width != 640) ||
+      pe > pe_pad || pe_pad > 256)
     return (int)cudaErrorInvalidValue;
   PackParams p{};
-  for (int i = 0; i < layers; ++i) {
-    p.w[i] = (const float*)w[i];
-    p.ws[i][0] = w_strides[2 * i];
-    p.ws[i][1] = w_strides[2 * i + 1];
-    p.b[i] = (const float*)b[i];
-    p.bs[i] = b_strides[i];
-  }
   p.w_alpha = (const float*)w_alpha;
   p.was = w_alpha_stride;
   p.b_alpha = (const float*)b_alpha;
@@ -1331,15 +1375,29 @@ extern "C" int backbone_f32_pack_launch(const void* const* w, const long long* w
   p.biases = (float*)biases;
   p.w_alpha_out = (float*)w_alpha_out;
   p.width = width;
-  p.layers = layers;
   p.skip = skip;
   p.pe = pe;
-  p.np = width < 256 ? width : 256;
+  p.np = f32_pass(width);
   p.pe_pad = pe_pad;
-  p.rows_pad = rows_before_pe(layers, width, skip, pe_pad);
-  const long long total = (long long)p.rows_pad * width + (long long)layers * width + 1 + width;
-  backbone_f32_pack_kernel<<<(unsigned)((total + 255) / 256), 256, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  for (int first = 0; first < layers; first += kMaxLayers) {
+    p.first = first;
+    p.count = min(kMaxLayers, layers - first);
+    p.last = first + p.count == layers;
+    for (int i = 0; i < p.count; ++i) {
+      p.w[i] = (const float*)w[first + i];
+      p.ws[i][0] = w_strides[2 * (first + i)];
+      p.ws[i][1] = w_strides[2 * (first + i) + 1];
+      p.b[i] = (const float*)b[first + i];
+      p.bs[i] = b_strides[first + i];
+    }
+    p.row0 = rows_before_pe(first, width, skip, pe_pad);
+    p.rows = rows_before_pe(first + p.count, width, skip, pe_pad) - p.row0;
+    const long long total = (long long)p.rows * width + (long long)p.count * width + (p.last ? 1 + width : 0);
+    backbone_f32_pack_kernel<<<(unsigned)((total + 255) / 256), 256, 0, (cudaStream_t)stream>>>(p);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 extern "C" int backbone_f32_fwd_launch(const void* encoded, const void* image, const void* biases,
@@ -1388,17 +1446,17 @@ extern "C" int backbone_f32_bwd_launch(const void* encoded, const void* g_h, con
   return (int)cudaErrorInvalidValue;
 }
 
-// The wide kernels (width 256 or 512, pe <= 128, layers <= 16; grid
+// The wide kernels (width 256, 512 or 640, pe <= 256, any depth; grid
 // min(tiles, SMs), tiles = ceil(N / 64)): as backbone_f32_fwd_launch and
 // backbone_f32_bwd_launch with the images of backbone_f32_pack_launch at
-// pe_pad = 64 ceil(pe / 64) and stash f32 (grid, W / 8, 128, 4); the
-// backward's masks u32 (grid, L, 2 W / 256, 256), its scratch with pe_pad
-// encoding features in X.
+// pe_pad = 64 ps, ps = ceil(pe / 64), and stash f32 (grid, W / 8 + 8 ps,
+// 128, 4); the backward's masks u32 (grid, L, W / 128, 256), its scratch
+// with pe_pad encoding features in X.
 extern "C" int backbone_f32_wide_fwd_launch(const void* encoded, const void* image, const void* biases,
                                             const void* w_alpha, void* h, void* alpha, void* stash, int n, int pe,
                                             int width, int layers, int skip, int grid, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (pe > 128) return (int)cudaErrorInvalidValue;
+  if (pe > 256) return (int)cudaErrorInvalidValue;
 #define FWD(W)                                                                                                   \
   do {                                                                                                           \
     cudaError_t err = prepare_wide<W>();                                                                         \
@@ -1411,6 +1469,7 @@ extern "C" int backbone_f32_wide_fwd_launch(const void* encoded, const void* ima
   switch (width) {
     case 256: FWD(256);
     case 512: FWD(512);
+    case 640: FWD(640);
   }
 #undef FWD
   return (int)cudaErrorInvalidValue;
@@ -1423,7 +1482,7 @@ extern "C" int backbone_f32_wide_bwd_launch(const void* encoded, const void* g_h
                                             const void* table, void* grads_out, int row_blocks, int n, int pe,
                                             int width, int layers, int skip, int grid, int chunk_tiles, int splits,
                                             void* stream, float* ms) {
-  if (pe > 128) return (int)cudaErrorInvalidValue;
+  if (pe > 256) return (int)cudaErrorInvalidValue;
   const int ps = (pe + 63) / 64;
   const int x_feats = 64 * ps + (layers - 1) * width, g_feats = layers * width;
   WideBwdTileParams tp{{(const float*)encoded, (const float*)g_h, (const float*)g_alpha, (const float*)fwd_image,
@@ -1438,6 +1497,7 @@ extern "C" int backbone_f32_wide_bwd_launch(const void* encoded, const void* g_h
   switch (width) {
     case 256: return BWD(256);
     case 512: return BWD(512);
+    case 640: return BWD(640);
   }
 #undef BWD
   return (int)cudaErrorInvalidValue;

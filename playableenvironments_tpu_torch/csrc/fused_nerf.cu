@@ -291,57 +291,73 @@ __global__ void __launch_bounds__(kThreads, 1) adain_nerf_kernel(const __grid_co
 
 // ---- beyond the published shapes: the wide kernel ---------------------------------
 //
-// Widths 256 < W <= 512 (W 512; narrower ones zero-padded to it), encodings
-// of 65-128 columns, 257-512 outputs or a skip into layer 0 (at W <= 256 run
-// at W 256): nerf_wgmma.cuh's column split on 64-point tiles, one CTA a tile
-// (no clusters), a unit of the pair table one tile. Warpgroup w computes
-// columns [w W/2, (w + 1) W/2) of every backbone layer and of f0, [w W/4, (w
-// + 1) W/4) of f1, and the 64-column blocks 2 m + w of the outputs (one
-// m64n64 accumulator each, at most four); each layer's output goes back into
-// the tile in place after a barrier of both warpgroups. Weight image
-// (adain_image): the backbone image of backbone_buffers (at skip 0 layer 0's
-// 2 ps slots, its rows [0, pe) then [pe, 2 pe) each zero-padded to 64 ps),
-// then W_f0 (W/64 slots of 64 rows x W), W_f1 (W/64 slots of 64 x W/2) and
-// W_out (W/128 slots of 64 x NO, NO the outputs rounded up to 64), each slot
-// its 64 x 64 blocks in the 128-byte swizzle. Shared memory at W 512: a ring
-// of two 64 KB slots (W_out's at 512 outputs is 64 KB), the 64 KB tile, the
-// 16 KB encoding tile: 210 KB.
-
-constexpr int kWideSlot = 64 * 1024;
-constexpr int kWideStages = 2;
+// Widths 256, 512 and 640 (narrower ones zero-padded to the next of them),
+// encodings of 65-256 columns, 257-1,024 outputs or a skip into layer 0 (at
+// W <= 256 run at W 256): nerf_wgmma.cuh's column split on 64-point tiles,
+// one CTA a tile (no clusters), a unit of the pair table one tile, the
+// ring's slots half weight slots (32 K rows), gathered from the image.
+// Warpgroup w computes columns [w W/2, (w + 1) W/2) of every backbone layer
+// and of f0; of f1's W/2 columns warpgroup 0 the first F1A = 64 ceil(W /
+// 256) and warpgroup 1 the rest (at W 640 192 and 128: whole 64-column
+// blocks, as a descriptor of the 128-byte swizzle needs); the outputs
+// in passes of OP = min(W, 512) columns, warpgroup w the 64-column blocks 2
+// m + w of each pass (one m64n64 accumulator each, at most four). Each
+// layer's output goes back into the tile in place after a barrier of both
+// warpgroups; the features go from registers to global memory, so nothing
+// waits across passes. Weight image (adain_image): the backbone image of
+// backbone_buffers (at skip 0 layer 0's 2 ps slots, its rows [0, pe) then
+// [pe, 2 pe) each zero-padded to 64 ps), then W_f0 (W/64 slots of 64 rows x
+// W), W_f1 (W/64 slots of 64 x W/2) and W_out (W/128 slots of 64 x NO, NO
+// the outputs rounded up to 64), each slot its 64 x 64 blocks in the
+// 128-byte swizzle; an output pass's half-slot gathers the pass's blocks of
+// a W_out slot. Shared memory: the ring and the tile in 160 KB (as B2's
+// wide kernel, fused_backbone.cu), the 32 KB encoding tile: 194 KB at every
+// width.
 
 template <int W>
 constexpr size_t wide_smem() {
-  return 1024 + (size_t)kWideStages * kWideSlot + 128 * W + kWideEncBytes + 256 + 256;
+  return 1024 + (size_t)wide_stages<W>() * wide_slot_bytes<W>() + 128 * W + kWideEncBytes + 256 + 256;
 }
 
-// acc (N columns) = tile[:, :64 slots] @ the slots' columns from byte
-// `b_off` on, over `slots` slots, A = the tile's 64-column block j.
-template <int N>
-__device__ __forceinline__ void wide_head_layer(float* acc, Ring& r, int slots, uint32_t act, uint32_t b_off,
-                                                int lane) {
+// acc (N columns, from column block b0 of each weight slot) = the tile's
+// first `slots` 64-column blocks @ `slots` weight slots, each as its two
+// half-slots.
+template <int W, int N>
+__device__ __forceinline__ void wide_head_layer(float* acc, Ring& r, int slots, uint32_t act, int b0, int lane) {
   int prev = -1;
 #pragma unroll 1
-  for (int j = 0; j < slots; ++j) {
-    consume_slot<kWideStages, 1, kWideSlot>(r, prev, lane, [&](uint32_t slot) {
-      const uint64_t da = sw128_base(act + j * 8192, 16, 1024), db = sw128_base(slot + b_off, 8192, 1024);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) wgmma<N, 0, 1>(acc, da + 2 * k, db + 128 * k, (j > 0 || k > 0) ? 1 : 0);
-    });
-  }
+  for (int j = 0; j < slots; ++j)
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h)
+      consume_slot<wide_stages<W>(), 1, wide_slot_bytes<W>()>(r, prev, lane, [&](uint32_t slot) {
+        half_product<N>(acc, act + j * 8192, slot, b0, h, j > 0 || h > 0);
+      });
   release_last(r, prev, lane);
   fence_regs<N / 2>(acc);
 }
 
+// f1 = relu((f0 @ W_f1) * scale1 + bias1) for the warpgroup's N columns from
+// column `col0`, left in acc.
+template <int W, int N>
+__device__ __forceinline__ void wide_f1(float* acc, Ring& r, uint32_t act, int col0, const AdaObject& o, int ray0,
+                                        int ray1, int t, int lane) {
+  wide_head_layer<W, N>(acc, r, W / 64, act, col0 / 64, lane);
+  modulate_relu<N>(acc, o.mod[2] + col0, o.ld[2], o.mod[3] + col0, o.ld[3], ray0, ray1, t);
+}
+
 template <int W>
 __global__ void __launch_bounds__(kThreads, 1) adain_wide_kernel(const __grid_constant__ AdaGroup g) {
-  constexpr int nb = W / 64, N = W / 2, N1 = W / 4;
+  constexpr int nb = W / 64, N = W / 2, kStages = wide_stages<W>(), kSlot = wide_slot_bytes<W>();
+  constexpr int kRing = kStages * kSlot;
+  constexpr int F1A = 64 * ((nb + 3) / 4), F1B = N - F1A;  // f1's columns of warpgroups 0 and 1
+  constexpr int OP = W < 512 ? W : 512, OPB = OP / 64;      // an output pass's columns and blocks
   extern __shared__ unsigned char smem_raw[];
   const Smem sm = aligned_smem(smem_raw);
-  const uint32_t act = sm.addr + kWideStages * kWideSlot, enc = act + 128 * W;
+  const uint32_t act = sm.addr + kRing, enc = act + 128 * W;
   Ring ring;
-  init_ring(ring, sm.addr, enc + kWideEncBytes + 256, kWideStages, 8);
+  init_ring(ring, sm.addr, enc + kWideEncBytes + 256, kStages, 8);
   const int ps = (g.pe + 63) / 64, no = (g.out + 63) / 64 * 64, chunks = no / 64;
+  const int passes = (chunks + OPB - 1) / OPB;
   const int backbone_slots = wide_first_slot(g.layers, nb, ps, g.skip);
   const size_t head = (size_t)backbone_slots * 128 * W + 2 * W;  // bytes before W_f0's slots
 
@@ -350,24 +366,28 @@ __global__ void __launch_bounds__(kThreads, 1) adain_wide_kernel(const __grid_co
     if (threadIdx.x == kConsumers) {
       for (int p = blockIdx.x; p < g.pairs; p += gridDim.x) {
         const unsigned char* image = g.obj[object_of(g, p)].image;
-        for (int s = 0; s < backbone_slots; ++s)
-          produce_slot<kWideStages, 1, kWideSlot>(ring, image + (size_t)s * 128 * W, 128 * W);
+        produce_wide_layer<W, kStages>(ring, image, 0, backbone_slots);
         const unsigned char* f0 = image + head;
-        for (int s = 0; s < nb; ++s) produce_slot<kWideStages, 1, kWideSlot>(ring, f0 + (size_t)s * 128 * W, 128 * W);
+        produce_wide_layer<W, kStages>(ring, f0, 0, nb);
         const unsigned char* f1 = f0 + (size_t)nb * 128 * W;
-        for (int s = 0; s < nb; ++s) produce_slot<kWideStages, 1, kWideSlot>(ring, f1 + (size_t)s * 64 * W, 64 * W);
+        for (int s = 0; s < nb; ++s)
+          for (int h = 0; h < 2; ++h) produce_half<kStages, kSlot>(ring, f1 + (size_t)s * 64 * W, nb / 2, h);
         const unsigned char* out = f1 + (size_t)nb * 64 * W;
-        for (int s = 0; s < nb / 2; ++s)
-          produce_slot<kWideStages, 1, kWideSlot>(ring, out + (size_t)s * 128 * no, 128 * no);
+        for (int o = 0; o < passes; ++o) {
+          const int blocks = min(OPB, chunks - o * OPB);
+          for (int s = 0; s < nb / 2; ++s)
+            for (int h = 0; h < 2; ++h)
+              produce_half<kStages, kSlot>(ring, out + (size_t)s * 128 * no + (size_t)o * OPB * 8192, blocks, h);
+        }
       }
     }
   } else {
     reg_alloc<232>();
     const int ct = threadIdx.x, wg = ct / 128, t = ct % 128, lane = t & 31, q = lane & 3;
-    unsigned char* act_p = sm.base + kWideStages * kWideSlot;
+    unsigned char* act_p = sm.base + kRing;
     unsigned char* enc_p = act_p + 128 * W;
     float* part = reinterpret_cast<float*>(enc_p + kWideEncBytes);
-    float acc[128];
+    float acc[N / 2];
     for (int p = blockIdx.x; p < g.pairs; p += gridDim.x) {
       const int oi = object_of(g, p);
       const AdaObject& o = g.obj[oi];
@@ -379,7 +399,7 @@ __global__ void __launch_bounds__(kThreads, 1) adain_wide_kernel(const __grid_co
       fence_async_smem();
       wide_sync();
       for (int i = 0; i < g.layers; ++i) {
-        wide_forward_layer<W, kWideStages, kWideSlot>(acc, ring, i, g.skip, ps, act, enc, wg, lane);
+        wide_forward_layer<W, kStages>(acc, ring, i, g.skip, ps, act, enc, wg, lane);
         bias_relu<N>(acc, o.biases + i * W + wg * N, t);
         if (i + 1 == g.layers)
           wide_alpha<N>(acc, reinterpret_cast<const bf16*>(o.image + (size_t)backbone_slots * 128 * W),
@@ -393,48 +413,59 @@ __global__ void __launch_bounds__(kThreads, 1) adain_wide_kernel(const __grid_co
       // The feature head; rows past the object's end read the last ray's
       // modulation and are not stored.
       const int ray0 = min(r0, n - 1) / o.samples, ray1 = min(r0 + 8, n - 1) / o.samples;
-      wide_head_layer<N>(acc, ring, nb, act, wg * (nb / 2) * 8192, lane);
+      wide_head_layer<W, N>(acc, ring, nb, act, wg * (nb / 2), lane);
       modulate_relu<N>(acc, o.mod[0] + wg * N, o.ld[0], o.mod[1] + wg * N, o.ld[1], ray0, ray1, t);
       wide_sync();
       store_wide_tile<N>(act_p, acc, t, wg * N);
       fence_async_smem();
       wide_sync();
-      wide_head_layer<N1>(acc, ring, nb, act, wg * (nb / 4) * 8192, lane);
-      modulate_relu<N1>(acc, o.mod[2] + wg * N1, o.ld[2], o.mod[3] + wg * N1, o.ld[3], ray0, ray1, t);
+      if (wg == 0)
+        wide_f1<W, F1A>(acc, ring, act, 0, o, ray0, ray1, t, lane);
+      else
+        wide_f1<W, F1B>(acc, ring, act, F1A, o, ray0, ray1, t, lane);
       wide_sync();
-      store_wide_tile<N1>(act_p, acc, t, wg * N1);  // f1 into the tile's first W/2 columns
+      if (wg == 0)  // f1 into the tile's first W/2 columns
+        store_wide_tile<F1A>(act_p, acc, t, 0);
+      else
+        store_wide_tile<F1B>(act_p, acc, t, F1A);
       fence_async_smem();
       wide_sync();
-      int prev = -1;
-#pragma unroll 1
-      for (int j = 0; j < nb / 2; ++j) {
-        consume_slot<kWideStages, 1, kWideSlot>(ring, prev, lane, [&](uint32_t slot) {
-          const uint64_t da = sw128_base(act + j * 8192, 16, 1024);
-#pragma unroll
-          for (int m = 0; m < 4; ++m) {
-            if (2 * m + wg < chunks) {
-              const uint64_t db = sw128_base(slot + (2 * m + wg) * 8192, 8192, 1024);
-#pragma unroll
-              for (int k = 0; k < 4; ++k)
-                wgmma<64, 0, 1>(acc + 32 * m, da + 2 * k, db + 128 * k, (j > 0 || k > 0) ? 1 : 0);
-            }
-          }
-        });
-      }
-      release_last(ring, prev, lane);
-      fence_regs<128>(acc);
       const float* b_out = o.biases + g.layers * W + 1;
+#pragma unroll 1
+      for (int op = 0; op < passes; ++op) {
+        const int blocks = min(OPB, chunks - op * OPB);
+        int prev = -1;
+#pragma unroll 1
+        for (int j = 0; j < nb / 2; ++j)
+#pragma unroll 1
+          for (int h = 0; h < 2; ++h)
+            consume_slot<kStages, 1, kSlot>(ring, prev, lane, [&](uint32_t slot) {
+              const uint64_t da = sw128_base(act + j * 8192, 16, 1024);
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int col0 = 64 * (2 * m + wg);
-        if (col0 >= g.out) continue;
+              for (int m = 0; m < OPB / 2; ++m) {
+                if (2 * m + wg < blocks) {
+                  const uint64_t db = sw128_base(slot + (2 * m + wg) * kHalfBlock, kHalfBlock, 1024);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+                  for (int kk = 0; kk < 2; ++kk)
+                    wgmma<64, 0, 1>(acc + 32 * m, da + 2 * (2 * h + kk), db + 128 * kk, (j > 0 || h > 0 || kk > 0) ? 1 : 0);
+                }
+              }
+            });
+        release_last(ring, prev, lane);
+        fence_regs<2 * OPB * 8>(acc);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = r0 + 8 * (e >> 1), col = col0 + 8 * j + 2 * q + (e & 1);
-            if (row < n && col < g.out) o.features[(size_t)row * g.out + col] = acc[32 * m + 4 * j + e] + __ldg(b_out + col);
-          }
+        for (int m = 0; m < OPB / 2; ++m) {
+          const int col0 = 64 * (op * OPB + 2 * m + wg);
+          if (2 * m + wg >= blocks) continue;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = r0 + 8 * (e >> 1), col = col0 + 8 * j + 2 * q + (e & 1);
+              if (row < n && col < g.out)
+                o.features[(size_t)row * g.out + col] = acc[32 * m + 4 * j + e] + __ldg(b_out + col);
+            }
+        }
       }
     }
   }
@@ -611,16 +642,17 @@ extern "C" int fused_adain_nerf_group_launch(int objects, const void* const* ptr
   return (int)cudaErrorInvalidValue;
 }
 
-// The wide kernel (width 256 or 512, pe <= 128, out <= 512, any skip
-// including 0): the same arguments, pair_start the prefix table of 64-point
-// tiles (adain_pair_table(..., ctas=1, tile=64)).
+// The wide kernel (width 256, 512 or 640, pe <= 256, any number of outputs
+// and layers, any skip including 0): the same arguments, pair_start the
+// prefix table of 64-point tiles (adain_pair_table(..., ctas=1, tile=64)).
 extern "C" int fused_adain_wide_group_launch(int objects, const void* const* ptrs, const int* ints,
                                              const int* pair_start, int pe, int width, int layers, int skip, int out,
                                              void* stream) {
-  if (objects < 1 || objects > kMaxObjects || pe > 128 || out > 512) return (int)cudaErrorInvalidValue;
+  if (objects < 1 || objects > kMaxObjects || pe > 64 * kWideEncBlocks) return (int)cudaErrorInvalidValue;
   const AdaGroup g = make_group(objects, ptrs, ints, pair_start, pe, layers, skip, out);
   if (g.pairs == 0) return 0;
   if (width == 256) return launch_wide<256>(g, (cudaStream_t)stream);
   if (width == 512) return launch_wide<512>(g, (cudaStream_t)stream);
+  if (width == 640) return launch_wide<640>(g, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

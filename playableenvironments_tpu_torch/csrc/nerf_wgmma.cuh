@@ -201,6 +201,18 @@ __device__ __forceinline__ uint64_t sw128_base(uint32_t addr, uint32_t lead, uin
 // column group j < N / 8 and e < 4, row 16 (t / 32) + (t % 32) / 4 + 8 (e / 2)
 // and column 8 j + 2 (t % 4) + e % 2 in d[4 j + e].
 template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_n32(float* d, uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_n64(float* d, uint64_t desc_a, uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -298,7 +310,8 @@ __device__ __forceinline__ void wgmma_n256(float* d, uint64_t desc_a, uint64_t d
 
 template <int N, int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma(float* d, uint64_t desc_a, uint64_t desc_b, int scale_d) {
-  static_assert(N == 64 || N == 128 || N == 192 || N == 256, "wgmma width");
+  static_assert(N == 32 || N == 64 || N == 128 || N == 192 || N == 256, "wgmma width");
+  if constexpr (N == 32) wgmma_n32<kTransA, kTransB>(d, desc_a, desc_b, scale_d);
   if constexpr (N == 64) wgmma_n64<kTransA, kTransB>(d, desc_a, desc_b, scale_d);
   if constexpr (N == 128) wgmma_n128<kTransA, kTransB>(d, desc_a, desc_b, scale_d);
   if constexpr (N == 192) wgmma_n192<kTransA, kTransB>(d, desc_a, desc_b, scale_d);
@@ -485,19 +498,53 @@ __device__ __forceinline__ void init_ring(Ring& r, uint32_t slots, uint32_t bars
 // Beyond the published shapes (width 256, encoding 64 columns, 8 layers) the
 // bf16 backbone kernels and B1 take 64-point tiles that both consumer
 // warpgroups read whole: warpgroup w computes output columns [w W/2, (w + 1)
-// W/2) of every layer, one m64n(W/2)k16 accumulator over the whole K (W/2 <=
-// 256 up to W 512, 128 registers a thread as the 128-point kernels' at W 256).
-// The two meet at a barrier of the 256 consumer threads before either writes
-// its columns back into the tile in place. A weight slot is 64 K rows by all
-// W columns (the image of backbone_buffers, unchanged); warpgroup w reads its
-// W/128 blocks of it. The encoding takes ps = ceil(pe / 64) 64-column blocks
-// (1 or 2), and layer 0 and the skip layer's encoding rows as many slots; at
-// skip 0 (B1 only) layer 0 reads [encoding, encoding], 2 ps slots. A width
-// of 768 needs more than one 256-column accumulator a warpgroup: a loop over
-// column passes whose outputs wait outside the tile, not a constant.
+// W/2) of every layer. The two meet at a barrier of the 256 consumer threads
+// before either writes its columns back into the tile in place.
+//
+// Widths 256, 512 and 640. A warpgroup's W/2 columns are one accumulator of
+// W/4 registers a thread over the whole K: at W 640 its 320 columns are two
+// wgmma products a k-step, m64n192 and m64n128, into one array laid out as
+// an m64n320 accumulator would be (wgmma_columns), so every epilogue reads
+// it as one. Nothing waits outside the tile: the layer's outputs stay in
+// registers until both warpgroups are done with its input.
+//
+// The ring's slot is half a weight slot: 32 of its 64 K rows, all of its W
+// columns (64 W bytes: 16, 32, 40 KB). The image is the 128-point kernels'
+// (backbone_buffers, unchanged): a weight slot is W/64 swizzled 64 x 64
+// blocks, and its half h is the h-th 4 KB of each block, so the producer
+// gathers a half-slot with W/64 bulk copies of 4 KB, 4 KB apart in the
+// ring (produce_half). A half-block keeps the 128-byte swizzle: its row r
+// sits at r * 128 bytes from a 1,024-byte boundary. wgmma reads it as B
+// with the column blocks 4 KB apart (forward, MN-major), or K-major with N
+// 32 (the backward's g @ W^T: a half-slot gives 32 columns of g_in). The
+// stages fill what the tile leaves of 160 KB (wide_stages): 8 at W 256, 3
+// at W 512, 2 at W 640, so that two stages always fit beside the 80 KB tile
+// and the 32 KB encoding tile.
+//
+// The encoding takes ps = ceil(pe / 64) 64-column blocks (1 to 4), and
+// layer 0 and the skip layer's encoding rows as many weight slots; at skip 0
+// (B1 only) layer 0 reads [encoding, encoding], 2 ps slots. Depth is a
+// runtime loop bound everywhere.
 
-constexpr int kWideTile = 64;                // points per tile, both warpgroups' rows
-constexpr int kWideEncBytes = 2 * 64 * 128;  // bf16 encodings: 2 blocks of 64 rows x 64 columns
+constexpr int kWideTile = 64;                        // points per tile, both warpgroups' rows
+constexpr int kWideEncBlocks = 4;                    // encoding columns up to 256
+constexpr int kWideEncBytes = kWideEncBlocks * 64 * 128;  // bf16 encodings: 4 blocks of 64 rows x 64 columns
+constexpr int kHalfBlock = 32 * 128;                 // half (32 rows) of a swizzled 64 x 64 block: 4 KB
+constexpr int kWideRingAndTile = 160 * 1024;         // the ring's stages and the activation tile
+
+// The ring's slot of the width-W wide kernels: 32 rows x W columns, bf16.
+template <int W>
+__host__ __device__ constexpr int wide_slot_bytes() {
+  return 64 * W;
+}
+
+// Its stages: what the activation tile (128 W bytes) leaves of
+// kWideRingAndTile, at most 8.
+template <int W>
+__host__ __device__ constexpr int wide_stages() {
+  constexpr int stages = (kWideRingAndTile - 128 * W) / wide_slot_bytes<W>();
+  return stages < 8 ? stages : 8;
+}
 
 __device__ __forceinline__ int wide_layer_slots(int i, int nb, int ps, int skip) {
   return i == 0 ? ps * (skip == 0 ? 2 : 1) : nb + (i == skip ? ps : 0);
@@ -511,6 +558,54 @@ __device__ __forceinline__ int wide_first_slot(int i, int nb, int ps, int skip) 
 
 // Both consumer warpgroups (the producer never joins).
 __device__ __forceinline__ void wide_sync() { named_sync(3, kConsumers); }
+
+// Producer: half h (rows [32 h, 32 h + 32)) of the `blocks` consecutive
+// swizzled 64 x 64 blocks at `src` (8 KB apart) into the next slot, the
+// half-blocks 4 KB apart, once every consumer has released it.
+template <int kStages, int kSlot>
+__device__ __forceinline__ void produce_half(Ring& r, const unsigned char* src, int blocks, int h) {
+  mbar_wait(r.empty + 8 * r.stage, r.phase ^ 1);
+  mbar_expect_tx(r.full + 8 * r.stage, blocks * kHalfBlock);
+  const uint32_t dst = r.slots + r.stage * kSlot;
+  for (int b = 0; b < blocks; ++b)
+    bulk_load(dst + b * kHalfBlock, src + (size_t)b * 8192 + h * kHalfBlock, kHalfBlock, r.full + 8 * r.stage);
+  ring_advance<kStages>(r);
+}
+
+// The order in which a layer's h slots (an even count) go through the
+// backward's ring as half-slots, the s-th: slots in pairs (2 p, 2 p + 1),
+// each pair as (2 p, 0), (2 p + 1, 0), (2 p, 1), (2 p + 1, 1). A slot's
+// owner is its index % 2, so that consecutive half-slots alternate between
+// the warpgroups.
+__host__ __device__ __forceinline__ void half_order(int s, int& slot, int& half) {
+  slot = 2 * (s >> 2) + (s & 1);
+  half = (s >> 1) & 1;
+}
+
+// acc (N columns) (+)= A @ B over one k16 step: A's descriptor `da`, B the
+// MN-major columns from half-block `b` of the slot at `slot` (half-blocks 4
+// KB apart), k16 step kk of the half. N up to 256 is one product; N 320 is
+// m64n192 then m64n128 into acc + 96, the layout of an m64n320 accumulator.
+template <int N>
+__device__ __forceinline__ void wgmma_columns(float* acc, uint64_t da, uint32_t slot, int b, int kk, int scale_d) {
+  static_assert(N % 64 == 0 && N <= 320, "columns a warpgroup");
+  constexpr int A = N <= 256 ? N : 192;
+  const uint64_t db = sw128_base(slot + b * kHalfBlock, kHalfBlock, 1024) + 128 * kk;
+  wgmma<A, 0, 1>(acc, da, db, scale_d);
+  if constexpr (N > A)
+    wgmma<N - A, 0, 1>(acc + A / 2, da, sw128_base(slot + (b + A / 64) * kHalfBlock, kHalfBlock, 1024) + 128 * kk,
+                       scale_d);
+}
+
+// The warpgroup's product with half h of a weight slot: acc (N columns, from
+// column block b0 of the slot) (+)= A's K columns [32 h, 32 h + 32) @ the
+// half-slot, A a K-major 64-row block of the tile at `a`.
+template <int N>
+__device__ __forceinline__ void half_product(float* acc, uint32_t a, uint32_t slot, int b0, int h, bool accumulate) {
+  const uint64_t da = sw128_base(a, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) wgmma_columns<N>(acc, da + 2 * (2 * h + kk), slot, b0, kk, (accumulate || kk > 0) ? 1 : 0);
+}
 
 // The tile's 64 rows of encodings (f32 or bf16), rounded to bf16 and
 // zero-padded to 64 ps columns, by all 256 consumer threads (ct).
@@ -539,26 +634,50 @@ __device__ __forceinline__ void store_wide_tile(unsigned char* act, const float*
           __floats2bfloat162_rn(v[4 * j + 2 * h], v[4 * j + 2 * h + 1]);
 }
 
+// Producer: the half-slots of a forward layer's `slots` weight slots from
+// slot `first` of the image (slots of W/64 blocks, 128 W bytes), in order.
+template <int W, int kStages>
+__device__ __forceinline__ void produce_wide_layer(Ring& r, const unsigned char* image, int first, int slots) {
+  for (int j = first; j < first + slots; ++j)
+    for (int h = 0; h < 2; ++h) produce_half<kStages, wide_slot_bytes<W>()>(r, image + (size_t)j * 128 * W, W / 64, h);
+}
+
 // One forward layer, the warpgroup's W/2 columns of the tile's 64 rows: acc
-// = A_i @ W_i over the layer's slots (ring slots kSlot bytes apart), A the
-// activation tile's block j or the encoding's block, K-major; the slot's
-// blocks [w W/128, (w + 1) W/128) MN-major.
-template <int W, int kStages, int kSlot>
+// = A_i @ W_i over the layer's slots, each as its two half-slots, A the
+// activation tile's block j or the encoding's block, K-major; the
+// half-slot's blocks [w W/128, (w + 1) W/128) MN-major.
+template <int W, int kStages>
 __device__ __forceinline__ void wide_forward_layer(float* acc, Ring& r, int i, int skip, int ps, uint32_t act,
                                                    uint32_t enc, int wg, int lane) {
-  constexpr int nb = W / 64;
+  constexpr int nb = W / 64, kSlot = wide_slot_bytes<W>();
   const int slots = wide_layer_slots(i, nb, ps, skip);
   int prev = -1;
   for (int j = 0; j < slots; ++j) {
     const uint32_t a = i == 0 ? enc + (j % ps) * 8192 : (j < nb ? act + j * 8192 : enc + (j - nb) * 8192);
-    consume_slot<kStages, 1, kSlot>(r, prev, lane, [&](uint32_t slot) {
-      const uint64_t da = sw128_base(a, 16, 1024), db = sw128_base(slot + wg * (nb / 2) * 8192, 8192, 1024);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) wgmma<W / 2, 0, 1>(acc, da + 2 * k, db + 128 * k, (j > 0 || k > 0) ? 1 : 0);
-    });
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h)
+      consume_slot<kStages, 1, kSlot>(r, prev, lane, [&](uint32_t slot) {
+        half_product<W / 2>(acc, a, slot, wg * (nb / 2), h, j > 0 || h > 0);
+      });
   }
   release_last(r, prev, lane);
   fence_regs<W / 4>(acc);
+}
+
+// One backward half-slot for the wide tile: out (32 columns) = g @ the
+// half-slot^T, g the 64-point tile (K-major over W columns), the half-slot
+// K-major (32 rows, its column blocks 4 KB apart); issued by the warpgroup
+// that owns it (`own`), waited for and released by both.
+template <int W, int kStages>
+__device__ __forceinline__ void wide_backward_half(float* out, Ring& r, int& prev, uint32_t act, int lane, bool own) {
+  consume_slot<kStages, 1, wide_slot_bytes<W>()>(r, prev, lane, [&](uint32_t slot) {
+    if (!own) return;
+    const uint64_t da = sw128_base(act, 16, 1024), db = sw128_base(slot, 16, 1024);
+#pragma unroll
+    for (int k = 0; k < W / 16; ++k)
+      wgmma<32, 0, 0>(out, da + (k >> 2) * 512 + (k & 3) * 2, db + (k >> 2) * (kHalfBlock / 16) + (k & 3) * 2,
+                      k > 0 ? 1 : 0);
+  });
 }
 
 // alpha = bf16(h) . bf16(w_alpha) + b_alpha for the tile's rows from the
@@ -636,6 +755,19 @@ __device__ __forceinline__ void column_sums(const float* v, float* staging, floa
     out[c] = first ? sum : out[c] + sum;
   }
   named_sync(1 + wg, 128);
+}
+
+// column_sums for a warpgroup's N columns of the wide kernels: above 256
+// (W 640's 320) in two halves, each within the 256 columns a warp stages.
+template <int N>
+__device__ __forceinline__ void wide_column_sums(const float* v, float* staging, float* __restrict__ out, int wg,
+                                                 int t, bool first) {
+  if constexpr (N <= 256) {
+    column_sums<N>(v, staging, out, wg, t, first);
+  } else {
+    column_sums<N / 2>(v, staging, out, wg, t, first);
+    column_sums<N / 2>(v + N / 4, staging, out + N / 2, wg, t, first);
+  }
 }
 
 }  // namespace

@@ -23,18 +23,20 @@ the plain PyTorch version of the same function (`plain_adain_nerf`,
 compute dtype, products and sums in f32), which is what the CPU tests
 compare against the JAX package and what the card compares the kernels with.
 
-Like the Pallas kernels, the wrappers take every width up to the kernels'
-widest (512), encodings up to 128 columns and up to 16 backbone layers (B1
-up to 512 outputs, and a skip into layer 0). Within the published shapes
-(width 256, encoding 64, 8 layers; B1 256 outputs and skip > 0) the
+Like the Pallas kernels, the wrappers take every shape whose blocks the
+Pallas kernels hold in a v6e's 32 MiB of VMEM (scripts/pallas_vmem_budget.py):
+widths up to 640, encodings up to 256 columns, any number of backbone layers
+(B1 up to 1,024 outputs, and a skip into layer 0). Within the published
+shapes (width 256, encoding 64, 8 layers; B1 256 outputs and skip > 0) the
 128-point kernels run; beyond them the wide kernels (nerf_wgmma.cuh's column
-split, 64-point tiles) at width 256 or 512. On the card a narrower MLP runs
-zero-padded to the nearest width its kernel takes (`padded_weights`; B1 128
-or 256, bf16 B2/B3 a multiple of 64, f32 B2/B3 64, 128 or 256; the wide
-kernels 256 or 512). A padded hidden unit has zero incoming weights, bias
-and modulation, so its ReLU output is exactly 0 and its zero outgoing rows
-add nothing; the outputs and gradients are cut back to the MLP's own width.
-Beyond the wide kernels' limits every wrapper raises ValueError.
+split, 64-point tiles) at width 256, 512 or 640. On the card a narrower MLP
+runs zero-padded to the nearest width its kernel takes (`padded_weights`; B1
+128 or 256, bf16 B2/B3 a multiple of 64, f32 B2/B3 64, 128 or 256; the wide
+kernels 256, 512 or 640: 576 runs at 640). A padded hidden unit has zero
+incoming weights, bias and modulation, so its ReLU output is exactly 0 and
+its zero outgoing rows add nothing; the outputs and gradients are cut back
+to the MLP's own width. Beyond the wide kernels' limits every wrapper raises
+ValueError.
 """
 
 from __future__ import annotations
@@ -73,12 +75,11 @@ _MAX_OUT = 256
 _ADAIN_MAX_OBJECTS = 16
 _MAX_WIDTH = 256  # the backbone kernels' widest layer (csrc/fused_backbone.cu)
 # The wide kernels (nerf_wgmma.cuh's column split; B1, bf16 and f32 B2/B3):
-# their widths, the encoding columns, outputs (B1) and layers they take, and
-# the points of a tile.
-_WIDE_WIDTHS = (256, 512)
-_WIDE_MAX_PE = 128
-_WIDE_MAX_OUT = 512
-_WIDE_MAX_LAYERS = 16
+# their widths, the encoding columns and outputs (B1) they take, and the
+# points of a tile. Depth is a runtime loop bound in every wide kernel.
+_WIDE_WIDTHS = (256, 512, 640)
+_WIDE_MAX_PE = 256
+_WIDE_MAX_OUT = 1024
 _WIDE_TILE = 64
 
 
@@ -240,8 +241,8 @@ def adain_is_wide(width: int, pe: int, out: int, skip: int) -> bool:
 
 def adain_kernel_width(width: int, wide: bool = False) -> Optional[int]:
     """The width B1 runs a `width`-wide MLP at: the narrowest of its
-    widths (128, 256; the wide kernel's 256, 512) that holds it; None above
-    the widest."""
+    widths (128, 256; the wide kernel's 256, 512, 640) that holds it; None
+    above the widest."""
     return next((w for w in (_WIDE_WIDTHS if wide else _ADAIN_WIDTHS) if width <= w), None)
 
 
@@ -275,9 +276,6 @@ def adain_kernel(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> Tuple[i
         raise ValueError(f"encoding width {pe} exceeds the AdaIN-NeRF kernel's {_WIDE_MAX_PE}")
     if out > _WIDE_MAX_OUT:
         raise ValueError(f"output_features {out} exceeds the AdaIN-NeRF kernel's {_WIDE_MAX_OUT}")
-    if cfg.backbone_layers_count > _WIDE_MAX_LAYERS:
-        raise ValueError(f"{cfg.backbone_layers_count} backbone layers exceed the AdaIN-NeRF kernel's "
-                         f"{_WIDE_MAX_LAYERS}")
     return kernel, wide
 
 
@@ -317,8 +315,8 @@ def kernel_weights(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> NerfK
     """Build the kernel's buffers from `packed` once (on the weights'
     device): the image for the widths the kernels take, and on the card for
     a narrower width zero-padded to one they take (raising for a width,
-    encoding, output count or depth beyond the wide kernel's), the biases
-    always (padded with the image)."""
+    encoding or output count beyond the wide kernel's), the biases always
+    (padded with the image)."""
     pe = adain_encoding_width(cfg, packed)
     if packed["w0"].device.type == "cuda":
         width = adain_kernel(cfg, packed)[0]
@@ -958,7 +956,7 @@ def relu_pattern_check(
 
 def _encoding_blocks(pe: int) -> int:
     """The 64-column blocks the kernels pad a `pe`-column encoding to: 1
-    (the 128-point kernels' 64 columns) or 2."""
+    (the 128-point kernels' 64 columns) to 4."""
     return max(1, -(-pe // _BLOCK))
 
 
@@ -1053,7 +1051,7 @@ def backbone_is_wide(cfg: NerfMLPConfig, pe: int) -> bool:
 def backbone_kernel_width(cfg: NerfMLPConfig, pe: int = _BACKBONE_PE) -> int:
     """The width the backbone kernels of cfg's `compute_dtype` run it at
     over a `pe`-column encoding: in the wide kernels (`backbone_is_wide`)
-    256 or 512; otherwise for float32 operands the narrowest of 64, 128 and
+    256, 512 or 640; otherwise for float32 operands the narrowest of 64, 128 and
     256 that holds it, for bfloat16 the next multiple of 64; above 512, the
     width itself (the kernels refuse it)."""
     width = cfg.layers_width
@@ -1119,9 +1117,9 @@ def _backbone_kernel_checks(cfg: NerfMLPConfig, encoded: torch.Tensor, tensors) 
     kernels follow `compute_dtype`: bfloat16 operands
     (csrc/fused_backbone.cu, widths multiple of 64 up to 256) or float32
     (csrc/fused_backbone_f32.cu, widths 64, 128 and 256), both with wide
-    versions at widths 256 and 512, encodings up to 128 columns and up to
-    16 layers."""
-    width, pe, layers = cfg.layers_width, encoded.shape[1], cfg.backbone_layers_count
+    versions at widths 256, 512 and 640, encodings up to 256 columns and
+    any number of layers."""
+    width, pe = cfg.layers_width, encoded.shape[1]
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
             f"the backbone kernels take bfloat16 or float32 operands, not compute_dtype {cfg.compute_dtype!r}"
@@ -1130,8 +1128,6 @@ def _backbone_kernel_checks(cfg: NerfMLPConfig, encoded: torch.Tensor, tensors) 
         raise ValueError(f"layers_width {width}: the backbone kernels take widths up to {_WIDE_WIDTHS[-1]}")
     if pe > _WIDE_MAX_PE:
         raise ValueError(f"encoding width {pe} exceeds the backbone kernels' {_WIDE_MAX_PE}")
-    if layers > _WIDE_MAX_LAYERS:
-        raise ValueError(f"{layers} backbone layers exceed the backbone kernels' {_WIDE_MAX_LAYERS}")
     widths = (_F32_WIDTHS if cfg.compute_dtype == "float32" else range(64, _MAX_WIDTH + 1, 64))
     if width not in (_WIDE_WIDTHS if backbone_is_wide(cfg, pe) else widths):
         raise ValueError(f"layers_width {width}: the backbone kernels take it padded "
@@ -1276,21 +1272,29 @@ def backbone_wide_scratch_shapes(cfg: NerfMLPConfig, n: int, sm_count: int, pe: 
     encoding: as `backbone_scratch_shapes` with 64-point tiles (one X and G
     point block a tile), the encoding's ps = `_encoding_blocks(pe)` column
     blocks first in X, one tile_part row per CTA (each warpgroup sums its
-    own columns), the dW product's chunks over its two column halves, and
-    masks (int32 for u32): each tile-kernel thread's ReLU bits, W / 128
-    words a layer, per CTA."""
+    own columns), the dW product's chunks over its column parts
+    (`backbone_wide_dw_columns` each), and masks (int32 for u32): each
+    tile-kernel thread's ReLU bits, W / 128 words a layer, per CTA."""
     width, layers, ps = cfg.layers_width, cfg.backbone_layers_count, _encoding_blocks(pe)
     tiles = -(-n // _WIDE_TILE)
     grid = backbone_grid(n, sm_count, _WIDE_TILE)
     dw_tiles = sum(-(-len(c) // 2) for c in backbone_x_columns(cfg, ps))
+    parts = width // backbone_wide_dw_columns(width)
     nb = width // _BLOCK
     return {
         "x": (tiles, ps + (layers - 1) * nb, _BLOCK, _BLOCK),
         "g": (tiles, layers * nb, _BLOCK, _BLOCK),
         "tile_part": (grid, layers * width + width + 1),
-        "partial": (max(1, min(tiles, sm_count // (2 * dw_tiles))), _backbone_grad_rows(cfg, pe), width),
+        "partial": (max(1, min(tiles, sm_count // (parts * dw_tiles))), _backbone_grad_rows(cfg, pe), width),
         "masks": (grid, layers, width // 128, 256),
     }
+
+
+def backbone_wide_dw_columns(width: int) -> int:
+    """Output columns of one CTA of the wide backward's weight-gradient
+    product (csrc/fused_backbone.cu::wide_dw_columns): half the width, or
+    128 at 640, whose half (320) is more than one wgmma product's 256."""
+    return width // 2 if width % 256 == 0 else 128
 
 
 @functools.lru_cache(maxsize=None)
@@ -1453,11 +1457,19 @@ def _logical_k(m):
     return (m // 2) + 4 * (m % 2)
 
 
+def backbone_f32_pass(width: int) -> int:
+    """The columns of one pass of the f32 kernels' products (csrc/
+    fused_backbone_f32.cu::f32_pass): the width up to 256, then 256, or 128
+    where 256 does not divide it (640)."""
+    return width if width <= 256 else (256 if width % 256 == 0 else 128)
+
+
 def plain_backbone_f32_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tensor]) -> F32Buffers:
     """The f32 kernels' weights built in plain PyTorch, the plain version of
     csrc/fused_backbone_f32.cu::backbone_f32_pack_kernel, bit for bit, at
-    the kernels' width (`kernel_backbone`), in slots of np = min(W, 256)
-    columns or rows (one pass; two at W 512, the wide kernels'). Layer i
+    the kernels' width (`kernel_backbone`), in slots of np =
+    `backbone_f32_pass(W)` columns or rows (one pass; two at W 512, five of
+    128 at W 640, the wide kernels'). Layer i
     starts at float 2 W (padded rows before it) in both images:
     - fwd: for each pass c, its in_i / 8 slots (k-steps of its padded input
       rows, taken in `_logical_k`'s order), each big then small of (n = the
@@ -1468,7 +1480,7 @@ def plain_backbone_f32_buffers(cfg: NerfMLPConfig, packed: Dict[str, torch.Tenso
       columns in the same order."""
     cfg, packed = kernel_backbone(cfg, packed)
     width, skip = cfg.layers_width, _kernel_skip(cfg)
-    np_, pe_pad = min(width, 256), _BLOCK * _encoding_blocks(packed["w0"].shape[0])
+    np_, pe_pad = backbone_f32_pass(width), _BLOCK * _encoding_blocks(packed["w0"].shape[0])
     device = packed["w0"].device
     fwd, bwd = [], []
     with torch.no_grad():
@@ -1581,9 +1593,9 @@ def backbone_f32_scratch_shapes(cfg: NerfMLPConfig, n: int, sm_count: int,
     fill the SMs once. masks: each tile-kernel thread's ReLU mask bits
     (W / 4 of them in two words; int32 for u32), per CTA and layer. The wide
     kernels (`backbone_is_wide`; `pe` the encoding's columns, padded to
-    pe_pad = 64 `_encoding_blocks(pe)` in X) keep two words a 256-column
-    pass and add `stash`: each tile-kernel thread's share of a layer's
-    output, (grid, W / 8, 128, 4) f32."""
+    pe_pad = 64 ps, ps = `_encoding_blocks(pe)`, in X) keep W / 128 words
+    a layer and add `stash`: each tile-kernel thread's share of a layer's
+    output, then the encoding's fragments, (grid, W / 8 + 8 ps, 128, 4) f32."""
     width, layers = cfg.layers_width, cfg.backbone_layers_count
     chunk_tiles = min(-(-n // _F32_TILE), _F32_CHUNK_TILES)
     grid = min(chunk_tiles, sm_count)
@@ -1597,8 +1609,15 @@ def backbone_f32_scratch_shapes(cfg: NerfMLPConfig, n: int, sm_count: int,
         "masks": (grid, layers, 2, 256),
     }
     if backbone_is_wide(cfg, pe):
-        shapes.update(masks=(grid, layers, 2 * (width // 256), 256), stash=(grid, width // 8, 128, 4))
+        shapes.update(masks=(grid, layers, width // 128, 256), stash=backbone_f32_stash_shape(width, grid, pe))
     return shapes
+
+
+def backbone_f32_stash_shape(width: int, grid: int, pe: int) -> Tuple[int, int, int, int]:
+    """The f32 wide kernels' per-CTA global scratch: W / 8 k-steps of a
+    layer's outputs, then the encoding's 8 ps, each a float4 per thread of a
+    warpgroup."""
+    return (grid, width // 8 + 8 * _encoding_blocks(pe), 128, 4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1633,7 +1652,7 @@ def _backbone_f32_fwd(cfg, packed, encoded, buffers):
     tail = (n, pe, width, cfg.backbone_layers_count, _kernel_skip(cfg), grid,
             torch.cuda.current_stream(encoded.device).cuda_stream)
     if backbone_is_wide(cfg, pe):
-        stash = torch.empty((grid, width // 8, 128, 4), dtype=torch.float32, device=encoded.device)
+        stash = torch.empty(backbone_f32_stash_shape(width, grid, pe), dtype=torch.float32, device=encoded.device)
         err = lib.backbone_f32_wide_fwd_launch(*head, stash.data_ptr(), *tail)
     else:
         err = lib.backbone_f32_fwd_launch(*head, *tail)

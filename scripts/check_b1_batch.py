@@ -44,31 +44,37 @@ def f64_reference(cfg, packed, encoded, s0, b0, s1, b1, samples):
     return bf(f) @ bf(packed["w_out"]) + packed["b_out"].double(), alpha
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("check_b1_batch: needs a CUDA card", file=sys.stderr)
-        return 1
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    sys.path.insert(0, repo)
+def creator_batch(repo):
+    """(chip_smoke.py phase 11's test split, its first 4 frames as one
+    batch; the tennis scene)."""
     import chip_smoke as cs
     from playableenvironments_tpu_torch.cli.common import build_dataset
-    from playableenvironments_tpu_torch.cli.play import InteractiveSession
     from playableenvironments_tpu_torch.config import scene_from_yaml
+
+    splits, cs.DATA_SPLITS = cs.DATA_SPLITS, {"test": (1, 4)}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = os.path.join(tmp, "tennis")
+            cs.write_tennis_dataset(root)
+            test = build_dataset(cs.tennis_config(repo, root, observations_count=1, skip_frames=0), "test")
+            batch = next(test.iterate_batches(4, shuffle=False))
+    finally:
+        cs.DATA_SPLITS = splits
+    return batch, scene_from_yaml(os.path.join(repo, "configs", "tennis.yaml"))
+
+
+def first_b1_launch(scene, batch, seed):
+    """The tennis model seeded with `seed` renders `batch` on the card: its
+    first grouped B1 launch, (cfg, items, outputs)."""
+    import torch
+
+    import chip_smoke as cs
+    from playableenvironments_tpu_torch.cli.play import InteractiveSession
     from playableenvironments_tpu_torch.ops import fused_nerf
 
-    fused_nerf.build_kernels()
-    cs.DATA_SPLITS = {"test": (1, 4)}
-    scene = scene_from_yaml(os.path.join(repo, "configs", "tennis.yaml"))
-    with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "tennis")
-        cs.write_tennis_dataset(root)
-        test = build_dataset(cs.tennis_config(repo, root, observations_count=1, skip_frames=0), "test")
-        batch = next(test.iterate_batches(4, shuffle=False))
     session = InteractiveSession.from_scene(scene, image_size=cs.IMAGE_SIZE, patch_strides=cs.STRIDES,
                                             focal_length_multiplier=cs.FOCAL_LENGTH_MULTIPLIER, device="cuda",
-                                            seed=0)
+                                            seed=seed)
     grouped = fused_nerf.fused_adain_nerf_group
     captured = []
 
@@ -78,10 +84,27 @@ def main() -> int:
         return outs
 
     fused_nerf.fused_adain_nerf_group = capture
-    with torch.no_grad():
-        session.renderer.render(session.renderer.encode(batch))
-    fused_nerf.fused_adain_nerf_group = grouped
-    cfg, items, outs = captured[0]
+    try:
+        with torch.no_grad():
+            session.renderer.render(session.renderer.encode(batch))
+    finally:
+        fused_nerf.fused_adain_nerf_group = grouped
+    return captured[0]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("check_b1_batch: needs a CUDA card", file=sys.stderr)
+        return 1
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    from playableenvironments_tpu_torch.ops import fused_nerf
+
+    fused_nerf.build_kernels()
+    batch, scene = creator_batch(repo)
+    cfg, items, outs = first_b1_launch(scene, batch, 0)
     names = [om.name for om in scene.object_models]
     with torch.no_grad():
         for name, item, (feats, alpha) in zip(names, items, outs):

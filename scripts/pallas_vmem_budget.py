@@ -65,8 +65,9 @@ NERF_SHAPES = [  # (width, layers, skip, pe, outputs)
     (512, 12, 6, 123, 320),
     (512, 16, 8, 128, 512),
     (512, 4, 0, 123, 512),
-    # beyond it: widths 576-768, encodings above 128, more than 16 layers,
-    # B1 above 512 outputs
+    # beyond it: widths 576-768, encodings above 128, more than 16 layers
+    # (at W 256 to 64: the depth B2 holds once), B1 above 512 outputs, and
+    # chip_smoke.py phase 21's widest CLI NeRF (640 x 8, 256 columns)
     (576, 8, 4, 123, 320),
     (640, 8, 4, 123, 320),
     (768, 8, 4, 123, 320),
@@ -76,6 +77,9 @@ NERF_SHAPES = [  # (width, layers, skip, pe, outputs)
     (256, 8, 4, 256, 192),
     (256, 24, 12, 63, 192),
     (256, 32, 16, 63, 192),
+    (256, 40, 20, 63, 192),
+    (256, 64, 32, 63, 192),
+    (640, 8, 4, 256, 3),
     (512, 20, 10, 123, 320),
     (512, 24, 12, 123, 320),
     (512, 8, 4, 123, 640),

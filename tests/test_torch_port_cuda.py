@@ -118,13 +118,13 @@ def test_kernel_at_a_narrow_width_matches_plain_on_the_card(card, width, kernel_
 
 @pytest.mark.cuda
 def test_kernel_rejects_what_its_layout_does_not_take(card):
-    """Widths above the wide kernel's widest (512) have no image: building
+    """Widths above the wide kernel's widest (640) have no image: building
     the kernel's weights raises, naming the limit."""
-    cfg = NerfMLPConfig(layers_width=576)
+    cfg = NerfMLPConfig(layers_width=704)
     nerf = AdaInNerfMLP(cfg, 64, device=card)
-    mods = [torch.zeros(2, 576, device=card), torch.zeros(2, 576, device=card),
-            torch.zeros(2, 288, device=card), torch.zeros(2, 288, device=card)]
-    with pytest.raises(ValueError, match="takes widths up to 512"):
+    mods = [torch.zeros(2, 704, device=card), torch.zeros(2, 704, device=card),
+            torch.zeros(2, 352, device=card), torch.zeros(2, 352, device=card)]
+    with pytest.raises(ValueError, match="takes widths up to 640"):
         fused_nerf.fused_adain_nerf(cfg, nerf.kernel_weights(), torch.zeros(8, 63, device=card), *mods,
                                     samples_per_ray=4)
 
@@ -250,16 +250,16 @@ def test_backbone_backward_within_its_rounding_scale_on_the_card(card, points, w
 
 @pytest.mark.cuda
 def test_backbone_kernels_refuse_float32_operands(card):
-    """The f32 kernels take widths 64, 128 and 256 (the wide ones 256 and
-    512), narrower ones padded to them, and raise above 512; operand dtypes
-    with no kernel (float16) raise."""
+    """The f32 kernels take widths 64, 128 and 256 (the wide ones 256, 512
+    and 640), narrower ones padded to them, and raise above 640; operand
+    dtypes with no kernel (float16) raise."""
     cfg = F32_BACKBONE[256]
-    odd = NerfMLPConfig(layers_width=576, output_features=3, compute_dtype="float32", use_fused_backbone=True,
+    odd = NerfMLPConfig(layers_width=704, output_features=3, compute_dtype="float32", use_fused_backbone=True,
                         position_encoder=PositionalEncoderConfig(octaves=10))
     packed, encoded, g_h, g_alpha = backbone_inputs(card, 64, cfg=odd)
-    with pytest.raises(ValueError, match="backbone kernels take widths up to 512"):
+    with pytest.raises(ValueError, match="backbone kernels take widths up to 640"):
         fused_nerf.fused_backbone_fwd(odd, packed, encoded)
-    with pytest.raises(ValueError, match="backbone kernels take widths up to 512"):
+    with pytest.raises(ValueError, match="backbone kernels take widths up to 640"):
         fused_nerf.fused_backbone_bwd(odd, packed, encoded, g_h, g_alpha)
     half = NerfMLPConfig(output_features=3, compute_dtype="float16", use_fused_backbone=True)
     packed, encoded, g_h, g_alpha = backbone_inputs(card, 64, cfg=cfg)
@@ -389,7 +389,7 @@ def test_fused_backbone_autograd_launches_both_kernels(card):
         assert torch.equal(p.grad, grads[name].reshape(p.shape)), name
 
 
-# ---- the wide kernels: widths to 512, encodings to 128 columns, 16 layers ----
+# ---- the wide kernels: widths to 640, encodings to 256 columns, any depth ----
 
 # (width, layers, skip, pe, points): the envelope's corner at 3,001 points
 # (one tile a CTA) and at 70,001 (several tiles a CTA, two chunks of the
@@ -397,7 +397,11 @@ def test_fused_backbone_autograd_launches_both_kernels(card):
 # 256-wide MLP that is wide only by its encoding, the published width at 12
 # layers.
 WIDE_BACKBONES = [(512, 16, 8, 128, 3001), (512, 16, 8, 128, 70001), (320, 16, 8, 75, 3001),
-                  (256, 4, 2, 123, 3001), (256, 12, 6, 63, 3001)]
+                  (256, 4, 2, 123, 3001), (256, 12, 6, 63, 3001),
+                  # the widest envelope: W 640 over a 4-block encoding, 576 run at 640, 32 layers at W 256, a
+                  # 200-column encoding at W 512, W 640 without a skip (skip_layer_idx == layers)
+                  (640, 8, 4, 256, 3001), (576, 3, 1, 75, 3001), (256, 32, 16, 63, 3001), (512, 4, 2, 200, 3001),
+                  (640, 2, 2, 64, 3001)]
 
 
 def wide_backbone_inputs(card, width, layers, skip, pe, points, compute_dtype, seed=0):
@@ -506,7 +510,11 @@ def test_wide_backbone_f32_kernels_match_plain_on_the_card(card, width, layers, 
 # (width, layers, skip, octaves, outputs): the phase-21 NeRFs (512 x 12 with
 # 320 outputs; 320 x 16 run at 512), a skip into layer 0 with 512 outputs,
 # and a 256-wide one wide only by its encoding.
-WIDE_ADAIN = [(512, 12, 6, 20, 320), (320, 16, 8, 12, 320), (512, 4, 0, 20, 512), (256, 4, 2, 20, 3)]
+WIDE_ADAIN = [(512, 12, 6, 20, 320), (320, 16, 8, 12, 320), (512, 4, 0, 20, 512), (256, 4, 2, 20, 3),
+              # the widest envelope: W 640 over a 255-column encoding, 576 run at 640, 1,024 outputs, 20
+              # layers, a skip into layer 0 over 255 columns, 600 outputs at W 256 (three output passes)
+              (640, 8, 4, 42, 3), (576, 8, 4, 10, 96), (512, 8, 4, 10, 1024), (512, 20, 10, 10, 64),
+              (256, 4, 0, 42, 64), (256, 4, 2, 10, 600)]
 
 
 @pytest.mark.cuda
@@ -527,7 +535,7 @@ def test_wide_adain_kernel_matches_plain_on_the_card(card, width, layers, skip, 
     for seed, (rays, samples) in enumerate([(5000, 4), (37, 3)]):
         nerf = initialize_(AdaInNerfMLP(cfg, 8, device=card), torch.Generator().manual_seed(seed))
         weights = nerf.kernel_weights()
-        assert weights.width == (256 if width <= 256 else 512) and weights.image is not None
+        assert weights.width == fused_nerf.adain_kernel_width(width, True) and weights.image is not None
         encoded = positional_encoding(torch.rand(rays * samples, 3, generator=g) * 2 - 1, octaves, True).to(card)
         style = torch.randn(rays, 8, generator=g).to(card)
         with torch.no_grad():

@@ -7,6 +7,7 @@ prefetch thread of an abandoned iterator, `collate`'s dtypes and the
 native codec's bytes. Everything is compared exactly: the two packages run
 the same numpy code and the same native library."""
 
+import inspect
 import os
 import pathlib
 import subprocess
@@ -148,15 +149,17 @@ def test_the_port_may_register_the_pickle_path_first(tmp_path):
     """In a process where the port pickles a pose before the JAX package
     does, the JAX package writes through the port's class, and both files
     load in both packages."""
+    # The process imports the two video modules and this file's
+    # annotated_video (its source, not this module and its imports).
     script = textwrap.dedent(f"""
         import sys
-        sys.path.insert(0, {str(pathlib.Path(__file__).parent)!r})
+        import numpy as np
         from playableenvironments_tpu_torch.data import video
-        import test_torch_port_data as t
-        t.annotated_video(video, 2).save({str(tmp_path / "port")!r})
+    """) + inspect.getsource(annotated_video) + textwrap.dedent(f"""
+        annotated_video(video, 2).save({str(tmp_path / "port")!r})
         from playableenvironments_tpu.data import video as jvideo
         assert sys.modules["utils.lib_3d.pose_parameters"].PoseParametersNumpy is video.PoseParametersNumpy
-        t.annotated_video(jvideo, 2).save({str(tmp_path / "jax")!r})
+        annotated_video(jvideo, 2).save({str(tmp_path / "jax")!r})
         print("ok")
     """)
     env = {**os.environ, "PYTHONPATH": str(REPO), "JAX_PLATFORMS": "cpu"}

@@ -177,6 +177,12 @@ def test_embedders_and_similarity_match_jax(monkeypatch):
     """The default embedders (1e-4 of their largest), IncrementalFID/FVD
     (1e-3 relative) and vgg_cosine_similarity (1e-5), on JAX's VGG
     variables."""
+    jvars = jperceptual.init_vgg19(jax.random.PRNGKey(0), cuts=3)  # eager, as the embedders init
+    for name, leaf in jax.device_get(jvars)["params"].items():  # init_vgg19's weights are the embedders'
+        np.testing.assert_array_equal(leaf["kernel"], jax_vgg_variables()["params"][name]["kernel"])
+    # Held equal just above, the compiled init's values serve the embedders'
+    # own (eager) inits.
+    serve_jax_vgg_init(monkeypatch)
     monkeypatch.setattr(dm, "init_vgg19", lambda cuts, device, seed: port_vgg(cuts))
     images = frames(5, (6, 32, 40, 3))
     generated = np.clip(images[::-1] * 0.9 + 0.05, 0, 1).astype(np.float32)
@@ -205,9 +211,6 @@ def test_embedders_and_similarity_match_jax(monkeypatch):
 
     vgg3 = port_vgg(3)
     jnet = jperceptual.VGGFeatures(jperceptual.VGG19_PLAN, jperceptual.VGG19_CUTS[:3])
-    jvars = jperceptual.init_vgg19(jax.random.PRNGKey(0), cuts=3)
-    for name, leaf in jax.device_get(jvars)["params"].items():  # init_vgg19's weights are the embedders'
-        np.testing.assert_array_equal(leaf["kernel"], jax_vgg_variables()["params"][name]["kernel"])
     ref = jperceptual.vgg_cosine_similarity(jnet.apply(jvars, jnp.asarray(images)),
                                             jnet.apply(jvars, jnp.asarray(generated)))
     with torch.no_grad():

@@ -219,28 +219,30 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(setup):
         fused_nerf.fused_adain_nerf(cfg, weights, torch.zeros(8, pe + 1), *good, samples_per_ray=4)
     with pytest.raises(ValueError, match="cuda or cpu"):
         fused_nerf.fused_adain_nerf(cfg, weights, enc.to("meta"), *(m.to("meta") for m in good), samples_per_ray=4)
-    # Beyond the wide kernel (encoding 128 columns, 512 outputs, 16 layers)
-    # the image raises; a skip into layer 0 builds one (the wide kernel's).
-    for bad in (dict(position_encoder=PositionalEncoderConfig(octaves=22)), dict(output_features=513),
-                dict(backbone_layers_count=17)):
+    # Beyond the wide kernel (encoding 256 columns, 1,024 outputs) the image
+    # raises; a network of 64 layers (depth is no limit) and a skip into
+    # layer 0 build one.
+    for bad in (dict(position_encoder=PositionalEncoderConfig(octaves=53)), dict(output_features=1088)):
         bad_cfg = NerfMLPConfig(**{**dict(layers_width=256, backbone_layers_count=3, output_features=8,
                                           skip_layer_idx=1), **bad})
         with pytest.raises(ValueError):
             AdaInNerfMLP(bad_cfg, 4, device="cpu").kernel_weights()
+    deep = NerfMLPConfig(layers_width=256, backbone_layers_count=64, output_features=8, skip_layer_idx=32)
+    assert AdaInNerfMLP(deep, 4, device="cpu").kernel_weights().image is not None
     skip0 = NerfMLPConfig(layers_width=256, backbone_layers_count=3, output_features=8, skip_layer_idx=0)
     assert AdaInNerfMLP(skip0, 4, device="cpu").kernel_weights().image is not None
-    # The image's feature-head slots take W 128 or 256 (the wide kernel's 256
-    # or 512); on the CPU other widths run only the plain version and have no
-    # image. The image of a narrower width is that of its weights zero-padded
-    # to the kernel's (what the card's kernel_weights builds); above 512
-    # there is none.
-    assert weights.image is None and cfg.layers_width not in (128, 256, 512)
-    for width in (48, 64, 192, 320, 576):
+    # The image's feature-head slots take W 128 or 256 (the wide kernel's
+    # 256, 512 or 640); on the CPU other widths run only the plain version
+    # and have no image. The image of a narrower width is that of its
+    # weights zero-padded to the kernel's (what the card's kernel_weights
+    # builds); above 640 there is none.
+    assert weights.image is None and cfg.layers_width not in (128, 256, 512, 640)
+    for width in (48, 64, 192, 320, 576, 704):
         narrow = NerfMLPConfig(layers_width=width, backbone_layers_count=3, output_features=8, skip_layer_idx=1)
         nerf = AdaInNerfMLP(narrow, 4, device="cpu")
         assert nerf.kernel_weights().image is None
         packed = fused_nerf.pack_nerf_params(narrow, nerf)
-        if width > 512:
+        if width > 640:
             with pytest.raises(ValueError, match="takes"):
                 fused_nerf.adain_image(narrow, packed)
         else:

@@ -513,13 +513,15 @@ def test_wide_f32_images_and_row_blocks(width, layers, skip, pe):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("bad,match", [(dict(width=576), "take widths up to 512"),
-                                       (dict(pe=129), "exceeds the backbone kernels' 128"),
-                                       (dict(layers=17), "exceed the backbone kernels' 16")])
+@pytest.mark.parametrize("bad,match", [(dict(width=704), "take widths up to 640"),
+                                       (dict(pe=320), "exceeds the backbone kernels' 256"),
+                                       (dict(width=256, layers=64), "runs on cuda or cpu tensors, not meta")])
 @pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
 def test_backbone_wrappers_refuse_shapes_above_the_envelope(bad, match, compute_dtype):
     """B2/B3's wrappers (meta tensors: the checks run before any launch)
-    raise a ValueError naming the limit, forward and backward."""
+    raise a ValueError naming the limit, forward and backward; a network of
+    64 layers passes every shape check and is refused only for its meta
+    device (depth is no limit of the kernels)."""
     shape = {**dict(width=512, pe=123, layers=16), **bad}
     _, cfg = configs(shape["width"], shape["layers"], 1, 1, compute_dtype=compute_dtype, fused=True)
     packed, encoded, g_h, g_alpha = backbone_inputs(cfg, 8, shape["pe"])
@@ -531,14 +533,23 @@ def test_backbone_wrappers_refuse_shapes_above_the_envelope(bad, match, compute_
         fused_nerf.fused_backbone_bwd(cfg, meta, encoded, g_h, g_alpha)
 
 
-@pytest.mark.parametrize("bad,match", [(dict(width=576), "takes widths up to 512"),
-                                       (dict(octaves=22), "encoding width 135 exceeds"),
-                                       (dict(layers=17), "17 backbone layers exceed"),
-                                       (dict(out=513), "output_features 513 exceeds")])
+@pytest.mark.parametrize("bad,match", [(dict(width=704), "takes widths up to 640"),
+                                       (dict(pe=320), "encoding width 320 exceeds the AdaIN-NeRF kernel's 256"),
+                                       (dict(width=256, layers=64), None),
+                                       (dict(out=1088), "output_features 1088 exceeds the AdaIN-NeRF kernel's 1024")])
 def test_adain_image_refuses_shapes_above_the_envelope(bad, match):
+    """B1's image raises a ValueError naming the limit at W 704, an encoding
+    of 320 columns (w0's rows) and 1,088 outputs; a 64-layer network builds
+    (depth is no limit of the kernels)."""
     shape = {**dict(width=512, layers=4, octaves=20, out=320), **bad}
     _, cfg = configs(shape["width"], shape["layers"], 1, shape["octaves"], out=shape["out"])
     packed = fused_nerf.pack_nerf_params(cfg, AdaInNerfMLP(cfg, STYLE, device="cpu"))
+    if "pe" in shape:
+        packed["w0"] = torch.zeros(shape["pe"], shape["width"])
+    if match is None:
+        image = fused_nerf.adain_image(cfg, packed)
+        assert fused_nerf.adain_kernel(cfg, packed) == (256, True) and image.dtype == torch.bfloat16
+        return
     with pytest.raises(ValueError, match=match):
         fused_nerf.adain_image(cfg, packed)
 
